@@ -25,3 +25,7 @@ def pytest_configure(config):
         "markers",
         "slow: multi-minute tests outside the tier-1 budget "
         "(run with `pytest -m slow` or ci/run.sh's full stage_unit)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA GPU and nvcc (the port's kernels); skips "
+        "without one")
