@@ -11,20 +11,34 @@ failure exits non-zero before the result line:
                 (nvidia-smi);
   2. build    — nvcc builds every kernel in incubator_mxnet_tpu_torch/
                 csrc/ (in parallel), timed;
-  3. kernels  — each kernel against its plain PyTorch version on the
-                card at the serving path's shapes, f32 and bf16, plus the
-                NaN / length-0 / page-permutation contract cases;
+  3. kernels  — each of the six kernels (decode, prefill, verify, and
+                their int8 / fp8_e4m3 code-pool variants) against its
+                plain PyTorch version on the card at the serving path's
+                shapes, f32 and bf16 queries, plus the contract cases:
+                NaN past the bound (length, start + n_real, length +
+                draft_len), NaN inside it, length 0, page permutation,
+                and a NaN page scale on a masked and on a live page;
   4. serving  — gpt_small (GPT-2 small widths, bf16, seeded random
                 weights) through InferenceEngine with chunked prefill and
-                the prefix cache: ~16 requests, every kernel's launch
-                count read around this run; then 10 decode steps at full
-                occupancy under torch.profiler (device-busy share);
-  5. parity   — at f32, the engine's greedy tokens equal the port's
-                dense-cache cached_generate (which runs no kernel);
+                the prefix cache, 16 requests per run: plain decode;
+                spec_k=4 with the n-gram drafter (raw pools); spec_k=4
+                drafting by replay of the plain run's streams (a
+                controlled accept rate) on raw pools, on int8 pools, and
+                (4 requests) on fp8_e4m3 pools. Each run reads
+                its kernels' launch counts (decode = non-speculative
+                steps x layers, verify = speculative steps x layers) and
+                prints tokens/s, TTFT p50, decode ms/step, accept rate
+                and tokens per step; 10 steps of the plain and the
+                speculative engine run under torch.profiler (device-busy
+                share);
+  5. parity   — at f32, the engine's greedy tokens, without and with
+                spec_k=4, equal the port's dense-cache cached_generate
+                (which runs no kernel);
   6. times    — each kernel's device time (CUDA events around it, the
                 host held ahead by a sleep kernel, cold L2, median), its
-                plain version's, a library call's on the gathered
-                window, and the bound from bytes / operations.
+                plain version's, a library call's on the gathered (and
+                dequantized) window, and the bound from bytes /
+                operations.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -46,11 +60,21 @@ DEC = dict(S=8, H=12, D=64, ps=16, maxp=64,
            lengths=[0, 1, 17, 100, 255, 512, 777, 1024])
 PRE = dict(C=64, H=12, D=64, ps=16, maxp=64,
            cases=[(0, 64), (200, 37), (960, 64)])   # (start, n_real)
+VER = dict(S=8, W=5, H=12, D=64, ps=16, maxp=64,
+           lengths=[0, 1, 17, 100, 255, 512, 777, 1019],
+           draft_len=[0, 4, 1, 3, 4, 0, 2, 4])
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 1e-2)}   # atol, rtol
-REPLACES = {
-    "ragged_decode": "incubator_mxnet_tpu/ops/ragged_attention.py:75",
-    "ragged_prefill": "incubator_mxnet_tpu/ops/ragged_attention.py:348",
+QUANTS = ("int8", "fp8_e4m3")
+RA = "incubator_mxnet_tpu/ops/ragged_attention.py"
+REPLACES = {                 # the TPU kernel: function that reaches the
+    "ragged_decode": f"{RA}:75",            # pallas_call (file:line)
+    "ragged_decode_q": f"{RA}:199",
+    "ragged_prefill": f"{RA}:348",
+    "ragged_prefill_q": f"{RA}:471",
+    "ragged_verify": f"{RA}:586",
+    "ragged_verify_q": f"{RA}:734",
 }
+KERNELS = tuple(REPLACES)
 
 
 class PhaseError(RuntimeError):
@@ -66,60 +90,122 @@ def check(cond, msg):
 # inputs
 # --------------------------------------------------------------------- #
 
-def decode_case(torch, gen, dtype):
-    S, H, D, ps, maxp = (DEC[k] for k in ("S", "H", "D", "ps", "maxp"))
-    lengths = DEC["lengths"]
-    n_live = [-(-L // ps) for L in lengths]
-    P = 1 + sum(n_live) + 3
-    dev = "cuda"
-    q = torch.randn(S, H, D, generator=gen, device=dev).to(dtype)
-    kp = torch.randn(P, H, ps, D, generator=gen, device=dev).to(dtype)
-    vp = torch.randn(P, H, ps, D, generator=gen, device=dev).to(dtype)
-    perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
-    pt = torch.zeros(S, maxp, dtype=torch.int32, device=dev)
+def make_pools(torch, gen, P, H, ps, D, dtype, quant):
+    """(k_pool, v_pool, k_scale, v_scale): raw pools of ``dtype``, or
+    int8 / fp8_e4m3 code pools with per-page scales in [0.005, 0.025)."""
+    shape, dev = (P, H, ps, D), "cuda"
+    if quant is None:
+        mk = lambda: torch.randn(shape, generator=gen, device=dev).to(dtype)
+        return mk(), mk(), None, None
+    if quant == "int8":
+        mk = lambda: torch.randint(-127, 128, shape, generator=gen,
+                                   device=dev).to(torch.int8)
+    else:
+        mk = lambda: (torch.randn(shape, generator=gen, device=dev) *
+                      64).clamp(-448, 448).to(torch.float8_e4m3fn)
+    sc = lambda: torch.rand(P, generator=gen, device=dev) * 0.02 + 0.005
+    return mk(), mk(), sc(), sc()
+
+
+def slot_table(torch, gen, n_map, P, maxp):
+    """A page table mapping n_map[s] distinct shuffled pages per slot."""
+    perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
+    pt = torch.zeros(len(n_map), maxp, dtype=torch.int32, device="cuda")
     used = 0
-    for s in range(S):
-        pt[s, :n_live[s]] = perm[used:used + n_live[s]].int()
-        used += n_live[s]
-    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    return q, kp, vp, pt, ln
+    for s, n in enumerate(n_map):
+        pt[s, :n] = perm[used:used + n].int()
+        used += n
+    return pt
 
 
-def prefill_case(torch, gen, dtype, start, n_real):
+def decode_case(torch, gen, dtype, quant=None, extra=0):
+    """Decode inputs at DEC's lengths; ``extra`` maps pages for that many
+    positions past each live slot's length (wholly masked pages)."""
+    S, H, D, ps, maxp = (DEC[k] for k in ("S", "H", "D", "ps", "maxp"))
+    n_map = [min(maxp, -(-(L + extra) // ps)) if L else 0
+             for L in DEC["lengths"]]
+    P = 1 + sum(n_map) + 3
+    q = torch.randn(S, H, D, generator=gen, device="cuda").to(dtype)
+    kp, vp, ks, vs = make_pools(torch, gen, P, H, ps, D, dtype, quant)
+    pt = slot_table(torch, gen, n_map, P, maxp)
+    ln = torch.tensor(DEC["lengths"], dtype=torch.int32, device="cuda")
+    return q, kp, vp, pt, ln, ks, vs
+
+
+def prefill_case(torch, gen, dtype, start, n_real, quant=None):
     C, H, D, ps, maxp = (PRE[k] for k in ("C", "H", "D", "ps", "maxp"))
     n_live = -(-(start + C) // ps)
     P = 1 + maxp + 3
-    dev = "cuda"
-    q = torch.randn(C, H, D, generator=gen, device=dev).to(dtype)
-    kp = torch.randn(P, H, ps, D, generator=gen, device=dev).to(dtype)
-    vp = torch.randn(P, H, ps, D, generator=gen, device=dev).to(dtype)
-    perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
-    row = torch.zeros(maxp, dtype=torch.int32, device=dev)
-    row[:n_live] = perm[:n_live].int()
-    return q, kp, vp, row
+    q = torch.randn(C, H, D, generator=gen, device="cuda").to(dtype)
+    kp, vp, ks, vs = make_pools(torch, gen, P, H, ps, D, dtype, quant)
+    row = slot_table(torch, gen, [n_live], P, maxp)[0]
+    return q, kp, vp, row, ks, vs
 
 
-def decode_bytes_flops(lengths, H, D, elem):
-    live = sum(lengths)
-    S = len(lengths)
-    nbytes = 2 * live * H * D * elem + 2 * S * H * D * elem + \
-        S * DEC["maxp"] * 4 + S * 4
-    flops = 4 * live * H * D
-    return nbytes, flops
+def verify_case(torch, gen, dtype, quant=None):
+    """Verify inputs: each live slot maps the pages of its whole window
+    (length + W - 1 positions)."""
+    S, W, H, D, ps, maxp = (VER[k] for k in ("S", "W", "H", "D", "ps",
+                                             "maxp"))
+    n_map = [-(-(L + W - 1) // ps) if L else 0 for L in VER["lengths"]]
+    P = 1 + sum(n_map) + 3
+    q = torch.randn(S, W, H, D, generator=gen, device="cuda").to(dtype)
+    kp, vp, ks, vs = make_pools(torch, gen, P, H, ps, D, dtype, quant)
+    pt = slot_table(torch, gen, n_map, P, maxp)
+    ln = torch.tensor(VER["lengths"], dtype=torch.int32, device="cuda")
+    dl = torch.tensor(VER["draft_len"], dtype=torch.int32, device="cuda")
+    return q, kp, vp, pt, ln, dl, ks, vs
 
 
-def prefill_bytes_flops(start, n_real, C, H, D, elem):
-    keys = start + n_real
-    nbytes = 2 * keys * H * D * elem + 2 * C * H * D * elem + \
-        PRE["maxp"] * 4
-    flops = sum(4 * (start + i + 1) * D * H for i in range(n_real))
-    return nbytes, flops
+def consumed_rows(torch):
+    """(S, W) mask of the verify rows a caller consumes (r <= draft_len);
+    later rows are garbage by contract."""
+    W = VER["W"]
+    dl = torch.tensor(VER["draft_len"], device="cuda")
+    return torch.arange(W, device="cuda")[None, :] <= dl[:, None]
 
 
 def bound(nbytes, flops, dtype_name):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def decode_bytes_flops(lengths, H, D, kv_elem, q_elem, ps, quant):
+    live = sum(lengths)
+    S = len(lengths)
+    nbytes = 2 * live * H * D * kv_elem + 2 * S * H * D * q_elem + \
+        S * DEC["maxp"] * 4 + S * 4
+    if quant:                            # one K and one V scale per page
+        nbytes += 2 * 4 * sum(-(-L // ps) for L in lengths)
+    return nbytes, 4 * live * H * D
+
+
+def prefill_bytes_flops(start, n_real, C, H, D, kv_elem, q_elem, ps,
+                        quant):
+    keys = start + n_real
+    nbytes = 2 * keys * H * D * kv_elem + 2 * C * H * D * q_elem + \
+        PRE["maxp"] * 4
+    if quant:
+        nbytes += 2 * 4 * -(-keys // ps)
+    flops = sum(4 * (start + i + 1) * D * H for i in range(n_real))
+    return nbytes, flops
+
+
+def verify_bytes_flops(H, D, kv_elem, q_elem, ps, quant):
+    """Live K/V = the keys the consumed rows see (length + draft_len per
+    slot); operations of the consumed rows only."""
+    S, W = VER["S"], VER["W"]
+    keys = [L + d if L else 0
+            for L, d in zip(VER["lengths"], VER["draft_len"])]
+    nbytes = 2 * sum(keys) * H * D * kv_elem + 2 * S * W * H * D * q_elem + \
+        S * VER["maxp"] * 4 + 2 * S * 4
+    if quant:
+        nbytes += 2 * 4 * sum(-(-k // ps) for k in keys)
+    flops = sum(4 * (L + r) * H * D
+                for L, d in zip(VER["lengths"], VER["draft_len"]) if L
+                for r in range(d + 1))
+    return nbytes, flops
 
 
 # --------------------------------------------------------------------- #
@@ -140,6 +226,7 @@ def phase_device(torch):
           f"cuda={torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    return line
 
 
 def phase_build():
@@ -148,9 +235,9 @@ def phase_build():
     built = _build.build()
     secs = time.perf_counter() - t0
     for name, (t, log) in built.items():
-        info = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"[build] {name}: {t:.1f} s  " + " | ".join(info[:4]),
+        info = sorted({ln.strip() for ln in log.splitlines()
+                       if "registers" in ln or "spill" in ln})
+        print(f"[build] {name}: {t:.1f} s  " + " | ".join(info[:6]),
               flush=True)
     print(f"[build] all kernels in {secs:.1f} s "
           f"({_build.build_dir()})", flush=True)
@@ -162,12 +249,15 @@ def phase_kernels(torch):
     from incubator_mxnet_tpu_torch.ops import ragged_attention as ra
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    err = {"ragged_decode": 0.0, "ragged_prefill": 0.0}
+    err = {k: 0.0 for k in KERNELS}
+    rows = consumed_rows(torch)
+    nan = float("nan")
 
-    def cmp(name, got, ref, dtype_name, rows=None, what=""):
+    def cmp(name, got, ref, dtype_name, keep=None, what=""):
+        torch.cuda.synchronize()
         g, r = got.float(), ref.float()
-        if rows is not None:
-            g, r = g[:rows], r[:rows]
+        if keep is not None:
+            g, r = g[keep], r[keep]
         atol, rtol = TOL[dtype_name]
         d = (g - r).abs()
         ok = bool(torch.isfinite(g).all()) and \
@@ -179,42 +269,57 @@ def phase_kernels(torch):
         check(ok, f"{name} {dtype_name} {what} disagrees with its plain "
                   f"version (max |err| {e:.3e})")
 
+    sc = DEC["D"] ** -0.5
     for dt_name, dt in (("float32", torch.float32),
                         ("bfloat16", torch.bfloat16)):
-        q, kp, vp, pt, ln = decode_case(torch, gen, dt)
-        got = ra._ragged_decode_cuda(q, kp, vp, pt, ln, DEC["D"] ** -0.5)
-        ref = ra.ragged_attention_reference(q, kp, vp, pt, ln)
-        torch.cuda.synchronize()
-        cmp("ragged_decode", got, ref, dt_name, what="mixed lengths")
-        check(bool((got[0] == 0).all()), "decode: length-0 slot not zero")
-        for start, n_real in PRE["cases"]:
-            q, kp, vp, row = prefill_case(torch, gen, dt, start, n_real)
-            got = ra._ragged_prefill_cuda(q, kp, vp, row, start, n_real,
-                                          PRE["D"] ** -0.5)
-            ref = ra.ragged_prefill_reference(q, kp, vp, row, start,
-                                              n_real=n_real)
-            torch.cuda.synchronize()
-            cmp("ragged_prefill", got, ref, dt_name, rows=n_real,
-                what=f"start={start} n_real={n_real}")
+        for quant in (None,) + QUANTS:
+            sfx = "_q" if quant else ""
+            tag = quant or "raw"
+            q, kp, vp, pt, ln, ks, vs = decode_case(torch, gen, dt, quant)
+            got = ra._ragged_decode_cuda(q, kp, vp, pt, ln, sc, ks, vs)
+            ref = ra.ragged_attention_reference(q, kp, vp, pt, ln, sc, ks,
+                                                vs)
+            cmp("ragged_decode" + sfx, got, ref, dt_name,
+                what=f"{tag} mixed lengths")
+            check(bool((got[0] == 0).all()), "decode: length-0 slot not "
+                                             "zero")
+            for start, n_real in PRE["cases"]:
+                q, kp, vp, row, ks, vs = prefill_case(torch, gen, dt, start,
+                                                      n_real, quant)
+                got = ra._ragged_prefill_cuda(q, kp, vp, row, start, n_real,
+                                              sc, ks, vs)
+                ref = ra.ragged_prefill_reference(q, kp, vp, row, start, sc,
+                                                  n_real, ks, vs)
+                cmp("ragged_prefill" + sfx, got, ref, dt_name,
+                    keep=slice(0, n_real),
+                    what=f"{tag} start={start} n_real={n_real}")
+            q, kp, vp, pt, ln, dl, ks, vs = verify_case(torch, gen, dt,
+                                                        quant)
+            got = ra._ragged_verify_cuda(q, kp, vp, pt, ln, dl, sc, ks, vs)
+            ref = ra.ragged_verify_reference(q, kp, vp, pt, ln, sc, ks, vs)
+            cmp("ragged_verify" + sfx, got, ref, dt_name, keep=rows,
+                what=f"{tag} W={VER['W']} mixed lengths/drafts")
+            check(bool((got[0] == 0).all()), "verify: length-0 slot not "
+                                             "zero")
 
-    # contract cases, f32
+    # contract cases, f32 raw pools
     f32 = torch.float32
-    sc = DEC["D"] ** -0.5
-    q, kp, vp, pt, ln = decode_case(torch, gen, f32)
+    ps = DEC["ps"]
+    q, kp, vp, pt, ln, _, _ = decode_case(torch, gen, f32)
     clean = ra._ragged_decode_cuda(q, kp, vp, pt, ln, sc)
     # NaN past a slot's length (tail of its last page) does not leak
-    s, L, ps = 3, DEC["lengths"][3], DEC["ps"]
+    s, L = 3, DEC["lengths"][3]
     last = int(pt[s, (L - 1) // ps])
     kp2, vp2 = kp.clone(), vp.clone()
-    kp2[last, :, L % ps:] = float("nan")
-    vp2[last, :, L % ps:] = float("nan")
-    kp2[0], vp2[0] = float("nan"), float("nan")          # the null page
+    kp2[last, :, L % ps:] = nan
+    vp2[last, :, L % ps:] = nan
+    kp2[0], vp2[0] = nan, nan                            # the null page
     got = ra._ragged_decode_cuda(q, kp2, vp2, pt, ln, sc)
     check(bool(torch.equal(got, clean)),
           "decode: NaN past the length (or in the null page) leaked")
     # NaN inside the length propagates to that slot only
     vp3 = vp.clone()
-    vp3[int(pt[5, 0]), :, 0] = float("nan")
+    vp3[int(pt[5, 0]), :, 0] = nan
     got = ra._ragged_decode_cuda(q, kp, vp3, pt, ln, sc)
     check(bool(torch.isnan(got[5]).all()), "decode: NaN inside the length "
                                            "did not propagate")
@@ -225,37 +330,127 @@ def phase_kernels(torch):
     z = ra._ragged_decode_cuda(q, kp, vp, pt, torch.zeros_like(ln), sc)
     check(bool((z == 0).all()), "decode: length-0 slots not exactly zero")
     # page-table permutation invariance: same tokens, other pages
-    perm_pt = pt.clone()
-    P = kp.shape[0]
-    new_ids = torch.randperm(P - 1, generator=gen, device="cuda") + 1
-    kpp, vpp = kp.clone(), vp.clone()
-    remap = torch.zeros(P, dtype=torch.long, device="cuda")
-    remap[1:] = new_ids
-    kpp[remap[1:]] = kp[1:]
-    vpp[remap[1:]] = vp[1:]
-    live = pt > 0
-    perm_pt[live] = remap[pt[live].long()].int()
+    def permuted(kp, vp, table):
+        P = kp.shape[0]
+        remap = torch.zeros(P, dtype=torch.long, device="cuda")
+        remap[1:] = torch.randperm(P - 1, generator=gen, device="cuda") + 1
+        kpp, vpp = kp.clone(), vp.clone()
+        kpp[remap[1:]] = kp[1:]
+        vpp[remap[1:]] = vp[1:]
+        t = table.clone()
+        live = table > 0
+        t[live] = remap[table[live].long()].int()
+        return kpp, vpp, t
+
+    kpp, vpp, perm_pt = permuted(kp, vp, pt)
     got = ra._ragged_decode_cuda(q, kpp, vpp, perm_pt, ln, sc)
     check(bool(torch.equal(got, clean)), "decode: page permutation changed "
                                          "the output")
     # prefill: a partial chunk's unwritten tail holding NaN
     start, n_real = PRE["cases"][1]
-    q, kp, vp, row = prefill_case(torch, gen, f32, start, n_real)
+    q, kp, vp, row, _, _ = prefill_case(torch, gen, f32, start, n_real)
     clean = ra._ragged_prefill_cuda(q, kp, vp, row, start, n_real, sc)
     end = start + n_real
     kp2, vp2 = kp.clone(), vp.clone()
     for pos in range(end, start + PRE["C"]):
         pg = int(row[pos // ps])
-        kp2[pg, :, pos % ps] = float("nan")
-        vp2[pg, :, pos % ps] = float("nan")
+        kp2[pg, :, pos % ps] = nan
+        vp2[pg, :, pos % ps] = nan
     got = ra._ragged_prefill_cuda(q, kp2, vp2, row, start, n_real, sc)
     check(bool(torch.isfinite(got[:n_real]).all()) and
           bool(torch.equal(got[:n_real], clean[:n_real])),
           "prefill: unwritten-tail NaN poisoned live rows")
+
+    # verify: NaN past length + draft_len, NaN inside, length 0, permute
+    q, kp, vp, pt, ln, dl, _, _ = verify_case(torch, gen, f32)
+    clean = ra._ragged_verify_cuda(q, kp, vp, pt, ln, dl, sc)
+    kp2, vp2 = kp.clone(), vp.clone()
+    for s, (L, d) in enumerate(zip(VER["lengths"], VER["draft_len"])):
+        n_map = int((pt[s] > 0).sum())
+        for pos in range(L + d, n_map * ps) if L else ():
+            pg = int(pt[s, pos // ps])
+            kp2[pg, :, pos % ps] = nan
+            vp2[pg, :, pos % ps] = nan
+    kp2[0], vp2[0] = nan, nan
+    got = ra._ragged_verify_cuda(q, kp2, vp2, pt, ln, dl, sc)
+    check(bool(torch.isfinite(got[rows]).all()) and
+          bool(torch.equal(got[rows], clean[rows])),
+          "verify: NaN past length + draft_len reached consumed rows")
+    vp3 = vp.clone()
+    vp3[int(pt[5, 0]), :, 0] = nan                       # seen by every row
+    got = ra._ragged_verify_cuda(q, kp, vp3, pt, ln, dl, sc)
+    check(bool(torch.isnan(got[5][rows[5]]).all()),
+          "verify: NaN inside the length did not propagate")
+    others = [i for i in range(VER["S"]) if i != 5]
+    check(bool(torch.equal(got[others][rows[others]],
+                           clean[others][rows[others]])),
+          "verify: NaN in one slot changed another")
+    z = ra._ragged_verify_cuda(q, kp, vp, pt, torch.zeros_like(ln), dl, sc)
+    check(bool((z == 0).all()), "verify: length-0 slots not exactly zero")
+    kpp, vpp, perm_pt = permuted(kp, vp, pt)
+    got = ra._ragged_verify_cuda(q, kpp, vpp, perm_pt, ln, dl, sc)
+    check(bool(torch.equal(got[rows], clean[rows])),
+          "verify: page permutation changed the output")
+
+    # a NaN page scale: on a masked page it must not leak, on a live page
+    # it must propagate to the slots that read it (int8, f32 queries)
+    def nan_scale(scale, page):
+        bad = scale.clone()
+        bad[page] = nan
+        return bad
+
+    q, kp, vp, pt, ln, ks, vs = decode_case(torch, gen, f32, "int8",
+                                            extra=ps)
+    clean = ra._ragged_decode_cuda(q, kp, vp, pt, ln, sc, ks, vs)
+    s5 = DEC["lengths"].index(512)            # its page 32 is wholly past
+    masked = int(pt[s5, 512 // ps])
+    got = ra._ragged_decode_cuda(q, kp, vp, pt, ln, sc,
+                                 nan_scale(nan_scale(ks, 0), masked),
+                                 nan_scale(nan_scale(vs, 0), masked))
+    check(bool(torch.equal(got, clean)), "decode_q: NaN scale on a masked "
+                                         "page leaked")
+    got = ra._ragged_decode_cuda(q, kp, vp, pt, ln, sc,
+                                 nan_scale(ks, int(pt[3, 0])), vs)
+    others = [i for i in range(DEC["S"]) if i != 3]
+    check(bool(torch.isnan(got[3]).all()) and
+          bool(torch.equal(got[others], clean[others])),
+          "decode_q: NaN scale on a live page did not stay in its slot")
+
+    start, n_real = PRE["cases"][1]           # live keys end at 237
+    q, kp, vp, row, ks, vs = prefill_case(torch, gen, f32, start, n_real,
+                                          "int8")
+    clean = ra._ragged_prefill_cuda(q, kp, vp, row, start, n_real, sc, ks,
+                                    vs)
+    masked = int(row[(start + n_real) // ps + 1])   # wholly past 237
+    got = ra._ragged_prefill_cuda(q, kp, vp, row, start, n_real, sc,
+                                  nan_scale(ks, masked),
+                                  nan_scale(vs, masked))
+    check(bool(torch.equal(got[:n_real], clean[:n_real])),
+          "prefill_q: NaN scale on a masked page leaked")
+    got = ra._ragged_prefill_cuda(q, kp, vp, row, start, n_real, sc, ks,
+                                  nan_scale(vs, int(row[0])))
+    check(bool(torch.isnan(got[:n_real]).all()),
+          "prefill_q: NaN scale on a live page did not propagate")
+
+    q, kp, vp, pt, ln, dl, ks, vs = verify_case(torch, gen, f32, "int8")
+    clean = ra._ragged_verify_cuda(q, kp, vp, pt, ln, dl, sc, ks, vs)
+    masked = int(pt[s5, 512 // ps])           # slot 5: length 512, no draft
+    got = ra._ragged_verify_cuda(q, kp, vp, pt, ln, dl, sc,
+                                 nan_scale(nan_scale(ks, 0), masked),
+                                 nan_scale(nan_scale(vs, 0), masked))
+    check(bool(torch.equal(got[rows], clean[rows])),
+          "verify_q: NaN scale on a masked page leaked")
+    got = ra._ragged_verify_cuda(q, kp, vp, pt, ln, dl, sc,
+                                 nan_scale(ks, int(pt[3, 0])), vs)
+    others = [i for i in range(VER["S"]) if i != 3]
+    check(bool(torch.isnan(got[3][rows[3]]).all()) and
+          bool(torch.equal(got[others][rows[others]],
+                           clean[others][rows[others]])),
+          "verify_q: NaN scale on a live page did not stay in its slot")
     torch.cuda.synchronize()
-    print("[kernels] contract cases: NaN past length, NaN inside length, "
-          "length 0, page permutation, prefill unwritten tail: ok",
-          flush=True)
+    print("[kernels] contract cases: NaN past length / start + n_real / "
+          "length + draft_len, NaN inside, length 0, page permutation, "
+          "NaN scale on a masked and on a live page: ok", flush=True)
     return err
 
 
@@ -281,66 +476,94 @@ def _time_ms(torch, fn, flush, iters=30):
 
 
 def phase_times(torch):
-    """Times at the serving path's shapes and dtype (bf16)."""
+    """Times at the serving path's shapes and dtype (bf16 queries; int8
+    code pools for the _q kernels, fp8_e4m3 printed beside them)."""
     import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.ops import ragged_attention as ra
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
-    dt, dt_name, elem = torch.bfloat16, "bfloat16", 2
-    out = {}
-
-    q, kp, vp, pt, ln = decode_case(torch, gen, dt)
-    S, H, D, ps, maxp = (DEC[k] for k in ("S", "H", "D", "ps", "maxp"))
+    dt, dt_name = torch.bfloat16, "bfloat16"
+    H, D, ps, maxp = DEC["H"], DEC["D"], DEC["ps"], DEC["maxp"]
     sc = D ** -0.5
     K = maxp * ps
-    kw = ra._gather_window(kp, pt)
-    vw = ra._gather_window(vp, pt)
-    mask = (torch.arange(K, device="cuda")[None, :] <
-            ln.long()[:, None])[:, None, None, :]
-    nb, fl = decode_bytes_flops(DEC["lengths"], H, D, elem)
-    bms, by = bound(nb, fl, dt_name)
-    out["ragged_decode"] = dict(
-        ms=_time_ms(torch, lambda: ra._ragged_decode_cuda(
-            q, kp, vp, pt, ln, sc), flush),
-        plain_ms=_time_ms(torch, lambda: ra.ragged_attention_reference(
-            q, kp, vp, pt, ln, sc), flush),
-        library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kw, vw, attn_mask=mask), flush),
-        bound_ms=bms, bound_by=by,
-        shape=f"S={S} H={H} D={D} ps={ps} maxp={maxp} "
-              f"lengths={DEC['lengths']} bf16")
+    ar = torch.arange(K, device="cuda")
+    out = {}
 
-    C = PRE["C"]
-    rows = []
-    for start, n_real in PRE["cases"]:
-        q, kp, vp, row = prefill_case(torch, gen, dt, start, n_real)
-        kw = ra._gather_window(kp, row[None])[0]         # (H, K, D)
-        vw = ra._gather_window(vp, row[None])[0]
-        pos_q = start + torch.arange(C, device="cuda")[:, None]
-        mask = torch.arange(K, device="cuda")[None, :] <= pos_q
-        nb, fl = prefill_bytes_flops(start, n_real, C, H, D, elem)
-        bms, by = bound(nb, fl, dt_name)
-        rows.append(dict(
-            ms=_time_ms(torch, lambda: ra._ragged_prefill_cuda(
-                q, kp, vp, row, start, n_real, sc), flush),
-            plain_ms=_time_ms(torch, lambda: ra.ragged_prefill_reference(
-                q, kp, vp, row, start, sc, n_real), flush),
-            library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q.transpose(0, 1)[None], kw[None], vw[None],
-                attn_mask=mask), flush),
-            bound_ms=bms, bound_by=by,
-            shape=f"C={C} H={H} D={D} ps={ps} start={start} "
-                  f"n_real={n_real} bf16"))
-    for r in rows:
-        print(f"[times] ragged_prefill {r['shape']}: {r['ms']:.4f} ms "
-              f"(plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
-              f"bound {r['bound_ms']:.5f} by {r['bound_by']})", flush=True)
-    out["ragged_prefill"] = rows[-1]                 # the deepest chunk
-    r = out["ragged_decode"]
-    print(f"[times] ragged_decode {r['shape']}: {r['ms']:.4f} ms "
-          f"(plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
-          f"bound {r['bound_ms']:.5f} by {r['bound_by']})", flush=True)
+    def window(pool, table, scale):
+        return ra._gather_window(pool, table, scale).to(dt)
+
+    def record(name, shape, ms, plain_ms, library_ms, nbytes, flops):
+        bms, by = bound(nbytes, flops, dt_name)
+        r = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                 bound_ms=bms, bound_by=by, shape=shape)
+        print(f"[times] {name} {shape}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+              f"library {library_ms:.4f}, bound {bms:.5f} by {by})",
+              flush=True)
+        return r
+
+    for quant in (None,) + QUANTS:
+        sfx, kv_elem = ("_q", 1) if quant else ("", 2)
+        tag = quant or "bf16"
+        q, kp, vp, pt, ln, ks, vs = decode_case(torch, gen, dt, quant)
+        kw, vw = window(kp, pt, ks), window(vp, pt, vs)
+        mask = (ar[None, :] < ln.long()[:, None])[:, None, None, :]
+        r = record(
+            "ragged_decode" + sfx,
+            f"S={DEC['S']} H={H} D={D} ps={ps} maxp={maxp} "
+            f"lengths={DEC['lengths']} q bf16, pools {tag}",
+            _time_ms(torch, lambda: ra._ragged_decode_cuda(
+                q, kp, vp, pt, ln, sc, ks, vs), flush),
+            _time_ms(torch, lambda: ra.ragged_attention_reference(
+                q, kp, vp, pt, ln, sc, ks, vs), flush),
+            _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kw, vw, attn_mask=mask), flush),
+            *decode_bytes_flops(DEC["lengths"], H, D, kv_elem, 2, ps,
+                                quant))
+        out.setdefault("ragged_decode" + sfx, r)
+
+        C = PRE["C"]
+        rows = []
+        for start, n_real in PRE["cases"]:
+            q, kp, vp, row, ks, vs = prefill_case(torch, gen, dt, start,
+                                                  n_real, quant)
+            kw = window(kp, row[None], ks)[0]            # (H, K, D)
+            vw = window(vp, row[None], vs)[0]
+            pos_q = start + torch.arange(C, device="cuda")[:, None]
+            mask = ar[None, :] <= pos_q
+            rows.append(record(
+                "ragged_prefill" + sfx,
+                f"C={C} H={H} D={D} ps={ps} start={start} n_real={n_real} "
+                f"q bf16, pools {tag}",
+                _time_ms(torch, lambda: ra._ragged_prefill_cuda(
+                    q, kp, vp, row, start, n_real, sc, ks, vs), flush),
+                _time_ms(torch, lambda: ra.ragged_prefill_reference(
+                    q, kp, vp, row, start, sc, n_real, ks, vs), flush),
+                _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q.transpose(0, 1)[None], kw[None], vw[None],
+                    attn_mask=mask), flush),
+                *prefill_bytes_flops(start, n_real, C, H, D, kv_elem, 2, ps,
+                                     quant)))
+        out.setdefault("ragged_prefill" + sfx, rows[-1])  # deepest chunk
+
+        q, kp, vp, pt, ln, dl, ks, vs = verify_case(torch, gen, dt, quant)
+        kw, vw = window(kp, pt, ks), window(vp, pt, vs)
+        W = VER["W"]
+        see = ln.long()[:, None] + torch.arange(W, device="cuda")[None, :]
+        mask = (ar[None, None, :] < see[:, :, None])[:, None]   # S,1,W,K
+        r = record(
+            "ragged_verify" + sfx,
+            f"S={VER['S']} W={W} H={H} D={D} ps={ps} maxp={maxp} "
+            f"lengths={VER['lengths']} draft_len={VER['draft_len']} "
+            f"q bf16, pools {tag}",
+            _time_ms(torch, lambda: ra._ragged_verify_cuda(
+                q, kp, vp, pt, ln, dl, sc, ks, vs), flush),
+            _time_ms(torch, lambda: ra.ragged_verify_reference(
+                q, kp, vp, pt, ln, sc, ks, vs), flush),
+            _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kw, vw, attn_mask=mask), flush),
+            *verify_bytes_flops(H, D, kv_elem, 2, ps, quant))
+        out.setdefault("ragged_verify" + sfx, r)
     del flush
     return out
 
@@ -358,26 +581,60 @@ def _prompts(np, rng, vocab):
     return [shared[0]] + other[:7] + shared[1:] + other[7:]
 
 
-def phase_serving(torch):
-    import numpy as np
-    from incubator_mxnet_tpu_torch.models.gpt import gpt_small
+def replay_drafter(np, streams):
+    """A drafter that proposes what an earlier run emitted after the same
+    history (its prompt plus the tokens so far), and nothing once the
+    history has left that run's stream: a controlled, high accept rate
+    for the greedy requests (the ceiling of speculation's gain)."""
+    table = [(np.asarray(p, np.int32), np.asarray(t, np.int32))
+             for p, t in streams]
+
+    def draft(history, k):
+        h = np.asarray(history, np.int32)
+        for prompt, toks in table:
+            t0 = prompt.size
+            e = h.size - t0
+            if 0 <= e < toks.size and np.array_equal(h[:t0], prompt) and \
+                    np.array_equal(h[t0:], toks[:e]):
+                return toks[e:e + k]
+        return np.zeros((0,), np.int32)
+
+    return draft
+
+
+def serve_run(torch, np, model, label, spec_k=0, kv_quant=None,
+              n_req=16, profile=False, draft_fn=None, need_accept=True,
+              decode_bound=False):
+    """One serving run on a fresh engine; returns its stats with the
+    launch counts read around it, and the requests' (prompt, tokens)
+    streams. The phase-4 workload (``_prompts``: long prompts, mixed
+    greedy / temperature), or with ``decode_bound`` 8 greedy requests of
+    32 prompt and 96 new tokens, where the run is all decode steps."""
     from incubator_mxnet_tpu_torch.ops import LAUNCHES, reset_launch_counts
     from incubator_mxnet_tpu_torch.serve import (InferenceEngine, Outcome,
                                                  Request)
     from incubator_mxnet_tpu_torch.events import EventType
 
-    model = gpt_small(dtype="bfloat16", device="cuda", seed=0)
     eng = InferenceEngine(model, num_slots=8, page_size=16, max_len=1024,
-                          chunk_pages=4, prefix_cache=True)
+                          chunk_pages=4, prefix_cache=True, spec_k=spec_k,
+                          kv_quant=kv_quant, draft_fn=draft_fn)
     rng = np.random.RandomState(0)
     # warm-up: one short request (cuBLAS handles, allocator)
-    eng.run([Request(rng.randint(0, 50257, size=40), max_new_tokens=4)])
+    eng.run([Request(rng.randint(0, model.vocab_size, size=40),
+                     max_new_tokens=4)])
     check(eng.health[Outcome.MAX_TOKENS.value] == 1, "warm-up failed")
-    prompts = _prompts(np, rng, model.vocab_size)
-    reqs = [Request(p, max_new_tokens=64, eos_id=50256,
-                    temperature=0.0 if i % 2 == 0 else 0.8, seed=100 + i)
-            for i, p in enumerate(prompts)]
-    steps0, hits0 = eng.decode_steps, eng.prefix_hits
+    if decode_bound:
+        reqs = [Request(rng.randint(0, model.vocab_size, size=32),
+                        max_new_tokens=96) for _ in range(8)]
+    else:
+        prompts = _prompts(np, rng, model.vocab_size)[:n_req]
+        reqs = [Request(p, max_new_tokens=64, eos_id=50256,
+                        temperature=0.0 if i % 2 == 0 else 0.8,
+                        seed=100 + i)
+                for i, p in enumerate(prompts)]
+    steps0, spec0, hits0 = eng.decode_steps, eng.spec_steps, eng.prefix_hits
+    drafted0, accepted0 = eng.drafted_tokens, eng.accepted_tokens
+    n_ev0 = len(eng.flight.events(etype=EventType.DECODE_STEP))
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -386,41 +643,98 @@ def phase_serving(torch):
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     steps = eng.decode_steps - steps0
-    hits = eng.prefix_hits - hits0
+    spec_steps = eng.spec_steps - spec0
+    drafted = eng.drafted_tokens - drafted0
+    accepted = eng.accepted_tokens - accepted0
 
     bad = [(r.request_id, r.outcome, r.detail) for r in reqs
            if r.outcome not in (Outcome.EOS, Outcome.MAX_TOKENS)]
-    check(not bad, f"requests ended badly: {bad}")
+    check(not bad, f"{label}: requests ended badly: {bad}")
     eng.audit_pages()
-    check(hits > 0, "no prefix-cache hit")
+    check(eng.prefix_hits > hits0 or n_req < 9 or decode_bound,
+          f"{label}: no prefix-cache hit")
     L = model.num_layers
-    check(launches["ragged_decode"] == steps * L,
-          f"decode kernel launches {launches['ragged_decode']} != decode "
-          f"steps {steps} x {L} layers")
-    check(launches["ragged_prefill"] > 0, "prefill kernel never launched")
+    sfx, other = ("_q", "") if kv_quant else ("", "_q")
+    want = {"ragged_decode" + sfx: (steps - spec_steps) * L,
+            "ragged_verify" + sfx: spec_steps * L,
+            "ragged_decode" + other: 0, "ragged_verify" + other: 0,
+            "ragged_prefill" + other: 0}
+    for k, n in want.items():
+        check(launches[k] == n, f"{label}: {k} launches {launches[k]} != "
+                                f"{n} ({steps} steps, {spec_steps} "
+                                f"speculative, {L} layers)")
+    check(launches["ragged_prefill" + sfx] > 0,
+          f"{label}: prefill kernel never launched")
+    if spec_k:
+        check(drafted > 0 and (accepted > 0 or not need_accept),
+              f"{label}: drafted {drafted}, accepted {accepted}")
     for r in reqs:
         check(all(0 <= t < model.vocab_size for t in r.token_ids),
-              "token out of vocab")
+              f"{label}: token out of vocab")
     n_tok = sum(len(r.token_ids) for r in reqs)
     ttft = [r.token_stamps[0] - r.submit_time for r in reqs]
-    dec = [e.data["dur_s"] for e in eng.flight.events(
-        etype=EventType.DECODE_STEP)][-steps:]
+    ev = eng.flight.events(etype=EventType.DECODE_STEP)[n_ev0:]
+    slot_steps = sum(e.data["live"] for e in ev)
     stats = dict(requests=len(reqs), tokens=n_tok, wall_s=wall,
                  tokens_per_s=n_tok / wall,
                  ttft_p50_ms=statistics.median(ttft) * 1e3,
-                 decode_ms_per_step=statistics.median(dec) * 1e3,
-                 decode_steps=steps, prefix_hits=hits,
-                 prefix_hit_tokens=eng.prefix_hit_tokens,
-                 launches=launches)
-    print(f"[serving] gpt_small bf16, 8 slots, chunk_pages=4: "
-          f"{json.dumps(stats)}", flush=True)
-    profile_decode(torch, np, eng, rng, Request)
-    del eng, model
+                 decode_ms_per_step=statistics.median(
+                     e.data["dur_s"] for e in ev) * 1e3,
+                 decode_steps=steps, spec_steps=spec_steps,
+                 drafted=drafted, accepted=accepted,
+                 accept_rate=accepted / drafted if drafted else 0.0,
+                 tokens_per_step=(n_tok - len(reqs)) / steps,
+                 tokens_per_slot_step=(n_tok - len(reqs)) / slot_steps,
+                 prefix_hits=eng.prefix_hits - hits0,
+                 kv_pool_bytes=eng.health_snapshot()["kv_pool_bytes"],
+                 launches={k: v for k, v in launches.items() if v})
+    print(f"[serving] {label}: {json.dumps(stats)}", flush=True)
+    if profile:
+        profile_decode(torch, np, eng, rng, Request, label)
+    if not spec_k and not decode_bound:
+        host_costs(torch, np, eng)
+    del eng
     torch.cuda.empty_cache()
-    return stats
+    return stats, [(r.prompt_ids, r.token_ids) for r in reqs]
 
 
-def profile_decode(torch, np, eng, rng, Request):
+def phase_serving(torch):
+    import numpy as np
+    from incubator_mxnet_tpu_torch.models.gpt import gpt_small
+    model = gpt_small(dtype="bfloat16", device="cuda", seed=0)
+    runs = {}
+    runs["plain"], streams = serve_run(
+        torch, np, model, "gpt_small bf16, 8 slots, chunk_pages=4",
+        profile=True)
+    # the n-gram drafter on random weights: the accept rate it finds
+    runs["spec_ngram"], _ = serve_run(
+        torch, np, model, "spec_k=4, n-gram drafter, raw bf16 pools",
+        spec_k=4, profile=True, need_accept=False)
+    # a replay of the plain run's streams: a controlled accept rate
+    replay = replay_drafter(np, streams)
+    runs["spec"], _ = serve_run(
+        torch, np, model, "spec_k=4, replay drafter, raw bf16 pools",
+        spec_k=4, draft_fn=replay)
+    runs["spec_int8"], _ = serve_run(
+        torch, np, model, "spec_k=4, replay drafter, int8 pools", spec_k=4,
+        kv_quant="int8", draft_fn=replay)
+    runs["spec_fp8"], _ = serve_run(
+        torch, np, model, "spec_k=4, replay drafter, fp8_e4m3 pools, 4 "
+        "requests", spec_k=4, kv_quant="fp8_e4m3", n_req=4,
+        draft_fn=replay)
+    # decode-bound pair: does a higher tokens-per-step show in tokens/s?
+    runs["decode_plain"], streams = serve_run(
+        torch, np, model, "decode-bound, 8 greedy x 96 tokens, plain",
+        decode_bound=True)
+    runs["decode_spec"], _ = serve_run(
+        torch, np, model, "decode-bound, spec_k=4, replay drafter",
+        spec_k=4, draft_fn=replay_drafter(np, streams), decode_bound=True)
+    del model
+    torch.cuda.empty_cache()
+    return runs
+
+
+def profile_decode(torch, np, eng, rng, Request, label):
     """Where a full decode step's time goes: 8 slots at ~200 tokens of
     context, 10 steps under torch.profiler — device-busy time per step
     (kernel and copy time on the card) against the step's wall time,
@@ -436,6 +750,7 @@ def profile_decode(torch, np, eng, rng, Request):
         eng.step()
     torch.cuda.synchronize()
     n = 10
+    spec0 = eng.spec_steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -443,6 +758,7 @@ def profile_decode(torch, np, eng, rng, Request):
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    wide = eng.spec_steps - spec0
     eng.run([])
     eng.audit_pages()
     kern = [(e.key, e.self_device_time_total) for e in prof.key_averages()
@@ -454,10 +770,51 @@ def profile_decode(torch, np, eng, rng, Request):
         return
     busy_ms = sum(t for _, t in kern) / 1e3 / n
     top = sorted(kern, key=lambda kt: -kt[1])[:6]
-    print(f"[profile] decode, 8 slots, ~200-240 context: wall "
-          f"{wall_ms:.3f} ms/step (profiled), device busy {busy_ms:.3f} "
-          f"ms/step ({100 * busy_ms / wall_ms:.1f}%); top: " + "; ".join(
+    print(f"[profile] {label}: decode, 8 slots, ~200-240 context, "
+          f"{wide}/{n} steps speculative: wall {wall_ms:.3f} ms/step "
+          f"(profiled), device busy {busy_ms:.3f} ms/step "
+          f"({100 * busy_ms / wall_ms:.1f}%); top: " + "; ".join(
               f"{k[:48]} {t / 1e3 / n:.3f} ms" for k, t in top), flush=True)
+
+
+def host_costs(torch, np, eng):
+    """Host time of the speculative step's own work, at 8 slots and
+    gpt_small's vocabulary: acceptance over a 5-wide window (greedy, and
+    temperature with every column drafted: one generator per row and
+    column) against the 1-wide sampling of plain decode, and n-gram
+    drafting over a 1024-token history. Medians of 20 calls, each ended
+    by the host readback the step makes anyway."""
+    from incubator_mxnet_tpu_torch.serve import ngram_propose
+    S, W, V = eng.num_slots, 5, eng.model.vocab_size
+    gen = torch.Generator(device=eng.device)
+    gen.manual_seed(2)
+    logits = torch.randn(S, W, V, generator=gen, device=eng.device) * 3
+    toks = np.random.RandomState(2).randint(0, V, size=(S, W))
+    pos = np.arange(100, 100 + W)[None, :].repeat(S, axis=0)
+
+    def ms(fn, n=20):
+        fn()
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def accept(w, temp):
+        return lambda: eng._accept_emit(
+            logits[:, :w], toks[:, :w], np.full((S,), w - 1), [temp] * S,
+            list(range(S)), pos[:, :w], None)
+
+    hist = np.random.RandomState(3).randint(0, 64, size=1024)
+    out = dict(accept_w1_greedy_ms=ms(accept(1, 0.0)),
+               accept_w1_temp_ms=ms(accept(1, 0.8)),
+               accept_w5_greedy_ms=ms(accept(W, 0.0)),
+               accept_w5_temp_ms=ms(accept(W, 0.8)),
+               ngram_draft_8_slots_ms=ms(
+                   lambda: [ngram_propose(hist, 4) for _ in range(S)]))
+    print(f"[host] sampling / acceptance / drafting host ms, 8 slots, "
+          f"V={V}: {json.dumps(out)}", flush=True)
 
 
 def phase_parity(torch):
@@ -470,17 +827,52 @@ def phase_parity(torch):
     prompt = rng.randint(0, model.vocab_size, size=150).astype(np.int32)
     ref = cached_generate(model, torch.tensor(prompt[None], device="cuda"),
                           max_new_tokens=32)[0, prompt.size:].tolist()
-    eng = InferenceEngine(model, num_slots=2, page_size=16, max_len=256,
-                          chunk_pages=2, prefix_cache=True)
-    req = Request(prompt, max_new_tokens=32)
-    eng.run([req])
-    eng.audit_pages()
-    check(req.token_ids == ref,
-          f"engine tokens {req.token_ids} != cached_generate {ref}")
-    print(f"[parity] f32 gpt_small: engine == cached_generate over "
-          f"{len(ref)} greedy tokens", flush=True)
-    del eng, model
+    for spec_k in (0, 4):
+        eng = InferenceEngine(model, num_slots=2, page_size=16, max_len=256,
+                              chunk_pages=2, prefix_cache=True,
+                              spec_k=spec_k)
+        req = Request(prompt, max_new_tokens=32)
+        eng.run([req])
+        eng.audit_pages()
+        check(req.token_ids == ref,
+              f"spec_k={spec_k}: engine tokens {req.token_ids} != "
+              f"cached_generate {ref}")
+        check(spec_k == 0 or eng.spec_steps > 0,
+              "spec_k=4 parity run never verified a draft")
+        print(f"[parity] f32 gpt_small spec_k={spec_k}: engine == "
+              f"cached_generate over {len(ref)} greedy tokens "
+              f"({eng.decode_steps} steps, {eng.spec_steps} speculative, "
+              f"accept rate {eng.accept_rate:.3f})", flush=True)
+        del eng
+    del model
     torch.cuda.empty_cache()
+
+
+def kernel_record(err, runs, times):
+    """The kernels' JSON record; each kernel's launches come from the run
+    of its own path (decode / prefill: plain; verify: spec_k=4 on raw
+    pools; the _q variants: spec_k=4 on int8 pools; both replaying the
+    plain run's streams as drafts)."""
+    path_of = {"ragged_decode": "plain", "ragged_prefill": "plain",
+               "ragged_verify": "spec", "ragged_decode_q": "spec_int8",
+               "ragged_prefill_q": "spec_int8",
+               "ragged_verify_q": "spec_int8"}
+    kernels = []
+    for name in KERNELS:
+        t = times[name]
+        launches = runs[path_of[name]]["launches"].get(name, 0)
+        check(launches > 0, f"{name} never launched on its path")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "incubator_mxnet_tpu_torch/csrc/"
+                      f"{name.removesuffix('_q')}.cu",
+            "replaces": REPLACES[name],
+            "launches": launches,
+            "max_abs_err": err[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    return kernels
 
 
 def main():
@@ -497,30 +889,20 @@ def main():
         return 1
     t_start = time.perf_counter()
     try:
-        phase_device(torch)
+        smi = phase_device(torch)
         phase_build()
         err = phase_kernels(torch)
-        serving = phase_serving(torch)
+        runs = phase_serving(torch)
         phase_parity(torch)
         times = phase_times(torch)
         for mod in ("jax", "incubator_mxnet_tpu"):
             check(mod not in sys.modules, f"{mod} was imported")
+        kernels = kernel_record(err, runs, times)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    kernels = []
-    for name in ("ragged_decode", "ragged_prefill"):
-        t = times[name]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"incubator_mxnet_tpu_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name],
-            "launches": serving["launches"][name],
-            "max_abs_err": err[name],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,13 @@
 // Helpers shared by the ragged paged-attention kernels
-// (ragged_decode.cu, ragged_prefill.cu).
+// (ragged_decode.cu, ragged_prefill.cu, ragged_verify.cu).
 //
-// Pools are (P, H, page_size, D), contiguous, page 0 the null page.
+// Pools are (P, H, page_size, D), contiguous, page 0 the null page. Each
+// kernel is a template on the query/output type T (float or bf16) and the
+// pool payload type P: T itself for a raw pool, or int8_t / __nv_fp8_e4m3
+// codes for a quantized pool with one f32 scale per page (k_scale,
+// v_scale). A block reads a page's scales next to its page-table entry
+// (stage_pages) and dequantizes the codes to f32 once, where it stages
+// them into shared memory (stage_kv); q is promoted to f32.
 // Every kernel keeps the TPU kernels' numerics contract:
 //   - a masked score is -1e30 (kNegInf);
 //   - masked positions are SELECTED out of V (a reused page may hold
@@ -10,9 +16,12 @@
 //     drops it), so a poisoned page poisons the output;
 //   - a row whose max never left -1e30 is dead and emits exactly zero:
 //     the test is the negated compare !(m <= -5e29), so a NaN max fails
-//     it and propagates.
+//     it and propagates;
+//   - positions past a bound load as 0 BEFORE any scale multiply, so a
+//     NaN scale on a masked page cannot leak; a NaN scale on a live page
+//     makes its values NaN and propagates (a code pool's NaN channel).
 //
-// Both kernels split the keys: a block of the first pass owns one
+// All three kernels split the keys: a block of the first pass owns one
 // (query rows, head, kSplitKeys-key split), stages that split's K and V
 // tiles in shared memory (stage_kv, many loads in flight), and writes the
 // split's partial softmax state per row — its max m, its sum l and its
@@ -23,8 +32,17 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+// dtype codes of the C entry points (q / out, and the pool payload)
+#define MXT_DTYPE_F32 0
+#define MXT_DTYPE_BF16 1
+#define MXT_KV_INT8 2
+#define MXT_KV_FP8 3
 
 namespace mxt {
 
@@ -38,6 +56,17 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
+
+// a payload type holding codes that need a per-page scale
+template <typename P>
+constexpr bool kQuantized = std::is_same<P, int8_t>::value ||
+                            std::is_same<P, __nv_fp8_e4m3>::value;
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -122,19 +151,41 @@ __device__ __forceinline__ void combine_row(const float* __restrict__ part,
   }
 }
 
+// Stage a split's page indices (and, for a code pool, the pages' K and V
+// scales) into shared memory: entry t < nk is key position k0 + t, read
+// through the slot's page-table row. Entries t >= nk are never read.
+template <typename P>
+__device__ __forceinline__ void stage_pages(
+    const int* __restrict__ row, int k0, int nk, int ps,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    int* pages_s, float* ks_s, float* vs_s) {
+  const int t = threadIdx.x;
+  if (t < kSplitKeys) {
+    const int page = t < nk ? row[(k0 + t) / ps] : 0;
+    pages_s[t] = page;
+    if constexpr (kQuantized<P>) {
+      ks_s[t] = t < nk ? k_scale[page] : 0.f;
+      vs_s[t] = t < nk ? v_scale[page] : 0.f;
+    }
+  }
+}
+
 // Stage one split's K and V rows of head h into shared memory as f32:
 // row t (t < kSplitKeys) is key position k0 + t, at page pages_s[t]
 // (already in shared memory). Rows t >= nk, and V rows at positions
-// >= v_end, are 0 (selected out). Each thread issues kStageBatch
-// independent K and V loads before its first store, so a block keeps
-// ~4K loads in flight instead of walking rows one latency at a time.
+// >= v_end, are 0 (selected out, never multiplied by a scale). A code
+// pool's value is code * its page's scale (ks_s / vs_s). Each thread
+// issues kStageBatch independent K and V loads before its first store,
+// so a block keeps ~4K loads in flight instead of walking rows one
+// latency at a time.
 constexpr int kStageBatch = 16;
 
-template <typename T>
+template <typename P>
 __device__ __forceinline__ void stage_kv(
-    const T* __restrict__ k_pool, const T* __restrict__ v_pool,
-    const int* pages_s, int k0, int nk, int v_end, int H, int h, int D,
-    int ps, float* k_s, int kstride, float* v_s) {
+    const P* __restrict__ k_pool, const P* __restrict__ v_pool,
+    const int* pages_s, const float* ks_s, const float* vs_s, int k0,
+    int nk, int v_end, int H, int h, int D, int ps, float* k_s, int kstride,
+    float* v_s) {
   const int total = kSplitKeys * D;
   for (int base = 0; base < total; base += kThreads * kStageBatch) {
     float kr[kStageBatch], vr[kStageBatch];
@@ -149,7 +200,11 @@ __device__ __forceinline__ void stage_kv(
         const int64_t off =
             (((int64_t)pages_s[t] * H + h) * ps + pos % ps) * D + d;
         kr[u] = to_float(k_pool[off]);
-        if (pos < v_end) vr[u] = to_float(v_pool[off]);
+        if constexpr (kQuantized<P>) kr[u] *= ks_s[t];
+        if (pos < v_end) {
+          vr[u] = to_float(v_pool[off]);
+          if constexpr (kQuantized<P>) vr[u] *= vs_s[t];
+        }
       }
     }
 #pragma unroll
@@ -168,7 +223,42 @@ inline size_t split_parts_floats(int rows, int H, int D, int nsplit) {
   return (size_t)rows * H * nsplit * (D + 2);
 }
 
-}  // namespace mxt
+// Opt a kernel into more than the static 48 KB of shared memory.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 46 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
 
-#define MXT_DTYPE_F32 0
-#define MXT_DTYPE_BF16 1
+template <typename X>
+struct Tag {
+  using type = X;
+};
+
+// Call launch(Tag<T>{}, Tag<P>{}) for the (q dtype, payload dtype) codes
+// of a C entry point: a raw pool has the q dtype, a code pool int8 or
+// fp8 with scales. Any other pair is cudaErrorInvalidValue.
+template <typename F>
+inline cudaError_t dispatch_types(int dtype, int kv_dtype, bool has_scales,
+                                  F&& launch) {
+  const bool quant = kv_dtype == MXT_KV_INT8 || kv_dtype == MXT_KV_FP8;
+  if (quant != has_scales || (!quant && kv_dtype != dtype))
+    return cudaErrorInvalidValue;
+  if (dtype == MXT_DTYPE_F32) {
+    if (kv_dtype == MXT_KV_INT8) return launch(Tag<float>{}, Tag<int8_t>{});
+    if (kv_dtype == MXT_KV_FP8)
+      return launch(Tag<float>{}, Tag<__nv_fp8_e4m3>{});
+    return launch(Tag<float>{}, Tag<float>{});
+  }
+  if (dtype == MXT_DTYPE_BF16) {
+    if (kv_dtype == MXT_KV_INT8)
+      return launch(Tag<__nv_bfloat16>{}, Tag<int8_t>{});
+    if (kv_dtype == MXT_KV_FP8)
+      return launch(Tag<__nv_bfloat16>{}, Tag<__nv_fp8_e4m3>{});
+    return launch(Tag<__nv_bfloat16>{}, Tag<__nv_bfloat16>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace mxt

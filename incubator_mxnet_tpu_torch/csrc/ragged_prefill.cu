@@ -1,7 +1,10 @@
 // Ragged paged-attention CHUNKED-PREFILL kernel for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel incubator_mxnet_tpu/ops/ragged_attention.py
-// `_ragged_prefill_kernel` (launched by `_ragged_prefill_pallas`): a chunk
+// `_ragged_prefill_kernel`, launched by `_ragged_prefill_pallas` (raw
+// pools) and by `_ragged_prefill_pallas_q` (int8 / fp8 code pools with
+// per-page scales, dequantized where staged: the int8_t / __nv_fp8_e4m3
+// instantiations of the templates below): a chunk
 // of C queries of ONE slot, at absolute positions start + i, attends the
 // slot's paged prefix plus the causal part of the chunk (the chunk's own
 // K/V is already written into the pages), through one predicate
@@ -50,11 +53,13 @@ __device__ __forceinline__ int tile_key_end(int tile, int start, int n_real,
   return live > 0 ? start + i0 + live : 0;
 }
 
-template <typename T>
+template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads)
-prefill_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                     const T* __restrict__ v_pool,
+prefill_split_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
+                     const P* __restrict__ v_pool,
                      const int* __restrict__ page_row,
+                     const float* __restrict__ k_scale,
+                     const float* __restrict__ v_scale,
                      float* __restrict__ part, int start, int n_real, int C,
                      int H, int D, int ps, int maxp, int nsplit,
                      float scale) {
@@ -75,6 +80,7 @@ prefill_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   float* s_s = v_s + kSplitKeys * D;         // (kRows, kSplitKeys)
   __shared__ float row_m[kRows], row_l[kRows];
   __shared__ int pages_s[kSplitKeys];
+  __shared__ float ks_s[kSplitKeys], vs_s[kSplitKeys];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   for (int e = tid; e < kRows * D; e += kThreads) {
@@ -82,11 +88,11 @@ prefill_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     q_s[e] = i < rows ? to_float(q[((int64_t)(i0 + i) * H + h) * D + d])
                       : 0.f;
   }
-  if (tid < kSplitKeys)
-    pages_s[tid] = tid < nk ? page_row[(k0 + tid) / ps] : 0;
+  stage_pages<P>(page_row, k0, nk, ps, k_scale, v_scale, pages_s, ks_s,
+                 vs_s);
   __syncthreads();
-  stage_kv(k_pool, v_pool, pages_s, k0, nk, v_end, H, h, D, ps, k_s,
-           kstride, v_s);
+  stage_kv(k_pool, v_pool, pages_s, ks_s, vs_s, k0, nk, v_end, H, h, D, ps,
+           k_s, kstride, v_s);
   __syncthreads();
 
   for (int e = tid; e < kRows * kSplitKeys; e += kThreads) {
@@ -142,28 +148,25 @@ prefill_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
                  (key_end + kSplitKeys - 1) / kSplitKeys, out);
 }
 
-template <typename T>
+template <typename T, typename P>
 cudaError_t launch_prefill(const void* q, const void* k, const void* v,
-                           const int* page_row, void* out, float* part,
+                           const int* page_row, const float* ks,
+                           const float* vs, void* out, float* part,
                            int start, int n_real, int C, int H, int D, int ps,
                            int maxp, float scale, cudaStream_t stream) {
   const int nsplit = (maxp * ps + kSplitKeys - 1) / kSplitKeys;
   const size_t smem =
       sizeof(float) * ((size_t)kRows * D + (size_t)kSplitKeys * (D + 1) +
                        (size_t)kSplitKeys * D + (size_t)kRows * kSplitKeys);
-  if (smem > 46 * 1024) {   // opt in above the static 48 KB window
-    cudaError_t e = cudaFuncSetAttribute(
-        prefill_split_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  cudaError_t e = allow_smem(prefill_split_kernel<T, P>, smem);
+  if (e != cudaSuccess) return e;
   const int tiles = (C + kRows - 1) / kRows;
-  prefill_split_kernel<T><<<dim3(tiles, H, nsplit), kThreads, smem,
-                            stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), page_row, part, start, n_real, C, H, D, ps,
-      maxp, nsplit, scale);
-  cudaError_t e = cudaGetLastError();
+  prefill_split_kernel<T, P><<<dim3(tiles, H, nsplit), kThreads, smem,
+                               stream>>>(
+      static_cast<const T*>(q), static_cast<const P*>(k),
+      static_cast<const P*>(v), page_row, ks, vs, part, start, n_real, C, H,
+      D, ps, maxp, nsplit, scale);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   prefill_combine_kernel<T><<<dim3(C, H), kThreads, 0, stream>>>(
       part, static_cast<T*>(out), start, n_real, C, H, D, ps, maxp, nsplit);
@@ -182,28 +185,30 @@ extern "C" long long mx_ragged_prefill_scratch(int C, int H, int D, int ps,
 // q (C, H, D); k_pool / v_pool (P, H, ps, D); page_row (maxp,) int32;
 // out (C, H, D); part: f32 scratch of mx_ragged_prefill_scratch floats.
 // The chunk's first query sits at position `start`, its first `n_real`
-// rows are live. All contiguous, q / pools / out of one dtype. Page-row
-// entries must lie in [0, P). Returns a cudaError_t (0 = launched).
+// rows are live. All contiguous; dtypes and scales as for
+// mx_ragged_decode. Page-row entries must lie in [0, P). Returns a
+// cudaError_t (0 = launched).
 extern "C" int mx_ragged_prefill(const void* q, const void* k_pool,
                                  const void* v_pool, const int* page_row,
+                                 const float* k_scale, const float* v_scale,
                                  void* out, float* part, int start,
                                  int n_real, int C, int H, int D, int ps,
                                  int maxp, float scale, int dtype,
-                                 void* stream) {
+                                 int kv_dtype, void* stream) {
   if (C < 0 || H <= 0 || D <= 0 || D > mxt::kMaxHeadDim || ps <= 0 ||
-      maxp <= 0 || start < 0 || n_real < 0 || n_real > C)
+      maxp <= 0 || start < 0 || n_real < 0 || n_real > C ||
+      (k_scale == nullptr) != (v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
   if (C == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == MXT_DTYPE_F32)
-    return (int)mxt::launch_prefill<float>(q, k_pool, v_pool, page_row, out,
-                                           part, start, n_real, C, H, D, ps,
-                                           maxp, scale, st);
-  if (dtype == MXT_DTYPE_BF16)
-    return (int)mxt::launch_prefill<__nv_bfloat16>(
-        q, k_pool, v_pool, page_row, out, part, start, n_real, C, H, D, ps,
-        maxp, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)mxt::dispatch_types(
+      dtype, kv_dtype, k_scale != nullptr, [&](auto tt, auto tp) {
+        using T = typename decltype(tt)::type;
+        using P = typename decltype(tp)::type;
+        return mxt::launch_prefill<T, P>(q, k_pool, v_pool, page_row, k_scale,
+                                         v_scale, out, part, start, n_real, C,
+                                         H, D, ps, maxp, scale, st);
+      });
 }
 
 extern "C" const char* mx_cuda_error_string(int code) {

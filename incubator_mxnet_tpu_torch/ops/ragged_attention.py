@@ -1,4 +1,5 @@
-"""Ragged paged-KV attention for serving: decode and chunked prefill.
+"""Ragged paged-KV attention for serving: decode, chunked prefill and the
+speculative verify window, over raw or quantized page pools.
 
 K/V live in a shared page pool per layer,
 
@@ -8,7 +9,7 @@ and each slot owns an ordered page-table row. Page 0 is the NULL page:
 never allocated, every dead page-table entry points at it, and every
 read of it is masked by the slot's length.
 
-Two functions, each with a hand-written CUDA kernel (``csrc/``) and a
+Three functions, each with a hand-written CUDA kernel (``csrc/``) and a
 plain PyTorch version in this module:
 
   - ``ragged_paged_attention`` (decode): one query per slot over that
@@ -17,16 +18,26 @@ plain PyTorch version in this module:
   - ``ragged_prefill_attention`` (chunked prefill): C queries of one
     slot at positions ``q_start + i`` over the paged prefix plus the
     causal part of the chunk — ``csrc/ragged_prefill.cu``, the port of
-    ``_ragged_prefill_kernel``.
+    ``_ragged_prefill_kernel``;
+  - ``ragged_verify_attention`` (speculative verify): W queries per slot
+    at positions ``lengths - 1 + r``, causal inside the window —
+    ``csrc/ragged_verify.cu``, the port of ``_ragged_verify_kernel``.
+
+Each takes optional ``k_scale`` / ``v_scale`` (P,) f32 per-page scales:
+given, the pools hold int8 or float8_e4m3fn codes and are dequantized
+where they are read (the plain versions at the gather, the kernels where
+they stage a page into shared memory); q stays f32 or bf16.
 
 Dispatch is by device only: a CUDA tensor launches the kernel (or the
 wrapper raises), a CPU tensor runs the plain version. There is no
-fallback between the two. Both share the masked-row contract: masked
+fallback between the two. All share the masked-row contract: masked
 positions are selected out of V, the masked score is -1e30, a slot with
-nothing to attend emits exactly zero, and a NaN propagates.
+nothing to attend emits exactly zero, and a NaN propagates (for a
+quantized pool the page scale is the NaN channel).
 
-``LAUNCHES`` counts kernel launches per kernel; the wrappers add one
-only where they launch.
+``LAUNCHES`` counts kernel launches per kernel, the quantized variants
+under their own ``_q`` keys; the wrappers add one only where they
+launch.
 """
 
 from __future__ import annotations
@@ -42,11 +53,15 @@ _NEG_INF = -1e30
 
 __all__ = ["ragged_paged_attention", "ragged_attention_reference",
            "ragged_prefill_attention", "ragged_prefill_reference",
+           "ragged_verify_attention", "ragged_verify_reference",
            "LAUNCHES", "reset_launch_counts"]
 
-LAUNCHES = {"ragged_decode": 0, "ragged_prefill": 0}
+LAUNCHES = {"ragged_decode": 0, "ragged_prefill": 0, "ragged_verify": 0,
+            "ragged_decode_q": 0, "ragged_prefill_q": 0,
+            "ragged_verify_q": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_KV_CODE = {torch.int8: 2, torch.float8_e4m3fn: 3}     # quantized payloads
 _MAX_HEAD_DIM = 256
 
 
@@ -60,12 +75,24 @@ def reset_launch_counts() -> None:
 # held against on the card)
 # --------------------------------------------------------------------- #
 
-def _gather_window(pool, page_table):
+def _take_pages(pool, idx):
+    """``pool[idx]``, through a byte view for float8 pools (float8
+    indexing is not implemented on every device)."""
+    if pool.dtype in (torch.float32, torch.bfloat16, torch.int8):
+        return pool[idx]
+    return pool.view(torch.uint8)[idx].view(pool.dtype)
+
+
+def _gather_window(pool, page_table, scale=None):
     """(S, H, K, D) dense window of each slot's pages, K = max_pages *
-    page_size."""
+    page_size. ``scale`` (P,) dequantizes a code pool at the gather
+    (one scale per page), giving f32."""
     S, n_pages = page_table.shape
     _, H, ps, D = pool.shape
-    g = pool[page_table.long()]                  # (S, n_pages, H, ps, D)
+    pt = page_table.long()
+    g = _take_pages(pool, pt)                    # (S, n_pages, H, ps, D)
+    if scale is not None:
+        g = g.float() * scale[pt][:, :, None, None, None]
     return g.permute(0, 2, 1, 3, 4).reshape(S, H, n_pages * ps, D)
 
 
@@ -91,17 +118,19 @@ def _reference_core(q, k, v, lengths, sc):
 
 
 def ragged_attention_reference(q, k_pool, v_pool, page_table, lengths,
-                               scale=None):
+                               scale=None, k_scale=None, v_scale=None):
     """Plain decode attention: gather each slot's pages to a dense
-    window, mask positions >= length, softmax in f32."""
+    window (dequantized when scales are given), mask positions >=
+    length, softmax in f32."""
     sc = q.shape[-1] ** -0.5 if scale is None else scale
-    k = _gather_window(k_pool, page_table)
-    v = _gather_window(v_pool, page_table)
+    k = _gather_window(k_pool, page_table, k_scale)
+    v = _gather_window(v_pool, page_table, v_scale)
     return _reference_core(q, k, v, lengths, sc)
 
 
 def ragged_prefill_reference(q, k_pool, v_pool, page_row, q_start,
-                             scale=None, n_real=None):
+                             scale=None, n_real=None, k_scale=None,
+                             v_scale=None):
     """Plain chunked-prefill attention for one slot: gather the slot's
     page window, apply the per-query mask ``pos_k <= q_start + i``,
     select V positions ``>= q_start + n_real`` out (no live row may read
@@ -109,19 +138,12 @@ def ragged_prefill_reference(q, k_pool, v_pool, page_row, q_start,
     page's NaN), softmax in f32. Rows ``>= n_real`` are padding: their
     output is garbage by contract."""
     C, H, D = q.shape
-    ps = k_pool.shape[2]
-    n_pages = page_row.shape[0]
-    K = n_pages * ps
     sc = D ** -0.5 if scale is None else scale
     q_start = int(q_start)
     n_real = C if n_real is None else int(n_real)
-
-    def window(pool):
-        g = pool[page_row.long()]                # (n_pages, H, ps, D)
-        return g.permute(1, 0, 2, 3).reshape(H, K, D)
-
-    k = window(k_pool)
-    v = window(v_pool)
+    k = _gather_window(k_pool, page_row[None], k_scale)[0]   # (H, K, D)
+    v = _gather_window(v_pool, page_row[None], v_scale)[0]
+    K = k.shape[1]
     s = torch.einsum("chd,hkd->chk", q.float(), k.float()) * sc
     pos_k = torch.arange(K, device=q.device)[None, :]
     pos_q = q_start + torch.arange(C, device=q.device)[:, None]
@@ -137,11 +159,44 @@ def ragged_prefill_reference(q, k_pool, v_pool, page_row, q_start,
     return torch.where(row_ok[..., None], out, 0.0).to(q.dtype)
 
 
+def ragged_verify_reference(q, k_pool, v_pool, page_table, lengths,
+                            scale=None, k_scale=None, v_scale=None):
+    """Plain verify attention: query row r of slot s attends
+    ``lengths[s] + r`` keys (0 for a dead slot). DELIBERATELY the decode
+    core once per row over ONE shared gather rather than a wider einsum:
+    row r then runs exactly the decode reference's computation, so a
+    1-wide window is bitwise the decode step — what the engine's greedy
+    speculative-vs-plain parity rests on. Per-row exact: no row reads a
+    position past its own window, so it needs no draft-length bound."""
+    W = q.shape[1]
+    sc = q.shape[-1] ** -0.5 if scale is None else scale
+    lengths = lengths.to(q.device).long()
+    k = _gather_window(k_pool, page_table, k_scale)
+    v = _gather_window(v_pool, page_table, v_scale)
+    outs = []
+    for r in range(W):
+        lr = torch.where(lengths > 0, lengths + r, 0)
+        outs.append(_reference_core(q[:, r].contiguous(), k, v, lr, sc))
+    return torch.stack(outs, dim=1)
+
+
 # --------------------------------------------------------------------- #
 # kernel wrappers
 # --------------------------------------------------------------------- #
 
-def _check_operands(q, k_pool, v_pool, index, what):
+def _check_int32(t, shape, what, name, dev):
+    if t.device != dev or t.dtype != torch.int32 or \
+            not t.is_contiguous() or (shape is not None and
+                                      tuple(t.shape) != shape):
+        want = "" if shape is None else f" {shape}"
+        raise MXNetError(f"{what}: {name} must be contiguous int32{want} "
+                         f"on {dev}")
+
+
+def _check_operands(q, k_pool, v_pool, index, what, k_scale=None,
+                    v_scale=None):
+    """Validate a launch; returns the pool payload's dtype code (the q
+    code for raw pools, ``_KV_CODE`` for quantized ones)."""
     dev = q.device
     if dev.type != "cuda":
         raise MXNetError(f"{what} kernel: tensors must be on a CUDA "
@@ -149,22 +204,34 @@ def _check_operands(q, k_pool, v_pool, index, what):
     if q.dtype not in _DTYPE_CODE:
         raise MXNetError(f"{what}: dtype {q.dtype} not supported "
                          f"(float32, bfloat16)")
+    quant = k_scale is not None
+    if quant != (v_scale is not None):
+        raise MXNetError(f"{what}: give both k_scale and v_scale, or "
+                         f"neither")
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
         if t.device != dev:
             raise MXNetError(f"{what}: {name} on {t.device}, q on {dev}")
-        if t.dtype != q.dtype:
+        if quant and t.dtype not in _KV_CODE:
+            raise MXNetError(f"{what}: {name} dtype {t.dtype} with scales "
+                             f"must be int8 or float8_e4m3fn")
+        if not quant and t.dtype != q.dtype:
             raise MXNetError(f"{what}: {name} dtype {t.dtype} != q dtype "
                              f"{q.dtype}")
         if t.dim() != 4 or not t.is_contiguous():
             raise MXNetError(f"{what}: {name} must be a contiguous "
                              f"(P, H, page_size, D) tensor")
-    if k_pool.shape != v_pool.shape:
-        raise MXNetError(f"{what}: k_pool {tuple(k_pool.shape)} != "
-                         f"v_pool {tuple(v_pool.shape)}")
-    if index.device != dev or index.dtype != torch.int32 or \
-            not index.is_contiguous():
-        raise MXNetError(f"{what}: page table must be contiguous int32 on "
-                         f"{dev}")
+    if k_pool.shape != v_pool.shape or k_pool.dtype != v_pool.dtype:
+        raise MXNetError(f"{what}: k_pool {tuple(k_pool.shape)} "
+                         f"{k_pool.dtype} != v_pool {tuple(v_pool.shape)} "
+                         f"{v_pool.dtype}")
+    if quant:
+        P = k_pool.shape[0]
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.device != dev or t.dtype != torch.float32 or \
+                    t.shape != (P,) or not t.is_contiguous():
+                raise MXNetError(f"{what}: {name} must be contiguous "
+                                 f"float32 ({P},) on {dev}")
+    _check_int32(index, None, what, "page table", dev)
     if not q.is_contiguous():
         raise MXNetError(f"{what}: q must be contiguous")
     _, H, _, D = k_pool.shape
@@ -173,6 +240,7 @@ def _check_operands(q, k_pool, v_pool, index, what):
                          f"{tuple(k_pool.shape)}")
     if D > _MAX_HEAD_DIM:
         raise MXNetError(f"{what}: head dim {D} > {_MAX_HEAD_DIM}")
+    return _KV_CODE[k_pool.dtype] if quant else _DTYPE_CODE[q.dtype]
 
 
 def _raise_if_failed(lib, rc, what):
@@ -182,14 +250,15 @@ def _raise_if_failed(lib, rc, what):
 
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
+_TAIL = [ctypes.c_float, _INT, _INT, _PTR]     # scale, dtype, kv_dtype,
+_SIGNATURES = {                                # stream
     # name: (argtypes, restype); every pointer and the stream as c_void_p
-    "mx_ragged_decode": ([_PTR] * 7 + [_INT] * 5 +
-                         [ctypes.c_float, _INT, _PTR], _INT),
+    "mx_ragged_decode": ([_PTR] * 9 + [_INT] * 5 + _TAIL, _INT),
     "mx_ragged_decode_scratch": ([_INT] * 5, ctypes.c_longlong),
-    "mx_ragged_prefill": ([_PTR] * 6 + [_INT] * 7 +
-                          [ctypes.c_float, _INT, _PTR], _INT),
+    "mx_ragged_prefill": ([_PTR] * 8 + [_INT] * 7 + _TAIL, _INT),
     "mx_ragged_prefill_scratch": ([_INT] * 5, ctypes.c_longlong),
+    "mx_ragged_verify": ([_PTR] * 10 + [_INT] * 6 + _TAIL, _INT),
+    "mx_ragged_verify_scratch": ([_INT] * 6, ctypes.c_longlong),
 }
 
 
@@ -207,17 +276,24 @@ def _stream_ptr(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _ragged_decode_cuda(q, k_pool, v_pool, page_table, lengths, scale):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _count(name, quant):
+    LAUNCHES[name + ("_q" if quant else "")] += 1
+
+
+def _ragged_decode_cuda(q, k_pool, v_pool, page_table, lengths, scale,
+                        k_scale=None, v_scale=None):
     """Launch ``csrc/ragged_decode.cu`` on the current stream."""
-    _check_operands(q, k_pool, v_pool, page_table, "ragged decode")
+    kv = _check_operands(q, k_pool, v_pool, page_table, "ragged decode",
+                         k_scale, v_scale)
     S, H, D = q.shape
     if page_table.dim() != 2 or page_table.shape[0] != S:
         raise MXNetError(f"ragged decode: page_table {tuple(page_table.shape)}"
                          f" is not (S={S}, max_pages)")
-    if lengths.shape != (S,) or lengths.dtype != torch.int32 or \
-            lengths.device != q.device or not lengths.is_contiguous():
-        raise MXNetError("ragged decode: lengths must be contiguous (S,) "
-                         "int32 on the device of q")
+    _check_int32(lengths, (S,), "ragged decode", "lengths", q.device)
     ps, maxp = k_pool.shape[2], page_table.shape[1]
     lib = _bind("ragged_decode")
     out = torch.empty_like(q)
@@ -225,18 +301,19 @@ def _ragged_decode_cuda(q, k_pool, v_pool, page_table, lengths, scale):
                        dtype=torch.float32, device=q.device)
     rc = lib.mx_ragged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        part.data_ptr(), S, H, D, ps, maxp, float(scale),
-        _DTYPE_CODE[q.dtype], _stream_ptr(q.device))
+        page_table.data_ptr(), lengths.data_ptr(), _ptr(k_scale),
+        _ptr(v_scale), out.data_ptr(), part.data_ptr(), S, H, D, ps, maxp,
+        float(scale), _DTYPE_CODE[q.dtype], kv, _stream_ptr(q.device))
     _raise_if_failed(lib, rc, "ragged decode")
-    LAUNCHES["ragged_decode"] += 1
+    _count("ragged_decode", k_scale is not None)
     return out
 
 
 def _ragged_prefill_cuda(q, k_pool, v_pool, page_row, q_start, n_real,
-                         scale):
+                         scale, k_scale=None, v_scale=None):
     """Launch ``csrc/ragged_prefill.cu`` on the current stream."""
-    _check_operands(q, k_pool, v_pool, page_row, "ragged prefill")
+    kv = _check_operands(q, k_pool, v_pool, page_row, "ragged prefill",
+                         k_scale, v_scale)
     C, H, D = q.shape
     if page_row.dim() != 1:
         raise MXNetError(f"ragged prefill: page_row "
@@ -251,11 +328,42 @@ def _ragged_prefill_cuda(q, k_pool, v_pool, page_row, q_start, n_real,
                        dtype=torch.float32, device=q.device)
     rc = lib.mx_ragged_prefill(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        page_row.data_ptr(), out.data_ptr(), part.data_ptr(), int(q_start),
-        int(n_real), C, H, D, ps, maxp, float(scale),
-        _DTYPE_CODE[q.dtype], _stream_ptr(q.device))
+        page_row.data_ptr(), _ptr(k_scale), _ptr(v_scale), out.data_ptr(),
+        part.data_ptr(), int(q_start), int(n_real), C, H, D, ps, maxp,
+        float(scale), _DTYPE_CODE[q.dtype], kv, _stream_ptr(q.device))
     _raise_if_failed(lib, rc, "ragged prefill")
-    LAUNCHES["ragged_prefill"] += 1
+    _count("ragged_prefill", k_scale is not None)
+    return out
+
+
+def _ragged_verify_cuda(q, k_pool, v_pool, page_table, lengths, draft_len,
+                        scale, k_scale=None, v_scale=None):
+    """Launch ``csrc/ragged_verify.cu`` on the current stream."""
+    kv = _check_operands(q, k_pool, v_pool, page_table, "ragged verify",
+                         k_scale, v_scale)
+    if q.dim() != 4:
+        raise MXNetError(f"ragged verify: q {tuple(q.shape)} is not "
+                         f"(S, W, H, D)")
+    S, W, H, D = q.shape
+    if page_table.dim() != 2 or page_table.shape[0] != S:
+        raise MXNetError(f"ragged verify: page_table "
+                         f"{tuple(page_table.shape)} is not (S={S}, "
+                         f"max_pages)")
+    _check_int32(lengths, (S,), "ragged verify", "lengths", q.device)
+    _check_int32(draft_len, (S,), "ragged verify", "draft_len", q.device)
+    ps, maxp = k_pool.shape[2], page_table.shape[1]
+    lib = _bind("ragged_verify")
+    out = torch.empty_like(q)
+    part = torch.empty(lib.mx_ragged_verify_scratch(S, W, H, D, ps, maxp),
+                       dtype=torch.float32, device=q.device)
+    rc = lib.mx_ragged_verify(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        page_table.data_ptr(), lengths.data_ptr(), draft_len.data_ptr(),
+        _ptr(k_scale), _ptr(v_scale), out.data_ptr(), part.data_ptr(), S,
+        W, H, D, ps, maxp, float(scale), _DTYPE_CODE[q.dtype], kv,
+        _stream_ptr(q.device))
+    _raise_if_failed(lib, rc, "ragged verify")
+    _count("ragged_verify", k_scale is not None)
     return out
 
 
@@ -264,23 +372,25 @@ def _ragged_prefill_cuda(q, k_pool, v_pool, page_row, q_start, n_real,
 # --------------------------------------------------------------------- #
 
 def ragged_paged_attention(q, k_pool, v_pool, page_table, lengths,
-                           scale=None):
+                           scale=None, k_scale=None, v_scale=None):
     """Decode attention for one new token per slot against the paged
     pool. q: (S, H, D); k_pool/v_pool: (P, H, page_size, D); page_table:
     (S, max_pages) int32 (dead entries 0 = null page); lengths: (S,)
-    int32 — live KV tokens INCLUDING the one just written. Returns
-    (S, H, D). CUDA tensors run the kernel, CPU tensors the plain
+    int32 — live KV tokens INCLUDING the one just written;
+    ``k_scale``/``v_scale`` (P,) f32 mark code pools. Returns (S, H, D)
+    in q's dtype. CUDA tensors run the kernel, CPU tensors the plain
     version."""
     sc = q.shape[-1] ** -0.5 if scale is None else float(scale)
     if q.is_cuda:
         return _ragged_decode_cuda(q, k_pool, v_pool, page_table, lengths,
-                                   sc)
+                                   sc, k_scale, v_scale)
     return ragged_attention_reference(q, k_pool, v_pool, page_table,
-                                      lengths, sc)
+                                      lengths, sc, k_scale, v_scale)
 
 
 def ragged_prefill_attention(q, k_pool, v_pool, page_row, q_start,
-                             n_real=None, scale=None):
+                             n_real=None, scale=None, k_scale=None,
+                             v_scale=None):
     """Chunked-prefill attention for ONE slot: C chunk queries at
     absolute positions ``q_start + i`` attend the slot's paged prefix
     plus the causal intra-chunk part. q: (C, H, D); page_row:
@@ -295,6 +405,34 @@ def ragged_prefill_attention(q, k_pool, v_pool, page_row, q_start,
     n = q.shape[0] if n_real is None else int(n_real)
     if q.is_cuda:
         return _ragged_prefill_cuda(q, k_pool, v_pool, page_row,
-                                    int(q_start), n, sc)
+                                    int(q_start), n, sc, k_scale, v_scale)
     return ragged_prefill_reference(q, k_pool, v_pool, page_row, q_start,
-                                    sc, n_real=n)
+                                    sc, n_real=n, k_scale=k_scale,
+                                    v_scale=v_scale)
+
+
+def ragged_verify_attention(q, k_pool, v_pool, page_table, lengths,
+                            draft_len=None, scale=None, k_scale=None,
+                            v_scale=None):
+    """Speculative-verify attention: W queries per slot, row r at
+    position ``lengths[s] - 1 + r`` attending keys ``[0, lengths[s] - 1
+    + r]`` (the paged prefix plus the causal part of the window). q:
+    (S, W, H, D); lengths: (S,) int32 = keys visible to row 0 (0 = dead
+    slot, exact zeros); ``draft_len`` (S,) int32 = each slot's real
+    draft count (default W - 1), the index of its last consumed row.
+    Returns (S, W, H, D).
+
+    PRECONDITION: K/V of every position a consumed row reads, [0,
+    lengths[s] + draft_len[s]), are written. The kernel selects V out
+    from ``lengths + draft_len`` — positions past it are unwritten this
+    step and a recycled page may hold NaN there — so rows past
+    ``draft_len`` are garbage by contract."""
+    sc = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    if draft_len is None:
+        draft_len = torch.full((q.shape[0],), q.shape[1] - 1,
+                               dtype=torch.int32, device=q.device)
+    if q.is_cuda:
+        return _ragged_verify_cuda(q, k_pool, v_pool, page_table, lengths,
+                                   draft_len, sc, k_scale, v_scale)
+    return ragged_verify_reference(q, k_pool, v_pool, page_table, lengths,
+                                   sc, k_scale, v_scale)

@@ -30,12 +30,25 @@ The port of ``incubator_mxnet_tpu/serve/engine.py``. Design:
     ``torch.Generator`` seeded from the request's key and the SEQUENCE
     POSITION of the sampled token, so draws are reproducible per request
     and independent of occupancy and chunking.
+  - SPECULATIVE DECODING (``spec_k``): the host drafts up to K tokens
+    per slot (n-gram prompt lookup, serve/draft.py, or ``draft_fn``);
+    one (S, W = K + 1) verify step writes the window's K/V, scores it
+    (``ragged_verify_attention`` — the CUDA verify kernel on the GPU)
+    and accepts on the device: greedy slots the longest prefix matching
+    the argmax chain, temperature slots by rejection sampling against
+    the constrained distribution. A step where no slot drafted runs the
+    W = 1 decode step itself.
+  - QUANTIZED KV CACHE (``kv_quant='int8'|'fp8_e4m3'``): pages hold
+    codes with one scale per page per pool; the host owns the per-page
+    amax (reset when a page is allocated, copied with a COW page), the
+    programs quantize at write time, and every ragged kernel
+    dequantizes as it reads.
 
 The JAX engine's jit-once programs and buffer donation become eager
 PyTorch here: the K/V pools are updated IN PLACE by every program
-(decode, prefill, the COW page copy). Speculative decoding, quantized
-KV pools, cache tiers, tp meshes, brownout, page transport and warm
-restart are not ported yet; asking for them raises ``MXNetError``.
+(decode, prefill, the COW page copy). Cache tiers, tp meshes, brownout,
+page transport and warm restart are not ported yet; asking for them
+raises ``MXNetError``.
 """
 
 from __future__ import annotations
@@ -53,13 +66,17 @@ from ..base import MXNetError
 from ..models.gpt import _lm_head, _mlp, _qkv_heads
 from ..ops.attention import scaled_dot_product_attention as _sdpa
 from ..ops.ragged_attention import (ragged_paged_attention,
-                                    ragged_prefill_attention)
+                                    ragged_prefill_attention,
+                                    ragged_verify_attention)
+from .draft import make_ngram_drafter
 from .events import EventType, resolve_recorder, terminal_fields
 from .outcomes import Outcome
 from .paged_kv import (NULL_PAGE, PageAllocator, PrefixIndex,
-                       init_kv_pools, write_prompt_kv, write_token_kv)
-from .sampling import (SamplingParams, constrain_logits, grammar_mask,
-                       match_stop)
+                       init_kv_pools, kv_quant_spec, page_scales,
+                       write_block_kv, write_block_kv_q, write_prompt_kv,
+                       write_prompt_kv_q, write_token_kv, write_token_kv_q)
+from .sampling import (_NEG_BIG, SamplingParams, constrain_logits,
+                       grammar_mask, match_stop)
 from .slo import Tier, TierPolicy, resolve_tier_policies
 
 __all__ = ["Request", "InferenceEngine", "Outcome", "Tier",
@@ -78,6 +95,17 @@ def _draw_seed(key: int, position: int) -> int:
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
     return (z ^ (z >> 31)) & ((1 << 63) - 1)
+
+
+_ACCEPT_SALT = 0x5851F42D4C957F2D
+
+
+def _accept_uniform(key: int, position: int) -> float:
+    """The speculative acceptance test's uniform in (0, 1) for the draft
+    at ``position`` of the stream keyed by ``key``: a second stream per
+    (key, position), independent of the Gumbel draws' generator seeds."""
+    z = _draw_seed(int(key) ^ _ACCEPT_SALT, position)
+    return ((z >> 10) + 0.5) * 2.0 ** -53
 
 
 @dataclasses.dataclass
@@ -100,7 +128,9 @@ class Request:
     slot mid-decode — the preempted request re-queues and resumes from
     its emitted suffix under the same sampling key). ``request_id`` is a
     process-unique handle for ``engine.cancel``. ``sampling`` carries
-    the sampling menu (serve/sampling.py)."""
+    the sampling menu (serve/sampling.py). ``drafted_tokens`` /
+    ``accepted_tokens`` count this request's speculative drafts and the
+    ones recorded."""
 
     prompt_ids: np.ndarray
     max_new_tokens: int = 32
@@ -114,6 +144,8 @@ class Request:
 
     # filled in by the engine
     preemptions: int = 0
+    drafted_tokens: int = 0
+    accepted_tokens: int = 0
     token_ids: List[int] = dataclasses.field(default_factory=list)
     token_times: List[float] = dataclasses.field(default_factory=list)
     token_stamps: List[float] = dataclasses.field(default_factory=list)
@@ -170,6 +202,8 @@ class _Slot:
     grammar_state: object = None  # current DFA state (host data)
     menu_active: bool = False    # request carries LOGIT-touching params
     stop_tail: list = dataclasses.field(default_factory=list)
+    spec_streak: int = 0         # consecutive fully-rejected draft
+                                 # windows (adaptive gating)
 
     @property
     def prefilling(self) -> bool:
@@ -212,19 +246,41 @@ class InferenceEngine:
       ``max_preemptions`` bounds how often one request is preempted
       before a PREEMPTED terminal;
     - ``recorder``: the flight recorder (on by default; False disables,
-      an existing FlightRecorder shares a timeline)."""
+      an existing FlightRecorder shares a timeline).
+
+    Speculative decoding:
+
+    - ``spec_k`` (default 0 = off): draft up to K tokens per slot per
+      step and verify all K + 1 positions in one step; greedy output is
+      the non-speculative output, temperature output keeps its
+      distribution (rejection sampling). A step accepts 1..K+1 tokens
+      per slot;
+    - ``draft_fn``: ``(history, k) -> int32[0..k]`` proposer; default
+      n-gram prompt lookup over the slot's own prompt + emitted tokens
+      (``serve.draft.ngram_propose``) of max order ``draft_ngram``;
+    - ``spec_patience`` / ``spec_probe_every``: a slot whose last
+      ``spec_patience`` windows were ALL rejected stops drafting (0
+      disables gating) and probes again every ``spec_probe_every``-th
+      decode step; a step where no slot drafted runs the W = 1 decode
+      step.
+
+    ``kv_quant`` (None, 'int8' or 'fp8_e4m3') stores every KV page as
+    codes with one symmetric scale per page per pool. A NaN scale makes
+    the attention output non-finite, so the guard quarantines the
+    slot."""
 
     def __init__(self, model, num_slots=8, page_size=16, max_len=None,
-                 num_pages=None, dtype=None, prefix_cache=True, chunk_pages=None, token_budget=None,
+                 num_pages=None, dtype=None, prefix_cache=True,
+                 chunk_pages=None, token_budget=None,
                  max_queue=None, max_queue_delay_s=None,
                  guard_nonfinite=True, watchdog_steps=1024,
                  max_slot_wall_s=None, stall_steps=500,
+                 spec_k=0, draft_fn=None, draft_ngram=3,
+                 spec_patience=2, spec_probe_every=64,
                  tier_policies=None, max_preemptions=4,
-                 recorder=None, component="engine", spec_k=0,
+                 recorder=None, component="engine",
                  kv_quant=None, kv_tiers=None, mesh=None, brownout=None):
-        for name, val, off in (("spec_k", spec_k, 0),
-                               ("kv_quant", kv_quant, None),
-                               ("kv_tiers", kv_tiers, None),
+        for name, val, off in (("kv_tiers", kv_tiers, None),
                                ("mesh", mesh, None),
                                ("brownout", brownout, None)):
             if val != off:
@@ -263,10 +319,33 @@ class InferenceEngine:
         H = model.num_heads
         D = model.units // H
         self._H, self._D = H, D
+        # quantized pools: the per-page amax is HOST-owned metadata (one
+        # (P,) f32 array per layer per pool), shipped to each program
+        # that writes pages and pulled back after it
+        self._kv_spec = kv_quant_spec(kv_quant)
+        self.kv_quant = self._kv_spec.name if self._kv_spec else None
         pools = init_kv_pools(model.num_layers, self.num_pages, H,
-                              self.page_size, D, self._dtype, self.device)
+                              self.page_size, D, self._dtype, self.device,
+                              quant=self._kv_spec)
         self._kpools = [k for k, _ in pools]
         self._vpools = [v for _, v in pools]
+        n_amax = model.num_layers if self._kv_spec is not None else 0
+        self._kamax = [np.zeros((self.num_pages,), np.float32)
+                       for _ in range(n_amax)]
+        self._vamax = [np.zeros((self.num_pages,), np.float32)
+                       for _ in range(n_amax)]
+
+        self.spec_k = int(spec_k)
+        if self.spec_k < 0:
+            raise MXNetError(f"spec_k must be >= 0, got {self.spec_k}")
+        if self.spec_k >= self.max_len:
+            raise MXNetError(f"spec_k {self.spec_k} >= max_len "
+                             f"{self.max_len}")
+        self._spec_w = self.spec_k + 1       # verify window (queries/slot)
+        self._draft_fn = draft_fn if draft_fn is not None \
+            else make_ngram_drafter(max_order=int(draft_ngram))
+        self.spec_patience = int(spec_patience)
+        self.spec_probe_every = max(1, int(spec_probe_every))
 
         # host-side occupancy state — data shipped to the device
         S = self.num_slots
@@ -283,6 +362,7 @@ class InferenceEngine:
         self._pres_pen = np.zeros((S,), np.float32)
         self._logit_bias = np.zeros((S, V), np.float32)
         self._tok_counts = np.zeros((S, V), np.int32)
+        self._mask_true: dict = {}   # W -> cached all-True (S, W, V) mask
         self._alloc = PageAllocator(self.num_pages)
         self._prefix = PrefixIndex(self.page_size) if prefix_cache \
             else None
@@ -310,6 +390,10 @@ class InferenceEngine:
         self.flight = resolve_recorder(recorder)
         self._component = str(component)
 
+        self.drafted_tokens = 0
+        self.accepted_tokens = 0
+        self.spec_steps = 0                  # steps run K + 1 wide
+        self.spec_gated_steps = 0            # steps gating kept narrow
         self.stop_hits = 0
         self.constrained_requests = 0
         self.decode_steps = 0
@@ -328,20 +412,23 @@ class InferenceEngine:
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device, dtype, non_blocking=True)
 
-    def _menu_ops(self, rows):
+    def _menu_ops(self, rows, mask=None):
         """Sampling-menu operands for the slots ``rows`` (device
         tensors), or None when none of them carries logit-touching
-        params — the plain path, value-identical by construction."""
+        params — the plain path, value-identical by construction.
+        ``mask`` is the (len(rows), W, V) vocabulary block; default the
+        grammar mask at each slot's current state (W = 1)."""
         if not any(self._slots[s] is not None and
                    self._slots[s].menu_active for s in rows):
             return None
-        mask = np.ones((len(rows), self._vocab), bool)
-        for i, s in enumerate(rows):
-            slot = self._slots[s]
-            sp = slot.request.sampling if slot is not None else None
-            if sp is not None and sp.grammar is not None:
-                mask[i] = grammar_mask(sp.grammar, slot.grammar_state,
-                                       slot.request.eos_id)
+        if mask is None:
+            mask = np.ones((len(rows), 1, self._vocab), bool)
+            for i, s in enumerate(rows):
+                slot = self._slots[s]
+                sp = slot.request.sampling if slot is not None else None
+                if sp is not None and sp.grammar is not None:
+                    mask[i, 0] = grammar_mask(sp.grammar, slot.grammar_state,
+                                              slot.request.eos_id)
         idx = np.asarray(rows)
         f32 = torch.float32
         return (self._tensor(self._tok_counts[idx], torch.int32),
@@ -352,45 +439,169 @@ class InferenceEngine:
                 self._tensor(self._rep_pen[idx], f32),
                 self._tensor(self._pres_pen[idx], f32))
 
-    def _sample(self, logits, temps, keys, positions, menu):
-        """One token per row of ``logits`` (N, V) f32: argmax at
-        temperature 0, else a Gumbel-max draw over logits / T from a
-        generator seeded by (request key, position of the sampled
-        token). With the non-finite guard on, a row with any non-finite
-        logit comes back sign-encoded (-t - 1). Returns host ints."""
-        bad = ~torch.isfinite(logits).all(dim=-1)
+    def _gumbel(self, key: int, position: int, V: int, device):
+        """The Gumbel noise of the categorical draw at ``position`` of
+        the stream keyed by ``key``: every program draws position p's
+        token from this same noise, so draws are reproducible per
+        request and independent of occupancy, chunking and speculation
+        depth."""
+        gen = torch.Generator(device=device)
+        gen.manual_seed(_draw_seed(key, position))
+        u = torch.rand(V, generator=gen, device=device)
+        return -torch.log(-torch.log(u))
+
+    def _accept_emit(self, logits, tokens, draft_len, temps, keys,
+                     positions, menu, act=None):
+        """Sampling and on-device draft acceptance for (S, W) columns.
+
+        ``logits`` (S, W, V) f32 scores the tokens at ``positions``
+        (S, W); ``tokens[:, 0]`` is each slot's last token and
+        ``tokens[:, 1:1 + draft_len]`` its drafts (column j + 1 proposed
+        for ``positions[:, j]``). Greedy slots accept the longest draft
+        prefix equal to the argmax chain — exactly what that many
+        sequential decode steps emit. Temperature slots accept draft d
+        with probability p(d) under the constrained, temperature-scaled
+        distribution (uniform: ``_accept_uniform``) and on rejection
+        draw from the residual, p with d's mass removed (Gumbel-max over
+        ``_gumbel``); the column with no draft draws from p itself, so
+        a 1-wide step samples exactly as plain decode. An empty
+        residual (one legal token) force-accepts. Penalty counts of
+        column j include the drafts at columns <= j.
+
+        With the guard on, a slot with a non-finite logit in a USED
+        column (j <= draft_len) comes back sign-encoded: column 0 reads
+        -t - 1. Returns host lists ``(emitted (S, W), n_emit (S,))``:
+        columns [0, n_emit) are the slot's tokens, later ones dead."""
+        S, W, V = logits.shape
+        dev = logits.device
+        tok = self._tensor(tokens)                            # (S, W)
+        dl = self._tensor(draft_len)                          # (S,)
+        jj = torch.arange(W, device=dev)[None, :]
+        used = jj <= dl[:, None]
+        bad = ((~torch.isfinite(logits).all(dim=-1)) & used).any(dim=-1)
         if menu is not None:
             counts, bias, mask, top_k, top_p, rep_pen, pres_pen = menu
+            oh = torch.nn.functional.one_hot(tok, V).to(torch.int32)
+            win_counts = counts[:, None, :] + oh.cumsum(dim=1) - oh[:, :1]
             logits = constrain_logits(
-                logits, self._tensor(temps, torch.float32), counts, bias,
-                mask, top_k, top_p, rep_pen, pres_pen)
-        tok = torch.argmax(logits, dim=-1)
-        V = logits.shape[-1]
-        for i, t in enumerate(temps):
-            if t > 0:
-                gen = torch.Generator(device=logits.device)
-                gen.manual_seed(_draw_seed(keys[i], positions[i]))
-                u = torch.rand(V, generator=gen, device=logits.device)
-                noise = -torch.log(-torch.log(u))
-                tok[i] = torch.argmax(
-                    logits[i].float() / max(float(t), 1e-6) + noise)
+                logits, self._tensor(temps, torch.float32)[:, None],
+                win_counts, bias[:, None, :], mask, top_k[:, None],
+                top_p[:, None], rep_pen[:, None], pres_pen[:, None])
+        greedy = torch.argmax(logits, dim=-1)                 # (S, W)
+        # column j tests the draft at tokens[:, j + 1] (the wrapped last
+        # column is never valid: draft_len <= W - 1)
+        d_next = torch.cat([tok[:, 1:], tok[:, :1]], dim=1)
+        valid = jj < dl[:, None]
+        accept = d_next == greedy
+        final = greedy
+        hot = [s for s in range(S) if temps[s] > 0]
+        if hot:
+            final = greedy.clone()
+            accept = accept.clone()
+            for s in hot:
+                scaled = logits[s].float() / max(float(temps[s]), 1e-6)
+                logp = torch.log_softmax(scaled, dim=-1)          # (W, V)
+                p_next = logp.gather(-1, d_next[s][:, None])[:, 0]
+                d_hot = torch.nn.functional.one_hot(d_next[s], V).bool()
+                res_empty = ~torch.where(d_hot, _NEG_BIG, logits[s]).gt(
+                    _NEG_BIG / 2).any(dim=-1)
+                u = self._tensor([_accept_uniform(keys[s], int(p))
+                                  for p in positions[s]], torch.float32)
+                accept[s] = (torch.log(u) < p_next) | res_empty
+                res = torch.where(d_hot & valid[s][:, None],
+                                  scaled + _NEG_BIG, scaled)
+                for j in range(int(draft_len[s]) + 1):
+                    final[s, j] = torch.argmax(res[j] + self._gumbel(
+                        keys[s], int(positions[s][j]), V, dev))
+        chain = torch.cumprod((accept & valid).to(torch.int32), dim=1)
+        n_acc = chain.sum(dim=1)
+        emitted = torch.where(jj < n_acc[:, None], d_next, final)
+        n_emit = n_acc + 1
+        if act is not None:
+            n_emit = torch.where(self._tensor(act, torch.bool), n_emit, 0)
         if self.guard_nonfinite:
-            tok = torch.where(bad, -tok - 1, tok)
-        return tok.tolist()
+            emitted = torch.where(bad[:, None], -emitted - 1, emitted)
+        out = torch.cat([emitted, n_emit[:, None]], dim=1).tolist()
+        return [r[:W] for r in out], [r[W] for r in out]
+
+    def _sample_one(self, logits, slot_idx: int, position: int) -> int:
+        """The first generated token of a prefill program: a 1-wide
+        ``_accept_emit`` over logits (1, V) at ``position``."""
+        slot = self._slots[slot_idx]
+        emitted, _ = self._accept_emit(
+            logits[:, None], np.zeros((1, 1), np.int64),
+            np.zeros((1,), np.int64), [slot.request.temperature],
+            [slot.key], [[position]], self._menu_ops([slot_idx]))
+        return emitted[0][0]
+
+    def _amax_dev(self):
+        """The host amax metadata on the device, K layers then V layers
+        ((2 * num_layers, P) f32) — one copy per program."""
+        return self._tensor(np.stack(self._kamax + self._vamax),
+                            torch.float32)
+
+    def _pull_amax(self, rows):
+        """Take host ownership back of the amax rows a program updated
+        (one device-to-host copy)."""
+        a = torch.stack(rows).cpu().numpy()
+        L = len(self._kamax)
+        self._kamax = [a[i].copy() for i in range(L)]
+        self._vamax = [a[L + i].copy() for i in range(L)]
+
+    def _write_kv(self, i, k, v, pages, offs, amax, new_amax):
+        """Write layer ``i``'s K/V: whole prompt pages when ``offs`` is
+        None, else one row per (page, offset) entry — (N, H, D) rows, or
+        a (S, W, H, D) block. A code pool grows its amax rows ``amax[i]``
+        (K) and ``amax[L + i]`` (V) into ``new_amax``. Returns the pools
+        and the per-page scales the attention reads (None for raw
+        pools)."""
+        spec = self._kv_spec
+        L = len(self._kpools)
+        if offs is None:
+            write, write_q, where = write_prompt_kv, write_prompt_kv_q, ()
+        elif k.dim() == 4:
+            write, write_q, where = write_block_kv, write_block_kv_q, (offs,)
+        else:
+            write, write_q, where = write_token_kv, write_token_kv_q, (offs,)
+        out, scales = [], []
+        for row, pool, x in ((i, self._kpools[i], k),
+                             (L + i, self._vpools[i], v)):
+            if spec is None:
+                out.append(write(pool, x, pages, *where))
+                scales.append(None)
+                continue
+            pool, new_amax[row] = write_q(pool, amax[row], x, pages, *where,
+                                          spec)
+            out.append(pool)
+            scales.append(page_scales(new_amax[row], spec))
+        return out[0], out[1], scales[0], scales[1]
+
+    def _attn_dtype(self, pool):
+        """q's dtype for the ragged kernels: the pool's for a raw pool,
+        the engine's for a code pool."""
+        return self._dtype if self._kv_spec is not None else pool.dtype
 
     @torch.no_grad()
-    def _decode_program(self, tokens, table, lengths, live):
-        """ONE decode step for every slot: embed the last token of each
-        live slot, write its K/V at position ``lengths[s]``, run ragged
-        paged attention, sample position ``lengths[s] + 1``. Dead slots
-        (length 0) write to the null page and attend nothing. Returns
-        the sign-encoded tokens (host list, one per slot)."""
+    def _decode_program(self, tokens, draft_len, table, lengths, live,
+                        drafts):
+        """ONE decode/verify step for every slot: W = tokens.shape[1]
+        token positions per slot — the last token plus up to W - 1
+        drafts — embedded, their K/V written at ``lengths[s] + j`` (the
+        used columns; padded columns and dead slots write to the null
+        page), attended, and accepted (``_accept_emit``). W = 1 is the
+        plain decode step: the decode kernel; W > 1 the verify kernel.
+        Returns host lists ``(emitted (S, W), n_emit (S,))``."""
         model = self.model
         S, ps = self.num_slots, self.page_size
+        W = tokens.shape[1]
         act = lengths > 0
-        pos = lengths.astype(np.int64)
+        jj = np.arange(W)[None, :]
+        pos = lengths.astype(np.int64)[:, None] + jj          # (S, W)
+        used = jj <= draft_len[:, None]
         page_idx = np.clip(pos // ps, 0, self.max_pages - 1)
-        write_page = np.where(act, table[np.arange(S), page_idx], NULL_PAGE)
+        write_page = np.where(act[:, None] & used,
+                              np.take_along_axis(table, page_idx, axis=1),
+                              NULL_PAGE)
         host = np.stack([tokens.astype(np.int64),
                          np.minimum(pos, model.max_length - 1),
                          write_page, pos % ps])
@@ -398,53 +609,79 @@ class InferenceEngine:
         tok_d, emb_pos, wpage, woff = dev[0], dev[1], dev[2], dev[3]
         table_d = self._tensor(table, torch.int32)
         eff_len = self._tensor(np.where(act, lengths + 1, 0), torch.int32)
+        dl_d = self._tensor(draft_len, torch.int32)
+        amax = self._amax_dev() if self._kv_spec is not None else None
+        new_amax = [None] * (2 * len(self._kamax))
 
-        x = model.embed(tok_d[:, None], emb_pos[:, None])   # (S, 1, U)
+        x = model.embed(tok_d, emb_pos)                       # (S, W, U)
         for i, blk in enumerate(model.blocks):
-            q, k, v = _qkv_heads(blk.attn, blk.ln1(x))       # (S,1,H,D)
-            kp = write_token_kv(self._kpools[i], k[:, 0], wpage, woff)
-            vp = write_token_kv(self._vpools[i], v[:, 0], wpage, woff)
-            out = ragged_paged_attention(
-                q[:, 0].to(kp.dtype).contiguous(), kp, vp, table_d,
-                eff_len)
-            x = x + blk.attn.proj(out.to(x.dtype).reshape(S, 1,
+            q, k, v = _qkv_heads(blk.attn, blk.ln1(x))        # (S,W,H,D)
+            kp, vp, ks, vs = self._write_kv(i, k, v, wpage, woff, amax,
+                                            new_amax)
+            q = q.to(self._attn_dtype(kp))
+            if W == 1:
+                out = ragged_paged_attention(
+                    q[:, 0].contiguous(), kp, vp, table_d, eff_len,
+                    k_scale=ks, v_scale=vs)[:, None]
+            else:
+                out = ragged_verify_attention(
+                    q.contiguous(), kp, vp, table_d, eff_len, dl_d,
+                    k_scale=ks, v_scale=vs)
+            x = x + blk.attn.proj(out.to(x.dtype).reshape(S, W,
                                                           model.units))
             x = x + _mlp(blk, x)
-        logits = _lm_head(model, x)[:, 0]                    # (S, V)
+        if amax is not None:
+            self._pull_amax(new_amax)
+        logits = _lm_head(model, x)                           # (S, W, V)
         keys = [self._slots[s].key if s in live else 0 for s in range(S)]
         temps = [float(self._temps[s]) if s in live else 0.0
                  for s in range(S)]
-        return self._sample(logits, temps, keys, (pos + 1).tolist(),
-                            self._menu_ops(list(range(S))))
+        menu = self._menu_ops(list(range(S)),
+                              self._mask_block(drafts, W, live))
+        return self._accept_emit(logits, tokens, draft_len, temps, keys,
+                                 pos + 1, menu, act)
 
     @torch.no_grad()
     def _prefill_program(self, slot_idx: int) -> int:
         """Monolithic prompt forward for ONE slot: dense causal attention
         inside the prompt, K/V written into the slot's pages, the first
-        generated token sampled at position t0."""
+        generated token sampled at position t0. A code pool quantizes
+        each prompt page at a fresh scale over the page's whole rows:
+        the forward then runs page-padded (pad token 0, pad queries see
+        the real keys only), as the JAX engine's bucketed program does,
+        so the last page's scale covers the same rows."""
         slot = self._slots[slot_idx]
         model = self.model
         t0, ps = slot.t0, self.page_size
         n_pages = -(-t0 // ps)
-        ids = self._tensor(slot.attempt_ids)[None]
-        pos = torch.arange(t0, device=self.device)[None]
+        T = t0 if self._kv_spec is None else n_pages * ps
+        ids = np.zeros((T,), np.int64)
+        ids[:t0] = slot.attempt_ids
+        ids = self._tensor(ids)[None]
+        pos = torch.arange(T, device=self.device).clamp(
+            max=model.max_length - 1)[None]
         pages = self._tensor(slot.row[:n_pages])
-        pad = n_pages * ps - t0
+        pad = n_pages * ps - T
+        mask = None
+        if T > t0:
+            ar = torch.arange(T, device=self.device)
+            mask = ((ar[None, :] <= ar[:, None]) &
+                    (ar[None, :] < t0))[None, None]
+        amax = self._amax_dev() if self._kv_spec is not None else None
+        new_amax = [None] * (2 * len(self._kamax))
         x = model.embed(ids, pos)
         for i, blk in enumerate(model.blocks):
-            q, k, v = _qkv_heads(blk.attn, blk.ln1(x))       # (1,t0,H,D)
-            write_prompt_kv(self._kpools[i],
-                            torch.nn.functional.pad(k[0], (0, 0, 0, 0,
-                                                           0, pad)), pages)
-            write_prompt_kv(self._vpools[i],
-                            torch.nn.functional.pad(v[0], (0, 0, 0, 0,
-                                                           0, pad)), pages)
-            out = _sdpa(q, k, v, causal=True)
-            x = x + blk.attn.proj(out.reshape(1, t0, model.units))
+            q, k, v = _qkv_heads(blk.attn, blk.ln1(x))        # (1,T,H,D)
+            kpad = torch.nn.functional.pad(k[0], (0, 0, 0, 0, 0, pad))
+            vpad = torch.nn.functional.pad(v[0], (0, 0, 0, 0, 0, pad))
+            self._write_kv(i, kpad, vpad, pages, None, amax, new_amax)
+            out = _sdpa(q, k, v, mask=mask, causal=mask is None)
+            x = x + blk.attn.proj(out.reshape(1, T, model.units))
             x = x + _mlp(blk, x)
+        if amax is not None:
+            self._pull_amax(new_amax)
         logits = _lm_head(model, x[:, t0 - 1:t0])[:, 0]      # (1, V)
-        return self._sample(logits, [slot.request.temperature], [slot.key],
-                            [t0], self._menu_ops([slot_idx]))[0]
+        return self._sample_one(logits, slot_idx, t0)
 
     @torch.no_grad()
     def _chunk_program(self, slot_idx: int, start: int, n: int) -> int:
@@ -464,27 +701,44 @@ class InferenceEngine:
         dev = self._tensor(host)
         ids, pos_d, tpage, toff = dev[0], dev[1], dev[2], dev[3]
         row = self._tensor(slot.row, torch.int32)
+        amax = self._amax_dev() if self._kv_spec is not None else None
+        new_amax = [None] * (2 * len(self._kamax))
         x = model.embed(ids[None], pos_d[None])
         for i, blk in enumerate(model.blocks):
             q, k, v = _qkv_heads(blk.attn, blk.ln1(x))       # (1,n,H,D)
-            kp = write_token_kv(self._kpools[i], k[0], tpage, toff)
-            vp = write_token_kv(self._vpools[i], v[0], tpage, toff)
-            out = ragged_prefill_attention(q[0].to(kp.dtype).contiguous(),
-                                           kp, vp, row, start, n)
+            kp, vp, ks, vs = self._write_kv(i, k[0], v[0], tpage, toff,
+                                            amax, new_amax)
+            out = ragged_prefill_attention(
+                q[0].to(self._attn_dtype(kp)).contiguous(), kp, vp, row,
+                start, n, k_scale=ks, v_scale=vs)
             x = x + blk.attn.proj(out.to(x.dtype).reshape(1, n,
                                                           model.units))
             x = x + _mlp(blk, x)
+        if amax is not None:
+            self._pull_amax(new_amax)
         logits = _lm_head(model, x[:, n - 1:n])[:, 0]        # (1, V)
-        return self._sample(logits, [slot.request.temperature], [slot.key],
-                            [start + n], self._menu_ops([slot_idx]))[0]
+        return self._sample_one(logits, slot_idx, start + n)
 
     @torch.no_grad()
     def _copy_page(self, src: int, dst: int):
         """COW boundary copy: duplicate one page's K/V across every
         layer, so the cached partial page becomes this slot's private
-        page (the cached original stays read-only for its sharers)."""
+        page (the cached original stays read-only for its sharers). A
+        code page carries its scale: the amax is page metadata."""
         for p in self._kpools + self._vpools:
             p[dst] = p[src]
+        for a in self._kamax + self._vamax:
+            a[dst] = a[src]
+
+    def _reset_page_amax(self, pages):
+        """Zero the scale metadata of freshly allocated pages: a recycled
+        page must not quantize its new owner's rows against the previous
+        owner's range (a quarantined slot's NaN scale included)."""
+        if not self._kamax or not pages:
+            return
+        idx = np.asarray(list(pages), np.int64)
+        for a in self._kamax + self._vamax:
+            a[idx] = 0.0
 
     # ------------------------------------------------------------- #
     # host-side scheduler
@@ -598,11 +852,21 @@ class InferenceEngine:
             "estimated_queue_delay_priority_s":
                 self._estimated_queue_delay(Tier.STANDARD),
             "free_pages": self._alloc.free_count,
-            "kv_dtype": str(self._kpools[0].dtype),
-            "kv_pool_bytes": int(sum(
-                k.nelement() * k.element_size() * 2
-                for k in self._kpools)),
+            # the KV pool's capacity surface: payload dtype and the bytes
+            # the cache pins, scale metadata included
+            "kv_dtype": str(self._kpools[0].dtype).replace("torch.", ""),
+            "kv_quant": self.kv_quant or "off",
+            "kv_pool_bytes": int(
+                sum(p.nelement() * p.element_size()
+                    for p in self._kpools + self._vpools) +
+                sum(a.nbytes for a in self._kamax + self._vamax)),
+            "kv_quantized_pages": (
+                self.num_pages - 1 - self._alloc.free_count
+                if self._kv_spec is not None else 0),
             "decode_steps": self.decode_steps,
+            "drafted_tokens": self.drafted_tokens,
+            "accepted_tokens": self.accepted_tokens,
+            "accept_rate": self.accept_rate,
             "prefix_hits": self.prefix_hits,
             "prefix_lookups": self.prefix_lookups,
             "prefix_hit_tokens": self.prefix_hit_tokens,
@@ -742,6 +1006,13 @@ class InferenceEngine:
             return False
         self._queue.append(request)
         return True
+
+    @property
+    def accept_rate(self) -> float:
+        """Fraction of drafted tokens the verify step accepted (0.0 when
+        the engine never drafted)."""
+        return self.accepted_tokens / self.drafted_tokens \
+            if self.drafted_tokens else 0.0
 
     def _finish_token(self, slot_idx: int, token: int,
                       dt: float) -> Optional[Outcome]:
@@ -997,6 +1268,7 @@ class InferenceEngine:
         self.withdraw(req)
         priv = [self._alloc.alloc()
                 for _ in range(prompt_pages - len(shared))]
+        self._reset_page_amax(priv)          # fresh pages, fresh scales
         row = np.zeros((self.max_pages,), np.int32)
         row[:len(shared)] = shared
         row[len(shared):prompt_pages] = priv
@@ -1164,82 +1436,247 @@ class InferenceEngine:
                                            spent)
         return spent
 
-    def _ensure_tail_pages(self) -> List[int]:
-        """Lazily allocate the page each decode-ready slot's next write
-        position needs — where cache memory tracks live tokens. A slot
-        whose tail page cannot be allocated (pool starved even after
-        reclaiming prefix retention) is STALLED: it sits this step out
-        (masked to length 0 with a NULL page row) and the watchdog
+    def _propose_drafts(self):
+        """Host-side drafting: up to ``spec_k`` tokens per decode-ready
+        slot from its own prompt + emitted history, capped at
+        ``max_new_tokens - emitted - 1`` so accepted output never
+        exceeds the request's budget (which keeps every window write
+        inside the admission-time page reservation). A custom
+        ``draft_fn``'s out-of-vocab proposal is cut at the first invalid
+        token; a grammar-constrained slot's drafts are cut at the first
+        token the grammar forbids (a sure rejection) or after EOS.
+
+        Adaptive gating: a slot whose last ``spec_patience`` windows were
+        all rejected is skipped, probing again on every
+        ``spec_probe_every``-th decode step (all gated slots on the same
+        step). Returns ``(drafts, gated)``: {slot: int32 drafts}, and
+        whether gating suppressed at least one slot."""
+        drafts: dict = {}
+        gated = False
+        if self.spec_k == 0:
+            return drafts, gated
+        vocab = self.model.vocab_size
+        probe = self.spec_patience == 0 or \
+            self.decode_steps % self.spec_probe_every == 0
+        for s in range(self.num_slots):
+            slot = self._slots[s]
+            if slot is None or slot.prefilling:
+                continue
+            req = slot.request
+            kmax = min(self.spec_k,
+                       req.max_new_tokens - len(req.token_ids) - 1)
+            if kmax <= 0:
+                continue
+            if not probe and slot.spec_streak >= self.spec_patience > 0:
+                gated = True
+                continue
+            hist = np.concatenate([req.prompt_ids,
+                                   np.asarray(req.token_ids, np.int32)])
+            d = np.asarray(self._draft_fn(hist, kmax),
+                           np.int32).reshape(-1)[:kmax]
+            oob = np.nonzero((d < 0) | (d >= vocab))[0]
+            if oob.size:
+                d = d[:oob[0]]
+            sp = req.sampling
+            if d.size and sp is not None and sp.grammar is not None:
+                st = slot.grammar_state
+                keep = 0
+                for t in d:
+                    t = int(t)
+                    if not grammar_mask(sp.grammar, st, req.eos_id)[t]:
+                        break
+                    keep += 1
+                    if t == req.eos_id:
+                        break            # drafting past EOS is waste
+                    nxt = sp.grammar.advance(st, t)
+                    if nxt is None:
+                        break
+                    st = nxt
+                d = d[:keep]
+            if d.size:
+                drafts[s] = d
+        return drafts, gated
+
+    def _ensure_tail_pages(self, drafts=None) -> List[int]:
+        """Lazily allocate the pages the NEXT write positions need —
+        where cache memory tracks live tokens. A slot drafting d tokens
+        writes positions [L, L + d] this step, so every page of that
+        window is mapped up front. The FIRST page (position L) keeps the
+        stall semantics: without it the slot cannot advance. Failing to
+        map a LATER window page only truncates the slot's drafts (in
+        place in ``drafts``): speculation degrades under page pressure,
+        never into a stall plain decode would not have had.
+
+        A slot whose tail page cannot be allocated (pool starved even
+        after reclaiming prefix retention) is STALLED: it sits this step
+        out (masked to length 0 with a NULL page row) and the watchdog
         evicts it FAILED_UNSERVABLE after ``watchdog_steps``."""
+        drafts = {} if drafts is None else drafts
         ps = self.page_size
         stalled: List[int] = []
         for s in range(self.num_slots):
             slot = self._slots[s]
             if slot is None or slot.prefilling:
                 continue
-            pi = int(self._lengths[s]) // ps
-            if self._page_table[s, pi] == NULL_PAGE:
+            L = int(self._lengths[s])
+            d = drafts.get(s)
+            dlen = 0 if d is None else int(d.size)
+            first_pi = L // ps
+            mapped_through = first_pi - 1
+            starved = False
+            for pi in range(first_pi, (L + dlen) // ps + 1):
+                if self._page_table[s, pi] != NULL_PAGE:
+                    mapped_through = pi
+                    continue
                 if self._alloc.free_count == 0 and \
                         self._prefix is not None:
                     self.prefix_reclaimed_pages += \
                         self._prefix.reclaim(1, self._alloc)
                 if self._alloc.free_count == 0:
-                    slot.stall_count += 1
-                    if slot.stall_count > self.watchdog_steps:
-                        self._evict(s, Outcome.FAILED_UNSERVABLE,
-                                    f"watchdog: tail page starved for "
-                                    f"{slot.stall_count} steps")
-                    else:
-                        stalled.append(s)
-                    continue
+                    if pi == first_pi:
+                        slot.stall_count += 1
+                        if slot.stall_count > self.watchdog_steps:
+                            self._evict(s, Outcome.FAILED_UNSERVABLE,
+                                        f"watchdog: tail page starved for "
+                                        f"{slot.stall_count} steps")
+                        else:
+                            stalled.append(s)
+                        starved = True
+                    break
                 page = self._alloc.alloc()
+                self._reset_page_amax((page,))   # fresh page, fresh scale
                 self._page_table[s, pi] = page
                 slot.row[pi] = page
                 slot.refs.append(page)
+                mapped_through = pi
+            if starved:
+                drafts.pop(s, None)
+                continue
             slot.stall_count = 0
+            if dlen:                             # clip to the mapped window
+                cap = (mapped_through + 1) * ps - 1 - L
+                if cap < dlen:
+                    if cap <= 0:
+                        drafts.pop(s, None)
+                    else:
+                        drafts[s] = d[:cap]
         return stalled
+
+    def _mask_block(self, drafts: dict, W: int, live) -> np.ndarray:
+        """The (S, W, V) vocabulary mask of a decode step: column j of a
+        grammar-constrained slot is masked at the grammar state AFTER
+        its drafts at columns <= j, so every verify column is
+        constrained as the sequential decode at that position would be.
+        Grammar-free steps reuse one cached all-True block per width."""
+        gslots = [s for s in live
+                  if self._slots[s].request.sampling is not None and
+                  self._slots[s].request.sampling.grammar is not None]
+        if not gslots:
+            m = self._mask_true.get(W)
+            if m is None:
+                m = self._mask_true[W] = np.ones(
+                    (self.num_slots, W, self._vocab), bool)
+            return m
+        m = np.ones((self.num_slots, W, self._vocab), bool)
+        for s in gslots:
+            slot = self._slots[s]
+            sp = slot.request.sampling
+            eos = slot.request.eos_id
+            st = slot.grammar_state
+            m[s, 0] = grammar_mask(sp.grammar, st, eos)
+            for j, t in enumerate(drafts.get(s, ())):
+                t = int(t)
+                if t == eos:
+                    break                    # later columns are dead
+                nxt = sp.grammar.advance(st, t)
+                if nxt is not None:
+                    st = nxt
+                if j + 1 < W:
+                    m[s, j + 1] = grammar_mask(sp.grammar, st, eos)
+        return m
 
     def step(self) -> int:
         """Enforce deadlines, admit, advance chunked prefill under the
-        token budget, then run ONE decode step for all decode-ready
-        slots (each advances one token). Returns the number of slots
-        that advanced."""
+        token budget, then run ONE decode/verify step for all
+        decode-ready slots: each live slot advances 1..spec_k+1 tokens
+        (exactly 1 when speculation is off, found no draft, or every
+        draft missed). Returns the number of slots that advanced."""
         self._expire_queue()
         self._expire_slots()
         self._admit()
         if self.chunk_pages is not None:
             self._advance_prefill()
-        stalled = self._ensure_tail_pages()
+        drafts, gated = self._propose_drafts()
+        stalled = self._ensure_tail_pages(drafts)
         live = [s for s in range(self.num_slots)
                 if self._slots[s] is not None
                 and not self._slots[s].prefilling and s not in stalled]
         if not live:
             return 0
-        tokens = np.zeros((self.num_slots,), np.int32)
+        # width routing: a step where NO slot drafted runs the W = 1
+        # decode step, so gated / zero-draft traffic pays no verify width
+        W = self._spec_w if drafts else 1
+        if W > 1:
+            self.spec_steps += 1
+        elif gated:
+            self.spec_gated_steps += 1
+        tokens = np.zeros((self.num_slots, W), np.int32)
+        draft_len = np.zeros((self.num_slots,), np.int32)
         for s in live:
-            tokens[s] = self._slots[s].request.token_ids[-1]
+            tokens[s, 0] = self._slots[s].request.token_ids[-1]
+            d = drafts.get(s)
+            if d is not None:
+                tokens[s, 1:1 + d.size] = d
+                draft_len[s] = d.size
         lengths = self._lengths.copy()
         table = self._page_table.copy()
         for s in stalled:                    # decode-invisible this step
             lengths[s] = 0
             table[s, :] = NULL_PAGE
         t_start = time.perf_counter()
-        # the one designed host readback per step: the sampled tokens
-        emitted = self._decode_program(tokens, table, lengths, live)
+        # the one designed host readback per step: tokens and counts
+        emitted, n_emit = self._decode_program(tokens, draft_len, table,
+                                               lengths, live, drafts)
         for s in live:
-            self._lengths[s] += 1
+            self._lengths[s] += n_emit[s]
         dt = time.perf_counter() - t_start
         self.decode_steps += 1
         self.flight.emit(self._component, EventType.DECODE_STEP,
-                         ts=t_start, step=self.decode_steps, width=1,
+                         ts=t_start, step=self.decode_steps, width=W,
                          live=len(live), dur_s=dt)
         for s in live:
-            if emitted[s] < 0:               # sign-encoded guard flag
+            if emitted[s][0] < 0:            # sign-encoded guard flag
+                # poisoned step: NOTHING of it is recorded, accepted
+                # drafts included (they were scored by non-finite math)
                 self._quarantine(s, "non-finite logits in decode")
                 continue
-            done = self._finish_token(s, emitted[s], dt)
-            if done is not None:
-                self._evict(s, done)
+            slot = self._slots[s]
+            req = slot.request
+            d = int(draft_len[s])
+            n = n_emit[s]
+            if d:
+                self.drafted_tokens += d
+                req.drafted_tokens += d
+                # gating signal: a fully rejected window grows the
+                # streak, any acceptance resets it
+                slot.spec_streak = 0 if n > 1 else slot.spec_streak + 1
+            per_tok = dt / max(n, 1)
+            recorded = 0
+            for i in range(n):
+                done = self._finish_token(s, emitted[s][i], per_tok)
+                recorded += 1
+                if done is not None:
+                    # EOS (or a stop) inside the accepted window: the
+                    # later tokens are dropped, as sequential decode
+                    # would never have made them
+                    self._evict(s, done)
+                    break
+            if d:
+                # columns [0, n - 1) are drafts, n - 1 the bonus or
+                # correction; count only accepted drafts RECORDED
+                kept = min(recorded, n - 1)
+                self.accepted_tokens += kept
+                req.accepted_tokens += kept
         return len(live)
 
     # ------------------------------------------------------------- #

@@ -1,7 +1,7 @@
 """Paged KV cache: a shared page pool + host-side page allocator.
 
-The port of ``incubator_mxnet_tpu/serve/paged_kv.py`` (unquantized
-pools). Layout, one pool pair per transformer layer:
+The port of ``incubator_mxnet_tpu/serve/paged_kv.py``. Layout, one
+pool pair per transformer layer:
 
     k_pool / v_pool : (num_pages, H, page_size, D)
 
@@ -28,6 +28,9 @@ Invariants (enforced by the engine, asserted in tests):
 ``PageAllocator`` and ``PrefixIndex`` are host-side Python (the port's
 own copy of the JAX package's); the pool writers are in-place PyTorch
 index writes — the pools are updated where they lie, never copied.
+Quantized pools (``kv_quant_spec``) hold int8 / float8 codes with one
+scale per page; their writers (``write_*_kv_q``) also return the
+updated per-page amax.
 """
 
 from __future__ import annotations
@@ -39,11 +42,15 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from ..ops.quantization import (quantize_symmetric, requantize_symmetric,
+                                symmetric_scale)
 
 NULL_PAGE = 0
 
 __all__ = ["NULL_PAGE", "PageAllocator", "PrefixIndex", "init_kv_pools",
-           "write_token_kv", "write_prompt_kv", "write_block_kv"]
+           "write_token_kv", "write_prompt_kv", "write_block_kv",
+           "KVQuantSpec", "kv_quant_spec", "page_scales",
+           "write_token_kv_q", "write_prompt_kv_q", "write_block_kv_q"]
 
 
 class PageAllocator:
@@ -360,11 +367,118 @@ class PrefixIndex:
 
 
 def init_kv_pools(num_layers, num_pages, num_heads, page_size, head_dim,
-                  dtype=torch.float32, device=None):
-    """Fresh zeroed (k_pool, v_pool) pairs, one per layer."""
+                  dtype=torch.float32, device=None, quant=None):
+    """Fresh zeroed (k_pool, v_pool) pairs, one per layer; ``quant`` (a
+    ``KVQuantSpec``) makes them code pools of its payload dtype."""
+    dt = dtype if quant is None else quant.dtype
     mk = lambda: torch.zeros(num_pages, num_heads, page_size, head_dim,
-                             dtype=dtype, device=device)
+                             dtype=dt, device=device)
     return [(mk(), mk()) for _ in range(num_layers)]
+
+
+# --------------------------------------------------------------------- #
+# quantized pools: int8 / float8 codes in the same (P, H, ps, D) layout,
+# plus ONE f32 absolute-max statistic per page per pool (``amax``, (P,)),
+# from which the page's symmetric scale derives (``page_scales``). A
+# page's scale only grows: a write that raises its amax requantizes the
+# page's existing codes by old_scale / new_scale, then quantizes the new
+# rows at the new scale. The engine owns the amax arrays on the host,
+# resets a page's amax when the allocator hands the page out, and copies
+# it with a copy-on-write page.
+# --------------------------------------------------------------------- #
+
+@dataclasses.dataclass(frozen=True)
+class KVQuantSpec:
+    """One quantized-KV flavour: the pool payload dtype and its
+    saturation bound (int8: +-127; fp8_e4m3: +-448)."""
+    name: str
+    dtype: torch.dtype
+    qmax: float
+
+
+def kv_quant_spec(kv_quant) -> Optional[KVQuantSpec]:
+    """Resolve an engine's ``kv_quant`` knob: None/'none' -> None
+    (unquantized pools), 'int8' -> int8 codes, 'fp8_e4m3' ->
+    ``torch.float8_e4m3fn`` codes."""
+    if kv_quant is None or kv_quant == "none":
+        return None
+    if isinstance(kv_quant, KVQuantSpec):
+        return kv_quant
+    if kv_quant == "int8":
+        return KVQuantSpec("int8", torch.int8, 127.0)
+    if kv_quant == "fp8_e4m3":
+        return KVQuantSpec("fp8_e4m3", torch.float8_e4m3fn, 448.0)
+    raise MXNetError(f"kv_quant must be None|'int8'|'fp8_e4m3', got "
+                     f"{kv_quant!r}")
+
+
+def page_scales(amax, spec: KVQuantSpec):
+    """(P,) per-page dequantization scales from the amax metadata."""
+    return symmetric_scale(amax, spec.qmax)
+
+
+def _raw(pool):
+    """The pool's bytes for index reads and writes (float8 indexing is
+    not implemented on every device; a byte view moves the same bits)."""
+    return pool.view(torch.uint8) if pool.dtype.is_floating_point else pool
+
+
+def write_token_kv_q(pool, amax, new, pages, offsets, spec: KVQuantSpec):
+    """Quantized twin of ``write_token_kv``: scatter one K (or V) row per
+    entry into a code pool (in place) and grow the per-page scales.
+
+    pool: (P, H, ps, D) codes; amax: (P,) f32 tensor; new: (N, H, D)
+    float; pages/offsets: (N,) int64. Returns ``(pool, new_amax)``.
+
+    Three phases, safe under duplicate page indices (the verify window's
+    block write lands several rows in one page):
+      1. scatter-max the rows' |max| into the amax (duplicates combine,
+         and a NaN on either side propagates);
+      2. requantize every TOUCHED page's codes by old / new scale —
+         duplicate entries gather the same codes and scale, so they
+         write identical pages whatever the scatter order;
+      3. quantize the new rows at the final scale and scatter them to
+         their (page, offset) cells."""
+    a_n = new.float().abs().amax(dim=(1, 2))                     # (N,)
+    new_amax = amax.scatter_reduce(0, pages, a_n, "amax")
+    old_s = symmetric_scale(amax, spec.qmax)
+    new_s = symmetric_scale(new_amax, spec.qmax)
+    ratio = (old_s / new_s)[pages]                               # (N,)
+    raw = _raw(pool)
+    codes = raw[pages].view(pool.dtype)
+    raw[pages] = _raw(requantize_symmetric(
+        codes, ratio[:, None, None, None], spec.dtype, spec.qmax))
+    q = quantize_symmetric(new, new_s[pages][:, None, None], spec.dtype,
+                           spec.qmax)                            # (N, H, D)
+    raw[pages, :, offsets] = _raw(q)
+    return pool, new_amax
+
+
+def write_block_kv_q(pool, amax, new, pages, offsets, spec: KVQuantSpec):
+    """Quantized twin of ``write_block_kv``: a (S, W) block of rows
+    flattened into ``write_token_kv_q``."""
+    S, W, H, D = new.shape
+    return write_token_kv_q(pool, amax, new.reshape(S * W, H, D),
+                            pages.reshape(S * W), offsets.reshape(S * W),
+                            spec)
+
+
+def write_prompt_kv_q(pool, amax, kv, pages, spec: KVQuantSpec):
+    """Quantized twin of ``write_prompt_kv``: a whole prompt's K (or V)
+    into its pages with a FRESH per-page scale (prefill is a page's
+    first write, so its amax is set, not grown). Dead entries index the
+    null page, garbage by design. Returns ``(pool, new_amax)``."""
+    n_pages = pages.shape[0]
+    ps = pool.shape[2]
+    paged = kv.float().reshape(n_pages, ps, kv.shape[1], kv.shape[2])
+    a_p = paged.abs().amax(dim=(1, 2, 3))                        # (n_pages,)
+    new_amax = amax.clone()
+    new_amax[pages] = a_p
+    s = symmetric_scale(a_p, spec.qmax)
+    q = quantize_symmetric(paged, s[:, None, None, None], spec.dtype,
+                           spec.qmax)
+    _raw(pool)[pages] = _raw(q.permute(0, 2, 1, 3))   # (n_pages, H, ps, D)
+    return pool, new_amax
 
 
 def write_token_kv(pool, new, pages, offsets):
@@ -376,10 +490,7 @@ def write_token_kv(pool, new, pages, offsets):
     inactive slots carry ``NULL_PAGE``) and chunked prefill (one row
     per chunk token; padded tokens carry ``NULL_PAGE``) — dead writes
     land in the null page, never read unmasked."""
-    H = pool.shape[1]
-    heads = torch.arange(H, device=pool.device)
-    pool[pages[:, None], heads[None, :], offsets[:, None]] = \
-        new.to(pool.dtype)
+    pool[pages, :, offsets] = new.to(pool.dtype)
     return pool
 
 

@@ -239,8 +239,7 @@ def test_latency_tier_preempts_batch_and_resume_is_exact(models):
 
 def test_out_of_scope_options_raise(models):
     _, tm = models
-    for kw in (dict(spec_k=2), dict(kv_quant="int8"),
-               dict(kv_tiers={"dram_bytes": 1}), dict(mesh=object()),
+    for kw in (dict(kv_tiers={"dram_bytes": 1}), dict(mesh=object()),
                dict(brownout=True)):
         with pytest.raises(MXNetError, match="not ported"):
             InferenceEngine(tm, num_slots=1, page_size=8, max_len=64, **kw)
