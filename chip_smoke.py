@@ -11,14 +11,21 @@ failure exits non-zero before the result line:
                 (nvidia-smi);
   2. build    — nvcc builds every kernel in incubator_mxnet_tpu_torch/
                 csrc/ (in parallel), timed;
-  3. kernels  — each of the six kernels (decode, prefill, verify, and
-                their int8 / fp8_e4m3 code-pool variants) against its
+  3. kernels  — each of the six ragged kernels (decode, prefill, verify,
+                and their int8 / fp8_e4m3 code-pool variants) against its
                 plain PyTorch version on the card at the serving path's
                 shapes, f32 and bf16 queries, plus the contract cases:
                 NaN past the bound (length, start + n_real, length +
                 draft_len), NaN inside it, length 0, page permutation,
                 and a NaN page scale on a masked and on a live page;
-  4. serving  — gpt_small (GPT-2 small widths, bf16, seeded random
+  4. flash    — the three flash-attention kernels (forward, dq, dk/dv)
+                against their plain versions, f32 and bf16, at BERT's
+                shapes (B=4, H=12, T=512, D=64, lengths 0 / 1 / 200 /
+                512), at T=2048 causal and not, D=128 with Tq != Tk, and
+                D=64 at lengths that straddle the 64-row tiles; each
+                gradient within a fraction of the largest |gradient| of
+                its own (batch, head) slice;
+  5. serving  — gpt_small (GPT-2 small widths, bf16, seeded random
                 weights) through InferenceEngine with chunked prefill and
                 the prefix cache, 16 requests per run: plain decode;
                 spec_k=4 with the n-gram drafter (raw pools); spec_k=4
@@ -31,14 +38,34 @@ failure exits non-zero before the result line:
                 and tokens per step; 10 steps of the plain and the
                 speculative engine run under torch.profiler (device-busy
                 share);
-  5. parity   — at f32, the engine's greedy tokens, without and with
+  6. parity   — at f32, the engine's greedy tokens, without and with
                 spec_k=4, equal the port's dense-cache cached_generate
                 (which runs no kernel);
-  6. times    — each kernel's device time (CUDA events around it, the
+  7. training — bert_base bf16 (flash, dropout 0.1) + BERTForPretraining
+                through SPMDTrainer with LAMB (lr 1e-4, f32 masters), the
+                bench's batch (B=32, T=512, M=76; lengths in [256, 512]):
+                3 warm-up and 10 timed steps on one repeating batch
+                (dropout masks included); every loss finite, the last
+                below the first, each flash kernel launched 12 times a
+                step. Prints tokens/s, ms/step, MFU against the card's
+                peak, the optimizer's ms, and from one profiled step the
+                device-busy share and the attention kernels' share;
+                then bert_base at T=1024 (B=4, 2 steps: the shapes the
+                JAX package sends to its streaming kernels), and
+                bert_tiny: 5 LAMB steps on the card (kernels) against
+                the port on the CPU (plain versions), the losses within
+                rtol 1e-4 in f32 (CUDA-core bodies) and 2e-3 in bf16
+                (the mma.sync bodies bert_base runs), and in bf16 every
+                parameter's first-step gradient within 5e-2 of its
+                largest |gradient|;
+  8. times    — the flash kernels held against their plain versions
+                once more on the training batch's own shapes and lengths
+                (B=32, T=512, bf16); each kernel's device time (CUDA events around it, the
                 host held ahead by a sleep kernel, cold L2, median), its
-                plain version's, a library call's on the gathered (and
-                dequantized) window, and the bound from bytes /
-                operations.
+                plain version's, a library call's (on the gathered, and
+                dequantized, window for the ragged kernels; the same
+                boolean mask, forward or backward, for the flash ones),
+                and the bound from bytes / operations.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -47,6 +74,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -54,7 +82,7 @@ import time
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989.4e12}
 
 DEC = dict(S=8, H=12, D=64, ps=16, maxp=64,
            lengths=[0, 1, 17, 100, 255, 512, 777, 1024])
@@ -74,7 +102,34 @@ REPLACES = {                 # the TPU kernel: function that reaches the
     "ragged_verify": f"{RA}:586",
     "ragged_verify_q": f"{RA}:734",
 }
+PA = "incubator_mxnet_tpu/ops/pallas_attention.py"
+REPLACES.update({            # each flash kernel serves both Pallas arms
+    "flash_fwd": f"{PA}:115 (_flash_kernel); {PA}:305 (_dense_fwd_kernel)",
+    "flash_bwd_dq": f"{PA}:465 (_flash_bwd_dq_kernel); {PA}:334 "
+                    f"(_dense_bwd_kernel, dq)",
+    "flash_bwd_dkv": f"{PA}:501 (_flash_bwd_dkv_kernel); {PA}:334 "
+                     f"(_dense_bwd_kernel, dk and dv)",
+})
 KERNELS = tuple(REPLACES)
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+FLASH_CASES = [          # (B, H, Tq, Tk, D, lengths, causal)
+    (4, 12, 512, 512, 64, [0, 1, 200, 512], False),
+    (2, 12, 2048, 2048, 64, [2048, 1500], True),
+    (2, 12, 2048, 2048, 64, [2048, 1500], False),
+    (2, 12, 384, 512, 128, [512, 300], False),
+    # the tensor-core bodies (bf16, D=64) at tile-straddling lengths
+    (2, 12, 200, 200, 64, [200, 150], True),
+    (2, 12, 96, 160, 64, [160, 33], False),
+]
+# out and lse: |err| <= atol + rtol |plain|; gradients: |err| <= frac x
+# the largest |plain gradient| of the same (batch, head) slice, that
+# largest value taken as at least `floor` (a slice whose true gradient
+# is ~0, e.g. length 1, holds only summation noise)
+FLASH_TOL = {                # atol, rtol, frac, floor
+    "float32": (2e-5, 2e-5, 2e-5, 1.0),
+    "bfloat16": (1e-2, 1e-2, 2e-2, 1e-2),
+}
+BERT = dict(B=32, T=512, M=76, steps=10, warmup=3)
 
 
 class PhaseError(RuntimeError):
@@ -249,7 +304,7 @@ def phase_kernels(torch):
     from incubator_mxnet_tpu_torch.ops import ragged_attention as ra
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    err = {k: 0.0 for k in KERNELS}
+    err = {k: 0.0 for k in KERNELS if k not in FLASH}
     rows = consumed_rows(torch)
     nan = float("nan")
 
@@ -848,24 +903,400 @@ def phase_parity(torch):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------- #
+# flash attention and BERT pretraining
+# --------------------------------------------------------------------- #
+
+def flash_inputs(torch, gen, B, H, Tq, Tk, D, lens, dtype):
+    mk = lambda T: torch.randn(B, H, T, D, generator=gen,
+                               device="cuda").to(dtype)
+    q, k, v, do = mk(Tq), mk(Tk), mk(Tk), mk(Tq)
+    vl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q, k, v, do, vl
+
+
+def compare_flash(torch, fa, q, k, v, do, vl, causal, what, err):
+    """Run the three flash kernels and their plain versions on the same
+    inputs and hold them together (FLASH_TOL); folds each kernel's
+    largest |difference| into ``err``."""
+    dt_name = str(q.dtype).removeprefix("torch.")
+    atol, rtol, gfrac, gfloor = FLASH_TOL[dt_name]
+    what = f"{dt_name} {what}"
+    out, lse = fa._flash_fwd_cuda(q, k, v, vl, causal, None)
+    delta = fa.attn_delta(out, do)
+    dq = fa._flash_bwd_dq_cuda(q, k, v, vl, do, lse, delta, causal, None)
+    dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, vl, do, lse, delta, causal,
+                                    None)
+    ro, rl = fa.dense_attn_lse(q, k, v, vl, causal)
+    grads = fa.dense_attn_bwd(q, k, v, vl, ro, rl, do, causal)
+    torch.cuda.synchronize()
+    live = rl > -1e29
+    check(bool((lse[~live] == -1e30).all()) and
+          bool((out.float()[~live] == 0).all()),
+          f"flash_fwd {what}: a fully masked row is not zero with lse -1e30")
+    diffs = [("flash_fwd", "out", out, ro,
+              atol + rtol * ro.float().abs()),
+             ("flash_fwd", "lse", lse[live], rl[live],
+              atol + rtol * rl[live].abs())]
+    for name, part, g, r in (("flash_bwd_dq", "dq", dq, grads[0]),
+                             ("flash_bwd_dkv", "dk", dk, grads[1]),
+                             ("flash_bwd_dkv", "dv", dv, grads[2])):
+        scale = r.float().abs().amax(dim=(2, 3), keepdim=True)
+        diffs.append((name, part, g, r, gfrac * scale.clamp(min=gfloor)))
+    for name, part, g, r, tol in diffs:
+        check(bool(torch.isfinite(g).all()),
+              f"{name} {what}: non-finite {part}")
+        d = (g.float() - r.float()).abs()
+        e = float(d.max()) if d.numel() else 0.0
+        worst = float((d / tol).max()) if d.numel() else 0.0
+        err[name] = max(err[name], e)
+        print(f"[flash] {name} {part} {what}: max|err| {e:.3e}, worst "
+              f"|err| / tolerance {worst:.3f}", flush=True)
+        check(worst <= 1.0, f"{name} {what}: {part} disagrees with its "
+                            f"plain version (max |err| {e:.3e}, "
+                            f"{worst:.2f} x its tolerance)")
+    del out, lse, dq, dk, dv, ro, rl, grads
+    torch.cuda.empty_cache()
+
+
+def phase_flash_kernels(torch):
+    """The three flash kernels against their plain versions on identical
+    inputs; returns the largest |difference| per kernel."""
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    err = {k: 0.0 for k in FLASH}
+    for dt in (torch.float32, torch.bfloat16):
+        for B, H, Tq, Tk, D, lens, causal in FLASH_CASES:
+            q, k, v, do, vl = flash_inputs(torch, gen, B, H, Tq, Tk, D,
+                                           lens, dt)
+            compare_flash(torch, fa, q, k, v, do, vl, causal,
+                          f"B={B} H={H} Tq={Tq} Tk={Tk} D={D} "
+                          f"lengths={lens} causal={causal}", err)
+            del q, k, v, do, vl
+    return err
+
+
+def bert_batch(torch, np, rng, B, T, M, vocab, min_len):
+    """The bench's batch tuple: valid lengths drawn in [min_len, T] and
+    M distinct masked positions inside each length."""
+    lens = rng.randint(min_len, T + 1, size=B)
+    pos = np.stack([rng.choice(n, size=M, replace=False) for n in lens])
+    arrays = (rng.randint(0, vocab, (B, T)), rng.randint(0, 2, (B, T)),
+              lens, pos, rng.randint(0, vocab, (B, M)),
+              np.ones((B, M), np.float32), rng.randint(0, 2, (B,)))
+    return [torch.tensor(a, device="cuda") for a in arrays]
+
+
+def bert_trainer(torch, T, generator, dtype="bfloat16", size="base",
+                 device="cuda", dropout=0.1, lr=1e-4):
+    from incubator_mxnet_tpu_torch import models, parallel
+    ctor = models.bert_base if size == "base" else models.bert_tiny
+    bert = ctor(dtype=dtype, max_length=T, flash=True, dropout=dropout,
+                device=device, generator=generator)
+    pre = models.BERTForPretraining(bert)
+    tr = parallel.SPMDTrainer(
+        pre, forward_loss=models.pretraining_loss, optimizer="lamb",
+        optimizer_params={"learning_rate": lr,
+                          "multi_precision": dtype != "float32"},
+        sharding="replicated")
+    return pre, tr
+
+
+def phase_training(torch, device_name):
+    """The bench configuration: bert_base bf16 through SPMDTrainer with
+    LAMB; returns its stats (with the flash launch counts of its run)
+    and the batch's valid lengths."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    from incubator_mxnet_tpu_torch.utils import flops
+    B, T, M = BERT["B"], BERT["T"], BERT["M"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    pre, tr = bert_trainer(torch, T, gen)
+    bert = pre.bert
+    batch = bert_batch(torch, np, np.random.RandomState(0), B, T, M,
+                       bert.vocab_size, 256)
+
+    def step():
+        gen.manual_seed(1)        # a repeating batch: its dropout masks too
+        return tr.step(*batch)
+
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    losses = [float(step()) for _ in range(BERT["warmup"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [step() for _ in range(BERT["steps"])]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    losses += [float(x) for x in timed]
+    n_steps = BERT["warmup"] + BERT["steps"]
+    check(all(np.isfinite(losses)), f"training: non-finite loss {losses}")
+    check(losses[-1] < losses[0],
+          f"training: loss did not fall over {n_steps} steps: {losses}")
+    check(tr.step_count == n_steps, f"training: {tr.step_count} of "
+                                    f"{n_steps} steps applied")
+    for name in FLASH:
+        check(launches[name] == bert.num_layers * n_steps,
+              f"training: {name} launches {launches[name]} != "
+              f"{bert.num_layers} layers x {n_steps} steps")
+    step_flops = flops.bert_train_flops(B, T, M, bert.num_layers,
+                                        bert.units, bert.hidden_size,
+                                        bert.vocab_size)
+    ms_step = dt * 1e3 / BERT["steps"]
+    lens = batch[2].tolist()
+    stats = dict(config=f"bert_base bf16 flash dropout=0.1 LAMB lr=1e-4 "
+                        f"multi_precision B={B} T={T} M={M}",
+                 losses=losses, ms_per_step=ms_step,
+                 tokens_per_s=B * T / (ms_step / 1e3),
+                 live_tokens_per_s=sum(lens) / (ms_step / 1e3),
+                 flops_per_step=step_flops,
+                 mfu=step_flops / (ms_step / 1e3) /
+                 flops.peak_flops(device_name),
+                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 launches=launches)
+    # the optimizer's share: one guarded LAMB apply over every parameter
+    params = [tr._params[i] for i in tr._train_idx]
+    zeros = [torch.zeros_like(p) for p in params]
+    one, lr = tr._scalar(1.0), tr._scalar(1e-4)
+    opt_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tr._apply(zeros, one, lr, one)
+        torch.cuda.synchronize()
+        opt_ms.append((time.perf_counter() - t1) * 1e3)
+    stats["optimizer_ms"] = statistics.median(opt_ms)
+    stats["n_params"] = len(params)
+    # one profiled step: device-busy share and the attention kernels' part
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    kern = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if kern:
+        busy = sum(t for _, t in kern) / 1e3
+        attn = {n: sum(t for k, t in kern
+                       if re.search(rf"mxt::{n}_(mma_)?kernel", k)) / 1e3
+                for n in FLASH}
+        stats.update(profiled_wall_ms=wall_ms, device_busy_ms=busy,
+                     device_busy_share=busy / wall_ms,
+                     attention_ms=attn,
+                     attention_share_of_busy=sum(attn.values()) / busy,
+                     top=[(k[:60], t / 1e3) for k, t in
+                          sorted(kern, key=lambda kt: -kt[1])[:8]])
+    else:
+        stats["device_busy_share"] = "not measured (no kernel traced)"
+    print(f"[training] {json.dumps(stats)}", flush=True)
+    del tr, pre, bert, batch, params, zeros
+    torch.cuda.empty_cache()
+    return stats, lens
+
+
+def phase_long_sequence(torch):
+    """bert_base at T=1024 (B=4, 2 steps): the lengths the JAX package
+    sends to its streaming kernels; the same three kernels here."""
+    import numpy as np
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    T = 1024
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    pre, tr = bert_trainer(torch, T, gen)
+    batch = bert_batch(torch, np, np.random.RandomState(5), 4, T,
+                       BERT["M"], pre.bert.vocab_size, 512)
+    fa.reset_launch_counts()
+    losses = [float(tr.step(*batch)) for _ in range(2)]
+    launches = dict(fa.LAUNCHES)
+    check(all(np.isfinite(losses)), f"T=1024: non-finite loss {losses}")
+    for name in FLASH:
+        check(launches[name] == 2 * pre.bert.num_layers,
+              f"T=1024: {name} launches {launches[name]}")
+    print(f"[long] bert_base bf16 T=1024 B=4 lengths "
+          f"{batch[2].tolist()}: losses {losses}, launches {launches}",
+          flush=True)
+    del tr, pre, batch
+    torch.cuda.empty_cache()
+
+
+# bert_tiny on the card against the port on the CPU: loss-sequence rtol;
+# bf16 also each parameter's first-step gradient, |err| <= frac x that
+# parameter's largest |CPU gradient|
+BERT_PARITY_TOL = {"float32": (1e-4, None), "bfloat16": (2e-3, 5e-2)}
+
+
+def phase_bert_parity(torch):
+    """bert_tiny, 5 LAMB steps: the card (the flash kernels) against the
+    port on the CPU (their plain versions), the same weights and batch,
+    dropout 0. In f32 the kernels run their CUDA-core bodies; in bf16
+    (D=64) the mma.sync bodies that bert_base trains on, so bf16 also
+    holds every parameter's gradient of the first step."""
+    import numpy as np
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    T, B, M, steps = 128, 8, 20, 5
+    for dtype in ("float32", "bfloat16"):
+        rtol, gfrac = BERT_PARITY_TOL[dtype]
+        cpu_pre, cpu_tr = bert_trainer(
+            torch, T, torch.Generator().manual_seed(7), dtype=dtype,
+            size="tiny", device="cpu", dropout=0.0, lr=1e-3)
+        gen = torch.Generator(device="cuda")
+        gpu_pre, gpu_tr = bert_trainer(torch, T, gen, dtype=dtype,
+                                       size="tiny", dropout=0.0, lr=1e-3)
+        gpu_pre.load_state_dict(cpu_pre.state_dict())
+        batch = bert_batch(torch, np, np.random.RandomState(7), B, T, M,
+                           cpu_pre.bert.vocab_size, 32)
+        cpu_batch = [b.cpu() for b in batch]
+        if gfrac is not None:
+            one = torch.ones((), device="cuda")
+            _, g_card = gpu_tr._forward_backward(batch, one)
+            _, g_cpu = cpu_tr._forward_backward(cpu_batch, one.cpu())
+            worst = (0.0, "")
+            for i, a, b in zip(cpu_tr._train_idx, g_card, g_cpu):
+                name = cpu_tr._names[i]
+                check(a.dtype == b.dtype and bool(torch.isfinite(a).all()),
+                      f"bert_tiny {dtype}: gradient of {name} is "
+                      f"{a.dtype}, finite {bool(torch.isfinite(a).all())}")
+                d = float((a.cpu().float() - b.float()).abs().max())
+                scale = float(b.float().abs().max())
+                r = d / (gfrac * scale) if scale > 0 else \
+                    (0.0 if d == 0 else float("inf"))
+                worst = max(worst, (r, name))
+            print(f"[bert-parity] bert_tiny {dtype} first-step gradients, "
+                  f"{len(g_cpu)} parameters: worst |err| / tolerance "
+                  f"{worst[0]:.3f} ({worst[1]}; tolerance {gfrac} x the "
+                  f"parameter's largest |gradient|)", flush=True)
+            check(worst[0] <= 1.0, f"bert_tiny {dtype}: the card's gradient "
+                                   f"of {worst[1]} disagrees with the CPU's "
+                                   f"({worst[0]:.2f} x its tolerance)")
+            del g_card, g_cpu
+        fa.reset_launch_counts()
+        on_card = [float(gpu_tr.step(*batch)) for _ in range(steps)]
+        launches = dict(fa.LAUNCHES)
+        on_cpu = [float(cpu_tr.step(*cpu_batch)) for _ in range(steps)]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(on_card, on_cpu))
+        print(f"[bert-parity] bert_tiny {dtype} LAMB: card {on_card} vs cpu "
+              f"{on_cpu}: max rel diff {rel:.3e} (rtol {rtol}), launches "
+              f"{launches}", flush=True)
+        check(rel <= rtol,
+              f"bert_tiny {dtype} parity: card {on_card} vs cpu {on_cpu}")
+        check(all(launches[n] == gpu_pre.bert.num_layers * steps
+                  for n in FLASH),
+              f"bert_tiny {dtype} parity: launches {launches}")
+        check(all(np.isfinite(on_card)) and on_card[-1] < on_card[0],
+              f"bert_tiny {dtype}: loss did not fall on the card {on_card}")
+        del cpu_pre, cpu_tr, gpu_pre, gpu_tr, batch, cpu_batch
+    torch.cuda.empty_cache()
+
+
+def flash_work(B, H, T, D, lens, elem):
+    """(bytes, flops) each flash kernel needs at these lengths: K/V rows
+    of live keys, every q / dO / out row, f32 lse and delta; operations
+    over the live keys (non-causal): 4, 6 and 8 x B H Tq keys D."""
+    live = sum(min(n, T) for n in lens)
+    pairs = H * T * live
+    rows = B * H * T * D * elem           # one (B, H, T, D) tensor
+    kv = H * live * D * elem              # K or V, live rows
+    vec = B * H * T * 4                   # one f32 (B, H, T) vector
+    return {"flash_fwd": (rows + 2 * kv + rows + vec + 4 * B,
+                          4 * pairs * D),
+            "flash_bwd_dq": (2 * rows + 2 * kv + 2 * vec + rows + 4 * B,
+                             6 * pairs * D),
+            "flash_bwd_dkv": (2 * rows + 2 * kv + 2 * vec + 2 * kv + 4 * B,
+                              8 * pairs * D)}
+
+
+def phase_flash_times(torch, lens, err):
+    """Each flash kernel at the training run's shapes (bert_base, bf16,
+    B=32, H=12, T=512, D=64, its batch's lengths), first held against its
+    plain version on these inputs (folded into ``err``), then timed:
+    kernel, plain version (the dq and dk/dv rows share the one plain
+    backward), and the library call with the same boolean mask (forward;
+    for both backward rows the library's whole backward)."""
+    import torch.nn.functional as F
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    B, H, T, D = BERT["B"], 12, BERT["T"], 64
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    q, k, v, do, vl = flash_inputs(torch, gen, B, H, T, T, D, lens,
+                                   torch.bfloat16)
+    compare_flash(torch, fa, q, k, v, do, vl, False,
+                  f"B={B} H={H} T={T} D={D} the training batch's lengths "
+                  f"in [{min(lens)}, {max(lens)}]", err)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    out, lse = fa._flash_fwd_cuda(q, k, v, vl, False, None)
+    delta = fa.attn_delta(out, do)
+    mask = (torch.arange(T, device="cuda")[None, :] <
+            vl.long()[:, None])[:, None, None, :]
+    ql, kl, vlib = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vlib, attn_mask=mask)
+    ms = {
+        "flash_fwd": (
+            _time_ms(torch, lambda: fa._flash_fwd_cuda(q, k, v, vl, False,
+                                                       None), flush),
+            _time_ms(torch, lambda: fa.dense_attn_lse(q, k, v, vl), flush),
+            _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask), flush)),
+        "flash_bwd_dq": (
+            _time_ms(torch, lambda: fa._flash_bwd_dq_cuda(
+                q, k, v, vl, do, lse, delta, False, None), flush),),
+        "flash_bwd_dkv": (
+            _time_ms(torch, lambda: fa._flash_bwd_dkv_cuda(
+                q, k, v, vl, do, lse, delta, False, None), flush),),
+    }
+    plain_bwd = _time_ms(torch, lambda: fa.dense_attn_bwd(
+        q, k, v, vl, out, lse, do), flush)
+    lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vlib), do, retain_graph=True), flush)
+    work = flash_work(B, H, T, D, lens, 2)
+    out_times = {}
+    for name in FLASH:
+        t = ms[name]
+        kernel_ms = t[0]
+        plain_ms = t[1] if len(t) > 1 else plain_bwd
+        library_ms = t[2] if len(t) > 2 else lib_bwd
+        bms, by = bound(*work[name], "bfloat16")
+        out_times[name] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                               library_ms=library_ms, bound_ms=bms,
+                               bound_by=by)
+        print(f"[times] {name} B={B} H={H} T={T} D={D} bf16 lengths in "
+              f"[{min(lens)}, {max(lens)}]: {kernel_ms:.4f} ms (plain "
+              f"{plain_ms:.4f}, library {library_ms:.4f}, bound "
+              f"{bms:.5f} by {by})", flush=True)
+    del flush, q, k, v, do, out, lse, lib_out
+    torch.cuda.empty_cache()
+    return out_times
+
+
 def kernel_record(err, runs, times):
     """The kernels' JSON record; each kernel's launches come from the run
     of its own path (decode / prefill: plain; verify: spec_k=4 on raw
     pools; the _q variants: spec_k=4 on int8 pools; both replaying the
-    plain run's streams as drafts)."""
+    plain run's streams as drafts; the flash kernels: the bert_base
+    training run)."""
     path_of = {"ragged_decode": "plain", "ragged_prefill": "plain",
                "ragged_verify": "spec", "ragged_decode_q": "spec_int8",
                "ragged_prefill_q": "spec_int8",
-               "ragged_verify_q": "spec_int8"}
+               "ragged_verify_q": "spec_int8",
+               "flash_fwd": "training", "flash_bwd_dq": "training",
+               "flash_bwd_dkv": "training"}
+    source = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd",
+              "flash_bwd_dkv": "flash_bwd"}
     kernels = []
     for name in KERNELS:
         t = times[name]
         launches = runs[path_of[name]]["launches"].get(name, 0)
         check(launches > 0, f"{name} never launched on its path")
+        src = source.get(name, name.removesuffix("_q"))
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "incubator_mxnet_tpu_torch/csrc/"
-                      f"{name.removesuffix('_q')}.cu",
+            "source": f"incubator_mxnet_tpu_torch/csrc/{src}.cu",
             "replaces": REPLACES[name],
             "launches": launches,
             "max_abs_err": err[name],
@@ -892,9 +1323,15 @@ def main():
         smi = phase_device(torch)
         phase_build()
         err = phase_kernels(torch)
+        err.update(phase_flash_kernels(torch))
         runs = phase_serving(torch)
         phase_parity(torch)
+        runs["training"], lens = phase_training(
+            torch, torch.cuda.get_device_name(0))
+        phase_long_sequence(torch)
+        phase_bert_parity(torch)
         times = phase_times(torch)
+        times.update(phase_flash_times(torch, lens, err))
         for mod in ("jax", "incubator_mxnet_tpu"):
             check(mod not in sys.modules, f"{mod} was imported")
         kernels = kernel_record(err, runs, times)

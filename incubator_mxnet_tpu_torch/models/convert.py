@@ -1,4 +1,6 @@
-"""Copy the JAX package's GPT weights into the port's ``GPTModel``.
+"""Copy the JAX package's weights into the port's models.
+
+GPT (``params_from_jax``):
 
 The JAX model's parameter names carry per-instance counters
 (``gptmodel0_gptblock0_causalselfattention0_dense0_weight``, ...) that
@@ -13,6 +15,12 @@ arrays come in ``collect_params()`` order, which for L layers is
     ln_f gamma, ln_f beta.
 
 MXNet ``Dense`` weights are (out, in), the same as ``nn.Linear``.
+
+BERT (``bert_params_from_jax``): the map is derived, not listed. A gluon
+block's ``collect_params()`` yields its children's parameters first, in
+registration order, then its own; ``gluon_param_order`` walks a port
+module the same way, and the port's BERT modules register their children
+in the JAX package's order, so the two sequences align one to one.
 """
 
 from __future__ import annotations
@@ -22,7 +30,8 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["params_from_jax", "gpt_param_names"]
+__all__ = ["params_from_jax", "gpt_param_names", "bert_params_from_jax",
+           "gluon_param_order"]
 
 _BLOCK = ("ln1.gamma", "ln1.beta", "attn.qkv.weight", "attn.qkv.bias",
           "attn.proj.weight", "attn.proj.bias", "ln2.gamma", "ln2.beta",
@@ -70,4 +79,50 @@ def params_from_jax(arrays) -> dict:
             raise MXNetError(f"parameter {name}: shape {tuple(a.shape)} "
                              f"!= expected {shp}")
         out[name] = _to_tensor(a)
+    return out
+
+
+def gluon_param_order(module, prefix=""):
+    """[(state-dict name, parameter)] of a port module in gluon's
+    ``collect_params`` order: each submodule's parameters (recursively, in
+    registration order), then the module's own."""
+    out = []
+    for name, child in module.named_children():
+        out += gluon_param_order(child, f"{prefix}{name}.")
+    for name, p in module.named_parameters(recurse=False):
+        out.append((prefix + name, p))
+    return out
+
+
+def bert_params_from_jax(model, params) -> dict:
+    """``params``: the JAX ``BERTForPretraining`` (or ``BERTModel``)
+    parameters as numpy arrays in ``collect_params()`` order — a dict of
+    names to arrays, or a sequence of arrays. ``model``: the port's model
+    of the same configuration. Returns its ``state_dict`` (CPU tensors,
+    each in the JAX array's dtype; ``load_state_dict`` moves them to the
+    model's device). The tied decoder reads ``bert.word_embed.weight``, so
+    it follows the word embedding. Raises ``MXNetError`` on a count,
+    kind, shape or dtype mismatch."""
+    names = list(params) if isinstance(params, dict) else None
+    arrays = [np.asarray(a) for a in (params.values()
+                                      if isinstance(params, dict)
+                                      else params)]
+    order = gluon_param_order(model)
+    if len(arrays) != len(order):
+        raise MXNetError(f"{len(arrays)} arrays for a model of "
+                         f"{len(order)} parameters")
+    out = {}
+    for i, ((name, p), a) in enumerate(zip(order, arrays)):
+        kind = name.rsplit(".", 1)[-1].rsplit("_", 1)[-1]
+        if names is not None and not names[i].endswith(kind):
+            raise MXNetError(f"parameter {name}: JAX parameter {names[i]} "
+                             f"is not a {kind}")
+        if tuple(a.shape) != tuple(p.shape):
+            raise MXNetError(f"parameter {name}: shape {tuple(a.shape)} "
+                             f"!= expected {tuple(p.shape)}")
+        t = _to_tensor(a)
+        if t.dtype != p.dtype:
+            raise MXNetError(f"parameter {name}: dtype {t.dtype} != "
+                             f"expected {p.dtype}")
+        out[name] = t
     return out

@@ -25,6 +25,7 @@ from torch import nn
 
 from ..base import MXNetError
 from ..context import resolve_device
+from ..initializer import TruncNorm
 from ..ops.attention import scaled_dot_product_attention as _sdpa
 
 __all__ = ["GPTModel", "gpt_mini", "gpt_small", "cached_generate",
@@ -134,10 +135,7 @@ class GPTModel(nn.Module):
             elif name.endswith("beta") or name.endswith("bias"):
                 p.zero_()
             else:
-                w = torch.empty(p.shape, device=self.device)
-                nn.init.trunc_normal_(w, std=0.02, a=-0.04, b=0.04,
-                                      generator=gen)
-                p.copy_(w)
+                TruncNorm(stdev=0.02)(p, gen)
 
     def embed(self, ids, pos):
         """Word + position embeddings in f32, cast to the model dtype."""

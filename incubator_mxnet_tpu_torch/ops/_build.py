@@ -28,7 +28,8 @@ from ..base import MXNetError
 
 __all__ = ["KERNELS", "NVCC_FLAGS", "build", "load", "build_dir"]
 
-KERNELS = ("ragged_decode", "ragged_prefill", "ragged_verify")
+KERNELS = ("ragged_decode", "ragged_prefill", "ragged_verify", "flash_fwd",
+           "flash_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
               "--ptxas-options=-v")

@@ -240,7 +240,8 @@ def test_build_is_lazy_and_keyed_by_sources():
     assert d.parent.name == "kernels" and d.parent.parent.name == "build"
     assert len(d.name) == 16
     assert set(_build.KERNELS) == {"ragged_decode", "ragged_prefill",
-                                   "ragged_verify"}
+                                   "ragged_verify", "flash_fwd",
+                                   "flash_bwd"}
     assert not _build._LIBS             # nothing loaded by the CPU tests
 
 
