@@ -10,14 +10,19 @@ failure exits non-zero before the result line:
   1. device   — CUDA present; the card's name and power limit
                 (nvidia-smi);
   2. build    — nvcc builds every kernel in incubator_mxnet_tpu_torch/
-                csrc/ (in parallel), timed;
+                csrc/ (in parallel), timed; each prefill kernel's ptxas
+                registers, shared memory and spills, and its SASS counts
+                of HMMA / LDSM / LDGSTS (cuobjdump): the tensor-core body
+                must issue HMMA;
   3. kernels  — each of the six ragged kernels (decode, prefill, verify,
                 and their int8 / fp8_e4m3 code-pool variants) against its
                 plain PyTorch version on the card at the serving path's
                 shapes, f32 and bf16 queries, plus the contract cases:
                 NaN past the bound (length, start + n_real, length +
                 draft_len), NaN inside it, length 0, page permutation,
-                and a NaN page scale on a masked and on a live page;
+                and a NaN page scale on a masked and on a live page
+                (prefill: on both bodies, f32 and bf16, with two launches
+                bitwise equal);
   4. flash    — the three flash-attention kernels (forward, dq, dk/dv)
                 against their plain versions, f32 and bf16, at BERT's
                 shapes (B=4, H=12, T=512, D=64, lengths 0 / 1 / 200 /
@@ -37,7 +42,8 @@ failure exits non-zero before the result line:
                 prints tokens/s, TTFT p50, decode ms/step, accept rate
                 and tokens per step; 10 steps of the plain and the
                 speculative engine run under torch.profiler (device-busy
-                share);
+                share), and 10 chunk steps of one 960-token prompt (the
+                ragged prefill kernels' share);
   6. parity   — at f32, the engine's greedy tokens, without and with
                 spec_k=4, equal the port's dense-cache cached_generate
                 (which runs no kernel);
@@ -65,7 +71,8 @@ failure exits non-zero before the result line:
                 plain version's, a library call's (on the gathered, and
                 dequantized, window for the ragged kernels; the same
                 boolean mask, forward or backward, for the flash ones),
-                and the bound from bytes / operations.
+                and the bound from bytes / operations; each prefill case
+                with its split plan.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -74,7 +81,9 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -296,6 +305,69 @@ def phase_build():
               flush=True)
     print(f"[build] all kernels in {secs:.1f} s "
           f"({_build.build_dir()})", flush=True)
+    log = _build.build_dir() / "ragged_prefill.log"
+    if log.is_file():
+        for fn, regs, spill in ptxas_entries(log.read_text()):
+            print(f"[build] ragged_prefill {fn}: {regs}; {spill}",
+                  flush=True)
+    sass_counts(_build.build_dir() / "libragged_prefill.so")
+
+
+def _demangle(names):
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        got = out.stdout.splitlines()
+        if out.returncode == 0 and len(got) == len(names):
+            return [g.split("(")[0] for g in got]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return list(names)
+
+
+def ptxas_entries(log):
+    """(kernel, 'Used ... registers, ... smem', 'spill stores / loads')
+    for every entry function of one nvcc -Xptxas -v log."""
+    rows, fn, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn, spill = m.group(1), ""
+        elif fn and "spill" in ln:
+            spill = ln.strip()
+        elif fn and "Used" in ln and "registers" in ln:
+            rows.append((fn, ln.split(":", 1)[-1].strip(), spill))
+            fn = None
+    names = _demangle([r[0] for r in rows])
+    return [(n, r[1], r[2]) for n, r in zip(names, rows)]
+
+
+def sass_counts(lib):
+    """Tensor-core (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
+    instructions in each prefill kernel's SASS, from cuobjdump; the
+    tensor-core body must issue HMMA."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        print("[build] cuobjdump not found: SASS not inspected", flush=True)
+        return
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300).stdout
+    funcs, cur = {}, None
+    for ln in out.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = m.group(1)
+            funcs[cur] = {"HMMA": 0, "LDSM": 0, "LDGSTS": 0}
+        elif cur:
+            for op in funcs[cur]:
+                if re.search(rf"\b{op}\b", ln):
+                    funcs[cur][op] += 1
+    for name, c in zip(_demangle(list(funcs)), funcs.values()):
+        if "prefill" in name:
+            print(f"[build] sass {name}: " + ", ".join(
+                f"{op} x{n}" for op, n in c.items()), flush=True)
+            check("prefill_mma" not in name or c["HMMA"] > 0,
+                  f"{name} issues no tensor-core (HMMA) instruction")
 
 
 def phase_kernels(torch):
@@ -401,20 +473,32 @@ def phase_kernels(torch):
     got = ra._ragged_decode_cuda(q, kpp, vpp, perm_pt, ln, sc)
     check(bool(torch.equal(got, clean)), "decode: page permutation changed "
                                          "the output")
-    # prefill: a partial chunk's unwritten tail holding NaN
+    # prefill: a partial chunk's unwritten tail holding NaN, and the null
+    # page, on both bodies (f32: CUDA cores; bf16 at D=64: tensor cores);
+    # two launches bitwise equal
     start, n_real = PRE["cases"][1]
-    q, kp, vp, row, _, _ = prefill_case(torch, gen, f32, start, n_real)
-    clean = ra._ragged_prefill_cuda(q, kp, vp, row, start, n_real, sc)
-    end = start + n_real
-    kp2, vp2 = kp.clone(), vp.clone()
-    for pos in range(end, start + PRE["C"]):
-        pg = int(row[pos // ps])
-        kp2[pg, :, pos % ps] = nan
-        vp2[pg, :, pos % ps] = nan
-    got = ra._ragged_prefill_cuda(q, kp2, vp2, row, start, n_real, sc)
-    check(bool(torch.isfinite(got[:n_real]).all()) and
-          bool(torch.equal(got[:n_real], clean[:n_real])),
-          "prefill: unwritten-tail NaN poisoned live rows")
+    for dt in (f32, torch.bfloat16):
+        q, kp, vp, row, _, _ = prefill_case(torch, gen, dt, start, n_real)
+        clean = ra._ragged_prefill_cuda(q, kp, vp, row, start, n_real, sc)
+        end = start + n_real
+        kp2, vp2 = kp.clone(), vp.clone()
+        for pos in range(end, start + PRE["C"]):
+            pg = int(row[pos // ps])
+            kp2[pg, :, pos % ps] = nan
+            vp2[pg, :, pos % ps] = nan
+        kp2[0], vp2[0] = nan, nan
+        got = ra._ragged_prefill_cuda(q, kp2, vp2, row, start, n_real, sc)
+        check(bool(torch.isfinite(got[:n_real]).all()) and
+              bool(torch.equal(got[:n_real], clean[:n_real])),
+              f"prefill {dt}: unwritten-tail NaN poisoned live rows")
+        check(bool(torch.equal(clean, ra._ragged_prefill_cuda(
+            q, kp, vp, row, start, n_real, sc))),
+            f"prefill {dt}: two launches differ")
+        vp3 = vp.clone()
+        vp3[int(row[0]), :, 0] = nan                  # seen by every row
+        got = ra._ragged_prefill_cuda(q, kp, vp3, row, start, n_real, sc)
+        check(bool(torch.isnan(got[:n_real].float()).all()),
+              f"prefill {dt}: NaN inside the live keys did not propagate")
 
     # verify: NaN past length + draft_len, NaN inside, length 0, permute
     q, kp, vp, pt, ln, dl, _, _ = verify_case(torch, gen, f32)
@@ -472,20 +556,29 @@ def phase_kernels(torch):
           "decode_q: NaN scale on a live page did not stay in its slot")
 
     start, n_real = PRE["cases"][1]           # live keys end at 237
-    q, kp, vp, row, ks, vs = prefill_case(torch, gen, f32, start, n_real,
-                                          "int8")
-    clean = ra._ragged_prefill_cuda(q, kp, vp, row, start, n_real, sc, ks,
-                                    vs)
-    masked = int(row[(start + n_real) // ps + 1])   # wholly past 237
-    got = ra._ragged_prefill_cuda(q, kp, vp, row, start, n_real, sc,
-                                  nan_scale(ks, masked),
-                                  nan_scale(vs, masked))
-    check(bool(torch.equal(got[:n_real], clean[:n_real])),
-          "prefill_q: NaN scale on a masked page leaked")
-    got = ra._ragged_prefill_cuda(q, kp, vp, row, start, n_real, sc, ks,
-                                  nan_scale(vs, int(row[0])))
-    check(bool(torch.isnan(got[:n_real]).all()),
-          "prefill_q: NaN scale on a live page did not propagate")
+    for dt in (f32, torch.bfloat16):
+        for quant in QUANTS:
+            q, kp, vp, row, ks, vs = prefill_case(torch, gen, dt, start,
+                                                  n_real, quant)
+            clean = ra._ragged_prefill_cuda(q, kp, vp, row, start, n_real,
+                                            sc, ks, vs)
+            masked = int(row[(start + n_real) // ps + 1])   # past 237
+            got = ra._ragged_prefill_cuda(q, kp, vp, row, start, n_real, sc,
+                                          nan_scale(nan_scale(ks, 0), masked),
+                                          nan_scale(nan_scale(vs, 0), masked))
+            check(bool(torch.equal(got[:n_real], clean[:n_real])),
+                  f"prefill_q {dt} {quant}: NaN scale on a masked page "
+                  f"leaked")
+            for bad_k in (True, False):
+                live = int(row[0])
+                got = ra._ragged_prefill_cuda(
+                    q, kp, vp, row, start, n_real, sc,
+                    nan_scale(ks, live) if bad_k else ks,
+                    vs if bad_k else nan_scale(vs, live))
+                check(bool(torch.isnan(got[:n_real].float()).all()),
+                      f"prefill_q {dt} {quant}: NaN "
+                      f"{'k' if bad_k else 'v'} scale on a live page did "
+                      f"not propagate")
 
     q, kp, vp, pt, ln, dl, ks, vs = verify_case(torch, gen, f32, "int8")
     clean = ra._ragged_verify_cuda(q, kp, vp, pt, ln, dl, sc, ks, vs)
@@ -543,6 +636,7 @@ def phase_times(torch):
     sc = D ** -0.5
     K = maxp * ps
     ar = torch.arange(K, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
 
     def window(pool, table, scale):
@@ -586,10 +680,14 @@ def phase_times(torch):
             vw = window(vp, row[None], vs)[0]
             pos_q = start + torch.arange(C, device="cuda")[:, None]
             mask = ar[None, :] <= pos_q
+            plan = ra.prefill_plan(C, H, D, ps, maxp, start, n_real, True,
+                                   sms)
             rows.append(record(
                 "ragged_prefill" + sfx,
                 f"C={C} H={H} D={D} ps={ps} start={start} n_real={n_real} "
-                f"q bf16, pools {tag}",
+                f"q bf16, pools {tag}; plan {plan.nsplit} x "
+                f"{plan.split_keys} keys, {plan.blocks} blocks, scratch "
+                f"{4 * plan.scratch_floats} B",
                 _time_ms(torch, lambda: ra._ragged_prefill_cuda(
                     q, kp, vp, row, start, n_real, sc, ks, vs), flush),
                 _time_ms(torch, lambda: ra.ragged_prefill_reference(
@@ -600,6 +698,11 @@ def phase_times(torch):
                 *prefill_bytes_flops(start, n_real, C, H, D, kv_elem, 2, ps,
                                      quant)))
         out.setdefault("ragged_prefill" + sfx, rows[-1])  # deepest chunk
+        deep = rows[-1]
+        print(f"[times] ragged_prefill{sfx} {tag} at start "
+              f"{PRE['cases'][-1][0]}: kernel {deep['ms']:.4f} ms vs "
+              f"library {deep['library_ms']:.4f} ms "
+              f"({deep['library_ms'] / deep['ms']:.2f}x)", flush=True)
 
         q, kp, vp, pt, ln, dl, ks, vs = verify_case(torch, gen, dt, quant)
         kw, vw = window(kp, pt, ks), window(vp, pt, vs)
@@ -746,6 +849,8 @@ def serve_run(torch, np, model, label, spec_k=0, kv_quant=None,
     print(f"[serving] {label}: {json.dumps(stats)}", flush=True)
     if profile:
         profile_decode(torch, np, eng, rng, Request, label)
+        if not spec_k:
+            profile_prefill(torch, eng, rng, Request, label)
     if not spec_k and not decode_bound:
         host_costs(torch, np, eng)
     del eng
@@ -830,6 +935,50 @@ def profile_decode(torch, np, eng, rng, Request, label):
           f"(profiled), device busy {busy_ms:.3f} ms/step "
           f"({100 * busy_ms / wall_ms:.1f}%); top: " + "; ".join(
               f"{k[:48]} {t / 1e3 / n:.3f} ms" for k, t in top), flush=True)
+
+
+def profile_prefill(torch, eng, rng, Request, label):
+    """Where a prefill chunk step's time goes: one 960-token prompt, its
+    chunk steps 2-11 (64 tokens each at depths 64-703) under
+    torch.profiler — wall and device-busy ms per step, and the ragged
+    prefill kernels' device ms (their share of busy and of wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    eng.submit(Request(rng.randint(0, eng.model.vocab_size, size=960),
+                       max_new_tokens=2))
+    eng.step()                                   # admission, first chunk
+    torch.cuda.synchronize()
+
+    def prefilling():
+        return any(sl is not None and sl.prefilling for sl in eng._slots)
+
+    n = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while n < 10 and prefilling():
+            eng.step()
+            n += 1
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / max(n, 1)
+    eng.run([])
+    eng.audit_pages()
+    kern = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    check(n > 0, f"{label}: no chunk step to profile")
+    if not kern:
+        print("[profile] device time not measured: the profiler recorded "
+              "no kernel", flush=True)
+        return
+    busy_ms = sum(t for _, t in kern) / 1e3 / n
+    pre_ms = sum(t for k, t in kern if "prefill" in k) / 1e3 / n
+    print(f"[profile] {label}: prefill chunk steps, 1 slot, 64 tokens at "
+          f"depths 64-703, {n} steps: wall {wall_ms:.3f} ms/step "
+          f"(profiled), device busy {busy_ms:.3f} ms/step "
+          f"({100 * busy_ms / wall_ms:.1f}%), ragged prefill kernels "
+          f"{pre_ms:.3f} ms/step ({100 * pre_ms / busy_ms:.1f}% of busy, "
+          f"{100 * pre_ms / wall_ms:.1f}% of wall)", flush=True)
 
 
 def host_costs(torch, np, eng):

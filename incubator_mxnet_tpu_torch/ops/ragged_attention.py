@@ -18,7 +18,8 @@ plain PyTorch version in this module:
   - ``ragged_prefill_attention`` (chunked prefill): C queries of one
     slot at positions ``q_start + i`` over the paged prefix plus the
     causal part of the chunk — ``csrc/ragged_prefill.cu``, the port of
-    ``_ragged_prefill_kernel``;
+    ``_ragged_prefill_kernel`` (tensor cores for bf16 at D = 64), which
+    takes its key-split plan from ``prefill_plan``;
   - ``ragged_verify_attention`` (speculative verify): W queries per slot
     at positions ``lengths - 1 + r``, causal inside the window —
     ``csrc/ragged_verify.cu``, the port of ``_ragged_verify_kernel``.
@@ -43,6 +44,8 @@ launch.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -54,7 +57,7 @@ _NEG_INF = -1e30
 __all__ = ["ragged_paged_attention", "ragged_attention_reference",
            "ragged_prefill_attention", "ragged_prefill_reference",
            "ragged_verify_attention", "ragged_verify_reference",
-           "LAUNCHES", "reset_launch_counts"]
+           "PrefillPlan", "prefill_plan", "LAUNCHES", "reset_launch_counts"]
 
 LAUNCHES = {"ragged_decode": 0, "ragged_prefill": 0, "ragged_verify": 0,
             "ragged_decode_q": 0, "ragged_prefill_q": 0,
@@ -63,6 +66,12 @@ LAUNCHES = {"ragged_decode": 0, "ragged_prefill": 0, "ragged_verify": 0,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODE = {torch.int8: 2, torch.float8_e4m3fn: 3}     # quantized payloads
 _MAX_HEAD_DIM = 256
+_MMA_D = 64            # head dim of the prefill kernel's tensor-core body
+_MMA_TILE = 64         # its query rows per tile and keys per staged tile
+_CORE_SPLIT_KEYS = 64  # keys per split of the CUDA-core body
+_CORE_ROWS = 16        # query rows per block of the CUDA-core body
+_MAX_CLUSTER = 16      # tensor-core body: a head's splits form one cluster
+H100_SMS = 132
 
 
 def reset_launch_counts() -> None:
@@ -252,13 +261,16 @@ def _raise_if_failed(lib, rc, what):
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _TAIL = [ctypes.c_float, _INT, _INT, _PTR]     # scale, dtype, kv_dtype,
 _SIGNATURES = {                                # stream
-    # name: (argtypes, restype); every pointer and the stream as c_void_p
-    "mx_ragged_decode": ([_PTR] * 9 + [_INT] * 5 + _TAIL, _INT),
-    "mx_ragged_decode_scratch": ([_INT] * 5, ctypes.c_longlong),
-    "mx_ragged_prefill": ([_PTR] * 8 + [_INT] * 7 + _TAIL, _INT),
-    "mx_ragged_prefill_scratch": ([_INT] * 5, ctypes.c_longlong),
-    "mx_ragged_verify": ([_PTR] * 10 + [_INT] * 6 + _TAIL, _INT),
-    "mx_ragged_verify_scratch": ([_INT] * 6, ctypes.c_longlong),
+    # library: {entry point: (argtypes, restype)}; every pointer and the
+    # stream as c_void_p
+    "ragged_decode": {
+        "mx_ragged_decode": ([_PTR] * 9 + [_INT] * 5 + _TAIL, _INT),
+        "mx_ragged_decode_scratch": ([_INT] * 5, ctypes.c_longlong)},
+    "ragged_prefill": {
+        "mx_ragged_prefill": ([_PTR] * 8 + [_INT] * 10 + _TAIL, _INT)},
+    "ragged_verify": {
+        "mx_ragged_verify": ([_PTR] * 10 + [_INT] * 6 + _TAIL, _INT),
+        "mx_ragged_verify_scratch": ([_INT] * 6, ctypes.c_longlong)},
 }
 
 
@@ -266,9 +278,9 @@ def _bind(name):
     """The kernel library ``name`` (built on first use) with argtypes and
     restype set on its entry points."""
     lib = _build.load(name)
-    for fn_name in (f"mx_{name}", f"mx_{name}_scratch"):
+    for fn_name, (argtypes, restype) in _SIGNATURES[name].items():
         fn = getattr(lib, fn_name)
-        fn.argtypes, fn.restype = _SIGNATURES[fn_name]
+        fn.argtypes, fn.restype = argtypes, restype
     return lib
 
 
@@ -309,9 +321,57 @@ def _ragged_decode_cuda(q, k_pool, v_pool, page_table, lengths, scale,
     return out
 
 
+class PrefillPlan(NamedTuple):
+    """How ``csrc/ragged_prefill.cu`` splits one chunk's keys."""
+    tensor_cores: bool   # the mma.sync body (bf16 queries, D = 64)
+    keys: int            # live keys, min(q_start + n_real, maxp * ps)
+    split_keys: int      # keys per split
+    nsplit: int          # splits: ceil(keys / split_keys), at least 1
+    q_tiles: int         # 64-row query tiles per block (tensor cores)
+    blocks: int          # blocks launched
+    scratch_floats: int  # f32 scratch of the merge kernel (0: none)
+
+
+def prefill_plan(C, H, D, ps, maxp, q_start, n_real, tensor_cores,
+                 sms=H100_SMS):
+    """The split plan of one chunked-prefill launch, from the LIVE keys.
+
+    Tensor-core body: a block owns one (head, key split) and a group of
+    ``q_tiles`` 64-row query tiles (all of C when C <= 128, so each live
+    K/V byte is read once). Splits are whole 64-key tiles, as large as
+    still gives about one block per SM (``sms``) over heads and groups,
+    at most 16 (a head's splits form one thread-block cluster and merge
+    in distributed shared memory: no scratch), and no split starts at or
+    past the live keys. CUDA-core body: 64-key splits of 16-row tiles,
+    merged by a second launch from a scratch of (m, l, acc[D]) per live
+    row, head and split."""
+    keys = max(0, min(q_start + n_real, maxp * ps))
+    if not tensor_cores:
+        nsplit = max(1, -(-keys // _CORE_SPLIT_KEYS))
+        return PrefillPlan(False, keys, _CORE_SPLIT_KEYS, nsplit, 0,
+                           -(-C // _CORE_ROWS) * H * nsplit,
+                           n_real * H * nsplit * (D + 2))
+    tiles = -(-C // _MMA_TILE)
+    q_tiles = 1 if tiles <= 1 else 2
+    groups = max(1, -(-tiles // q_tiles))
+    want = -(-sms // (H * groups))          # splits for ~one wave
+    ktiles = -(-keys // _MMA_TILE)
+    per = max(1, ktiles // want, -(-ktiles // _MAX_CLUSTER))
+    split_keys = _MMA_TILE * per
+    nsplit = max(1, -(-keys // split_keys))
+    return PrefillPlan(True, keys, split_keys, nsplit, q_tiles,
+                       nsplit * H * groups, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _ragged_prefill_cuda(q, k_pool, v_pool, page_row, q_start, n_real,
                          scale, k_scale=None, v_scale=None):
-    """Launch ``csrc/ragged_prefill.cu`` on the current stream."""
+    """Launch ``csrc/ragged_prefill.cu`` on the current stream, with the
+    split plan of ``prefill_plan`` and exactly its scratch."""
     kv = _check_operands(q, k_pool, v_pool, page_row, "ragged prefill",
                          k_scale, v_scale)
     C, H, D = q.shape
@@ -322,15 +382,22 @@ def _ragged_prefill_cuda(q, k_pool, v_pool, page_row, q_start, n_real,
         raise MXNetError(f"ragged prefill: n_real {n_real} outside "
                          f"[0, {C}] or q_start {q_start} < 0")
     ps, maxp = k_pool.shape[2], page_row.shape[0]
+    tc = q.dtype == torch.bfloat16 and D == _MMA_D
+    if tc and any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise MXNetError("ragged prefill: q and the pools must be 16-byte "
+                         "aligned (16-byte copies)")
+    plan = prefill_plan(C, H, D, ps, maxp, q_start, n_real, tc,
+                        _sm_count(q.device))
     lib = _bind("ragged_prefill")
     out = torch.empty_like(q)
-    part = torch.empty(lib.mx_ragged_prefill_scratch(C, H, D, ps, maxp),
-                       dtype=torch.float32, device=q.device)
+    part = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                       device=q.device) if plan.scratch_floats else None
     rc = lib.mx_ragged_prefill(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_row.data_ptr(), _ptr(k_scale), _ptr(v_scale), out.data_ptr(),
-        part.data_ptr(), int(q_start), int(n_real), C, H, D, ps, maxp,
-        float(scale), _DTYPE_CODE[q.dtype], kv, _stream_ptr(q.device))
+        _ptr(part), int(q_start), int(n_real), C, H, D, ps, maxp,
+        plan.split_keys, plan.nsplit, plan.q_tiles, float(scale),
+        _DTYPE_CODE[q.dtype], kv, _stream_ptr(q.device))
     _raise_if_failed(lib, rc, "ragged prefill")
     _count("ragged_prefill", k_scale is not None)
     return out
