@@ -10,10 +10,13 @@ failure exits non-zero before the result line:
   1. device   — CUDA present; the card's name and power limit
                 (nvidia-smi);
   2. build    — nvcc builds every kernel in incubator_mxnet_tpu_torch/
-                csrc/ (in parallel), timed; each prefill kernel's ptxas
-                registers, shared memory and spills, and its SASS counts
-                of HMMA / LDSM / LDGSTS (cuobjdump): the tensor-core body
-                must issue HMMA;
+                csrc/ (in parallel), timed; each prefill and flash
+                backward kernel's ptxas registers, shared memory and
+                spills, and its SASS counts of HMMA / LDSM / LDGSTS /
+                UTMALDG / STS.U16 (cuobjdump): the prefill tensor-core
+                body must issue HMMA; the backward's tensor-core bodies
+                HMMA, LDSM and TMA loads (UTMALDG), and no STS.U16 (no
+                transposed copy, stored 2 bytes at a time);
   3. kernels  — each of the six ragged kernels (decode, prefill, verify,
                 and their int8 / fp8_e4m3 code-pool variants) against its
                 plain PyTorch version on the card at the serving path's
@@ -29,7 +32,8 @@ failure exits non-zero before the result line:
                 512), at T=2048 causal and not, D=128 with Tq != Tk, and
                 D=64 at lengths that straddle the 64-row tiles; each
                 gradient within a fraction of the largest |gradient| of
-                its own (batch, head) slice;
+                its own (batch, head) slice, and the Δ the dq launch
+                writes within f32 summation error of attn_delta;
   5. serving  — gpt_small (GPT-2 small widths, bf16, seeded random
                 weights) through InferenceEngine with chunked prefill and
                 the prefix cache, 16 requests per run: plain decode;
@@ -72,7 +76,9 @@ failure exits non-zero before the result line:
                 dequantized, window for the ragged kernels; the same
                 boolean mask, forward or backward, for the flash ones),
                 and the bound from bytes / operations; each prefill case
-                with its split plan.
+                with its split plan; the port's whole flash backward as
+                autograd runs it beside the library's whole backward,
+                and the eager Δ (attn_delta) for the record.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -129,6 +135,11 @@ FLASH_CASES = [          # (B, H, Tq, Tk, D, lengths, causal)
     # the tensor-core bodies (bf16, D=64) at tile-straddling lengths
     (2, 12, 200, 200, 64, [200, 150], True),
     (2, 12, 96, 160, 64, [160, 33], False),
+    # ... and below one 64-row tile (TMA boxes larger than the tensor)
+    *[(3, 12, T, T, 64, [T, (T + 1) // 2, 0], causal)
+      for T in (1, 16, 37) for causal in (False, True)],
+    (3, 12, 40, 24, 64, [24, 9, 0], False),
+    (3, 12, 24, 40, 64, [40, 23, 0], False),
 ]
 # out and lse: |err| <= atol + rtol |plain|; gradients: |err| <= frac x
 # the largest |plain gradient| of the same (batch, head) slice, that
@@ -138,6 +149,9 @@ FLASH_TOL = {                # atol, rtol, frac, floor
     "float32": (2e-5, 2e-5, 2e-5, 1.0),
     "bfloat16": (1e-2, 1e-2, 2e-2, 1e-2),
 }
+# Δ = rowsum(dO ⊙ O) from the dq launch against attn_delta: |err| <=
+# DELTA_ULPS x D x 2^-24 x sum |dO ⊙ O| (two f32 summations of D terms)
+DELTA_ULPS = 2
 BERT = dict(B=32, T=512, M=76, steps=10, warmup=3)
 
 
@@ -305,12 +319,12 @@ def phase_build():
               flush=True)
     print(f"[build] all kernels in {secs:.1f} s "
           f"({_build.build_dir()})", flush=True)
-    log = _build.build_dir() / "ragged_prefill.log"
-    if log.is_file():
-        for fn, regs, spill in ptxas_entries(log.read_text()):
-            print(f"[build] ragged_prefill {fn}: {regs}; {spill}",
-                  flush=True)
-    sass_counts(_build.build_dir() / "libragged_prefill.so")
+    for name in ("ragged_prefill", "flash_bwd"):
+        log = _build.build_dir() / f"{name}.log"
+        if log.is_file():
+            for fn, regs, spill in ptxas_entries(log.read_text()):
+                print(f"[build] {name} {fn}: {regs}; {spill}", flush=True)
+        sass_counts(_build.build_dir() / f"lib{name}.so")
 
 
 def _demangle(names):
@@ -343,9 +357,12 @@ def ptxas_entries(log):
 
 
 def sass_counts(lib):
-    """Tensor-core (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
-    instructions in each prefill kernel's SASS, from cuobjdump; the
-    tensor-core body must issue HMMA."""
+    """Tensor-core (HMMA), ldmatrix (LDSM), cp.async (LDGSTS), TMA load
+    (UTMALDG) and 2-byte shared-store (STS.U16) instructions in each
+    prefill and flash backward kernel's SASS, from cuobjdump. The prefill
+    tensor-core body must issue HMMA; each backward tensor-core body
+    HMMA, LDSM and a copy into shared memory (LDGSTS or UTMALDG), and no
+    STS.U16 (a transposed copy is stored 2 bytes at a time)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.isfile(tool):
         print("[build] cuobjdump not found: SASS not inspected", flush=True)
@@ -357,17 +374,31 @@ def sass_counts(lib):
         m = re.search(r"Function : (\S+)", ln)
         if m:
             cur = m.group(1)
-            funcs[cur] = {"HMMA": 0, "LDSM": 0, "LDGSTS": 0}
+            funcs[cur] = {"HMMA": 0, "LDSM": 0, "LDGSTS": 0, "UTMALDG": 0,
+                          "STS.U16": 0}
         elif cur:
             for op in funcs[cur]:
-                if re.search(rf"\b{op}\b", ln):
+                if re.search(rf"\b{re.escape(op)}\b", ln):
                     funcs[cur][op] += 1
+    bwd_tc = []
     for name, c in zip(_demangle(list(funcs)), funcs.values()):
-        if "prefill" in name:
+        if "prefill" in name or "flash_bwd" in name:
             print(f"[build] sass {name}: " + ", ".join(
                 f"{op} x{n}" for op, n in c.items()), flush=True)
             check("prefill_mma" not in name or c["HMMA"] > 0,
                   f"{name} issues no tensor-core (HMMA) instruction")
+        if "flash_bwd" in name and "_tma_" in name:
+            bwd_tc.append(name)
+            check(c["HMMA"] > 0 and c["LDSM"] > 0 and
+                  c["LDGSTS"] + c["UTMALDG"] > 0,
+                  f"{name}: a tensor-core backward body must issue HMMA, "
+                  f"LDSM and cp.async or TMA loads ({c})")
+            check(c["STS.U16"] == 0, f"{name} stores 2-byte elements to "
+                                     f"shared memory (a transposed copy)")
+    if "flash_bwd" in str(lib):
+        for body in ("flash_bwd_dq_tma", "flash_bwd_dkv_tma"):
+            check(any(body in n for n in bwd_tc),
+                  f"no {body} kernel in the SASS of {lib}")
 
 
 def phase_kernels(torch):
@@ -1072,13 +1103,27 @@ def compare_flash(torch, fa, q, k, v, do, vl, causal, what, err):
     atol, rtol, gfrac, gfloor = FLASH_TOL[dt_name]
     what = f"{dt_name} {what}"
     out, lse = fa._flash_fwd_cuda(q, k, v, vl, causal, None)
-    delta = fa.attn_delta(out, do)
-    dq = fa._flash_bwd_dq_cuda(q, k, v, vl, do, lse, delta, causal, None)
+    dq, delta = fa._flash_bwd_dq_cuda(q, k, v, vl, do, out, lse, causal,
+                                      None)
     dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, vl, do, lse, delta, causal,
                                     None)
     ro, rl = fa.dense_attn_lse(q, k, v, vl, causal)
     grads = fa.dense_attn_bwd(q, k, v, vl, ro, rl, do, causal)
     torch.cuda.synchronize()
+    # the dq launch's Δ against attn_delta on the same out: f32 sums of D
+    # terms in two orders (bf16 products exact in f32; f32 products
+    # rounded once each), so within 2 D 2^-24 sum |dO O| of each other
+    ref_delta = fa.attn_delta(out, do)
+    dtol = DELTA_ULPS * q.shape[-1] * 2.0 ** -24 * \
+        (do.float().abs() * out.float().abs()).sum(dim=-1)
+    dd = (delta - ref_delta).abs()
+    worst = float((dd / dtol.clamp(min=1e-30)).max()) if dd.numel() else 0.0
+    print(f"[flash] flash_bwd_dq delta {what}: max|err| "
+          f"{float(dd.max()) if dd.numel() else 0.0:.3e}, worst |err| / "
+          f"tolerance {worst:.3f}", flush=True)
+    check(bool((dd <= dtol).all()), f"flash_bwd_dq {what}: the delta it "
+                                    f"writes disagrees with attn_delta "
+                                    f"({worst:.2f} x its tolerance)")
     live = rl > -1e29
     check(bool((lse[~live] == -1e30).all()) and
           bool((out.float()[~live] == 0).all()),
@@ -1104,7 +1149,7 @@ def compare_flash(torch, fa, q, k, v, do, vl, causal, what, err):
         check(worst <= 1.0, f"{name} {what}: {part} disagrees with its "
                             f"plain version (max |err| {e:.3e}, "
                             f"{worst:.2f} x its tolerance)")
-    del out, lse, dq, dk, dv, ro, rl, grads
+    del out, lse, dq, dk, dv, ro, rl, grads, delta, ref_delta
     torch.cuda.empty_cache()
 
 
@@ -1234,7 +1279,7 @@ def phase_training(torch, device_name):
     if kern:
         busy = sum(t for _, t in kern) / 1e3
         attn = {n: sum(t for k, t in kern
-                       if re.search(rf"mxt::{n}_(mma_)?kernel", k)) / 1e3
+                       if re.search(rf"mxt::{n}_([mt]ma_)?kernel", k)) / 1e3
                 for n in FLASH}
         stats.update(profiled_wall_ms=wall_ms, device_busy_ms=busy,
                      device_busy_share=busy / wall_ms,
@@ -1347,7 +1392,8 @@ def phase_bert_parity(torch):
 def flash_work(B, H, T, D, lens, elem):
     """(bytes, flops) each flash kernel needs at these lengths: K/V rows
     of live keys, every q / dO / out row, f32 lse and delta; operations
-    over the live keys (non-causal): 4, 6 and 8 x B H Tq keys D."""
+    over the live keys (non-causal): 4, 6 and 8 x B H Tq keys D. dq reads
+    out and writes delta (it computes delta); dk/dv reads delta."""
     live = sum(min(n, T) for n in lens)
     pairs = H * T * live
     rows = B * H * T * D * elem           # one (B, H, T, D) tensor
@@ -1355,7 +1401,7 @@ def flash_work(B, H, T, D, lens, elem):
     vec = B * H * T * 4                   # one f32 (B, H, T) vector
     return {"flash_fwd": (rows + 2 * kv + rows + vec + 4 * B,
                           4 * pairs * D),
-            "flash_bwd_dq": (2 * rows + 2 * kv + 2 * vec + rows + 4 * B,
+            "flash_bwd_dq": (3 * rows + 2 * kv + 2 * vec + rows + 4 * B,
                              6 * pairs * D),
             "flash_bwd_dkv": (2 * rows + 2 * kv + 2 * vec + 2 * kv + 4 * B,
                               8 * pairs * D)}
@@ -1367,7 +1413,10 @@ def phase_flash_times(torch, lens, err):
     plain version on these inputs (folded into ``err``), then timed:
     kernel, plain version (the dq and dk/dv rows share the one plain
     backward), and the library call with the same boolean mask (forward;
-    for both backward rows the library's whole backward)."""
+    for both backward rows the library's whole backward). Beside them:
+    the port's whole backward as ``_FlashAttention.backward`` runs it
+    (autograd, dq with Δ then dk/dv) against the library's, and the
+    eager ``attn_delta`` that the backward ran before Δ moved into dq."""
     import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.ops import flash_attention as fa
     B, H, T, D = BERT["B"], 12, BERT["T"], 64
@@ -1380,11 +1429,13 @@ def phase_flash_times(torch, lens, err):
                   f"in [{min(lens)}, {max(lens)}]", err)
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     out, lse = fa._flash_fwd_cuda(q, k, v, vl, False, None)
-    delta = fa.attn_delta(out, do)
+    _, delta = fa._flash_bwd_dq_cuda(q, k, v, vl, do, out, lse, False, None)
     mask = (torch.arange(T, device="cuda")[None, :] <
             vl.long()[:, None])[:, None, None, :]
     ql, kl, vlib = (x.detach().clone().requires_grad_() for x in (q, k, v))
     lib_out = F.scaled_dot_product_attention(ql, kl, vlib, attn_mask=mask)
+    qp, kp, vp = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    port_out = fa.flash_attention_bhtd(qp, kp, vp, vl)
     ms = {
         "flash_fwd": (
             _time_ms(torch, lambda: fa._flash_fwd_cuda(q, k, v, vl, False,
@@ -1394,7 +1445,7 @@ def phase_flash_times(torch, lens, err):
                 q, k, v, attn_mask=mask), flush)),
         "flash_bwd_dq": (
             _time_ms(torch, lambda: fa._flash_bwd_dq_cuda(
-                q, k, v, vl, do, lse, delta, False, None), flush),),
+                q, k, v, vl, do, out, lse, False, None), flush),),
         "flash_bwd_dkv": (
             _time_ms(torch, lambda: fa._flash_bwd_dkv_cuda(
                 q, k, v, vl, do, lse, delta, False, None), flush),),
@@ -1403,6 +1454,16 @@ def phase_flash_times(torch, lens, err):
         q, k, v, vl, out, lse, do), flush)
     lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(
         lib_out, (ql, kl, vlib), do, retain_graph=True), flush)
+    port_bwd = _time_ms(torch, lambda: torch.autograd.grad(
+        port_out, (qp, kp, vp), do, retain_graph=True), flush)
+    delta_ms = _time_ms(torch, lambda: fa.attn_delta(out, do), flush)
+    pair = ms["flash_bwd_dq"][0] + ms["flash_bwd_dkv"][0]
+    print(f"[times] flash backward B={B} H={H} T={T} D={D} bf16: dq + "
+          f"dk/dv {pair:.4f} ms; the port's whole backward (autograd, Δ "
+          f"inside dq) {port_bwd:.4f} ms; the library's whole backward "
+          f"{lib_bwd:.4f} ms ({lib_bwd / pair:.2f}x dq + dk/dv, "
+          f"{lib_bwd / port_bwd:.2f}x the port's whole); the eager "
+          f"attn_delta {delta_ms:.4f} ms", flush=True)
     work = flash_work(B, H, T, D, lens, 2)
     out_times = {}
     for name in FLASH:
@@ -1418,7 +1479,7 @@ def phase_flash_times(torch, lens, err):
               f"[{min(lens)}, {max(lens)}]: {kernel_ms:.4f} ms (plain "
               f"{plain_ms:.4f}, library {library_ms:.4f}, bound "
               f"{bms:.5f} by {by})", flush=True)
-    del flush, q, k, v, do, out, lse, lib_out
+    del flush, q, k, v, do, out, lse, lib_out, port_out, delta
     torch.cuda.empty_cache()
     return out_times
 

@@ -93,8 +93,10 @@ __device__ __forceinline__ int tile_key_end(int vl, int Tk, int q0, int BM,
 // A fragment of the next product (k = those 16 columns), so p and ds move
 // from one product to the next in registers. Operand tiles sit in shared
 // memory as bf16 rows of kMmaD + 8 elements (a 16-byte pad: the 8 rows g
-// of a fragment load fall in 8 different bank quads); a tile that is
-// needed as B with k along its rows is staged transposed.
+// of a fragment load fall in 8 different bank quads). The forward stages
+// a tile that it needs as B with k along its rows a second time,
+// transposed (stage_tile_t); the backward and the prefill kernel read
+// the row-major tile through ldmatrix.trans instead.
 // ---------------------------------------------------------------------
 
 constexpr int kMmaD = 64;                 // head dim of the tensor-core path
@@ -203,6 +205,63 @@ __device__ __forceinline__ void stage_tile_t(const bf16* __restrict__ src,
 #pragma unroll
     for (int i = 0; i < 8; ++i) dst[(c + i) * kMmaLdT + r] = h[i];
   }
+}
+
+// ---------------------------------------------------------------------
+// Asynchronous copies and ldmatrix (the prefill kernel and the tensor-core
+// backward bodies): 16-byte cp.async straight into shared memory, with a
+// zero-fill past a ragged edge, and fragment loads of four 8 x 8 bf16
+// matrices an instruction.
+// ---------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;              // 0: zero-fill, read nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(n));
+}
+
+// one 4-byte element (an f32 row statistic), zero past the edge
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 bf16 matrices out of shared memory, as stored: lane l gives
+// the address of row l % 8 of matrix l / 8; register i holds matrix i's
+// row lane / 4, columns 2 (lane % 4) and + 1 (an A fragment, or the B
+// fragment of an operand stored (n, k) row-major).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// Four 8x8 bf16 matrices transposed out of shared memory: the B fragments
+// of two adjacent n tiles for one k step when the operand is stored
+// (k, n) row-major.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
 }
 
 // reductions over the 4 lanes of a quad (one C-fragment row)

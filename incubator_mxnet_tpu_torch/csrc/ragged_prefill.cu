@@ -88,7 +88,8 @@
 
 #include <algorithm>
 
-#include "flash_common.cuh"   // mma.sync helpers; includes ragged_common
+#include "flash_common.cuh"   // mma.sync, cp.async and ldmatrix helpers;
+                              // includes ragged_common
 
 namespace mxt {
 
@@ -327,35 +328,6 @@ namespace cg = cooperative_groups;
 constexpr int kKeyTile = kMmaTile;           // keys per staged tile
 constexpr int kMaxClusterSplits = 16;        // largest (non-portable) cluster
 constexpr int kTileElems = kMmaTile * kMmaLd;   // one padded bf16 tile
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;              // 0: zero-fill, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 bf16 matrices transposed out of shared memory: the B fragments
-// of two adjacent n tiles for one k step when the operand is stored
-// (k, n) row-major.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
 
 template <typename P>
 __device__ __forceinline__ float code_value(uint8_t b);

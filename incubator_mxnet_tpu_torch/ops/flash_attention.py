@@ -18,8 +18,9 @@ Tq == Tk only), in three forms:
     fused ``_dense_bwd_kernel``;
   - ``flash_attention_bhtd``, a ``torch.autograd.Function`` over them: a
     CUDA tensor runs the kernels (or the wrapper raises), a CPU tensor the
-    plain versions. Δ is computed in plain torch, as the JAX package does
-    in XLA.
+    plain versions. On a CUDA tensor Δ is computed inside the dq launch,
+    which writes it for the dk/dv launch; ``attn_delta`` (what the JAX
+    package computes in XLA) is the CPU path's and the kernels' oracle.
 
 ``use_flash_attention`` is the static dispatch of ``ops.attention``'s
 flash path: length-form masks on a shape the kernels take go to
@@ -191,7 +192,7 @@ _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _TAIL = [_INT] * 5 + [_FLOAT, _INT, _INT, _PTR]  # B H Tq Tk D scale causal
 _SIGNATURES = {                                    # dtype stream
     "mx_flash_fwd": [_PTR] * 6 + _TAIL,
-    "mx_flash_bwd_dq": [_PTR] * 8 + _TAIL,
+    "mx_flash_bwd_dq": [_PTR] * 9 + _TAIL,
     "mx_flash_bwd_dkv": [_PTR] * 9 + _TAIL,
 }
 
@@ -229,11 +230,14 @@ def _check(what, q, k, v, valid_len, causal, extra=()):
     for name, t in (("q", q), ("k", k), ("v", v)) + tuple(extra):
         if t.device != dev or not t.is_contiguous():
             raise MXNetError(f"{what}: {name} must be contiguous on {dev}")
-        if name in ("k", "v", "dout") and t.dtype != q.dtype:
+        if name in ("k", "v", "dout", "out") and t.dtype != q.dtype:
             raise MXNetError(f"{what}: {name} dtype {t.dtype} != q dtype "
                              f"{q.dtype}")
-        if name == "dout" and t.shape != q.shape:
-            raise MXNetError(f"{what}: dout must be {tuple(q.shape)}")
+        if name in ("q", "k", "v", "dout", "out") and t.data_ptr() % 16:
+            raise MXNetError(f"{what}: {name} must start on a 16-byte "
+                             f"boundary (the kernels copy 16-byte rows)")
+        if name in ("dout", "out") and t.shape != q.shape:
+            raise MXNetError(f"{what}: {name} must be {tuple(q.shape)}")
         if name in ("lse", "delta") and (t.dtype != torch.float32 or
                                          t.shape != (B, H, Tq)):
             raise MXNetError(f"{what}: {name} must be float32 "
@@ -270,26 +274,29 @@ def _flash_fwd_cuda(q, k, v, valid_len, causal, scale):
     return out, lse
 
 
-def _flash_bwd_dq_cuda(q, k, v, valid_len, dout, lse, delta, causal,
-                       scale):
-    """Launch the dq entry point of ``csrc/flash_bwd.cu``."""
+def _flash_bwd_dq_cuda(q, k, v, valid_len, dout, out, lse, causal, scale):
+    """Launch the dq entry point of ``csrc/flash_bwd.cu``: ``(dq, delta)``.
+    The launch also computes Δ = rowsum(dout ⊙ out) (B, H, Tq) f32 from
+    the rows it stages, the input of ``_flash_bwd_dkv_cuda``."""
     B, H, Tq, Tk, D = _check("flash dq", q, k, v, valid_len, causal,
-                             (("dout", dout), ("lse", lse),
-                              ("delta", delta)))
+                             (("dout", dout), ("out", out), ("lse", lse)))
     lib, fn = _bind("flash_bwd", "mx_flash_bwd_dq")
     dq = torch.empty_like(q)
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), valid_len.data_ptr(),
-            dq.data_ptr(), B, H, Tq, Tk, D, _scale(D, scale), int(causal),
-            _DTYPE_CODE[q.dtype], _stream(q.device))
+            out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            valid_len.data_ptr(), dq.data_ptr(), B, H, Tq, Tk, D,
+            _scale(D, scale), int(causal), _DTYPE_CODE[q.dtype],
+            _stream(q.device))
     _raise_if_failed(lib, rc, "flash dq")
     LAUNCHES["flash_bwd_dq"] += 1
-    return dq
+    return dq, delta
 
 
 def _flash_bwd_dkv_cuda(q, k, v, valid_len, dout, lse, delta, causal,
                         scale):
-    """Launch the dk/dv entry point of ``csrc/flash_bwd.cu``."""
+    """Launch the dk/dv entry point of ``csrc/flash_bwd.cu``; ``delta``
+    is the dq launch's."""
     B, H, Tq, Tk, D = _check("flash dkv", q, k, v, valid_len, causal,
                              (("dout", dout), ("lse", lse),
                               ("delta", delta)))
@@ -309,9 +316,9 @@ def _flash_bwd_dkv_cuda(q, k, v, valid_len, dout, lse, delta, causal,
 # --------------------------------------------------------------------- #
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward saves (q, k, v, valid_len, out, lse); backward computes Δ
-    in plain torch and runs the dq and dk/dv kernels (CUDA) or the plain
-    analytic backward (CPU)."""
+    """Forward saves (q, k, v, valid_len, out, lse); backward runs the dq
+    kernel (which computes Δ) and then the dk/dv kernel (CUDA), or the
+    plain analytic backward (CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, valid_len, causal, scale):
@@ -328,9 +335,8 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, valid_len, out, lse = ctx.saved_tensors
         dout = dout.to(q.dtype).contiguous()
         if q.is_cuda:
-            delta = attn_delta(out, dout)
-            dq = _flash_bwd_dq_cuda(q, k, v, valid_len, dout, lse, delta,
-                                    ctx.causal, ctx.scale)
+            dq, delta = _flash_bwd_dq_cuda(q, k, v, valid_len, dout, out,
+                                           lse, ctx.causal, ctx.scale)
             dk, dv = _flash_bwd_dkv_cuda(q, k, v, valid_len, dout, lse,
                                          delta, ctx.causal, ctx.scale)
         else:

@@ -8,13 +8,20 @@ both arms: the single-tile (dense) kernels and the streaming FA-2 ones
 (``MXTPU_FLASH_DENSE_T`` set to 0). The autograd entry is checked with
 ``torch.autograd.gradcheck`` in f64, and the dispatch (boolean mask ->
 blockwise; CPU tensors -> plain versions, no launch). The CUDA kernels
-against the plain versions run only on a card (``cuda`` marker).
+against the plain versions run only on a card (``cuda`` marker): every
+body, and for the backward's tensor-core bodies (bf16, D = 64) lengths
+0, 1, 63, 64, 65, 127, 128, 129 and T for T in {1, 16, 37, 64, 200, 512}
+causal and not, Tq != Tk on both sides of one tile, a fully masked batch,
+two launches bitwise equal, and one launch per entry point.
 
 Tolerances (f32): 2e-5 on out and lse, 1e-4 on gradients — the two
 frameworks sum the products in different orders; bf16 operands against
 an f32 reference: 1e-2 (the output's rounding to bf16). The bf16 kernels
 on the card: 1e-2 on out and lse, and each gradient within 2e-2 of the
-largest |gradient| of its own (batch, head) slice (at least 1e-2).
+largest |gradient| of its own (batch, head) slice (at least 1e-2). The
+Δ that the dq launch writes against ``attn_delta``: within
+2 D 2^-24 sum |dO ⊙ O| (bf16 products are exact in f32, so the two differ
+only by the rounding of two f32 sums of D terms).
 """
 
 import numpy as np
@@ -276,31 +283,69 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,H,Tq,Tk,D,lens,causal", [
+def test_backward_wrappers_take_out_and_refuse_cpu_tensors():
+    q = torch.zeros(1, 1, 4, 64)
+    vl = torch.ones(1, dtype=torch.int32)
+    lse = torch.zeros(1, 1, 4)
+    with pytest.raises(MXNetError, match="CUDA device"):
+        fa._flash_bwd_dq_cuda(q, q, q, vl, q, q, lse, False, None)
+    with pytest.raises(MXNetError, match="CUDA device"):
+        fa._flash_bwd_dkv_cuda(q, q, q, vl, q, lse, lse, False, None)
+
+
+def _card_inputs(device, dt, B, H, Tq, Tk, D, lens, seed=0):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    q, do = (torch.randn(B, H, Tq, D, generator=gen, device=device)
+             .to(dt) for _ in range(2))
+    k, v = (torch.randn(B, H, Tk, D, generator=gen, device=device)
+            .to(dt) for _ in range(2))
+    vl = torch.tensor(lens, dtype=torch.int32, device=device)
+    return q, k, v, do, vl
+
+
+def _card_run(q, k, v, do, vl, causal):
+    """The forward, then the two backward launches (the dq launch writes
+    Δ for the dk/dv launch); one launch per entry point."""
+    fa.reset_launch_counts()
+    out, lse = fa._flash_fwd_cuda(q, k, v, vl, causal, None)
+    dq, delta = fa._flash_bwd_dq_cuda(q, k, v, vl, do, out, lse, causal,
+                                      None)
+    dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, vl, do, lse, delta, causal,
+                                    None)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                           "flash_bwd_dkv": 1}
+    return out, lse, dq, delta, dk, dv
+
+
+# (B, H, Tq, Tk, D, lens, causal), each run in f32 and bf16
+CARD_CASES = [
     (4, 2, 128, 128, 64, (0, 1, 77, 128), False),
     (2, 2, 200, 200, 64, (200, 150), True),
     (2, 2, 96, 160, 128, (160, 33), False),
-    (1, 2, 70, 70, 256, (70,), True)])
+    (1, 2, 70, 70, 256, (70,), True)]
+# the backward's tensor-core bodies (bf16, D = 64): lengths around the
+# 64-row tiles for T from below one tile to several, causal and not, and
+# Tq != Tk
+BWD_LENGTHS = (0, 1, 63, 64, 65, 127, 128, 129)
+BWD_CASES = (
+    [(len(BWD_LENGTHS) + 1, 2, T, T, 64, BWD_LENGTHS + (T,), causal)
+     for T in (1, 16, 37, 64, 200, 512) for causal in (False, True)] +
+    [(len(BWD_LENGTHS) + 1, 2, Tq, Tk, 64, BWD_LENGTHS + (Tk,), False)
+     for Tq, Tk in ((40, 24), (24, 40), (96, 160), (200, 72), (129, 512))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "dtype,B,H,Tq,Tk,D,lens,causal",
+    [(dt,) + c for dt in ("float32", "bfloat16") for c in CARD_CASES] +
+    [("bfloat16",) + c for c in BWD_CASES])
 def test_kernels_match_plain_on_card(cuda_device, dtype, B, H, Tq, Tk, D,
                                      lens, causal):
-    dt = getattr(torch, dtype)
-    gen = torch.Generator(device=cuda_device)
-    gen.manual_seed(0)
-    q, do = (torch.randn(B, H, Tq, D, generator=gen, device=cuda_device)
-             .to(dt) for _ in range(2))
-    k, v = (torch.randn(B, H, Tk, D, generator=gen, device=cuda_device)
-            .to(dt) for _ in range(2))
-    vl = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
-    fa.reset_launch_counts()
-    out, lse = fa._flash_fwd_cuda(q, k, v, vl, causal, None)
-    delta = fa.attn_delta(out, do)
-    dq = fa._flash_bwd_dq_cuda(q, k, v, vl, do, lse, delta, causal, None)
-    dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, vl, do, lse, delta, causal,
-                                    None)
-    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1,
-                           "flash_bwd_dkv": 1}
+    q, k, v, do, vl = _card_inputs(cuda_device, getattr(torch, dtype), B,
+                                   H, Tq, Tk, D, lens)
+    out, lse, dq, delta, dk, dv = _card_run(q, k, v, do, vl, causal)
     ro, rl = fa.dense_attn_lse(q, k, v, vl, causal)
     grads = fa.dense_attn_bwd(q, k, v, vl, ro, rl, do, causal)
     tol = 2e-5 if dtype == "float32" else 1e-2
@@ -308,10 +353,44 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, B, H, Tq, Tk, D,
     live = rl > -1e29
     torch.testing.assert_close(lse[live], rl[live], atol=tol, rtol=0)
     assert (lse[~live] == -1e30).all()
+    # Δ from the dq launch against attn_delta on the same out: two f32
+    # sums of D terms in different orders, each within D 2^-24 sum |terms|
+    dtol = 2 * D * 2.0 ** -24 * (do.float().abs() * out.float().abs()) \
+        .sum(-1)
+    assert ((delta - fa.attn_delta(out, do)).abs() <= dtol).all()
     for a, b in zip((dq, dk, dv), grads):
+        assert torch.isfinite(a).all()
         if dtype == "float32":
             gtol = 1e-4
         else:        # 2e-2 of the largest |gradient| of each (b, h) slice
             gtol = 2e-2 * b.float().abs().amax(dim=(2, 3), keepdim=True) \
                 .clamp(min=1e-2)
         assert ((a.float() - b.float()).abs() <= gtol).all()
+    # keys at or past valid_len get exact zeros
+    dead = (torch.arange(Tk, device=cuda_device)[None, :] >=
+            vl.long()[:, None])[:, None, :, None]
+    for g in (dk, dv):
+        assert (g.float()[dead.expand_as(g)] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_fully_masked_batch_gives_zero_finite_gradients(cuda_device, dtype,
+                                                        causal):
+    q, k, v, do, vl = _card_inputs(cuda_device, getattr(torch, dtype), 3,
+                                   2, 200, 200, 64, (0, 0, 0))
+    out, lse, dq, delta, dk, dv = _card_run(q, k, v, do, vl, causal)
+    assert (lse == -1e30).all() and (out == 0).all() and (delta == 0).all()
+    for g in (dq, dk, dv):
+        assert torch.isfinite(g).all() and (g == 0).all()
+
+
+@pytest.mark.cuda
+def test_two_launches_bitwise_equal(cuda_device):
+    args = _card_inputs(cuda_device, torch.bfloat16, 4, 12, 512, 512, 64,
+                        (512, 300, 129, 1), seed=5)
+    first = _card_run(*args, False)
+    second = _card_run(*args, False)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
