@@ -10,13 +10,15 @@ failure exits non-zero before the result line:
   1. device   — CUDA present; the card's name and power limit
                 (nvidia-smi);
   2. build    — nvcc builds every kernel in incubator_mxnet_tpu_torch/
-                csrc/ (in parallel), timed; each prefill and flash
-                backward kernel's ptxas registers, shared memory and
-                spills, and its SASS counts of HMMA / LDSM / LDGSTS /
-                UTMALDG / STS.U16 (cuobjdump): the prefill tensor-core
-                body must issue HMMA; the backward's tensor-core bodies
-                HMMA, LDSM and TMA loads (UTMALDG), and no STS.U16 (no
-                transposed copy, stored 2 bytes at a time);
+                csrc/ (in parallel), timed; each prefill, verify and flash
+                kernel's ptxas registers, shared memory and spills, and
+                its SASS counts of HMMA / LDSM / LDGSTS / UTMALDG /
+                STS.U16 (cuobjdump): the ragged tensor-core bodies
+                (prefill_mma, verify_mma) must issue HMMA, LDSM and
+                LDGSTS; the flash TMA bodies (forward, dq, dk/dv) HMMA,
+                LDSM and TMA loads (UTMALDG), and no STS.U16 (no
+                transposed copy, stored 2 bytes at a time); the forward's
+                no spills;
   3. kernels  — each of the six ragged kernels (decode, prefill, verify,
                 and their int8 / fp8_e4m3 code-pool variants) against its
                 plain PyTorch version on the card at the serving path's
@@ -24,8 +26,10 @@ failure exits non-zero before the result line:
                 NaN past the bound (length, start + n_real, length +
                 draft_len), NaN inside it, length 0, page permutation,
                 and a NaN page scale on a masked and on a live page
-                (prefill: on both bodies, f32 and bf16, with two launches
-                bitwise equal);
+                (prefill and verify: on both bodies, f32 and bf16, with
+                two launches bitwise equal); the verify tensor-core body
+                (bf16, D=64) at W = 1, 2, 5, 16, 17 and capacities of
+                1024 and 2048 keys, raw / int8 / fp8;
   4. flash    — the three flash-attention kernels (forward, dq, dk/dv)
                 against their plain versions, f32 and bf16, at BERT's
                 shapes (B=4, H=12, T=512, D=64, lengths 0 / 1 / 200 /
@@ -33,7 +37,9 @@ failure exits non-zero before the result line:
                 D=64 at lengths that straddle the 64-row tiles; each
                 gradient within a fraction of the largest |gradient| of
                 its own (batch, head) slice, and the Δ the dq launch
-                writes within f32 summation error of attn_delta;
+                writes within f32 summation error of attn_delta; NaN in
+                the K/V rows past valid_len changes no output (bf16,
+                T = 37 / 200 / 512, causal and not);
   5. serving  — gpt_small (GPT-2 small widths, bf16, seeded random
                 weights) through InferenceEngine with chunked prefill and
                 the prefix cache, 16 requests per run: plain decode;
@@ -243,6 +249,119 @@ def consumed_rows(torch):
     return torch.arange(W, device="cuda")[None, :] <= dl[:, None]
 
 
+# the verify tensor-core body's shapes: W, and (maxp, ps) capacities of
+# 1024 and 2048 keys
+VER_TC = dict(H=12, W=(1, 2, 5, 16, 17), caps=((64, 16), (128, 16)))
+
+
+def verify_tc_case(torch, gen, W, maxp, ps, quant):
+    """bf16 verify inputs at VER_TC's head count: lengths 0, 1, around a
+    page and a split, deep and at the capacity; draft_len cycling through
+    0 .. W - 1; each live slot maps its whole window (at most the row)."""
+    from incubator_mxnet_tpu_torch.ops import ragged_attention as ra
+    H, D, cap = VER_TC["H"], 64, maxp * ps
+    split = ra.verify_plan(1, W, H, D, ps, maxp, True).split_keys
+    lengths = [0, 1, ps - 1, ps, ps + 1, split - 1, split, split + 1,
+               cap // 2 + 5, cap - W, cap]
+    S = len(lengths)
+    n_map = [min(maxp, -(-(L + W - 1) // ps)) if L else 0 for L in lengths]
+    P = 1 + sum(n_map) + 2
+    q = torch.randn(S, W, H, D, generator=gen, device="cuda").bfloat16()
+    kp, vp, ks, vs = make_pools(torch, gen, P, H, ps, D, torch.bfloat16,
+                                quant)
+    pt = slot_table(torch, gen, n_map, P, maxp)
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    dl = torch.tensor([i % W for i in range(S)], dtype=torch.int32,
+                      device="cuda")
+    return q, kp, vp, pt, ln, dl, ks, vs
+
+
+def poisoned(torch, pool, cells):
+    """A copy of ``pool`` with each (page, position) of ``cells`` made
+    non-finite (NaN; the e4m3 NaN code; -128 in an int8 pool, a code the
+    writers never emit), written through a byte view."""
+    out = pool.view(torch.uint8).clone().view(pool.dtype)
+    for pg, pos in cells:
+        if pool.dtype in (torch.float32, torch.bfloat16):
+            out[pg, :, pos] = float("nan")
+        else:
+            out.view(torch.uint8)[pg, :, pos] = \
+                0x7F if pool.dtype == torch.float8_e4m3fn else 0x80
+    return out
+
+
+def permutation(torch, gen, P, table):
+    """A random relabelling of pages 1 .. P - 1 (the null page 0 stays)
+    and the page table under it."""
+    remap = torch.zeros(P, dtype=torch.long, device="cuda")
+    remap[1:] = torch.randperm(P - 1, generator=gen, device="cuda") + 1
+    t = table.clone()
+    live = table > 0
+    t[live] = remap[table[live].long()].int()
+    return remap, t
+
+
+def moved(torch, x, remap):
+    """Page p of ``x`` (a pool or a per-page scale) moved to remap[p]."""
+    if x is None:
+        return None
+    b = x.view(torch.uint8).reshape(x.shape[0], -1)
+    out = b.clone()
+    out[remap[1:]] = b[1:]
+    return out.view(x.dtype).reshape(x.shape)
+
+
+def verify_contract(torch, ra, gen, dt, quant, sc, rows, nan_scale):
+    """The verify contract at VER's shapes on one body and pool."""
+    q, kp, vp, pt, ln, dl, ks, vs = verify_case(torch, gen, dt, quant)
+    ps, S = VER["ps"], VER["S"]
+    tag = f"verify {str(dt).removeprefix('torch.')} {quant or 'raw'}"
+    run = lambda kp_, vp_, pt_=pt, ln_=ln, ks_=ks, vs_=vs: \
+        ra._ragged_verify_cuda(q, kp_, vp_, pt_, ln_, dl, sc, ks_, vs_)
+    clean = run(kp, vp)
+    check(bool(torch.equal(clean, run(kp, vp))),
+          f"{tag}: two launches differ")
+    past = [(int(pt[s, pos // ps]), pos % ps)
+            for s, (L, d) in enumerate(zip(VER["lengths"], VER["draft_len"]))
+            if L for pos in range(L + d, int((pt[s] > 0).sum()) * ps)]
+    past += [(0, pos) for pos in range(ps)]               # the null page
+    got = run(poisoned(torch, kp, past), poisoned(torch, vp, past))
+    check(bool(torch.isfinite(got[rows].float()).all()) and
+          bool(torch.equal(got, clean)),
+          f"{tag}: NaN past length + draft_len reached the output")
+    others = [i for i in range(S) if i != 5]
+    if quant != "int8":                   # an int8 code cannot be NaN
+        got = run(kp, poisoned(torch, vp, [(int(pt[5, 0]), 0)]))
+        check(bool(torch.isnan(got[5][rows[5]].float()).all()),
+              f"{tag}: NaN inside the length did not propagate")
+        check(bool(torch.equal(got[others], clean[others])),
+              f"{tag}: NaN in one slot changed another")
+    z = run(kp, vp, ln_=torch.zeros_like(ln))
+    check(bool((z == 0).all()), f"{tag}: length-0 slots not exactly zero")
+    remap, perm_pt = permutation(torch, gen, kp.shape[0], pt)
+    got = run(moved(torch, kp, remap), moved(torch, vp, remap), perm_pt,
+              ks_=moved(torch, ks, remap), vs_=moved(torch, vs, remap))
+    check(bool(torch.equal(got, clean)),
+          f"{tag}: page permutation changed the output")
+    if quant is None:
+        return
+    s5 = VER["lengths"].index(512)        # slot 5: length 512, no draft
+    masked = int(pt[s5, 512 // ps])       # a mapped page wholly past it
+    got = run(kp, vp, ks_=nan_scale(nan_scale(ks, 0), masked),
+              vs_=nan_scale(nan_scale(vs, 0), masked))
+    check(bool(torch.equal(got, clean)),
+          f"{tag}: NaN scale on a masked page leaked")
+    others = [i for i in range(S) if i != 3]
+    for bad_k in (True, False):
+        got = run(kp, vp,
+                  ks_=nan_scale(ks, int(pt[3, 0])) if bad_k else ks,
+                  vs_=vs if bad_k else nan_scale(vs, int(pt[3, 0])))
+        check(bool(torch.isnan(got[3][rows[3]].float()).all()) and
+              bool(torch.equal(got[others], clean[others])),
+              f"{tag}: NaN {'k' if bad_k else 'v'} scale on a live page "
+              f"did not stay in its slot")
+
+
 def bound(nbytes, flops, dtype_name):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -319,12 +438,20 @@ def phase_build():
               flush=True)
     print(f"[build] all kernels in {secs:.1f} s "
           f"({_build.build_dir()})", flush=True)
-    for name in ("ragged_prefill", "flash_bwd"):
+    spills = {}
+    for name in ("ragged_prefill", "ragged_verify", "flash_fwd",
+                 "flash_bwd"):
         log = _build.build_dir() / f"{name}.log"
         if log.is_file():
             for fn, regs, spill in ptxas_entries(log.read_text()):
                 print(f"[build] {name} {fn}: {regs}; {spill}", flush=True)
+                spills[fn] = spill
         sass_counts(_build.build_dir() / f"lib{name}.so")
+    for fn, spill in spills.items():
+        if "flash_fwd_tma" in fn:
+            check(re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
+                            spill) is not None,
+                  f"{fn} spills registers ({spill})")
 
 
 def _demangle(names):
@@ -356,13 +483,21 @@ def ptxas_entries(log):
     return [(n, r[1], r[2]) for n, r in zip(names, rows)]
 
 
+# the tensor-core bodies each kernel library must hold (SASS checks)
+TC_BODIES = {"ragged_prefill": ("prefill_mma",),
+             "ragged_verify": ("verify_mma",),
+             "flash_fwd": ("flash_fwd_tma",),
+             "flash_bwd": ("flash_bwd_dq_tma", "flash_bwd_dkv_tma")}
+
+
 def sass_counts(lib):
     """Tensor-core (HMMA), ldmatrix (LDSM), cp.async (LDGSTS), TMA load
     (UTMALDG) and 2-byte shared-store (STS.U16) instructions in each
-    prefill and flash backward kernel's SASS, from cuobjdump. The prefill
-    tensor-core body must issue HMMA; each backward tensor-core body
-    HMMA, LDSM and a copy into shared memory (LDGSTS or UTMALDG), and no
-    STS.U16 (a transposed copy is stored 2 bytes at a time)."""
+    ragged prefill / verify and flash kernel's SASS, from cuobjdump. The
+    ragged tensor-core bodies (prefill_mma, verify_mma) must issue HMMA,
+    LDSM and LDGSTS; each flash TMA body (forward, dq, dk/dv) HMMA, LDSM
+    and a copy into shared memory (LDGSTS or UTMALDG), and no STS.U16 (no
+    transposed copy, stored 2 bytes at a time)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.isfile(tool):
         print("[build] cuobjdump not found: SASS not inspected", flush=True)
@@ -380,25 +515,28 @@ def sass_counts(lib):
             for op in funcs[cur]:
                 if re.search(rf"\b{re.escape(op)}\b", ln):
                     funcs[cur][op] += 1
-    bwd_tc = []
+    lib_name = re.sub(r"^lib|\.so$", "", os.path.basename(str(lib)))
+    seen = set()
     for name, c in zip(_demangle(list(funcs)), funcs.values()):
-        if "prefill" in name or "flash_bwd" in name:
-            print(f"[build] sass {name}: " + ", ".join(
-                f"{op} x{n}" for op, n in c.items()), flush=True)
-            check("prefill_mma" not in name or c["HMMA"] > 0,
-                  f"{name} issues no tensor-core (HMMA) instruction")
-        if "flash_bwd" in name and "_tma_" in name:
-            bwd_tc.append(name)
-            check(c["HMMA"] > 0 and c["LDSM"] > 0 and
-                  c["LDGSTS"] + c["UTMALDG"] > 0,
-                  f"{name}: a tensor-core backward body must issue HMMA, "
-                  f"LDSM and cp.async or TMA loads ({c})")
-            check(c["STS.U16"] == 0, f"{name} stores 2-byte elements to "
-                                     f"shared memory (a transposed copy)")
-    if "flash_bwd" in str(lib):
-        for body in ("flash_bwd_dq_tma", "flash_bwd_dkv_tma"):
-            check(any(body in n for n in bwd_tc),
-                  f"no {body} kernel in the SASS of {lib}")
+        print(f"[build] sass {name}: " + ", ".join(
+            f"{op} x{n}" for op, n in c.items()), flush=True)
+        for body in TC_BODIES.get(lib_name, ()):
+            if body not in name:
+                continue
+            seen.add(body)
+            check(c["HMMA"] > 0 and c["LDSM"] > 0,
+                  f"{name}: a tensor-core body must issue HMMA and LDSM "
+                  f"({c})")
+            if body.startswith("flash"):
+                check(c["LDGSTS"] + c["UTMALDG"] > 0,
+                      f"{name}: no cp.async or TMA load ({c})")
+                check(c["STS.U16"] == 0, f"{name} stores 2-byte elements "
+                                         f"to shared memory (a transposed "
+                                         f"copy)")
+            else:
+                check(c["LDGSTS"] > 0, f"{name}: no cp.async ({c})")
+    for body in TC_BODIES.get(lib_name, ()):
+        check(body in seen, f"no {body} kernel in the SASS of {lib}")
 
 
 def phase_kernels(torch):
@@ -488,20 +626,9 @@ def phase_kernels(torch):
     z = ra._ragged_decode_cuda(q, kp, vp, pt, torch.zeros_like(ln), sc)
     check(bool((z == 0).all()), "decode: length-0 slots not exactly zero")
     # page-table permutation invariance: same tokens, other pages
-    def permuted(kp, vp, table):
-        P = kp.shape[0]
-        remap = torch.zeros(P, dtype=torch.long, device="cuda")
-        remap[1:] = torch.randperm(P - 1, generator=gen, device="cuda") + 1
-        kpp, vpp = kp.clone(), vp.clone()
-        kpp[remap[1:]] = kp[1:]
-        vpp[remap[1:]] = vp[1:]
-        t = table.clone()
-        live = table > 0
-        t[live] = remap[table[live].long()].int()
-        return kpp, vpp, t
-
-    kpp, vpp, perm_pt = permuted(kp, vp, pt)
-    got = ra._ragged_decode_cuda(q, kpp, vpp, perm_pt, ln, sc)
+    remap, perm_pt = permutation(torch, gen, kp.shape[0], pt)
+    got = ra._ragged_decode_cuda(q, moved(torch, kp, remap),
+                                 moved(torch, vp, remap), perm_pt, ln, sc)
     check(bool(torch.equal(got, clean)), "decode: page permutation changed "
                                          "the output")
     # prefill: a partial chunk's unwritten tail holding NaN, and the null
@@ -530,37 +657,6 @@ def phase_kernels(torch):
         got = ra._ragged_prefill_cuda(q, kp, vp3, row, start, n_real, sc)
         check(bool(torch.isnan(got[:n_real].float()).all()),
               f"prefill {dt}: NaN inside the live keys did not propagate")
-
-    # verify: NaN past length + draft_len, NaN inside, length 0, permute
-    q, kp, vp, pt, ln, dl, _, _ = verify_case(torch, gen, f32)
-    clean = ra._ragged_verify_cuda(q, kp, vp, pt, ln, dl, sc)
-    kp2, vp2 = kp.clone(), vp.clone()
-    for s, (L, d) in enumerate(zip(VER["lengths"], VER["draft_len"])):
-        n_map = int((pt[s] > 0).sum())
-        for pos in range(L + d, n_map * ps) if L else ():
-            pg = int(pt[s, pos // ps])
-            kp2[pg, :, pos % ps] = nan
-            vp2[pg, :, pos % ps] = nan
-    kp2[0], vp2[0] = nan, nan
-    got = ra._ragged_verify_cuda(q, kp2, vp2, pt, ln, dl, sc)
-    check(bool(torch.isfinite(got[rows]).all()) and
-          bool(torch.equal(got[rows], clean[rows])),
-          "verify: NaN past length + draft_len reached consumed rows")
-    vp3 = vp.clone()
-    vp3[int(pt[5, 0]), :, 0] = nan                       # seen by every row
-    got = ra._ragged_verify_cuda(q, kp, vp3, pt, ln, dl, sc)
-    check(bool(torch.isnan(got[5][rows[5]]).all()),
-          "verify: NaN inside the length did not propagate")
-    others = [i for i in range(VER["S"]) if i != 5]
-    check(bool(torch.equal(got[others][rows[others]],
-                           clean[others][rows[others]])),
-          "verify: NaN in one slot changed another")
-    z = ra._ragged_verify_cuda(q, kp, vp, pt, torch.zeros_like(ln), dl, sc)
-    check(bool((z == 0).all()), "verify: length-0 slots not exactly zero")
-    kpp, vpp, perm_pt = permuted(kp, vp, pt)
-    got = ra._ragged_verify_cuda(q, kpp, vpp, perm_pt, ln, dl, sc)
-    check(bool(torch.equal(got[rows], clean[rows])),
-          "verify: page permutation changed the output")
 
     # a NaN page scale: on a masked page it must not leak, on a live page
     # it must propagate to the slots that read it (int8, f32 queries)
@@ -611,25 +707,37 @@ def phase_kernels(torch):
                       f"{'k' if bad_k else 'v'} scale on a live page did "
                       f"not propagate")
 
-    q, kp, vp, pt, ln, dl, ks, vs = verify_case(torch, gen, f32, "int8")
-    clean = ra._ragged_verify_cuda(q, kp, vp, pt, ln, dl, sc, ks, vs)
-    masked = int(pt[s5, 512 // ps])           # slot 5: length 512, no draft
-    got = ra._ragged_verify_cuda(q, kp, vp, pt, ln, dl, sc,
-                                 nan_scale(nan_scale(ks, 0), masked),
-                                 nan_scale(nan_scale(vs, 0), masked))
-    check(bool(torch.equal(got[rows], clean[rows])),
-          "verify_q: NaN scale on a masked page leaked")
-    got = ra._ragged_verify_cuda(q, kp, vp, pt, ln, dl, sc,
-                                 nan_scale(ks, int(pt[3, 0])), vs)
-    others = [i for i in range(VER["S"]) if i != 3]
-    check(bool(torch.isnan(got[3][rows[3]]).all()) and
-          bool(torch.equal(got[others][rows[others]],
-                           clean[others][rows[others]])),
-          "verify_q: NaN scale on a live page did not stay in its slot")
+    # verify on both bodies (f32: CUDA cores; bf16 at D=64: tensor cores)
+    # and every pool: NaN past length + draft_len and in the null page, NaN
+    # inside, length 0, page permutation, two launches bitwise equal; on
+    # code pools a NaN page scale on a masked and on a live page
+    for dt in (f32, torch.bfloat16):
+        for quant in (None,) + QUANTS:
+            verify_contract(torch, ra, gen, dt, quant, sc, rows, nan_scale)
+    # the tensor-core body across its shapes: W = 1 .. 17, capacities of
+    # 1024 and 2048 keys (16 splits of 64 or of 128)
+    for maxp, ps_ in VER_TC["caps"]:
+        for W in VER_TC["W"]:
+            for quant in (None,) + QUANTS:
+                q, kp, vp, pt, ln, dl, ks, vs = verify_tc_case(
+                    torch, gen, W, maxp, ps_, quant)
+                got = ra._ragged_verify_cuda(q, kp, vp, pt, ln, dl, sc, ks,
+                                             vs)
+                ref = ra.ragged_verify_reference(q, kp, vp, pt, ln, sc, ks,
+                                                 vs)
+                keep = torch.arange(W, device="cuda")[None, :] <= \
+                    dl.long()[:, None]
+                cmp("ragged_verify" + ("_q" if quant else ""), got, ref,
+                    "bfloat16", keep=keep,
+                    what=f"{quant or 'raw'} tensor cores W={W} capacity "
+                         f"{maxp * ps_} (ps={ps_})")
+                check(bool((got[~keep] == 0).all()),
+                      f"verify W={W}: rows past draft_len not zero")
     torch.cuda.synchronize()
     print("[kernels] contract cases: NaN past length / start + n_real / "
           "length + draft_len, NaN inside, length 0, page permutation, "
-          "NaN scale on a masked and on a live page: ok", flush=True)
+          "NaN scale on a masked and on a live page, bitwise reruns "
+          "(verify: both bodies, every pool): ok", flush=True)
     return err
 
 
@@ -1168,6 +1276,35 @@ def phase_flash_kernels(torch):
                           f"B={B} H={H} Tq={Tq} Tk={Tk} D={D} "
                           f"lengths={lens} causal={causal}", err)
             del q, k, v, do, vl
+    # NaN in the K and V rows at or past valid_len (not only past Tk, where
+    # TMA zero-fills): bf16 D=64, every output bitwise as with finite rows
+    for T in (37, 200, 512):
+        for causal in (False, True):
+            lens = [T, T // 2 + 3, 1, 0]
+            q, k, v, do, vl = flash_inputs(torch, gen, len(lens), 12, T, T,
+                                           64, lens, torch.bfloat16)
+            dead = (torch.arange(T, device="cuda")[None, :] >=
+                    vl.long()[:, None])[:, None, :, None].expand_as(k)
+            nan = torch.full_like(k, float("nan"))
+            runs = []
+            for kk, vv in ((k, v), (torch.where(dead, nan, k),
+                                    torch.where(dead, nan, v))):
+                out, lse = fa._flash_fwd_cuda(q, kk, vv, vl, causal, None)
+                dq, delta = fa._flash_bwd_dq_cuda(q, kk, vv, vl, do, out,
+                                                  lse, causal, None)
+                dk, dv = fa._flash_bwd_dkv_cuda(q, kk, vv, vl, do, lse,
+                                                delta, causal, None)
+                runs.append((out, lse, dq, delta, dk, dv))
+            torch.cuda.synchronize()
+            for name, a, b in zip(("out", "lse", "dq", "delta", "dk", "dv"),
+                                  *runs):
+                check(bool(torch.equal(a, b)),
+                      f"flash bf16 T={T} causal={causal}: NaN past "
+                      f"valid_len changed {name}")
+            del q, k, v, do, vl, runs
+    print("[flash] NaN in K/V past valid_len (bf16, D=64, T=37/200/512, "
+          "causal and not): out, lse, dq, delta, dk, dv unchanged",
+          flush=True)
     return err
 
 

@@ -88,8 +88,6 @@
 //     diagonal on when causal), keeping dk and dv (BN x D) in registers.
 //     A block whose keys all lie past valid_len writes zeros.
 
-#include <cuda.h>   // CUtensorMap (the encoder comes through the runtime)
-
 #include "flash_common.cuh"
 
 namespace mxt {
@@ -347,137 +345,6 @@ constexpr int kDqRows = 16 * kDqWarps;         // query rows a dq block
 constexpr int kDkvWarps = 4;                   // 16 keys each
 constexpr int kDkvKeys = 16 * kDkvWarps;       // keys a dk/dv block
 constexpr int kDkvQ = 64;                      // queries a dk/dv step
-constexpr int kStages = 2;                     // each ring's depth in tiles
-constexpr int kRowBytes = kMmaD * 2;           // a staged bf16 row
-
-// TMA: one thread asks for a whole tile; the copy engine writes it into
-// shared memory in the 128-byte swizzle (16-byte chunk c of row r at chunk
-// c ^ (r % 8)), zero-fills rows past the tensor's end, and counts its
-// bytes on an mbarrier that the consumers wait on.
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// the issuing thread's arrival, with the bytes the copies will bring
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// box {64, rows, 1} of a (BH, T, 64) bf16 tensor at (0, y, z)
-__device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map,
-                                              int y, int z, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
-      "l"(map), "r"(0), "r"(y), "r"(z), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile
-__device__ __forceinline__ int sw128(int r, int c) {
-  return r * 128 + ((c ^ (r & 7)) << 4);
-}
-
-// A fragments of rows [r0, r0 + 16) of a swizzled tile, every k step of
-// 16 along the head dim: one ldmatrix.x4 each
-__device__ __forceinline__ void ldsm_a_frags_sw(
-    const unsigned char* tile, int r0, uint32_t (&a)[kMmaD / 16][4]) {
-  const int lane = threadIdx.x & 31, r = r0 + (lane & 15);
-#pragma unroll
-  for (int kk = 0; kk < kMmaD / 16; ++kk)
-    ldsm_x4(a[kk], reinterpret_cast<const bf16*>(
-                       tile + sw128(r, 2 * kk + (lane >> 4))));
-}
-
-
-// C1 += A1 . rows(t1)^T and C2 += A2 . rows(t2)^T (S = Q K^T with dP =
-// dO V^T, or S^T = K Q^T with dP^T = V dO^T) for 16 columns: rows
-// [16 j2, 16 j2 + 16) of each swizzled tile are the columns (two n tiles),
-// the head dim the k axis. Per k step one ldmatrix.x4 a tile gives both n
-// tiles' B fragments; four mma.sync on four accumulators follow.
-__device__ __forceinline__ void mma_rows2_chunk(
-    const uint32_t (&a1)[kMmaD / 16][4], const unsigned char* t1,
-    float (&c1)[2][4], const uint32_t (&a2)[kMmaD / 16][4],
-    const unsigned char* t2, float (&c2)[2][4], int j2) {
-  const int lane = threadIdx.x & 31;
-  const int r = 16 * j2 + (lane & 7) + 8 * (lane >> 4);
-  const int cb = (lane >> 3) & 1;
-#pragma unroll
-  for (int kk = 0; kk < kMmaD / 16; ++kk) {
-    uint32_t b1[4], b2[4];
-    const int off = sw128(r, 2 * kk + cb);
-    ldsm_x4(b1, reinterpret_cast<const bf16*>(t1 + off));
-    ldsm_x4(b2, reinterpret_cast<const bf16*>(t2 + off));
-    mma_bf16(c1[0], a1[kk], b1[0], b1[1]);
-    mma_bf16(c1[1], a1[kk], b1[2], b1[3]);
-    mma_bf16(c2[0], a2[kk], b2[0], b2[1]);
-    mma_bf16(c2[1], a2[kk], b2[2], b2[3]);
-  }
-}
-
-// 16 columns of P held as two C tiles, rounded to bf16: the A fragment of
-// one k step of the next product
-__device__ __forceinline__ void pack_a(const float (&p)[2][4],
-                                       uint32_t (&a)[4]) {
-  a[0] = pack_bf16(p[0][0], p[0][1]);
-  a[1] = pack_bf16(p[0][2], p[0][3]);
-  a[2] = pack_bf16(p[1][0], p[1][1]);
-  a[3] = pack_bf16(p[1][2], p[1][3]);
-}
-
-// C[16 x kMmaD] += A . tile[16 k2 .. 16 k2 + 16, :], one k step: the
-// swizzled tile's rows are the k axis, read transposed by
-// ldmatrix.x4.trans (two n tiles a load); the four loads come first, then
-// eight independent mma.sync
-__device__ __forceinline__ void mma_p_step(const uint32_t (&a)[4],
-                                           const unsigned char* tile, int k2,
-                                           float (&c)[kMmaD / 8][4]) {
-  const int lane = threadIdx.x & 31;
-  const int r = 16 * k2 + (lane & 7) + 8 * ((lane >> 3) & 1);
-  uint32_t b[kMmaD / 16][4];
-#pragma unroll
-  for (int n2 = 0; n2 < kMmaD / 16; ++n2)
-    ldsm_x4_t(b[n2], reinterpret_cast<const bf16*>(
-                         tile + sw128(r, 2 * n2 + (lane >> 4))));
-#pragma unroll
-  for (int n2 = 0; n2 < kMmaD / 16; ++n2) {
-    mma_bf16(c[2 * n2], a, b[n2][0], b[n2][1]);
-    mma_bf16(c[2 * n2 + 1], a, b[n2][2], b[n2][3]);
-  }
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x (MUFU.EX2): p = exp(s scale - lse) = 2^(s scale log2e - lse log2e)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // p and ds^T on one n tile of the S^T / dP^T C fragments of a dk/dv
 // body (keys along the rows, queries col0 and col0 + 1 of the tile):
@@ -849,49 +716,6 @@ flash_bwd_dkv_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
           pack_bf16(dv_acc[nd][2 * r], dv_acc[nd][2 * r + 1]);
     }
   }
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no link
-// against libcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &res) == cudaSuccess &&
-        res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// the map of a (BH, T, 64) bf16 tensor read in boxes of `rows` rows,
-// 128-byte swizzled, rows past T zero-filled
-inline cudaError_t rows_map(CUtensorMap* map, const void* base, int T,
-                            int BH, int rows) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (!fn) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)kMmaD, (cuuint64_t)T,
-                              (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)kMmaD * 2,
-                                 (cuuint64_t)T * kMmaD * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)kMmaD, (cuuint32_t)rows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                        const_cast<void*>(base), dims, strides, box, step,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,

@@ -219,6 +219,24 @@ __device__ __forceinline__ void stage_kv(
   }
 }
 
+// A verify window's bounds for slot s (W rows, kmax = the page row's
+// capacity): L = keys visible to row 0 (0: a dead slot), dl = the slot's
+// draft count (its last consumed row), key_end = the keys any consumed row
+// reads, min(L + dl, kmax); 0: nothing to read.
+struct VerifySpan {
+  int L, dl, key_end;                       // key_end 0: nothing to read
+};
+
+__device__ __forceinline__ VerifySpan verify_span(const int* lengths,
+                                                  const int* draft_len,
+                                                  int s, int W, int kmax) {
+  VerifySpan v;
+  v.L = min(max(lengths[s], 0), kmax);
+  v.dl = min(max(draft_len[s], 0), W - 1);
+  v.key_end = v.L > 0 ? min(v.L + v.dl, kmax) : 0;
+  return v;
+}
+
 inline size_t split_parts_floats(int rows, int H, int D, int nsplit) {
   return (size_t)rows * H * nsplit * (D + 2);
 }

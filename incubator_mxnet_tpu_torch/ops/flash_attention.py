@@ -87,21 +87,33 @@ def _scale(D, scale):
     return D ** -0.5 if scale is None else float(scale)
 
 
+def _live_rows(x, valid_len, ct):
+    """K or V (B, H, Tk, D) in the computation type with the rows at or
+    past valid_len SELECTED to 0: no value there (a NaN) reaches a
+    product, as in the kernels (the Pallas kernels multiply p = 0 into
+    those rows; ROADMAP.md Queue 3)."""
+    live = valid_length_mask(valid_len, x.shape[2], x.device)
+    return torch.where(live[:, None, :, None], x.to(ct), 0.0)
+
+
 def dense_attn_lse(q, k, v, valid_len, causal=False, scale=None):
     """Plain forward: (out, lse). q/k/v (B, H, T, D); the scores, softmax
     and value product in f32 (wider than f32 inputs stay as they are);
-    out in q's dtype, lse (B, H, Tq) f32 (the computation type)."""
+    out in q's dtype, lse (B, H, Tq) f32 (the computation type). K and V
+    rows at or past valid_len are selected out."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     sc = _scale(D, scale)
     ct = torch.promote_types(q.dtype, torch.float32)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), k.to(ct)) * sc
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct),
+                     _live_rows(k, valid_len, ct)) * sc
     mask = _prefix_causal_mask(Tq, Tk, valid_len, causal, q.device)
     s = torch.where(mask, s, _NEG_INF)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.to(ct)) / \
+    out = torch.einsum("bhqk,bhkd->bhqd", p,
+                       _live_rows(v, valid_len, ct)) / \
         torch.clamp(l, min=1e-30)[..., None]
     # fully masked rows (and NaN rows, as in the reference) are zero with
     # lse = -1e30
@@ -123,12 +135,14 @@ def dense_attn_bwd(q, k, v, valid_len, out, lse, dout, causal=False,
     """Plain analytic backward from the saved lse (no forward recompute):
     (dq, dk, dv) in the inputs' dtypes. p is rebuilt under a select on
     the mask, so a fully masked row (lse = -1e30, exp(s - lse) = inf)
-    contributes exact zeros."""
+    contributes exact zeros; K and V rows at or past valid_len are
+    selected out."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     sc = _scale(D, scale)
     ct = torch.promote_types(q.dtype, torch.float32)
-    qf, kf, vf, gf = (x.to(ct) for x in (q, k, v, dout))
+    qf, gf = q.to(ct), dout.to(ct)
+    kf, vf = _live_rows(k, valid_len, ct), _live_rows(v, valid_len, ct)
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sc
     mask = _prefix_causal_mask(Tq, Tk, valid_len, causal, q.device)
     p = torch.where(mask, torch.exp(s - lse.to(ct)[..., None]), 0.0)

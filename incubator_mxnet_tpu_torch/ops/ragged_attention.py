@@ -22,7 +22,10 @@ plain PyTorch version in this module:
     takes its key-split plan from ``prefill_plan``;
   - ``ragged_verify_attention`` (speculative verify): W queries per slot
     at positions ``lengths - 1 + r``, causal inside the window —
-    ``csrc/ragged_verify.cu``, the port of ``_ragged_verify_kernel``.
+    ``csrc/ragged_verify.cu``, the port of ``_ragged_verify_kernel``
+    (the prefill kernel's tensor-core body for bf16 at D = 64 and W <=
+    64, with one slot a grid row), which takes its key-split plan from
+    ``verify_plan``.
 
 Each takes optional ``k_scale`` / ``v_scale`` (P,) f32 per-page scales:
 given, the pools hold int8 or float8_e4m3fn codes and are dequantized
@@ -57,7 +60,8 @@ _NEG_INF = -1e30
 __all__ = ["ragged_paged_attention", "ragged_attention_reference",
            "ragged_prefill_attention", "ragged_prefill_reference",
            "ragged_verify_attention", "ragged_verify_reference",
-           "PrefillPlan", "prefill_plan", "LAUNCHES", "reset_launch_counts"]
+           "PrefillPlan", "prefill_plan", "VerifyPlan", "verify_plan",
+           "LAUNCHES", "reset_launch_counts"]
 
 LAUNCHES = {"ragged_decode": 0, "ragged_prefill": 0, "ragged_verify": 0,
             "ragged_decode_q": 0, "ragged_prefill_q": 0,
@@ -66,11 +70,12 @@ LAUNCHES = {"ragged_decode": 0, "ragged_prefill": 0, "ragged_verify": 0,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODE = {torch.int8: 2, torch.float8_e4m3fn: 3}     # quantized payloads
 _MAX_HEAD_DIM = 256
-_MMA_D = 64            # head dim of the prefill kernel's tensor-core body
+_MMA_D = 64            # head dim of the tensor-core body (prefill, verify)
 _MMA_TILE = 64         # its query rows per tile and keys per staged tile
 _CORE_SPLIT_KEYS = 64  # keys per split of the CUDA-core body
 _CORE_ROWS = 16        # query rows per block of the CUDA-core body
 _MAX_CLUSTER = 16      # tensor-core body: a head's splits form one cluster
+_VERIFY_BLOCKS_PER_SM = 3   # verify blocks an SM holds (registers, smem)
 H100_SMS = 132
 
 
@@ -269,8 +274,7 @@ _SIGNATURES = {                                # stream
     "ragged_prefill": {
         "mx_ragged_prefill": ([_PTR] * 8 + [_INT] * 10 + _TAIL, _INT)},
     "ragged_verify": {
-        "mx_ragged_verify": ([_PTR] * 10 + [_INT] * 6 + _TAIL, _INT),
-        "mx_ragged_verify_scratch": ([_INT] * 6, ctypes.c_longlong)},
+        "mx_ragged_verify": ([_PTR] * 10 + [_INT] * 8 + _TAIL, _INT)},
 }
 
 
@@ -403,9 +407,50 @@ def _ragged_prefill_cuda(q, k_pool, v_pool, page_row, q_start, n_real,
     return out
 
 
+class VerifyPlan(NamedTuple):
+    """How ``csrc/ragged_verify.cu`` splits a verify window's keys."""
+    tensor_cores: bool   # the mma.sync body (bf16 queries, D = 64, W <= 64)
+    keys: int            # the page row's capacity, maxp * ps
+    split_keys: int      # keys per split
+    nsplit: int          # splits: ceil(keys / split_keys)
+    blocks: int          # blocks launched
+    scratch_floats: int  # f32 scratch of the combine launch (0: none)
+
+
+def verify_plan(S, W, H, D, ps, maxp, tensor_cores, sms=H100_SMS):
+    """The split plan of one verify launch, from the page row's CAPACITY
+    ``maxp * ps``: the live keys (``lengths + draft_len``) sit on the
+    device, so no host value bounds them more tightly.
+
+    Tensor-core body: splits are whole 64-key tiles, at most 16 (the
+    splits of a (slot, head) form one thread-block cluster and merge in
+    distributed shared memory: no scratch), as many as keep the S H
+    nsplit blocks to about one wave of ``sms`` SMs at
+    ``_VERIFY_BLOCKS_PER_SM`` resident blocks each (another wave costs
+    more than a longer walk; a capacity above 16 tiles gives wider
+    splits); a block owns one (split, head, slot). CUDA-core body: 64-key
+    splits, merged by a second launch from a scratch of (m, l, acc[D])
+    per (slot, row, head, split)."""
+    keys = maxp * ps
+    if not tensor_cores:
+        nsplit = -(-keys // _CORE_SPLIT_KEYS)
+        return VerifyPlan(False, keys, _CORE_SPLIT_KEYS, nsplit,
+                          S * H * nsplit, S * W * H * nsplit * (D + 2))
+    ktiles = -(-keys // _MMA_TILE)
+    want = max(1, _VERIFY_BLOCKS_PER_SM * sms // max(1, S * H))
+    split_keys = _MMA_TILE * -(-ktiles // min(ktiles, _MAX_CLUSTER, want))
+    nsplit = -(-keys // split_keys)
+    return VerifyPlan(True, keys, split_keys, nsplit, S * H * nsplit, 0)
+
+
 def _ragged_verify_cuda(q, k_pool, v_pool, page_table, lengths, draft_len,
                         scale, k_scale=None, v_scale=None):
-    """Launch ``csrc/ragged_verify.cu`` on the current stream."""
+    """Launch ``csrc/ragged_verify.cu`` on the current stream, with the
+    split plan of ``verify_plan``. The body is chosen by shape before the
+    launch: bf16 queries with D = 64 and W <= 64 (one 64-row tile) run on
+    the tensor cores in one launch; anything else (f32 queries, another
+    head dim, W > 64) on the CUDA cores, a split launch and a combine
+    launch through exactly the plan's scratch."""
     kv = _check_operands(q, k_pool, v_pool, page_table, "ragged verify",
                          k_scale, v_scale)
     if q.dim() != 4:
@@ -419,16 +464,21 @@ def _ragged_verify_cuda(q, k_pool, v_pool, page_table, lengths, draft_len,
     _check_int32(lengths, (S,), "ragged verify", "lengths", q.device)
     _check_int32(draft_len, (S,), "ragged verify", "draft_len", q.device)
     ps, maxp = k_pool.shape[2], page_table.shape[1]
+    tc = q.dtype == torch.bfloat16 and D == _MMA_D and W <= _MMA_TILE
+    if tc and any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise MXNetError("ragged verify: q and the pools must be 16-byte "
+                         "aligned (16-byte copies)")
+    plan = verify_plan(S, W, H, D, ps, maxp, tc, _sm_count(q.device))
     lib = _bind("ragged_verify")
     out = torch.empty_like(q)
-    part = torch.empty(lib.mx_ragged_verify_scratch(S, W, H, D, ps, maxp),
-                       dtype=torch.float32, device=q.device)
+    part = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                       device=q.device) if plan.scratch_floats else None
     rc = lib.mx_ragged_verify(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), draft_len.data_ptr(),
-        _ptr(k_scale), _ptr(v_scale), out.data_ptr(), part.data_ptr(), S,
-        W, H, D, ps, maxp, float(scale), _DTYPE_CODE[q.dtype], kv,
-        _stream_ptr(q.device))
+        _ptr(k_scale), _ptr(v_scale), out.data_ptr(), _ptr(part), S, W, H,
+        D, ps, maxp, plan.split_keys, plan.nsplit, float(scale),
+        _DTYPE_CODE[q.dtype], kv, _stream_ptr(q.device))
     _raise_if_failed(lib, rc, "ragged verify")
     _count("ragged_verify", k_scale is not None)
     return out

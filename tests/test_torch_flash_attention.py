@@ -12,7 +12,10 @@ against the plain versions run only on a card (``cuda`` marker): every
 body, and for the backward's tensor-core bodies (bf16, D = 64) lengths
 0, 1, 63, 64, 65, 127, 128, 129 and T for T in {1, 16, 37, 64, 200, 512}
 causal and not, Tq != Tk on both sides of one tile, a fully masked batch,
-two launches bitwise equal, and one launch per entry point.
+two launches bitwise equal, one launch per entry point, and NaN in the K
+and V rows past valid_len reaching no output (T in {37, 200, 512}). On
+the CPU, the same NaN leaves the plain versions unchanged, where the
+Pallas kernels multiply it into the output (a departure by design).
 
 Tolerances (f32): 2e-5 on out and lse, 1e-4 on gradients — the two
 frameworks sum the products in different orders; bf16 operands against
@@ -119,6 +122,36 @@ def test_plain_matches_pallas_kernels_interpret(arm, causal, Tq, Tk, lens):
     for name, a, b in zip("qkv", got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b),
                                    atol=ATOL_GRAD, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("arm", ["dense", "streaming"])
+def test_nan_past_valid_len_is_selected_out_where_pallas_multiplies_it(
+        arm):
+    """K and V rows at or past valid_len are never read by the port: NaN
+    there leaves the plain forward and backward bitwise unchanged. The
+    Pallas kernels (interpret mode) form p @ v with p = 0 on those keys,
+    and 0 * NaN puts NaN into every row of that batch: a departure by
+    design (ROADMAP.md, Queue 3)."""
+    B, H, T, D = 2, 2, 24, 8
+    q, k, v, g, vl = _inputs(4, B, H, T, T, D, (24, 13))
+    k2, v2 = k.copy(), v.copy()
+    k2[1, :, 13:] = np.nan
+    v2[1, :, 13:] = np.nan
+    clean = fa.dense_attn_lse(*_t(q, k, v, vl))
+    poisoned = fa.dense_attn_lse(*_t(q, k2, v2, vl))
+    grads = [fa.dense_attn_bwd(*_t(q, kk, vv, vl), *clean,
+                               torch.from_numpy(g))
+             for kk, vv in ((k, v), (k2, v2))]
+    for a, b in zip(clean + grads[0], poisoned + grads[1]):
+        assert torch.equal(a, b)
+    dense = arm == "dense"
+    blocks = {} if dense else {"block_q": 8, "block_k": 8}
+    jo, _ = jpa._flash_fwd_lse(*_j(q, k2, v2, vl), interpret=True,
+                               dense=dense, **blocks)
+    jo = np.asarray(jo)
+    assert np.isnan(jo[1]).all()
+    np.testing.assert_allclose(jo[0], clean[0].numpy()[0], atol=ATOL_FWD,
+                               rtol=0)
 
 
 @pytest.mark.parametrize("arm", ["dense", "streaming"])
@@ -394,3 +427,25 @@ def test_two_launches_bitwise_equal(cuda_device):
     second = _card_run(*args, False)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T", [37, 200, 512])
+def test_nan_past_valid_len_reaches_no_output(cuda_device, T, causal):
+    """bf16, D = 64 (the TMA bodies): NaN in the K and V rows at or past
+    valid_len (not only past Tk, where TMA zero-fills) leaves out, lse,
+    Δ, dq, dk and dv bitwise equal to a run with finite values there."""
+    lens = (T, T // 2 + 3, 1, 0)
+    args = _card_inputs(cuda_device, torch.bfloat16, len(lens), 2, T, T, 64,
+                        lens, seed=T)
+    q, k, v, do, vl = args
+    clean = _card_run(*args, causal)
+    dead = (torch.arange(T, device=cuda_device)[None, :] >=
+            vl.long()[:, None])[:, None, :, None].expand_as(k)
+    k2 = torch.where(dead, torch.full_like(k, float("nan")), k)
+    v2 = torch.where(dead, torch.full_like(v, float("nan")), v)
+    poisoned = _card_run(q, k2, v2, do, vl, causal)
+    for name, a, b in zip(("out", "lse", "dq", "delta", "dk", "dv"), clean,
+                          poisoned):
+        assert torch.equal(a, b), name
