@@ -10,15 +10,15 @@ failure exits non-zero before the result line:
   1. device   — CUDA present; the card's name and power limit
                 (nvidia-smi);
   2. build    — nvcc builds every kernel in incubator_mxnet_tpu_torch/
-                csrc/ (in parallel), timed; each prefill, verify and flash
+                csrc/ (in parallel), timed; each ragged and flash
                 kernel's ptxas registers, shared memory and spills, and
                 its SASS counts of HMMA / LDSM / LDGSTS / UTMALDG /
                 STS.U16 (cuobjdump): the ragged tensor-core bodies
-                (prefill_mma, verify_mma) must issue HMMA, LDSM and
-                LDGSTS; the flash TMA bodies (forward, dq, dk/dv) HMMA,
-                LDSM and TMA loads (UTMALDG), and no STS.U16 (no
-                transposed copy, stored 2 bytes at a time); the forward's
-                no spills;
+                (prefill_mma, verify_mma, decode_mma) must issue HMMA,
+                LDSM and LDGSTS; the flash TMA bodies (forward, dq,
+                dk/dv) HMMA, LDSM and TMA loads (UTMALDG), and no STS.U16
+                (no transposed copy, stored 2 bytes at a time); the
+                forward's no spills;
   3. kernels  — each of the six ragged kernels (decode, prefill, verify,
                 and their int8 / fp8_e4m3 code-pool variants) against its
                 plain PyTorch version on the card at the serving path's
@@ -26,10 +26,14 @@ failure exits non-zero before the result line:
                 NaN past the bound (length, start + n_real, length +
                 draft_len), NaN inside it, length 0, page permutation,
                 and a NaN page scale on a masked and on a live page
-                (prefill and verify: on both bodies, f32 and bf16, with
-                two launches bitwise equal); the verify tensor-core body
-                (bf16, D=64) at W = 1, 2, 5, 16, 17 and capacities of
-                1024 and 2048 keys, raw / int8 / fp8;
+                (decode, prefill and verify: on both bodies, f32 and
+                bf16, raw and code pools, with two launches bitwise
+                equal); the decode tensor-core body (bf16, D=64) at
+                lengths 0-65 and the capacity, capacities of 1, 4 and 64
+                pages; the verify tensor-core body at W = 1, 2, 5, 16, 17
+                and capacities of 1024 and 2048 keys, raw / int8 / fp8;
+                torch.profiler shows one bf16 decode call running one
+                device kernel;
   4. flash    — the three flash-attention kernels (forward, dq, dk/dv)
                 against their plain versions, f32 and bf16, at BERT's
                 shapes (B=4, H=12, T=512, D=64, lengths 0 / 1 / 200 /
@@ -81,10 +85,10 @@ failure exits non-zero before the result line:
                 plain version's, a library call's (on the gathered, and
                 dequantized, window for the ragged kernels; the same
                 boolean mask, forward or backward, for the flash ones),
-                and the bound from bytes / operations; each prefill case
-                with its split plan; the port's whole flash backward as
-                autograd runs it beside the library's whole backward,
-                and the eager Δ (attn_delta) for the record.
+                and the bound from bytes / operations; each decode and
+                prefill case with its split plan; the port's whole flash
+                backward as autograd runs it beside the library's whole
+                backward, and the eager Δ (attn_delta) for the record.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -362,6 +366,121 @@ def verify_contract(torch, ra, gen, dt, quant, sc, rows, nan_scale):
               f"did not stay in its slot")
 
 
+# the decode tensor-core body's shapes: (maxp, ps) capacities of 1, 4 and
+# 64 pages, and lengths around a page and a 64-key tile
+DEC_TC = dict(H=12, caps=((1, 16), (4, 16), (64, 16)),
+              lengths=(0, 1, 15, 16, 17, 63, 64, 65))
+
+
+def decode_tc_case(torch, gen, maxp, ps, quant):
+    """bf16 decode inputs at DEC_TC's head count: its lengths (at most the
+    capacity) and the capacity itself, each live slot mapping its pages."""
+    H, D, cap = DEC_TC["H"], 64, maxp * ps
+    lengths = [min(L, cap) for L in DEC_TC["lengths"]] + [cap]
+    n_map = [-(-L // ps) for L in lengths]
+    P = 1 + sum(n_map) + 2
+    q = torch.randn(len(lengths), H, D, generator=gen,
+                    device="cuda").bfloat16()
+    kp, vp, ks, vs = make_pools(torch, gen, P, H, ps, D, torch.bfloat16,
+                                quant)
+    pt = slot_table(torch, gen, n_map, P, maxp)
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, kp, vp, pt, ln, ks, vs
+
+
+def decode_contract(torch, ra, gen, dt, quant, sc, nan_scale):
+    """The decode contract at DEC's shapes on one body and pool, each live
+    slot mapping one page past its length (a wholly masked page)."""
+    ps, S = DEC["ps"], DEC["S"]
+    q, kp, vp, pt, ln, ks, vs = decode_case(torch, gen, dt, quant, extra=ps)
+    tag = f"decode {str(dt).removeprefix('torch.')} {quant or 'raw'}"
+    run = lambda kp_, vp_, pt_=pt, ln_=ln, ks_=ks, vs_=vs: \
+        ra._ragged_decode_cuda(q, kp_, vp_, pt_, ln_, sc, ks_, vs_)
+    clean = run(kp, vp)
+    check(bool(torch.equal(clean, run(kp, vp))),
+          f"{tag}: two launches differ")
+    past = [(int(pt[s, pos // ps]), pos % ps)
+            for s, L in enumerate(DEC["lengths"])
+            if L for pos in range(L, int((pt[s] > 0).sum()) * ps)]
+    past += [(0, pos) for pos in range(ps)]               # the null page
+    got = run(poisoned(torch, kp, past), poisoned(torch, vp, past))
+    check(bool(torch.isfinite(got.float()).all()) and
+          bool(torch.equal(got, clean)),
+          f"{tag}: NaN past the length (or in the null page) leaked")
+    others = [i for i in range(S) if i != 5]
+    if quant != "int8":                   # an int8 code cannot be NaN
+        got = run(kp, poisoned(torch, vp, [(int(pt[5, 0]), 0)]))
+        check(bool(torch.isnan(got[5].float()).all()),
+              f"{tag}: NaN inside the length did not propagate")
+        check(bool(torch.equal(got[others], clean[others])),
+              f"{tag}: NaN in one slot changed another")
+    z = run(kp, vp, ln_=torch.zeros_like(ln))
+    check(bool((z == 0).all()), f"{tag}: length-0 slots not exactly zero")
+    remap, perm_pt = permutation(torch, gen, kp.shape[0], pt)
+    got = run(moved(torch, kp, remap), moved(torch, vp, remap), perm_pt,
+              ks_=moved(torch, ks, remap), vs_=moved(torch, vs, remap))
+    check(bool(torch.equal(got, clean)),
+          f"{tag}: page permutation changed the output")
+    if quant is None:
+        return
+    s5 = DEC["lengths"].index(512)        # slot 5: its page 32 is wholly
+    masked = int(pt[s5, 512 // ps])       # past its length
+    got = run(kp, vp, ks_=nan_scale(nan_scale(ks, 0), masked),
+              vs_=nan_scale(nan_scale(vs, 0), masked))
+    check(bool(torch.equal(got, clean)),
+          f"{tag}: NaN scale on a masked page leaked")
+    others = [i for i in range(S) if i != 3]
+    for bad_k in (True, False):
+        got = run(kp, vp,
+                  ks_=nan_scale(ks, int(pt[3, 0])) if bad_k else ks,
+                  vs_=vs if bad_k else nan_scale(vs, int(pt[3, 0])))
+        check(bool(torch.isnan(got[3].float()).all()) and
+              bool(torch.equal(got[others], clean[others])),
+              f"{tag}: NaN {'k' if bad_k else 'v'} scale on a live page "
+              f"did not stay in its slot")
+
+
+def decode_one_kernel(torch, ra, gen, sc, n=4):
+    """torch.profiler over ``n`` bf16 decode calls on each pool at DEC's
+    shapes: one device kernel a call, the tensor-core body (no combine
+    launch, no scratch fill). The tracer can miss kernels at the start of
+    a process's first sessions, so a throwaway session runs first, and a
+    session that recorded fewer than ``n`` kernels is taken again (at
+    most 3 times): a call launches at least one kernel or raises, so
+    fewer than ``n`` is a lost record, while more fails at once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernels(fn):
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+            if len(names) >= n:
+                break
+        return names
+
+    one = torch.zeros(1, device="cuda")
+    kernels(lambda: one.add_(1))
+    for quant in (None,) + QUANTS:
+        q, kp, vp, pt, ln, ks, vs = decode_case(torch, gen, torch.bfloat16,
+                                                quant)
+        fn = lambda: ra._ragged_decode_cuda(q, kp, vp, pt, ln, sc, ks, vs)
+        fn()
+        torch.cuda.synchronize()
+        names = kernels(fn)
+        print(f"[kernels] {n} bf16 decode calls, pools {quant or 'raw'}: "
+              f"{len(names)} device kernel(s) "
+              f"{sorted({x[:40] for x in names})}", flush=True)
+        check(len(names) == n and all("decode_mma" in x for x in names),
+              f"{n} bf16 decode calls ran {len(names)} device kernels "
+              f"({sorted(set(names))}), not one tensor-core launch each")
+
+
 def bound(nbytes, flops, dtype_name):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -439,8 +558,8 @@ def phase_build():
     print(f"[build] all kernels in {secs:.1f} s "
           f"({_build.build_dir()})", flush=True)
     spills = {}
-    for name in ("ragged_prefill", "ragged_verify", "flash_fwd",
-                 "flash_bwd"):
+    for name in ("ragged_decode", "ragged_prefill", "ragged_verify",
+                 "flash_fwd", "flash_bwd"):
         log = _build.build_dir() / f"{name}.log"
         if log.is_file():
             for fn, regs, spill in ptxas_entries(log.read_text()):
@@ -484,7 +603,8 @@ def ptxas_entries(log):
 
 
 # the tensor-core bodies each kernel library must hold (SASS checks)
-TC_BODIES = {"ragged_prefill": ("prefill_mma",),
+TC_BODIES = {"ragged_decode": ("decode_mma",),
+             "ragged_prefill": ("prefill_mma",),
              "ragged_verify": ("verify_mma",),
              "flash_fwd": ("flash_fwd_tma",),
              "flash_bwd": ("flash_bwd_dq_tma", "flash_bwd_dkv_tma")}
@@ -493,9 +613,9 @@ TC_BODIES = {"ragged_prefill": ("prefill_mma",),
 def sass_counts(lib):
     """Tensor-core (HMMA), ldmatrix (LDSM), cp.async (LDGSTS), TMA load
     (UTMALDG) and 2-byte shared-store (STS.U16) instructions in each
-    ragged prefill / verify and flash kernel's SASS, from cuobjdump. The
-    ragged tensor-core bodies (prefill_mma, verify_mma) must issue HMMA,
-    LDSM and LDGSTS; each flash TMA body (forward, dq, dk/dv) HMMA, LDSM
+    ragged and flash kernel's SASS, from cuobjdump. The ragged
+    tensor-core bodies (decode_mma, prefill_mma, verify_mma) must issue
+    HMMA, LDSM and LDGSTS; each flash TMA body (forward, dq, dk/dv) HMMA, LDSM
     and a copy into shared memory (LDGSTS or UTMALDG), and no STS.U16 (no
     transposed copy, stored 2 bytes at a time)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -598,39 +718,38 @@ def phase_kernels(torch):
             check(bool((got[0] == 0).all()), "verify: length-0 slot not "
                                              "zero")
 
-    # contract cases, f32 raw pools
+    # a NaN page scale: on a masked page it must not leak, on a live page
+    # it must propagate to the slots that read it
+    def nan_scale(scale, page):
+        bad = scale.clone()
+        bad[page] = nan
+        return bad
+
+    # decode on both bodies (f32: CUDA cores; bf16 at D=64: tensor cores)
+    # and every pool: NaN past the length and in the null page, NaN inside,
+    # length 0, page permutation, two launches bitwise equal; on code pools
+    # a NaN page scale on a masked and on a live page
     f32 = torch.float32
     ps = DEC["ps"]
-    q, kp, vp, pt, ln, _, _ = decode_case(torch, gen, f32)
-    clean = ra._ragged_decode_cuda(q, kp, vp, pt, ln, sc)
-    # NaN past a slot's length (tail of its last page) does not leak
-    s, L = 3, DEC["lengths"][3]
-    last = int(pt[s, (L - 1) // ps])
-    kp2, vp2 = kp.clone(), vp.clone()
-    kp2[last, :, L % ps:] = nan
-    vp2[last, :, L % ps:] = nan
-    kp2[0], vp2[0] = nan, nan                            # the null page
-    got = ra._ragged_decode_cuda(q, kp2, vp2, pt, ln, sc)
-    check(bool(torch.equal(got, clean)),
-          "decode: NaN past the length (or in the null page) leaked")
-    # NaN inside the length propagates to that slot only
-    vp3 = vp.clone()
-    vp3[int(pt[5, 0]), :, 0] = nan
-    got = ra._ragged_decode_cuda(q, kp, vp3, pt, ln, sc)
-    check(bool(torch.isnan(got[5]).all()), "decode: NaN inside the length "
-                                           "did not propagate")
-    others = [i for i in range(DEC["S"]) if i != 5]
-    check(bool(torch.equal(got[others], clean[others])),
-          "decode: NaN in one slot changed another")
-    # length 0 everywhere gives exact zeros
-    z = ra._ragged_decode_cuda(q, kp, vp, pt, torch.zeros_like(ln), sc)
-    check(bool((z == 0).all()), "decode: length-0 slots not exactly zero")
-    # page-table permutation invariance: same tokens, other pages
-    remap, perm_pt = permutation(torch, gen, kp.shape[0], pt)
-    got = ra._ragged_decode_cuda(q, moved(torch, kp, remap),
-                                 moved(torch, vp, remap), perm_pt, ln, sc)
-    check(bool(torch.equal(got, clean)), "decode: page permutation changed "
-                                         "the output")
+    for dt in (f32, torch.bfloat16):
+        for quant in (None,) + QUANTS:
+            decode_contract(torch, ra, gen, dt, quant, sc, nan_scale)
+    # the tensor-core body at lengths around a page and a tile, and at the
+    # capacity, for capacities of 1, 4 and 64 pages
+    for maxp, ps_ in DEC_TC["caps"]:
+        for quant in (None,) + QUANTS:
+            q, kp, vp, pt, ln, ks, vs = decode_tc_case(torch, gen, maxp, ps_,
+                                                       quant)
+            got = ra._ragged_decode_cuda(q, kp, vp, pt, ln, sc, ks, vs)
+            ref = ra.ragged_attention_reference(q, kp, vp, pt, ln, sc, ks,
+                                                vs)
+            cmp("ragged_decode" + ("_q" if quant else ""), got, ref,
+                "bfloat16", what=f"{quant or 'raw'} tensor cores capacity "
+                                 f"{maxp * ps_} lengths {ln.tolist()}")
+            check(bool((got[ln == 0] == 0).all()),
+                  "decode: length-0 slot not exactly zero")
+    decode_one_kernel(torch, ra, gen, sc)
+
     # prefill: a partial chunk's unwritten tail holding NaN, and the null
     # page, on both bodies (f32: CUDA cores; bf16 at D=64: tensor cores);
     # two launches bitwise equal
@@ -657,30 +776,6 @@ def phase_kernels(torch):
         got = ra._ragged_prefill_cuda(q, kp, vp3, row, start, n_real, sc)
         check(bool(torch.isnan(got[:n_real].float()).all()),
               f"prefill {dt}: NaN inside the live keys did not propagate")
-
-    # a NaN page scale: on a masked page it must not leak, on a live page
-    # it must propagate to the slots that read it (int8, f32 queries)
-    def nan_scale(scale, page):
-        bad = scale.clone()
-        bad[page] = nan
-        return bad
-
-    q, kp, vp, pt, ln, ks, vs = decode_case(torch, gen, f32, "int8",
-                                            extra=ps)
-    clean = ra._ragged_decode_cuda(q, kp, vp, pt, ln, sc, ks, vs)
-    s5 = DEC["lengths"].index(512)            # its page 32 is wholly past
-    masked = int(pt[s5, 512 // ps])
-    got = ra._ragged_decode_cuda(q, kp, vp, pt, ln, sc,
-                                 nan_scale(nan_scale(ks, 0), masked),
-                                 nan_scale(nan_scale(vs, 0), masked))
-    check(bool(torch.equal(got, clean)), "decode_q: NaN scale on a masked "
-                                         "page leaked")
-    got = ra._ragged_decode_cuda(q, kp, vp, pt, ln, sc,
-                                 nan_scale(ks, int(pt[3, 0])), vs)
-    others = [i for i in range(DEC["S"]) if i != 3]
-    check(bool(torch.isnan(got[3]).all()) and
-          bool(torch.equal(got[others], clean[others])),
-          "decode_q: NaN scale on a live page did not stay in its slot")
 
     start, n_real = PRE["cases"][1]           # live keys end at 237
     for dt in (f32, torch.bfloat16):
@@ -796,10 +891,12 @@ def phase_times(torch):
         q, kp, vp, pt, ln, ks, vs = decode_case(torch, gen, dt, quant)
         kw, vw = window(kp, pt, ks), window(vp, pt, vs)
         mask = (ar[None, :] < ln.long()[:, None])[:, None, None, :]
+        plan = ra.decode_plan(DEC["S"], H, D, ps, maxp, True, sms)
         r = record(
             "ragged_decode" + sfx,
             f"S={DEC['S']} H={H} D={D} ps={ps} maxp={maxp} "
-            f"lengths={DEC['lengths']} q bf16, pools {tag}",
+            f"lengths={DEC['lengths']} q bf16, pools {tag}; plan "
+            f"{plan.nsplit} x {plan.split_keys} keys, {plan.blocks} blocks",
             _time_ms(torch, lambda: ra._ragged_decode_cuda(
                 q, kp, vp, pt, ln, sc, ks, vs), flush),
             _time_ms(torch, lambda: ra.ragged_attention_reference(

@@ -21,14 +21,16 @@
 //     NaN scale on a masked page cannot leak; a NaN scale on a live page
 //     makes its values NaN and propagates (a code pool's NaN channel).
 //
-// All three kernels split the keys: a block of the first pass owns one
-// (query rows, head, kSplitKeys-key split), stages that split's K and V
-// tiles in shared memory (stage_kv, many loads in flight), and writes the
-// split's partial softmax state per row — its max m, its sum l and its
-// unnormalised accumulator acc[D] — to a scratch buffer the wrapper
-// allocates. The second pass (combine_row) merges a row's splits:
-// M = max_j m_j, l = sum_j l_j e^(m_j - M), acc = sum_j acc_j e^(m_j - M),
-// out = acc / l.
+// The CUDA-core bodies of all three kernels (f32 queries, head dims other
+// than 64; bf16 at D = 64 runs the tensor-core body of ragged_mma.cuh,
+// which merges its splits inside a cluster) split the keys: a block of
+// the first pass owns one (query rows, head, kSplitKeys-key split),
+// stages that split's K and V tiles in shared memory (stage_kv, many
+// loads in flight), and writes the split's partial softmax state per row
+// — its max m, its sum l and its unnormalised accumulator acc[D] — to a
+// scratch buffer the wrapper allocates. The second pass (combine_row)
+// merges a row's splits: M = max_j m_j, l = sum_j l_j e^(m_j - M), acc =
+// sum_j acc_j e^(m_j - M), out = acc / l.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -221,8 +223,9 @@ __device__ __forceinline__ void stage_kv(
 
 // A verify window's bounds for slot s (W rows, kmax = the page row's
 // capacity): L = keys visible to row 0 (0: a dead slot), dl = the slot's
-// draft count (its last consumed row), key_end = the keys any consumed row
-// reads, min(L + dl, kmax); 0: nothing to read.
+// draft count (its last consumed row; a null draft_len, the decode step,
+// means 0), key_end = the keys any consumed row reads, min(L + dl, kmax);
+// 0: nothing to read.
 struct VerifySpan {
   int L, dl, key_end;                       // key_end 0: nothing to read
 };
@@ -232,7 +235,7 @@ __device__ __forceinline__ VerifySpan verify_span(const int* lengths,
                                                   int s, int W, int kmax) {
   VerifySpan v;
   v.L = min(max(lengths[s], 0), kmax);
-  v.dl = min(max(draft_len[s], 0), W - 1);
+  v.dl = draft_len != nullptr ? min(max(draft_len[s], 0), W - 1) : 0;
   v.key_end = v.L > 0 ? min(v.L + v.dl, kmax) : 0;
   return v;
 }

@@ -1,8 +1,9 @@
-// The tensor-core body of the ragged prefill and verify kernels
-// (ragged_prefill.cu, ragged_verify.cu): bf16 queries, head dim 64, raw
-// bf16 pools or int8 / fp8 code pools with per-page scales.
+// The tensor-core body of the ragged prefill, verify and decode kernels
+// (ragged_prefill.cu, ragged_verify.cu, ragged_decode.cu): bf16 queries,
+// head dim 64, raw bf16 pools or int8 / fp8 code pools with per-page
+// scales.
 //
-// Both compute one thing: C query rows of ONE slot at positions start + i
+// All compute one thing: C query rows of ONE slot at positions start + i
 // (i < C) attend the slot's paged keys through the predicate pos_k <=
 // start + i, every key at or past key_end is selected out (never read),
 // and rows >= n_real are written as zeros. A prefill chunk gives (start,
@@ -10,6 +11,9 @@
 // at once: row r of slot s sits at position L - 1 + r (L = lengths[s]), its
 // consumed rows are 0..dl (dl = draft_len[s]) and its keys end at
 // min(L + dl, capacity) (verify_span); the block reads them on the device.
+// A decode step is a verify window of C = W = 1 with no draft (draft_len
+// null: dl = 0): its row sits at L - 1, sees keys [0, L) and V is selected
+// out from L.
 //
 // Design (it bounds on latency, not bytes: see ragged_prefill.cu's note):
 //   - one read of each live K/V byte: a block owns one (key split, head)
@@ -20,12 +24,15 @@
 //     (spec_k <= 15) the rows fill one m16 tile, so the four warps split
 //     each 64-key tile instead, 16 keys each, and merge their (o, m, l)
 //     in shared memory after the walk: a tile's chain is a quarter as
-//     long. A warp skips every tile (or key chunk) that none of its rows
-//     sees; a block no live row of its group sees walks nothing;
-//   - staging: the split's page ids (and page scales) go to shared memory
-//     first; then each 64-key tile of K and V is copied with 16-byte
-//     cp.async per thread (a page's head slice is contiguous),
-//     double-buffered: tile kt + 1 is in flight while tile kt is used.
+//     long (KW below; a decode block is one row, W = 1). A warp skips
+//     every tile (or key chunk) that none of its rows sees; a block no
+//     live row of its group sees walks nothing;
+//   - staging: Q once (with KW only the one m16 tile the warps read, rows
+//     past C zero-filled: a decode block copies one live row); the
+//     split's page ids (and page scales) go to shared memory first; then
+//     each 64-key tile of K and V is copied with 16-byte cp.async per
+//     thread (a page's head slice is contiguous), double-buffered: tile
+//     kt + 1 is in flight while tile kt is used.
 //     Keys past the block's bound (>= key_end) are zero-filled by the copy
 //     itself (src-size 0): V is SELECTED out, never 0 * NaN;
 //   - products: S = Q K^T and P V on mma.sync.m16n8k16 (bf16 operands,
@@ -97,16 +104,18 @@ __device__ __forceinline__ float code_value<__nv_fp8_e4m3>(uint8_t b) {
   return static_cast<float>(x);
 }
 
-// Shared-memory layout of the tensor-core body, in bytes: Q tiles, the
-// K/V ring (raw: two stages of bf16 tiles; codes: two stages of code
-// tiles plus one bf16 tile each for K and V, and the current tile's
-// per-key scales), then the split's page ids (and page scales). After
-// the walk the ring holds the block's per-row (o, m, l) for the merge
-// across its cluster.
-template <typename P, int QT>
+// Shared-memory layout of the tensor-core body, in bytes: Q tiles (64
+// rows each; with KW one tile of the 16 rows every warp reads), the K/V
+// ring (raw: two stages of bf16 tiles; codes: two stages of code tiles
+// plus one bf16 tile each for K and V, and the current tile's per-key
+// scales), then the split's page ids (and page scales). After the walk
+// the ring holds the block's per-row (o, m, l) for the merge across its
+// cluster.
+template <typename P, int QT, bool KW = false>
 struct MmaSmem {
   static constexpr bool kQuant = kQuantized<P>;
-  static constexpr size_t kQ = sizeof(bf16) * QT * kTileElems;
+  static constexpr int kQRows = KW ? 16 : kMmaTile;  // staged rows a tile
+  static constexpr size_t kQ = sizeof(bf16) * QT * kQRows * kMmaLd;
   static constexpr size_t kBf = sizeof(bf16) * kTileElems;     // one tile
   static constexpr size_t kCode = (size_t)kKeyTile * kMmaD;    // one tile
   static constexpr size_t kRing = kQuant ? 2 * 2 * kCode + 2 * kBf
@@ -140,7 +149,7 @@ __device__ __forceinline__ void ragged_mma_body(
     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
     bf16* __restrict__ out, int start, int n_real, int key_end, int C,
     int H, int ps, int maxp, int split_keys, int nsplit, float scale) {
-  using L = MmaSmem<P, QT>;
+  using L = MmaSmem<P, QT, KW>;
   constexpr bool kQuant = L::kQuant;
   static_assert(!KW || QT == 1, "key-split warps share one 16-row tile");
   constexpr int ND = kMmaD / 8;
@@ -188,15 +197,16 @@ __device__ __forceinline__ void ragged_mma_body(
   float* key_sc = reinterpret_cast<float*>(ring + L::kRing);  // codes
   int* pages_s = reinterpret_cast<int*>(ring + L::kRing + L::kKeyScales);
 
-  // Q rows of every tile of the group (rows >= C zero-filled)
+  // Q rows of every tile of the group (rows >= C zero-filled; with KW
+  // the 16 rows of one m16 tile, a copy a thread)
   if (nkt > 0) {
 #pragma unroll
     for (int u = 0; u < QT; ++u)
-      for (int e = tid; e < kMmaTile * 8; e += kMmaThreads) {
+      for (int e = tid; e < L::kQRows * 8; e += kMmaThreads) {
         const int r = e >> 3, c = (e & 7) * 8;
         const int row = q0 + u * kMmaTile + r;
         const bool ok = row < C;
-        cp_async16(q_s + u * kTileElems + r * kMmaLd + c,
+        cp_async16(q_s + (u * L::kQRows + r) * kMmaLd + c,
                    ok ? q + ((int64_t)row * H + h) * kMmaD + c : q, ok);
       }
   }
@@ -255,7 +265,7 @@ __device__ __forceinline__ void ragged_mma_body(
   if (nkt > 0) {
 #pragma unroll
     for (int u = 0; u < QT; ++u)
-      load_a_frags(q_s + u * kTileElems, WR * warp, qa[u]);
+      load_a_frags(q_s + u * L::kQRows * kMmaLd, WR * warp, qa[u]);
   }
   float m[QT][2], l[QT][2], o[QT][ND][4];
 #pragma unroll
@@ -468,27 +478,32 @@ __device__ __forceinline__ void ragged_mma_body(
   if constexpr (KW) {
     __syncthreads();
     const int r = tid >> 3, c0 = (tid & 7) * 8;   // 16 rows x 8 threads
+    const bool live = r < C;                      // rows >= C: never read
     float mw[kWarps], M = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      mw[w] = xm[16 * w + r];
-      M = nan_max(M, mw[w]);
-    }
     float lsum = 0.f, acc[8] = {};
+    if (live) {
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float e = expf(mw[w] - M);
-      lsum += xl[16 * w + r] * e;
+      for (int w = 0; w < kWarps; ++w) {
+        mw[w] = xm[16 * w + r];
+        M = nan_max(M, mw[w]);
+      }
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        acc[i] += xo[(16 * w + r) * L::kXLd + c0 + i] * e;
+      for (int w = 0; w < kWarps; ++w) {
+        const float e = expf(mw[w] - M);
+        lsum += xl[16 * w + r] * e;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          acc[i] += xo[(16 * w + r) * L::kXLd + c0 + i] * e;
+      }
     }
     __syncthreads();                         // every warp's state is read
+    if (live) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) xo[r * L::kXLd + c0 + i] = acc[i];
-    if ((tid & 7) == 0) {
-      xm[r] = M;
-      xl[r] = lsum;
+      for (int i = 0; i < 8; ++i) xo[r * L::kXLd + c0 + i] = acc[i];
+      if ((tid & 7) == 0) {
+        xm[r] = M;
+        xl[r] = lsum;
+      }
     }
   }
   cg::cluster_group cluster = cg::this_cluster();
@@ -540,10 +555,10 @@ using RaggedMmaKernel = void (*)(const bf16*, const P*, const P*, const int*,
                                  int, int, int, int, float);
 
 // Launch grid (nsplit, H, z) with the nsplit splits of each (head, z) as
-// one cluster, and MmaSmem<P, QT>'s shared memory. Prefill: z = query
+// one cluster, and MmaSmem<P, QT, KW>'s shared memory. Prefill: z = query
 // groups, lengths = draft_len = nullptr; verify: z = S slots, QT = 1,
-// C = W.
-template <typename P, int QT>
+// C = W; decode: verify with C = 1, KW and draft_len = nullptr.
+template <typename P, int QT, bool KW = false>
 cudaError_t launch_ragged_mma(RaggedMmaKernel<P> kernel, const void* q,
                               const void* k, const void* v,
                               const int* page_table, const int* lengths,
@@ -552,7 +567,7 @@ cudaError_t launch_ragged_mma(RaggedMmaKernel<P> kernel, const void* q,
                               int n_real, int key_end, int C, int H, int ps,
                               int maxp, int split_keys, int nsplit, int z,
                               float scale, cudaStream_t stream) {
-  const size_t smem = MmaSmem<P, QT>::bytes(split_keys / ps + 2);
+  const size_t smem = MmaSmem<P, QT, KW>::bytes(split_keys / ps + 2);
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   if (nsplit > 8) {                          // clusters of 9-16 blocks

@@ -254,13 +254,16 @@ extern "C" int mx_ragged_verify(const void* q, const void* k_pool,
         using T = typename decltype(tt)::type;
         using P = typename decltype(tp)::type;
         if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+          if (mma && W <= 16)                // KW: one m16 tile of rows
+            return mxt::launch_ragged_mma<P, 1, true>(
+                mxt::verify_mma_kernel<P, true>, q, k_pool, v_pool,
+                page_table, lengths, draft_len, k_scale, v_scale, out, 0, 0,
+                0, W, H, ps, maxp, split_keys, nsplit, S, scale, st);
           if (mma)
-            return mxt::launch_ragged_mma<P, 1>(
-                W <= 16 ? mxt::verify_mma_kernel<P, true>
-                        : mxt::verify_mma_kernel<P, false>,
-                q, k_pool, v_pool, page_table, lengths, draft_len, k_scale,
-                v_scale, out, 0, 0, 0, W, H, ps, maxp, split_keys, nsplit, S,
-                scale, st);
+            return mxt::launch_ragged_mma<P, 1, false>(
+                mxt::verify_mma_kernel<P, false>, q, k_pool, v_pool,
+                page_table, lengths, draft_len, k_scale, v_scale, out, 0, 0,
+                0, W, H, ps, maxp, split_keys, nsplit, S, scale, st);
         }
         return mxt::launch_verify<T, P>(q, k_pool, v_pool, page_table,
                                         lengths, draft_len, k_scale, v_scale,

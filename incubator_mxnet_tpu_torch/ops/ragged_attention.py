@@ -14,7 +14,10 @@ plain PyTorch version in this module:
 
   - ``ragged_paged_attention`` (decode): one query per slot over that
     slot's live pages — ``csrc/ragged_decode.cu``, the port of the JAX
-    package's ``_ragged_kernel``;
+    package's ``_ragged_kernel`` (for bf16 at D = 64 the tensor-core body
+    of the prefill and verify kernels, a decode step being a one-row
+    verify window with no draft), which takes its key-split plan from
+    ``decode_plan``;
   - ``ragged_prefill_attention`` (chunked prefill): C queries of one
     slot at positions ``q_start + i`` over the paged prefix plus the
     causal part of the chunk — ``csrc/ragged_prefill.cu``, the port of
@@ -61,7 +64,7 @@ __all__ = ["ragged_paged_attention", "ragged_attention_reference",
            "ragged_prefill_attention", "ragged_prefill_reference",
            "ragged_verify_attention", "ragged_verify_reference",
            "PrefillPlan", "prefill_plan", "VerifyPlan", "verify_plan",
-           "LAUNCHES", "reset_launch_counts"]
+           "DecodePlan", "decode_plan", "LAUNCHES", "reset_launch_counts"]
 
 LAUNCHES = {"ragged_decode": 0, "ragged_prefill": 0, "ragged_verify": 0,
             "ragged_decode_q": 0, "ragged_prefill_q": 0,
@@ -70,12 +73,14 @@ LAUNCHES = {"ragged_decode": 0, "ragged_prefill": 0, "ragged_verify": 0,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODE = {torch.int8: 2, torch.float8_e4m3fn: 3}     # quantized payloads
 _MAX_HEAD_DIM = 256
-_MMA_D = 64            # head dim of the tensor-core body (prefill, verify)
+_MMA_D = 64            # head dim of the tensor-core body
 _MMA_TILE = 64         # its query rows per tile and keys per staged tile
 _CORE_SPLIT_KEYS = 64  # keys per split of the CUDA-core body
 _CORE_ROWS = 16        # query rows per block of the CUDA-core body
 _MAX_CLUSTER = 16      # tensor-core body: a head's splits form one cluster
 _VERIFY_BLOCKS_PER_SM = 3   # verify blocks an SM holds (registers, smem)
+_DECODE_BLOCKS_PER_SM = 4   # decode blocks an SM holds: 120 registers on
+                            # code pools (96 raw), ~39 KB of smem
 H100_SMS = 132
 
 
@@ -269,8 +274,7 @@ _SIGNATURES = {                                # stream
     # library: {entry point: (argtypes, restype)}; every pointer and the
     # stream as c_void_p
     "ragged_decode": {
-        "mx_ragged_decode": ([_PTR] * 9 + [_INT] * 5 + _TAIL, _INT),
-        "mx_ragged_decode_scratch": ([_INT] * 5, ctypes.c_longlong)},
+        "mx_ragged_decode": ([_PTR] * 9 + [_INT] * 7 + _TAIL, _INT)},
     "ragged_prefill": {
         "mx_ragged_prefill": ([_PTR] * 8 + [_INT] * 10 + _TAIL, _INT)},
     "ragged_verify": {
@@ -298,31 +302,6 @@ def _ptr(t):
 
 def _count(name, quant):
     LAUNCHES[name + ("_q" if quant else "")] += 1
-
-
-def _ragged_decode_cuda(q, k_pool, v_pool, page_table, lengths, scale,
-                        k_scale=None, v_scale=None):
-    """Launch ``csrc/ragged_decode.cu`` on the current stream."""
-    kv = _check_operands(q, k_pool, v_pool, page_table, "ragged decode",
-                         k_scale, v_scale)
-    S, H, D = q.shape
-    if page_table.dim() != 2 or page_table.shape[0] != S:
-        raise MXNetError(f"ragged decode: page_table {tuple(page_table.shape)}"
-                         f" is not (S={S}, max_pages)")
-    _check_int32(lengths, (S,), "ragged decode", "lengths", q.device)
-    ps, maxp = k_pool.shape[2], page_table.shape[1]
-    lib = _bind("ragged_decode")
-    out = torch.empty_like(q)
-    part = torch.empty(lib.mx_ragged_decode_scratch(S, H, D, ps, maxp),
-                       dtype=torch.float32, device=q.device)
-    rc = lib.mx_ragged_decode(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        page_table.data_ptr(), lengths.data_ptr(), _ptr(k_scale),
-        _ptr(v_scale), out.data_ptr(), part.data_ptr(), S, H, D, ps, maxp,
-        float(scale), _DTYPE_CODE[q.dtype], kv, _stream_ptr(q.device))
-    _raise_if_failed(lib, rc, "ragged decode")
-    _count("ragged_decode", k_scale is not None)
-    return out
 
 
 class PrefillPlan(NamedTuple):
@@ -436,11 +415,19 @@ def verify_plan(S, W, H, D, ps, maxp, tensor_cores, sms=H100_SMS):
         nsplit = -(-keys // _CORE_SPLIT_KEYS)
         return VerifyPlan(False, keys, _CORE_SPLIT_KEYS, nsplit,
                           S * H * nsplit, S * W * H * nsplit * (D + 2))
-    ktiles = -(-keys // _MMA_TILE)
-    want = max(1, _VERIFY_BLOCKS_PER_SM * sms // max(1, S * H))
-    split_keys = _MMA_TILE * -(-ktiles // min(ktiles, _MAX_CLUSTER, want))
-    nsplit = -(-keys // split_keys)
+    split_keys, nsplit = _wave_splits(keys, S * H, _VERIFY_BLOCKS_PER_SM,
+                                      sms)
     return VerifyPlan(True, keys, split_keys, nsplit, S * H * nsplit, 0)
+
+
+def _wave_splits(keys, heads, blocks_per_sm, sms):
+    """(split_keys, nsplit): the capacity ``keys`` in whole 64-key tiles,
+    at most 16 splits (one cluster), as many as keep ``heads`` x nsplit
+    blocks to about one wave of ``sms`` SMs at ``blocks_per_sm`` each."""
+    ktiles = -(-keys // _MMA_TILE)
+    want = max(1, blocks_per_sm * sms // max(1, heads))
+    split_keys = _MMA_TILE * -(-ktiles // min(ktiles, _MAX_CLUSTER, want))
+    return split_keys, -(-keys // split_keys)
 
 
 def _ragged_verify_cuda(q, k_pool, v_pool, page_table, lengths, draft_len,
@@ -481,6 +468,78 @@ def _ragged_verify_cuda(q, k_pool, v_pool, page_table, lengths, draft_len,
         _DTYPE_CODE[q.dtype], kv, _stream_ptr(q.device))
     _raise_if_failed(lib, rc, "ragged verify")
     _count("ragged_verify", k_scale is not None)
+    return out
+
+
+class DecodePlan(NamedTuple):
+    """How ``csrc/ragged_decode.cu`` splits a decode step's keys."""
+    tensor_cores: bool   # the mma.sync body (bf16 queries, D = 64)
+    keys: int            # the page row's capacity, maxp * ps
+    split_keys: int      # keys per split
+    nsplit: int          # splits: ceil(keys / split_keys)
+    blocks: int          # blocks launched (the first launch)
+    scratch_floats: int  # f32 scratch of the combine launch (0: none)
+
+
+def decode_plan(S, H, D, ps, maxp, tensor_cores, sms=H100_SMS):
+    """The split plan of one decode launch, from the page row's CAPACITY
+    ``maxp * ps``: the lengths sit on the device, and a plan fixed by the
+    shapes alone leaves every step's launch the same.
+
+    Tensor-core body: splits are whole 64-key tiles, at most 16 (the
+    splits of a (slot, head) form one thread-block cluster and merge in
+    distributed shared memory: no scratch), as many as keep the S H
+    nsplit blocks to about one wave of ``sms`` SMs at
+    ``_DECODE_BLOCKS_PER_SM`` resident blocks each; a block owns one
+    (split, head, slot). CUDA-core body: 64-key splits, merged by a
+    second launch from a scratch of (m, l, acc[D]) per (slot, head,
+    split)."""
+    keys = maxp * ps
+    if not tensor_cores:
+        nsplit = -(-keys // _CORE_SPLIT_KEYS)
+        return DecodePlan(False, keys, _CORE_SPLIT_KEYS, nsplit,
+                          S * H * nsplit, S * H * nsplit * (D + 2))
+    split_keys, nsplit = _wave_splits(keys, S * H, _DECODE_BLOCKS_PER_SM,
+                                      sms)
+    return DecodePlan(True, keys, split_keys, nsplit, S * H * nsplit, 0)
+
+
+def _ragged_decode_cuda(q, k_pool, v_pool, page_table, lengths, scale,
+                        k_scale=None, v_scale=None):
+    """Launch ``csrc/ragged_decode.cu`` on the current stream, with the
+    split plan of ``decode_plan``. The body is chosen by shape before the
+    launch: bf16 queries with D = 64 run on the tensor cores in one launch
+    with no scratch; f32 queries and other head dims on the CUDA cores, a
+    split launch and a combine launch through exactly the plan's
+    scratch."""
+    kv = _check_operands(q, k_pool, v_pool, page_table, "ragged decode",
+                         k_scale, v_scale)
+    if q.dim() != 3:
+        raise MXNetError(f"ragged decode: q {tuple(q.shape)} is not "
+                         f"(S, H, D)")
+    S, H, D = q.shape
+    if page_table.dim() != 2 or page_table.shape[0] != S:
+        raise MXNetError(f"ragged decode: page_table {tuple(page_table.shape)}"
+                         f" is not (S={S}, max_pages)")
+    _check_int32(lengths, (S,), "ragged decode", "lengths", q.device)
+    ps, maxp = k_pool.shape[2], page_table.shape[1]
+    tc = q.dtype == torch.bfloat16 and D == _MMA_D
+    if tc and any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise MXNetError("ragged decode: q and the pools must be 16-byte "
+                         "aligned (16-byte copies)")
+    plan = decode_plan(S, H, D, ps, maxp, tc, _sm_count(q.device))
+    lib = _bind("ragged_decode")
+    out = torch.empty_like(q)
+    part = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                       device=q.device) if plan.scratch_floats else None
+    rc = lib.mx_ragged_decode(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        page_table.data_ptr(), lengths.data_ptr(), _ptr(k_scale),
+        _ptr(v_scale), out.data_ptr(), _ptr(part), S, H, D, ps, maxp,
+        plan.split_keys, plan.nsplit, float(scale), _DTYPE_CODE[q.dtype], kv,
+        _stream_ptr(q.device))
+    _raise_if_failed(lib, rc, "ragged decode")
+    _count("ragged_decode", k_scale is not None)
     return out
 
 
