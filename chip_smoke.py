@@ -46,7 +46,10 @@ failure exits non-zero before the result line:
                 T = 37 / 200 / 512, causal and not);
   5. serving  — gpt_small (GPT-2 small widths, bf16, seeded random
                 weights) through InferenceEngine with chunked prefill and
-                the prefix cache, 16 requests per run: plain decode;
+                the prefix cache, 16 requests per run, every decode /
+                verify step a replay of its width's CUDA graph (each
+                width that ran captured once: printed with its capture
+                ms, and checked): plain decode;
                 spec_k=4 with the n-gram drafter (raw pools); spec_k=4
                 drafting by replay of the plain run's streams (a
                 controlled accept rate) on raw pools, on int8 pools, and
@@ -57,10 +60,17 @@ failure exits non-zero before the result line:
                 and tokens per step; 10 steps of the plain and the
                 speculative engine run under torch.profiler (device-busy
                 share), and 10 chunk steps of one 960-token prompt (the
-                ragged prefill kernels' share);
+                ragged prefill kernels' share); the graphed step's host
+                time (staging, launch, readback) and the device time of
+                the draw and of the whole acceptance;
   6. parity   — at f32, the engine's greedy tokens, without and with
                 spec_k=4, equal the port's dense-cache cached_generate
-                (which runs no kernel);
+                (which runs no kernel), through the step graphs; then the
+                step graphs' cuda tests (tests/test_torch_serve_graphs.py,
+                pytest without the conftest, so no JAX): replay == body
+                bitwise, a build touches no live page, launches per
+                replay, one capture per width through stalls and a
+                quarantine;
   7. training — bert_base bf16 (flash, dropout 0.1) + BERTForPretraining
                 through SPMDTrainer with LAMB (lr 1e-4, f32 masters), the
                 bench's batch (B=32, T=512, M=76; lengths in [256, 512]):
@@ -1065,6 +1075,19 @@ def serve_run(torch, np, model, label, spec_k=0, kv_quant=None,
     for r in reqs:
         check(all(0 <= t < model.vocab_size for t in r.token_ids),
               f"{label}: token out of vocab")
+    # one step program per width that ran (warm-up included), each
+    # captured once
+    for what, ran, built in (
+            ("decode", eng.decode_steps > eng.spec_steps,
+             eng.decode_trace_count),
+            ("verify", eng.spec_steps > 0, eng.verify_trace_count)):
+        check(built == int(ran), f"{label}: {what} program built {built} "
+                                 f"times (steps ran: {ran})")
+    print(f"[capture] {label}: decode_trace_count "
+          f"{eng.decode_trace_count}, verify_trace_count "
+          f"{eng.verify_trace_count}; " + ", ".join(
+              f"W={w} capture {p.build_ms:.1f} ms"
+              for w, p in sorted(eng._programs.items())), flush=True)
     n_tok = sum(len(r.token_ids) for r in reqs)
     ttft = [r.token_stamps[0] - r.submit_time for r in reqs]
     ev = eng.flight.events(etype=EventType.DECODE_STEP)[n_ev0:]
@@ -1088,7 +1111,7 @@ def serve_run(torch, np, model, label, spec_k=0, kv_quant=None,
         if not spec_k:
             profile_prefill(torch, eng, rng, Request, label)
     if not spec_k and not decode_bound:
-        host_costs(torch, np, eng)
+        host_costs(torch, np, eng, Request)
     del eng
     torch.cuda.empty_cache()
     return stats, [(r.prompt_ids, r.token_ids) for r in reqs]
@@ -1217,44 +1240,108 @@ def profile_prefill(torch, eng, rng, Request, label):
           f"{100 * pre_ms / wall_ms:.1f}% of wall)", flush=True)
 
 
-def host_costs(torch, np, eng):
-    """Host time of the speculative step's own work, at 8 slots and
-    gpt_small's vocabulary: acceptance over a 5-wide window (greedy, and
-    temperature with every column drafted: one generator per row and
-    column) against the 1-wide sampling of plain decode, and n-gram
-    drafting over a 1024-token history. Medians of 20 calls, each ended
-    by the host readback the step makes anyway."""
+def host_costs(torch, np, eng, Request):
+    """Host time of the graphed decode step's own work at 8 live slots
+    (~100-160 tokens of context, half at T=0.8) and gpt_small's
+    vocabulary: staging the step into the pinned inputs (with the menu
+    sync, nothing to copy here), the launch (one copy in, one replay)
+    and the readback (which waits for the device); and the device time
+    of sampling: the draw alone (``draw_uniform`` + ``sample_inverse_cdf``)
+    and the whole of ``_accept_emit`` (menu, acceptance, draw, guard) at
+    W = 1 and 5, each captured into a CUDA graph as the step runs it (an
+    eager call's events would time the host's launches). Host: medians
+    of 20 repeats of the same step; device: CUDA events over 20 replays.
+    Plus n-gram drafting over a 1024-token history."""
     from incubator_mxnet_tpu_torch.serve import ngram_propose
-    S, W, V = eng.num_slots, 5, eng.model.vocab_size
-    gen = torch.Generator(device=eng.device)
-    gen.manual_seed(2)
-    logits = torch.randn(S, W, V, generator=gen, device=eng.device) * 3
-    toks = np.random.RandomState(2).randint(0, V, size=(S, W))
-    pos = np.arange(100, 100 + W)[None, :].repeat(S, axis=0)
+    from incubator_mxnet_tpu_torch.serve.sampling import (
+        DRAW_STREAM, draw_uniform, sample_inverse_cdf)
+    rng = np.random.RandomState(4)
+    S, V = eng.num_slots, eng.model.vocab_size
+    for i in range(S):
+        eng.submit(Request(rng.randint(0, V, size=100), max_new_tokens=60,
+                           temperature=0.8 if i % 2 else 0.0, seed=i))
+    while any(sl is None or sl.prefilling for sl in eng._slots):
+        eng.step()
+    live = list(range(S))
+    prog = eng._program(1)
+    toks = np.zeros((S, 1), np.int64)
+    toks[:, 0] = [sl.request.token_ids[-1] for sl in eng._slots]
+    dl = np.zeros((S,), np.int32)
 
-    def ms(fn, n=20):
-        fn()
+    def stage():
+        eng._sync_menu(1, {}, live)
+        eng._stage_step(prog, toks, dl, [])
+
+    def host_ms(fn, n=20):
         times = []
         for _ in range(n):
+            stage()
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
+            prog.read()
         return statistics.median(times)
 
-    def accept(w, temp):
-        return lambda: eng._accept_emit(
-            logits[:, :w], toks[:, :w], np.full((S,), w - 1), [temp] * S,
-            list(range(S)), pos[:, :w], None)
+    def dev_ms(fn, n=20):
+        graph = torch.cuda.CUDAGraph()
+        capture = torch.cuda.graph(graph)
+        side = capture.capture_stream        # the process-wide one
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.synchronize()
+        with capture:
+            fn()
+        graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
 
+    def launch_then_read():
+        prog.launch()
+        t0 = time.perf_counter()
+        prog.read()
+        return (time.perf_counter() - t0) * 1e3
+
+    out = dict(stage_ms=host_ms(stage), launch_ms=host_ms(prog.launch))
+    stage()
+    out["readback_ms"] = statistics.median(
+        launch_then_read() for _ in range(20))
+    dev = eng.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    for W in (1, 5):
+        logits = torch.randn(S, W, V, generator=gen, device=dev) * 3
+        keys = torch.arange(S, device=dev)
+        pos = torch.arange(100, 100 + W, device=dev)[None, :].expand(S, W)
+        temps = torch.full((S,), 0.8, device=dev)
+        tok = torch.randint(0, V, (S, W), generator=gen, device=dev)
+        dlen = torch.full((S,), W - 1, dtype=torch.int32, device=dev)
+        mask = torch.ones((S, W, V), dtype=torch.bool, device=dev)
+        menu = (eng._menu_counts, eng._menu_bias, mask,
+                torch.zeros(S, dtype=torch.int32, device=dev),
+                torch.ones(S, device=dev), torch.ones(S, device=dev),
+                torch.zeros(S, device=dev))
+        out[f"draw_w{W}_device_ms"] = dev_ms(lambda: sample_inverse_cdf(
+            logits, draw_uniform(keys[:, None], pos, DRAW_STREAM)))
+        out[f"accept_emit_w{W}_device_ms"] = dev_ms(
+            lambda: eng._accept_emit(logits, tok, dlen, temps, keys, pos,
+                                     menu))
     hist = np.random.RandomState(3).randint(0, 64, size=1024)
-    out = dict(accept_w1_greedy_ms=ms(accept(1, 0.0)),
-               accept_w1_temp_ms=ms(accept(1, 0.8)),
-               accept_w5_greedy_ms=ms(accept(W, 0.0)),
-               accept_w5_temp_ms=ms(accept(W, 0.8)),
-               ngram_draft_8_slots_ms=ms(
-                   lambda: [ngram_propose(hist, 4) for _ in range(S)]))
-    print(f"[host] sampling / acceptance / drafting host ms, 8 slots, "
-          f"V={V}: {json.dumps(out)}", flush=True)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        [ngram_propose(hist, 4) for _ in range(S)]
+    out["ngram_draft_8_slots_ms"] = (time.perf_counter() - t0) * 1e3 / 20
+    eng.run([])
+    eng.audit_pages()
+    print(f"[host] graphed decode step, 8 live slots, V={V}: "
+          f"{json.dumps(out)}", flush=True)
 
 
 def phase_parity(torch):
@@ -1279,13 +1366,46 @@ def phase_parity(torch):
               f"cached_generate {ref}")
         check(spec_k == 0 or eng.spec_steps > 0,
               "spec_k=4 parity run never verified a draft")
+        counts = (eng.decode_trace_count, eng.verify_trace_count)
+        check(counts == (int(eng.decode_steps > eng.spec_steps),
+                         int(eng.spec_steps > 0)),
+              f"spec_k={spec_k}: programs built {counts}")
         print(f"[parity] f32 gpt_small spec_k={spec_k}: engine == "
               f"cached_generate over {len(ref)} greedy tokens "
               f"({eng.decode_steps} steps, {eng.spec_steps} speculative, "
-              f"accept rate {eng.accept_rate:.3f})", flush=True)
+              f"accept rate {eng.accept_rate:.3f}; through the step "
+              f"graphs: decode / verify captured {counts})", flush=True)
         del eng
     del model
     torch.cuda.empty_cache()
+
+
+def phase_graph_tests():
+    """The step programs' ``cuda`` tests (tests/test_torch_serve_graphs.py:
+    replay == body bitwise, builds touch no live page, launch accounting,
+    one capture per width through stalls and a quarantine) in a pytest
+    subprocess without the repository's conftest, so it imports no JAX
+    (the subprocess fails if JAX or the JAX package was imported)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTEST_DISABLE_PLUGIN_AUTOLOAD="1")
+    run = ("import sys, pytest\n"
+           "rc = int(pytest.main(sys.argv[1:]))\n"
+           "jax = {'jax', 'incubator_mxnet_tpu'} & set(sys.modules)\n"
+           "print('imported', sorted(jax)) if jax else None\n"
+           "sys.exit(rc or (3 if jax else 0))\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", run, "-q", "--noconftest", "-m", "cuda",
+         "-p", "no:cacheprovider", "-W",
+         "ignore::pytest.PytestUnknownMarkWarning",
+         "tests/test_torch_serve_graphs.py"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    print(f"[graphs] cuda tests: {tail[0]} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(proc.returncode == 0 and "skipped" not in tail[0],
+          f"step-graph cuda tests failed:\n{proc.stdout[-6000:]}"
+          f"{proc.stderr[-3000:]}")
 
 
 # --------------------------------------------------------------------- #
@@ -1770,6 +1890,7 @@ def main():
         err.update(phase_flash_kernels(torch))
         runs = phase_serving(torch)
         phase_parity(torch)
+        phase_graph_tests()
         runs["training"], lens = phase_training(
             torch, torch.cuda.get_device_name(0))
         phase_long_sequence(torch)

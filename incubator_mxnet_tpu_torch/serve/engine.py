@@ -26,10 +26,11 @@ The port of ``incubator_mxnet_tpu/serve/engine.py``. Design:
     chunked-prefill kernel on the GPU). The cache-hit suffix path uses
     the same chunk program even in monolithic mode.
   - Per-slot sampling: greedy or temperature, plus the sampling menu
-    (serve/sampling.py). Every temperature draw comes from a
-    ``torch.Generator`` seeded from the request's key and the SEQUENCE
-    POSITION of the sampled token, so draws are reproducible per request
-    and independent of occupancy and chunking.
+    (serve/sampling.py). Every temperature draw takes its uniform from a
+    counter-based hash of the request's key and the SEQUENCE POSITION of
+    the sampled token (``sampling.draw_uniform``), computed on the
+    device, so draws are reproducible per request and independent of
+    occupancy and chunking.
   - SPECULATIVE DECODING (``spec_k``): the host drafts up to K tokens
     per slot (n-gram prompt lookup, serve/draft.py, or ``draft_fn``);
     one (S, W = K + 1) verify step writes the window's K/V, scores it
@@ -44,11 +45,18 @@ The port of ``incubator_mxnet_tpu/serve/engine.py``. Design:
     programs quantize at write time, and every ragged kernel
     dequantizes as it reads.
 
-The JAX engine's jit-once programs and buffer donation become eager
-PyTorch here: the K/V pools are updated IN PLACE by every program
-(decode, prefill, the COW page copy). Cache tiers, tp meshes, brownout,
-page transport and warm restart are not ported yet; asking for them
-raises ``MXNetError``.
+The JAX engine's jit-once decode / verify program becomes one
+``serve.program.StepProgram`` per width: on the card one CUDA graph,
+captured at that width's first step (``decode_trace_count`` /
+``verify_trace_count`` count the builds), with sampling, acceptance and
+the non-finite guard inside it; per step the host stages the inputs into
+one pinned buffer, copies it in, replays, and reads back the emitted
+tokens, their counts and the grown amax in one copy. The sampling
+menu's per-vocabulary rows stay resident on the device, at neutral
+values except where a slot's menu is active. Prefill chunks and the COW
+page copy stay eager. The K/V pools are updated IN PLACE by every
+program. Cache tiers, tp meshes, brownout, page transport and warm
+restart are not ported yet; asking for them raises ``MXNetError``.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
+import weakref
 from collections import deque
 from typing import List, Optional, Union
 
@@ -75,8 +84,10 @@ from .paged_kv import (NULL_PAGE, PageAllocator, PrefixIndex,
                        init_kv_pools, kv_quant_spec, page_scales,
                        write_block_kv, write_block_kv_q, write_prompt_kv,
                        write_prompt_kv_q, write_token_kv, write_token_kv_q)
-from .sampling import (_NEG_BIG, SamplingParams, constrain_logits,
-                       grammar_mask, match_stop)
+from .program import StepProgram
+from .sampling import (_NEG_BIG, ACCEPT_STREAM, DRAW_STREAM,
+                       SamplingParams, constrain_logits, draw_uniform,
+                       grammar_mask, match_stop, sample_inverse_cdf)
 from .slo import Tier, TierPolicy, resolve_tier_policies
 
 __all__ = ["Request", "InferenceEngine", "Outcome", "Tier",
@@ -88,24 +99,11 @@ _REQUEST_IDS = itertools.count(1)    # process-wide: ids never collide
 _MASK64 = (1 << 64) - 1
 
 
-def _draw_seed(key: int, position: int) -> int:
-    """The generator seed for the draw at ``position`` of the stream
-    keyed by ``key`` (splitmix64 of the pair)."""
-    z = (int(key) * 0x9E3779B97F4A7C15 + int(position) + 1) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (z ^ (z >> 31)) & ((1 << 63) - 1)
-
-
-_ACCEPT_SALT = 0x5851F42D4C957F2D
-
-
-def _accept_uniform(key: int, position: int) -> float:
-    """The speculative acceptance test's uniform in (0, 1) for the draft
-    at ``position`` of the stream keyed by ``key``: a second stream per
-    (key, position), independent of the Gumbel draws' generator seeds."""
-    z = _draw_seed(int(key) ^ _ACCEPT_SALT, position)
-    return ((z >> 10) + 0.5) * 2.0 ** -53
+def _key64(key: int) -> int:
+    """A sampling key's 64 low bits as a signed int64 value (the bits
+    ``sampling.draw_uniform`` hashes)."""
+    k = int(key) & _MASK64
+    return k - (1 << 64) if k >> 63 else k
 
 
 @dataclasses.dataclass
@@ -354,6 +352,7 @@ class InferenceEngine:
         self._page_table = np.zeros((S, self.max_pages), np.int32)
         self._lengths = np.zeros((S,), np.int32)
         self._temps = np.zeros((S,), np.float32)
+        self._keys = np.zeros((S,), np.int64)   # sampling keys (_key64)
         # the sampling menu's per-slot state (serve/sampling.py), reset
         # to exact-identity neutrals on slot free
         self._top_k = np.zeros((S,), np.int32)
@@ -362,7 +361,18 @@ class InferenceEngine:
         self._pres_pen = np.zeros((S,), np.float32)
         self._logit_bias = np.zeros((S, V), np.float32)
         self._tok_counts = np.zeros((S, V), np.int32)
-        self._mask_true: dict = {}   # W -> cached all-True (S, W, V) mask
+        # ... and its device-resident twins the step programs read: the
+        # (S, V) counts and bias rows, and per width the (S, W, V)
+        # grammar mask, neutral except in the rows listed as dirty
+        # (rewritten each step while a slot's menu / grammar is active,
+        # and once more, to neutral, after it ends)
+        self._menu_counts = torch.zeros((S, V), dtype=torch.int32,
+                                        device=self.device)
+        self._menu_bias = torch.zeros((S, V), dtype=torch.float32,
+                                      device=self.device)
+        self._menu_dirty: set = set()
+        self._menu_mask: dict = {}           # W -> (S, W, V) bool
+        self._mask_dirty: dict = {}          # W -> set of rows
         self._alloc = PageAllocator(self.num_pages)
         self._prefix = PrefixIndex(self.page_size) if prefix_cache \
             else None
@@ -397,6 +407,10 @@ class InferenceEngine:
         self.stop_hits = 0
         self.constrained_requests = 0
         self.decode_steps = 0
+        self.decode_trace_count = 0          # W = 1 program builds
+        self.verify_trace_count = 0          # W = spec_k + 1 builds
+        self._programs: dict = {}            # W -> StepProgram
+        self._graph_pool = None              # shared by both widths
         self.prefix_lookups = 0
         self.prefix_hits = 0
         self.prefix_hit_tokens = 0
@@ -405,7 +419,7 @@ class InferenceEngine:
         self.max_step_prefill_tokens = 0
 
     # ------------------------------------------------------------- #
-    # device programs (eager; pools updated in place)
+    # device programs (pools updated in place)
     # ------------------------------------------------------------- #
 
     def _tensor(self, a, dtype=torch.long):
@@ -439,100 +453,97 @@ class InferenceEngine:
                 self._tensor(self._rep_pen[idx], f32),
                 self._tensor(self._pres_pen[idx], f32))
 
-    def _gumbel(self, key: int, position: int, V: int, device):
-        """The Gumbel noise of the categorical draw at ``position`` of
-        the stream keyed by ``key``: every program draws position p's
-        token from this same noise, so draws are reproducible per
-        request and independent of occupancy, chunking and speculation
-        depth."""
-        gen = torch.Generator(device=device)
-        gen.manual_seed(_draw_seed(key, position))
-        u = torch.rand(V, generator=gen, device=device)
-        return -torch.log(-torch.log(u))
-
     def _accept_emit(self, logits, tokens, draft_len, temps, keys,
-                     positions, menu, act=None):
-        """Sampling and on-device draft acceptance for (S, W) columns.
+                     positions, menu=None, act=None):
+        """Sampling and draft acceptance for (S, W) columns, on the
+        logits' device with no host loop and no host read: every input
+        is a tensor there, and so are the outputs.
 
         ``logits`` (S, W, V) f32 scores the tokens at ``positions``
-        (S, W); ``tokens[:, 0]`` is each slot's last token and
-        ``tokens[:, 1:1 + draft_len]`` its drafts (column j + 1 proposed
-        for ``positions[:, j]``). Greedy slots accept the longest draft
-        prefix equal to the argmax chain — exactly what that many
-        sequential decode steps emit. Temperature slots accept draft d
-        with probability p(d) under the constrained, temperature-scaled
-        distribution (uniform: ``_accept_uniform``) and on rejection
-        draw from the residual, p with d's mass removed (Gumbel-max over
-        ``_gumbel``); the column with no draft draws from p itself, so
-        a 1-wide step samples exactly as plain decode. An empty
-        residual (one legal token) force-accepts. Penalty counts of
-        column j include the drafts at columns <= j.
+        (S, W) int64; ``tokens`` (S, W) int64: ``tokens[:, 0]`` is each
+        slot's last token and ``tokens[:, 1:1 + draft_len]`` its drafts
+        (column j + 1 proposed for ``positions[:, j]``); ``draft_len``
+        (S,) int; ``temps`` (S,) f32; ``keys`` (S,) int64 sampling keys
+        (``_key64``); ``menu`` the sampling menu's operands (counts,
+        bias, mask, top_k, top_p, rep_pen, pres_pen), None for none;
+        ``act`` (S,) bool. Greedy slots accept the longest draft prefix
+        equal to the argmax chain — exactly what that many sequential
+        decode steps emit. Temperature slots accept draft d with
+        probability p(d) under the constrained, temperature-scaled
+        distribution (the uniform of ``ACCEPT_STREAM``) and on rejection
+        draw from the residual, p with d's mass removed
+        (``sample_inverse_cdf`` with the uniform of ``DRAW_STREAM``);
+        the column with no draft draws from p itself, so a 1-wide step
+        samples exactly as plain decode. Both uniforms are pure
+        functions of (key, position). An empty residual (one legal
+        token) force-accepts. Penalty counts of column j include the
+        drafts at columns <= j.
 
         With the guard on, a slot with a non-finite logit in a USED
         column (j <= draft_len) comes back sign-encoded: column 0 reads
-        -t - 1. Returns host lists ``(emitted (S, W), n_emit (S,))``:
-        columns [0, n_emit) are the slot's tokens, later ones dead."""
+        -t - 1. Returns ``(emitted (S, W), n_emit (S,))`` int64: columns
+        [0, n_emit) are the slot's tokens, later ones dead."""
         S, W, V = logits.shape
         dev = logits.device
-        tok = self._tensor(tokens)                            # (S, W)
-        dl = self._tensor(draft_len)                          # (S,)
+        vocab = torch.arange(V, device=dev)
         jj = torch.arange(W, device=dev)[None, :]
-        used = jj <= dl[:, None]
+        dl = draft_len[:, None]
+        used = jj <= dl
         bad = ((~torch.isfinite(logits).all(dim=-1)) & used).any(dim=-1)
         if menu is not None:
             counts, bias, mask, top_k, top_p, rep_pen, pres_pen = menu
-            oh = torch.nn.functional.one_hot(tok, V).to(torch.int32)
-            win_counts = counts[:, None, :] + oh.cumsum(dim=1) - oh[:, :1]
+            oh = (tokens[..., None] == vocab).to(torch.int32)
+            win_counts = counts[:, None, :] + \
+                oh.cumsum(dim=1, dtype=torch.int32) - oh[:, :1]
             logits = constrain_logits(
-                logits, self._tensor(temps, torch.float32)[:, None],
-                win_counts, bias[:, None, :], mask, top_k[:, None],
-                top_p[:, None], rep_pen[:, None], pres_pen[:, None])
+                logits, temps[:, None], win_counts, bias[:, None, :], mask,
+                top_k[:, None], top_p[:, None], rep_pen[:, None],
+                pres_pen[:, None])
         greedy = torch.argmax(logits, dim=-1)                 # (S, W)
         # column j tests the draft at tokens[:, j + 1] (the wrapped last
         # column is never valid: draft_len <= W - 1)
-        d_next = torch.cat([tok[:, 1:], tok[:, :1]], dim=1)
-        valid = jj < dl[:, None]
-        accept = d_next == greedy
-        final = greedy
-        hot = [s for s in range(S) if temps[s] > 0]
-        if hot:
-            final = greedy.clone()
-            accept = accept.clone()
-            for s in hot:
-                scaled = logits[s].float() / max(float(temps[s]), 1e-6)
-                logp = torch.log_softmax(scaled, dim=-1)          # (W, V)
-                p_next = logp.gather(-1, d_next[s][:, None])[:, 0]
-                d_hot = torch.nn.functional.one_hot(d_next[s], V).bool()
-                res_empty = ~torch.where(d_hot, _NEG_BIG, logits[s]).gt(
-                    _NEG_BIG / 2).any(dim=-1)
-                u = self._tensor([_accept_uniform(keys[s], int(p))
-                                  for p in positions[s]], torch.float32)
-                accept[s] = (torch.log(u) < p_next) | res_empty
-                res = torch.where(d_hot & valid[s][:, None],
-                                  scaled + _NEG_BIG, scaled)
-                for j in range(int(draft_len[s]) + 1):
-                    final[s, j] = torch.argmax(res[j] + self._gumbel(
-                        keys[s], int(positions[s][j]), V, dev))
+        d_next = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+        valid = jj < dl
+        hot = (temps > 0)[:, None]
+        scaled = logits.float() / torch.clamp(temps, min=1e-6)[:, None,
+                                                               None]
+        logp = torch.log_softmax(scaled, dim=-1)              # (S, W, V)
+        p_next = logp.gather(-1, d_next[..., None])[..., 0]
+        d_hot = d_next[..., None] == vocab                    # (S, W, V)
+        res_empty = ~torch.where(d_hot, _NEG_BIG, logits).gt(
+            _NEG_BIG / 2).any(dim=-1)
+        k = keys[:, None]
+        u_acc = draw_uniform(k, positions, ACCEPT_STREAM)
+        accept = torch.where(hot, (torch.log(u_acc) < p_next) | res_empty,
+                             d_next == greedy)
+        res = torch.where(d_hot & valid[..., None], scaled + _NEG_BIG,
+                          scaled)
+        drawn = sample_inverse_cdf(res, draw_uniform(k, positions,
+                                                     DRAW_STREAM))
+        final = torch.where(hot, drawn, greedy)
         chain = torch.cumprod((accept & valid).to(torch.int32), dim=1)
         n_acc = chain.sum(dim=1)
         emitted = torch.where(jj < n_acc[:, None], d_next, final)
         n_emit = n_acc + 1
         if act is not None:
-            n_emit = torch.where(self._tensor(act, torch.bool), n_emit, 0)
+            n_emit = torch.where(act, n_emit, 0)
         if self.guard_nonfinite:
             emitted = torch.where(bad[:, None], -emitted - 1, emitted)
-        out = torch.cat([emitted, n_emit[:, None]], dim=1).tolist()
-        return [r[:W] for r in out], [r[W] for r in out]
+        return emitted, n_emit
 
     def _sample_one(self, logits, slot_idx: int, position: int) -> int:
         """The first generated token of a prefill program: a 1-wide
-        ``_accept_emit`` over logits (1, V) at ``position``."""
+        ``_accept_emit`` over logits (1, V) at ``position`` (its one host
+        read)."""
         slot = self._slots[slot_idx]
+        dev = logits.device
+        kp = self._tensor([_key64(slot.key), position])
+        zero = torch.zeros((1, 1), dtype=torch.long, device=dev)
         emitted, _ = self._accept_emit(
-            logits[:, None], np.zeros((1, 1), np.int64),
-            np.zeros((1,), np.int64), [slot.request.temperature],
-            [slot.key], [[position]], self._menu_ops([slot_idx]))
-        return emitted[0][0]
+            logits[:, None], zero, zero[0],
+            self._tensor([slot.request.temperature], torch.float32),
+            kp[:1], kp[1:][None], self._menu_ops([slot_idx]))
+        return int(emitted[0, 0])
 
     def _amax_dev(self):
         """The host amax metadata on the device, K layers then V layers
@@ -581,65 +592,158 @@ class InferenceEngine:
         the engine's for a code pool."""
         return self._dtype if self._kv_spec is not None else pool.dtype
 
+    # ------------------------------------------------------------- #
+    # the decode / verify step program (serve/program.py)
+    # ------------------------------------------------------------- #
+
+    def _step_fields(self, W: int):
+        """The step's static (inputs, outputs) fields at width W."""
+        S, L = self.num_slots, len(self._kamax)
+        i64, i32, f32 = torch.int64, torch.int32, torch.float32
+        ins = [("tokens", (S, W), i64), ("lengths", (S,), i32),
+               ("draft_len", (S,), i32), ("table", (S, self.max_pages), i32),
+               ("keys", (S,), i64), ("temps", (S,), f32),
+               ("top_k", (S,), i32), ("top_p", (S,), f32),
+               ("rep_pen", (S,), f32), ("pres_pen", (S,), f32)]
+        outs = [("emitted", (S, W), i64), ("n_emit", (S,), i64)]
+        if L:
+            amax = ("amax", (2 * L, self.num_pages), f32)
+            ins.append(amax)
+            outs.append(amax)
+        return ins, outs
+
+    def _program(self, W: int) -> StepProgram:
+        """The width-W step program, built at its first use (a CUDA
+        graph capture on the card; counted in ``decode_trace_count`` /
+        ``verify_trace_count``)."""
+        prog = self._programs.get(W)
+        if prog is None:
+            if self.device.type == "cuda" and self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            ins, outs = self._step_fields(W)
+            # the program holds the engine weakly: a dropped engine (its
+            # pools, graphs and graph pool) is freed at once, not when
+            # the cycle collector next runs
+            eng = weakref.ref(self)
+            prog = StepProgram(
+                lambda i, o: eng()._step_body(W, i, o), ins, outs,
+                self.device, self._graph_pool)
+            self._menu_mask[W] = torch.ones(
+                (self.num_slots, W, self._vocab), dtype=torch.bool,
+                device=self.device)
+            self._mask_dirty[W] = set()
+            self._programs[W] = prog
+        if not prog.built:
+            prog.build()
+            if W == 1:
+                self.decode_trace_count += 1
+            else:
+                self.verify_trace_count += 1
+        return prog
+
     @torch.no_grad()
-    def _decode_program(self, tokens, draft_len, table, lengths, live,
-                        drafts):
-        """ONE decode/verify step for every slot: W = tokens.shape[1]
+    def _step_body(self, W: int, i: dict, o: dict):
+        """ONE decode/verify step for every slot, over the program's
+        static device fields ``i`` and writing ``o``: W = tokens.shape[1]
         token positions per slot — the last token plus up to W - 1
         drafts — embedded, their K/V written at ``lengths[s] + j`` (the
-        used columns; padded columns and dead slots write to the null
-        page), attended, and accepted (``_accept_emit``). W = 1 is the
-        plain decode step: the decode kernel; W > 1 the verify kernel.
-        Returns host lists ``(emitted (S, W), n_emit (S,))``."""
+        used columns; padded columns and dead slots, length 0, write to
+        the null page), attended, accepted and guarded
+        (``_accept_emit``). W = 1 is the plain decode step: the decode
+        kernel; W > 1 the verify kernel. Reads nothing on the host."""
         model = self.model
         S, ps = self.num_slots, self.page_size
-        W = tokens.shape[1]
+        lengths = i["lengths"].long()
+        dl = i["draft_len"]
         act = lengths > 0
-        jj = np.arange(W)[None, :]
-        pos = lengths.astype(np.int64)[:, None] + jj          # (S, W)
-        used = jj <= draft_len[:, None]
-        page_idx = np.clip(pos // ps, 0, self.max_pages - 1)
-        write_page = np.where(act[:, None] & used,
-                              np.take_along_axis(table, page_idx, axis=1),
-                              NULL_PAGE)
-        host = np.stack([tokens.astype(np.int64),
-                         np.minimum(pos, model.max_length - 1),
-                         write_page, pos % ps])
-        dev = self._tensor(host)
-        tok_d, emb_pos, wpage, woff = dev[0], dev[1], dev[2], dev[3]
-        table_d = self._tensor(table, torch.int32)
-        eff_len = self._tensor(np.where(act, lengths + 1, 0), torch.int32)
-        dl_d = self._tensor(draft_len, torch.int32)
-        amax = self._amax_dev() if self._kv_spec is not None else None
+        jj = torch.arange(W, device=lengths.device)[None, :]
+        pos = lengths[:, None] + jj                           # (S, W)
+        page_idx = torch.clamp(pos // ps, 0, self.max_pages - 1)
+        wpage = torch.where(act[:, None] & (jj <= dl[:, None]),
+                            i["table"].long().gather(1, page_idx),
+                            NULL_PAGE)
+        woff = pos % ps
+        emb_pos = torch.clamp(pos, max=model.max_length - 1)
+        eff_len = torch.where(act, lengths + 1, 0).to(torch.int32)
+        amax = i.get("amax")
         new_amax = [None] * (2 * len(self._kamax))
 
-        x = model.embed(tok_d, emb_pos)                       # (S, W, U)
-        for i, blk in enumerate(model.blocks):
+        x = model.embed(i["tokens"], emb_pos)                 # (S, W, U)
+        for li, blk in enumerate(model.blocks):
             q, k, v = _qkv_heads(blk.attn, blk.ln1(x))        # (S,W,H,D)
-            kp, vp, ks, vs = self._write_kv(i, k, v, wpage, woff, amax,
+            kp, vp, ks, vs = self._write_kv(li, k, v, wpage, woff, amax,
                                             new_amax)
             q = q.to(self._attn_dtype(kp))
             if W == 1:
                 out = ragged_paged_attention(
-                    q[:, 0].contiguous(), kp, vp, table_d, eff_len,
+                    q[:, 0].contiguous(), kp, vp, i["table"], eff_len,
                     k_scale=ks, v_scale=vs)[:, None]
             else:
                 out = ragged_verify_attention(
-                    q.contiguous(), kp, vp, table_d, eff_len, dl_d,
+                    q.contiguous(), kp, vp, i["table"], eff_len, dl,
                     k_scale=ks, v_scale=vs)
             x = x + blk.attn.proj(out.to(x.dtype).reshape(S, W,
                                                           model.units))
             x = x + _mlp(blk, x)
         if amax is not None:
-            self._pull_amax(new_amax)
+            o["amax"].copy_(torch.stack(new_amax))
         logits = _lm_head(model, x)                           # (S, W, V)
-        keys = [self._slots[s].key if s in live else 0 for s in range(S)]
-        temps = [float(self._temps[s]) if s in live else 0.0
-                 for s in range(S)]
-        menu = self._menu_ops(list(range(S)),
-                              self._mask_block(drafts, W, live))
-        return self._accept_emit(logits, tokens, draft_len, temps, keys,
-                                 pos + 1, menu, act)
+        menu = (self._menu_counts, self._menu_bias, self._menu_mask[W],
+                i["top_k"], i["top_p"], i["rep_pen"], i["pres_pen"])
+        emitted, n_emit = self._accept_emit(
+            logits, i["tokens"], dl, i["temps"], i["keys"], pos + 1, menu,
+            act)
+        o["emitted"].copy_(emitted)
+        o["n_emit"].copy_(n_emit)
+
+    def _stage_step(self, prog: StepProgram, tokens, draft_len, stalled):
+        """Host staging of one step into the program's pinned inputs:
+        stalled slots go dead (length 0, a null page row)."""
+        h = prog.inp.host
+        h["tokens"][...] = tokens
+        h["draft_len"][...] = draft_len
+        h["lengths"][...] = self._lengths
+        h["table"][...] = self._page_table
+        if stalled:
+            h["lengths"][stalled] = 0
+            h["table"][stalled] = NULL_PAGE
+        h["keys"][...] = self._keys
+        h["temps"][...] = self._temps
+        h["top_k"][...] = self._top_k
+        h["top_p"][...] = self._top_p
+        h["rep_pen"][...] = self._rep_pen
+        h["pres_pen"][...] = self._pres_pen
+        if self._kamax:
+            L = len(self._kamax)
+            h["amax"][:L] = self._kamax
+            h["amax"][L:] = self._vamax
+
+    def _sync_menu(self, W: int, drafts: dict, live):
+        """Bring the device-resident menu rows up to date for this step:
+        the counts and bias rows of every slot whose menu is active, the
+        mask rows of every live grammar slot, and — once — neutral rows
+        where either just ended. A step with no menu anywhere copies
+        nothing."""
+        active = {s for s, sl in enumerate(self._slots)
+                  if sl is not None and sl.menu_active}
+        rows = sorted(active | self._menu_dirty)
+        if rows:
+            idx = self._tensor(rows)
+            self._menu_counts[idx] = self._tensor(self._tok_counts[rows],
+                                                  torch.int32)
+            self._menu_bias[idx] = self._tensor(self._logit_bias[rows],
+                                                torch.float32)
+        self._menu_dirty = active
+        gram = self._grammar_rows(drafts, W, live)
+        rows = sorted(set(gram) | self._mask_dirty[W])
+        if rows:
+            m = np.ones((len(rows), W, self._vocab), bool)
+            for n, s in enumerate(rows):
+                if s in gram:
+                    m[n] = gram[s]
+            self._menu_mask[W][self._tensor(rows)] = self._tensor(
+                m, torch.bool)
+        self._mask_dirty[W] = set(gram)
 
     @torch.no_grad()
     def _prefill_program(self, slot_idx: int) -> int:
@@ -1147,6 +1251,7 @@ class InferenceEngine:
         self._page_table[slot_idx, :] = NULL_PAGE  # survive via sharers
         self._lengths[slot_idx] = 0
         self._temps[slot_idx] = 0.0
+        self._keys[slot_idx] = 0
         self._top_k[slot_idx] = 0
         self._top_p[slot_idx] = 1.0
         self._rep_pen[slot_idx] = 1.0
@@ -1397,6 +1502,7 @@ class InferenceEngine:
         self._page_table[slot_idx, :] = slot.row
         self._lengths[slot_idx] = slot.t0
         self._temps[slot_idx] = slot.request.temperature
+        self._keys[slot_idx] = _key64(slot.key)
         if self._prefix is not None:
             self._prefix.insert(slot.attempt_ids, slot.row, self._alloc)
         done = self._finish_token(slot_idx, tok,
@@ -1562,28 +1668,22 @@ class InferenceEngine:
                         drafts[s] = d[:cap]
         return stalled
 
-    def _mask_block(self, drafts: dict, W: int, live) -> np.ndarray:
-        """The (S, W, V) vocabulary mask of a decode step: column j of a
-        grammar-constrained slot is masked at the grammar state AFTER
-        its drafts at columns <= j, so every verify column is
-        constrained as the sequential decode at that position would be.
-        Grammar-free steps reuse one cached all-True block per width."""
-        gslots = [s for s in live
-                  if self._slots[s].request.sampling is not None and
-                  self._slots[s].request.sampling.grammar is not None]
-        if not gslots:
-            m = self._mask_true.get(W)
-            if m is None:
-                m = self._mask_true[W] = np.ones(
-                    (self.num_slots, W, self._vocab), bool)
-            return m
-        m = np.ones((self.num_slots, W, self._vocab), bool)
-        for s in gslots:
+    def _grammar_rows(self, drafts: dict, W: int, live) -> dict:
+        """The (W, V) vocabulary mask of each live grammar-constrained
+        slot: column j is masked at the grammar state AFTER its drafts
+        at columns <= j, so every verify column is constrained as the
+        sequential decode at that position would be. Other slots' rows
+        are all True."""
+        rows = {}
+        for s in live:
             slot = self._slots[s]
             sp = slot.request.sampling
+            if sp is None or sp.grammar is None:
+                continue
+            m = np.ones((W, self._vocab), bool)
             eos = slot.request.eos_id
             st = slot.grammar_state
-            m[s, 0] = grammar_mask(sp.grammar, st, eos)
+            m[0] = grammar_mask(sp.grammar, st, eos)
             for j, t in enumerate(drafts.get(s, ())):
                 t = int(t)
                 if t == eos:
@@ -1592,8 +1692,9 @@ class InferenceEngine:
                 if nxt is not None:
                     st = nxt
                 if j + 1 < W:
-                    m[s, j + 1] = grammar_mask(sp.grammar, st, eos)
-        return m
+                    m[j + 1] = grammar_mask(sp.grammar, st, eos)
+            rows[s] = m
+        return rows
 
     def step(self) -> int:
         """Enforce deadlines, admit, advance chunked prefill under the
@@ -1620,7 +1721,8 @@ class InferenceEngine:
             self.spec_steps += 1
         elif gated:
             self.spec_gated_steps += 1
-        tokens = np.zeros((self.num_slots, W), np.int32)
+        prog = self._program(W)              # built before the timed span
+        tokens = np.zeros((self.num_slots, W), np.int64)
         draft_len = np.zeros((self.num_slots,), np.int32)
         for s in live:
             tokens[s, 0] = self._slots[s].request.token_ids[-1]
@@ -1628,15 +1730,18 @@ class InferenceEngine:
             if d is not None:
                 tokens[s, 1:1 + d.size] = d
                 draft_len[s] = d.size
-        lengths = self._lengths.copy()
-        table = self._page_table.copy()
-        for s in stalled:                    # decode-invisible this step
-            lengths[s] = 0
-            table[s, :] = NULL_PAGE
         t_start = time.perf_counter()
-        # the one designed host readback per step: tokens and counts
-        emitted, n_emit = self._decode_program(tokens, draft_len, table,
-                                               lengths, live, drafts)
+        self._sync_menu(W, drafts, live)
+        self._stage_step(prog, tokens, draft_len, stalled)
+        # one copy in, one replay, and the one designed host readback
+        # per step: tokens, counts and the grown amax
+        out = prog.run()
+        emitted = out["emitted"].tolist()
+        n_emit = out["n_emit"].tolist()
+        if self._kamax:
+            L = len(self._kamax)
+            self._kamax = list(out["amax"][:L].copy())
+            self._vamax = list(out["amax"][L:].copy())
         for s in live:
             self._lengths[s] += n_emit[s]
         dt = time.perf_counter() - t_start

@@ -1,0 +1,155 @@
+"""The serving engine's compiled-once step programs.
+
+The counterpart of the JAX engine's ``jax.jit(self._decode_step_fn)``
+(``incubator_mxnet_tpu/serve/engine.py``): one ``StepProgram`` per
+decode-family width, built lazily at that width's first step. Its body
+reads only static buffers and writes only static buffers:
+
+  - ``inputs``: named typed fields packed into one byte buffer — on the
+    host (pinned on a CUDA device) and its twin on the device, so one
+    copy moves a step's inputs;
+  - ``outputs``: the same on the way back, one copy per step.
+
+On a CUDA device ``build`` warms the body up once on a side stream, over
+ZEROED inputs (the caller's body must treat them as dead work: lengths
+0, every write to the null page), then captures it into one CUDA graph;
+every later step is a copy in, one ``replay()`` and a copy out. On the
+CPU the same object runs its body eagerly. A capture that fails raises
+``MXNetError``: nothing falls back to running the body eagerly on the
+card.
+
+Launch accounting: the kernel wrappers count launches in Python
+(``ops.ragged_attention.LAUNCHES``), which happens at capture only. The
+program keeps its capture's count per kernel, restores the counters the
+warm-up and the capture touched, and adds that count on every replay.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..base import MXNetError
+from ..ops.ragged_attention import LAUNCHES
+
+__all__ = ["Packed", "StepProgram"]
+
+_ALIGN = 16
+Field = Tuple[str, Tuple[int, ...], torch.dtype]
+
+
+class Packed:
+    """Named typed fields over one byte buffer on the host and one on
+    ``device``: ``host[name]`` are numpy views to fill or read,
+    ``dev[name]`` the device tensors the body uses. Fields start on
+    16-byte boundaries."""
+
+    def __init__(self, fields: Sequence[Field], device: torch.device):
+        layout, n = [], 0
+        for name, shape, dtype in fields:
+            n = -(-n // _ALIGN) * _ALIGN
+            nbytes = int(np.prod(shape, dtype=np.int64)) * \
+                torch.empty((), dtype=dtype).element_size()
+            layout.append((name, shape, dtype, n, nbytes))
+            n += nbytes
+        n = max(_ALIGN, -(-n // _ALIGN) * _ALIGN)
+        self.host_bytes = torch.zeros(n, dtype=torch.uint8,
+                                      pin_memory=device.type == "cuda")
+        self.dev_bytes = torch.zeros(n, dtype=torch.uint8, device=device)
+        raw = self.host_bytes.numpy()
+        self.host: Dict[str, np.ndarray] = {}
+        self.dev: Dict[str, torch.Tensor] = {}
+        for name, shape, dtype, off, nbytes in layout:
+            np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+            self.host[name] = raw[off:off + nbytes].view(np_dtype) \
+                .reshape(shape)
+            self.dev[name] = self.dev_bytes[off:off + nbytes] \
+                .view(dtype).view(shape)
+
+
+class StepProgram:
+    """One width's step: ``body(inputs, outputs)`` over the device
+    fields of two ``Packed`` buffers, built once (``build``) and run per
+    step (``launch`` then ``read``, or ``run``). ``pool`` is the graph
+    memory pool to share with the engine's other widths (CUDA only)."""
+
+    def __init__(self, body: Callable[[dict, dict], None],
+                 inputs: Sequence[Field], outputs: Sequence[Field],
+                 device: torch.device, pool=None):
+        self.body = body
+        self.device = device
+        self.inp = Packed(inputs, device)
+        self.out = Packed(outputs, device)
+        self.pool = pool
+        self.built = False
+        self.build_ms: Optional[float] = None
+        self.launches: Dict[str, int] = {}
+        self._graph = None
+
+    def run_body(self):
+        """The body once, eagerly, over the current device fields."""
+        self.body(self.inp.dev, self.out.dev)
+
+    def build(self):
+        """Make the program runnable; idempotent. On a CUDA device: one
+        warm-up of the body over zeroed inputs on the capture stream (so
+        its cuBLAS workspace exists before the capture), then the
+        capture; ``build_ms`` times both."""
+        if self.built:
+            return
+        if self.device.type != "cuda":
+            self.built = True
+            return
+        t0 = time.perf_counter()
+        saved = dict(LAUNCHES)
+        try:
+            torch.cuda.synchronize(self.device)
+            self.inp.dev_bytes.zero_()
+            graph = torch.cuda.CUDAGraph()
+            capture = torch.cuda.graph(graph, pool=self.pool)
+            # PyTorch's one process-wide capture stream: a new stream per
+            # build would pin a cuBLAS workspace per stream for good
+            side = capture.capture_stream
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self.run_body()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            torch.cuda.synchronize(self.device)
+            LAUNCHES.update(saved)
+            with capture:
+                self.run_body()
+            torch.cuda.synchronize(self.device)
+        except RuntimeError as e:            # MXNetError included
+            raise MXNetError(f"step program capture failed: {e}") from e
+        finally:
+            captured = {k: LAUNCHES[k] - saved[k] for k in LAUNCHES}
+            LAUNCHES.update(saved)
+        self.launches = {k: n for k, n in captured.items() if n}
+        self._graph = graph
+        self.built = True
+        self.build_ms = (time.perf_counter() - t0) * 1e3
+
+    def launch(self):
+        """Copy the staged host inputs in and run the step: a replay on
+        the card, the body on the CPU. Does not wait."""
+        self.build()
+        self.inp.dev_bytes.copy_(self.inp.host_bytes, non_blocking=True)
+        if self._graph is None:
+            self.run_body()
+            return
+        self._graph.replay()
+        for k, n in self.launches.items():
+            LAUNCHES[k] += n
+
+    def read(self) -> Dict[str, np.ndarray]:
+        """The outputs, copied back in one transfer (this waits for the
+        step); the returned views are overwritten by the next read."""
+        self.out.host_bytes.copy_(self.out.dev_bytes)
+        return self.out.host
+
+    def run(self) -> Dict[str, np.ndarray]:
+        self.launch()
+        return self.read()

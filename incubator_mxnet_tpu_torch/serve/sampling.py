@@ -10,6 +10,13 @@ sampling site of the engine shares, in plain PyTorch: logit bias ->
 repetition/presence penalties -> vocabulary mask -> top-k -> top-p.
 Every stage is gated by a select on its DISABLED value, so a neutral
 configuration returns the input logits value-identical.
+
+The draws are on the device and need no generator: ``draw_uniform`` is
+a counter-based hash, in int64 tensor ops, of (request key, sequence
+position, stream) to a uniform in (0, 1) — the same bits on the CPU
+and the card, whichever program asks (prefill, a decode step or a
+verify column). ``sample_inverse_cdf`` draws a token with one such
+uniform per (slot, position) by inverting the softmax's CDF.
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ from ..base import MXNetError
 
 __all__ = ["SamplingParams", "TokenGrammar", "TokenFsm",
            "choice_grammar", "constrain_logits", "grammar_mask",
-           "match_stop", "NEUTRAL"]
+           "match_stop", "NEUTRAL", "draw_uniform", "sample_inverse_cdf",
+           "DRAW_STREAM", "ACCEPT_STREAM"]
 
 _NEG_BIG = -1e30                       # matches serve/engine.py
 
@@ -323,3 +331,58 @@ def constrain_logits(logits, temps, counts, bias, mask, top_k, top_p,
     thr = torch.where(keep_sorted, sp, torch.full_like(sp, float("inf"))
                       ).amin(dim=-1, keepdim=True)
     return torch.where(p_on[..., None] & (probs < thr), _NEG_BIG, l)
+
+
+# --------------------------------------------------------------------- #
+# the device draw: a counter-based hash of (key, position, stream)
+# --------------------------------------------------------------------- #
+
+DRAW_STREAM = 0      # the categorical draw of a position's token
+ACCEPT_STREAM = 1    # the speculative acceptance test's uniform
+_STREAM_SALT = (0x243F6A88, 0x85A308D3)   # pi's first fraction words
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """``x * c mod 2**32`` for 32-bit ``x`` and a constant ``c``, as two
+    16-bit partial products: every intermediate stays below 2**49, so
+    int64 tensors never overflow."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(h):
+    """MurmurHash3's 32-bit finalizer (an avalanche bijection)."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def draw_uniform(keys, positions, stream: int):
+    """The f32 uniform in (0, 1) of draw ``stream`` at ``positions`` of
+    the streams keyed by ``keys`` (int64 tensors that broadcast; a key's
+    64 bits are its two's-complement bits). A pure function of those
+    three: the low key word, the high key word and the position are
+    folded in turn through ``_fmix32``, and the top 23 bits of the hash
+    give ``(b + 0.5) / 2**23``, exact in f32."""
+    h = _fmix32((keys & _M32) ^ _STREAM_SALT[stream])
+    h = _fmix32(h ^ ((keys >> 32) & _M32))
+    h = _fmix32(h ^ (positions & _M32))
+    return ((h >> 9).to(torch.float32) + 0.5) * 2.0 ** -23
+
+
+def sample_inverse_cdf(logits, u):
+    """One token per row of ``logits`` (..., V) drawn from
+    ``softmax(logits)`` with the uniform ``u`` (...): the first index
+    whose cumulative probability exceeds ``u`` times the total. A token
+    of zero probability is never drawn (where rounding puts ``u`` at the
+    total, the last token of nonzero probability is taken)."""
+    V = logits.shape[-1]
+    p = torch.softmax(logits.float(), dim=-1)
+    cdf = torch.cumsum(p, dim=-1)
+    idx = torch.searchsorted(cdf, (u * cdf[..., -1])[..., None],
+                             right=True)[..., 0]
+    vocab = torch.arange(V, device=logits.device)
+    last = torch.where(p > 0, vocab, 0).amax(dim=-1)
+    return torch.minimum(idx, last)

@@ -292,15 +292,17 @@ def test_rejection_sampling_keeps_the_distribution(models):
     logits = torch.tensor([[1.0, 0.2, -0.5, 0.7, 0.0, -1.2]])
     p = torch.softmax(logits[0] / T, dim=-1).numpy()
     lg = logits[:, None].expand(N, 2, Vs).contiguous()
-    keys = list(range(1000, 1000 + N))
-    pos = np.tile([[7, 8]], (N, 1))
-    plain, _ = eng._accept_emit(lg[:, :1], np.zeros((N, 1), np.int64),
-                                np.zeros((N,), np.int64), [T] * N, keys,
+    keys = torch.arange(1000, 1000 + N)
+    pos = torch.tensor([[7, 8]]).expand(N, 2)
+    temps = torch.full((N,), T)
+    zero = torch.zeros((N, 1), dtype=torch.long)
+    plain, _ = eng._accept_emit(lg[:, :1], zero, zero[:, 0], temps, keys,
                                 pos[:, :1], None)
-    toks = np.zeros((N, 2), np.int64)
+    toks = torch.zeros((N, 2), dtype=torch.long)
     toks[:, 1] = 3                                # always draft token 3
-    spec, n_emit = eng._accept_emit(lg, toks, np.ones((N,), np.int64),
-                                    [T] * N, keys, pos, None)
+    spec, n_emit = eng._accept_emit(lg, toks,
+                                    torch.ones((N,), dtype=torch.long),
+                                    temps, keys, pos, None)
     for got in (np.asarray(plain)[:, 0], np.asarray(spec)[:, 0]):
         counts = np.bincount(got, minlength=Vs)
         chi2 = (((counts - N * p) ** 2) / (N * p)).sum()
