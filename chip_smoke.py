@@ -22,7 +22,9 @@ failure exits non-zero before the result line:
   3. kernels  — each of the six ragged kernels (decode, prefill, verify,
                 and their int8 / fp8_e4m3 code-pool variants) against its
                 plain PyTorch version on the card at the serving path's
-                shapes, f32 and bf16 queries, plus the contract cases:
+                shapes, f32 and bf16 queries (prefill: the chunk as a
+                device span at starts 0, 64, 200 and 960), plus the
+                contract cases:
                 NaN past the bound (length, start + n_real, length +
                 draft_len), NaN inside it, length 0, page permutation,
                 and a NaN page scale on a masked and on a live page
@@ -47,30 +49,40 @@ failure exits non-zero before the result line:
   5. serving  — gpt_small (GPT-2 small widths, bf16, seeded random
                 weights) through InferenceEngine with chunked prefill and
                 the prefix cache, 16 requests per run, every decode /
-                verify step a replay of its width's CUDA graph (each
-                width that ran captured once: printed with its capture
-                ms, and checked): plain decode;
+                verify step a replay of its width's CUDA graph and every
+                prefill chunk a replay of its bucket's (each width and
+                each (kind, bucket) that ran captured once: printed with
+                its capture ms, and checked): plain decode;
                 spec_k=4 with the n-gram drafter (raw pools); spec_k=4
                 drafting by replay of the plain run's streams (a
                 controlled accept rate) on raw pools, on int8 pools, and
-                (4 requests) on fp8_e4m3 pools. Each run reads
-                its kernels' launch counts (decode = non-speculative
-                steps x layers, verify = speculative steps x layers) and
-                prints tokens/s, TTFT p50, decode ms/step, accept rate
-                and tokens per step; 10 steps of the plain and the
-                speculative engine run under torch.profiler (device-busy
-                share), and 10 chunk steps of one 960-token prompt (the
-                ragged prefill kernels' share); the graphed step's host
-                time (staging, launch, readback) and the device time of
-                the draw and of the whole acceptance;
+                (4 requests) on fp8_e4m3 pools; then a short monolithic
+                run (chunk_pages=None: the dense prompt programs, one per
+                page bucket) on raw and int8 pools, with a request that
+                repeats the first 250 tokens of an earlier prompt (a
+                prefix hit through the COW copy program and a suffix
+                chunk). Each run reads its kernels' launch counts
+                (decode = non-speculative steps x layers, verify =
+                speculative steps x layers, prefill = chunk replays x
+                layers: no launch outside a graph) and prints tokens/s,
+                TTFT p50, decode ms/step, accept rate and tokens per
+                step; 10 steps of the plain and the speculative engine
+                run under torch.profiler (device-busy share), and 10
+                graphed chunk steps of one 960-token prompt (the ragged
+                prefill kernels' share); the graphed decode step's and
+                chunk step's host time (staging, launch, readback) and
+                the device time of the draw and of the whole
+                acceptance;
   6. parity   — at f32, the engine's greedy tokens, without and with
                 spec_k=4, equal the port's dense-cache cached_generate
-                (which runs no kernel), through the step graphs; then the
-                step graphs' cuda tests (tests/test_torch_serve_graphs.py,
-                pytest without the conftest, so no JAX): replay == body
-                bitwise, a build touches no live page, launches per
-                replay, one capture per width through stalls and a
-                quarantine;
+                (which runs no kernel), through the step and chunk graphs
+                (the prefill kernel's CUDA-core body); then the graphs'
+                cuda tests (tests/test_torch_serve_graphs.py, pytest
+                without the conftest, so no JAX): replay == body bitwise
+                (steps and chunks), a build touches no live page,
+                launches per replay, one capture per width through stalls
+                and a quarantine, one per (kind, bucket) through a COW
+                hit;
   7. training — bert_base bf16 (flash, dropout 0.1) + BERTForPretraining
                 through SPMDTrainer with LAMB (lr 1e-4, f32 masters), the
                 bench's batch (B=32, T=512, M=76; lengths in [256, 512]):
@@ -121,8 +133,8 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989.4e12}
 
 DEC = dict(S=8, H=12, D=64, ps=16, maxp=64,
            lengths=[0, 1, 17, 100, 255, 512, 777, 1024])
-PRE = dict(C=64, H=12, D=64, ps=16, maxp=64,
-           cases=[(0, 64), (200, 37), (960, 64)])   # (start, n_real)
+PRE = dict(C=64, H=12, D=64, ps=16, maxp=64,          # (start, n_real)
+           cases=[(0, 64), (64, 64), (200, 37), (960, 64)])
 VER = dict(S=8, W=5, H=12, D=64, ps=16, maxp=64,
            lengths=[0, 1, 17, 100, 255, 512, 777, 1019],
            draft_len=[0, 4, 1, 3, 4, 0, 2, 4])
@@ -231,13 +243,16 @@ def decode_case(torch, gen, dtype, quant=None, extra=0):
 
 
 def prefill_case(torch, gen, dtype, start, n_real, quant=None):
+    """Prefill inputs and the chunk's span [start, n_real] on the card
+    (what the kernel reads)."""
     C, H, D, ps, maxp = (PRE[k] for k in ("C", "H", "D", "ps", "maxp"))
     n_live = -(-(start + C) // ps)
     P = 1 + maxp + 3
     q = torch.randn(C, H, D, generator=gen, device="cuda").to(dtype)
     kp, vp, ks, vs = make_pools(torch, gen, P, H, ps, D, dtype, quant)
     row = slot_table(torch, gen, [n_live], P, maxp)[0]
-    return q, kp, vp, row, ks, vs
+    span = torch.tensor([start, n_real], dtype=torch.int32, device="cuda")
+    return q, kp, vp, row, ks, vs, span
 
 
 def verify_case(torch, gen, dtype, quant=None):
@@ -710,15 +725,18 @@ def phase_kernels(torch):
             check(bool((got[0] == 0).all()), "decode: length-0 slot not "
                                              "zero")
             for start, n_real in PRE["cases"]:
-                q, kp, vp, row, ks, vs = prefill_case(torch, gen, dt, start,
-                                                      n_real, quant)
-                got = ra._ragged_prefill_cuda(q, kp, vp, row, start, n_real,
-                                              sc, ks, vs)
+                q, kp, vp, row, ks, vs, span = prefill_case(
+                    torch, gen, dt, start, n_real, quant)
+                got = ra._ragged_prefill_cuda(q, kp, vp, row, span, sc, ks,
+                                              vs)
                 ref = ra.ragged_prefill_reference(q, kp, vp, row, start, sc,
                                                   n_real, ks, vs)
                 cmp("ragged_prefill" + sfx, got, ref, dt_name,
                     keep=slice(0, n_real),
-                    what=f"{tag} start={start} n_real={n_real}")
+                    what=f"{tag} device span start={start} "
+                         f"n_real={n_real}")
+                check(bool((got[n_real:] == 0).all()),
+                      "prefill: rows past n_real not zero")
             q, kp, vp, pt, ln, dl, ks, vs = verify_case(torch, gen, dt,
                                                         quant)
             got = ra._ragged_verify_cuda(q, kp, vp, pt, ln, dl, sc, ks, vs)
@@ -763,10 +781,11 @@ def phase_kernels(torch):
     # prefill: a partial chunk's unwritten tail holding NaN, and the null
     # page, on both bodies (f32: CUDA cores; bf16 at D=64: tensor cores);
     # two launches bitwise equal
-    start, n_real = PRE["cases"][1]
+    start, n_real = PRE["cases"][2]
     for dt in (f32, torch.bfloat16):
-        q, kp, vp, row, _, _ = prefill_case(torch, gen, dt, start, n_real)
-        clean = ra._ragged_prefill_cuda(q, kp, vp, row, start, n_real, sc)
+        q, kp, vp, row, _, _, span = prefill_case(torch, gen, dt, start,
+                                                  n_real)
+        clean = ra._ragged_prefill_cuda(q, kp, vp, row, span, sc)
         end = start + n_real
         kp2, vp2 = kp.clone(), vp.clone()
         for pos in range(end, start + PRE["C"]):
@@ -774,28 +793,27 @@ def phase_kernels(torch):
             kp2[pg, :, pos % ps] = nan
             vp2[pg, :, pos % ps] = nan
         kp2[0], vp2[0] = nan, nan
-        got = ra._ragged_prefill_cuda(q, kp2, vp2, row, start, n_real, sc)
+        got = ra._ragged_prefill_cuda(q, kp2, vp2, row, span, sc)
         check(bool(torch.isfinite(got[:n_real]).all()) and
               bool(torch.equal(got[:n_real], clean[:n_real])),
               f"prefill {dt}: unwritten-tail NaN poisoned live rows")
         check(bool(torch.equal(clean, ra._ragged_prefill_cuda(
-            q, kp, vp, row, start, n_real, sc))),
+            q, kp, vp, row, span, sc))),
             f"prefill {dt}: two launches differ")
         vp3 = vp.clone()
         vp3[int(row[0]), :, 0] = nan                  # seen by every row
-        got = ra._ragged_prefill_cuda(q, kp, vp3, row, start, n_real, sc)
+        got = ra._ragged_prefill_cuda(q, kp, vp3, row, span, sc)
         check(bool(torch.isnan(got[:n_real].float()).all()),
               f"prefill {dt}: NaN inside the live keys did not propagate")
 
-    start, n_real = PRE["cases"][1]           # live keys end at 237
+    start, n_real = PRE["cases"][2]           # live keys end at 237
     for dt in (f32, torch.bfloat16):
         for quant in QUANTS:
-            q, kp, vp, row, ks, vs = prefill_case(torch, gen, dt, start,
-                                                  n_real, quant)
-            clean = ra._ragged_prefill_cuda(q, kp, vp, row, start, n_real,
-                                            sc, ks, vs)
+            q, kp, vp, row, ks, vs, span = prefill_case(torch, gen, dt,
+                                                        start, n_real, quant)
+            clean = ra._ragged_prefill_cuda(q, kp, vp, row, span, sc, ks, vs)
             masked = int(row[(start + n_real) // ps + 1])   # past 237
-            got = ra._ragged_prefill_cuda(q, kp, vp, row, start, n_real, sc,
+            got = ra._ragged_prefill_cuda(q, kp, vp, row, span, sc,
                                           nan_scale(nan_scale(ks, 0), masked),
                                           nan_scale(nan_scale(vs, 0), masked))
             check(bool(torch.equal(got[:n_real], clean[:n_real])),
@@ -804,7 +822,7 @@ def phase_kernels(torch):
             for bad_k in (True, False):
                 live = int(row[0])
                 got = ra._ragged_prefill_cuda(
-                    q, kp, vp, row, start, n_real, sc,
+                    q, kp, vp, row, span, sc,
                     nan_scale(ks, live) if bad_k else ks,
                     vs if bad_k else nan_scale(vs, live))
                 check(bool(torch.isnan(got[:n_real].float()).all()),
@@ -920,35 +938,35 @@ def phase_times(torch):
         C = PRE["C"]
         rows = []
         for start, n_real in PRE["cases"]:
-            q, kp, vp, row, ks, vs = prefill_case(torch, gen, dt, start,
-                                                  n_real, quant)
+            q, kp, vp, row, ks, vs, span = prefill_case(torch, gen, dt,
+                                                        start, n_real, quant)
             kw = window(kp, row[None], ks)[0]            # (H, K, D)
             vw = window(vp, row[None], vs)[0]
             pos_q = start + torch.arange(C, device="cuda")[:, None]
             mask = ar[None, :] <= pos_q
-            plan = ra.prefill_plan(C, H, D, ps, maxp, start, n_real, True,
-                                   sms)
+            plan = ra.prefill_plan(C, H, D, ps, row.shape[0], True, sms)
             rows.append(record(
                 "ragged_prefill" + sfx,
                 f"C={C} H={H} D={D} ps={ps} start={start} n_real={n_real} "
-                f"q bf16, pools {tag}; plan {plan.nsplit} x "
+                f"(device span) q bf16, pools {tag}; plan {plan.nsplit} x "
                 f"{plan.split_keys} keys, {plan.blocks} blocks, scratch "
                 f"{4 * plan.scratch_floats} B",
                 _time_ms(torch, lambda: ra._ragged_prefill_cuda(
-                    q, kp, vp, row, start, n_real, sc, ks, vs), flush),
+                    q, kp, vp, row, span, sc, ks, vs), flush),
                 _time_ms(torch, lambda: ra.ragged_prefill_reference(
-                    q, kp, vp, row, start, sc, n_real, ks, vs), flush),
+                    q, kp, vp, row, span, sc, None, ks, vs), flush),
                 _time_ms(torch, lambda: F.scaled_dot_product_attention(
                     q.transpose(0, 1)[None], kw[None], vw[None],
                     attn_mask=mask), flush),
                 *prefill_bytes_flops(start, n_real, C, H, D, kv_elem, 2, ps,
                                      quant)))
         out.setdefault("ragged_prefill" + sfx, rows[-1])  # deepest chunk
-        deep = rows[-1]
-        print(f"[times] ragged_prefill{sfx} {tag} at start "
-              f"{PRE['cases'][-1][0]}: kernel {deep['ms']:.4f} ms vs "
-              f"library {deep['library_ms']:.4f} ms "
-              f"({deep['library_ms'] / deep['ms']:.2f}x)", flush=True)
+        for (start, _), r in ((PRE["cases"][0], rows[0]),
+                              (PRE["cases"][-1], rows[-1])):
+            print(f"[times] ragged_prefill{sfx} {tag} at start {start}: "
+                  f"kernel {r['ms']:.4f} ms vs library "
+                  f"{r['library_ms']:.4f} ms "
+                  f"({r['library_ms'] / r['ms']:.2f}x)", flush=True)
 
         q, kp, vp, pt, ln, dl, ks, vs = verify_case(torch, gen, dt, quant)
         kw, vw = window(kp, pt, ks), window(vp, pt, vs)
@@ -1039,6 +1057,7 @@ def serve_run(torch, np, model, label, spec_k=0, kv_quant=None,
     steps0, spec0, hits0 = eng.decode_steps, eng.spec_steps, eng.prefix_hits
     drafted0, accepted0 = eng.drafted_tokens, eng.accepted_tokens
     n_ev0 = len(eng.flight.events(etype=EventType.DECODE_STEP))
+    replays0 = chunk_replays(eng)
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -1059,35 +1078,27 @@ def serve_run(torch, np, model, label, spec_k=0, kv_quant=None,
           f"{label}: no prefix-cache hit")
     L = model.num_layers
     sfx, other = ("_q", "") if kv_quant else ("", "_q")
+    # every ragged launch comes from a graph replay: decode / verify steps,
+    # and chunk programs (chunk_replays)
+    chunks = chunk_replays(eng) - replays0
     want = {"ragged_decode" + sfx: (steps - spec_steps) * L,
             "ragged_verify" + sfx: spec_steps * L,
+            "ragged_prefill" + sfx: chunks * L,
             "ragged_decode" + other: 0, "ragged_verify" + other: 0,
             "ragged_prefill" + other: 0}
     for k, n in want.items():
         check(launches[k] == n, f"{label}: {k} launches {launches[k]} != "
                                 f"{n} ({steps} steps, {spec_steps} "
-                                f"speculative, {L} layers)")
-    check(launches["ragged_prefill" + sfx] > 0,
-          f"{label}: prefill kernel never launched")
+                                f"speculative, {chunks} chunk replays, "
+                                f"{L} layers)")
+    check(chunks > 0, f"{label}: prefill kernel never launched")
     if spec_k:
         check(drafted > 0 and (accepted > 0 or not need_accept),
               f"{label}: drafted {drafted}, accepted {accepted}")
     for r in reqs:
         check(all(0 <= t < model.vocab_size for t in r.token_ids),
               f"{label}: token out of vocab")
-    # one step program per width that ran (warm-up included), each
-    # captured once
-    for what, ran, built in (
-            ("decode", eng.decode_steps > eng.spec_steps,
-             eng.decode_trace_count),
-            ("verify", eng.spec_steps > 0, eng.verify_trace_count)):
-        check(built == int(ran), f"{label}: {what} program built {built} "
-                                 f"times (steps ran: {ran})")
-    print(f"[capture] {label}: decode_trace_count "
-          f"{eng.decode_trace_count}, verify_trace_count "
-          f"{eng.verify_trace_count}; " + ", ".join(
-              f"W={w} capture {p.build_ms:.1f} ms"
-              for w, p in sorted(eng._programs.items())), flush=True)
+    check_captures(eng, label)
     n_tok = sum(len(r.token_ids) for r in reqs)
     ttft = [r.token_stamps[0] - r.submit_time for r in reqs]
     ev = eng.flight.events(etype=EventType.DECODE_STEP)[n_ev0:]
@@ -1112,9 +1123,100 @@ def serve_run(torch, np, model, label, spec_k=0, kv_quant=None,
             profile_prefill(torch, eng, rng, Request, label)
     if not spec_k and not decode_bound:
         host_costs(torch, np, eng, Request)
+        chunk_host_costs(torch, np, eng, Request)
     del eng
     torch.cuda.empty_cache()
     return stats, [(r.prompt_ids, r.token_ids) for r in reqs]
+
+
+def chunk_replays(eng):
+    """Replays of the engine's prefill chunk programs so far."""
+    return sum(p.replays for (kind, _), p in eng._prefill_programs.items()
+               if kind == "chunk")
+
+
+def check_captures(eng, label):
+    """One step program per width that ran (warm-up included) and one
+    prefill program per (kind, bucket), each captured once, and at most
+    one COW copy program; prints the counts and each capture's ms."""
+    for what, ran, built in (
+            ("decode", eng.decode_steps > eng.spec_steps,
+             eng.decode_trace_count),
+            ("verify", eng.spec_steps > 0, eng.verify_trace_count)):
+        check(built == int(ran), f"{label}: {what} program built {built} "
+                                 f"times (steps ran: {ran})")
+    counts = eng.prefill_trace_counts
+    check(set(counts.values()) == {1} and
+          eng.prefill_trace_count == len(counts) ==
+          len(eng._prefill_programs),
+          f"{label}: prefill programs built {eng.prefill_trace_count} "
+          f"times for {counts}")
+    check(eng.copy_trace_count == int(eng._copy_prog is not None),
+          f"{label}: COW copy program built {eng.copy_trace_count} times")
+    progs = [(f"W={w}", p) for w, p in sorted(eng._programs.items())]
+    progs += [(f"{k} {t}", p) for (k, t), p in
+              sorted(eng._prefill_programs.items())]
+    if eng._copy_prog is not None:
+        progs.append(("copy", eng._copy_prog))
+    print(f"[capture] {label}: decode_trace_count "
+          f"{eng.decode_trace_count}, verify_trace_count "
+          f"{eng.verify_trace_count}, prefill_trace_count "
+          f"{eng.prefill_trace_count}, prefill_trace_counts "
+          f"{ {f'{k} {t}': n for (k, t), n in sorted(counts.items())} }, "
+          f"copy_trace_count {eng.copy_trace_count}; capture ms: " +
+          ", ".join(f"{name} {p.build_ms:.1f}" for name, p in progs),
+          flush=True)
+
+
+def serve_monolithic(torch, np, model, label, kv_quant=None):
+    """A short monolithic run (chunk_pages=None): 6 prompts of 40-700
+    tokens prefilled whole by the dense program of their page bucket
+    (4-64 pages), and a 7th repeating the first 250 tokens of the
+    300-token one, admitted after it: 15 shared pages, the boundary page
+    through the COW copy program, the 1-token suffix through a chunk
+    program. Half greedy, half T=0.8, 16 new tokens each."""
+    from incubator_mxnet_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from incubator_mxnet_tpu_torch.serve import InferenceEngine, Request
+    eng = InferenceEngine(model, num_slots=8, page_size=16, max_len=1024,
+                          chunk_pages=None, prefix_cache=True,
+                          kv_quant=kv_quant)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, model.vocab_size, size=n).astype(np.int32)
+               for n in (40, 100, 200, 300, 520, 700)]
+    prompts.append(prompts[3][:250].copy())
+    reqs = [Request(p, max_new_tokens=16, eos_id=50256,
+                    temperature=0.0 if i % 2 == 0 else 0.8, seed=200 + i)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    eng.audit_pages()
+    check(all(r.outcome is not None and r.outcome.ok for r in reqs),
+          f"{label}: requests ended badly")
+    check(eng.prefix_hits == 1 and eng.copy_trace_count == 1,
+          f"{label}: prefix hits {eng.prefix_hits}, copy_trace_count "
+          f"{eng.copy_trace_count} (want 1 and 1)")
+    want = {("dense", 16 * b) for b in (4, 8, 16, 32, 64)} | {("chunk", 16)}
+    check(set(eng.prefill_trace_counts) == want,
+          f"{label}: prefill programs {sorted(eng.prefill_trace_counts)} "
+          f"!= {sorted(want)}")
+    check_captures(eng, label)
+    sfx = "_q" if kv_quant else ""
+    L = model.num_layers
+    check(launches["ragged_prefill" + sfx] == chunk_replays(eng) * L == L,
+          f"{label}: ragged_prefill{sfx} launches "
+          f"{launches['ragged_prefill' + sfx]} (one chunk replay x {L})")
+    n_tok = sum(len(r.token_ids) for r in reqs)
+    stats = dict(requests=len(reqs), tokens=n_tok, wall_s=wall,
+                 prefix_hits=eng.prefix_hits,
+                 launches={k: v for k, v in launches.items() if v})
+    print(f"[serving] {label}: {json.dumps(stats)}", flush=True)
+    del eng
+    torch.cuda.empty_cache()
 
 
 def phase_serving(torch):
@@ -1148,6 +1250,10 @@ def phase_serving(torch):
     runs["decode_spec"], _ = serve_run(
         torch, np, model, "decode-bound, spec_k=4, replay drafter",
         spec_k=4, draft_fn=replay_drafter(np, streams), decode_bound=True)
+    for quant in (None, "int8"):
+        serve_monolithic(torch, np, model, f"monolithic (chunk_pages=None) "
+                         f"with a COW prefix hit, {quant or 'raw bf16'} "
+                         f"pools", kv_quant=quant)
     del model
     torch.cuda.empty_cache()
     return runs
@@ -1198,9 +1304,10 @@ def profile_decode(torch, np, eng, rng, Request, label):
 
 def profile_prefill(torch, eng, rng, Request, label):
     """Where a prefill chunk step's time goes: one 960-token prompt, its
-    chunk steps 2-11 (64 tokens each at depths 64-703) under
-    torch.profiler — wall and device-busy ms per step, and the ragged
-    prefill kernels' device ms (their share of busy and of wall)."""
+    chunk steps 2-11 (64 tokens each at depths 64-703, each one replay of
+    the 64-token bucket's graph) under torch.profiler — wall and
+    device-busy ms per step, and the ragged prefill kernels' device ms
+    (their share of busy and of wall)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     eng.submit(Request(rng.randint(0, eng.model.vocab_size, size=960),
@@ -1232,8 +1339,8 @@ def profile_prefill(torch, eng, rng, Request, label):
         return
     busy_ms = sum(t for _, t in kern) / 1e3 / n
     pre_ms = sum(t for k, t in kern if "prefill" in k) / 1e3 / n
-    print(f"[profile] {label}: prefill chunk steps, 1 slot, 64 tokens at "
-          f"depths 64-703, {n} steps: wall {wall_ms:.3f} ms/step "
+    print(f"[profile] {label}: graphed prefill chunk steps, 1 slot, 64 "
+          f"tokens at depths 64-703, {n} steps: wall {wall_ms:.3f} ms/step "
           f"(profiled), device busy {busy_ms:.3f} ms/step "
           f"({100 * busy_ms / wall_ms:.1f}%), ragged prefill kernels "
           f"{pre_ms:.3f} ms/step ({100 * pre_ms / busy_ms:.1f}% of busy, "
@@ -1344,6 +1451,49 @@ def host_costs(torch, np, eng, Request):
           f"{json.dumps(out)}", flush=True)
 
 
+def chunk_host_costs(torch, np, eng, Request):
+    """Host time of the graphed prefill chunk step's own work: one
+    960-token prompt past its first chunk, its second chunk (64 tokens at
+    depth 64) staged into the 64-token bucket's pinned inputs, the launch
+    (one copy in, one replay) and the readback (which waits for the
+    device); medians of 20 repeats of the same chunk."""
+    rng = np.random.RandomState(6)
+    eng.submit(Request(rng.randint(0, eng.model.vocab_size, size=960),
+                       max_new_tokens=2))
+    eng.step()                                   # admission, first chunk
+    s = next(i for i, sl in enumerate(eng._slots)
+             if sl is not None and sl.prefilling)
+    start = eng._slots[s].prefill_pos
+    prog = eng._stage_chunk(s, start, 64)
+
+    def host_ms(fn, n=20):
+        times = []
+        for _ in range(n):
+            eng._stage_chunk(s, start, 64)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+            prog.read()
+        return statistics.median(times)
+
+    def launch_then_read():
+        eng._stage_chunk(s, start, 64)
+        prog.launch()
+        t0 = time.perf_counter()
+        prog.read()
+        return (time.perf_counter() - t0) * 1e3
+
+    out = dict(stage_ms=host_ms(lambda: eng._stage_chunk(s, start, 64)),
+               launch_ms=host_ms(prog.launch),
+               readback_ms=statistics.median(
+                   launch_then_read() for _ in range(20)))
+    eng.run([])
+    eng.audit_pages()
+    print(f"[host] graphed prefill chunk step, 64 tokens at depth {start}: "
+          f"{json.dumps(out)}", flush=True)
+
+
 def phase_parity(torch):
     import numpy as np
     from incubator_mxnet_tpu_torch.models.gpt import (cached_generate,
@@ -1370,11 +1520,16 @@ def phase_parity(torch):
         check(counts == (int(eng.decode_steps > eng.spec_steps),
                          int(eng.spec_steps > 0)),
               f"spec_k={spec_k}: programs built {counts}")
+        check({k for k, _ in eng.prefill_trace_counts} == {"chunk"} and
+              set(eng.prefill_trace_counts.values()) == {1},
+              f"spec_k={spec_k}: prefill programs built "
+              f"{eng.prefill_trace_counts}")
         print(f"[parity] f32 gpt_small spec_k={spec_k}: engine == "
               f"cached_generate over {len(ref)} greedy tokens "
               f"({eng.decode_steps} steps, {eng.spec_steps} speculative, "
               f"accept rate {eng.accept_rate:.3f}; through the step "
-              f"graphs: decode / verify captured {counts})", flush=True)
+              f"graphs: decode / verify captured {counts}; through the "
+              f"chunk graphs: {eng.prefill_trace_counts})", flush=True)
         del eng
     del model
     torch.cuda.empty_cache()

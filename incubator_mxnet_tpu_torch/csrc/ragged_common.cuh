@@ -240,6 +240,25 @@ __device__ __forceinline__ VerifySpan verify_span(const int* lengths,
   return v;
 }
 
+// A prefill chunk's bounds, read from its span [start, n_real] (int32, on
+// the device, as the Pallas kernel's qinfo): C rows at positions start +
+// i, the first n_real live (clamped to [0, C]); start is clamped to [0,
+// kmax] (a row at or past the capacity sees every key either way);
+// key_end = the keys a live row reads, min(start + n_real, kmax); 0:
+// nothing to read.
+struct ChunkSpan {
+  int start, n_real, key_end;
+};
+
+__device__ __forceinline__ ChunkSpan chunk_span(const int* span, int C,
+                                                int kmax) {
+  ChunkSpan c;
+  c.start = min(max(span[0], 0), kmax);
+  c.n_real = min(max(span[1], 0), C);
+  c.key_end = c.n_real > 0 ? min(c.start + c.n_real, kmax) : 0;
+  return c;
+}
+
 inline size_t split_parts_floats(int rows, int H, int D, int nsplit) {
   return (size_t)rows * H * nsplit * (D + 2);
 }

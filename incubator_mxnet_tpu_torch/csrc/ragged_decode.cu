@@ -68,12 +68,11 @@ decode_mma_kernel(const bf16* __restrict__ q, const P* __restrict__ k_pool,
                   const int* __restrict__ draft_len,
                   const float* __restrict__ k_scale,
                   const float* __restrict__ v_scale, bf16* __restrict__ out,
-                  int start, int n_real, int key_end, int C, int H, int ps,
-                  int maxp, int split_keys, int nsplit, float scale) {
+                  int C, int H, int ps, int maxp, int split_keys, int nsplit,
+                  float scale) {
   ragged_mma_body<P, 1, true, true>(q, k_pool, v_pool, page_table, lengths,
-                                    draft_len, k_scale, v_scale, out, start,
-                                    n_real, key_end, C, H, ps, maxp,
-                                    split_keys, nsplit, scale);
+                                    draft_len, k_scale, v_scale, out, C, H, ps,
+                                    maxp, split_keys, nsplit, scale);
 }
 
 // body 2: CUDA cores
@@ -222,7 +221,7 @@ extern "C" int mx_ragged_decode(const void* q, const void* k_pool,
           if (mma)                           // C = 1, no draft_len
             return mxt::launch_ragged_mma<P, 1, true>(
                 mxt::decode_mma_kernel<P>, q, k_pool, v_pool, page_table,
-                lengths, nullptr, k_scale, v_scale, out, 0, 0, 0, 1, H, ps,
+                lengths, nullptr, k_scale, v_scale, out, 1, H, ps,
                 maxp, split_keys, nsplit, S, scale, st);
         }
         return mxt::launch_decode<T, P>(q, k_pool, v_pool, page_table,

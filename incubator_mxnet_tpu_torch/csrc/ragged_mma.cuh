@@ -6,11 +6,14 @@
 // All compute one thing: C query rows of ONE slot at positions start + i
 // (i < C) attend the slot's paged keys through the predicate pos_k <=
 // start + i, every key at or past key_end is selected out (never read),
-// and rows >= n_real are written as zeros. A prefill chunk gives (start,
-// n_real) from the host. A verify window is the same chunk for every slot
-// at once: row r of slot s sits at position L - 1 + r (L = lengths[s]), its
-// consumed rows are 0..dl (dl = draft_len[s]) and its keys end at
-// min(L + dl, capacity) (verify_span); the block reads them on the device.
+// and rows >= n_real are written as zeros. Every block reads its bounds on
+// the device, so a launch's arguments are fixed by shapes alone (what a
+// CUDA graph replays). A prefill chunk's come from its span [start,
+// n_real] (chunk_span; key_end = min(start + n_real, capacity)). A verify
+// window is the same chunk for every slot at once: row r of slot s sits
+// at position L - 1 + r (L = lengths[s]), its consumed rows are 0..dl (dl
+// = draft_len[s]) and its keys end at min(L + dl, capacity)
+// (verify_span).
 // A decode step is a verify window of C = W = 1 with no draft (draft_len
 // null: dl = 0): its row sits at L - 1, sees keys [0, L) and V is selected
 // out from L.
@@ -132,10 +135,10 @@ struct MmaSmem {
 
 // The body of a block of grid (split, head, z); the splits of one (head,
 // z) form one thread-block cluster. Prefill (kVerify false): z is the
-// query group, and start / n_real / key_end / C describe the one chunk,
-// page_table its page row. Verify: z is the slot, C = W its rows,
-// page_table (S, maxp), and the chunk of slot z comes from lengths /
-// draft_len (verify_span). Warp w owns rows 16 w of each 64-row query
+// query group, C the chunk's rows, `bounds` its span [start, n_real]
+// (chunk_span), page_table its page row. Verify: z is the slot, C = W its
+// rows, page_table (S, maxp), and the chunk of slot z comes from `bounds`
+// = lengths (S,) and draft_len (verify_span). Warp w owns rows 16 w of each 64-row query
 // tile of the group; with KW (verify, W <= 16) every warp owns rows 0-15
 // instead and keys 16 w .. 16 w + 15 of each tile, and the four warps'
 // states merge in shared memory after the walk. Each kernel file wraps it
@@ -145,10 +148,10 @@ template <typename P, int QT, bool kVerify, bool KW>
 __device__ __forceinline__ void ragged_mma_body(
     const bf16* __restrict__ q, const P* __restrict__ k_pool,
     const P* __restrict__ v_pool, const int* __restrict__ page_table,
-    const int* __restrict__ lengths, const int* __restrict__ draft_len,
+    const int* __restrict__ bounds, const int* __restrict__ draft_len,
     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-    bf16* __restrict__ out, int start, int n_real, int key_end, int C,
-    int H, int ps, int maxp, int split_keys, int nsplit, float scale) {
+    bf16* __restrict__ out, int C, int H, int ps, int maxp, int split_keys,
+    int nsplit, float scale) {
   using L = MmaSmem<P, QT, KW>;
   constexpr bool kQuant = L::kQuant;
   static_assert(!KW || QT == 1, "key-split warps share one 16-row tile");
@@ -162,9 +165,10 @@ __device__ __forceinline__ void ragged_mma_body(
   const int k0 = j * split_keys;
   int grp = blockIdx.z;
   const int* page_row = page_table;
+  int start, n_real, key_end;
   if constexpr (kVerify) {                   // z is the slot
     const int s = blockIdx.z;
-    const VerifySpan sp = verify_span(lengths, draft_len, s, C, maxp * ps);
+    const VerifySpan sp = verify_span(bounds, draft_len, s, C, maxp * ps);
     start = sp.L - 1;
     n_real = sp.L > 0 ? sp.dl + 1 : 0;
     key_end = sp.key_end;
@@ -172,6 +176,11 @@ __device__ __forceinline__ void ragged_mma_body(
     q += (int64_t)s * C * H * kMmaD;
     out += (int64_t)s * C * H * kMmaD;
     grp = 0;
+  } else {                                   // z is the query group
+    const ChunkSpan sp = chunk_span(bounds, C, maxp * ps);
+    start = sp.start;
+    n_real = sp.n_real;
+    key_end = sp.key_end;
   }
   const int q0 = grp * QT * kMmaTile;        // first query row of the group
 
@@ -552,21 +561,21 @@ template <typename P>
 using RaggedMmaKernel = void (*)(const bf16*, const P*, const P*, const int*,
                                  const int*, const int*, const float*,
                                  const float*, bf16*, int, int, int, int, int,
-                                 int, int, int, int, float);
+                                 int, float);
 
 // Launch grid (nsplit, H, z) with the nsplit splits of each (head, z) as
 // one cluster, and MmaSmem<P, QT, KW>'s shared memory. Prefill: z = query
-// groups, lengths = draft_len = nullptr; verify: z = S slots, QT = 1,
-// C = W; decode: verify with C = 1, KW and draft_len = nullptr.
+// groups, bounds = the span, draft_len = nullptr; verify: z = S slots,
+// QT = 1, C = W, bounds = lengths; decode: verify with C = 1, KW and
+// draft_len = nullptr.
 template <typename P, int QT, bool KW = false>
 cudaError_t launch_ragged_mma(RaggedMmaKernel<P> kernel, const void* q,
                               const void* k, const void* v,
-                              const int* page_table, const int* lengths,
+                              const int* page_table, const int* bounds,
                               const int* draft_len, const float* ks,
-                              const float* vs, void* out, int start,
-                              int n_real, int key_end, int C, int H, int ps,
-                              int maxp, int split_keys, int nsplit, int z,
-                              float scale, cudaStream_t stream) {
+                              const float* vs, void* out, int C, int H,
+                              int ps, int maxp, int split_keys, int nsplit,
+                              int z, float scale, cudaStream_t stream) {
   const size_t smem = MmaSmem<P, QT, KW>::bytes(split_keys / ps + 2);
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
@@ -590,10 +599,9 @@ cudaError_t launch_ragged_mma(RaggedMmaKernel<P> kernel, const void* q,
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(q),
                             static_cast<const P*>(k),
-                            static_cast<const P*>(v), page_table, lengths,
-                            draft_len, ks, vs, static_cast<bf16*>(out),
-                            start, n_real, key_end, C, H, ps, maxp,
-                            split_keys, nsplit, scale);
+                            static_cast<const P*>(v), page_table, bounds,
+                            draft_len, ks, vs, static_cast<bf16*>(out), C,
+                            H, ps, maxp, split_keys, nsplit, scale);
 }
 
 }  // namespace mxt

@@ -9,7 +9,12 @@
 // chunk's own K/V is already written into the pages), through one
 // predicate pos_k <= start + i. Only keys below start + n_real are ever
 // read (key_end below): no live row sees past it, and a partial chunk's
-// unwritten tail may hold a recycled page's NaN.
+// unwritten tail may hold a recycled page's NaN. As the Pallas kernel
+// takes qinfo = [start, n_real] by scalar prefetch, every block reads the
+// chunk's span [start, n_real] from device memory (chunk_span in
+// ragged_common.cuh): no launch argument depends on where the chunk sits,
+// so the serving engine replays one launch per chunk bucket from a CUDA
+// graph.
 //
 // What bounds it on an H100: the bytes of the live K/V. A chunk of C = 64
 // queries over 1024 live keys does 4 * C * keys * D flops on 2 * keys * D
@@ -21,12 +26,12 @@
 // Design. The TPU grid walks the pages in order with (H, C) m/l/acc
 // scratch; blocks on the GPU run in no order, so the keys are split and
 // the splits merged. The split plan is computed by the wrapper
-// (ops/ragged_attention.prefill_plan) from the LIVE keys, start + n_real:
-// keys per split and number of splits (about one block per SM at depth,
-// one split of 64 keys at start 0: no block that only exits), query
-// tiles per block, and the CUDA-core body's exact scratch; this file
-// checks the plan and launches it. Two bodies, chosen from the dtype
-// and D before the launch:
+// (ops/ragged_attention.prefill_plan) from the page row's CAPACITY, maxp
+// * ps, since the live keys sit on the device: keys per split and number
+// of splits (about one wave of blocks), query tiles per block, and the
+// CUDA-core body's scratch (sized from C); this file checks the plan and
+// launches it. A block whose split starts at or past the live keys walks
+// nothing. Two bodies, chosen from the dtype and D before the launch:
 //
 // 1. bf16 queries with D = 64 (GPT-2, gpt_small: the serving path), on
 //    the tensor cores: prefill_mma_kernel, the body of ragged_mma.cuh
@@ -37,20 +42,20 @@
 //    cp.async of the split's pages, codes converted to bf16 in shared
 //    memory, mma.sync products, and a head's splits (at most 16) merged in
 //    one thread-block cluster through distributed shared memory: no
-//    scratch, no second launch.
+//    scratch, no second launch. Blocks past the live keys still join
+//    their cluster's barriers (and merge their share of the rows).
 // 2. every other case (f32 queries, head dims other than 64): the CUDA-
 //    core body, prefill_split_kernel, grid (16-row query tile, head,
 //    64-key split), scores and P V in f32 out of shared memory (K/V
-//    staged as f32 through stage_kv, once per 16-row tile). It writes
-//    each split's (m, l, acc[D]) of the live rows (rows < n_real) to the
-//    wrapper's scratch, and a second launch, prefill_merge_kernel, gives
-//    one warp to each (row, head): it reads the row's splits in order
-//    (acc as float2 when D is even) and writes acc / l.
+//    staged as f32 through stage_kv, once per 16-row tile); a block whose
+//    split no live row of its tile sees exits. It writes each split's (m,
+//    l, acc[D]) of the live rows (rows < n_real) to the wrapper's scratch
+//    (laid out for all C rows), and a second launch, prefill_merge_kernel,
+//    gives one warp to each (row, head): it reads the row's splits in
+//    order (acc as float2 when D is even) and writes acc / l.
 //
 // Rows >= n_real (garbage by contract) are written as zeros. No atomics:
 // the output is bitwise the same from run to run.
-
-#include <algorithm>
 
 #include "ragged_mma.cuh"     // body 1, shared with the verify kernel
 
@@ -62,28 +67,28 @@ __global__ void __launch_bounds__(kMmaThreads)
 prefill_mma_kernel(const bf16* __restrict__ q, const P* __restrict__ k_pool,
                    const P* __restrict__ v_pool,
                    const int* __restrict__ page_row,
-                   const int* __restrict__ lengths,
+                   const int* __restrict__ span,
                    const int* __restrict__ draft_len,
                    const float* __restrict__ k_scale,
                    const float* __restrict__ v_scale, bf16* __restrict__ out,
-                   int start, int n_real, int key_end, int C, int H, int ps,
-                   int maxp, int split_keys, int nsplit, float scale) {
-  ragged_mma_body<P, QT, false, false>(q, k_pool, v_pool, page_row,
-                                       lengths, draft_len, k_scale, v_scale,
-                                       out, start, n_real, key_end, C, H, ps,
-                                       maxp, split_keys, nsplit, scale);
+                   int C, int H, int ps, int maxp, int split_keys, int nsplit,
+                   float scale) {
+  ragged_mma_body<P, QT, false, false>(q, k_pool, v_pool, page_row, span,
+                                       draft_len, k_scale, v_scale, out, C,
+                                       H, ps, maxp, split_keys, nsplit,
+                                       scale);
 }
 
 // ---------------------------------------------------------------------
 // body 2: CUDA cores (f32 queries, any head dim up to 256)
 // ---------------------------------------------------------------------
 
-// Scratch layout, for the n_real live rows only, with
-// idx = (row * H + h) * nsplit + j: m at part[idx], l at
-// part[nparts + idx], acc at part[2 * nparts + idx * D .. + D).
-__device__ __forceinline__ int64_t prefill_nparts(int n_real, int H,
-                                                  int nsplit) {
-  return (int64_t)n_real * H * nsplit;
+// Scratch layout, laid out for all C rows (only the live rows' entries
+// are written and read), with idx = (row * H + h) * nsplit + j: m at
+// part[idx], l at part[nparts + idx], acc at part[2 * nparts + idx * D ..
+// + D).
+__device__ __forceinline__ int64_t prefill_nparts(int C, int H, int nsplit) {
+  return (int64_t)C * H * nsplit;
 }
 
 // One warp merges a row's n splits into D output columns, V columns a
@@ -145,17 +150,18 @@ __device__ __forceinline__ void merge_cols(const float* __restrict__ pm,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 prefill_merge_kernel(const float* __restrict__ part, T* __restrict__ out,
-                     int start, int n_real, int key_end, int C, int H, int D,
-                     int split_keys, int nsplit) {
+                     const int* __restrict__ span, int C, int H, int D,
+                     int kmax, int split_keys, int nsplit) {
   const int w = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (w >= C * H) return;
+  const ChunkSpan sp = chunk_span(span, C, kmax);
   const int row = w / H;
   int n = 0;
-  if (row < n_real) {
-    const int vis = min(start + row + 1, key_end);
+  if (row < sp.n_real) {
+    const int vis = min(sp.start + row + 1, sp.key_end);
     n = vis > 0 ? min(nsplit, (vis + split_keys - 1) / split_keys) : 0;
   }
-  const int64_t nparts = prefill_nparts(n_real, H, nsplit);
+  const int64_t nparts = prefill_nparts(C, H, nsplit);
   const int64_t base = (int64_t)w * nsplit;          // w = row * H + h
   const float* pm = part + base;
   const float* pl = part + nparts + base;
@@ -171,13 +177,12 @@ prefill_merge_kernel(const float* __restrict__ part, T* __restrict__ out,
 }
 
 template <typename T>
-cudaError_t launch_merge(const float* part, void* out, int start,
-                         int n_real, int key_end, int C, int H, int D,
-                         int split_keys, int nsplit, cudaStream_t stream) {
+cudaError_t launch_merge(const float* part, void* out, const int* span,
+                         int C, int H, int D, int kmax, int split_keys,
+                         int nsplit, cudaStream_t stream) {
   const int blocks = (int)(((int64_t)C * H + kWarps - 1) / kWarps);
   prefill_merge_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      part, static_cast<T*>(out), start, n_real, key_end, C, H, D,
-      split_keys, nsplit);
+      part, static_cast<T*>(out), span, C, H, D, kmax, split_keys, nsplit);
   return cudaGetLastError();
 }
 
@@ -189,12 +194,14 @@ __global__ void __launch_bounds__(kThreads)
 prefill_split_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
                      const P* __restrict__ v_pool,
                      const int* __restrict__ page_row,
+                     const int* __restrict__ span,
                      const float* __restrict__ k_scale,
                      const float* __restrict__ v_scale,
-                     float* __restrict__ part, int start, int n_real,
-                     int key_end, int C, int H, int D, int ps, int nsplit,
-                     float scale) {
+                     float* __restrict__ part, int C, int H, int D, int ps,
+                     int maxp, int nsplit, float scale) {
   const int tile = blockIdx.x, h = blockIdx.y, j = blockIdx.z;
+  const ChunkSpan sp = chunk_span(span, C, maxp * ps);
+  const int start = sp.start, n_real = sp.n_real, key_end = sp.key_end;
   const int i0 = tile * kRows;
   const int rows = min(kRows, C - i0);
   const int end = rows_key_end(i0, rows, start, n_real, key_end);
@@ -247,7 +254,7 @@ prefill_split_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
   }
   __syncthreads();
 
-  const int64_t nparts = prefill_nparts(n_real, H, nsplit);
+  const int64_t nparts = prefill_nparts(C, H, nsplit);
   for (int i = tid; i < live_rows; i += kThreads) {
     const int64_t idx = ((int64_t)(i0 + i) * H + h) * nsplit + j;
     part[idx] = row_m[i];
@@ -270,10 +277,10 @@ prefill_split_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
 template <typename T, typename P>
 cudaError_t launch_prefill_cores(const void* q, const void* k,
                                  const void* v, const int* page_row,
-                                 const float* ks, const float* vs,
-                                 void* out, float* part, int start,
-                                 int n_real, int key_end, int C, int H,
-                                 int D, int ps, int nsplit, float scale,
+                                 const int* span, const float* ks,
+                                 const float* vs, void* out, float* part,
+                                 int C, int H, int D, int ps, int maxp,
+                                 int nsplit, float scale,
                                  cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)kRows * D + (size_t)kSplitKeys * (D + 1) +
@@ -284,47 +291,46 @@ cudaError_t launch_prefill_cores(const void* q, const void* k,
   prefill_split_kernel<T, P><<<dim3(tiles, H, nsplit), kThreads, smem,
                                stream>>>(
       static_cast<const T*>(q), static_cast<const P*>(k),
-      static_cast<const P*>(v), page_row, ks, vs, part, start, n_real,
-      key_end, C, H, D, ps, nsplit, scale);
+      static_cast<const P*>(v), page_row, span, ks, vs, part, C, H, D, ps,
+      maxp, nsplit, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return launch_merge<T>(part, out, start, n_real, key_end, C, H, D,
-                         kSplitKeys, nsplit, stream);
+  return launch_merge<T>(part, out, span, C, H, D, maxp * ps, kSplitKeys,
+                         nsplit, stream);
 }
 
 }  // namespace mxt
 
 // q (C, H, D); k_pool / v_pool (P, H, ps, D); page_row (maxp,) int32;
-// out (C, H, D). The chunk's first query sits at position `start`, its
-// first `n_real` rows are live. The split plan comes from the wrapper,
-// which computes it from the live keys key_end = min(start + n_real,
-// maxp * ps): `split_keys` keys per split, `nsplit` splits (at most 16,
-// one cluster, on the tensor-core body) and, for that body, `q_tiles`
-// 64-row query tiles per block. `part` is the CUDA-core body's f32
-// scratch of n_real * H * nsplit * (D + 2) floats (null when n_real = 0;
-// the tensor-core body needs none). All contiguous (the tensor-core body
-// also needs q and the pools 16-byte aligned); dtypes and scales as for
-// mx_ragged_decode. Page-row entries must lie in [0, P). Returns a
-// cudaError_t (0 = launched).
+// span (2,) int32 on the device: the chunk's first query sits at
+// position span[0] and its first span[1] rows are live (read by every
+// block; the caller keeps 0 <= span[1] <= C); out (C, H, D). The split
+// plan comes from the wrapper, which computes it from the page row's
+// capacity maxp * ps: `split_keys` keys per split, `nsplit` splits
+// covering the capacity (at most 16, one cluster, on the tensor-core
+// body) and, for that body, `q_tiles` 64-row query tiles per block.
+// `part` is the CUDA-core body's f32 scratch of C * H * nsplit * (D + 2)
+// floats (null when C = 0; the tensor-core body needs none). All
+// contiguous (the tensor-core body also needs q and the pools 16-byte
+// aligned); dtypes and scales as for mx_ragged_decode. Page-row entries
+// must lie in [0, P). Returns a cudaError_t (0 = launched).
 extern "C" int mx_ragged_prefill(const void* q, const void* k_pool,
                                  const void* v_pool, const int* page_row,
-                                 const float* k_scale, const float* v_scale,
-                                 void* out, float* part, int start,
-                                 int n_real, int C, int H, int D, int ps,
+                                 const int* span, const float* k_scale,
+                                 const float* v_scale, void* out,
+                                 float* part, int C, int H, int D, int ps,
                                  int maxp, int split_keys, int nsplit,
                                  int q_tiles, float scale, int dtype,
                                  int kv_dtype, void* stream) {
   if (C < 0 || H <= 0 || H > 65535 || D <= 0 || D > mxt::kMaxHeadDim ||
-      ps <= 0 || maxp <= 0 || start < 0 || n_real < 0 || n_real > C ||
+      ps <= 0 || maxp <= 0 || span == nullptr ||
       (k_scale == nullptr) != (v_scale == nullptr) || split_keys <= 0 ||
       nsplit <= 0)
     return (int)cudaErrorInvalidValue;
-  if (C == 0) return 0;
-  const int64_t key_end =
-      std::min<int64_t>((int64_t)start + n_real, (int64_t)maxp * ps);
-  // the plan must cover the live keys with no split wholly past them
-  if ((int64_t)nsplit * split_keys < key_end ||
-      (int64_t)(nsplit - 1) * split_keys >= std::max<int64_t>(key_end, 1))
+  // the plan must cover the capacity with no split wholly past it
+  const int64_t cap = (int64_t)maxp * ps;
+  if ((int64_t)nsplit * split_keys < cap ||
+      (int64_t)(nsplit - 1) * split_keys >= cap)
     return (int)cudaErrorInvalidValue;
   const bool mma = mxt::use_mma(dtype, D);
   if (mma ? (split_keys % mxt::kKeyTile != 0 ||
@@ -332,10 +338,9 @@ extern "C" int mx_ragged_prefill(const void* q, const void* k_pool,
              q_tiles > 2 ||
              (C + mxt::kMmaTile * q_tiles - 1) / (mxt::kMmaTile * q_tiles) >
                  65535)
-          : (split_keys != mxt::kSplitKeys ||
-             (part == nullptr && n_real > 0)))
+          : (split_keys != mxt::kSplitKeys || (part == nullptr && C > 0)))
     return (int)cudaErrorInvalidValue;
-  const int kend = (int)key_end;
+  if (C == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)mxt::dispatch_types(
       dtype, kv_dtype, k_scale != nullptr, [&](auto tt, auto tp) {
@@ -348,17 +353,16 @@ extern "C" int mx_ragged_prefill(const void* q, const void* k_pool,
             if (q_tiles == 1)
               return mxt::launch_ragged_mma<P, 1>(
                   mxt::prefill_mma_kernel<P, 1>, q, k_pool, v_pool, page_row,
-                  nullptr, nullptr, k_scale, v_scale, out, start, n_real,
-                  kend, C, H, ps, maxp, split_keys, nsplit, groups, scale,
-                  st);
+                  span, nullptr, k_scale, v_scale, out, C, H, ps, maxp,
+                  split_keys, nsplit, groups, scale, st);
             return mxt::launch_ragged_mma<P, 2>(
                 mxt::prefill_mma_kernel<P, 2>, q, k_pool, v_pool, page_row,
-                nullptr, nullptr, k_scale, v_scale, out, start, n_real, kend,
-                C, H, ps, maxp, split_keys, nsplit, groups, scale, st);
+                span, nullptr, k_scale, v_scale, out, C, H, ps, maxp,
+                split_keys, nsplit, groups, scale, st);
           }
         }
         return mxt::launch_prefill_cores<T, P>(
-            q, k_pool, v_pool, page_row, k_scale, v_scale, out, part, start,
-            n_real, kend, C, H, D, ps, nsplit, scale, st);
+            q, k_pool, v_pool, page_row, span, k_scale, v_scale, out, part,
+            C, H, D, ps, maxp, nsplit, scale, st);
       });
 }

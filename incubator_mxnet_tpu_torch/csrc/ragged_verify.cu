@@ -73,12 +73,11 @@ verify_mma_kernel(const bf16* __restrict__ q, const P* __restrict__ k_pool,
                   const int* __restrict__ draft_len,
                   const float* __restrict__ k_scale,
                   const float* __restrict__ v_scale, bf16* __restrict__ out,
-                  int start, int n_real, int key_end, int C, int H, int ps,
-                  int maxp, int split_keys, int nsplit, float scale) {
+                  int C, int H, int ps, int maxp, int split_keys, int nsplit,
+                  float scale) {
   ragged_mma_body<P, 1, true, KW>(q, k_pool, v_pool, page_table, lengths,
-                                  draft_len, k_scale, v_scale, out, start,
-                                  n_real, key_end, C, H, ps, maxp,
-                                  split_keys, nsplit, scale);
+                                  draft_len, k_scale, v_scale, out, C, H, ps,
+                                  maxp, split_keys, nsplit, scale);
 }
 
 // body 2: CUDA cores
@@ -257,13 +256,13 @@ extern "C" int mx_ragged_verify(const void* q, const void* k_pool,
           if (mma && W <= 16)                // KW: one m16 tile of rows
             return mxt::launch_ragged_mma<P, 1, true>(
                 mxt::verify_mma_kernel<P, true>, q, k_pool, v_pool,
-                page_table, lengths, draft_len, k_scale, v_scale, out, 0, 0,
-                0, W, H, ps, maxp, split_keys, nsplit, S, scale, st);
+                page_table, lengths, draft_len, k_scale, v_scale, out, W, H,
+                ps, maxp, split_keys, nsplit, S, scale, st);
           if (mma)
             return mxt::launch_ragged_mma<P, 1, false>(
                 mxt::verify_mma_kernel<P, false>, q, k_pool, v_pool,
-                page_table, lengths, draft_len, k_scale, v_scale, out, 0, 0,
-                0, W, H, ps, maxp, split_keys, nsplit, S, scale, st);
+                page_table, lengths, draft_len, k_scale, v_scale, out, W, H,
+                ps, maxp, split_keys, nsplit, S, scale, st);
         }
         return mxt::launch_verify<T, P>(q, k_pool, v_pool, page_table,
                                         lengths, draft_len, k_scale, v_scale,

@@ -22,7 +22,9 @@ plain PyTorch version in this module:
     slot at positions ``q_start + i`` over the paged prefix plus the
     causal part of the chunk — ``csrc/ragged_prefill.cu``, the port of
     ``_ragged_prefill_kernel`` (tensor cores for bf16 at D = 64), which
-    takes its key-split plan from ``prefill_plan``;
+    reads the chunk's span ``[q_start, n_real]`` on the device, as the
+    Pallas kernel's ``qinfo``, and takes its key-split plan from
+    ``prefill_plan``;
   - ``ragged_verify_attention`` (speculative verify): W queries per slot
     at positions ``lengths - 1 + r``, causal inside the window —
     ``csrc/ragged_verify.cu``, the port of ``_ragged_verify_kernel``
@@ -62,6 +64,7 @@ _NEG_INF = -1e30
 
 __all__ = ["ragged_paged_attention", "ragged_attention_reference",
            "ragged_prefill_attention", "ragged_prefill_reference",
+           "chunk_span",
            "ragged_verify_attention", "ragged_verify_reference",
            "PrefillPlan", "prefill_plan", "VerifyPlan", "verify_plan",
            "DecodePlan", "decode_plan", "LAUNCHES", "reset_launch_counts"]
@@ -79,6 +82,8 @@ _CORE_SPLIT_KEYS = 64  # keys per split of the CUDA-core body
 _CORE_ROWS = 16        # query rows per block of the CUDA-core body
 _MAX_CLUSTER = 16      # tensor-core body: a head's splits form one cluster
 _VERIFY_BLOCKS_PER_SM = 3   # verify blocks an SM holds (registers, smem)
+_PREFILL_BLOCKS_PER_SM = 3  # prefill blocks an SM holds: verify's body at
+                            # one 64-row query tile
 _DECODE_BLOCKS_PER_SM = 4   # decode blocks an SM holds: 120 registers on
                             # code pools (96 raw), ~39 KB of smem
 H100_SMS = 132
@@ -147,34 +152,56 @@ def ragged_attention_reference(q, k_pool, v_pool, page_table, lengths,
     return _reference_core(q, k, v, lengths, sc)
 
 
+def chunk_span(q_start, n_real, C, device):
+    """A chunk's ``[start, n_real]`` as the int32 (2,) tensor the prefill
+    kernel reads: a span tensor is returned as given (``n_real`` must then
+    be None); host ints (``n_real`` default C, within [0, C]; start >= 0)
+    are staged onto ``device``."""
+    if isinstance(q_start, torch.Tensor):
+        if n_real is not None:
+            raise MXNetError("ragged prefill: give the chunk as a span "
+                             "tensor or as host ints, not both")
+        return q_start
+    start = int(q_start)
+    n = C if n_real is None else int(n_real)
+    if not 0 <= n <= C or start < 0:
+        raise MXNetError(f"ragged prefill: n_real {n} outside [0, {C}] or "
+                         f"q_start {start} < 0")
+    return torch.tensor([start, n], dtype=torch.int32, device=device)
+
+
 def ragged_prefill_reference(q, k_pool, v_pool, page_row, q_start,
                              scale=None, n_real=None, k_scale=None,
                              v_scale=None):
     """Plain chunked-prefill attention for one slot: gather the slot's
-    page window, apply the per-query mask ``pos_k <= q_start + i``,
-    select V positions ``>= q_start + n_real`` out (no live row may read
-    them; on a partial chunk they are unwritten and may hold a recycled
-    page's NaN), softmax in f32. Rows ``>= n_real`` are padding: their
-    output is garbage by contract."""
+    page window, apply the per-query mask ``pos_k <= start + i``, select
+    V positions ``>= start + n_real`` out (no live row may read them; on
+    a partial chunk they are unwritten and may hold a recycled page's
+    NaN), softmax in f32; rows ``>= n_real`` (padding) are exact zeros,
+    as the kernel writes them. The chunk is a span tensor ``[start,
+    n_real]`` or host ints (``chunk_span``); the span is masked with
+    tensor ops, read nowhere on the host."""
     C, H, D = q.shape
     sc = D ** -0.5 if scale is None else scale
-    q_start = int(q_start)
-    n_real = C if n_real is None else int(n_real)
+    span = chunk_span(q_start, n_real, C, q.device).to(q.device).long()
+    start = span[0].clamp(min=0)
+    n = span[1].clamp(0, C)
     k = _gather_window(k_pool, page_row[None], k_scale)[0]   # (H, K, D)
     v = _gather_window(v_pool, page_row[None], v_scale)[0]
     K = k.shape[1]
     s = torch.einsum("chd,hkd->chk", q.float(), k.float()) * sc
     pos_k = torch.arange(K, device=q.device)[None, :]
-    pos_q = q_start + torch.arange(C, device=q.device)[:, None]
+    rows = torch.arange(C, device=q.device)
+    pos_q = start + rows[:, None]
     s = torch.where((pos_k <= pos_q)[:, None, :], s, _NEG_INF)
-    never_read = torch.arange(K, device=q.device) >= q_start + n_real
+    never_read = torch.arange(K, device=q.device) >= start + n
     v = torch.where(never_read[None, :, None], 0.0, v.float())
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
     out = torch.einsum("chk,hkd->chd", p, v) / \
         torch.clamp(l, min=1e-30)[..., None]
-    row_ok = ~(m <= _NEG_INF / 2)
+    row_ok = ~(m <= _NEG_INF / 2) & (rows < n)[:, None]
     return torch.where(row_ok[..., None], out, 0.0).to(q.dtype)
 
 
@@ -276,7 +303,7 @@ _SIGNATURES = {                                # stream
     "ragged_decode": {
         "mx_ragged_decode": ([_PTR] * 9 + [_INT] * 7 + _TAIL, _INT)},
     "ragged_prefill": {
-        "mx_ragged_prefill": ([_PTR] * 8 + [_INT] * 10 + _TAIL, _INT)},
+        "mx_ragged_prefill": ([_PTR] * 9 + [_INT] * 8 + _TAIL, _INT)},
     "ragged_verify": {
         "mx_ragged_verify": ([_PTR] * 10 + [_INT] * 8 + _TAIL, _INT)},
 }
@@ -307,41 +334,42 @@ def _count(name, quant):
 class PrefillPlan(NamedTuple):
     """How ``csrc/ragged_prefill.cu`` splits one chunk's keys."""
     tensor_cores: bool   # the mma.sync body (bf16 queries, D = 64)
-    keys: int            # live keys, min(q_start + n_real, maxp * ps)
+    keys: int            # the page row's capacity, maxp * ps
     split_keys: int      # keys per split
-    nsplit: int          # splits: ceil(keys / split_keys), at least 1
+    nsplit: int          # splits: ceil(keys / split_keys)
     q_tiles: int         # 64-row query tiles per block (tensor cores)
     blocks: int          # blocks launched
     scratch_floats: int  # f32 scratch of the merge kernel (0: none)
 
 
-def prefill_plan(C, H, D, ps, maxp, q_start, n_real, tensor_cores,
-                 sms=H100_SMS):
-    """The split plan of one chunked-prefill launch, from the LIVE keys.
+def prefill_plan(C, H, D, ps, maxp, tensor_cores, sms=H100_SMS):
+    """The split plan of one chunked-prefill launch, from the chunk's
+    shape and the page row's CAPACITY ``maxp * ps``: the chunk's span
+    sits on the device, so where the chunk starts changes no launch
+    argument (a chunk bucket's CUDA graph replays one launch at every
+    depth), and blocks past the live keys walk nothing.
 
     Tensor-core body: a block owns one (head, key split) and a group of
     ``q_tiles`` 64-row query tiles (all of C when C <= 128, so each live
-    K/V byte is read once). Splits are whole 64-key tiles, as large as
-    still gives about one block per SM (``sms``) over heads and groups,
-    at most 16 (a head's splits form one thread-block cluster and merge
-    in distributed shared memory: no scratch), and no split starts at or
-    past the live keys. CUDA-core body: 64-key splits of 16-row tiles,
-    merged by a second launch from a scratch of (m, l, acc[D]) per live
-    row, head and split."""
-    keys = max(0, min(q_start + n_real, maxp * ps))
+    K/V byte is read once). Splits are whole 64-key tiles, at most 16 (a
+    head's splits form one thread-block cluster and merge in distributed
+    shared memory: no scratch), as many as keep the heads x groups x
+    nsplit blocks to about one wave of ``sms`` SMs at
+    ``_PREFILL_BLOCKS_PER_SM`` each (``_wave_splits``, as verify and
+    decode). CUDA-core body: 64-key splits of 16-row tiles, merged by a
+    second launch from a scratch of (m, l, acc[D]) per row, head and
+    split, laid out for all C rows."""
+    keys = maxp * ps
     if not tensor_cores:
-        nsplit = max(1, -(-keys // _CORE_SPLIT_KEYS))
+        nsplit = -(-keys // _CORE_SPLIT_KEYS)
         return PrefillPlan(False, keys, _CORE_SPLIT_KEYS, nsplit, 0,
                            -(-C // _CORE_ROWS) * H * nsplit,
-                           n_real * H * nsplit * (D + 2))
+                           C * H * nsplit * (D + 2))
     tiles = -(-C // _MMA_TILE)
     q_tiles = 1 if tiles <= 1 else 2
     groups = max(1, -(-tiles // q_tiles))
-    want = -(-sms // (H * groups))          # splits for ~one wave
-    ktiles = -(-keys // _MMA_TILE)
-    per = max(1, ktiles // want, -(-ktiles // _MAX_CLUSTER))
-    split_keys = _MMA_TILE * per
-    nsplit = max(1, -(-keys // split_keys))
+    split_keys, nsplit = _wave_splits(keys, H * groups,
+                                      _PREFILL_BLOCKS_PER_SM, sms)
     return PrefillPlan(True, keys, split_keys, nsplit, q_tiles,
                        nsplit * H * groups, 0)
 
@@ -351,36 +379,36 @@ def _sm_count(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _ragged_prefill_cuda(q, k_pool, v_pool, page_row, q_start, n_real,
-                         scale, k_scale=None, v_scale=None):
+def _ragged_prefill_cuda(q, k_pool, v_pool, page_row, span, scale,
+                         k_scale=None, v_scale=None):
     """Launch ``csrc/ragged_prefill.cu`` on the current stream, with the
-    split plan of ``prefill_plan`` and exactly its scratch."""
+    split plan of ``prefill_plan`` and exactly its scratch. ``span`` is
+    the chunk's int32 (2,) ``[start, n_real]`` on q's device, read by the
+    kernel alone (the caller keeps ``0 <= n_real <= C``); nothing here
+    reads it, so the launch can be captured into a CUDA graph."""
     kv = _check_operands(q, k_pool, v_pool, page_row, "ragged prefill",
                          k_scale, v_scale)
     C, H, D = q.shape
     if page_row.dim() != 1:
         raise MXNetError(f"ragged prefill: page_row "
                          f"{tuple(page_row.shape)} is not (max_pages,)")
-    if not (0 <= n_real <= C) or q_start < 0:
-        raise MXNetError(f"ragged prefill: n_real {n_real} outside "
-                         f"[0, {C}] or q_start {q_start} < 0")
+    _check_int32(span, (2,), "ragged prefill", "span", q.device)
     ps, maxp = k_pool.shape[2], page_row.shape[0]
     tc = q.dtype == torch.bfloat16 and D == _MMA_D
     if tc and any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
         raise MXNetError("ragged prefill: q and the pools must be 16-byte "
                          "aligned (16-byte copies)")
-    plan = prefill_plan(C, H, D, ps, maxp, q_start, n_real, tc,
-                        _sm_count(q.device))
+    plan = prefill_plan(C, H, D, ps, maxp, tc, _sm_count(q.device))
     lib = _bind("ragged_prefill")
     out = torch.empty_like(q)
     part = torch.empty(plan.scratch_floats, dtype=torch.float32,
                        device=q.device) if plan.scratch_floats else None
     rc = lib.mx_ragged_prefill(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        page_row.data_ptr(), _ptr(k_scale), _ptr(v_scale), out.data_ptr(),
-        _ptr(part), int(q_start), int(n_real), C, H, D, ps, maxp,
-        plan.split_keys, plan.nsplit, plan.q_tiles, float(scale),
-        _DTYPE_CODE[q.dtype], kv, _stream_ptr(q.device))
+        page_row.data_ptr(), span.data_ptr(), _ptr(k_scale), _ptr(v_scale),
+        out.data_ptr(), _ptr(part), C, H, D, ps, maxp, plan.split_keys,
+        plan.nsplit, plan.q_tiles, float(scale), _DTYPE_CODE[q.dtype], kv,
+        _stream_ptr(q.device))
     _raise_if_failed(lib, rc, "ragged prefill")
     _count("ragged_prefill", k_scale is not None)
     return out
@@ -568,23 +596,24 @@ def ragged_prefill_attention(q, k_pool, v_pool, page_row, q_start,
                              n_real=None, scale=None, k_scale=None,
                              v_scale=None):
     """Chunked-prefill attention for ONE slot: C chunk queries at
-    absolute positions ``q_start + i`` attend the slot's paged prefix
-    plus the causal intra-chunk part. q: (C, H, D); page_row:
-    (max_pages,) int32; ``q_start`` and ``n_real`` (live rows, default
-    C) are host ints. Returns (C, H, D); rows past ``n_real`` are
-    garbage by contract.
+    absolute positions ``start + i`` attend the slot's paged prefix plus
+    the causal intra-chunk part. q: (C, H, D); page_row: (max_pages,)
+    int32. The chunk is either a span — ``q_start`` an int32 (2,) tensor
+    ``[start, n_real]`` on q's device, read on the device only (what a
+    CUDA graph replays; the caller keeps ``0 <= n_real <= C``) — or host
+    ints ``q_start`` and ``n_real`` (live rows, default C), which are
+    staged into a span, so the kernel has one signature. Returns (C, H,
+    D); rows past ``n_real`` are exact zeros.
 
     PRECONDITION: the chunk's own K/V rows are already written into the
-    slot's pages, and every page covering [0, q_start + n_real) is
-    live."""
+    slot's pages, and every page covering [0, start + n_real) is live."""
     sc = q.shape[-1] ** -0.5 if scale is None else float(scale)
-    n = q.shape[0] if n_real is None else int(n_real)
+    span = chunk_span(q_start, n_real, q.shape[0], q.device)
     if q.is_cuda:
-        return _ragged_prefill_cuda(q, k_pool, v_pool, page_row,
-                                    int(q_start), n, sc, k_scale, v_scale)
-    return ragged_prefill_reference(q, k_pool, v_pool, page_row, q_start,
-                                    sc, n_real=n, k_scale=k_scale,
-                                    v_scale=v_scale)
+        return _ragged_prefill_cuda(q, k_pool, v_pool, page_row, span, sc,
+                                    k_scale, v_scale)
+    return ragged_prefill_reference(q, k_pool, v_pool, page_row, span, sc,
+                                    k_scale=k_scale, v_scale=v_scale)
 
 
 def ragged_verify_attention(q, k_pool, v_pool, page_table, lengths,

@@ -45,18 +45,22 @@ The port of ``incubator_mxnet_tpu/serve/engine.py``. Design:
     programs quantize at write time, and every ragged kernel
     dequantizes as it reads.
 
-The JAX engine's jit-once decode / verify program becomes one
-``serve.program.StepProgram`` per width: on the card one CUDA graph,
-captured at that width's first step (``decode_trace_count`` /
-``verify_trace_count`` count the builds), with sampling, acceptance and
-the non-finite guard inside it; per step the host stages the inputs into
-one pinned buffer, copies it in, replays, and reads back the emitted
-tokens, their counts and the grown amax in one copy. The sampling
-menu's per-vocabulary rows stay resident on the device, at neutral
-values except where a slot's menu is active. Prefill chunks and the COW
-page copy stay eager. The K/V pools are updated IN PLACE by every
-program. Cache tiers, tp meshes, brownout, page transport and warm
-restart are not ported yet; asking for them raises ``MXNetError``.
+The JAX engine's jit-once programs become ``serve.program.StepProgram``
+objects, each on the card one CUDA graph captured at its first use:
+the decode / verify step per width (``decode_trace_count`` /
+``verify_trace_count`` count the builds), the dense prompt prefill per
+power-of-two page bucket and the prefill chunk per chunk bucket
+(``prefill_trace_count``, ``prefill_trace_counts[("dense"|"chunk",
+Tpad)]``), and the COW page copy (``copy_trace_count``). Sampling,
+acceptance and the non-finite guard run inside them; per run the host
+stages the inputs into one pinned buffer, copies it in, replays, and
+reads back the tokens (and their counts) and the grown amax in one copy.
+Positions, write pages and the chunk's span are data, read on the
+device. The sampling menu's per-vocabulary rows stay resident on the
+device, at neutral values except where a slot's menu is active. The K/V
+pools are updated IN PLACE by every program. Cache tiers, tp meshes,
+brownout, page transport and warm restart are not ported yet; asking for
+them raises ``MXNetError``.
 """
 
 from __future__ import annotations
@@ -80,7 +84,7 @@ from ..ops.ragged_attention import (ragged_paged_attention,
 from .draft import make_ngram_drafter
 from .events import EventType, resolve_recorder, terminal_fields
 from .outcomes import Outcome
-from .paged_kv import (NULL_PAGE, PageAllocator, PrefixIndex,
+from .paged_kv import (NULL_PAGE, PageAllocator, PrefixIndex, _raw,
                        init_kv_pools, kv_quant_spec, page_scales,
                        write_block_kv, write_block_kv_q, write_prompt_kv,
                        write_prompt_kv_q, write_token_kv, write_token_kv_q)
@@ -97,6 +101,10 @@ _REQUEST_IDS = itertools.count(1)    # process-wide: ids never collide
                                      # across engines
 
 _MASK64 = (1 << 64) - 1
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
 
 
 def _key64(key: int) -> int:
@@ -373,6 +381,11 @@ class InferenceEngine:
         self._menu_dirty: set = set()
         self._menu_mask: dict = {}           # W -> (S, W, V) bool
         self._mask_dirty: dict = {}          # W -> set of rows
+        # the prefill programs' first-token grammar row: all True unless
+        # the prefilling slot carries a grammar
+        self._first_mask = torch.ones((1, 1, V), dtype=torch.bool,
+                                      device=self.device)
+        self._first_mask_dirty = False
         self._alloc = PageAllocator(self.num_pages)
         self._prefix = PrefixIndex(self.page_size) if prefix_cache \
             else None
@@ -409,8 +422,13 @@ class InferenceEngine:
         self.decode_steps = 0
         self.decode_trace_count = 0          # W = 1 program builds
         self.verify_trace_count = 0          # W = spec_k + 1 builds
+        self.prefill_trace_count = 0         # dense + chunk builds, total
+        self.prefill_trace_counts: dict = {}  # ("dense"|"chunk", Tpad) -> n
+        self.copy_trace_count = 0            # COW page copy builds
         self._programs: dict = {}            # W -> StepProgram
-        self._graph_pool = None              # shared by both widths
+        self._prefill_programs: dict = {}    # (kind, Tpad) -> StepProgram
+        self._copy_prog: Optional[StepProgram] = None
+        self._graph_pool = None              # shared by every program
         self.prefix_lookups = 0
         self.prefix_hits = 0
         self.prefix_hit_tokens = 0
@@ -425,33 +443,6 @@ class InferenceEngine:
     def _tensor(self, a, dtype=torch.long):
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device, dtype, non_blocking=True)
-
-    def _menu_ops(self, rows, mask=None):
-        """Sampling-menu operands for the slots ``rows`` (device
-        tensors), or None when none of them carries logit-touching
-        params — the plain path, value-identical by construction.
-        ``mask`` is the (len(rows), W, V) vocabulary block; default the
-        grammar mask at each slot's current state (W = 1)."""
-        if not any(self._slots[s] is not None and
-                   self._slots[s].menu_active for s in rows):
-            return None
-        if mask is None:
-            mask = np.ones((len(rows), 1, self._vocab), bool)
-            for i, s in enumerate(rows):
-                slot = self._slots[s]
-                sp = slot.request.sampling if slot is not None else None
-                if sp is not None and sp.grammar is not None:
-                    mask[i, 0] = grammar_mask(sp.grammar, slot.grammar_state,
-                                              slot.request.eos_id)
-        idx = np.asarray(rows)
-        f32 = torch.float32
-        return (self._tensor(self._tok_counts[idx], torch.int32),
-                self._tensor(self._logit_bias[idx], f32),
-                self._tensor(mask, torch.bool),
-                self._tensor(self._top_k[idx], torch.int32),
-                self._tensor(self._top_p[idx], f32),
-                self._tensor(self._rep_pen[idx], f32),
-                self._tensor(self._pres_pen[idx], f32))
 
     def _accept_emit(self, logits, tokens, draft_len, temps, keys,
                      positions, menu=None, act=None):
@@ -531,34 +522,6 @@ class InferenceEngine:
             emitted = torch.where(bad[:, None], -emitted - 1, emitted)
         return emitted, n_emit
 
-    def _sample_one(self, logits, slot_idx: int, position: int) -> int:
-        """The first generated token of a prefill program: a 1-wide
-        ``_accept_emit`` over logits (1, V) at ``position`` (its one host
-        read)."""
-        slot = self._slots[slot_idx]
-        dev = logits.device
-        kp = self._tensor([_key64(slot.key), position])
-        zero = torch.zeros((1, 1), dtype=torch.long, device=dev)
-        emitted, _ = self._accept_emit(
-            logits[:, None], zero, zero[0],
-            self._tensor([slot.request.temperature], torch.float32),
-            kp[:1], kp[1:][None], self._menu_ops([slot_idx]))
-        return int(emitted[0, 0])
-
-    def _amax_dev(self):
-        """The host amax metadata on the device, K layers then V layers
-        ((2 * num_layers, P) f32) — one copy per program."""
-        return self._tensor(np.stack(self._kamax + self._vamax),
-                            torch.float32)
-
-    def _pull_amax(self, rows):
-        """Take host ownership back of the amax rows a program updated
-        (one device-to-host copy)."""
-        a = torch.stack(rows).cpu().numpy()
-        L = len(self._kamax)
-        self._kamax = [a[i].copy() for i in range(L)]
-        self._vamax = [a[L + i].copy() for i in range(L)]
-
     def _write_kv(self, i, k, v, pages, offs, amax, new_amax):
         """Write layer ``i``'s K/V: whole prompt pages when ``offs`` is
         None, else one row per (page, offset) entry — (N, H, D) rows, or
@@ -593,12 +556,48 @@ class InferenceEngine:
         return self._dtype if self._kv_spec is not None else pool.dtype
 
     # ------------------------------------------------------------- #
-    # the decode / verify step program (serve/program.py)
+    # the compiled-once programs (serve/program.py)
     # ------------------------------------------------------------- #
+
+    def _new_program(self, body, ins, outs) -> StepProgram:
+        """A program running ``body(engine, inputs, outputs)``, in the
+        graph memory pool every program of the engine shares. It holds
+        the engine weakly: a dropped engine (its pools, graphs and graph
+        pool) is freed at once, not when the cycle collector next
+        runs."""
+        if self.device.type == "cuda" and self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        eng = weakref.ref(self)
+        return StepProgram(lambda i, o: body(eng(), i, o), ins, outs,
+                           self.device, self._graph_pool)
+
+    def _amax_fields(self):
+        """The host amax metadata as a program field, K layers then V
+        layers ((2 * num_layers, P) f32; none on raw pools): in and out
+        of every program that writes pages."""
+        L = len(self._kamax)
+        return [("amax", (2 * L, self.num_pages), torch.float32)] if L \
+            else []
+
+    def _stage_amax(self, h):
+        if self._kamax:
+            L = len(self._kamax)
+            h["amax"][:L] = self._kamax
+            h["amax"][L:] = self._vamax
+
+    def _take_amax(self, out):
+        """Take host ownership back of the amax a program grew (part of
+        its one readback)."""
+        if self._kamax:
+            L = len(self._kamax)
+            self._kamax = list(out["amax"][:L].copy())
+            self._vamax = list(out["amax"][L:].copy())
+
+    # -- the decode / verify step, one program per width -------------- #
 
     def _step_fields(self, W: int):
         """The step's static (inputs, outputs) fields at width W."""
-        S, L = self.num_slots, len(self._kamax)
+        S = self.num_slots
         i64, i32, f32 = torch.int64, torch.int32, torch.float32
         ins = [("tokens", (S, W), i64), ("lengths", (S,), i32),
                ("draft_len", (S,), i32), ("table", (S, self.max_pages), i32),
@@ -606,11 +605,7 @@ class InferenceEngine:
                ("top_k", (S,), i32), ("top_p", (S,), f32),
                ("rep_pen", (S,), f32), ("pres_pen", (S,), f32)]
         outs = [("emitted", (S, W), i64), ("n_emit", (S,), i64)]
-        if L:
-            amax = ("amax", (2 * L, self.num_pages), f32)
-            ins.append(amax)
-            outs.append(amax)
-        return ins, outs
+        return ins + self._amax_fields(), outs + self._amax_fields()
 
     def _program(self, W: int) -> StepProgram:
         """The width-W step program, built at its first use (a CUDA
@@ -618,16 +613,9 @@ class InferenceEngine:
         ``verify_trace_count``)."""
         prog = self._programs.get(W)
         if prog is None:
-            if self.device.type == "cuda" and self._graph_pool is None:
-                self._graph_pool = torch.cuda.graph_pool_handle()
             ins, outs = self._step_fields(W)
-            # the program holds the engine weakly: a dropped engine (its
-            # pools, graphs and graph pool) is freed at once, not when
-            # the cycle collector next runs
-            eng = weakref.ref(self)
-            prog = StepProgram(
-                lambda i, o: eng()._step_body(W, i, o), ins, outs,
-                self.device, self._graph_pool)
+            prog = self._new_program(
+                lambda e, i, o: e._step_body(W, i, o), ins, outs)
             self._menu_mask[W] = torch.ones(
                 (self.num_slots, W, self._vocab), dtype=torch.bool,
                 device=self.device)
@@ -713,10 +701,7 @@ class InferenceEngine:
         h["top_p"][...] = self._top_p
         h["rep_pen"][...] = self._rep_pen
         h["pres_pen"][...] = self._pres_pen
-        if self._kamax:
-            L = len(self._kamax)
-            h["amax"][:L] = self._kamax
-            h["amax"][L:] = self._vamax
+        self._stage_amax(h)
 
     def _sync_menu(self, W: int, drafts: dict, live):
         """Bring the device-resident menu rows up to date for this step:
@@ -745,92 +730,252 @@ class InferenceEngine:
                 m, torch.bool)
         self._mask_dirty[W] = set(gram)
 
+    # -- the prefill programs, one per (kind, bucket) ----------------- #
+
+    def _prefill_program(self, kind: str, T: int) -> StepProgram:
+        """The prefill program of ``kind`` "dense" (a whole prompt padded
+        to T = bucket * page_size) or "chunk" (a chunk padded to T), built
+        at its first use (a CUDA graph capture on the card; counted in
+        ``prefill_trace_count`` and ``prefill_trace_counts[(kind, T)]``).
+        Where the prompt or chunk sits, its pages, the slot, its sampling
+        state and the weights are data to it."""
+        key = (kind, T)
+        prog = self._prefill_programs.get(key)
+        if prog is None:
+            i64, i32, f32 = torch.int64, torch.int32, torch.float32
+            ins = [("ids", (T,), i64)]
+            if kind == "chunk":
+                ins += [("span", (2,), i32),
+                        ("row", (self.max_pages,), i32)]
+                body = InferenceEngine._chunk_body
+            else:
+                ins += [("t0", (1,), i64),
+                        ("pages", (T // self.page_size,), i64)]
+                body = InferenceEngine._dense_body
+            ins += [("slot", (1,), i64), ("key", (1,), i64),
+                    ("temp", (1,), f32), ("top_k", (1,), i32),
+                    ("top_p", (1,), f32), ("rep_pen", (1,), f32),
+                    ("pres_pen", (1,), f32)]
+            prog = self._new_program(
+                body, ins + self._amax_fields(),
+                [("tok", (1,), i64)] + self._amax_fields())
+            self._prefill_programs[key] = prog
+        if not prog.built:
+            prog.build()
+            self.prefill_trace_count += 1
+            self.prefill_trace_counts[key] = \
+                self.prefill_trace_counts.get(key, 0) + 1
+        return prog
+
     @torch.no_grad()
-    def _prefill_program(self, slot_idx: int) -> int:
-        """Monolithic prompt forward for ONE slot: dense causal attention
-        inside the prompt, K/V written into the slot's pages, the first
-        generated token sampled at position t0. A code pool quantizes
-        each prompt page at a fresh scale over the page's whole rows:
-        the forward then runs page-padded (pad token 0, pad queries see
-        the real keys only), as the JAX engine's bucketed program does,
-        so the last page's scale covers the same rows."""
-        slot = self._slots[slot_idx]
+    def _dense_body(self, i: dict, o: dict):
+        """Monolithic prompt forward for ONE slot, over ids (Tpad,)
+        holding ``t0`` prompt tokens: dense attention under the mask
+        ``pos_k <= pos_q and pos_k < t0`` (the prompt attends only
+        itself), K/V written into the staged pages (padded entries are
+        the null page; a code pool quantizes each page at a fresh scale
+        over its whole rows, pad rows included, as the JAX program does),
+        and the first token drawn from the last real row at position
+        t0. Reads nothing on the host."""
         model = self.model
-        t0, ps = slot.t0, self.page_size
-        n_pages = -(-t0 // ps)
-        T = t0 if self._kv_spec is None else n_pages * ps
-        ids = np.zeros((T,), np.int64)
-        ids[:t0] = slot.attempt_ids
-        ids = self._tensor(ids)[None]
-        pos = torch.arange(T, device=self.device).clamp(
-            max=model.max_length - 1)[None]
-        pages = self._tensor(slot.row[:n_pages])
-        pad = n_pages * ps - T
-        mask = None
-        if T > t0:
-            ar = torch.arange(T, device=self.device)
-            mask = ((ar[None, :] <= ar[:, None]) &
-                    (ar[None, :] < t0))[None, None]
-        amax = self._amax_dev() if self._kv_spec is not None else None
+        ids, t0 = i["ids"], i["t0"]
+        T = ids.shape[0]
+        ar = torch.arange(T, device=ids.device)
+        mask = ((ar[None, :] <= ar[:, None]) &
+                (ar[None, :] < t0))[None, None]
+        amax = i.get("amax")
         new_amax = [None] * (2 * len(self._kamax))
-        x = model.embed(ids, pos)
-        for i, blk in enumerate(model.blocks):
+        x = model.embed(ids[None],
+                        torch.clamp(ar, max=model.max_length - 1)[None])
+        for li, blk in enumerate(model.blocks):
             q, k, v = _qkv_heads(blk.attn, blk.ln1(x))        # (1,T,H,D)
-            kpad = torch.nn.functional.pad(k[0], (0, 0, 0, 0, 0, pad))
-            vpad = torch.nn.functional.pad(v[0], (0, 0, 0, 0, 0, pad))
-            self._write_kv(i, kpad, vpad, pages, None, amax, new_amax)
-            out = _sdpa(q, k, v, mask=mask, causal=mask is None)
+            self._write_kv(li, k[0], v[0], i["pages"], None, amax,
+                           new_amax)
+            out = _sdpa(q, k, v, mask=mask)
             x = x + blk.attn.proj(out.reshape(1, T, model.units))
             x = x + _mlp(blk, x)
         if amax is not None:
-            self._pull_amax(new_amax)
-        logits = _lm_head(model, x[:, t0 - 1:t0])[:, 0]      # (1, V)
-        return self._sample_one(logits, slot_idx, t0)
+            o["amax"].copy_(torch.stack(new_amax))
+        last = x[0].index_select(0, torch.clamp(t0 - 1, min=0))
+        self._first_token(last, i, o, t0)
 
     @torch.no_grad()
-    def _chunk_program(self, slot_idx: int, start: int, n: int) -> int:
-        """ONE prefill chunk of ONE slot: ``n`` prompt tokens at
-        positions ``start + i``. Their K/V is written into the slot's
-        pages, then each query attends the slot's populated paged prefix
-        plus the causal intra-chunk part (``ragged_prefill_attention``).
-        The last row's logits are sampled at position ``start + n`` — the
-        host keeps the token only when this is the final chunk."""
-        slot = self._slots[slot_idx]
+    def _chunk_body(self, i: dict, o: dict):
+        """ONE prefill chunk of ONE slot: ids (Cpad,) holding ``n_real``
+        prompt tokens at positions ``start + j`` (``span = [start,
+        n_real]``). Their K/V is written into the slot's pages (padded
+        rows into the null page), then each query attends the slot's
+        populated paged prefix plus the causal intra-chunk part
+        (``ragged_prefill_attention`` with the span: the CUDA kernel reads
+        it on the device). The last real row's token is drawn at position
+        ``start + n_real``; the host keeps it only when this is the final
+        chunk. Reads nothing on the host."""
         model = self.model
         ps = self.page_size
-        pos = np.arange(start, start + n, dtype=np.int64)
-        host = np.stack([slot.attempt_ids[start:start + n].astype(np.int64),
-                         pos, slot.row[pos // ps].astype(np.int64),
-                         pos % ps])
-        dev = self._tensor(host)
-        ids, pos_d, tpage, toff = dev[0], dev[1], dev[2], dev[3]
-        row = self._tensor(slot.row, torch.int32)
-        amax = self._amax_dev() if self._kv_spec is not None else None
+        ids, span, row = i["ids"], i["span"], i["row"]
+        C = ids.shape[0]
+        start, n_real = span[0].long(), span[1].long()
+        jj = torch.arange(C, device=ids.device)
+        pos = start + jj
+        page_idx = torch.clamp(pos // ps, 0, self.max_pages - 1)
+        tpage = torch.where(jj < n_real, row.long()[page_idx], NULL_PAGE)
+        toff = pos % ps
+        amax = i.get("amax")
         new_amax = [None] * (2 * len(self._kamax))
-        x = model.embed(ids[None], pos_d[None])
-        for i, blk in enumerate(model.blocks):
-            q, k, v = _qkv_heads(blk.attn, blk.ln1(x))       # (1,n,H,D)
-            kp, vp, ks, vs = self._write_kv(i, k[0], v[0], tpage, toff,
+        x = model.embed(ids[None],
+                        torch.clamp(pos, max=model.max_length - 1)[None])
+        for li, blk in enumerate(model.blocks):
+            q, k, v = _qkv_heads(blk.attn, blk.ln1(x))       # (1,C,H,D)
+            kp, vp, ks, vs = self._write_kv(li, k[0], v[0], tpage, toff,
                                             amax, new_amax)
             out = ragged_prefill_attention(
                 q[0].to(self._attn_dtype(kp)).contiguous(), kp, vp, row,
-                start, n, k_scale=ks, v_scale=vs)
-            x = x + blk.attn.proj(out.to(x.dtype).reshape(1, n,
+                span, k_scale=ks, v_scale=vs)
+            x = x + blk.attn.proj(out.to(x.dtype).reshape(1, C,
                                                           model.units))
             x = x + _mlp(blk, x)
         if amax is not None:
-            self._pull_amax(new_amax)
-        logits = _lm_head(model, x[:, n - 1:n])[:, 0]        # (1, V)
-        return self._sample_one(logits, slot_idx, start + n)
+            o["amax"].copy_(torch.stack(new_amax))
+        last = x[0].index_select(0, torch.clamp(n_real - 1, min=0)[None])
+        self._first_token(last, i, o, (start + n_real)[None])
+
+    def _first_token(self, last, i: dict, o: dict, position):
+        """A prefill program's generated token: ``_accept_emit`` at one
+        column over the logits of ``last`` (1, U), the hidden state of
+        the last real row, at ``position`` (1,) — its menu rows the
+        resident ones of the staged slot, its grammar row
+        ``_first_mask`` — into ``o["tok"]`` (sign-encoded by the
+        guard)."""
+        logits = _lm_head(self.model, last[None])            # (1, 1, V)
+        zero = torch.zeros((1, 1), dtype=torch.long, device=logits.device)
+        slot = i["slot"]
+        menu = (self._menu_counts.index_select(0, slot),
+                self._menu_bias.index_select(0, slot), self._first_mask,
+                i["top_k"], i["top_p"], i["rep_pen"], i["pres_pen"])
+        emitted, _ = self._accept_emit(logits, zero, zero[0], i["temp"],
+                                       i["key"], position.view(1, 1), menu)
+        o["tok"].copy_(emitted[:, 0])
+
+    def _stage_dense(self, slot_idx: int) -> StepProgram:
+        """The slot's whole prompt staged into the dense program of its
+        power-of-two page bucket (built first if new); returns it."""
+        slot = self._slots[slot_idx]
+        t0, ps = slot.t0, self.page_size
+        prompt_pages = -(-t0 // ps)
+        bucket = min(_next_pow2(prompt_pages), self.max_pages)
+        prog = self._prefill_program("dense", bucket * ps)
+        h = prog.inp.host
+        h["ids"][...] = 0
+        h["ids"][:t0] = slot.attempt_ids
+        h["t0"][0] = t0
+        h["pages"][...] = NULL_PAGE
+        h["pages"][:prompt_pages] = slot.row[:prompt_pages]
+        self._stage_first_token(prog, slot_idx, kept=True)
+        return prog
+
+    def _stage_chunk(self, slot_idx: int, start: int, n: int) \
+            -> StepProgram:
+        """The slot's prompt tokens [start, start + n) staged into the
+        chunk program of their power-of-two page bucket (built first if
+        new), with the span the kernel reads; returns it."""
+        slot = self._slots[slot_idx]
+        bucket = min(_next_pow2(-(-n // self.page_size)), self.max_pages)
+        Cpad = bucket * self.page_size
+        if not 0 <= n <= Cpad or start < 0:
+            raise MXNetError(f"prefill chunk: n_real {n} outside "
+                             f"[0, {Cpad}] or start {start} < 0")
+        prog = self._prefill_program("chunk", Cpad)
+        h = prog.inp.host
+        h["ids"][...] = 0
+        h["ids"][:n] = slot.attempt_ids[start:start + n]
+        h["span"][...] = (start, n)
+        h["row"][...] = slot.row
+        self._stage_first_token(prog, slot_idx, kept=start + n == slot.t0)
+        return prog
+
+    def _stage_first_token(self, prog: StepProgram, slot_idx: int,
+                           kept: bool):
+        """Stage the slot's sampling state and the amax into a prefill
+        program's pinned inputs. When the token will be ``kept`` (a
+        dense prefill, a final chunk), bring the resident menu rows of
+        the slot and the first-token grammar row up to date first: an
+        active menu's rows (marked dirty, so ``_sync_menu`` resets them
+        once the menu ends), or neutral rows where a previous occupant's
+        menu left them dirty."""
+        slot = self._slots[slot_idx]
+        h = prog.inp.host
+        h["slot"][0] = slot_idx
+        h["key"][0] = _key64(slot.key)
+        h["temp"][0] = slot.request.temperature
+        h["top_k"][0] = self._top_k[slot_idx]
+        h["top_p"][0] = self._top_p[slot_idx]
+        h["rep_pen"][0] = self._rep_pen[slot_idx]
+        h["pres_pen"][0] = self._pres_pen[slot_idx]
+        self._stage_amax(h)
+        if not kept:
+            return
+        if slot.menu_active or slot_idx in self._menu_dirty:
+            idx = self._tensor([slot_idx])
+            self._menu_counts[idx] = self._tensor(
+                self._tok_counts[slot_idx][None], torch.int32)
+            self._menu_bias[idx] = self._tensor(
+                self._logit_bias[slot_idx][None], torch.float32)
+            if slot.menu_active:
+                self._menu_dirty.add(slot_idx)
+            else:
+                self._menu_dirty.discard(slot_idx)
+        sp = slot.request.sampling
+        if sp is not None and sp.grammar is not None:
+            self._first_mask[0, 0] = self._tensor(
+                grammar_mask(sp.grammar, slot.grammar_state,
+                             slot.request.eos_id), torch.bool)
+            self._first_mask_dirty = True
+        elif self._first_mask_dirty:
+            self._first_mask.fill_(True)
+            self._first_mask_dirty = False
+
+    def _run_prefill(self, prog: StepProgram) -> int:
+        """One copy in, one replay, one readback: the token (sign-encoded
+        by the guard) and the grown amax."""
+        out = prog.run()
+        self._take_amax(out)
+        return int(out["tok"][0])
+
+    # -- the COW page copy, one program ------------------------------- #
 
     @torch.no_grad()
+    def _copy_body(self, i: dict, o: dict):
+        """Copy page ``pair[0]`` onto page ``pair[1]`` in every pool, in
+        place (byte views: float8 indexing is not implemented on every
+        device)."""
+        src, dst = i["pair"][:1], i["pair"][1:]
+        for p in self._kpools + self._vpools:
+            raw = _raw(p)
+            raw.index_copy_(0, dst, raw.index_select(0, src))
+
+    def _copy_program(self) -> StepProgram:
+        """The COW copy program, built at its first use (a CUDA graph
+        capture on the card; counted in ``copy_trace_count``)."""
+        prog = self._copy_prog
+        if prog is None:
+            prog = self._copy_prog = self._new_program(
+                InferenceEngine._copy_body, [("pair", (2,), torch.int64)],
+                [])
+        if not prog.built:
+            prog.build()
+            self.copy_trace_count += 1
+        return prog
+
     def _copy_page(self, src: int, dst: int):
         """COW boundary copy: duplicate one page's K/V across every
         layer, so the cached partial page becomes this slot's private
-        page (the cached original stays read-only for its sharers). A
-        code page carries its scale: the amax is page metadata."""
-        for p in self._kpools + self._vpools:
-            p[dst] = p[src]
+        page (the cached original stays read-only for its sharers): one
+        replay of the copy program, whose readback orders the reuse of
+        its pinned inputs. A code page carries its scale: the amax is
+        page metadata, copied on the host."""
+        prog = self._copy_program()
+        prog.inp.host["pair"][...] = (src, dst)
+        prog.run()
         for a in self._kamax + self._vamax:
             a[dst] = a[src]
 
@@ -1452,11 +1597,13 @@ class InferenceEngine:
                 slot.stop_tail = gen[-(sp.max_stop_len - 1):]
 
     def _dense_prefill(self, slot_idx: int):
-        """Monolithic prompt prefill."""
+        """Monolithic prompt prefill: the prompt padded to its
+        power-of-two page bucket, one replay of that bucket's dense
+        program."""
         slot = self._slots[slot_idx]
         req = slot.request
         t_start = time.perf_counter()
-        tok = self._prefill_program(slot_idx)
+        tok = self._run_prefill(self._stage_dense(slot_idx))
         slot.prefill_pos = slot.t0
         self.flight.emit(self._component, EventType.PREFILL_CHUNK,
                          request_id=req.request_id, ts=t_start,
@@ -1469,8 +1616,9 @@ class InferenceEngine:
 
     def _run_chunk(self, slot_idx: int) -> int:
         """Process ONE prefill chunk (``chunk_pages * page_size`` tokens,
-        or the whole suffix in monolithic mode); returns the number of
-        prompt tokens processed."""
+        or the whole suffix in monolithic mode), padded to its
+        power-of-two page bucket: one replay of that bucket's chunk
+        program. Returns the number of prompt tokens processed."""
         slot = self._slots[slot_idx]
         req = slot.request
         t_start = time.perf_counter()
@@ -1478,7 +1626,7 @@ class InferenceEngine:
         remaining = slot.t0 - start
         n = remaining if self.chunk_pages is None else \
             min(remaining, self.chunk_pages * self.page_size)
-        tok = self._chunk_program(slot_idx, start, n)
+        tok = self._run_prefill(self._stage_chunk(slot_idx, start, n))
         slot.prefill_pos = start + n
         self.flight.emit(self._component, EventType.PREFILL_CHUNK,
                          request_id=req.request_id, ts=t_start,
@@ -1738,10 +1886,7 @@ class InferenceEngine:
         out = prog.run()
         emitted = out["emitted"].tolist()
         n_emit = out["n_emit"].tolist()
-        if self._kamax:
-            L = len(self._kamax)
-            self._kamax = list(out["amax"][:L].copy())
-            self._vamax = list(out["amax"][L:].copy())
+        self._take_amax(out)
         for s in live:
             self._lengths[s] += n_emit[s]
         dt = time.perf_counter() - t_start

@@ -1,9 +1,12 @@
-"""The serving engine's compiled-once step programs.
+"""The serving engine's compiled-once programs.
 
-The counterpart of the JAX engine's ``jax.jit(self._decode_step_fn)``
+The counterpart of the JAX engine's jitted programs
 (``incubator_mxnet_tpu/serve/engine.py``): one ``StepProgram`` per
-decode-family width, built lazily at that width's first step. Its body
-reads only static buffers and writes only static buffers:
+decode-family width (``_decode_step_fn``), per dense prefill bucket
+(``_prefill_fn``), per prefill chunk bucket (``_chunk_prefill_fn``), and
+one for the COW page copy (``_copy_page_fn``), each built lazily at its
+first use. Its body reads only static buffers and writes only static
+buffers:
 
   - ``inputs``: named typed fields packed into one byte buffer — on the
     host (pinned on a CUDA device) and its twin on the device, so one
@@ -11,9 +14,10 @@ reads only static buffers and writes only static buffers:
   - ``outputs``: the same on the way back, one copy per step.
 
 On a CUDA device ``build`` warms the body up once on a side stream, over
-ZEROED inputs (the caller's body must treat them as dead work: lengths
-0, every write to the null page), then captures it into one CUDA graph;
-every later step is a copy in, one ``replay()`` and a copy out. On the
+ZEROED inputs (the caller's body must treat them as dead work: lengths,
+prompt lengths and chunk spans 0, every write to the null page, a copy
+of the null page onto itself), then captures it into one CUDA graph;
+every later run is a copy in, one ``replay()`` and a copy out. On the
 CPU the same object runs its body eagerly. A capture that fails raises
 ``MXNetError``: nothing falls back to running the body eagerly on the
 card.
@@ -21,7 +25,8 @@ card.
 Launch accounting: the kernel wrappers count launches in Python
 (``ops.ragged_attention.LAUNCHES``), which happens at capture only. The
 program keeps its capture's count per kernel, restores the counters the
-warm-up and the capture touched, and adds that count on every replay.
+warm-up and the capture touched, and adds that count on every replay
+(``replays`` counts them).
 """
 
 from __future__ import annotations
@@ -71,10 +76,10 @@ class Packed:
 
 
 class StepProgram:
-    """One width's step: ``body(inputs, outputs)`` over the device
-    fields of two ``Packed`` buffers, built once (``build``) and run per
-    step (``launch`` then ``read``, or ``run``). ``pool`` is the graph
-    memory pool to share with the engine's other widths (CUDA only)."""
+    """One program: ``body(inputs, outputs)`` over the device fields of
+    two ``Packed`` buffers, built once (``build``) and run per use
+    (``launch`` then ``read``, or ``run``). ``pool`` is the graph memory
+    pool to share with the engine's other programs (CUDA only)."""
 
     def __init__(self, body: Callable[[dict, dict], None],
                  inputs: Sequence[Field], outputs: Sequence[Field],
@@ -87,6 +92,7 @@ class StepProgram:
         self.built = False
         self.build_ms: Optional[float] = None
         self.launches: Dict[str, int] = {}
+        self.replays = 0
         self._graph = None
 
     def run_body(self):
@@ -123,7 +129,7 @@ class StepProgram:
                 self.run_body()
             torch.cuda.synchronize(self.device)
         except RuntimeError as e:            # MXNetError included
-            raise MXNetError(f"step program capture failed: {e}") from e
+            raise MXNetError(f"program capture failed: {e}") from e
         finally:
             captured = {k: LAUNCHES[k] - saved[k] for k in LAUNCHES}
             LAUNCHES.update(saved)
@@ -141,6 +147,7 @@ class StepProgram:
             self.run_body()
             return
         self._graph.replay()
+        self.replays += 1
         for k, n in self.launches.items():
             LAUNCHES[k] += n
 

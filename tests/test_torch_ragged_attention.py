@@ -230,7 +230,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(MXNetError, match="CUDA"):
         T._ragged_decode_cuda(q, kp, vp, pt, ln, 0.35)
     with pytest.raises(MXNetError, match="CUDA"):
-        T._ragged_prefill_cuda(q, kp, vp, pt[1], 8, 2, 0.35)
+        T._ragged_prefill_cuda(q, kp, vp, pt[1],
+                               torch.tensor([8, 2], dtype=torch.int32), 0.35)
 
 
 def test_build_is_lazy_and_keyed_by_sources():

@@ -13,7 +13,8 @@ L2, median of 30):
 
   - the floor of that timing: one elementwise op on one element;
   - each case at the split plan the wrapper takes and at other numbers
-    of splits (prefill: the plan's ``sms`` argument; decode and verify:
+    of splits (prefill: the plan's ``sms`` argument, the chunk as a
+    device span at each of chip_smoke.py's starts; decode and verify:
     16, 8, 4, 2 and 1 splits of the capacity), cold and warm L2;
   - from torch.profiler, the device time of each launched kernel per
     call, and the span from the first kernel's start to the last one's
@@ -72,14 +73,14 @@ def main():
     plan_fn = ra.prefill_plan
     for quant in (None, "int8"):
         for start, n_real in cs.PRE["cases"]:
-            q, kp, vp, row, ks, vs = cs.prefill_case(
+            q, kp, vp, row, ks, vs, span = cs.prefill_case(
                 torch, gen, torch.bfloat16, start, n_real, quant)
             for sms in (sms_real, 48, 12):
-                plan = plan_fn(C, H, D, ps, maxp, start, n_real, True, sms)
+                plan = plan_fn(C, H, D, ps, maxp, True, sms)
                 ra.prefill_plan = lambda *a, p=plan, **k: p
                 try:
                     fn = lambda: ra._ragged_prefill_cuda(  # noqa: E731
-                        q, kp, vp, row, start, n_real, sc, ks, vs)
+                        q, kp, vp, row, span, sc, ks, vs)
                     cold = cs._time_ms(torch, fn, flush)
                     warm = cs._time_ms(torch, fn, nop)
                     span, per = profile_one(torch, fn, flush, profile,
