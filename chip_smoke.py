@@ -77,24 +77,34 @@ failure exits non-zero before the result line:
                 spec_k=4, equal the port's dense-cache cached_generate
                 (which runs no kernel), through the step and chunk graphs
                 (the prefill kernel's CUDA-core body); then the graphs'
-                cuda tests (tests/test_torch_serve_graphs.py, pytest
-                without the conftest, so no JAX): replay == body bitwise
-                (steps and chunks), a build touches no live page,
-                launches per replay, one capture per width through stalls
-                and a quarantine, one per (kind, bucket) through a COW
-                hit;
+                cuda tests (tests/test_torch_serve_graphs.py and
+                tests/test_torch_train_graphs.py, pytest without the
+                conftest, so no JAX): replay == body bitwise (steps and
+                chunks; train steps with dropout from a registered
+                generator, two signatures alternating), a build touches
+                no live page, launches per replay, one capture per width
+                through stalls and a quarantine, one per (kind, bucket)
+                through a COW hit, one per batch signature, a NaN batch
+                through a replay, a failed capture raising;
   7. training — bert_base bf16 (flash, dropout 0.1) + BERTForPretraining
                 through SPMDTrainer with LAMB (lr 1e-4, f32 masters), the
                 bench's batch (B=32, T=512, M=76; lengths in [256, 512]):
                 3 warm-up and 10 timed steps on one repeating batch
-                (dropout masks included); every loss finite, the last
-                below the first, each flash kernel launched 12 times a
-                step. Prints tokens/s, ms/step, MFU against the card's
-                peak, the optimizer's ms, and from one profiled step the
-                device-busy share and the attention kernels' share;
-                then bert_base at T=1024 (B=4, 2 steps: the shapes the
-                JAX package sends to its streaming kernels), and
-                bert_tiny: 5 LAMB steps on the card (kernels) against
+                (dropout masks included); the first step runs eagerly and
+                the step graph is captured after it, inside the warm-up
+                (one build: step_trace_count 1), every timed step a
+                replay; every loss finite, the last below the first, each
+                flash kernel launched 12 times a step. Prints tokens/s,
+                ms/step, MFU against the card's peak, peak memory, a
+                `[capture]` line (the eager first step's ms, the
+                capture's), a `[host]` line (a replayed step's staging /
+                launch / readback ms), the guarded LAMB apply run
+                eagerly (what the graph took off the host), and from one
+                profiled step the device-busy share and the attention
+                kernels' share; then bert_base at T=1024 (B=4, 2 steps:
+                the shapes the JAX package sends to its streaming
+                kernels; the second a replay), and bert_tiny: 5 LAMB
+                steps on the card (kernels; steps 2-5 replays) against
                 the port on the CPU (plain versions), the losses within
                 rtol 1e-4 in f32 (CUDA-core bodies) and 2e-3 in bf16
                 (the mma.sync bodies bert_base runs), and in bf16 every
@@ -1536,11 +1546,16 @@ def phase_parity(torch):
 
 
 def phase_graph_tests():
-    """The step programs' ``cuda`` tests (tests/test_torch_serve_graphs.py:
-    replay == body bitwise, builds touch no live page, launch accounting,
-    one capture per width through stalls and a quarantine) in a pytest
-    subprocess without the repository's conftest, so it imports no JAX
-    (the subprocess fails if JAX or the JAX package was imported)."""
+    """The step programs' ``cuda`` tests in a pytest subprocess without
+    the repository's conftest, so it imports no JAX (the subprocess fails
+    if JAX or the JAX package was imported): the serving engine's
+    (tests/test_torch_serve_graphs.py: replay == body bitwise, builds
+    touch no live page, launch accounting, one capture per width through
+    stalls and a quarantine) and the train step's
+    (tests/test_torch_train_graphs.py: replay == eager body bitwise with
+    dropout from a registered generator, two alternating signatures, flash
+    launches per replay, a NaN batch through a replay, a failed capture
+    raising)."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTEST_DISABLE_PLUGIN_AUTOLOAD="1")
     run = ("import sys, pytest\n"
@@ -1553,7 +1568,8 @@ def phase_graph_tests():
         [sys.executable, "-c", run, "-q", "--noconftest", "-m", "cuda",
          "-p", "no:cacheprovider", "-W",
          "ignore::pytest.PytestUnknownMarkWarning",
-         "tests/test_torch_serve_graphs.py"],
+         "tests/test_torch_serve_graphs.py",
+         "tests/test_torch_train_graphs.py"],
         cwd=root, env=env, capture_output=True, text=True, timeout=600)
     tail = proc.stdout.strip().splitlines()[-1:] or [""]
     print(f"[graphs] cuda tests: {tail[0]} "
@@ -1730,6 +1746,12 @@ def phase_training(torch, device_name):
     torch.cuda.synchronize()
     fa.reset_launch_counts()
     losses = [float(step()) for _ in range(BERT["warmup"])]
+    # the step graph was built inside the warm-up: the timed steps replay
+    check(tr.step_trace_count == 1 and len(tr._programs) == 1,
+          f"training: {tr.step_trace_count} step programs built in the "
+          f"warm-up")
+    prog = next(iter(tr._programs.values()))
+    replays = prog.replays
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     timed = [step() for _ in range(BERT["steps"])]
@@ -1743,10 +1765,17 @@ def phase_training(torch, device_name):
           f"training: loss did not fall over {n_steps} steps: {losses}")
     check(tr.step_count == n_steps, f"training: {tr.step_count} of "
                                     f"{n_steps} steps applied")
+    check(tr.step_trace_count == 1 and
+          prog.replays - replays == BERT["steps"],
+          f"training: {prog.replays - replays} of {BERT['steps']} timed "
+          f"steps replayed, {tr.step_trace_count} builds")
     for name in FLASH:
         check(launches[name] == bert.num_layers * n_steps,
               f"training: {name} launches {launches[name]} != "
               f"{bert.num_layers} layers x {n_steps} steps")
+    print(f"[capture] training: step_trace_count {tr.step_trace_count}, "
+          f"eager first step {prog.first_ms:.1f} ms, capture "
+          f"{prog.build_ms:.1f} ms, replays {prog.replays}", flush=True)
     step_flops = flops.bert_train_flops(B, T, M, bert.num_layers,
                                         bert.units, bert.hidden_size,
                                         bert.vocab_size)
@@ -1761,11 +1790,17 @@ def phase_training(torch, device_name):
                  mfu=step_flops / (ms_step / 1e3) /
                  flops.peak_flops(device_name),
                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+                 step_trace_count=tr.step_trace_count,
+                 first_step_ms=prog.first_ms, capture_ms=prog.build_ms,
                  launches=launches)
-    # the optimizer's share: one guarded LAMB apply over every parameter
+    train_host_costs(torch, tr, prog, batch, gen)
+    # what the graph removed: the guarded LAMB apply over every parameter
+    # run eagerly, op by op (host clock around it, synchronised)
     params = [tr._params[i] for i in tr._train_idx]
     zeros = [torch.zeros_like(p) for p in params]
-    one, lr = tr._scalar(1.0), tr._scalar(1e-4)
+    one = torch.ones((), device="cuda")
+    lr = torch.full((), 1e-4, device="cuda")
     opt_ms = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1773,7 +1808,7 @@ def phase_training(torch, device_name):
         tr._apply(zeros, one, lr, one)
         torch.cuda.synchronize()
         opt_ms.append((time.perf_counter() - t1) * 1e3)
-    stats["optimizer_ms"] = statistics.median(opt_ms)
+    stats["eager_apply_ms"] = statistics.median(opt_ms)
     stats["n_params"] = len(params)
     # one profiled step: device-busy share and the attention kernels' part
     with profile(activities=[ProfilerActivity.CPU,
@@ -1799,9 +1834,44 @@ def phase_training(torch, device_name):
     else:
         stats["device_busy_share"] = "not measured (no kernel traced)"
     print(f"[training] {json.dumps(stats)}", flush=True)
-    del tr, pre, bert, batch, params, zeros
+    del tr, pre, bert, batch, params, zeros, prog
     torch.cuda.empty_cache()
     return stats, lens
+
+
+def train_host_costs(torch, tr, prog, batch, gen):
+    """Host time of a replayed train step's own work (medians of 10, the
+    device idle before each): staging the batch (device to device) and
+    t / lr / scale (one copy), the launch (one replay), and the readback
+    of loss and flag (one 8-byte transfer), once with the device idle and
+    once right after the launch (then it waits for the step). Each replay
+    applies an update, outside the step count."""
+    def host_ms(before, fn, n=10):
+        times = []
+        for _ in range(n):
+            before()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        return statistics.median(times)
+
+    def stage():
+        gen.manual_seed(1)
+        prog.stage(batch, tr.step_count + 1, tr.learning_rate, 1.0)
+
+    def staged_replay():
+        stage()
+        prog.replay()
+
+    out = dict(stage_ms=host_ms(lambda: None, stage),
+               launch_ms=host_ms(stage, prog.replay),
+               readback_idle_ms=host_ms(staged_replay, prog.read),
+               readback_after_launch_ms=host_ms(stage, lambda: (
+                   prog.replay(), prog.read())))
+    print(f"[host] graphed train step (bert_base bf16 B={BERT['B']} "
+          f"T={BERT['T']}): {json.dumps(out)}", flush=True)
 
 
 def phase_long_sequence(torch):
@@ -1822,9 +1892,12 @@ def phase_long_sequence(torch):
     for name in FLASH:
         check(launches[name] == 2 * pre.bert.num_layers,
               f"T=1024: {name} launches {launches[name]}")
+    replays = [p.replays for p in tr._programs.values()]
+    check(tr.step_trace_count == 1 and replays == [1],
+          f"T=1024: {tr.step_trace_count} builds, replays {replays}")
     print(f"[long] bert_base bf16 T=1024 B=4 lengths "
-          f"{batch[2].tolist()}: losses {losses}, launches {launches}",
-          flush=True)
+          f"{batch[2].tolist()}: losses {losses} (the second a replay of "
+          f"the step graph), launches {launches}", flush=True)
     del tr, pre, batch
     torch.cuda.empty_cache()
 
@@ -1882,9 +1955,14 @@ def phase_bert_parity(torch):
         fa.reset_launch_counts()
         on_card = [float(gpu_tr.step(*batch)) for _ in range(steps)]
         launches = dict(fa.LAUNCHES)
+        replays = [p.replays for p in gpu_tr._programs.values()]
+        check(gpu_tr.step_trace_count == 1 and replays == [steps - 1],
+              f"bert_tiny {dtype}: {gpu_tr.step_trace_count} builds, "
+              f"replays {replays}")
         on_cpu = [float(cpu_tr.step(*cpu_batch)) for _ in range(steps)]
         rel = max(abs(a - b) / abs(b) for a, b in zip(on_card, on_cpu))
-        print(f"[bert-parity] bert_tiny {dtype} LAMB: card {on_card} vs cpu "
+        print(f"[bert-parity] bert_tiny {dtype} LAMB: card {on_card} "
+              f"(steps 2-{steps} replays of the step graph) vs cpu "
               f"{on_cpu}: max rel diff {rel:.3e} (rtol {rtol}), launches "
               f"{launches}", flush=True)
         check(rel <= rtol,

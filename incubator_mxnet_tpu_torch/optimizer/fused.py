@@ -5,18 +5,23 @@ the JAX package's ``incubator_mxnet_tpu/optimizer/fused.py``
 ``apply_updates`` runs an ``Optimizer``'s functional update over every
 trainable parameter with the step count ``t``, the learning rate ``lr``
 and (optionally) ``rescale_grad`` as 0-d device tensors: nothing about a
-step is baked in as a host constant, so a later CUDA graph of the step can
-replay it with new values. New weights and states keep their old dtypes.
-The JAX package jits the same loop into one program; here it runs
-eagerly: LAMB as one multi-tensor pass over every parameter
-(``LAMB.update_many``), the other optimizers one parameter at a time.
+step is staged as a host constant, so ``parallel.SPMDTrainer``'s step
+graph replays it with each step's values, as the JAX package's jitted
+step takes them as traced scalars. What the optimizer holds on the host
+(wd, betas, epsilon, clipping, trust-ratio bounds) is read when the step
+is built and baked into its graph. New weights and states keep their old
+dtypes. LAMB runs as one multi-tensor pass over every parameter
+(``LAMB.update_many``), the other optimizers one parameter at a time;
+the functions read nothing back from the device, so they run inside a
+CUDA graph capture.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["apply_updates", "all_finite", "norm_based", "tree_map"]
+__all__ = ["apply_updates", "all_finite", "norm_based", "tree_map",
+           "tree_leaves"]
 
 
 def norm_based(optimizer) -> bool:
@@ -47,6 +52,16 @@ def tree_map(fn, *trees):
     if isinstance(first, (tuple, list)):
         return type(first)(tree_map(fn, *leaves) for leaves in zip(*trees))
     return fn(*trees)
+
+
+def tree_leaves(tree):
+    """The tensor leaves of a tree of tuples, lists and None, in
+    ``tree_map``'s order."""
+    if tree is None:
+        return []
+    if isinstance(tree, (tuple, list)):
+        return [leaf for sub in tree for leaf in tree_leaves(sub)]
+    return [tree]
 
 
 def apply_updates(optimizer, indices, weight_vals, grad_vals, states, t,

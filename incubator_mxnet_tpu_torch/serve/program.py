@@ -23,10 +23,17 @@ CPU the same object runs its body eagerly. A capture that fails raises
 card.
 
 Launch accounting: the kernel wrappers count launches in Python
-(``ops.ragged_attention.LAUNCHES``), which happens at capture only. The
-program keeps its capture's count per kernel, restores the counters the
-warm-up and the capture touched, and adds that count on every replay
-(``replays`` counts them).
+(``ops.ragged_attention.LAUNCHES`` and ``ops.flash_attention.LAUNCHES``),
+which happens at capture only. ``GraphCapture.record`` keeps its
+capture's count per kernel and restores the counters the capture touched;
+the program restores those its warm-up touched, and adds the capture's
+count to both counters on every replay (``add_launches``; ``replays``
+counts them).
+
+``GraphCapture`` is the mechanics ``parallel.SPMDTrainer``'s train step
+shares: PyTorch's one capture stream, an eager run on it, the capture
+with the block's random generators registered, and ``MXNetError`` on a
+failed capture.
 """
 
 from __future__ import annotations
@@ -38,12 +45,33 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
-from ..ops.ragged_attention import LAUNCHES
+from ..ops import flash_attention, ragged_attention
 
-__all__ = ["Packed", "StepProgram"]
+__all__ = ["Packed", "StepProgram", "GraphCapture", "launch_counts",
+           "add_launches"]
 
 _ALIGN = 16
 Field = Tuple[str, Tuple[int, ...], torch.dtype]
+# every kernel wrapper's launch counter (kernel names are unique across)
+_COUNTERS = (ragged_attention.LAUNCHES, flash_attention.LAUNCHES)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel's launch count so far, by kernel name."""
+    return {k: n for c in _COUNTERS for k, n in c.items()}
+
+
+def _set_launch_counts(counts: Dict[str, int]) -> None:
+    for c in _COUNTERS:
+        for k in c:
+            c[k] = counts[k]
+
+
+def add_launches(launches: Dict[str, int]) -> None:
+    """Add a replayed capture's launches to the kernels' counters."""
+    for c in _COUNTERS:
+        for k in c:
+            c[k] += launches.get(k, 0)
 
 
 class Packed:
@@ -110,31 +138,18 @@ class StepProgram:
             self.built = True
             return
         t0 = time.perf_counter()
-        saved = dict(LAUNCHES)
+        saved = launch_counts()
         try:
             torch.cuda.synchronize(self.device)
             self.inp.dev_bytes.zero_()
-            graph = torch.cuda.CUDAGraph()
-            capture = torch.cuda.graph(graph, pool=self.pool)
-            # PyTorch's one process-wide capture stream: a new stream per
-            # build would pin a cuBLAS workspace per stream for good
-            side = capture.capture_stream
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                self.run_body()
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            torch.cuda.synchronize(self.device)
-            LAUNCHES.update(saved)
-            with capture:
-                self.run_body()
-            torch.cuda.synchronize(self.device)
+            cap = GraphCapture(self.device, self.pool)
+            cap.eager(self.run_body)
         except RuntimeError as e:            # MXNetError included
             raise MXNetError(f"program capture failed: {e}") from e
         finally:
-            captured = {k: LAUNCHES[k] - saved[k] for k in LAUNCHES}
-            LAUNCHES.update(saved)
-        self.launches = {k: n for k, n in captured.items() if n}
-        self._graph = graph
+            _set_launch_counts(saved)
+        self.launches = cap.record(self.run_body)
+        self._graph = cap.graph
         self.built = True
         self.build_ms = (time.perf_counter() - t0) * 1e3
 
@@ -148,8 +163,7 @@ class StepProgram:
             return
         self._graph.replay()
         self.replays += 1
-        for k, n in self.launches.items():
-            LAUNCHES[k] += n
+        add_launches(self.launches)
 
     def read(self) -> Dict[str, np.ndarray]:
         """The outputs, copied back in one transfer (this waits for the
@@ -160,3 +174,64 @@ class StepProgram:
     def run(self) -> Dict[str, np.ndarray]:
         self.launch()
         return self.read()
+
+
+class GraphCapture:
+    """One CUDA graph, captured on PyTorch's one process-wide capture
+    stream (a new stream per capture would pin a cuBLAS workspace per
+    stream for good) into ``pool``. ``generators`` are the CUDA
+    ``torch.Generator``s the body draws from besides the default one
+    (registered with the graph, so each replay draws from the
+    generator's state at the replay and advances it as an eager run
+    would). ``eager(fn)`` runs ``fn`` uncaptured on that stream;
+    ``record(fn)`` captures it."""
+
+    def __init__(self, device: torch.device, pool=None, generators=()):
+        self.device = device
+        self.generators = tuple(generators)
+        self.graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            self.graph.register_generator_state(gen)
+        self._capture = torch.cuda.graph(self.graph, pool=pool)
+
+    def eager(self, fn: Callable) -> None:
+        """``fn()`` once, uncaptured, on the capture stream, after the
+        work queued on the current stream and before any queued later;
+        waits for it."""
+        current = torch.cuda.current_stream(self.device)
+        side = self._capture.capture_stream
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            fn()
+        current.wait_stream(side)
+        torch.cuda.synchronize(self.device)
+
+    def record(self, fn: Callable) -> Dict[str, int]:
+        """Capture ``fn()`` (nothing runs). Returns the launches the
+        kernel wrappers counted during the capture and leaves their
+        counters as they were; a failed capture raises ``MXNetError``."""
+        saved = launch_counts()
+        try:
+            with self._capture:
+                fn()
+            torch.cuda.synchronize(self.device)
+        except RuntimeError as e:            # MXNetError included
+            self._close_generators()
+            raise MXNetError(f"program capture failed: {e}") from e
+        finally:
+            counted = launch_counts()
+            _set_launch_counts(saved)
+        return {k: n - saved[k] for k, n in counted.items() if n != saved[k]}
+
+    def _close_generators(self):
+        """A capture that fails to end leaves its generators (the default
+        one and those registered) in capture mode, refusing every later
+        eager draw; a one-kernel capture with the same generators opens
+        and closes that mode again."""
+        scratch = torch.zeros((), device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        with torch.cuda.graph(graph):
+            scratch.add_(1)
+        torch.cuda.synchronize(self.device)
