@@ -73,11 +73,38 @@ failure exits non-zero before the result line:
                 chunk step's host time (staging, launch, readback) and
                 the device time of the draw and of the whole
                 acceptance;
+  5b. surface — the serving engine's remaining surface on gpt_small bf16
+                (seed 0): KV cache tiers on raw bf16, int8 and fp8_e4m3
+                pools (18 requests: 6 prefixes of 512 tokens, 3 requests
+                each with a 64-token tail and 32 new greedy tokens, on 4
+                slots and a pool just above their reservation, DRAM
+                holding two prefixes and a disk tier under a temporary
+                directory): demotions, spills, promotions from DRAM and
+                from disk, no crc fallback, one gather and one promotion
+                capture, the audit clean before every step, greedy
+                streams bitwise an engine's that never evicts, ragged
+                launches from replays only; prints the tier counters,
+                the gather and promotion host ms per page and the bytes
+                a page. Page transport between two engines (raw bf16 and
+                int8 pools; 8 requests of 64-768 prompt tokens, 64 new,
+                greedy and seeded T=0.8): each slot captured off A at 16
+                tokens, installed on B, finished there; streams bitwise
+                those of A alone, B prefilling nothing (its decode step
+                takes each slot on from its last token), custody
+                released, audits clean, one promotion build on B; prints
+                capture / install ms per slot and MB moved.
+                Brownout: one overloaded run (16 requests of three tiers
+                on 4 slots, spec_k=4, a 50 ms delay reference): the level
+                timeline, every request terminal, audits clean. Warm
+                start: an engine on the seed-0 model serves 4 requests,
+                takes the seed-1 model's weights, serves 4 more: no new
+                capture, streams bitwise a fresh seed-1 engine's;
   6. parity   — at f32, the engine's greedy tokens, without and with
                 spec_k=4, equal the port's dense-cache cached_generate
                 (which runs no kernel), through the step and chunk graphs
                 (the prefill kernel's CUDA-core body); then the graphs'
-                cuda tests (tests/test_torch_serve_graphs.py and
+                cuda tests (tests/test_torch_serve_graphs.py,
+                tests/test_torch_page_graphs.py and
                 tests/test_torch_train_graphs.py, pytest without the
                 conftest, so no JAX): replay == body bitwise (steps and
                 chunks; train steps with dropout from a registered
@@ -85,7 +112,12 @@ failure exits non-zero before the result line:
                 no live page, launches per replay, one capture per width
                 through stalls and a quarantine, one per (kind, bucket)
                 through a COW hit, one per batch signature, a NaN batch
-                through a replay, a failed capture raising;
+                through a replay, a failed capture raising; the page
+                gather and promotion captured once over tiered traffic,
+                a gather after a decode replay seeing its row, bf16 /
+                fp8 payloads bitwise through DRAM and disk, a promotion
+                on the card writing the CPU path's bytes, a warm start
+                seen by the next replays;
   7. training — bert_base bf16 (flash, dropout 0.1) + BERTForPretraining
                 through SPMDTrainer with LAMB (lr 1e-4, f32 masters), the
                 bench's batch (B=32, T=512, M=76; lengths in [256, 512]):
@@ -1086,21 +1118,8 @@ def serve_run(torch, np, model, label, spec_k=0, kv_quant=None,
     eng.audit_pages()
     check(eng.prefix_hits > hits0 or n_req < 9 or decode_bound,
           f"{label}: no prefix-cache hit")
-    L = model.num_layers
-    sfx, other = ("_q", "") if kv_quant else ("", "_q")
-    # every ragged launch comes from a graph replay: decode / verify steps,
-    # and chunk programs (chunk_replays)
     chunks = chunk_replays(eng) - replays0
-    want = {"ragged_decode" + sfx: (steps - spec_steps) * L,
-            "ragged_verify" + sfx: spec_steps * L,
-            "ragged_prefill" + sfx: chunks * L,
-            "ragged_decode" + other: 0, "ragged_verify" + other: 0,
-            "ragged_prefill" + other: 0}
-    for k, n in want.items():
-        check(launches[k] == n, f"{label}: {k} launches {launches[k]} != "
-                                f"{n} ({steps} steps, {spec_steps} "
-                                f"speculative, {chunks} chunk replays, "
-                                f"{L} layers)")
+    check_ragged_launches(eng, launches, label, steps, chunks, spec_steps)
     check(chunks > 0, f"{label}: prefill kernel never launched")
     if spec_k:
         check(drafted > 0 and (accepted > 0 or not need_accept),
@@ -1267,6 +1286,335 @@ def phase_serving(torch):
     del model
     torch.cuda.empty_cache()
     return runs
+
+
+# --------------------------------------------------------------------- #
+# the serving engine's remaining surface: cache tiers, page transport,
+# warm restart, brownout
+# --------------------------------------------------------------------- #
+
+def _timed(fn, into):
+    """``fn`` with each call's host wall ms appended to ``into``."""
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        into.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return wrapper
+
+
+def _median(xs):
+    return round(statistics.median(xs), 4) if xs else None
+
+
+def check_ragged_launches(eng, launches, label, steps, chunks,
+                          spec_steps=0):
+    """Every ragged launch of a run came from a graph replay: decode =
+    non-speculative steps x layers, verify = speculative steps x layers,
+    prefill = chunk replays x layers, on the engine's pool kind only."""
+    L = eng.model.num_layers
+    sfx, other = ("_q", "") if eng.kv_quant else ("", "_q")
+    want = {"ragged_decode" + sfx: (steps - spec_steps) * L,
+            "ragged_verify" + sfx: spec_steps * L,
+            "ragged_prefill" + sfx: chunks * L,
+            "ragged_decode" + other: 0, "ragged_verify" + other: 0,
+            "ragged_prefill" + other: 0}
+    for k, n in want.items():
+        check(launches[k] == n, f"{label}: {k} launches {launches[k]} != "
+                                f"{n} ({steps} steps, {spec_steps} "
+                                f"speculative, {chunks} chunk replays, "
+                                f"{L} layers)")
+
+
+def tier_workload(np, vocab):
+    """6 prefixes of 512 tokens, each shared by 3 requests with a
+    64-token tail of their own and 32 new greedy tokens, round-robin over
+    the prefixes: on 4 slots a prefix's pages are evicted from HBM by
+    the 5 others before it recurs (with 4 prefixes on 4 slots every
+    recurrence still finds its prefix in HBM)."""
+    rng = np.random.RandomState(5)
+    prefixes = [rng.randint(0, vocab, size=512).astype(np.int32)
+                for _ in range(6)]
+    return [np.concatenate([prefixes[i % 6], rng.randint(
+        0, vocab, size=64).astype(np.int32)]) for i in range(18)]
+
+
+def tier_run(torch, np, model, quant, tiered, disk_dir):
+    """The tier workload on one engine (4 slots, chunk_pages=4). Tiered:
+    a pool just above four slots' reservation (1 + 4 x 38 + 8 pages), so
+    each recurring prefix was evicted from HBM into the tiers (DRAM holds
+    two prefixes, the rest spills to disk); untiered: a pool large
+    enough that no prefix page is reclaimed (512 pages). Returns the
+    engine, the streams, the wall seconds and the gather / promote host
+    ms per page."""
+    from incubator_mxnet_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from incubator_mxnet_tpu_torch.serve import InferenceEngine, Request
+    elem = 1 if quant else torch.empty((), dtype=model.dtype).element_size()
+    page_bytes = 2 * model.num_layers * 16 * model.units * elem
+    kw = dict(num_pages=1 + 4 * 38 + 8,
+              kv_tiers={"dram_bytes": 2 * 32 * page_bytes,
+                        "disk_dir": disk_dir}) if tiered \
+        else dict(num_pages=512)
+    eng = InferenceEngine(model, num_slots=4, page_size=16, max_len=1024,
+                          chunk_pages=4, prefix_cache=True, kv_quant=quant,
+                          **kw)
+    gather_ms, promote_ms = [], []
+    eng.gather_page = _timed(eng.gather_page, gather_ms)
+    eng._promote_page = _timed(eng._promote_page, promote_ms)
+    reqs = [Request(p, max_new_tokens=32) for p in
+            tier_workload(np, model.vocab_size)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run(reqs, before_step=lambda e, _i: e.audit_pages())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    eng.audit_pages()
+    bad = [(r.request_id, r.outcome) for r in reqs
+           if r.outcome is None or not r.outcome.ok]
+    check(not bad, f"tiers {quant or 'bf16'}: requests ended badly: {bad}")
+    check_ragged_launches(eng, launches, f"tiers {quant or 'bf16'}",
+                          eng.decode_steps, chunk_replays(eng))
+    return eng, [r.token_ids for r in reqs], wall, gather_ms, promote_ms
+
+
+def phase_tiers(torch, np, model):
+    """KV cache tiers on raw bf16, int8 and fp8_e4m3 pools: demotions to
+    DRAM, spills to disk, promotions from both, no crc fallback, one
+    gather and one promotion capture, clean audits before every step,
+    and greedy streams bitwise those of an engine that never evicts."""
+    import tempfile
+    from incubator_mxnet_tpu_torch.events import EventType
+    for quant in (None, "int8", "fp8_e4m3"):
+        label = f"tiers {quant or 'raw bf16'}"
+        disk = tempfile.mkdtemp(prefix="mx_tiers_")
+        try:
+            eng, got, wall, g_ms, p_ms = tier_run(torch, np, model, quant,
+                                                  True, disk)
+            ref, want, _, _, _ = tier_run(torch, np, model, quant, False,
+                                          None)
+        finally:
+            shutil.rmtree(disk, ignore_errors=True)
+        snap = eng.health_snapshot()
+        proms = eng.flight.events(etype=EventType.CACHE_PROMOTE)
+        from_dram = sum(e.data["tier"] == "dram" for e in proms)
+        from_disk = sum(e.data["tier"] == "disk" for e in proms)
+        check(ref.prefix_reclaimed_pages == 0 and ref.tier_demotions == 0,
+              f"{label}: the reference engine reclaimed prefix pages")
+        check(snap["tier_demotions"] > 0 and snap["tier_disk_demotions"] > 0
+              and from_dram > 0 and from_disk > 0,
+              f"{label}: demotions {snap['tier_demotions']}, spills "
+              f"{snap['tier_disk_demotions']}, promotions from DRAM "
+              f"{from_dram} / disk {from_disk} (each must be > 0)")
+        check(snap["tier_crc_fallbacks"] == 0 and
+              eng._tiers.crc_failures == 0,
+              f"{label}: crc fallbacks {snap['tier_crc_fallbacks']}")
+        check(eng.promote_trace_count == eng.demote_trace_count == 1,
+              f"{label}: promote / demote built "
+              f"{eng.promote_trace_count} / {eng.demote_trace_count} "
+              f"times")
+        diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        check(not diff, f"{label}: streams {diff} differ from the "
+                        f"untiered engine's")
+        page_bytes = next((e.nbytes for _k, e in eng._tiers.entries()),
+                          None)
+        stats = dict(wall_s=round(wall, 3), demoted=snap["tier_demotions"],
+                     spilled=snap["tier_disk_demotions"],
+                     promoted=snap["tier_promotions"],
+                     promoted_from_dram=from_dram,
+                     promoted_from_disk=from_disk,
+                     tier_hits=snap["tier_hits"],
+                     tier_hit_tokens=snap["tier_hit_tokens"],
+                     dropped=snap["tier_dropped"],
+                     gather_ms_per_page=_median(g_ms),
+                     promote_ms_per_page=_median(p_ms),
+                     bytes_per_page=page_bytes,
+                     capture_ms=dict(gather=eng._gather_prog.build_ms,
+                                     promote=eng._promote_prog.build_ms))
+        print(f"[tiers] {label}: {json.dumps(stats)}", flush=True)
+        del eng, ref
+        torch.cuda.empty_cache()
+
+
+def transport_requests(np, Request, vocab):
+    """8 requests of 64-768 prompt tokens, 64 new tokens each, greedy and
+    seeded T=0.8 alternating."""
+    rng = np.random.RandomState(7)
+    return [Request(rng.randint(0, vocab, size=int(n)), max_new_tokens=64,
+                    temperature=0.0 if i % 2 == 0 else 0.8, seed=300 + i)
+            for i, n in enumerate(rng.randint(64, 769, size=8))]
+
+
+def phase_transport(torch, np, model):
+    """Page transport between two engines on the same model, raw bf16
+    and int8 pools: each slot captured off A once it has 16 tokens,
+    installed on B and finished there; the streams equal the same
+    requests run on A alone, bitwise; B prefills nothing for them (its
+    decode step takes each slot on from its last token); the custody is
+    released and both audits are clean; B builds one promotion
+    program."""
+    from incubator_mxnet_tpu_torch.events import EventType
+    from incubator_mxnet_tpu_torch.serve import (InferenceEngine,
+                                                 PageTransport, Request)
+    kw = dict(num_slots=8, page_size=16, max_len=1024, chunk_pages=4,
+              prefix_cache=True)
+    for quant in (None, "int8"):
+        label = f"transport {quant or 'raw bf16'}"
+        solo = InferenceEngine(model, kv_quant=quant, **kw)
+        ref = transport_requests(np, Request, model.vocab_size)
+        solo.run(ref)
+        a = InferenceEngine(model, kv_quant=quant, **kw)
+        b = InferenceEngine(model, kv_quant=quant, **kw)
+        reqs = transport_requests(np, Request, model.vocab_size)
+        for r in reqs:
+            a.submit(r)
+        tr = PageTransport()
+        moved, cap_ms, inst_ms, nbytes = {}, [], [], 0
+        for _ in range(5000):
+            if all(r.request_id in moved for r in reqs) and \
+                    all(t.outcome is not None for t in moved.values()):
+                break
+            a.step()
+            for r in reqs:
+                if r.request_id in moved or len(r.token_ids) < 16 or \
+                        not a.decode_ready(r.request_id):
+                    continue
+                t0 = time.perf_counter()
+                cap = tr.capture(a, r.request_id)
+                cap_ms.append((time.perf_counter() - t0) * 1e3)
+                check(cap is not None, f"{label}: capture refused")
+                att = cap.make_resume_request()
+                t0 = time.perf_counter()
+                ok = tr.install(b, cap, att)
+                inst_ms.append((time.perf_counter() - t0) * 1e3)
+                check(ok, f"{label}: install refused")
+                check(a.release_capsule(r.request_id) == cap.num_pages,
+                      f"{label}: custody release")
+                nbytes += cap.nbytes
+                moved[r.request_id] = att
+            b.step()
+            a.audit_pages()
+            b.audit_pages()
+        check(len(moved) == 8 and all(t.outcome is not None and t.outcome.ok
+                                      for t in moved.values()),
+              f"{label}: {len(moved)} of 8 moved, not all finished")
+        diff = []
+        for r, want in zip(reqs, ref):
+            got = r.token_ids + moved[r.request_id].token_ids
+            if got != want.token_ids:
+                first = next((i for i, (x, y) in enumerate(
+                    zip(got, want.token_ids)) if x != y), None)
+                diff.append((r.request_id, r.temperature, first))
+        check(not diff, f"{label}: migrated streams differ from A alone "
+                        f"(request, temperature, first differing token): "
+                        f"{diff}")
+        ids = {t.request_id for t in moved.values()}
+        chunks = [e.data["n"] for e in b.flight.events(
+            etype=EventType.PREFILL_CHUNK) if e.request_id in ids]
+        check(chunks == [], f"{label}: B prefilled {chunks} tokens for "
+                            f"the installed slots (want none)")
+        check(b.promote_trace_count == 1 and a.demote_trace_count == 1 and
+              not a._capsule_pages and not b._capsule_pages,
+              f"{label}: promote / demote builds "
+              f"{b.promote_trace_count} / {a.demote_trace_count}, custody "
+              f"{a._capsule_pages}")
+        stats = dict(slots=len(moved), pages=b.migrated_in_pages,
+                     mb_moved=round(nbytes / 1e6, 3),
+                     capture_ms_per_slot=_median(cap_ms),
+                     install_ms_per_slot=_median(inst_ms),
+                     pages_per_slot=b.migrated_in_pages / len(moved))
+        print(f"[transport] {label}: {json.dumps(stats)}", flush=True)
+        del solo, a, b
+        torch.cuda.empty_cache()
+
+
+def phase_warm_start(torch, np):
+    """An engine on the seed-0 model serves 4 requests (its decode and
+    prefill graphs captured), then takes the seed-1 model's weights by
+    ``warm_start`` and serves 4 more: no new capture, the streams those
+    of a fresh engine on the seed-1 model, the prefix index flushed."""
+    from incubator_mxnet_tpu_torch.models.gpt import gpt_small
+    from incubator_mxnet_tpu_torch.serve import InferenceEngine, Request
+    kw = dict(num_slots=4, page_size=16, max_len=1024, chunk_pages=4,
+              prefix_cache=True)
+    live = gpt_small(dtype="bfloat16", device="cuda", seed=0)
+    other = gpt_small(dtype="bfloat16", device="cuda", seed=1)
+    rng = np.random.RandomState(9)
+    prompts = [rng.randint(0, live.vocab_size, size=int(n)).astype(np.int32)
+               for n in (80, 200, 333, 500)]
+    mk = lambda: [Request(p, max_new_tokens=32) for p in prompts]
+    eng = InferenceEngine(live, **kw)
+    first = mk()
+    eng.run(first)
+    builds = (eng.decode_trace_count, dict(eng.prefill_trace_counts))
+    flushes = eng.prefix_flushes
+    t0 = time.perf_counter()
+    eng.warm_start(params=other.state_dict())
+    torch.cuda.synchronize()
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    second = mk()
+    eng.run(second)
+    eng.audit_pages()
+    fresh = mk()
+    InferenceEngine(other, **kw).run(fresh)
+    check((eng.decode_trace_count, dict(eng.prefill_trace_counts)) ==
+          builds, f"warm start: builds moved from {builds}")
+    check(eng.prefix_flushes == flushes + 1, "warm start: no flush")
+    check([r.token_ids for r in second] == [r.token_ids for r in fresh],
+          "warm start: streams differ from a fresh engine on the new "
+          "weights")
+    check([r.token_ids for r in second] != [r.token_ids for r in first],
+          "warm start: the new weights changed nothing")
+    stats = dict(swap_ms=round(swap_ms, 3), decode_builds=builds[0],
+                 prefill_builds=builds[1],
+                 decode_replays=eng._programs[1].replays)
+    print(f"[warm_start] gpt_small bf16 seed 0 -> seed 1, streams equal a "
+          f"fresh engine's: {stats}", flush=True)
+    del eng, live, other
+    torch.cuda.empty_cache()
+
+
+def phase_brownout(torch, np, model):
+    """One overloaded run under the brownout controller (16 requests of
+    three tiers on 4 slots, spec_k=4, a 50 ms delay reference): the level
+    timeline; every request terminal and the audit clean."""
+    from incubator_mxnet_tpu_torch.serve import (BrownoutController,
+                                                 InferenceEngine, Request,
+                                                 Tier)
+    bo = BrownoutController(up_steps=1, down_steps=2, delay_ref=0.05)
+    eng = InferenceEngine(model, num_slots=4, page_size=16, max_len=1024,
+                          chunk_pages=4, prefix_cache=True, spec_k=4,
+                          brownout=bo)
+    rng = np.random.RandomState(11)
+    tiers = (Tier.LATENCY, Tier.STANDARD, Tier.BATCH)
+    reqs = [Request(rng.randint(0, model.vocab_size, size=int(n)),
+                    max_new_tokens=32, tier=tiers[i % 3])
+            for i, n in enumerate(rng.randint(64, 257, size=16))]
+    eng.run(reqs, before_step=lambda e, _i: e.audit_pages())
+    eng.audit_pages()
+    check(all(r.outcome is not None for r in reqs),
+          "brownout: a request never ended")
+    outcomes = {}
+    for r in reqs:
+        outcomes[r.outcome.value] = outcomes.get(r.outcome.value, 0) + 1
+    stats = dict(escalations=bo.escalations, deescalations=bo.deescalations,
+                 final_level=bo.level, timeline=bo.timeline,
+                 outcomes=outcomes, spec_steps=eng.spec_steps,
+                 decode_steps=eng.decode_steps)
+    print(f"[brownout] {json.dumps(stats)}", flush=True)
+
+
+def phase_surface(torch):
+    import numpy as np
+    from incubator_mxnet_tpu_torch.models.gpt import gpt_small
+    model = gpt_small(dtype="bfloat16", device="cuda", seed=0)
+    phase_tiers(torch, np, model)
+    phase_transport(torch, np, model)
+    phase_brownout(torch, np, model)
+    del model
+    torch.cuda.empty_cache()
+    phase_warm_start(torch, np)
 
 
 def profile_decode(torch, np, eng, rng, Request, label):
@@ -1551,7 +1899,8 @@ def phase_graph_tests():
     if JAX or the JAX package was imported): the serving engine's
     (tests/test_torch_serve_graphs.py: replay == body bitwise, builds
     touch no live page, launch accounting, one capture per width through
-    stalls and a quarantine) and the train step's
+    stalls and a quarantine; tests/test_torch_page_graphs.py: the page
+    gather and promotion programs and warm start) and the train step's
     (tests/test_torch_train_graphs.py: replay == eager body bitwise with
     dropout from a registered generator, two alternating signatures, flash
     launches per replay, a NaN batch through a replay, a failed capture
@@ -1569,6 +1918,7 @@ def phase_graph_tests():
          "-p", "no:cacheprovider", "-W",
          "ignore::pytest.PytestUnknownMarkWarning",
          "tests/test_torch_serve_graphs.py",
+         "tests/test_torch_page_graphs.py",
          "tests/test_torch_train_graphs.py"],
         cwd=root, env=env, capture_output=True, text=True, timeout=600)
     tail = proc.stdout.strip().splitlines()[-1:] or [""]
@@ -2122,6 +2472,7 @@ def main():
         err = phase_kernels(torch)
         err.update(phase_flash_kernels(torch))
         runs = phase_serving(torch)
+        phase_surface(torch)
         phase_parity(torch)
         phase_graph_tests()
         runs["training"], lens = phase_training(

@@ -30,10 +30,11 @@ without CUDA they raise ``MXNetError``. The port imports neither ``jax``
 nor the JAX package.
 """
 
-from . import (amp, initializer, models, ops, optimizer, parallel, random,
-               serve, train)
+from . import (amp, checkpoint, initializer, models, ops, optimizer,
+               parallel, random, serve, train)
 from .base import MXNetError
 from .context import cpu, gpu
 
-__all__ = ["MXNetError", "cpu", "gpu", "amp", "initializer", "models",
-           "ops", "optimizer", "parallel", "random", "serve", "train"]
+__all__ = ["MXNetError", "cpu", "gpu", "amp", "checkpoint", "initializer",
+           "models", "ops", "optimizer", "parallel", "random", "serve",
+           "train"]

@@ -13,8 +13,10 @@ A step is the JAX program's sequence:
   5. ``apply_updates`` with ``rescale_grad = base / scale``, the step
      count ``t`` and the learning rate as 0-d device tensors;
   6. the guard: ``torch.where`` on the device flag selects the new or the
-     old parameters and optimizer state, so a vetoed step leaves both
-     bit-identical; both are written IN PLACE;
+     old parameters, optimizer state and module buffers (a BatchNorm's
+     running statistics and ``num_batches_tracked``, which the forward
+     wrote), so a vetoed step leaves all three bit-identical; all three
+     are written IN PLACE;
   7. one readback of the loss and the flag, which steer ``step_count``,
      the recorder (APPLIED / SKIPPED_NONFINITE / HALTED_POISONED) and the
      loss scaler.
@@ -56,7 +58,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, getenv_bool
 from ..optimizer import create as opt_create
 from ..optimizer.fused import all_finite, apply_updates, tree_leaves
 from ..serve.program import GraphCapture, Packed, add_launches
@@ -134,7 +136,8 @@ class SPMDTrainer:
     ``loss`` (``loss(out, *labels)``) or ``forward_loss``
     (``fn(block, *batch) -> scalar``), ``optimizer`` with
     ``optimizer_params``, ``loss_scaler`` (``amp.LossScaler``), ``guard``
-    (the in-step non-finite guard, default on) and
+    (the in-step non-finite guard; None reads ``MXTPU_STEP_GUARD``,
+    default on) and
     ``max_consecutive_nonfinite``. ``mesh`` may name one device (or be
     None); ``donate`` has no effect (the step updates the parameters and
     the optimizer state in place)."""
@@ -172,7 +175,9 @@ class SPMDTrainer:
         self.loss = loss
         self.forward_loss = forward_loss
         self.sharding_mode = sharding
-        self.guard = True if guard is None else bool(guard)
+        if guard is None:
+            guard = getenv_bool("MXTPU_STEP_GUARD", True)
+        self.guard = bool(guard)
         self.loss_scaler = loss_scaler
         if loss_scaler is not None and not self.guard:
             import warnings
@@ -189,6 +194,7 @@ class SPMDTrainer:
         self._params = [p for _, p in named]
         self._train_idx = [i for i, p in enumerate(self._params)
                            if p.requires_grad]
+        self._buffers = list(block.buffers())
         self.device = self._params[0].device
         if isinstance(optimizer, str):
             self._optimizer = opt_create(
@@ -294,8 +300,16 @@ class SPMDTrainer:
         opt = self._optimizer
         saved = dict(opt._index_update_count), opt.num_update
         inp, out = prog.inp.dev, prog.out.dev
+        # what the forward writes into module buffers (running statistics,
+        # num_batches_tracked) is kept only by an applied step
+        before = [b.clone() for b in self._buffers] if self.guard else []
         loss, grads = self._forward_backward(prog.batch, inp["scale"])
         ok = self._apply(grads, inp["t"], inp["lr"], inp["scale"])
+        if before:
+            keep_new = ok > 0
+            torch._foreach_copy_(self._buffers, [
+                torch.where(keep_new, b, old)
+                for b, old in zip(self._buffers, before)])
         out["loss"].copy_(loss)
         out["ok"].copy_(ok)
         if not moves_counters:

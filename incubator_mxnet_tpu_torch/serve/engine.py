@@ -29,8 +29,9 @@ The port of ``incubator_mxnet_tpu/serve/engine.py``. Design:
     (serve/sampling.py). Every temperature draw takes its uniform from a
     counter-based hash of the request's key and the SEQUENCE POSITION of
     the sampled token (``sampling.draw_uniform``), computed on the
-    device, so draws are reproducible per request and independent of
-    occupancy and chunking.
+    device over rows padded to one alignment (``sampling.row_aligned``),
+    so draws are reproducible per request and independent of occupancy,
+    chunking and the slot a request holds.
   - SPECULATIVE DECODING (``spec_k``): the host drafts up to K tokens
     per slot (n-gram prompt lookup, serve/draft.py, or ``draft_fn``);
     one (S, W = K + 1) verify step writes the window's K/V, scores it
@@ -58,9 +59,35 @@ reads back the tokens (and their counts) and the grown amax in one copy.
 Positions, write pages and the chunk's span are data, read on the
 device. The sampling menu's per-vocabulary rows stay resident on the
 device, at neutral values except where a slot's menu is active. The K/V
-pools are updated IN PLACE by every program. Cache tiers, tp meshes,
-brownout, page transport and warm restart are not ported yet; asking for
-them raises ``MXNetError``.
+pools are updated IN PLACE by every program.
+
+Around the programs, the engine's remaining surface:
+
+  - CACHE TIERS (``kv_tiers``): a prefix page the index evicts is demoted
+    into host DRAM (``paged_kv.KVTierStore``, spilling to disk through
+    ``checkpoint.manifest``) and re-admitted BY COPY when a prompt's walk
+    continues into the tiers. ``gather_page`` (one page of every pool
+    out, one replay and one readback) and the promotion (one page of
+    every pool in, written in place) are one program each
+    (``demote_trace_count`` / ``promote_trace_count``), shared with page
+    transport;
+  - PAGE TRANSPORT (``capture_slot`` / ``detach_slot`` /
+    ``install_slot`` / ``release_capsule``; ``serve/transport.py`` owns
+    the capsule): a decode-ready slot's pages move to another engine,
+    whose next decode step takes the slot on from its last token;
+  - ``warm_start(params=...)``: new weights ``copy_``-ed into the
+    model's parameters, which the captured graphs hold by address, so no
+    capture count moves; the prefix index and the tiers are flushed;
+  - BROWNOUT (``brownout``): ``serve.slo.BrownoutController`` levels —
+    speculation off, the prefill budget clamped to one chunk, BATCH
+    admissions held — all host policy.
+
+Anything that writes the pools or the parameters from outside a program
+does so in place (``copy_``, index writes), never by rebinding: the
+graphs hold them by address. The tp ``mesh`` and the checkpoint
+manager's ``warm_start(manager=)`` / ``save_checkpoint`` /
+``install_preemption`` are not ported yet; asking for them raises
+``MXNetError``.
 """
 
 from __future__ import annotations
@@ -70,12 +97,13 @@ import itertools
 import time
 import weakref
 from collections import deque
-from typing import List, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from ..base import MXNetError
+from ..models.convert import _to_tensor, gpt_param_names
 from ..models.gpt import _lm_head, _mlp, _qkv_heads
 from ..ops.attention import scaled_dot_product_attention as _sdpa
 from ..ops.ragged_attention import (ragged_paged_attention,
@@ -84,15 +112,18 @@ from ..ops.ragged_attention import (ragged_paged_attention,
 from .draft import make_ngram_drafter
 from .events import EventType, resolve_recorder, terminal_fields
 from .outcomes import Outcome
-from .paged_kv import (NULL_PAGE, PageAllocator, PrefixIndex, _raw,
-                       init_kv_pools, kv_quant_spec, page_scales,
-                       write_block_kv, write_block_kv_q, write_prompt_kv,
-                       write_prompt_kv_q, write_token_kv, write_token_kv_q)
+from .paged_kv import (NULL_PAGE, KVTierStore, PageAllocator, PrefixIndex,
+                       _raw, init_kv_pools, kv_quant_spec, page_scales,
+                       payload_dtype, write_block_kv, write_block_kv_q,
+                       write_prompt_kv, write_prompt_kv_q, write_token_kv,
+                       write_token_kv_q)
 from .program import StepProgram
 from .sampling import (_NEG_BIG, ACCEPT_STREAM, DRAW_STREAM,
                        SamplingParams, constrain_logits, draw_uniform,
-                       grammar_mask, match_stop, sample_inverse_cdf)
-from .slo import Tier, TierPolicy, resolve_tier_policies
+                       grammar_mask, match_stop, row_aligned,
+                       sample_inverse_cdf)
+from .slo import (BrownoutController, Tier, TierPolicy,
+                  resolve_tier_policies)
 
 __all__ = ["Request", "InferenceEngine", "Outcome", "Tier",
            "TierPolicy", "SamplingParams"]
@@ -136,7 +167,10 @@ class Request:
     process-unique handle for ``engine.cancel``. ``sampling`` carries
     the sampling menu (serve/sampling.py). ``drafted_tokens`` /
     ``accepted_tokens`` count this request's speculative drafts and the
-    ones recorded."""
+    ones recorded. ``prompt_len`` marks a resume attempt's split: its
+    first ``prompt_len`` ids are the true prompt, the rest tokens an
+    earlier attempt emitted (a transported slot's continuation), so the
+    grammar state and stop window derive from the generated part only."""
 
     prompt_ids: np.ndarray
     max_new_tokens: int = 32
@@ -147,6 +181,7 @@ class Request:
     tier: Tier = Tier.STANDARD
     request_id: Optional[int] = None
     sampling: Optional[SamplingParams] = None
+    prompt_len: Optional[int] = None
 
     # filled in by the engine
     preemptions: int = 0
@@ -187,6 +222,11 @@ class Request:
                 raise MXNetError(
                     "grammar-constrained decoding requires eos_id >= 0 "
                     "(grammar completion is expressed through EOS)")
+        if self.prompt_len is not None:
+            self.prompt_len = int(self.prompt_len)
+            if not 0 < self.prompt_len <= self.prompt_ids.size:
+                raise MXNetError(f"prompt_len {self.prompt_len} outside "
+                                 f"(0, {self.prompt_ids.size}]")
         if self.request_id is None:
             self.request_id = next(_REQUEST_IDS)
 
@@ -214,6 +254,14 @@ class _Slot:
     @property
     def prefilling(self) -> bool:
         return self.prefill_pos < self.t0
+
+    @property
+    def attempt_last(self) -> int:
+        """The token the next decode step feeds: the last one emitted, or
+        for an installed slot that has emitted none here yet, the last of
+        its attempt."""
+        toks = self.request.token_ids
+        return int(toks[-1]) if toks else int(self.attempt_ids[-1])
 
 
 class InferenceEngine:
@@ -251,6 +299,11 @@ class InferenceEngine:
     - ``tier_policies``: {Tier: TierPolicy} overrides (serve/slo.py);
       ``max_preemptions`` bounds how often one request is preempted
       before a PREEMPTED terminal;
+    - ``brownout``: True (the default controller, its delay reference
+      ``max_queue_delay_s`` or 1 s) or a ``BrownoutController``: level 1
+      turns speculation off, level 2 clamps the chunked-prefill budget
+      to one chunk, level 3 holds BATCH admissions, each level left as
+      pressure clears;
     - ``recorder``: the flight recorder (on by default; False disables,
       an existing FlightRecorder shares a timeline).
 
@@ -273,7 +326,14 @@ class InferenceEngine:
     ``kv_quant`` (None, 'int8' or 'fp8_e4m3') stores every KV page as
     codes with one symmetric scale per page per pool. A NaN scale makes
     the attention output non-finite, so the guard quarantines the
-    slot."""
+    slot.
+
+    ``kv_tiers`` ({"dram_bytes": int, "disk_dir": str?, "disk_bytes":
+    int?}; needs ``prefix_cache``) demotes the pages the prefix index
+    evicts into host DRAM, spilling DRAM's overflow to disk, and
+    re-admits them by copy: a payload is the page of every pool (the
+    codes and their amax on a code pool), crc-checked at promotion, a
+    failed check falling back to recompute."""
 
     def __init__(self, model, num_slots=8, page_size=16, max_len=None,
                  num_pages=None, dtype=None, prefix_cache=True,
@@ -286,12 +346,9 @@ class InferenceEngine:
                  tier_policies=None, max_preemptions=4,
                  recorder=None, component="engine",
                  kv_quant=None, kv_tiers=None, mesh=None, brownout=None):
-        for name, val, off in (("kv_tiers", kv_tiers, None),
-                               ("mesh", mesh, None),
-                               ("brownout", brownout, None)):
-            if val != off:
-                raise MXNetError(f"{name}={val!r}: not ported to the "
-                                 f"PyTorch engine yet")
+        if mesh is not None:
+            raise MXNetError(f"mesh={mesh!r}: not ported to the PyTorch "
+                             f"engine yet")
         self.model = model
         self.device = model.device
         self.num_slots = int(num_slots)
@@ -409,9 +466,16 @@ class InferenceEngine:
         self._tier_policies = resolve_tier_policies(tier_policies)
         self.max_preemptions = int(max_preemptions)
         self.preemptions = 0
+        if brownout is True:
+            brownout = BrownoutController(
+                delay_ref=max_queue_delay_s or 1.0)
+        self._brownout = brownout            # None | BrownoutController
 
         self.flight = resolve_recorder(recorder)
         self._component = str(component)
+        if self._brownout is not None:
+            # transitions land on this engine's event lane
+            self._brownout.flight = self.flight
 
         self.drafted_tokens = 0
         self.accepted_tokens = 0
@@ -425,16 +489,54 @@ class InferenceEngine:
         self.prefill_trace_count = 0         # dense + chunk builds, total
         self.prefill_trace_counts: dict = {}  # ("dense"|"chunk", Tpad) -> n
         self.copy_trace_count = 0            # COW page copy builds
+        self.promote_trace_count = 0         # page promotion builds
+        self.demote_trace_count = 0          # page gather builds
         self._programs: dict = {}            # W -> StepProgram
         self._prefill_programs: dict = {}    # (kind, Tpad) -> StepProgram
         self._copy_prog: Optional[StepProgram] = None
+        self._gather_prog: Optional[StepProgram] = None
+        self._promote_prog: Optional[StepProgram] = None
         self._graph_pool = None              # shared by every program
+        self.warm_restarts = 0
         self.prefix_lookups = 0
         self.prefix_hits = 0
         self.prefix_hit_tokens = 0
         self.prefix_flushes = 0
         self.prefix_reclaimed_pages = 0
         self.max_step_prefill_tokens = 0
+
+        # cache tiers beneath the prefix index
+        self._tiers = None
+        if kv_tiers is not None:
+            if self._prefix is None:
+                raise MXNetError("kv_tiers requires prefix_cache=True "
+                                 "(tiers hold evicted PREFIX pages)")
+            cfg = dict(kv_tiers)
+            if "dram_bytes" not in cfg:
+                raise MXNetError("kv_tiers needs dram_bytes")
+            self._tiers = KVTierStore(
+                self.page_size, cfg.pop("dram_bytes"),
+                disk_dir=cfg.pop("disk_dir", None),
+                disk_bytes=cfg.pop("disk_bytes", None),
+                recorder=self.flight, component=self._component,
+                kv_dtype=str(self._kpools[0].dtype).replace("torch.", ""))
+            if cfg:
+                raise MXNetError(f"unknown kv_tiers keys: {sorted(cfg)}")
+        self.tier_demotions = 0          # pages captured HBM -> DRAM
+        self.tier_promotions = 0         # pages re-admitted by copy
+        self.tier_hits = 0               # admissions a tier extended
+        self.tier_hit_tokens = 0         # prompt tokens served by tiers
+        self.tier_misses = 0             # tier consulted, nothing usable
+        self.tier_crc_fallbacks = 0      # integrity check -> recompute
+
+        # page transport (serve/transport.py): capsule traffic through
+        # this engine, and the pages of detached slots held in custody
+        # (keyed by request_id) until their transfer lands or falls back
+        self.migrated_out_pages = 0
+        self.migrated_in_pages = 0
+        self.migrated_out_bytes = 0
+        self.migrated_in_bytes = 0
+        self._capsule_pages: Dict[int, List[int]] = {}
 
     # ------------------------------------------------------------- #
     # device programs (pools updated in place)
@@ -498,7 +600,7 @@ class InferenceEngine:
         hot = (temps > 0)[:, None]
         scaled = logits.float() / torch.clamp(temps, min=1e-6)[:, None,
                                                                None]
-        logp = torch.log_softmax(scaled, dim=-1)              # (S, W, V)
+        logp = torch.log_softmax(row_aligned(scaled), dim=-1)[..., :V]
         p_next = logp.gather(-1, d_next[..., None])[..., 0]
         d_hot = d_next[..., None] == vocab                    # (S, W, V)
         res_empty = ~torch.where(d_hot, _NEG_BIG, logits).gt(
@@ -979,6 +1081,117 @@ class InferenceEngine:
         for a in self._kamax + self._vamax:
             a[dst] = a[src]
 
+    # -- the page gather and promotion, one program each -------------- #
+
+    def _page_field(self):
+        """The gather / promote programs' page field: page p of every K
+        pool then every V pool, (2 L, H, ps, D) as the pools' bytes
+        (``paged_kv._raw``), which a payload's numpy dtype views."""
+        raw = _raw(self._kpools[0])
+        return ("kv", (2 * len(self._kpools),) + tuple(raw.shape[1:]),
+                raw.dtype)
+
+    @torch.no_grad()
+    def _gather_body(self, i: dict, o: dict):
+        """Page ``page[0]`` of every pool into the output field."""
+        for j, p in enumerate(self._kpools + self._vpools):
+            o["kv"][j:j + 1].copy_(_raw(p).index_select(0, i["page"]))
+
+    @torch.no_grad()
+    def _promote_body(self, i: dict, o: dict):
+        """The input field into page ``dst[0]`` of every pool, in
+        place."""
+        for j, p in enumerate(self._kpools + self._vpools):
+            _raw(p).index_copy_(0, i["dst"], i["kv"][j:j + 1])
+
+    def _gather_program(self) -> StepProgram:
+        """The page gather program, built at its first use (a CUDA graph
+        capture on the card; counted in ``demote_trace_count``)."""
+        prog = self._gather_prog
+        if prog is None:
+            prog = self._gather_prog = self._new_program(
+                InferenceEngine._gather_body, [("page", (1,), torch.int64)],
+                [self._page_field()])
+        if not prog.built:
+            prog.build()
+            self.demote_trace_count += 1
+        return prog
+
+    def _promote_program(self) -> StepProgram:
+        """The page promotion program, built at its first use (a CUDA
+        graph capture on the card; counted in ``promote_trace_count``)."""
+        prog = self._promote_prog
+        if prog is None:
+            prog = self._promote_prog = self._new_program(
+                InferenceEngine._promote_body,
+                [("dst", (1,), torch.int64), self._page_field()], [])
+        if not prog.built:
+            prog.build()
+            self.promote_trace_count += 1
+        return prog
+
+    def gather_page(self, page: int) -> tuple:
+        """One page's payload: ``(k_payload, v_payload, kamax, vamax)``,
+        per-layer (H, ps, D) numpy arrays of the pool's raw dtype or its
+        codes (bf16 / float8 as their bits, ``paged_kv.payload_dtype``)
+        and on a code pool the per-layer (L,) f32 amax, else None. One
+        replay of the gather program and one readback, shared by tier
+        demotion and page transport. The arrays are a copy of their own,
+        never views of the pinned readback buffer (an entry outlives the
+        next gather)."""
+        prog = self._gather_program()
+        prog.inp.host["page"][0] = page
+        kv = prog.run()["kv"].view(
+            payload_dtype(self._kpools[0].dtype)).copy()
+        L = len(self._kpools)
+        kamax = vamax = None
+        if self._kamax:
+            kamax = np.asarray([a[page] for a in self._kamax], np.float32)
+            vamax = np.asarray([a[page] for a in self._vamax], np.float32)
+        return tuple(kv[:L]), tuple(kv[L:]), kamax, vamax
+
+    def _promote_page(self, k_payload, v_payload, kamax, vamax, dst: int):
+        """Write one page payload (``gather_page``'s form) into page
+        ``dst`` of every pool: staged into the promotion program's pinned
+        input, one replay, whose readback orders the reuse of that input.
+        A code page's amax is host metadata, set beside it."""
+        prog = self._promote_program()
+        h = prog.inp.host
+        kv = h["kv"].view(payload_dtype(self._kpools[0].dtype))
+        pages = list(k_payload) + list(v_payload)
+        if len(pages) != kv.shape[0]:
+            raise MXNetError(f"page payload of {len(pages)} arrays for "
+                             f"{kv.shape[0]} pools")
+        for j, a in enumerate(pages):
+            a = np.asarray(a)
+            if a.shape != kv.shape[1:] or a.dtype != kv.dtype:
+                raise MXNetError(f"page payload {j}: {a.dtype}{a.shape} "
+                                 f"!= the pool's {kv.dtype}{kv.shape[1:]}")
+            kv[j] = a
+        h["dst"][0] = dst
+        prog.run()
+        for l, a in enumerate(self._kamax):
+            a[dst] = kamax[l]
+        for l, a in enumerate(self._vamax):
+            a[dst] = vamax[l]
+
+    def _demote_entry(self, key: bytes, ent) -> None:
+        """Capture an evicted prefix page's payload into the tiers before
+        its page returns to the free list (``PrefixIndex.reclaim``'s
+        ``demote`` callback)."""
+        k, v, kamax, vamax = self.gather_page(ent.page)
+        if self._tiers.put(key, ent.tokens, ent.depth, k, v, kamax, vamax):
+            self.tier_demotions += 1
+            self.flight.emit(self._component, EventType.CACHE_DEMOTE,
+                             entity=f"tier:{key.hex()[:16]}",
+                             tier="dram", depth=ent.depth)
+
+    def _reclaim_prefix(self, n: int) -> int:
+        """Reclaim ``n`` pages from the prefix index, demoting every
+        victim's payload into the tiers when they are on."""
+        demote = self._demote_entry if self._tiers is not None else None
+        return self._prefix.reclaim(n, self._alloc, demote)
+
     def _reset_page_amax(self, pages):
         """Zero the scale metadata of freshly allocated pages: a recycled
         page must not quantize its new owner's rows against the previous
@@ -1056,6 +1269,10 @@ class InferenceEngine:
     def _tier_policy(self, tier: Tier) -> TierPolicy:
         return self._tier_policies[tier]
 
+    @property
+    def brownout_level(self) -> int:
+        return self._brownout.level if self._brownout is not None else 0
+
     def _observe_service(self, t_admit: float):
         """EWMA of slot-residence time (admit -> finish) of completed
         requests — the unit the queue-delay estimate multiplies."""
@@ -1085,6 +1302,8 @@ class InferenceEngine:
 
     def health_snapshot(self) -> dict:
         """A consistent, detached copy of the engine's health state."""
+        bo = self._brownout
+        tiers = self._tiers
         return {
             "outcomes": dict(self.health),
             "outcomes_by_tier": {t: dict(d) for t, d in
@@ -1119,9 +1338,34 @@ class InferenceEngine:
             "prefix_hits": self.prefix_hits,
             "prefix_lookups": self.prefix_lookups,
             "prefix_hit_tokens": self.prefix_hit_tokens,
+            # cache tiers: zeros (but present) when the tiers are off
+            "kv_tier_bytes": (tiers.tier_bytes() if tiers is not None
+                              else {"dram": 0, "disk": 0}),
+            "tier_demotions": self.tier_demotions,
+            "tier_disk_demotions": (tiers.disk_demotions
+                                    if tiers is not None else 0),
+            "tier_promotions": self.tier_promotions,
+            "tier_hits": self.tier_hits,
+            "tier_hit_tokens": self.tier_hit_tokens,
+            "tier_misses": self.tier_misses,
+            "tier_crc_fallbacks": self.tier_crc_fallbacks,
+            "tier_disk_errors": (tiers.disk_errors
+                                 if tiers is not None else 0),
+            "tier_dropped": tiers.dropped if tiers is not None else 0,
+            # page transport: capsule traffic, and the pages detached
+            # slots hold in custody right now
+            "migrated_out_pages": self.migrated_out_pages,
+            "migrated_in_pages": self.migrated_in_pages,
+            "migrated_out_bytes": self.migrated_out_bytes,
+            "migrated_in_bytes": self.migrated_in_bytes,
+            "capsule_pages": sum(len(p) for p in
+                                 self._capsule_pages.values()),
             "stop_hits": self.stop_hits,
             "constrained_requests": self.constrained_requests,
             "preemptions": self.preemptions,
+            "brownout_level": self.brownout_level,
+            "brownout_escalations": bo.escalations if bo else 0,
+            "brownout_deescalations": bo.deescalations if bo else 0,
             "latency_hists": self.flight.hist_snapshot(),
         }
 
@@ -1131,6 +1375,22 @@ class InferenceEngine:
         if self._prefix is None:
             return 0
         return int(self._prefix.probe(prompt_ids))
+
+    def tier_probe(self, prompt_ids) -> int:
+        """READ-ONLY twin of ``prefix_probe`` counting the tiers too: the
+        leading tokens the engine could serve from HBM plus the pages its
+        tiers would re-admit by copy (no LRU tick anywhere). Equals
+        ``prefix_probe`` with the tiers off."""
+        if self._prefix is None:
+            return 0
+        shared, _, cached_len = self._prefix.match(prompt_ids,
+                                                   mutate=False)
+        if self._tiers is None:
+            return int(cached_len)
+        n = self._tiers.probe(prompt_ids, len(shared))
+        if n == 0:
+            return int(cached_len)
+        return (len(shared) + n) * self.page_size
 
     def can_serve(self, total_positions: int) -> bool:
         """Could a request spanning ``total_positions`` (prompt +
@@ -1315,6 +1575,9 @@ class InferenceEngine:
         if self._prefix is not None and len(self._prefix):
             self._prefix.flush(self._alloc)
             self.prefix_flushes += 1
+        if self._tiers is not None and len(self._tiers):
+            # demoted payloads come from the same cache lineage
+            self._tiers.flush()
 
     def _expire_queue(self):
         """Drop QUEUED requests whose deadline passed before admission."""
@@ -1361,11 +1624,16 @@ class InferenceEngine:
         return np.concatenate([req.prompt_ids,
                                np.asarray(req.token_ids, np.int32)])
 
-    def _queue_head(self) -> Optional[Request]:
+    def _queue_head(self, clamped_ok: bool = True) -> Optional[Request]:
         """The earliest-submitted request of the highest-priority tier
-        queued."""
+        queued; with ``clamped_ok`` False, skipping the tier brownout
+        level 3 holds (BATCH: it stays queued without blocking
+        others)."""
         best = None
         for q in self._queue:
+            if not clamped_ok and self.brownout_level >= 3 and \
+                    q.tier is Tier.BATCH:
+                continue
             if best is None or q.tier.order < best.tier.order:
                 best = q
         return best
@@ -1391,8 +1659,13 @@ class InferenceEngine:
 
     def _free_slot_state(self, slot_idx: int):
         """Release a slot's pages and scrub its per-slot arrays."""
-        slot = self._slots[slot_idx]
-        self._alloc.free(slot.refs)          # refcounted: shared pages
+        self._alloc.free(self._slots[slot_idx].refs)  # refcounted
+        self._scrub_slot_arrays(slot_idx)
+
+    def _scrub_slot_arrays(self, slot_idx: int):
+        """Scrub a slot's per-slot arrays and free the slot without
+        touching its page references (``detach_slot`` moves them into
+        custody instead)."""
         self._page_table[slot_idx, :] = NULL_PAGE  # survive via sharers
         self._lengths[slot_idx] = 0
         self._temps[slot_idx] = 0.0
@@ -1437,7 +1710,9 @@ class InferenceEngine:
         lower-tier slot when no slot is free. The blocked priority head
         blocks the tiers at and below it."""
         while self._queue:
-            req = self._queue_head()
+            req = self._queue_head(clamped_ok=False)
+            if req is None:
+                return
             slot_idx = next((i for i in range(self.num_slots)
                              if self._slots[i] is None), None)
             if slot_idx is None:
@@ -1459,7 +1734,14 @@ class InferenceEngine:
         page-aligned prefix is mapped copy-on-write (incref'd,
         read-only), the boundary partial page is copied, and only the
         suffix pays prefill. Pages held only by the index count as
-        reclaimable budget (evicted LRU when the free list is short)."""
+        reclaimable budget (evicted LRU when the free list is short).
+
+        With cache tiers on, the walk continues through the tiers from
+        the page where the index stopped; the chain found (which
+        supersedes a boundary partial page) is pinned, promoted by copy
+        into the slot's fresh private pages, and published back into the
+        index. A payload failing its crc ends the chain there; the rest
+        is recomputed."""
         ids = self._attempt_ids(req)
         t0 = int(ids.size)
         total = t0 + (req.max_new_tokens - len(req.token_ids))
@@ -1476,6 +1758,18 @@ class InferenceEngine:
                 self._alloc.incref(p)
             if partial is not None:
                 self._alloc.incref(partial[0])
+
+        tier_chain = []
+        if self._tiers is not None:
+            tier_chain = self._tiers.match_chain(ids, len(shared))
+            if tier_chain:
+                if partial is not None:
+                    self._alloc.decref(partial[0])
+                    partial = None
+                    cached_len = len(shared) * self.page_size
+                # this admission's reclaim demotes into the same store:
+                # it must not spill or drop what it is about to promote
+                self._tiers.pin(tier_chain)
 
         def _budget():
             n_new = need - len(shared)   # pages the free list owes
@@ -1507,10 +1801,12 @@ class InferenceEngine:
                 self._alloc.decref(p)
             if partial is not None:
                 self._alloc.decref(partial[0])
+            if tier_chain:
+                self._tiers.unpin(tier_chain)
             return False
         if avail < n_new:
             self.prefix_reclaimed_pages += \
-                self._prefix.reclaim(n_new - avail, self._alloc)
+                self._reclaim_prefix(n_new - avail)
         if cached_len:
             self.prefix_hits += 1
             self.prefix_hit_tokens += cached_len
@@ -1522,6 +1818,16 @@ class InferenceEngine:
         row = np.zeros((self.max_pages,), np.int32)
         row[:len(shared)] = shared
         row[len(shared):prompt_pages] = priv
+        if tier_chain:
+            cached_len = self._promote_chain(req, tier_chain, ids, row,
+                                             priv, len(shared), cached_len)
+        elif self._tiers is not None \
+                and (t0 - 1) // self.page_size > len(shared):
+            # tiers consulted, nothing usable, and at least one full page
+            # of this prompt could have been demoted: a true miss
+            self.tier_misses += 1
+            self.flight.emit(self._component, EventType.CACHE_TIER_MISS,
+                             request_id=req.request_id, reason="absent")
         # per-request sampling key: pinned by Request.seed, else drawn
         # once and REMEMBERED so a preemption resume keeps the stream
         if req.seed is not None:
@@ -1563,12 +1869,49 @@ class InferenceEngine:
                     self._run_chunk(slot_idx)
         return True
 
+    def _promote_chain(self, req, chain, ids, row, priv, n_shared: int,
+                       cached_len: int) -> int:
+        """Re-admit a pinned tier chain BY COPY into the admission's
+        fresh private pages ``priv`` (one replay of the promotion program
+        a page), in order, stopping at the first payload whose integrity
+        check fails (counted, evented; the rest is recomputed). Publishes
+        the promoted pages into the prefix index at once, so siblings
+        share them. Returns the prompt tokens now cached."""
+        promoted = 0
+        for key, ent in chain:
+            src_tier = ent.tier
+            payload = self._tiers.load(key, ent)
+            if payload is None:
+                self.tier_crc_fallbacks += 1
+                self.flight.emit(self._component, EventType.CACHE_TIER_MISS,
+                                 request_id=req.request_id,
+                                 reason="integrity", tier=src_tier,
+                                 depth=ent.depth)
+                break
+            dst = int(priv[promoted])
+            self._promote_page(*payload, dst)
+            self._tiers.remove(key, ent)
+            promoted += 1
+            self.tier_promotions += 1
+            self.flight.emit(self._component, EventType.CACHE_PROMOTE,
+                             request_id=req.request_id, tier=src_tier,
+                             depth=ent.depth, page=dst)
+        self._tiers.unpin(chain)
+        if not promoted:
+            return cached_len
+        cached_len = (n_shared + promoted) * self.page_size
+        self.tier_hits += 1
+        self.tier_hit_tokens += promoted * self.page_size
+        self._prefix.insert(ids[:cached_len], row, self._alloc)
+        return cached_len
+
     def _restore_stream_state(self, slot_idx: int, slot: _Slot):
         """Derive a slot's sampling-menu state from its attempt ids: knob
         vectors, bias row, the token-count table over the full attempt
-        history, and (from the GENERATED part only) the grammar state
-        and stop-sequence window, so a resume samples as the unbroken
-        run would."""
+        history, and (from the GENERATED part only: past ``prompt_len``
+        when the request carries one) the grammar state and stop-sequence
+        window, so a resume — a preemption's, or a transported slot's on
+        its new engine — samples as the unbroken run would."""
         req = slot.request
         ids = slot.attempt_ids
         self._tok_counts[slot_idx] = np.bincount(
@@ -1583,7 +1926,9 @@ class InferenceEngine:
             if sp.logit_bias:
                 for t, b in sp.logit_bias.items():
                     self._logit_bias[slot_idx, t] = b
-            gen = [int(t) for t in ids[req.prompt_ids.size:]]
+            base = req.prompt_len if req.prompt_len is not None \
+                else int(req.prompt_ids.size)
+            gen = [int(t) for t in ids[base:]]
             if sp.grammar is not None:
                 self.constrained_requests += 1
                 st = sp.grammar.start()
@@ -1595,6 +1940,153 @@ class InferenceEngine:
                 slot.grammar_state = st
             if sp.stop_sequences and sp.max_stop_len > 1:
                 slot.stop_tail = gen[-(sp.max_stop_len - 1):]
+
+    # ------------------------------------------------------------- #
+    # page transport (serve/transport.py owns the capsule)
+    # ------------------------------------------------------------- #
+
+    def kv_wire_sig(self) -> tuple:
+        """The pool layout a page payload means something under: quant
+        mode, page size, layer count, page shape and pool dtype. A capsule
+        captured under one is never installed under another."""
+        return (self.kv_quant or "off", self.page_size, len(self._kpools),
+                tuple(self._kpools[0].shape[1:]),
+                str(self._kpools[0].dtype).replace("torch.", ""))
+
+    def _slot_of(self, request_id) -> Optional[int]:
+        for i, slot in enumerate(self._slots):
+            if slot is not None and slot.request.request_id == request_id:
+                return i
+        return None
+
+    def decode_ready(self, request_id: int) -> bool:
+        """True when ``request_id`` holds a slot past prefill, the only
+        state a slot can be captured from."""
+        i = self._slot_of(request_id)
+        return i is not None and not self._slots[i].prefilling
+
+    def capture_slot(self, request_id: int) -> Optional[dict]:
+        """READ-ONLY capture probe: the decode-ready slot's request, its
+        sampling key, its populated page row (positions ``[0, n_pos)``;
+        the destination recomputes the one after) and ``n_pos``. Nothing
+        moves, so an aborted capture leaves the slot as it was. None when
+        the request holds no decode-ready slot here."""
+        i = self._slot_of(request_id)
+        if i is None or self._slots[i].prefilling:
+            return None
+        n_pos = int(self._lengths[i])
+        if n_pos <= 0:
+            return None
+        slot = self._slots[i]
+        n_pages = -(-n_pos // self.page_size)
+        return {"request": slot.request, "key": int(slot.key),
+                "pages": [int(p) for p in self._page_table[i, :n_pages]],
+                "n_pos": n_pos}
+
+    def detach_slot(self, request_id: int) -> Optional[Request]:
+        """Move a decode-ready slot's page references into custody
+        (``_capsule_pages``) and free the slot, with no terminal: the
+        transport owns the outcome. ``release_capsule`` returns the pages
+        once the transfer lands or falls back. Returns the request, or
+        None when it holds no decode-ready slot here."""
+        i = self._slot_of(request_id)
+        if i is None or self._slots[i].prefilling:
+            return None
+        slot = self._slots[i]
+        self._capsule_pages[int(request_id)] = list(slot.refs)
+        self._scrub_slot_arrays(i)
+        return slot.request
+
+    def release_capsule(self, request_id: int) -> int:
+        """Drop a capsule's page custody (the source's end of every
+        transfer, success or fallback); returns the references
+        released."""
+        pages = self._capsule_pages.pop(int(request_id), None)
+        if pages is None:
+            return 0
+        self._alloc.free(pages)
+        return len(pages)
+
+    def install_slot(self, request: Request, payloads, n_pos: int, key,
+                     wire_bytes: int = 0, page_hook=None,
+                     abort=None) -> bool:
+        """Install a transported slot: fresh private pages, every
+        payload written through the promotion program, the capsule's
+        sampling key pinned on the request (a seedless stream continues
+        unchanged), the stream state re-derived as a resume would. The
+        slot is decode-ready at once, at length ``n_pos`` with the
+        attempt's last token to feed: the engine's next decode step
+        writes that boundary token's K/V and samples after it, exactly as
+        the source's next step would have (the same program on the same
+        row, so the stream continues bitwise on a card too; the JAX
+        engine recomputes the boundary through its chunk program
+        instead). No prefill runs. Its full pages of positions ``[0,
+        n_pos)`` are published into the prefix index. Refuses (False,
+        engine untouched) with no free slot or pages, a terminal
+        request, or a capsule that does not line up with the attempt
+        (``n_pos != len(attempt) - 1``); an ``abort()`` mid-install
+        frees the pages and refuses."""
+        if request.outcome is not None:
+            return False
+        slot_idx = next((i for i in range(self.num_slots)
+                         if self._slots[i] is None), None)
+        if slot_idx is None:
+            return False
+        ids = self._attempt_ids(request)
+        t0 = int(ids.size)
+        if n_pos != t0 - 1 or n_pos <= 0:
+            return False
+        if -(-n_pos // self.page_size) != len(payloads):
+            return False
+        total = t0 + (request.max_new_tokens - len(request.token_ids))
+        need = -(-total // self.page_size)
+        prompt_pages = -(-t0 // self.page_size)
+        avail = self._alloc.free_count - self._lazy_debt
+        recl = self._prefix.reclaimable(self._alloc) \
+            if self._prefix is not None else 0
+        if avail + recl < need:
+            return False
+        if avail < prompt_pages:
+            self.prefix_reclaimed_pages += \
+                self._reclaim_prefix(prompt_pages - avail)
+        priv = [self._alloc.alloc() for _ in range(prompt_pages)]
+        self._reset_page_amax(priv)
+        for j, payload in enumerate(payloads):
+            if page_hook is not None:
+                page_hook(j, len(payloads))
+            if abort is not None and abort():
+                # pages are identity-free: a half-written one needs only
+                # its reference back on the free list
+                self._alloc.free(priv)
+                return False
+            self._promote_page(*payload, int(priv[j]))
+        row = np.zeros((self.max_pages,), np.int32)
+        row[:prompt_pages] = priv
+        request._assigned_key = int(key)
+        if request.submit_time is None:
+            request.submit_time = time.perf_counter()
+        if request._deadline_abs is None and \
+                request.deadline_s is not None:
+            request._deadline_abs = request.submit_time + request.deadline_s
+        slot = _Slot(request, reserved_pages=need, refs=priv, row=row,
+                     t0=t0, attempt_ids=ids, prefill_pos=t0,
+                     t_admit=time.perf_counter(), key=int(key))
+        self._slots[slot_idx] = slot
+        self._restore_stream_state(slot_idx, slot)
+        self._page_table[slot_idx, :] = row
+        self._lengths[slot_idx] = n_pos
+        self._temps[slot_idx] = request.temperature
+        self._keys[slot_idx] = _key64(slot.key)
+        if self._prefix is not None:
+            self._prefix.insert(ids[:n_pos], row, self._alloc)
+        self.migrated_in_pages += len(payloads)
+        self.migrated_in_bytes += int(wire_bytes)
+        self.flight.emit(self._component, EventType.ADMIT,
+                         request_id=request.request_id,
+                         tier=request.tier.value, slot=slot_idx, t0=t0,
+                         cached_len=n_pos, migrated=True,
+                         queue_delay_s=None)
+        return True
 
     def _dense_prefill(self, slot_idx: int):
         """Monolithic prompt prefill: the prompt padded to its
@@ -1661,8 +2153,11 @@ class InferenceEngine:
     def _advance_prefill(self) -> int:
         """Chunked-prefill scheduler: round-robin one chunk at a time
         over prefilling slots, never exceeding ``token_budget`` prompt
-        tokens per engine step. Returns tokens processed."""
+        tokens per engine step (brownout level 2 clamps it to one chunk:
+        the same buckets, no new capture). Returns tokens processed."""
         budget = self.token_budget
+        if self.brownout_level >= 2:
+            budget = min(budget, self.chunk_pages * self.page_size)
         spent = 0
         progressed = True
         while budget > 0 and progressed:
@@ -1707,7 +2202,8 @@ class InferenceEngine:
         whether gating suppressed at least one slot."""
         drafts: dict = {}
         gated = False
-        if self.spec_k == 0:
+        if self.spec_k == 0 or self.brownout_level >= 1:
+            # brownout level 1 turns speculation off: W = 1 steps
             return drafts, gated
         vocab = self.model.vocab_size
         probe = self.spec_patience == 0 or \
@@ -1785,7 +2281,7 @@ class InferenceEngine:
                 if self._alloc.free_count == 0 and \
                         self._prefix is not None:
                     self.prefix_reclaimed_pages += \
-                        self._prefix.reclaim(1, self._alloc)
+                        self._reclaim_prefix(1)
                 if self._alloc.free_count == 0:
                     if pi == first_pi:
                         slot.stall_count += 1
@@ -1852,6 +2348,10 @@ class InferenceEngine:
         draft missed). Returns the number of slots that advanced."""
         self._expire_queue()
         self._expire_slots()
+        if self._brownout is not None:
+            # one evaluation per scheduler step, before admission, so a
+            # clamp applies to this step's admissions
+            self._brownout.update(self)
         self._admit()
         if self.chunk_pages is not None:
             self._advance_prefill()
@@ -1873,7 +2373,7 @@ class InferenceEngine:
         tokens = np.zeros((self.num_slots, W), np.int64)
         draft_len = np.zeros((self.num_slots,), np.int32)
         for s in live:
-            tokens[s, 0] = self._slots[s].request.token_ids[-1]
+            tokens[s, 0] = self._slots[s].attempt_last
             d = drafts.get(s)
             if d is not None:
                 tokens[s, 1:1 + d.size] = d
@@ -1937,8 +2437,17 @@ class InferenceEngine:
         """Assert the page invariant: every page 1..P-1 is EITHER on the
         free list (refcount 0) OR live, and a live page's refcount
         equals the slot mappings plus index entries (plus allocator
-        holds) that reference it. Raises MXNetError on a leak or a
+        holds, plus the custody of detached slots' capsules) that
+        reference it; a request is never both slotted and in custody;
+        and the tier store's own accounting balances (a demoted page is
+        a payload with no page id). Raises MXNetError on a leak or a
         double grant."""
+        for rid in self._capsule_pages:
+            for slot in self._slots:
+                if slot is not None and slot.request.request_id == rid:
+                    raise MXNetError(
+                        f"page audit: request {rid} holds a slot AND an "
+                        f"in-flight capsule (double identity)")
         expect = [0] * self.num_pages
         for slot in self._slots:
             if slot is None:
@@ -1950,6 +2459,9 @@ class InferenceEngine:
                 expect[p] += 1
         for p in self._alloc.held:
             expect[p] += 1
+        for pages in self._capsule_pages.values():
+            for p in pages:
+                expect[p] += 1
         free = self._alloc._free
         free_set = set(free)
         if len(free_set) != len(free):
@@ -1968,25 +2480,71 @@ class InferenceEngine:
                 state = "free AND referenced (double grant)" if rc > 0 \
                     else "neither free nor referenced (leak)"
                 raise MXNetError(f"page audit: page {p} is {state}")
+        if self._tiers is not None:
+            self._tiers.audit()
 
     # ------------------------------------------------------------- #
-    # not ported yet
+    # warm restart
     # ------------------------------------------------------------- #
 
-    def _not_ported(self, what):
-        raise MXNetError(f"{what} is not ported to the PyTorch engine yet")
+    def warm_start(self, params=None, manager=None, step=None) -> None:
+        """Swap new weights into the live engine. ``params``: the port's
+        own ``state_dict()`` names, or positional keys ``"<i>"`` /
+        ``"param/<i>"`` in the JAX package's ``collect_params()`` order
+        (``models.convert.gpt_param_names``; a training capsule's other
+        entries are ignored) -> tensors or numpy arrays. Every shape and
+        dtype is checked before the first write; the values are then
+        ``copy_``-ed into the model's parameters, which the captured
+        graphs hold by address, so they serve the new weights with no new
+        capture. The prefix index and the tiers are flushed: cached K/V
+        was computed under the old weights. ``manager=`` needs the
+        checkpoint manager, which is not ported yet."""
+        if manager is not None:
+            raise MXNetError("warm_start(manager=...): the checkpoint "
+                             "manager is not ported to the PyTorch engine "
+                             "yet")
+        if params is None:
+            raise MXNetError("warm_start needs params")
+        items = {k[len("param/"):]: v for k, v in params.items()
+                 if k.startswith("param/")} or dict(params)
+        targets = dict(self.model.named_parameters())
+        positional = all(k.isdigit() for k in items)
+        names = gpt_param_names(self.model.num_layers) if positional \
+            else list(targets)
+        new = []
+        for i, name in enumerate(names):
+            key = str(i) if positional else name
+            if key not in items:
+                raise MXNetError(f"warm_start: no value for parameter {i} "
+                                 f"('{name}')")
+            v = items[key]
+            v = v.detach() if torch.is_tensor(v) else _to_tensor(v)
+            cur = targets[name]
+            if v.shape != cur.shape or v.dtype != cur.dtype:
+                raise MXNetError(
+                    f"warm_start: parameter '{name}' is "
+                    f"{str(cur.dtype).replace('torch.', '')}"
+                    f"{tuple(cur.shape)} but the new value is "
+                    f"{str(v.dtype).replace('torch.', '')}{tuple(v.shape)}"
+                    f" — shape/dtype changes require a new engine")
+            new.append((cur, v))
+        with torch.no_grad():
+            for cur, v in new:
+                cur.copy_(v)
+        if self._prefix is not None:
+            self._prefix.flush(self._alloc)
+            self.prefix_flushes += 1
+        if self._tiers is not None:
+            self._tiers.flush()
+        self.warm_restarts += 1
 
-    def capture_slot(self, request_id):
-        self._not_ported("page transport (capture_slot)")
+    def save_checkpoint(self, manager, step=None, block=False):
+        raise MXNetError("save_checkpoint: the checkpoint manager is not "
+                         "ported to the PyTorch engine yet")
 
-    def install_slot(self, *args, **kwargs):
-        self._not_ported("page transport (install_slot)")
-
-    def warm_start(self, *args, **kwargs):
-        self._not_ported("warm_start")
-
-    def save_checkpoint(self, *args, **kwargs):
-        self._not_ported("save_checkpoint")
+    def install_preemption(self, manager, exit_after=True):
+        raise MXNetError("install_preemption: the checkpoint manager is "
+                         "not ported to the PyTorch engine yet")
 
     # ------------------------------------------------------------- #
     # driving
@@ -2005,13 +2563,23 @@ class InferenceEngine:
 
     def _fail_starved_head(self, polls: int):
         """Bounded give-up on an unadmittable queue head while the
-        engine is otherwise idle."""
+        engine is otherwise idle. A head queued only because brownout
+        holds its tier is not page-starved: it is SHED (retryable)."""
+        head = self._queue_head(clamped_ok=False)
+        if head is not None:
+            self.withdraw(head)
+            self._record_terminal(
+                head, Outcome.FAILED_UNSERVABLE,
+                f"page-starved: head of an idle engine for {polls} polls "
+                f"(free={self._alloc.free_count})")
+            return
         head = self._queue_head()
         self.withdraw(head)
         self._record_terminal(
-            head, Outcome.FAILED_UNSERVABLE,
-            f"page-starved: head of an idle engine for {polls} polls "
-            f"(free={self._alloc.free_count})")
+            head, Outcome.SHED,
+            f"brownout level {self.brownout_level} held "
+            f"{head.tier.value} admissions clamped for {polls} idle "
+            f"polls")
 
     def run(self, requests, arrival_times=None, poll_sleep=1e-3,
             before_step=None, after_step=None):

@@ -36,6 +36,8 @@ updated per-page amax.
 from __future__ import annotations
 
 import dataclasses
+import os
+import zlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -50,7 +52,8 @@ NULL_PAGE = 0
 __all__ = ["NULL_PAGE", "PageAllocator", "PrefixIndex", "init_kv_pools",
            "write_token_kv", "write_prompt_kv", "write_block_kv",
            "KVQuantSpec", "kv_quant_spec", "page_scales",
-           "write_token_kv_q", "write_prompt_kv_q", "write_block_kv_q"]
+           "write_token_kv_q", "write_prompt_kv_q", "write_block_kv_q",
+           "KVTierStore", "payload_crc", "payload_nbytes", "payload_dtype"]
 
 
 class PageAllocator:
@@ -366,6 +369,433 @@ class PrefixIndex:
         self.flushes += 1
 
 
+# --------------------------------------------------------------------- #
+# hierarchical cache tiers (host DRAM → disk) beneath the prefix index,
+# as the JAX package's (host-side numpy; payload arrays are the pool's
+# raw dtype or, for bf16 / float8 pools, their bits: uint16 / uint8)
+#
+# When LRU reclaim would DELETE an evicted-but-published page, the
+# engine demotes its payload here instead: int8/fp8 codes plus the
+# per-page amax for quantized pools, the raw-dtype page for unquantized
+# ones. A later prefix probe that misses HBM but hits a tier re-admits
+# the page by COPY into a freshly allocated page — host-side data
+# movement through the engine's one promotion program, never a prefill
+# recompute.
+#
+# A demoted page has NO page id and NO refcount: _TierEntry carries the
+# payload itself, deliberately without a ``page`` field, so "free XOR
+# live XOR demoted" is structural — the only way back into the page
+# pool is ``KVTierStore.load`` + the engine's promote copy into a page
+# the allocator just handed out. The store never touches a
+# PageAllocator.
+# --------------------------------------------------------------------- #
+
+@dataclasses.dataclass(eq=False)        # identity semantics, like
+class _TierEntry:                       # _PrefixEntry (ndarray fields)
+    tokens: np.ndarray          # the page's token ids (full page)
+    depth: int                  # page index within its prompt chain
+    last_use: int
+    nbytes: int                 # payload bytes (accounting unit)
+    tier: str                   # "dram" | "disk"
+    # DRAM payload (None once spilled to disk):
+    k_payload: Optional[Tuple[np.ndarray, ...]]   # per-layer (H, ps, D)
+    v_payload: Optional[Tuple[np.ndarray, ...]]
+    kamax: Optional[np.ndarray]  # (L,) f32 page amax, quantized pools
+    vamax: Optional[np.ndarray]
+    crc: int                    # crc32 over the DRAM payload bytes
+    step: Optional[int] = None  # manifest step id (disk tier only)
+    pinned: bool = False        # admission in flight — not evictable
+
+
+def payload_crc(k_payload, v_payload, kamax, vamax, seed: int = 0) -> int:
+    """crc32 over one page payload's bytes, chained from ``seed`` —
+    the ONE integrity primitive for KV bytes at rest and on the wire:
+    tier entries checksum each page independently (seed 0), the page
+    transport (serve/transport.py) chains page crcs through the whole
+    capsule so a reordered, dropped, or substituted page breaks every
+    later link, not just its own."""
+    c = seed & 0xFFFFFFFF
+    for arr in (*k_payload, *v_payload):
+        c = zlib.crc32(np.ascontiguousarray(arr).tobytes(), c)
+    for arr in (kamax, vamax):
+        if arr is not None:
+            c = zlib.crc32(np.ascontiguousarray(arr).tobytes(), c)
+    return c
+
+
+def payload_nbytes(k_payload, v_payload, kamax, vamax) -> int:
+    """Wire/at-rest size of one page payload — the accounting unit
+    behind tier byte budgets and capsule ``kv_migrated_bytes_total``
+    (int8 codes + f32 scales ≈ 1/4 the raw-dtype bytes)."""
+    n = sum(a.nbytes for a in (*k_payload, *v_payload))
+    for arr in (kamax, vamax):
+        if arr is not None:
+            n += arr.nbytes
+    return n
+
+
+class KVTierStore:
+    """Bounded host-DRAM pool of demoted prefix pages, spilling its own
+    LRU overflow to a disk tier built on the checkpoint manifest's
+    audited write path (crc32 per shard, write-to-tmp + atomic rename).
+
+    Keys mirror ``PrefixIndex``: preceding-token-prefix bytes → sibling
+    entries, so a tier lookup continues exactly where the HBM radix
+    walk stopped. Only FULL pages are tiered (a boundary partial page
+    is cheap to recompute and its COW copy needs the source resident).
+
+    Integrity: every DRAM entry carries a crc32 of its payload,
+    verified at promotion; the disk tier inherits the manifest's
+    per-shard crc32. A failed check drops the entry and returns None —
+    the engine falls back to recomputing prefill, loudly, never
+    admitting bytes it cannot verify.
+
+    Crash safety: tier contents are weight-dependent and process-
+    lifetime. Construction wipes any step directories left under
+    ``disk_dir`` by an earlier process (a kill mid-promotion or
+    mid-demotion leaves either a committed-but-orphaned step or a
+    ``.tmp`` — both stale by definition).
+
+    ``kv_dtype`` names the payload's logical dtype for the disk tier's
+    manifest (``"bfloat16"``, ``"float8_e4m3fn"``: the arrays are their
+    bits), so a spilled page reloads bitwise without ``ml_dtypes``."""
+
+    def __init__(self, page_size: int, dram_bytes: int,
+                 disk_dir: Optional[str] = None,
+                 disk_bytes: Optional[int] = None,
+                 recorder=None, component: str = "engine",
+                 kv_dtype: Optional[str] = None):
+        from ..events import EventType, resolve_recorder
+        self._EventType = EventType
+        self.page_size = int(page_size)
+        # the payload's logical dtype in the disk tier's manifest (bf16 /
+        # float8 payloads are their bits); None: the arrays' own dtype
+        self.kv_dtype = kv_dtype
+        self.dram_bytes = int(dram_bytes)
+        if self.dram_bytes < 0:
+            raise MXNetError("kv tier dram_bytes must be >= 0")
+        self.disk_dir = disk_dir
+        self.disk_bytes = None if disk_bytes is None else int(disk_bytes)
+        self.flight = resolve_recorder(recorder)
+        self._component = component
+        self._entries: Dict[bytes, List[_TierEntry]] = {}
+        self._clock = 0
+        self._dram_used = 0
+        self._disk_used = 0
+        self._disk_seq = 0
+        # counters (mirrored into engine health_snapshot / metrics)
+        self.demotions = 0          # HBM → DRAM admissions
+        self.disk_demotions = 0     # DRAM → disk spills
+        self.promotions = 0         # entries handed back for re-admission
+        self.dropped = 0            # evicted off the bottom tier
+        self.crc_failures = 0       # payload failed its integrity check
+        self.disk_errors = 0        # disk tier write/read failed (OSError)
+        self.flushes = 0
+        # seam for fault injection (serve/chaos.py DiskFullDemotion)
+        from ..checkpoint import manifest as _manifest
+        self._manifest = _manifest
+        self._write_step = _manifest.write_step
+        if self.disk_dir is not None:
+            self._wipe_disk_dir()
+
+    # -- basics -------------------------------------------------------- #
+
+    def __len__(self) -> int:
+        return sum(len(b) for b in self._entries.values())
+
+    def _tick(self) -> int:
+        self._clock += 1
+        return self._clock
+
+    def entries(self):
+        """Read-only iteration seam: yields ``(key, entry)`` pairs.
+        Used by the chaos harness (to pick a victim payload to corrupt)
+        and by tests — NOT a license to mutate the store's accounting;
+        structural changes go through ``put``/``remove``/``flush``."""
+        for key, bucket in self._entries.items():
+            for ent in bucket:
+                yield key, ent
+
+    def tier_bytes(self) -> Dict[str, int]:
+        """Payload bytes resident per tier (the ``kv_tier_bytes``
+        gauge's data source)."""
+        return {"dram": self._dram_used, "disk": self._disk_used}
+
+    # -- disk tier plumbing -------------------------------------------- #
+
+    def _wipe_disk_dir(self):
+        import shutil
+        os.makedirs(self.disk_dir, exist_ok=True)
+        for name in os.listdir(self.disk_dir):
+            path = os.path.join(self.disk_dir, name)
+            if os.path.isdir(path):
+                shutil.rmtree(path, ignore_errors=True)
+
+    def _spill_to_disk(self, key: bytes, ent: _TierEntry) -> bool:
+        """DRAM → disk via the manifest's audited write path. Returns
+        False (and drops the entry — plain eviction, loudly counted)
+        when the disk tier is unconfigured or the write fails."""
+        if self.disk_dir is None:
+            return False
+        k = np.stack([np.asarray(a) for a in ent.k_payload])
+        v = np.stack([np.asarray(a) for a in ent.v_payload])
+        step = self._disk_seq
+        self._disk_seq += 1
+        arrays = {"k": k, "v": v}
+        if ent.kamax is not None:
+            arrays["kamax"] = ent.kamax
+            arrays["vamax"] = ent.vamax
+        entries = {
+            name: {"shape": tuple(arr.shape),
+                   "dtype": (self.kv_dtype if name in ("k", "v") and
+                             self.kv_dtype else str(arr.dtype)),
+                   "spec": None,
+                   "shards": [([[0, s] for s in arr.shape], arr)]}
+            for name, arr in arrays.items()}
+        meta = {"key_hex": key.hex(), "tokens": ent.tokens.tolist(),
+                "depth": ent.depth, "crc": ent.crc}
+        try:
+            self._write_step(self.disk_dir, step, entries, meta=meta)
+        except (OSError, MXNetError) as e:
+            self.disk_errors += 1
+            self.flight.emit(self._component,
+                             self._EventType.CACHE_DEMOTE,
+                             entity=f"tier:{key.hex()[:16]}",
+                             tier="disk", ok=False, error=str(e)[:200])
+            return False
+        ent.tier = "disk"
+        ent.step = step
+        ent.k_payload = ent.v_payload = None
+        ent.kamax = ent.vamax = None
+        self._dram_used -= ent.nbytes
+        self._disk_used += ent.nbytes
+        self.disk_demotions += 1
+        self.flight.emit(self._component, self._EventType.CACHE_DEMOTE,
+                         entity=f"tier:{key.hex()[:16]}",
+                         tier="disk", ok=True, nbytes=ent.nbytes,
+                         depth=ent.depth)
+        return True
+
+    def _load_disk(self, key: bytes, ent: _TierEntry):
+        try:
+            arrays, meta = self._manifest.load_step(self.disk_dir,
+                                                    ent.step)
+        except MXNetError:
+            self.crc_failures += 1
+            return None
+        except OSError:
+            self.disk_errors += 1
+            return None
+        k = tuple(arrays["k"][i] for i in range(arrays["k"].shape[0]))
+        v = tuple(arrays["v"][i] for i in range(arrays["v"].shape[0]))
+        kamax = arrays.get("kamax")
+        vamax = arrays.get("vamax")
+        if payload_crc(k, v, kamax, vamax) != meta.get("crc"):
+            self.crc_failures += 1
+            return None
+        return k, v, kamax, vamax
+
+    def _delete_disk_step(self, ent: _TierEntry):
+        import shutil
+        if ent.step is None or self.disk_dir is None:
+            return
+        shutil.rmtree(self._manifest.step_dir(self.disk_dir, ent.step),
+                      ignore_errors=True)
+
+    # -- bounded eviction ---------------------------------------------- #
+
+    def _lru(self, tier: str):
+        cands = [(k, e) for k, b in self._entries.items() for e in b
+                 if e.tier == tier and not e.pinned]
+        if not cands:
+            return None
+        return min(cands, key=lambda kv: (kv[1].last_use, -kv[1].depth))
+
+    def _enforce_bounds(self):
+        """Spill DRAM overflow to disk, drop disk overflow entirely.
+        Pinned entries (an admission is mid-promotion) never move —
+        bounds may transiently overshoot while a chain is pinned."""
+        while self._dram_used > self.dram_bytes:
+            victim = self._lru("dram")
+            if victim is None:
+                break
+            key, ent = victim
+            if not self._spill_to_disk(key, ent):
+                self._discard(key, ent)
+                self.dropped += 1
+        while (self.disk_bytes is not None
+               and self._disk_used > self.disk_bytes):
+            victim = self._lru("disk")
+            if victim is None:
+                break
+            self._discard(*victim)
+            self.dropped += 1
+
+    def _discard(self, key: bytes, ent: _TierEntry):
+        bucket = self._entries[key]
+        bucket.remove(ent)
+        if not bucket:
+            del self._entries[key]
+        if ent.tier == "dram":
+            self._dram_used -= ent.nbytes
+        else:
+            self._disk_used -= ent.nbytes
+            self._delete_disk_step(ent)
+
+    # -- the tier API the engine drives -------------------------------- #
+
+    def put(self, key: bytes, tokens, depth: int,
+            k_payload, v_payload, kamax=None, vamax=None) -> bool:
+        """Admit one demoted page's payload into the DRAM tier.
+        Duplicate content under the same key refreshes the existing
+        entry instead (first writer wins, like ``PrefixIndex.insert``).
+        Returns True when a NEW entry was stored."""
+        toks = np.asarray(tokens, np.int32).reshape(-1).copy()
+        bucket = self._entries.setdefault(key, [])
+        dup = next((e for e in bucket
+                    if np.array_equal(e.tokens, toks)), None)
+        if dup is not None:
+            dup.last_use = self._tick()
+            return False
+        k_payload = tuple(np.asarray(a) for a in k_payload)
+        v_payload = tuple(np.asarray(a) for a in v_payload)
+        kamax = None if kamax is None else np.asarray(kamax, np.float32)
+        vamax = None if vamax is None else np.asarray(vamax, np.float32)
+        nbytes = sum(a.nbytes for a in (*k_payload, *v_payload))
+        nbytes += sum(a.nbytes for a in (kamax, vamax) if a is not None)
+        ent = _TierEntry(
+            tokens=toks, depth=int(depth), last_use=self._tick(),
+            nbytes=nbytes, tier="dram", k_payload=k_payload,
+            v_payload=v_payload, kamax=kamax, vamax=vamax,
+            crc=payload_crc(k_payload, v_payload, kamax, vamax))
+        bucket.append(ent)
+        self._dram_used += nbytes
+        self.demotions += 1
+        self._enforce_bounds()
+        return True
+
+    def match_chain(self, prompt_ids, start_page: int,
+                    mutate: bool = True) -> List[Tuple[bytes,
+                                                       _TierEntry]]:
+        """Continue a prefix walk from page ``start_page`` (where the
+        HBM index stopped) through the tiers: consecutive FULL-page
+        matches only, each requiring the prompt to continue past the
+        page (the last prompt token is always recomputed — its logits
+        seed first-token sampling, exactly ``PrefixIndex.match``'s
+        cap). Returns the ``(key, entry)`` chain, possibly empty."""
+        ps = self.page_size
+        prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
+        chain: List[Tuple[bytes, _TierEntry]] = []
+        m = int(start_page)
+        while True:
+            siblings = self._entries.get(prompt[:m * ps].tobytes())
+            if not siblings:
+                break
+            rest = prompt[m * ps:]
+            if rest.size <= ps:
+                break
+            hit = next((e for e in siblings
+                        if np.array_equal(e.tokens, rest[:ps])), None)
+            if hit is None:
+                break
+            if mutate:
+                hit.last_use = self._tick()
+            chain.append((prompt[:m * ps].tobytes(), hit))
+            m += 1
+        return chain
+
+    def probe(self, prompt_ids, start_page: int) -> int:
+        """READ-ONLY twin of ``match_chain``: pages the tiers could
+        re-admit, with zero side effects (no LRU ticks) — the router's
+        second affinity axis."""
+        return len(self.match_chain(prompt_ids, start_page,
+                                    mutate=False))
+
+    def pin(self, chain) -> None:
+        """Protect a matched chain from eviction while its admission
+        is in flight (demotions triggered by the SAME admission's
+        reclaim must not spill or drop the pages it is promoting)."""
+        for _, ent in chain:
+            ent.pinned = True
+
+    def unpin(self, chain) -> None:
+        for _, ent in chain:
+            ent.pinned = False
+        self._enforce_bounds()
+
+    def load(self, key: bytes, ent: _TierEntry):
+        """Fetch one entry's payload for promotion, verifying its
+        integrity: the DRAM crc32, or the manifest's per-shard crc plus
+        the stored payload crc for a disk entry. Returns ``(k_payload,
+        v_payload, kamax, vamax)`` or None — on ANY failure the entry
+        is removed (its bytes are untrustworthy) and the caller must
+        fall back to recomputing prefill."""
+        if ent.tier == "dram":
+            if payload_crc(ent.k_payload, ent.v_payload,
+                            ent.kamax, ent.vamax) != ent.crc:
+                self.crc_failures += 1
+                self._discard(key, ent)
+                return None
+            return ent.k_payload, ent.v_payload, ent.kamax, ent.vamax
+        out = self._load_disk(key, ent)
+        if out is None:
+            self._discard(key, ent)
+        return out
+
+    def remove(self, key: bytes, ent: _TierEntry) -> None:
+        """Retire an entry whose page was just promoted back into the
+        pool (it is live again — keeping the tier copy would violate
+        free XOR live XOR demoted)."""
+        self._discard(key, ent)
+
+    def flush(self) -> None:
+        """Drop every entry in every tier (cached K/V is weight-
+        dependent: the engine flushes tiers on ``warm_start`` and
+        quarantine, alongside the HBM prefix index)."""
+        for key, bucket in list(self._entries.items()):
+            for ent in list(bucket):
+                self._discard(key, ent)
+        self._entries.clear()
+        self._dram_used = self._disk_used = 0
+        self.flushes += 1
+
+    def audit(self) -> Dict[str, int]:
+        """Structural self-check, called from the engine's
+        ``audit_pages``: byte accounting matches the entries, DRAM
+        entries hold payloads and no step, disk entries the reverse,
+        and the DRAM bound holds whenever nothing is pinned. Raises
+        MXNetError on any violation; returns ``tier_bytes()``."""
+        dram = disk = 0
+        pinned = False
+        for key, bucket in self._entries.items():
+            for ent in bucket:
+                pinned = pinned or ent.pinned
+                if ent.tier == "dram":
+                    if ent.k_payload is None or ent.step is not None:
+                        raise MXNetError(
+                            f"tier audit: dram entry {key.hex()[:16]} "
+                            f"missing payload or carrying a disk step")
+                    dram += ent.nbytes
+                elif ent.tier == "disk":
+                    if ent.k_payload is not None or ent.step is None:
+                        raise MXNetError(
+                            f"tier audit: disk entry {key.hex()[:16]} "
+                            f"holding a payload or missing its step")
+                    disk += ent.nbytes
+                else:
+                    raise MXNetError(f"tier audit: unknown tier "
+                                     f"{ent.tier!r}")
+        if dram != self._dram_used or disk != self._disk_used:
+            raise MXNetError(
+                f"tier audit: byte accounting drift (dram {dram} vs "
+                f"{self._dram_used}, disk {disk} vs {self._disk_used})")
+        if not pinned and self._dram_used > self.dram_bytes:
+            raise MXNetError(
+                f"tier audit: dram tier over budget with nothing "
+                f"pinned ({self._dram_used} > {self.dram_bytes})")
+        return self.tier_bytes()
+
+
 def init_kv_pools(num_layers, num_pages, num_heads, page_size, head_dim,
                   dtype=torch.float32, device=None, quant=None):
     """Fresh zeroed (k_pool, v_pool) pairs, one per layer; ``quant`` (a
@@ -421,6 +851,18 @@ def _raw(pool):
     """The pool's bytes for index reads and writes (float8 indexing is
     not implemented on every device; a byte view moves the same bits)."""
     return pool.view(torch.uint8) if pool.dtype.is_floating_point else pool
+
+
+def payload_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype of a page payload from a pool of ``dtype``: the
+    dtype itself (float32, float16, int8), or for bf16 and float8 the
+    unsigned integer of their width holding their bits, so a payload
+    moves bitwise through numpy and the disk tier."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.uint16)
+    if dtype.is_floating_point and dtype.itemsize == 1:
+        return np.dtype(np.uint8)
+    return torch.empty((), dtype=dtype).numpy().dtype
 
 
 def write_token_kv_q(pool, amax, new, pages, offsets, spec: KVQuantSpec):

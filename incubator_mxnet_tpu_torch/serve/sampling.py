@@ -32,6 +32,7 @@ from ..base import MXNetError
 __all__ = ["SamplingParams", "TokenGrammar", "TokenFsm",
            "choice_grammar", "constrain_logits", "grammar_mask",
            "match_stop", "NEUTRAL", "draw_uniform", "sample_inverse_cdf",
+           "row_aligned",
            "DRAW_STREAM", "ACCEPT_STREAM"]
 
 _NEG_BIG = -1e30                       # matches serve/engine.py
@@ -372,17 +373,34 @@ def draw_uniform(keys, positions, stream: int):
     return ((h >> 9).to(torch.float32) + 0.5) * 2.0 ** -23
 
 
+_ROW_ALIGN = 64
+
+
+def row_aligned(x):
+    """``x`` (..., V) f32 with its last dim padded by -inf to a multiple
+    of 64. A row-wise softmax or cumsum on the card splits a row by the
+    alignment of its start (PyTorch's softmax kernel does), so with V =
+    50257 the same row rounds differently in different rows of a batch:
+    a request's draws would depend on the slot it holds. Padded, every
+    row starts at the same alignment and the -inf entries weigh exactly
+    0."""
+    pad = -x.shape[-1] % _ROW_ALIGN
+    return torch.nn.functional.pad(x, (0, pad), value=float("-inf")) \
+        if pad else x
+
+
 def sample_inverse_cdf(logits, u):
     """One token per row of ``logits`` (..., V) drawn from
     ``softmax(logits)`` with the uniform ``u`` (...): the first index
     whose cumulative probability exceeds ``u`` times the total. A token
     of zero probability is never drawn (where rounding puts ``u`` at the
-    total, the last token of nonzero probability is taken)."""
-    V = logits.shape[-1]
-    p = torch.softmax(logits.float(), dim=-1)
+    total, the last token of nonzero probability is taken). The rows are
+    ``row_aligned``: a row draws the same token whatever row of the batch
+    it sits in."""
+    p = torch.softmax(row_aligned(logits.float()), dim=-1)
     cdf = torch.cumsum(p, dim=-1)
     idx = torch.searchsorted(cdf, (u * cdf[..., -1])[..., None],
                              right=True)[..., 0]
-    vocab = torch.arange(V, device=logits.device)
+    vocab = torch.arange(p.shape[-1], device=logits.device)
     last = torch.where(p > 0, vocab, 0).amax(dim=-1)
     return torch.minimum(idx, last)

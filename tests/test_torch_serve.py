@@ -238,16 +238,16 @@ def test_latency_tier_preempts_batch_and_resume_is_exact(models):
 
 
 def test_out_of_scope_options_raise(models):
+    """What stays refused: the tp mesh and the checkpoint manager's
+    entry points."""
     _, tm = models
-    for kw in (dict(kv_tiers={"dram_bytes": 1}), dict(mesh=object()),
-               dict(brownout=True)):
-        with pytest.raises(MXNetError, match="not ported"):
-            InferenceEngine(tm, num_slots=1, page_size=8, max_len=64, **kw)
+    with pytest.raises(MXNetError, match="not ported"):
+        InferenceEngine(tm, num_slots=1, page_size=8, max_len=64,
+                        mesh=object())
     eng = InferenceEngine(tm, num_slots=1, page_size=8, max_len=64)
-    for call in (lambda: eng.warm_start(params={}),
+    for call in (lambda: eng.warm_start(manager=object()),
                  lambda: eng.save_checkpoint(None),
-                 lambda: eng.capture_slot(1),
-                 lambda: eng.install_slot(None, [], 0, 0)):
+                 lambda: eng.install_preemption(None)):
         with pytest.raises(MXNetError, match="not ported"):
             call()
 
@@ -255,8 +255,12 @@ def test_out_of_scope_options_raise(models):
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, incubator_mxnet_tpu_torch as mx\n"
             "mx.serve.InferenceEngine; mx.models.gpt_small\n"
+            "import incubator_mxnet_tpu_torch.serve.transport\n"
+            "import incubator_mxnet_tpu_torch.serve.metrics\n"
+            "import incubator_mxnet_tpu_torch.checkpoint.manifest\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m.startswith('incubator_mxnet_tpu')"
+            "m.startswith('jax.') or m.startswith('ml_dtypes') or "
+            "m.startswith('incubator_mxnet_tpu')"
             " and not m.startswith('incubator_mxnet_tpu_torch')]\n"
             "assert not bad, bad\n"
             "print('clean')\n")

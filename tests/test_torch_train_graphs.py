@@ -10,7 +10,8 @@ body's; a replay draws from the generator's state at the replay and
 advances it; two batch signatures alternating, sharing one graph memory
 pool, equal the eager body with one capture each; each replay adds
 layers x 1 launches of each flash kernel (layers x 3 in all); a NaN
-batch through a replay leaves every parameter and state tensor bitwise;
+batch through a replay leaves every parameter and state tensor bitwise
+(and a BatchNorm's running statistics and step count);
 a capture that fails raises ``MXNetError`` after the eager first step is
 recorded (and leaves the generators drawing eagerly again), and no step
 runs eagerly in its place. This file imports no JAX, so
@@ -207,3 +208,40 @@ def test_failed_capture_raises(cuda):
     a = torch.empty(64, device="cuda").bernoulli_(0.5, generator=gen)
     b = torch.empty(64, device="cuda").bernoulli_(0.5)
     assert a.sum() > 0 and b.sum() > 0
+
+
+@pytest.mark.cuda
+def test_batchnorm_buffers_through_a_skipped_replay(cuda):
+    """A BatchNorm's running statistics and ``num_batches_tracked``
+    through the step graph: a clean replay moves them, a NaN batch's
+    replay leaves them (and the parameters) bitwise, as the JAX trainer
+    leaves its running statistics."""
+    torch.manual_seed(0)
+    net = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.ReLU(),
+                              torch.nn.BatchNorm1d(16),
+                              torch.nn.Linear(16, 4)).cuda()
+    tr = SPMDTrainer(net, loss=lambda o, y: torch.nn.functional
+                     .cross_entropy(o, y.long()), optimizer="adam",
+                     optimizer_params={"learning_rate": 0.01})
+    rng = np.random.RandomState(2)
+    X = torch.tensor(rng.randn(16, 8).astype(np.float32), device="cuda")
+    y = torch.tensor(rng.randint(0, 4, size=(16,)), device="cuda")
+    bad = X.clone()
+    bad[0, 0] = float("nan")
+    for _ in range(2):                        # the capture, one replay
+        tr.step(X, y)
+    bn = net[2]
+    before = [b.clone() for b in net.buffers()] + \
+        [p.detach().clone() for p in net.parameters()]
+    tr.step(bad, y)
+    assert tr.last_outcome is StepOutcome.SKIPPED_NONFINITE
+    after = list(net.buffers()) + [p.detach() for p in net.parameters()]
+    for b, a in zip(before, after):
+        assert torch.equal(a, b)
+    assert int(bn.num_batches_tracked) == 2
+    tr.step(X, y)
+    assert tr.last_outcome is StepOutcome.APPLIED
+    assert int(bn.num_batches_tracked) == 3
+    assert not torch.equal(bn.running_mean, before[0])
+    prog = next(iter(tr._programs.values()))
+    assert tr.step_trace_count == 1 and prog.replays == 3

@@ -378,3 +378,109 @@ def test_replay_adds_launches_to_both_counters():
     finally:
         fa.LAUNCHES.update({k: before[k] for k in fa.LAUNCHES})
         ra.LAUNCHES.update({k: before[k] for k in ra.LAUNCHES})
+
+
+# --------------------------------------------------------------------- #
+# module buffers on a skipped step; MXTPU_STEP_GUARD
+# --------------------------------------------------------------------- #
+
+def _bn_nets():
+    """Dense(8->16, relu) -> BatchNorm(16) -> Dense(16->4) in both
+    packages, the port's carrying the JAX net's weights."""
+    from incubator_mxnet_tpu.gluon import nn as jnn
+    jmx.random.seed(7)
+    jnet = jnn.Sequential()
+    jnet.add(jnn.Dense(16, in_units=8, activation="relu"),
+             jnn.BatchNorm(in_channels=16), jnn.Dense(4, in_units=16))
+    jnet.initialize()
+    w = [p.data().asnumpy() for p in jnet.collect_params().values()]
+    tnet = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.ReLU(),
+                               torch.nn.BatchNorm1d(16),
+                               torch.nn.Linear(16, 4))
+    with torch.no_grad():
+        for dst, src in zip((tnet[0].weight, tnet[0].bias, tnet[2].weight,
+                             tnet[2].bias, tnet[2].running_mean,
+                             tnet[2].running_var, tnet[3].weight,
+                             tnet[3].bias), w):
+            dst.copy_(torch.from_numpy(np.array(src)))
+    return jnet, tnet
+
+
+def _ce(out, y):
+    return torch.nn.functional.cross_entropy(out, y.long())
+
+
+def test_skipped_step_keeps_batchnorm_buffers_as_jax():
+    """Port of ``test_spmd_skip_step_parity`` with a BatchNorm: two clean
+    Adam steps (losses as the JAX trainer's), then the batch with one NaN
+    is skipped by both trainers; the port leaves its parameters, its
+    optimizer state AND the BatchNorm's running statistics and
+    ``num_batches_tracked`` bitwise, as the JAX trainer leaves its
+    running statistics; a clean step applies after it."""
+    from incubator_mxnet_tpu import gluon as jgluon
+    from incubator_mxnet_tpu.parallel import mesh as jmesh
+    jnet, tnet = _bn_nets()
+    opt = {"learning_rate": 0.01}
+    jt = jparallel.SPMDTrainer(
+        jnet, loss=jgluon.loss.SoftmaxCrossEntropyLoss(), optimizer="adam",
+        optimizer_params=dict(opt),
+        mesh=jmesh.build_mesh(axis_sizes={"dp": 8}), sharding="replicated")
+    tt = SPMDTrainer(tnet, loss=_ce, optimizer="adam",
+                     optimizer_params=dict(opt), sharding="replicated")
+    rng = np.random.RandomState(2)
+    X = rng.randn(16, 8).astype(np.float32)
+    y = rng.randint(0, 4, size=(16,))
+    bad = X.copy()
+    bad[0, 0] = np.nan
+    jl = [float(jt.step(nd.array(X), nd.array(y)).asnumpy())
+          for _ in range(2)]
+    tl = [float(tt.step(torch.tensor(X), torch.tensor(y)))
+          for _ in range(2)]
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+
+    jstats = [p.data().asnumpy().copy()
+              for n, p in jnet.collect_params().items() if "running" in n]
+    before = _state(tt) + [b.clone() for b in tnet.buffers()]
+    jt.step(nd.array(bad), nd.array(y))
+    tt.step(torch.tensor(bad), torch.tensor(y))
+    assert jt.last_outcome.value == tt.last_outcome.value == \
+        StepOutcome.SKIPPED_NONFINITE.value
+    for b, a in zip(jstats, [p.data().asnumpy() for n, p in
+                             jnet.collect_params().items()
+                             if "running" in n]):
+        np.testing.assert_array_equal(a, b)
+    after = _state(tt) + list(tnet.buffers())
+    assert len(after) == len(before) and len(list(tnet.buffers())) == 3
+    for b, a in zip(before, after):
+        assert torch.equal(a, b)
+    assert int(tnet[2].num_batches_tracked) == 2
+
+    tt.step(torch.tensor(X), torch.tensor(y))
+    assert tt.last_outcome is StepOutcome.APPLIED
+    assert int(tnet[2].num_batches_tracked) == 3
+    assert tt.step_trace_count == 1
+
+
+@pytest.mark.parametrize("env,want", [("0", False), ("1", True),
+                                      (None, True)])
+def test_step_guard_reads_the_environment(monkeypatch, env, want):
+    """``guard=None`` reads ``MXTPU_STEP_GUARD`` (default on), as the JAX
+    trainer does; off, a NaN batch is applied, not skipped."""
+    if env is None:
+        monkeypatch.delenv("MXTPU_STEP_GUARD", raising=False)
+    else:
+        monkeypatch.setenv("MXTPU_STEP_GUARD", env)
+    from incubator_mxnet_tpu.gluon import nn as jnn
+    jnet = jnn.Dense(4, in_units=8)
+    jnet.initialize()
+    jt = jparallel.SPMDTrainer(jnet, loss=lambda o, y: (o - y) ** 2,
+                               optimizer="sgd", sharding="replicated")
+    tt = SPMDTrainer(torch.nn.Linear(8, 4),
+                     loss=lambda o, y: ((o - y) ** 2).mean(),
+                     optimizer="sgd")
+    assert tt.guard is want and jt.guard is want
+    assert tt.health_snapshot()["guard"] is want
+    X = np.full((4, 8), np.nan, np.float32)
+    tt.step(torch.tensor(X), torch.zeros(4, 4))
+    assert tt.last_outcome is (StepOutcome.SKIPPED_NONFINITE if want
+                               else StepOutcome.APPLIED)
