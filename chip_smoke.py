@@ -99,6 +99,29 @@ failure exits non-zero before the result line:
                 start: an engine on the seed-0 model serves 4 requests,
                 takes the seed-1 model's weights, serves 4 more: no new
                 capture, streams bitwise a fresh seed-1 engine's;
+  5c. fleet   — one row with top-p 0.9 / top-k 40 in each of 8 slots of
+                an (8, W, 50257) batch draws the same (`[sampling]`);
+                then 3 gpt_small bf16 replicas behind a Router
+                (build_fleet: one weight copy each), the serving phase's
+                mixed workload in two waves: fault-free (the prefix's
+                requests on the prefix's replica; streams bitwise one
+                engine's under the router-pinned seeds); a replica
+                killed mid-decode, and on a spec_k=4 fleet whose drafter
+                always drafts, mid-verify (one terminal each, emitted
+                prefixes kept, survivors bitwise the fault-free run's);
+                remove_replica (decode-ready slots moved by capsule,
+                streams bitwise); upgrade_replica(0) to the seed-1
+                weights while 1-2 serve (then replica 0 serves seed-1
+                streams, 1-2 seed 0's); a ServeFrontend on 127.0.0.1 over
+                a plain fleet (4 SSE + 1 blocking, tokens equal the
+                direct router's, /metrics and /healthz) and over a spec
+                fleet (one stream a replica while the front end's thread
+                captures their verify programs). Every run: page audits
+                after every step, one capture per program met, summed
+                ragged launches = steps x 12, and no breaker transition
+                but the injected ones; a `[fleet]` line each (tokens/s,
+                TTFT p50 direct or over HTTP, requeue-to-first-token ms,
+                ms a slot migrated, transitions, captures per replica);
   6. parity   — at f32, the engine's greedy tokens, without and with
                 spec_k=4, equal the port's dense-cache cached_generate
                 (which runs no kernel), through the step and chunk graphs
@@ -160,6 +183,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -167,6 +191,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
@@ -1168,6 +1193,25 @@ def check_captures(eng, label):
     """One step program per width that ran (warm-up included) and one
     prefill program per (kind, bucket), each captured once, and at most
     one COW copy program; prints the counts and each capture's ms."""
+    counts = captures_once(eng, label)
+    progs = [(f"W={w}", p) for w, p in sorted(eng._programs.items())]
+    progs += [(f"{k} {t}", p) for (k, t), p in
+              sorted(eng._prefill_programs.items())]
+    if eng._copy_prog is not None:
+        progs.append(("copy", eng._copy_prog))
+    print(f"[capture] {label}: decode_trace_count "
+          f"{eng.decode_trace_count}, verify_trace_count "
+          f"{eng.verify_trace_count}, prefill_trace_count "
+          f"{eng.prefill_trace_count}, prefill_trace_counts "
+          f"{ {f'{k} {t}': n for (k, t), n in sorted(counts.items())} }, "
+          f"copy_trace_count {eng.copy_trace_count}; capture ms: " +
+          ", ".join(f"{name} {p.build_ms:.1f}" for name, p in progs),
+          flush=True)
+
+
+def captures_once(eng, label):
+    """The checks of ``check_captures``, without the print; returns the
+    prefill program counts."""
     for what, ran, built in (
             ("decode", eng.decode_steps > eng.spec_steps,
              eng.decode_trace_count),
@@ -1182,19 +1226,7 @@ def check_captures(eng, label):
           f"times for {counts}")
     check(eng.copy_trace_count == int(eng._copy_prog is not None),
           f"{label}: COW copy program built {eng.copy_trace_count} times")
-    progs = [(f"W={w}", p) for w, p in sorted(eng._programs.items())]
-    progs += [(f"{k} {t}", p) for (k, t), p in
-              sorted(eng._prefill_programs.items())]
-    if eng._copy_prog is not None:
-        progs.append(("copy", eng._copy_prog))
-    print(f"[capture] {label}: decode_trace_count "
-          f"{eng.decode_trace_count}, verify_trace_count "
-          f"{eng.verify_trace_count}, prefill_trace_count "
-          f"{eng.prefill_trace_count}, prefill_trace_counts "
-          f"{ {f'{k} {t}': n for (k, t), n in sorted(counts.items())} }, "
-          f"copy_trace_count {eng.copy_trace_count}; capture ms: " +
-          ", ".join(f"{name} {p.build_ms:.1f}" for name, p in progs),
-          flush=True)
+    return counts
 
 
 def serve_monolithic(torch, np, model, label, kv_quant=None):
@@ -1615,6 +1647,562 @@ def phase_surface(torch):
     del model
     torch.cuda.empty_cache()
     phase_warm_start(torch, np)
+
+
+# --------------------------------------------------------------------- #
+# the serving fleet: a Router over gpt_small replicas on one card, slot
+# migration, the rolling upgrade, the chaos kill and the HTTP front end
+# --------------------------------------------------------------------- #
+
+FLEET = dict(replicas=3, router_seed=5, max_new=64,
+             engine=dict(num_slots=8, page_size=16, max_len=1024,
+                         chunk_pages=4, prefix_cache=True))
+
+
+def fleet_model(seed):
+    from incubator_mxnet_tpu_torch.models.gpt import gpt_small
+    return gpt_small(dtype="bfloat16", device="cuda", seed=seed)
+
+
+def fleet_requests(np, Request, vocab, seeds=None, n=16):
+    """The serving phase's mixed workload (``_prompts``: 8 of 16 share a
+    512-token prefix), 64 new tokens, greedy and T=0.8 alternating; the
+    seeds left to the router to pin unless ``seeds`` gives them."""
+    prompts = _prompts(np, np.random.RandomState(0), vocab)[:n]
+    return [Request(p, max_new_tokens=FLEET["max_new"], eos_id=vocab - 1,
+                    temperature=0.0 if i % 2 == 0 else 0.8,
+                    seed=None if seeds is None else seeds[i])
+            for i, p in enumerate(prompts)]
+
+
+def always_drafter(np, streams):
+    """``replay_drafter`` over an earlier run's streams, and where it has
+    nothing, the last token repeated: with ``spec_patience=0`` every
+    decode-ready slot with more than one token to go drafts every step,
+    so a speculative replica runs the verify program whoever shares it
+    (a slot's logits then depend on its own row only) — except in a step
+    where every decode-ready slot is at its last token, which runs the
+    W = 1 decode program."""
+    replay = replay_drafter(np, streams)
+
+    def draft(history, k):
+        d = replay(history, k)
+        return d if d.size else np.full((k,), history[-1], np.int32)
+
+    return draft
+
+
+def fleet_audit(rt):
+    for rep in rt.replicas:
+        if rep.state.value != "DEAD" and rep.killed is None:
+            rep.engine.audit_pages()
+
+
+def fleet_drive(torch, rt, reqs, before=None, waves=True, limit_s=300.0):
+    """Wave 1 (the first 8: the prefix's first request and 7 others), then
+    — once request 0 has its first token, its prefix pages published —
+    wave 2; steps until every request is terminal, auditing every live
+    replica's pages after each step (a pass that advanced nothing sleeps
+    1 ms, as ``Router.run`` does). Returns the wall seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, rest = (reqs[:8], reqs[8:]) if waves else (reqs, [])
+    for r in first:
+        check(rt.submit(r), f"fleet refused request {r.request_id}")
+    i = 0
+    while rest or any(r.outcome is None for r in reqs):
+        if rest and rt.live_tokens(reqs[0]):
+            for r in rest:
+                check(rt.submit(r), f"fleet refused {r.request_id}")
+            rest = []
+        if before is not None:
+            before(rt, i)
+        if not rt.step():
+            time.sleep(1e-3)
+        fleet_audit(rt)
+        i += 1
+        check(time.perf_counter() - t0 < limit_s,
+              f"fleet wedged: {i} steps in {limit_s} s")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def fleet_launches(rt, launches, label):
+    """The process-wide ragged launch counts of a fleet run equal the sum
+    over its replicas (the dead one included) of steps x layers: decode =
+    non-speculative steps, verify = speculative steps, prefill = chunk
+    replays."""
+    engs = [rep.engine for rep in rt.replicas]
+    check_ragged_launches(
+        engs[0], launches, label,
+        sum(e.decode_steps for e in engs),
+        sum(chunk_replays(e) for e in engs),
+        sum(e.spec_steps for e in engs))
+
+
+def fleet_captures(rt, label):
+    """Each replica captured one program per width and (kind, bucket) it
+    met, at most one COW copy, gather and promotion; a replica that met
+    nothing captured nothing. Returns (decode, verify, prefill, copy,
+    promote, gather) per replica."""
+    out = []
+    for rep in rt.replicas:
+        e = rep.engine
+        if e.prefill_trace_count:
+            captures_once(e, f"{label} replica {rep.idx}")
+        else:
+            check(e.decode_trace_count == e.verify_trace_count ==
+                  e.copy_trace_count == 0,
+                  f"{label}: idle replica {rep.idx} captured programs")
+        check(e.promote_trace_count <= 1 and e.demote_trace_count <= 1,
+              f"{label}: replica {rep.idx} page programs captured "
+              f"{e.promote_trace_count} / {e.demote_trace_count} times")
+        out.append((e.decode_trace_count, e.verify_trace_count,
+                    e.prefill_trace_count, e.copy_trace_count,
+                    e.promote_trace_count, e.demote_trace_count))
+    return out
+
+
+def fleet_transitions(rt, label, want):
+    """The router's replica-health transitions, (replica, from, to), must
+    be exactly the ones the run injected: anything else (a breaker that
+    opened) is a failure to explain."""
+    got = [(e.data["replica"], e.data["from_state"], e.data["to_state"])
+           for e in rt.flight.events("router")
+           if e.etype.value == "REPLICA_HEALTH"]
+    check(got == want, f"{label}: replica transitions {got}, want {want}")
+    return [f"{i}:{a}->{b}" for i, a, b in got]
+
+
+def fleet_dispatches(rt, reqs):
+    """Per request, the replicas its (re)dispatches chose, in order."""
+    idx = {r.request_id: i for i, r in enumerate(reqs)}
+    out = [[] for _ in reqs]
+    for e in rt.flight.events("router"):
+        if e.etype.value == "DISPATCH" and e.request_id in idx:
+            out[idx[e.request_id]].append(e.data["replica"])
+    return out
+
+
+def fleet_ttft_ms(reqs):
+    return _median([(r.token_stamps[0] - r.submit_time) * 1e3
+                    for r in reqs if r.token_stamps])
+
+
+def fleet_ok(reqs, label):
+    bad = [(i, r.outcome, r.detail[:80]) for i, r in enumerate(reqs)
+           if r.outcome is None or not r.outcome.ok]
+    check(not bad, f"{label}: requests ended badly: {bad}")
+
+
+def first_diff(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def fleet_line(label, rt, wall, captures, transitions, reqs=(),
+               **extra):
+    """One ``[fleet]`` line: the run's tokens/s and TTFT p50 (over
+    ``reqs``, the router's clients), its routing, re-queue and migration
+    tallies, breaker transitions and captures per replica."""
+    n_tok = sum(len(r.token_ids) for r in reqs)
+    stats = dict(requests=len(reqs), tokens=n_tok,
+                 wall_s=round(wall, 3),
+                 tokens_per_s=round(n_tok / wall, 1) if reqs else None,
+                 ttft_p50_ms=fleet_ttft_ms(reqs) if reqs else None,
+                 steps=rt.steps, affinity_routed=rt.affinity_routed,
+                 spill_routed=rt.spill_routed, requeues=rt.requeues,
+                 migrations=rt.migrations,
+                 breaker_transitions=transitions,
+                 captures_per_replica=captures, **extra)
+    print(f"[fleet] {label}: {json.dumps(stats)}", flush=True)
+
+
+def check_top_p_slots(torch):
+    """One row with top-p 0.9 and top-k 40 (T = 0.8) placed in each of 8
+    slots of an (8, W, 50257) batch: the constrained row and the
+    inverse-CDF draw from it bitwise the same in every slot (the top-p
+    normalizer and cumsum run over row-aligned rows)."""
+    from incubator_mxnet_tpu_torch.serve.sampling import (
+        constrain_logits, sample_inverse_cdf)
+    V, S, dev = 50257, 8, "cuda"
+    for W in (1, 5):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        row = torch.randn(V, device=dev, generator=gen) * 2.0
+        u = torch.rand(32, device=dev, generator=gen)
+        full = lambda v, dt=torch.float32: torch.full(  # noqa: E731
+            (S, W), v, dtype=dt, device=dev)
+        menu = dict(
+            counts=torch.zeros(S, W, V, dtype=torch.int32, device=dev),
+            bias=torch.zeros(S, W, V, device=dev),
+            mask=torch.ones(S, W, V, dtype=torch.bool, device=dev),
+            top_k=full(40, torch.int32), top_p=full(0.9),
+            rep_pen=full(1.0), pres_pen=full(0.0))
+        rows, draws = [], []
+        for s in range(S):
+            x = torch.randn(S, W, V, device=dev, generator=gen)
+            x[s, 0] = row
+            c = constrain_logits(x, full(0.8), **menu)
+            rows.append(c[s, 0].clone())
+            draws.append(torch.stack([sample_inverse_cdf(
+                c / 0.8, torch.full((S, W), float(v), device=dev))[s, 0]
+                for v in u]))
+        same = sum(torch.equal(r, rows[0]) and torch.equal(d, draws[0])
+                   for r, d in zip(rows, draws))
+        kept = int((rows[0] > -1e29).sum())
+        check(same == S and 1 < kept <= 40,
+              f"top-p W={W}: {same} of {S} slots drew as slot 0 "
+              f"({kept} tokens kept)")
+        print(f"[sampling] top-p 0.9 / top-k 40 row, W={W}: the same "
+              f"constrained row and {u.numel()} draws in {same} of {S} "
+              f"slots ({kept} tokens kept)", flush=True)
+
+
+def phase_fleet(torch):
+    """The serving fleet on one card: 3 gpt_small bf16 replicas, each on
+    its own copy of the weights, behind a Router (``build_fleet``)."""
+    import numpy as np
+    from incubator_mxnet_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from incubator_mxnet_tpu_torch.serve import (InferenceEngine, Request,
+                                                 build_fleet)
+    from incubator_mxnet_tpu_torch.serve.chaos import (
+        KillReplica, assert_fleet_health_consistent)
+    check_top_p_slots(torch)
+    model = fleet_model(0)
+    V = model.vocab_size
+    KW, N, RS = FLEET["engine"], FLEET["replicas"], FLEET["router_seed"]
+
+    def fleet(**kw):
+        return build_fleet(model, N, engine_kw=dict(KW, **kw), seed=RS)
+
+    def run(label, rt, reqs, before=None, waves=True):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        wall = fleet_drive(torch, rt, reqs, before=before, waves=waves)
+        fleet_launches(rt, dict(LAUNCHES), label)
+        assert_fleet_health_consistent(rt, reqs)
+        return wall
+
+    # 1. fault-free: affinity, streams == one engine under the pinned seeds
+    label = "fault-free, 3 replicas"
+    rt = fleet()
+    reqs = fleet_requests(np, Request, V)
+    wall = run(label, rt, reqs)
+    fleet_ok(reqs, label)
+    seeds = [r.seed for r in reqs]
+    base = [list(r.token_ids) for r in reqs]
+    streams = [(r.prompt_ids, r.token_ids) for r in reqs]
+    routes = fleet_dispatches(rt, reqs)
+    holder = routes[0][0]
+    shared = routes[8:15]
+    check(all(d == [holder] for d in shared) and
+          rt.replicas[holder].engine.prefix_hits >= len(shared) and
+          rt.affinity_routed >= len(shared),
+          f"{label}: the prefix's requests went to {shared}, its pages "
+          f"are on replica {holder} (prefix hits "
+          f"{rt.replicas[holder].engine.prefix_hits}, affinity "
+          f"{rt.affinity_routed})")
+    caps = fleet_captures(rt, label)
+    trans = fleet_transitions(rt, label, [])
+    solo = InferenceEngine(model, **KW)
+    ref = fleet_requests(np, Request, V, seeds=seeds)
+    solo.run(ref)
+    diff = [(i, first_diff(a, r.token_ids)) for i, (a, r) in
+            enumerate(zip(base, ref)) if a != r.token_ids]
+    check(not diff, f"{label}: streams differ from one engine's "
+                    f"(request, first token): {diff}")
+    fleet_line(label, rt, wall, caps, trans, reqs, holder=holder,
+               prefix_hits=[rep.engine.prefix_hits
+                            for rep in rt.replicas],
+               routes=[d[0] for d in routes])
+    del rt, solo
+    gc.collect()
+    torch.cuda.empty_cache()
+    victim = (holder + 1) % N
+
+    def kill_run(label, rt, reqs, inj, want):
+        wall = run(label, rt, reqs, before=inj.on_step)
+        check(inj.fired and rt.replica_deaths == 1,
+              f"{label}: the kill never fired")
+        fleet_ok(reqs, label)
+        moved = {id(c): pre for c, pre in inj.inflight_at_kill}
+        check(moved, f"{label}: nothing was in flight on the victim")
+        for r in reqs:
+            pre = moved.get(id(r))
+            check(pre is None or r.token_ids[:len(pre)] == pre,
+                  f"{label}: request {r.request_id} lost its emitted "
+                  f"prefix")
+        surv = [i for i, r in enumerate(reqs) if id(r) not in moved]
+        bad = [(i, first_diff(reqs[i].token_ids, want[i])) for i in surv
+               if reqs[i].token_ids != want[i]]
+        check(not bad, f"{label}: survivors differ from the fault-free "
+                       f"run (request, first token): {bad}")
+        replay = [i for i, r in enumerate(reqs) if id(r) in moved]
+        requeue_at = {e.request_id: e.ts for e in rt.flight.events("router")
+                      if e.etype.value == "REQUEUE"}
+        gap = [(next(t for t in reqs[i].token_stamps
+                     if t > requeue_at[reqs[i].request_id]) -
+                requeue_at[reqs[i].request_id]) * 1e3
+               for i in replay if reqs[i].request_id in requeue_at and
+               any(t > requeue_at[reqs[i].request_id]
+                   for t in reqs[i].token_stamps)]
+        caps = fleet_captures(rt, label)
+        trans = fleet_transitions(rt, label, [(victim, "SERVING", "DEAD")])
+        fleet_line(label, rt, wall, caps, trans, reqs, victim=victim,
+                   requeued=len(replay), survivors=len(surv),
+                   requeued_equal=sum(reqs[i].token_ids == want[i]
+                                      for i in replay),
+                   requeued_first_diff=[first_diff(reqs[i].token_ids,
+                                                   want[i])
+                                        for i in replay],
+                   requeue_to_first_token_ms=_median(gap))
+
+    # 2a. a kill mid-decode
+    kill_run("KillReplica mid-decode", fleet(),
+             fleet_requests(np, Request, V),
+             KillReplica(replica=victim, at_step=12, phase="decode"), base)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2b. spec_k=4, every step a verify step: fault-free, then a kill
+    # mid-verify
+    spec = dict(spec_k=4, spec_patience=0,
+                draft_fn=always_drafter(np, streams))
+    label = "spec_k=4 fault-free, 3 replicas"
+    rt = fleet(**spec)
+    reqs = fleet_requests(np, Request, V)
+    wall = run(label, rt, reqs)
+    fleet_ok(reqs, label)
+    spec_base = [list(r.token_ids) for r in reqs]
+    check(all(rep.engine.spec_steps for rep in rt.replicas),
+          f"{label}: a replica never ran a verify step")
+    caps = fleet_captures(rt, label)
+    trans = fleet_transitions(rt, label, [])
+    fleet_line(label, rt, wall, caps, trans, reqs,
+               equal_to_plain=sum(a == b for a, b in zip(spec_base, base)),
+               w1_steps=[rep.engine.decode_steps - rep.engine.spec_steps
+                         for rep in rt.replicas],
+               accept_rate=round(sum(rep.engine.accepted_tokens for rep in
+                                     rt.replicas) /
+                                 max(1, sum(rep.engine.drafted_tokens
+                                            for rep in rt.replicas)), 3))
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    kill_run("spec_k=4, KillReplica mid-verify", fleet(**spec),
+             fleet_requests(np, Request, V),
+             KillReplica(replica=victim, at_step=12, phase="verify"),
+             spec_base)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. remove_replica with live decode-ready slots: page capsules
+    label = "remove_replica, slots moved by capsule"
+    rt = fleet()
+    gone = (holder + 2) % N
+    mig_ms = []
+    rt.migrate = _timed(rt.migrate, mig_ms)
+    removed = []
+
+    def remove(router, _i):
+        rep = router.replicas[gone]
+        if removed:
+            return
+        for t in router._inflight:
+            if t.replica == gone and t.attempt.token_ids and \
+                    rep.engine.decode_ready(t.attempt.request_id):
+                router.remove_replica(gone)
+                removed.append(_i)
+                return
+
+    reqs = fleet_requests(np, Request, V)
+    wall = run(label, rt, reqs, before=remove)
+    for _ in range(50):
+        if rt.replicas[gone].state.value == "RETIRED":
+            break
+        rt.step()
+    fleet_ok(reqs, label)
+    check(removed and rt.migrations > 0 and rt.migrations_failed == 0 and
+          rt.migrated_pages > 0 and rt.migrated_bytes > 0,
+          f"{label}: migrations {rt.migrations} (failed "
+          f"{rt.migrations_failed}, pages {rt.migrated_pages})")
+    diff = [(i, first_diff(r.token_ids, b)) for i, (r, b) in
+            enumerate(zip(reqs, base)) if r.token_ids != b]
+    check(not diff, f"{label}: streams differ from the fault-free run "
+                    f"(request, first token): {diff}")
+    caps = fleet_captures(rt, label)
+    trans = fleet_transitions(rt, label, [(gone, "SERVING", "DRAINING"),
+                                          (gone, "DRAINING", "RETIRED")])
+    fleet_line(label, rt, wall, caps, trans, reqs, removed=gone,
+               at_step=removed[0], migrated_pages=rt.migrated_pages,
+               migrated_mb=round(rt.migrated_bytes / 1e6, 3),
+               migrate_ms_per_slot=_median(mig_ms))
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. upgrade_replica(0) to the seed-1 weights while 1-2 serve
+    label = "upgrade_replica(0) to seed-1 weights"
+    other = fleet_model(1)
+    rt = fleet()
+    reqs = fleet_requests(np, Request, V)[:8]
+    t_swap = []
+
+    def upgrade(router, i):
+        if i == 1:
+            router.upgrade_replica(0, params=other.state_dict())
+        if router.upgrades and not t_swap:
+            t_swap.append(i)
+
+    wall = run(label, rt, reqs, before=upgrade, waves=False)
+    for _ in range(200):
+        if rt.replicas[0].state.value == "SERVING" and rt.upgrades:
+            break
+        rt.step()
+    fleet_ok(reqs, label)
+    check(rt.upgrades == 1 and rt.replicas[0].state.value == "SERVING",
+          f"{label}: replica 0 is {rt.replicas[0].state} after "
+          f"{rt.upgrades} upgrades")
+    diff = [i for i, r in enumerate(reqs) if r.token_ids != base[i]]
+    check(not diff, f"{label}: streams {diff} differ from the fault-free "
+                    f"run (all served on seed-0 weights)")
+    caps = fleet_captures(rt, label)
+    trans = fleet_transitions(rt, label, [(0, "SERVING", "DRAINING"),
+                                          (0, "DRAINING", "WARMING"),
+                                          (0, "WARMING", "SERVING")])
+    rng = np.random.RandomState(9)
+    probe = [rng.randint(0, V, size=int(n)).astype(np.int32)
+             for n in (80, 300)]
+    mk = lambda: [Request(p, max_new_tokens=32) for p in probe]  # noqa
+    got = []
+    for rep in rt.replicas:
+        rs = mk()
+        rep.engine.run(rs)
+        got.append([r.token_ids for r in rs])
+    want = []
+    for m in (other, model):
+        rs = mk()
+        InferenceEngine(m, **KW).run(rs)
+        want.append([r.token_ids for r in rs])
+    check(got[0] == want[0] and got[1] == got[2] == want[1] and
+          want[0] != want[1],
+          f"{label}: replica 0 serves seed-1 streams: "
+          f"{got[0] == want[0]}; replicas 1, 2 seed-0 streams: "
+          f"{got[1] == want[1]}, {got[2] == want[1]}")
+    fleet_audit(rt)
+    fleet_line(label, rt, wall, caps, trans, reqs,
+               swapped_at_step=t_swap[:1], replica0_seed1=True,
+               replicas12_seed0=True)
+    del rt, other
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. the HTTP front end: over a plain fleet, 4 SSE + 1 blocking
+    # against the direct router's streams; over a speculative fleet, one
+    # stream a replica while the front end's thread captures their verify
+    # programs, against the same requests driven directly
+    picks = [fleet_requests(np, Request, V)[i] for i in range(5)]
+    payloads = [dict(prompt=[int(t) for t in r.prompt_ids],
+                     max_new_tokens=FLEET["max_new"], eos_id=V - 1,
+                     temperature=r.temperature, seed=seeds[i],
+                     stream=i != 4) for i, r in enumerate(picks)]
+    fleet_http(torch, fleet(), payloads, base,
+               "ServeFrontend over the plain fleet, 4 SSE + 1 blocking")
+    label = "spec_k=4 fleet driven directly, one request a replica"
+    rt = fleet(**spec)
+    reqs = fleet_requests(np, Request, V)[:N]
+    wall = run(label, rt, reqs, waves=False)
+    fleet_ok(reqs, label)
+    alone = [list(r.token_ids) for r in reqs]
+    check(sorted(d[0] for d in fleet_dispatches(rt, reqs)) ==
+          list(range(N)), f"{label}: not one request a replica")
+    fleet_line(label, rt, wall, fleet_captures(rt, label),
+               fleet_transitions(rt, label, []), reqs)
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    rt = fleet_http(torch, fleet(**spec),
+                    [dict(p, stream=True) for p in payloads[:N]], alone,
+                    "ServeFrontend over the spec_k=4 fleet, one stream a "
+                    "replica, verify captured while they are open")
+    check(all(rep.engine.verify_trace_count == 1 for rep in rt.replicas),
+          f"verify captures on the front end's thread: "
+          f"{[rep.engine.verify_trace_count for rep in rt.replicas]}")
+    del rt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def fleet_http(torch, rt, payloads, want, label):
+    """``payloads`` sent at once to a ``ServeFrontend`` over ``rt`` on
+    127.0.0.1 (port 0), each from its own client thread (SSE, or a
+    blocking completion where ``stream`` is False); every completion
+    must come back 200 with the tokens of ``want``, /healthz and
+    /metrics must answer, and the ragged launches equal the replicas'
+    steps x layers. Returns the router."""
+    from incubator_mxnet_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from incubator_mxnet_tpu_torch.serve import (ServeFrontend,
+                                                 stream_completion)
+    from incubator_mxnet_tpu_torch.serve.frontend import http_request
+    host = "127.0.0.1"
+    out = [None] * len(payloads)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with ServeFrontend(rt, host=host, port=0) as fe:
+        def client(j):
+            t = time.perf_counter()
+            if payloads[j]["stream"]:
+                r = stream_completion(host, fe.bound_port, payloads[j],
+                                      timeout=300)
+                out[j] = (r["status"], r["tokens"],
+                          r["final"]["outcome"] if r["final"] else None,
+                          (r["stamps"][0] - t) * 1e3 if r["stamps"]
+                          else None)
+            else:
+                status, _, body = http_request(
+                    host, fe.bound_port, "POST", "/v1/completions",
+                    payloads[j], timeout=300)
+                out[j] = (status, body["tokens"], body["outcome"], None)
+
+        threads = [threading.Thread(target=client, args=(j,), daemon=True)
+                   for j in range(len(payloads))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        check(not any(t.is_alive() for t in threads),
+              f"{label}: a client never finished")
+        hs, _, health = http_request(host, fe.bound_port, "GET",
+                                     "/healthz")
+        ms, _, metrics = http_request(host, fe.bound_port, "GET",
+                                      "/metrics")
+        fe_stats = fe.stats_snapshot()
+    wall = time.perf_counter() - t0
+    n = len(rt.replicas)
+    metrics = metrics.decode() if isinstance(metrics, bytes) else metrics
+    check(hs == 200 and health["status"] == "ok" and
+          health["replicas"].get("SERVING") == n,
+          f"{label}: /healthz {hs} {health}")
+    check(ms == 200 and f"mxtpu_serve_fleet_size {n}" in metrics and
+          "mxtpu_serve_http_requests_total" in metrics,
+          f"{label}: /metrics {ms}")
+    bad = [(j, o[0], o[2], first_diff(o[1], want[j]))
+           for j, o in enumerate(out) if o[0] != 200 or o[1] != want[j]]
+    check(not bad, f"{label}: (request, status, outcome, first differing "
+                   f"token) vs the direct router: {bad}")
+    check(rt.health["MAX_TOKENS"] + rt.health["EOS"] == len(payloads),
+          f"{label}: router outcomes {rt.health}")
+    fleet_launches(rt, dict(LAUNCHES), label)
+    n_tok = sum(len(o[1]) for o in out)
+    fleet_line(label, rt, wall, fleet_captures(rt, label),
+               fleet_transitions(rt, label, []),
+               http_requests=fe_stats["http_requests"],
+               sse_tokens=fe_stats["sse_tokens"], http_tokens=n_tok,
+               tokens_per_s_http=round(n_tok / wall, 1),
+               ttft_http_p50_ms=_median([o[3] for o in out
+                                         if o[3] is not None]))
+    return rt
 
 
 def profile_decode(torch, np, eng, rng, Request, label):
@@ -2473,6 +3061,7 @@ def main():
         err.update(phase_flash_kernels(torch))
         runs = phase_serving(torch)
         phase_surface(torch)
+        phase_fleet(torch)
         phase_parity(torch)
         phase_graph_tests()
         runs["training"], lens = phase_training(

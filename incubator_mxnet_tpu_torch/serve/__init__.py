@@ -9,6 +9,13 @@
                    disk cache tiers, SLO tiers with brownout, warm
                    restart and structured terminal outcomes;
   - ``transport`` — page capsules: a live slot moved between engines;
+  - ``router``   — a fleet front over N engine replicas: cache-affinity
+                   admission, least-delay spill, heartbeat / circuit-
+                   breaker health states, bounded structured failover,
+                   live migration and elastic membership;
+  - ``fleet_supervisor`` — autoscaling and rolling-upgrade policy;
+  - ``frontend`` — the HTTP/SSE client protocol (stdlib asyncio);
+  - ``chaos``    — seeded fault injectors for engines and fleets;
   - ``metrics``  — Prometheus text over health snapshots;
   - ``draft``    — the n-gram (prompt-lookup) draft proposer.
 
@@ -30,6 +37,11 @@ from .slo import (BrownoutController, Tier, TierPolicy,
 from .engine import InferenceEngine, Request
 from .metrics import render_frontend_metrics, render_metrics
 from .transport import PageCapsule, PageTransport
+from .router import (Replica, ReplicaKilled, ReplicaState, Router,
+                     build_fleet)
+from .fleet_supervisor import FleetSupervisor
+from .frontend import (OUTCOME_HTTP_STATUS, ServeFrontend,
+                       stream_completion)
 
 __all__ = ["InferenceEngine", "Request", "Outcome", "PageAllocator",
            "PrefixIndex", "NULL_PAGE", "init_kv_pools", "write_token_kv",
@@ -42,4 +54,6 @@ __all__ = ["InferenceEngine", "Request", "Outcome", "PageAllocator",
            "TokenFsm", "choice_grammar", "KVTierStore", "payload_crc",
            "payload_nbytes", "BrownoutController", "wants_rebalance",
            "render_metrics", "render_frontend_metrics", "PageCapsule",
-           "PageTransport"]
+           "PageTransport", "Router", "Replica", "ReplicaState",
+           "ReplicaKilled", "build_fleet", "FleetSupervisor",
+           "ServeFrontend", "OUTCOME_HTTP_STATUS", "stream_completion"]

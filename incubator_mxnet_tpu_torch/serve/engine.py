@@ -80,7 +80,11 @@ Around the programs, the engine's remaining surface:
     capture count moves; the prefix index and the tiers are flushed;
   - BROWNOUT (``brownout``): ``serve.slo.BrownoutController`` levels —
     speculation off, the prefill budget clamped to one chunk, BATCH
-    admissions held — all host policy.
+    admissions held — all host policy;
+  - the fleet's hooks (``serve/router.py``): ``preempt_handoff``, which
+    offers a preemption victim to a sibling replica first, and
+    ``Request._stop_trim``, the part of a stop match an earlier attempt
+    emitted, for the router to trim.
 
 Anything that writes the pools or the parameters from outside a program
 does so in place (``copy_``, index writes), never by rebinding: the
@@ -184,6 +188,10 @@ class Request:
     prompt_len: Optional[int] = None
 
     # filled in by the engine
+    _stop_trim: int = 0          # stop-sequence tokens this attempt could
+                                 # not truncate locally (an EARLIER attempt
+                                 # emitted them): the router trims them
+                                 # off the client
     preemptions: int = 0
     drafted_tokens: int = 0
     accepted_tokens: int = 0
@@ -537,6 +545,10 @@ class InferenceEngine:
         self.migrated_out_bytes = 0
         self.migrated_in_bytes = 0
         self._capsule_pages: Dict[int, List[int]] = {}
+        # fleet-aware preemption (serve/router.py ``fleet_preempt``): set
+        # by the router, called with the victim's request_id BEFORE an
+        # engine-internal preemption; True means the fleet took the slot
+        self.preempt_handoff = None
 
     # ------------------------------------------------------------- #
     # device programs (pools updated in place)
@@ -1548,12 +1560,16 @@ class InferenceEngine:
                     del slot.stop_tail[:-sp.max_stop_len]
                 hit = match_stop(slot.stop_tail, sp.stop_sequences)
                 if hit:
-                    # the matched sequence is NOT part of the output
+                    # the matched sequence is NOT part of the output:
+                    # truncate what this attempt recorded; the part of
+                    # the match an earlier attempt emitted is left to
+                    # the router (``_stop_trim``)
                     trim = min(hit, len(req.token_ids))
                     if trim:
                         del req.token_ids[-trim:]
                         del req.token_times[-trim:]
                         del req.token_stamps[-trim:]
+                    req._stop_trim = hit - trim
                     self.stop_hits += 1
                     return Outcome.STOP
         if len(req.token_ids) >= req.max_new_tokens:
@@ -1683,8 +1699,28 @@ class InferenceEngine:
         partial tokens kept, and — within ``max_preemptions`` — the
         request re-queued (deadlines stay anchored to the original
         submission); it resumes by prefilling prompt + emitted under the
-        same sampling key. Past the budget it terminates PREEMPTED."""
-        req = self._slots[slot_idx].request
+        same sampling key. Past the budget it terminates PREEMPTED.
+
+        With a ``preempt_handoff`` set, a victim that is not prefilling is
+        first offered to the fleet, which may move its pages to a sibling;
+        a handoff that raises counts as a failed one. Whenever the slot
+        has left this engine afterwards (moved, or re-queued by the router
+        after a failed transfer), the preemption ends there."""
+        slot = self._slots[slot_idx]
+        req = slot.request
+        if self.preempt_handoff is not None and not slot.prefilling:
+            try:
+                handed = bool(self.preempt_handoff(req.request_id))
+            except Exception:
+                handed = False
+            if handed or self._slots[slot_idx] is not slot:
+                self.preemptions += 1
+                self.flight.emit(self._component, EventType.PREEMPT,
+                                 request_id=req.request_id,
+                                 tier=req.tier.value, slot=slot_idx,
+                                 preemptions=req.preemptions,
+                                 handoff=True, detail=detail)
+                return
         req.preemptions += 1
         self.preemptions += 1
         self._free_slot_state(slot_idx)

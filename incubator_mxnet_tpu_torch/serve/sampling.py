@@ -320,14 +320,18 @@ def constrain_logits(logits, temps, counts, bias, mask, top_k, top_p,
                          torch.ones_like(temps))[..., None]
     # sorted probs from the top-k sort already in hand (flooring below
     # the k-th value commutes with sorting; exp is monotone), with ONE
-    # shared max / normalizer so they equal a sort of probs exactly
+    # shared max / normalizer so they equal a sort of probs exactly. The
+    # normalizer's sum and the cumsum run over ``row_aligned`` rows (the
+    # -inf pad weighs exactly 0): a row's top-p set does not depend on
+    # the row of the batch it sits in
     srt2 = torch.where(k_on[..., None] & (srt < kth), _NEG_BIG, srt)
     m = l.amax(dim=-1, keepdim=True)
-    e = torch.exp(l / safe_t - m / safe_t)
+    e = torch.exp(row_aligned(l / safe_t - m / safe_t))
     z = e.sum(dim=-1, keepdim=True)
-    probs = e / z
-    sp = (torch.exp(srt2 / safe_t - m / safe_t) / z).flip(-1)
-    csum = torch.cumsum(sp, dim=-1)
+    probs = e[..., :V] / z
+    sp = torch.exp(row_aligned((srt2 / safe_t - m / safe_t).flip(-1))) / z
+    csum = torch.cumsum(sp, dim=-1)[..., :V]
+    sp = sp[..., :V]
     keep_sorted = (csum - sp) < top_p[..., None]
     thr = torch.where(keep_sorted, sp, torch.full_like(sp, float("inf"))
                       ).amin(dim=-1, keepdim=True)

@@ -235,3 +235,41 @@ def test_cuda_draw_is_the_same_in_every_slot(model, W):
         logps.append(torch.log_softmax(row_aligned(x), dim=-1)[s, 0, :V])
     for d, lp in zip(draws[1:], logps[1:]):
         assert torch.equal(d, draws[0]) and torch.equal(lp, logps[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 5])
+def test_cuda_top_p_draw_is_the_same_in_every_slot(model, W):
+    """One row with top-p 0.9 and top-k 40 (T = 0.8) placed in each of 8
+    slots of an (8, W, 50257) batch, the rest random: the constrained row
+    (the top-p normalizer and cumsum run over row-aligned rows) and the
+    inverse-CDF draw from it are bitwise the same in every slot."""
+    from incubator_mxnet_tpu_torch.serve.sampling import (constrain_logits,
+                                                          sample_inverse_cdf)
+    V, S = 50257, 8
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(1)
+    row = torch.randn(V, device=dev, generator=gen) * 2.0
+    u = torch.rand(64, device=dev, generator=gen)
+    full = lambda v, dt=torch.float32: torch.full(  # noqa: E731
+        (S, W), v, dtype=dt, device=dev)
+    menu = dict(counts=torch.zeros(S, W, V, dtype=torch.int32, device=dev),
+                bias=torch.zeros(S, W, V, device=dev),
+                mask=torch.ones(S, W, V, dtype=torch.bool, device=dev),
+                top_k=full(40, torch.int32), top_p=full(0.9),
+                rep_pen=full(1.0), pres_pen=full(0.0))
+    temps = full(0.8)
+    rows, draws = [], []
+    for s in range(S):
+        x = torch.randn(S, W, V, device=dev, generator=gen)
+        x[s, 0] = row
+        c = constrain_logits(x, temps, **menu)
+        rows.append(c[s, 0].clone())
+        scaled = c / 0.8
+        draws.append(torch.stack([sample_inverse_cdf(
+            scaled, torch.full((S, W), float(v), device=dev))[s, 0]
+            for v in u]))
+    kept = int((rows[0] > -1e29).sum())
+    assert 1 < kept <= 40
+    for r, d in zip(rows[1:], draws[1:]):
+        assert torch.equal(r, rows[0]) and torch.equal(d, draws[0])

@@ -258,6 +258,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import incubator_mxnet_tpu_torch.serve.transport\n"
             "import incubator_mxnet_tpu_torch.serve.metrics\n"
             "import incubator_mxnet_tpu_torch.checkpoint.manifest\n"
+            "import incubator_mxnet_tpu_torch.serve.router\n"
+            "import incubator_mxnet_tpu_torch.serve.fleet_supervisor\n"
+            "import incubator_mxnet_tpu_torch.serve.frontend\n"
+            "import incubator_mxnet_tpu_torch.serve.chaos\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('ml_dtypes') or "
             "m.startswith('incubator_mxnet_tpu')"
@@ -268,3 +272,33 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+@pytest.mark.parametrize("V_", [16, 50257])
+def test_constrain_logits_top_p_equals_jax(V_):
+    """The full menu with top-p on (the row-aligned normalizer and
+    cumsum) against the JAX ``constrain_logits``: the same tokens kept,
+    their values equal, on (S, W, V) rows of one batch."""
+    from incubator_mxnet_tpu.serve.sampling import \
+        constrain_logits as jax_constrain
+    from incubator_mxnet_tpu_torch.serve.sampling import constrain_logits
+    rng = np.random.RandomState(3)
+    S, W = 3, 2
+    logits = (rng.randn(S, W, V_) * 3).astype(np.float32)
+    args = dict(
+        temps=np.array([[0.7], [1.0], [0.0]], np.float32),
+        counts=rng.randint(0, 2, size=(S, W, V_)).astype(np.int32),
+        bias=np.zeros((S, W, V_), np.float32),
+        mask=rng.rand(S, W, V_) > 0.05,
+        top_k=np.array([[0], [40], [5]], np.int32),
+        top_p=np.array([[0.9], [0.5], [0.95]], np.float32),
+        rep_pen=np.array([[1.2], [1.0], [1.0]], np.float32),
+        pres_pen=np.array([[0.0], [0.3], [0.0]], np.float32))
+    want = np.asarray(jax_constrain(logits, **args))
+    got = constrain_logits(torch.from_numpy(logits),
+                           **{k: torch.from_numpy(v) for k, v in
+                              args.items()}).numpy()
+    kept = want > -1e29
+    assert np.array_equal(got > -1e29, kept)
+    assert np.allclose(got[kept], want[kept], rtol=1e-6, atol=1e-6)
+    assert 0 < kept.sum() < kept.size
