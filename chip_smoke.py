@@ -2634,24 +2634,49 @@ def phase_flash_kernels(torch):
     return err
 
 
-def bert_batch(torch, np, rng, B, T, M, vocab, min_len):
-    """The bench's batch tuple: valid lengths drawn in [min_len, T] and
-    M distinct masked positions inside each length."""
+def bert_batch(torch, np, rng, B, T, M, vocab, min_len, ctx=None):
+    """The bench's batch tuple as ``nd.array``s (int32 indices, f32
+    weights; on ``ctx``, the card by default): valid lengths drawn in
+    [min_len, T] and M distinct masked positions inside each length."""
+    from incubator_mxnet_tpu_torch import nd
     lens = rng.randint(min_len, T + 1, size=B)
     pos = np.stack([rng.choice(n, size=M, replace=False) for n in lens])
     arrays = (rng.randint(0, vocab, (B, T)), rng.randint(0, 2, (B, T)),
               lens, pos, rng.randint(0, vocab, (B, M)),
               np.ones((B, M), np.float32), rng.randint(0, 2, (B,)))
-    return [torch.tensor(a, device="cuda") for a in arrays]
+    return [nd.array(a, ctx=ctx, dtype="float32" if a.dtype == np.float32
+                     else "int32") for a in arrays]
 
 
-def bert_trainer(torch, T, generator, dtype="bfloat16", size="base",
-                 device="cuda", dropout=0.1, lr=1e-4):
+def tensors(batch):
+    """The tensors of a batch of ``NDArray``s (what a step program
+    stages)."""
+    return [b._data for b in batch]
+
+
+def bench_bert(seed, T, dtype="bfloat16", size="base", ctx=None,
+               dropout=0.1):
+    """bench.py's ``_run_bert`` model, through the same calls:
+    ``mx.random.seed``, ``bert_base(dtype=, max_length=, flash=,
+    remat=, dropout=)``, ``initialize()``, ``BERTForPretraining``,
+    ``initialize()`` (on ``ctx``: the card by default)."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.models import bert as bert_mod
+    mx.random.seed(seed)
+    ctor = bert_mod.bert_base if size == "base" else bert_mod.bert_tiny
+    model = ctor(dtype=dtype, max_length=T, flash=True, remat=False,
+                 dropout=dropout)
+    model.initialize(ctx=ctx)
+    pre = bert_mod.BERTForPretraining(model)
+    pre.initialize(ctx=ctx)
+    return pre
+
+
+def bert_trainer(torch, T, seed, dtype="bfloat16", size="base", ctx=None,
+                 dropout=0.1, lr=1e-4):
     from incubator_mxnet_tpu_torch import models, parallel
-    ctor = models.bert_base if size == "base" else models.bert_tiny
-    bert = ctor(dtype=dtype, max_length=T, flash=True, dropout=dropout,
-                device=device, generator=generator)
-    pre = models.BERTForPretraining(bert)
+    pre = bench_bert(seed, T, dtype=dtype, size=size, ctx=ctx,
+                     dropout=dropout)
     tr = parallel.SPMDTrainer(
         pre, forward_loss=models.pretraining_loss, optimizer="lamb",
         optimizer_params={"learning_rate": lr,
@@ -2669,16 +2694,15 @@ def phase_training(torch, device_name):
     from torch.profiler import ProfilerActivity, profile
     from incubator_mxnet_tpu_torch.ops import flash_attention as fa
     from incubator_mxnet_tpu_torch.utils import flops
+    import incubator_mxnet_tpu_torch as mx
     B, T, M = BERT["B"], BERT["T"], BERT["M"]
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    pre, tr = bert_trainer(torch, T, gen)
+    pre, tr = bert_trainer(torch, T, 0)
     bert = pre.bert
     batch = bert_batch(torch, np, np.random.RandomState(0), B, T, M,
                        bert.vocab_size, 256)
 
     def step():
-        gen.manual_seed(1)        # a repeating batch: its dropout masks too
+        mx.random.seed(1)         # a repeating batch: its dropout masks too
         return tr.step(*batch)
 
     torch.cuda.synchronize()
@@ -2718,7 +2742,7 @@ def phase_training(torch, device_name):
                                         bert.units, bert.hidden_size,
                                         bert.vocab_size)
     ms_step = dt * 1e3 / BERT["steps"]
-    lens = batch[2].tolist()
+    lens = batch[2].asnumpy().tolist()
     stats = dict(config=f"bert_base bf16 flash dropout=0.1 LAMB lr=1e-4 "
                         f"multi_precision B={B} T={T} M={M}",
                  losses=losses, ms_per_step=ms_step,
@@ -2732,7 +2756,7 @@ def phase_training(torch, device_name):
                  step_trace_count=tr.step_trace_count,
                  first_step_ms=prog.first_ms, capture_ms=prog.build_ms,
                  launches=launches)
-    train_host_costs(torch, tr, prog, batch, gen)
+    train_host_costs(torch, tr, prog, tensors(batch))
     # what the graph removed: the guarded LAMB apply over every parameter
     # run eagerly, op by op (host clock around it, synchronised)
     params = [tr._params[i] for i in tr._train_idx]
@@ -2777,7 +2801,7 @@ def phase_training(torch, device_name):
     return stats, lens
 
 
-def train_host_costs(torch, tr, prog, batch, gen):
+def train_host_costs(torch, tr, prog, batch):
     """Host time of a replayed train step's own work (medians of 10, the
     device idle before each): staging the batch (device to device) and
     t / lr / scale (one copy), the launch (one replay), and the readback
@@ -2795,8 +2819,10 @@ def train_host_costs(torch, tr, prog, batch, gen):
             torch.cuda.synchronize()
         return statistics.median(times)
 
+    import incubator_mxnet_tpu_torch as mx
+
     def stage():
-        gen.manual_seed(1)
+        mx.random.seed(1)
         prog.stage(batch, tr.step_count + 1, tr.learning_rate, 1.0)
 
     def staged_replay():
@@ -2818,9 +2844,7 @@ def phase_long_sequence(torch):
     import numpy as np
     from incubator_mxnet_tpu_torch.ops import flash_attention as fa
     T = 1024
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(5)
-    pre, tr = bert_trainer(torch, T, gen)
+    pre, tr = bert_trainer(torch, T, 5)
     batch = bert_batch(torch, np, np.random.RandomState(5), 4, T,
                        BERT["M"], pre.bert.vocab_size, 512)
     fa.reset_launch_counts()
@@ -2834,7 +2858,7 @@ def phase_long_sequence(torch):
     check(tr.step_trace_count == 1 and replays == [1],
           f"T=1024: {tr.step_trace_count} builds, replays {replays}")
     print(f"[long] bert_base bf16 T=1024 B=4 lengths "
-          f"{batch[2].tolist()}: losses {losses} (the second a replay of "
+          f"{batch[2].asnumpy().tolist()}: losses {losses} (the second a replay of "
           f"the step graph), launches {launches}", flush=True)
     del tr, pre, batch
     torch.cuda.empty_cache()
@@ -2853,24 +2877,25 @@ def phase_bert_parity(torch):
     (D=64) the mma.sync bodies that bert_base trains on, so bf16 also
     holds every parameter's gradient of the first step."""
     import numpy as np
+    import incubator_mxnet_tpu_torch as mx
     from incubator_mxnet_tpu_torch.ops import flash_attention as fa
     T, B, M, steps = 128, 8, 20, 5
     for dtype in ("float32", "bfloat16"):
         rtol, gfrac = BERT_PARITY_TOL[dtype]
         cpu_pre, cpu_tr = bert_trainer(
-            torch, T, torch.Generator().manual_seed(7), dtype=dtype,
-            size="tiny", device="cpu", dropout=0.0, lr=1e-3)
-        gen = torch.Generator(device="cuda")
-        gpu_pre, gpu_tr = bert_trainer(torch, T, gen, dtype=dtype,
+            torch, T, 7, dtype=dtype, size="tiny", ctx=mx.cpu(),
+            dropout=0.0, lr=1e-3)
+        gpu_pre, gpu_tr = bert_trainer(torch, T, 7, dtype=dtype,
                                        size="tiny", dropout=0.0, lr=1e-3)
         gpu_pre.load_state_dict(cpu_pre.state_dict())
         batch = bert_batch(torch, np, np.random.RandomState(7), B, T, M,
                            cpu_pre.bert.vocab_size, 32)
-        cpu_batch = [b.cpu() for b in batch]
+        cpu_batch = [b.as_in_context(mx.cpu()) for b in batch]
         if gfrac is not None:
             one = torch.ones((), device="cuda")
-            _, g_card = gpu_tr._forward_backward(batch, one)
-            _, g_cpu = cpu_tr._forward_backward(cpu_batch, one.cpu())
+            _, g_card = gpu_tr._forward_backward(tensors(batch), one)
+            _, g_cpu = cpu_tr._forward_backward(tensors(cpu_batch),
+                                                one.cpu())
             worst = (0.0, "")
             for i, a, b in zip(cpu_tr._train_idx, g_card, g_cpu):
                 name = cpu_tr._names[i]
@@ -2912,6 +2937,277 @@ def phase_bert_parity(torch):
               f"bert_tiny {dtype}: loss did not fall on the card {on_card}")
         del cpu_pre, cpu_tr, gpu_pre, gpu_tr, batch, cpu_batch
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------- #
+# the MXNet front end on the card
+# --------------------------------------------------------------------- #
+
+GLUON = dict(B=32, T=512, M=76, steps=10, warmup=3)
+# the gluon Trainer's first step against SPMDTrainer's, dropout off: the
+# loss at rtol, every updated weight within this fraction of its tensor's
+# largest |entry| (one bf16 rounding is 2^-8 of it)
+GLUON_PARITY = dict(loss_rtol=2e-4, weight_frac=2 ** -7)
+
+
+def gluon_drive(torch, np):
+    """The verify drive (``.claude/skills/verify/SKILL.md`` steps 1-5)
+    with ``incubator_mxnet_tpu_torch as mx`` on the card: nd arithmetic,
+    a hand-computed gradient, HybridSequential(Dense, Activation, Dense)
+    + SoftmaxCrossEntropyLoss + gluon.Trainer("sgd") for 30 steps eager
+    and hybridized, and save / load_parameters in both formats."""
+    import tempfile
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd, gluon, nd
+    a = nd.array([[1, 2], [3, 4]])
+    check(a.context == mx.gpu(0) and a._data.is_cuda,
+          f"gluon drive: nd.array on {a.context}, not the card")
+    b = (a * 2 + 1) / 2 - a
+    check(np.array_equal(b.asnumpy(), np.full((2, 2), 0.5, np.float32)),
+          f"gluon drive: arithmetic gave {b.asnumpy()}")
+    x = nd.array([1.0, 2.0, 3.0])
+    x.attach_grad()
+    with autograd.record():
+        y = (x * x * x).sum()
+    y.backward()
+    check(np.allclose(x.grad.asnumpy(), [3.0, 12.0, 27.0], rtol=1e-6),
+          f"gluon drive: d(x^3)/dx = {x.grad.asnumpy()}")
+    rng = np.random.RandomState(0)
+    X = rng.randn(256, 20).astype(np.float32)
+    Y = (X @ rng.randn(20, 4)).argmax(1).astype(np.float32)
+    Xn, Yn = nd.array(X), nd.array(Y)
+    runs = {}
+    for hybrid in (False, True):
+        mx.random.seed(0)
+        net = gluon.nn.HybridSequential()
+        net.add(gluon.nn.Dense(64), gluon.nn.Activation("relu"),
+                gluon.nn.Dense(4))
+        net.initialize(mx.init.Xavier())
+        if hybrid:
+            net.hybridize()
+        tr = gluon.Trainer(net.collect_params(), "sgd",
+                           {"learning_rate": 0.5}, kvstore="device")
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        losses = []
+        for _ in range(30):
+            with autograd.record():
+                L = loss_fn(net(Xn), Yn)
+            L.backward()
+            tr.step(X.shape[0])
+            losses.append(float(L.mean().asscalar()))
+        progs = list(tr._fused._programs.values())
+        check(losses[-1] < 0.7 * losses[0],
+              f"gluon drive (hybridize={hybrid}): loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, not below 0.7x")
+        check(tr._fused.trace_count == 1 and tr._fused.call_count == 30 and
+              all(p.graph is not None for p in progs),
+              f"gluon drive: {tr._fused.trace_count} applier captures, "
+              f"{tr._fused.call_count} calls")
+        if hybrid:
+            check(len(net._cached_op._cache) == 1,
+                  f"gluon drive: {len(net._cached_op._cache)} cached "
+                  f"signatures")
+        runs[hybrid] = (net, losses)
+    net, losses = runs[True]
+    rel = max(abs(a - b) / b for a, b in zip(losses, runs[False][1]))
+    out = net(Xn).asnumpy()
+    same = {}
+    with tempfile.TemporaryDirectory() as d:
+        for fmt in ("mxtpu", "mxnet"):
+            path = os.path.join(d, f"net.{fmt}")
+            net.save_parameters(path, format=fmt)
+            net2 = gluon.nn.HybridSequential()
+            net2.add(gluon.nn.Dense(64), gluon.nn.Activation("relu"),
+                     gluon.nn.Dense(4))
+            net2.load_parameters(path, ctx=mx.gpu(0))
+            same[fmt] = bool(np.array_equal(net2(Xn).asnumpy(), out))
+    check(all(same.values()), f"gluon drive: outputs after the save / load "
+                              f"round trip bitwise {same}")
+    print(f"[gluon] verify drive on the card: x^3 gradient ok; 30 SGD "
+          f"steps eager {runs[False][1][0]:.4f} -> {runs[False][1][-1]:.4f},"
+          f" hybridized {losses[0]:.4f} -> {losses[-1]:.4f} (max rel diff "
+          f"{rel:.2e}), one applier capture each; save/load bitwise "
+          f"{same}", flush=True)
+
+
+def gluon_state(trainer, pre):
+    """Copies of every parameter and optimizer-state tensor of a gluon
+    Trainer."""
+    from incubator_mxnet_tpu_torch.optimizer.fused import tree_leaves
+    return [p.detach().clone() for p in pre.parameters()] + [
+        x.clone() for s in trainer._updaters[0].states.values()
+        for x in tree_leaves(s)]
+
+
+def phase_gluon(torch, device_name):
+    """bert_base bf16 trained through MXNet user code on the card
+    (``autograd.record()``, ``loss.backward()``, ``gluon.Trainer`` with
+    LAMB and f32 masters, its update two captured group programs and one
+    all-finite program), then its first step against SPMDTrainer's with
+    dropout off, and a skipped step."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd, gluon
+    from incubator_mxnet_tpu_torch.models import bert as bert_mod
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    from incubator_mxnet_tpu_torch.parallel import SPMDTrainer
+    from incubator_mxnet_tpu_torch.train import StepOutcome
+    from incubator_mxnet_tpu_torch.utils import flops
+    t_phase = time.perf_counter()
+    gluon_drive(torch, np)
+    B, T, M = GLUON["B"], GLUON["T"], GLUON["M"]
+    opt = {"learning_rate": 1e-4, "multi_precision": True}
+    pre = bench_bert(0, T)
+    bert = pre.bert
+    batch = bert_batch(torch, np, np.random.RandomState(0), B, T, M,
+                       bert.vocab_size, 256)
+    trainer = gluon.Trainer(pre.collect_params(), "lamb", dict(opt))
+    app = trainer._fused
+    issue = {"forward": [], "backward": []}
+
+    def step():
+        mx.random.seed(1)         # a repeating batch: its dropout masks too
+        t0 = time.perf_counter()
+        with autograd.record():
+            L = bert_mod.pretraining_loss(pre, *batch)
+        t1 = time.perf_counter()
+        L.backward()
+        t2 = time.perf_counter()
+        trainer.step(1)
+        issue["forward"].append((t1 - t0) * 1e3)
+        issue["backward"].append((t2 - t1) * 1e3)
+        return L
+
+    def counts():
+        return (app.trace_count, app.guard_trace_count,
+                app.accum_trace_count)
+
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    losses = [float(step().asscalar())]
+    first = counts()
+    losses += [float(step().asscalar()) for _ in range(GLUON["warmup"] - 1)]
+    check(first == (2, 1, 0) and counts() == first,
+          f"gluon: applier captures {first} after the first step, "
+          f"{counts()} after the warm-up (want 2 groups and one guard, as "
+          f"the JAX Trainer traces for bert_base)")
+    issue = {"forward": [], "backward": []}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [step() for _ in range(GLUON["steps"])]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    losses += [float(x.asscalar()) for x in timed]
+    n_steps = GLUON["warmup"] + GLUON["steps"]
+    check(all(np.isfinite(losses)), f"gluon: non-finite loss {losses}")
+    check(counts() == first, f"gluon: applier captures moved to "
+                             f"{counts()} in the timed steps")
+    check(trainer.last_outcome is StepOutcome.APPLIED and
+          trainer.health[StepOutcome.APPLIED.value] == n_steps,
+          f"gluon: outcomes {trainer.health}")
+    for name in FLASH:
+        check(launches[name] == bert.num_layers * n_steps,
+              f"gluon: {name} launches {launches[name]} != "
+              f"{bert.num_layers} layers x {n_steps} steps")
+    ms_step = dt * 1e3 / GLUON["steps"]
+    step_flops = flops.bert_train_flops(B, T, M, bert.num_layers,
+                                        bert.units, bert.hidden_size,
+                                        bert.vocab_size)
+    host_ms = statistics.median(issue["forward"]) + \
+        statistics.median(issue["backward"])
+    stats = dict(config=f"bert_base bf16 flash dropout=0.1 gluon.Trainer "
+                        f"LAMB lr=1e-4 multi_precision B={B} T={T} M={M}",
+                 losses=losses, ms_per_step=ms_step,
+                 tokens_per_s=B * T / (ms_step / 1e3),
+                 mfu=step_flops / (ms_step / 1e3) /
+                 flops.peak_flops(device_name),
+                 forward_issue_ms=statistics.median(issue["forward"]),
+                 backward_issue_ms=statistics.median(issue["backward"]),
+                 host_share=host_ms / ms_step,
+                 applier_captures=dict(zip(
+                     ("trace_count", "guard_trace_count",
+                      "accum_trace_count"), first)),
+                 applier_calls=app.call_count, launches=launches,
+                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    kern = [e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if kern:
+        busy = sum(kern) / 1e3
+        stats.update(profiled_wall_ms=wall_ms, device_busy_ms=busy,
+                     device_busy_share=busy / wall_ms)
+    else:
+        stats["device_busy_share"] = "not measured (no kernel traced)"
+    print(f"[gluon] {json.dumps(stats)}", flush=True)
+
+    # a skipped step: one poisoned gradient; weights and optimizer state
+    # bitwise, no capture count moves
+    before = gluon_state(trainer, pre)
+    at = counts()
+    mx.random.seed(1)
+    with autograd.record():
+        L = bert_mod.pretraining_loss(pre, *batch)
+    L.backward()
+    poisoned = pre.bert.layer3.ffn_in.weight.grad()
+    poisoned._data.view(-1)[7] = float("nan")
+    trainer.step(1)
+    after = gluon_state(trainer, pre)
+    changed = sum(not torch.equal(x, y) for x, y in zip(before, after))
+    check(trainer.last_outcome is StepOutcome.SKIPPED_NONFINITE and
+          changed == 0 and counts() == at and app.skipped_steps == 1,
+          f"gluon skipped step: outcome {trainer.last_outcome}, "
+          f"{changed} tensors changed, captures {at} -> {counts()}")
+    print(f"[gluon] skipped step: SKIPPED_NONFINITE, {len(after)} weight "
+          f"and state tensors bitwise, captures {counts()}", flush=True)
+    del trainer, pre, bert, timed, before, after
+    torch.cuda.empty_cache()
+
+    # dropout off: the gluon Trainer's first step against SPMDTrainer's
+    pre_a = bench_bert(3, T, dropout=0.0)
+    pre_b = bench_bert(3, T, dropout=0.0)
+    pre_b.load_state_dict(pre_a.state_dict())
+    gt = gluon.Trainer(pre_a.collect_params(), "lamb", dict(opt))
+    st = SPMDTrainer(pre_b, forward_loss=bert_mod.pretraining_loss,
+                     optimizer="lamb", optimizer_params=dict(opt),
+                     sharding="replicated")
+    with autograd.record():
+        La = bert_mod.pretraining_loss(pre_a, *batch)
+    La.backward()
+    gt.step(1)
+    Lb = st.step(*batch)
+    la, lb = float(La.asscalar()), float(Lb.asscalar())
+    worst = (0.0, "")
+    want = pre_b.state_dict()
+    for name, got in pre_a.state_dict().items():
+        ref = want[name].float()
+        d = float((got.float() - ref).abs().max())
+        scale = float(ref.abs().max())
+        worst = max(worst, (d / (GLUON_PARITY["weight_frac"] * scale)
+                            if scale > 0 else float(d > 0), name))
+    print(f"[gluon] first step, dropout 0: gluon.Trainer loss {la!r} vs "
+          f"SPMDTrainer {lb!r} (rel {abs(la - lb) / abs(lb):.2e}, rtol "
+          f"{GLUON_PARITY['loss_rtol']}); updated weights: worst |diff| / "
+          f"tolerance {worst[0]:.3f} ({worst[1]}; tolerance "
+          f"{GLUON_PARITY['weight_frac']} x the tensor's largest |entry|)",
+          flush=True)
+    check(abs(la - lb) <= GLUON_PARITY["loss_rtol"] * abs(lb),
+          f"gluon vs SPMDTrainer first-step loss {la} vs {lb}")
+    check(worst[0] <= 1.0, f"gluon vs SPMDTrainer: updated {worst[1]} "
+                           f"differs ({worst[0]:.2f} x the tolerance)")
+    del gt, st, pre_a, pre_b, batch, want
+    torch.cuda.empty_cache()
+    print(f"[gluon] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return stats
 
 
 def flash_work(B, H, T, D, lens, elem):
@@ -3068,6 +3364,7 @@ def main():
             torch, torch.cuda.get_device_name(0))
         phase_long_sequence(torch)
         phase_bert_parity(torch)
+        phase_gluon(torch, torch.cuda.get_device_name(0))
         times = phase_times(torch)
         times.update(phase_flash_times(torch, lens, err))
         for mod in ("jax", "incubator_mxnet_tpu"):

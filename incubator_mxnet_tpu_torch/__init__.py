@@ -1,7 +1,12 @@
 """incubator_mxnet_tpu_torch — the PyTorch / CUDA port of
 incubator_mxnet_tpu, built slice by slice beside the JAX package.
 
-The slices so far are GPT serving and BERT pretraining:
+MXNet 1.x's imperative front end: ``nd`` (``NDArray`` over a
+``torch.Tensor`` and the registered ops), ``autograd`` on
+``torch.autograd``, ``gluon`` (``Parameter``, ``Block`` /
+``HybridBlock`` as ``torch.nn.Module``s, ``nn``, ``loss``, ``Trainer``
+with its fused applier as CUDA graphs) and ``init``. The model slices are
+GPT serving and BERT pretraining:
 ``models.gpt`` (GPT-2-small widths and a tiny test config),
 ``serve.InferenceEngine`` over a paged KV cache with speculative decoding
 and int8 / fp8 pages; ``models.bert`` (``bert_base``,
@@ -13,28 +18,50 @@ attention forward and its dq / dk-dv backward), built with nvcc on first
 use.
 
     import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import nd, autograd, gluon
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Dense(64, activation="relu"), gluon.nn.Dense(4))
+    net.initialize()                                      # on gpu(0)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1})
+    with autograd.record():
+        L = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
+    L.backward()
+    trainer.step(x.shape[0])
+
     model = mx.models.gpt_small(dtype="bfloat16")        # on the GPU
     eng = mx.serve.InferenceEngine(model, chunk_pages=4, spec_k=4,
                                    kv_quant="int8")
 
     bert = mx.models.bert_base(dtype="bfloat16", max_length=512,
                                flash=True)
+    bert.initialize()
     pre = mx.models.BERTForPretraining(bert)
+    pre.initialize()
     trainer = mx.parallel.SPMDTrainer(
         pre, forward_loss=mx.models.pretraining_loss, optimizer="lamb",
         optimizer_params={"learning_rate": 1e-4, "multi_precision": True})
     loss = trainer.step(*batch)
 
-Entry points run on the GPU unless the caller passes ``device="cpu"``;
-without CUDA they raise ``MXNetError``. The port imports neither ``jax``
-nor the JAX package.
+Entry points run on the GPU (``gpu(0)``, the default context) unless the
+caller asks for the CPU (``with mx.cpu():``, ``ctx=mx.cpu()`` or
+``device="cpu"``); without CUDA they raise ``MXNetError``. The port
+imports neither ``jax`` nor the JAX package.
 """
 
-from . import (amp, checkpoint, initializer, models, ops, optimizer,
-               parallel, random, serve, train)
+from . import (amp, autograd, checkpoint, initializer, models, ops,
+               optimizer, parallel, random, runtime, serve, train)
+from . import ndarray
+from . import ndarray as nd
+from . import gluon
+from . import initializer as init
 from .base import MXNetError
-from .context import cpu, gpu
+from .context import Context, cpu, current_context, gpu, num_gpus
+from .ndarray import NDArray
+from .optimizer import lr_scheduler
 
-__all__ = ["MXNetError", "cpu", "gpu", "amp", "checkpoint", "initializer",
-           "models", "ops", "optimizer", "parallel", "random", "serve",
-           "train"]
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
+           "num_gpus", "NDArray", "nd", "ndarray", "autograd", "gluon",
+           "init", "initializer", "lr_scheduler", "runtime", "amp",
+           "checkpoint", "models", "ops", "optimizer", "parallel", "random",
+           "serve", "train"]

@@ -12,13 +12,19 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-__all__ = ["MXNetError", "getenv_bool"]
+__all__ = ["MXNetError", "DeferredInitializationError", "getenv_bool",
+           "getenv_int"]
 
 _ENV_PREFIXES = ("MXTPU_", "MXNET_")
 
 
 class MXNetError(RuntimeError):
     """Default error thrown by framework functions."""
+
+
+class DeferredInitializationError(MXNetError):
+    """A parameter was read before its shape could be inferred (gluon's
+    deferred-initialization contract)."""
 
 
 def _getenv_raw(name: str) -> Optional[str]:
@@ -40,3 +46,14 @@ def getenv_bool(name: str, default: bool = False) -> bool:
     if val is None:
         return default
     return val.strip().lower() in ("1", "true", "yes", "on")
+
+
+def getenv_int(name: str, default: int = 0) -> int:
+    """An integer knob; ``default`` when unset or not an integer."""
+    val = _getenv_raw(name)
+    if val is None:
+        return default
+    try:
+        return int(val)
+    except ValueError:
+        return default

@@ -1,0 +1,329 @@
+"""Basic layers: the port of the JAX package's
+``incubator_mxnet_tpu/gluon/nn/basic_layers.py``.
+
+Layers are ``HybridBlock``s over the ``mx.nd`` ops. BatchNorm's running
+statistics are ``grad_req='null'`` parameters, updated in place (under
+``torch.no_grad``) when the forward runs in training mode, so a CUDA
+graph holding them sees each update. ``Embedding(sparse_grad=True)``
+(row_sparse gradients) is not ported; ``sharded=`` is the JAX package's
+mesh hint and has no effect on one device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ... import autograd
+from ...base import MXNetError
+from ..block import Block, HybridBlock
+
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "Embedding",
+           "BatchNorm", "LayerNorm", "InstanceNorm", "GroupNorm", "Flatten",
+           "Lambda", "HybridLambda", "Identity"]
+
+
+class Sequential(Block):
+    """Sequential container."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block)
+
+    def forward(self, x):
+        for block in self._children.values():
+            x = block(x)
+        return x
+
+    def __len__(self):
+        return len(self._children)
+
+    def __getitem__(self, i):
+        return list(self._children.values())[i]
+
+    def __iter__(self):
+        return iter(self._children.values())
+
+
+class HybridSequential(HybridBlock):
+    """Sequential container of hybridizable blocks."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block)
+
+    def hybrid_call(self, x):
+        for block in self._children.values():
+            x = block(x)
+        return x
+
+    def __len__(self):
+        return len(self._children)
+
+    def __getitem__(self, i):
+        return list(self._children.values())[i]
+
+    def __iter__(self):
+        return iter(self._children.values())
+
+
+class Dense(HybridBlock):
+    """Fully-connected layer (op: FullyConnected); ``in_units=0`` defers
+    the weight's shape to the first forward."""
+
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
+                 dtype="float32", weight_initializer=None,
+                 bias_initializer="zeros", in_units=0, **kwargs):
+        super().__init__(**kwargs)
+        self._units = units
+        self._flatten = flatten
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(units, in_units), dtype=dtype,
+                init=weight_initializer, allow_deferred_init=True)
+            if use_bias:
+                self.bias = self.params.get(
+                    "bias", shape=(units,), dtype=dtype,
+                    init=bias_initializer, allow_deferred_init=True)
+            else:
+                self.bias = None
+            self.act = Activation(activation, prefix=activation + "_") \
+                if activation is not None else None
+
+    def infer_shape(self, x, *args):
+        if self._flatten:
+            in_units = 1
+            for d in x.shape[1:]:
+                in_units *= d
+        else:
+            in_units = x.shape[-1]
+        self.weight.shape = (self._units, in_units)
+        if self.bias is not None:
+            self.bias.shape = (self._units,)
+
+    def hybrid_forward(self, F, x, weight, bias=None):
+        out = F.FullyConnected(x, weight, bias, no_bias=bias is None,
+                               num_hidden=self._units, flatten=self._flatten)
+        if self.act is not None:
+            out = self.act(out)
+        return out
+
+
+class Dropout(HybridBlock):
+    """Dropout (op: Dropout); active when ``autograd.is_training()``."""
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        if self._rate > 0:
+            return F.Dropout(x, p=self._rate, axes=self._axes)
+        return x
+
+
+class Embedding(HybridBlock):
+    """Row lookup (op: Embedding)."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False,
+                 sharded=False, **kwargs):
+        super().__init__(**kwargs)
+        if sparse_grad:
+            raise MXNetError("Embedding(sparse_grad=True): row_sparse "
+                             "gradients are not ported")
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim), dtype=dtype,
+                init=weight_initializer)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim)
+
+
+class BatchNorm(HybridBlock):
+    """Batch normalization (op: BatchNorm); the running statistics move in
+    place in training mode."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True, differentiable=scale)
+            self.beta = self.params.get(
+                "beta", shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True, differentiable=center)
+            self.running_mean = self.params.get(
+                "running_mean", shape=(in_channels,),
+                init=running_mean_initializer, allow_deferred_init=True,
+                differentiable=False)
+            self.running_var = self.params.get(
+                "running_var", shape=(in_channels,),
+                init=running_variance_initializer, allow_deferred_init=True,
+                differentiable=False)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean, self.running_var):
+            p.shape = (c,)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        out, mean, var = F.BatchNorm(
+            x, gamma, beta, running_mean, running_var, eps=self._epsilon,
+            momentum=self._momentum, fix_gamma=not self._scale,
+            use_global_stats=self._use_global_stats, axis=self._axis)
+        if autograd.is_training() and not self._use_global_stats:
+            m = self._momentum
+            with torch.no_grad():
+                running_mean._data.copy_(m * running_mean._data
+                                         + (1 - m) * mean._data.detach())
+                running_var._data.copy_(m * running_var._data
+                                        + (1 - m) * var._data.detach())
+        return out
+
+
+class LayerNorm(HybridBlock):
+    """Layer normalization (op: LayerNorm)."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True, differentiable=scale)
+            self.beta = self.params.get(
+                "beta", shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True, differentiable=center)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        self.gamma.shape = (c,)
+        self.beta.shape = (c,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis,
+                           eps=self._epsilon)
+
+
+class InstanceNorm(HybridBlock):
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True, differentiable=scale)
+            self.beta = self.params.get(
+                "beta", shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True, differentiable=center)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[1]
+        self.gamma.shape = (c,)
+        self.beta.shape = (c,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
+
+class GroupNorm(HybridBlock):
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True, differentiable=scale)
+            self.beta = self.params.get(
+                "beta", shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True, differentiable=center)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[1]
+        self.gamma.shape = (c,)
+        self.beta.shape = (c,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._num_groups,
+                           eps=self._epsilon)
+
+
+class Flatten(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return F.flatten(x)
+
+    def __repr__(self):
+        return "Flatten"
+
+
+class Identity(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return x
+
+
+class Lambda(Block):
+    """A function (or the name of an ``nd`` function) as a Block."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        from ... import ndarray as nd_mod
+        if isinstance(function, str):
+            if not hasattr(nd_mod, function):
+                raise MXNetError(f"unknown nd function {function!r}")
+            self._func = getattr(nd_mod, function)
+        else:
+            self._func = function
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(HybridBlock):
+    """``function(F, *args)`` (or the name of an ``F`` function) as a
+    HybridBlock."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            self._fname = function
+            self._func = None
+        else:
+            self._func = function
+            self._fname = None
+
+    def hybrid_forward(self, F, *args):
+        if self._fname is not None:
+            return getattr(F, self._fname)(*args)
+        return self._func(F, *args)
+
+
+from .activations import Activation  # noqa: E402

@@ -11,21 +11,35 @@ counterpart on one device.
 
 from __future__ import annotations
 
+import torch
+
 from ..ops.attention import scaled_dot_product_attention
 from ..ops.flash_attention import cuda_kernel_eligible
 
 __all__ = ["packed_flash_self_attention", "use_packed_fast_path"]
 
 
-def packed_flash_self_attention(qkv, B, T, H, D, units, causal=False,
+def _tensor(x):
+    return None if x is None else getattr(x, "_data", x)
+
+
+def packed_flash_self_attention(F, qkv, B, T, H, D, units, causal=False,
                                 mask=None, valid_length=None):
-    """qkv: (B, T, 3, H, D), the projection's output. Returns the
-    attention output as (B, T, units)."""
-    qkv_p = qkv.permute(2, 0, 3, 1, 4).contiguous()        # (3, B, H, T, D)
-    out = scaled_dot_product_attention(
-        qkv_p[0], qkv_p[1], qkv_p[2], mask=mask, causal=causal, flash=True,
-        valid_length=valid_length, layout="bhtd")
-    return out.transpose(1, 2).reshape(B, T, units)
+    """qkv: (B, T, 3, H, D), the projection's output (an ``NDArray``).
+    Returns the attention output as a (B, T, units) ``NDArray``; the
+    packing and the kernels' call are recorded when ``autograd`` records
+    (``F`` is the JAX signature's op namespace, unused here)."""
+    from .. import autograd
+    from ..ndarray import NDArray
+    m = _tensor(mask)
+    if m is not None and m.dtype != torch.bool:
+        m = m != 0
+    with torch.set_grad_enabled(autograd.is_recording()):
+        qkv_p = _tensor(qkv).permute(2, 0, 3, 1, 4).contiguous()
+        out = scaled_dot_product_attention(
+            qkv_p[0], qkv_p[1], qkv_p[2], mask=m, causal=causal, flash=True,
+            valid_length=_tensor(valid_length), layout="bhtd")
+        return NDArray(out.transpose(1, 2).reshape(B, T, units))
 
 
 def use_packed_fast_path(D):

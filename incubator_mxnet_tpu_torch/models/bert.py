@@ -1,189 +1,202 @@
-"""BERT for pretraining: the port of the JAX package's
-``incubator_mxnet_tpu/models/bert.py`` as ``nn.Module``s.
+"""BERT for pretraining on gluon ``HybridBlock``s: the port of the JAX
+package's ``incubator_mxnet_tpu/models/bert.py``.
 
-The same modules, widths and numerics:
+``BERTSelfAttention``, ``BERTEncoderLayer``, ``BERTModel``,
+``BERTForPretraining`` and ``BERTClassifier`` are built from ``gluon.nn``
+and written as the JAX model's ``hybrid_forward``s, with the port's
+numerics:
 
   - post-norm encoder layers: x = LN(x + Dropout(proj(attn(x)))), then
     x = LN(x + Dropout(ffn_out(GELU(ffn_in(x))))), exact (erf) GELU;
   - dropout on the attention OUTPUT, not on the probabilities (the flash
-    kernels never materialize them);
-  - per-parameter dtypes: the qkv, proj, ffn_in and ffn_out Linears take
-    the model dtype (bf16 for training); the embeddings, LayerNorms,
+    kernels never materialize them); masks drawn from ``mx.random``'s
+    generator for the device, in training mode only
+    (``autograd.is_training()``);
+  - per-parameter dtypes: the qkv, proj, ffn_in and ffn_out Dense layers
+    take the model dtype (bf16 for training); the embeddings, LayerNorms,
     pooler, ``mlm_transform``, ``nsp`` and ``mlm_bias`` stay f32;
   - casts: the embedding sum enters the model dtype before ``embed_ln``;
     LayerNorm (eps 1e-12) keeps statistics in f32 and returns the input
     dtype; the [CLS] path is f32; the MLM head runs in f32 and its tied
     decoder matmul in the model dtype;
+  - the MLM gather is ``batch_take`` (a gather; the JAX model's one-hot
+    ``batch_dot`` is exact too, so the two agree);
   - ``pretraining_loss``: cross entropy as pick - logsumexp with f32
     accumulation (the (B, M, vocab) log-probabilities are never written).
 
 With ``flash=True`` attention takes the flash path (the CUDA kernels on
-the card) through the packed (3, B, H, T, D) layout. Weights are drawn
-from a ``torch.Generator`` (truncated normal, std 0.02; zero biases);
-``models.convert.bert_params_from_jax`` copies the JAX model's across.
-Dropout masks come from the model's generator. Not ported: ``remat``,
-``seq_parallel`` (both raise) and ``BERTClassifier``.
+the card) through the packed (3, B, H, T, D) layout
+(``models/_attention.py``). ``bert_base(dtype=, max_length=, flash=,
+dropout=)`` then ``initialize()`` is the MXNet contract: parameters land
+on the context ``initialize`` is given (the current one by default),
+drawn by ``TruncNorm(0.02)`` (zero biases). Parameter names follow the
+JAX model's (``collect_params()``), and ``state_dict()`` keys are gluon's
+structural names, through which ``models.convert.bert_params_from_jax``
+carries the JAX model's weights. Not ported: ``remat`` and
+``seq_parallel`` (both raise) and ``pretraining_pipeline``.
 """
 
 from __future__ import annotations
 
-import torch
-import torch.nn.functional as F
-from torch import nn
-
 from ..base import MXNetError
-from ..context import resolve_device
-from ..initializer import TruncNorm, Zero
-from .. import random as _random
-from ..ops.attention import scaled_dot_product_attention
-from ..ops.flash_attention import valid_length_mask
+from ..gluon import nn
+from ..gluon.block import HybridBlock
+from ..gluon.parameter import Parameter
+from .. import initializer as init
 from ._attention import packed_flash_self_attention, use_packed_fast_path
-from .gpt import LayerNorm, _torch_dtype
 
-__all__ = ["BERTModel", "BERTForPretraining", "pretraining_loss",
-           "bert_tiny", "bert_base", "bert_large"]
-
-
-class Dropout(nn.Module):
-    """Inverted dropout, ``x * mask / keep`` with the mask in x's dtype,
-    drawn from the owning model's generator; identity in eval mode."""
-
-    def __init__(self, rate, generator):
-        super().__init__()
-        self.rate = float(rate)
-        self.generator = generator
-
-    def forward(self, x):
-        if not self.training or self.rate == 0.0:
-            return x
-        keep = 1.0 - self.rate
-        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
-        return x * mask / keep
+__all__ = ["BERTModel", "BERTForPretraining", "BERTClassifier",
+           "pretraining_loss", "bert_tiny", "bert_base", "bert_large"]
 
 
-class BERTSelfAttention(nn.Module):
+def _trunc():
+    return init.TruncNorm(stdev=0.02)
+
+
+class BERTSelfAttention(HybridBlock):
     """Multi-head self-attention with a fused QKV projection."""
 
-    def __init__(self, units, num_heads, dropout, dtype, flash, device,
-                 generator):
-        super().__init__()
+    def __init__(self, units, num_heads, dropout=0.1, dtype="float32",
+                 flash=False, **kwargs):
+        super().__init__(**kwargs)
         if units % num_heads:
             raise MXNetError(f"units {units} not divisible by heads "
                              f"{num_heads}")
-        self.units, self.heads, self.flash = units, num_heads, flash
-        self.qkv = nn.Linear(units, 3 * units, dtype=dtype, device=device)
-        self.proj = nn.Linear(units, units, dtype=dtype, device=device)
-        self.dropout = Dropout(dropout, generator)
+        self._units = units
+        self._heads = num_heads
+        self._flash = flash
+        with self.name_scope():
+            self.qkv = nn.Dense(3 * units, in_units=units, flatten=False,
+                                dtype=dtype, weight_initializer=_trunc())
+            self.proj = nn.Dense(units, in_units=units, flatten=False,
+                                 dtype=dtype, weight_initializer=_trunc())
+            self.dropout = nn.Dropout(dropout)
 
-    def forward(self, x, mask=None, valid_length=None):
+    def hybrid_forward(self, F, x, mask=None, valid_length=None):
         B, T = x.shape[0], x.shape[1]
-        H, D = self.heads, self.units // self.heads
-        qkv = self.qkv(x).reshape(B, T, 3, H, D)
-        vl = valid_length.int() if valid_length is not None else None
-        if self.flash and (mask is None or
-                           (mask.dim() == 2 and vl is not None)) \
+        H, D = self._heads, self._units // self._heads
+        qkv = self.qkv(x).reshape((B, T, 3, H, D))
+        vl = valid_length.astype("int32") \
+            if valid_length is not None else None
+        if self._flash and (mask is None or
+                            (len(mask.shape) == 2 and vl is not None)) \
                 and use_packed_fast_path(D):
-            out = packed_flash_self_attention(qkv, B, T, H, D, self.units,
-                                              mask=mask, valid_length=vl)
+            out = packed_flash_self_attention(
+                F, qkv, B, T, H, D, self._units, mask=mask, valid_length=vl)
         else:
-            out = scaled_dot_product_attention(
-                qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask=mask,
-                flash=self.flash, valid_length=vl)
-            out = out.reshape(B, T, self.units)
+            q = qkv.slice_axis(axis=2, begin=0, end=1).reshape((B, T, H, D))
+            k = qkv.slice_axis(axis=2, begin=1, end=2).reshape((B, T, H, D))
+            v = qkv.slice_axis(axis=2, begin=2, end=3).reshape((B, T, H, D))
+            out = F.scaled_dot_product_attention(
+                q, k, v, mask=mask, flash=self._flash, valid_length=vl)
+            out = out.reshape((B, T, self._units))
         return self.dropout(self.proj(out))
 
 
-class BERTEncoderLayer(nn.Module):
-    def __init__(self, units, hidden_size, num_heads, dropout,
-                 layer_norm_eps, dtype, flash, device, generator):
-        super().__init__()
-        self.attention = BERTSelfAttention(units, num_heads, dropout, dtype,
-                                           flash, device, generator)
-        self.ln1 = LayerNorm(units, layer_norm_eps, device)
-        self.ffn_in = nn.Linear(units, hidden_size, dtype=dtype,
-                                device=device)
-        self.ffn_out = nn.Linear(hidden_size, units, dtype=dtype,
-                                 device=device)
-        self.ln2 = LayerNorm(units, layer_norm_eps, device)
-        self.dropout = Dropout(dropout, generator)
+class BERTEncoderLayer(HybridBlock):
+    def __init__(self, units, hidden_size, num_heads, dropout=0.1,
+                 layer_norm_eps=1e-12, dtype="float32", flash=False,
+                 **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.attention = BERTSelfAttention(units, num_heads, dropout,
+                                               dtype=dtype, flash=flash)
+            self.ln1 = nn.LayerNorm(epsilon=layer_norm_eps,
+                                    in_channels=units)
+            self.ffn_in = nn.Dense(hidden_size, in_units=units,
+                                   flatten=False, dtype=dtype,
+                                   weight_initializer=_trunc())
+            self.ffn_out = nn.Dense(units, in_units=hidden_size,
+                                    flatten=False, dtype=dtype,
+                                    weight_initializer=_trunc())
+            self.ln2 = nn.LayerNorm(epsilon=layer_norm_eps,
+                                    in_channels=units)
+            self.dropout = nn.Dropout(dropout)
 
-    def forward(self, x, mask=None, valid_length=None):
+    def hybrid_forward(self, F, x, mask=None, valid_length=None):
         x = self.ln1(x + self.attention(x, mask, valid_length))
         h = F.gelu(self.ffn_in(x))
         h = self.dropout(self.ffn_out(h))
         return self.ln2(x + h)
 
 
-class BERTModel(nn.Module):
+class BERTModel(HybridBlock):
     """BERT encoder: embeddings + N transformer layers + pooler.
 
     forward(input_ids, token_types, valid_length) ->
         (sequence_output (B, T, units) in the model dtype,
-         pooled_output (B, units) f32)
-
-    ``device`` None means the GPU (raises ``MXNetError`` without one);
-    ``generator`` (default: ``random.generator(device)``) draws the
-    initial weights and, in training mode, the dropout masks."""
+         pooled_output (B, units) f32)"""
 
     def __init__(self, vocab_size=30522, units=768, hidden_size=3072,
                  num_layers=12, num_heads=12, max_length=512,
                  type_vocab_size=2, dropout=0.1, layer_norm_eps=1e-12,
                  dtype="float32", flash=False, remat=False,
-                 seq_parallel=False, device=None, generator=None):
-        super().__init__()
+                 seq_parallel=False, **kwargs):
         if remat:
-            raise MXNetError(f"BERTModel(remat={remat!r}): rematerialization "
-                             f"is not ported")
+            raise MXNetError(f"BERTModel(remat={remat!r}): "
+                             f"rematerialization is not ported")
         if seq_parallel:
-            raise MXNetError("BERTModel(seq_parallel=True): sequence-parallel "
-                             "ring attention is not ported")
-        device = resolve_device(device)
-        self.device = device
-        self.dtype = _torch_dtype(dtype)
+            raise MXNetError("BERTModel(seq_parallel=True): sequence-"
+                             "parallel ring attention is not ported")
+        if dtype not in ("float32", "bfloat16"):
+            raise MXNetError(f"unsupported dtype {dtype!r} (one of "
+                             f"['bfloat16', 'float32'])")
+        super().__init__(**kwargs)
+        self._units = units
+        self._dtype = dtype
         self.units = units
-        self.vocab_size = vocab_size
-        self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.num_heads = num_heads
+        self.hidden_size = hidden_size
+        self.vocab_size = vocab_size
         self.max_length = max_length
         self.flash = flash
-        self.generator = generator if generator is not None \
-            else _random.generator(device)
-        gen = self.generator
-        self.word_embed = nn.Embedding(vocab_size, units, device=device)
-        self.token_type_embed = nn.Embedding(type_vocab_size, units,
-                                             device=device)
-        self.position_embed = nn.Embedding(max_length, units, device=device)
-        self.embed_ln = LayerNorm(units, layer_norm_eps, device)
-        self.embed_dropout = Dropout(dropout, gen)
-        self.layers = nn.ModuleList(
-            BERTEncoderLayer(units, hidden_size, num_heads, dropout,
-                             layer_norm_eps, self.dtype, flash, device, gen)
-            for _ in range(num_layers))
-        self.pooler = nn.Linear(units, units, device=device)
-        _init_weights(self, gen)
+        with self.name_scope():
+            self.word_embed = nn.Embedding(vocab_size, units,
+                                           weight_initializer=_trunc())
+            self.token_type_embed = nn.Embedding(
+                type_vocab_size, units, weight_initializer=_trunc())
+            self.position_embed = nn.Embedding(
+                max_length, units, weight_initializer=_trunc())
+            self.embed_ln = nn.LayerNorm(epsilon=layer_norm_eps,
+                                         in_channels=units)
+            self.embed_dropout = nn.Dropout(dropout)
+            for i in range(num_layers):
+                layer = BERTEncoderLayer(units, hidden_size, num_heads,
+                                         dropout, layer_norm_eps,
+                                         dtype=dtype, flash=flash)
+                self.register_child(layer, f"layer{i}")
+            self.pooler = nn.Dense(units, in_units=units, flatten=False,
+                                   activation="tanh",
+                                   weight_initializer=_trunc())
 
-    def forward(self, input_ids, token_types=None, valid_length=None):
+    def hybrid_forward(self, F, input_ids, token_types=None,
+                       valid_length=None):
         B, T = input_ids.shape
-        ids = input_ids.long()
-        pos = torch.arange(T, device=ids.device)
-        emb = self.word_embed(ids) + self.position_embed(pos)[None]
+        ctx = input_ids.context
+        pos = F.arange(0, T, dtype="int32", ctx=ctx).reshape((1, T)) \
+            .broadcast_to((B, T))
+        emb = self.word_embed(input_ids) + self.position_embed(pos)
         if token_types is not None:
-            emb = emb + self.token_type_embed(token_types.long())
+            emb = emb + self.token_type_embed(token_types)
         # enter the compute dtype BEFORE the embedding LN and dropout
-        x = self.embed_dropout(self.embed_ln(emb.to(self.dtype)))
+        if self._dtype != "float32":
+            emb = emb.astype(self._dtype)
+        x = self.embed_dropout(self.embed_ln(emb))
         mask = None
         if valid_length is not None:
-            mask = valid_length_mask(valid_length, T, ids.device)
-        for layer in self.layers:
-            x = layer(x, mask, valid_length)
+            ar = F.arange(0, T, dtype="float32", ctx=ctx).reshape((1, T))
+            mask = ar < valid_length.astype("float32").reshape((-1, 1))
+        for i in range(self.num_layers):
+            x = getattr(self, f"layer{i}")(x, mask, valid_length)
         # the sequence output stays in the compute dtype; only the pooled
         # [CLS] path is promoted
-        pooled = torch.tanh(self.pooler(x[:, 0].float()))
-        return x, pooled
+        cls = x.slice_axis(axis=1, begin=0, end=1).reshape(
+            (B, self._units)).astype("float32")
+        return x, self.pooler(cls)
 
 
-class BERTForPretraining(nn.Module):
+class BERTForPretraining(HybridBlock):
     """MLM + NSP pretraining heads.
 
     forward(input_ids, token_types, valid_length, masked_positions) ->
@@ -191,70 +204,70 @@ class BERTForPretraining(nn.Module):
 
     The MLM decoder is tied to ``bert.word_embed``."""
 
-    def __init__(self, bert: BERTModel, layer_norm_eps=1e-12):
-        super().__init__()
-        units, dev = bert.units, bert.device
-        self.bert = bert
-        self.mlm_transform = nn.Linear(units, units, device=dev)
-        self.mlm_ln = LayerNorm(units, layer_norm_eps, dev)
-        self.nsp = nn.Linear(units, 2, device=dev)
-        self.mlm_bias = nn.Parameter(torch.zeros(bert.vocab_size,
-                                                 device=dev))
-        _init_weights(self, bert.generator, skip=(bert,))
+    def __init__(self, bert: BERTModel, layer_norm_eps=1e-12, **kwargs):
+        super().__init__(**kwargs)
+        units = bert._units
+        with self.name_scope():
+            self.bert = bert
+            self.mlm_transform = nn.Dense(units, in_units=units,
+                                          flatten=False,
+                                          weight_initializer=_trunc())
+            self.mlm_ln = nn.LayerNorm(epsilon=layer_norm_eps,
+                                       in_channels=units)
+            self.mlm_bias = Parameter("mlm_bias", shape=(bert.vocab_size,),
+                                      init=init.Zero())
+            self.nsp = nn.Dense(2, in_units=units,
+                                weight_initializer=_trunc())
 
-    def forward(self, input_ids, token_types, valid_length,
-                masked_positions):
+    def hybrid_forward(self, F, input_ids, token_types, valid_length,
+                       masked_positions, mlm_bias=None):
         seq, pooled = self.bert(input_ids, token_types, valid_length)
-        # gather the masked positions (exact, as the JAX package's one-hot
-        # batch_dot is); the head runs in f32
-        idx = masked_positions.long()[..., None].expand(
-            -1, -1, seq.shape[-1])
-        gathered = torch.gather(seq, 1, idx)
-        h = self.mlm_ln(F.gelu(self.mlm_transform(gathered.float())))
-        dt = self.bert.dtype
-        scores = h.to(dt) @ self.bert.word_embed.weight.to(dt).T + \
-            self.mlm_bias.to(dt)
+        gathered = F.batch_take(seq, masked_positions)
+        h = self.mlm_transform(gathered.astype("float32"))
+        h = self.mlm_ln(F.gelu(h))
+        embed_w = self.bert.word_embed.weight.data()
+        dt = self.bert._dtype
+        scores = F.dot(h.astype(dt), embed_w.astype(dt), transpose_b=True) \
+            + mlm_bias.astype(dt)
         return scores, self.nsp(pooled)
 
 
 def pretraining_loss(model: BERTForPretraining, input_ids, token_types,
                      valid_length, masked_positions, masked_labels,
                      masked_weights, nsp_labels):
-    """Scalar pretraining loss (MLM + NSP), shaped for
-    ``parallel.SPMDTrainer``'s ``forward_loss`` hook."""
+    """Scalar pretraining loss (MLM + NSP) of ``NDArray`` inputs, shaped
+    for ``parallel.SPMDTrainer``'s ``forward_loss`` hook."""
     mlm_scores, nsp_scores = model(input_ids, token_types, valid_length,
                                    masked_positions)
-    V = mlm_scores.shape[-1]
-    labels = masked_labels.long().clamp(0, V - 1)
-    label_scores = torch.gather(mlm_scores, -1, labels[..., None])[..., 0]
-    # logsumexp with f32 accumulation; the max is a constant (no gradient)
-    m = mlm_scores.detach().amax(dim=-1, keepdim=True)
-    lse = torch.log(torch.exp((mlm_scores - m).float()).sum(dim=-1)) + \
-        m[..., 0].float()
-    mlm_ll = label_scores.float() - lse
-    w = masked_weights.float()
-    mlm_loss = -(mlm_ll * w).sum() / (w.sum() + 1e-6)
-    nsp_logp = F.log_softmax(nsp_scores, dim=-1)
-    nsp_loss = -torch.gather(nsp_logp, -1,
-                             nsp_labels.long().clamp(0, 1)[:, None])[:, 0] \
-        .mean()
+    label_scores = mlm_scores.pick(masked_labels, axis=-1)     # (B, M)
+    lse = mlm_scores._op("logsumexp", axis=-1)
+    mlm_ll = label_scores.astype("float32") - lse
+    weights = masked_weights.astype("float32")
+    mlm_loss = -(mlm_ll * weights).sum() / (weights.sum() + 1e-6)
+    nsp_loss = -nsp_scores.log_softmax(axis=-1).pick(nsp_labels,
+                                                     axis=-1).mean()
     return mlm_loss + nsp_loss
 
 
-@torch.no_grad()
-def _init_weights(module, generator, skip=()):
-    """Truncated-normal (std 0.02) Linear and Embedding weights, zero
-    biases, in ``gluon_param_order``; LayerNorms keep ones / zeros."""
-    from .convert import gluon_param_order
-    trunc, zero = TruncNorm(stdev=0.02), Zero()
-    skipped = {id(p) for m in skip for p in m.parameters()}
-    for name, p in gluon_param_order(module):
-        if id(p) in skipped or name.endswith(("gamma", "beta")):
-            continue
-        if name.endswith("bias"):
-            zero(p)
-        else:
-            trunc(p, generator)
+class BERTClassifier(HybridBlock):
+    """Sentence(-pair) classification: dropout and a Dense head over the
+    pooled [CLS] output.
+
+    forward(input_ids, token_types, valid_length) -> (B, num_classes)"""
+
+    def __init__(self, bert: BERTModel, num_classes=2, dropout=0.1,
+                 **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.bert = bert
+            self.dropout = nn.Dropout(dropout)
+            self.classifier = nn.Dense(num_classes, in_units=bert._units,
+                                       weight_initializer=_trunc())
+
+    def hybrid_forward(self, F, input_ids, token_types=None,
+                       valid_length=None):
+        _, pooled = self.bert(input_ids, token_types, valid_length)
+        return self.classifier(self.dropout(pooled))
 
 
 def bert_tiny(vocab_size=1024, max_length=128, **kwargs) -> BERTModel:

@@ -16,11 +16,10 @@ arrays come in ``collect_params()`` order, which for L layers is
 
 MXNet ``Dense`` weights are (out, in), the same as ``nn.Linear``.
 
-BERT (``bert_params_from_jax``): the map is derived, not listed. A gluon
-block's ``collect_params()`` yields its children's parameters first, in
-registration order, then its own; ``gluon_param_order`` walks a port
-module the same way, and the port's BERT modules register their children
-in the JAX package's order, so the two sequences align one to one.
+BERT (``bert_params_from_jax``): by structural name. Both packages'
+BERTs are gluon blocks, and ``_collect_params_with_prefix()`` names every
+parameter by its path ('bert.layer0.attention.qkv.weight', 'mlm_bias');
+the port's ``state_dict()`` keys are the same names.
 """
 
 from __future__ import annotations
@@ -30,8 +29,7 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["params_from_jax", "gpt_param_names", "bert_params_from_jax",
-           "gluon_param_order"]
+__all__ = ["params_from_jax", "gpt_param_names", "bert_params_from_jax"]
 
 _BLOCK = ("ln1.gamma", "ln1.beta", "attn.qkv.weight", "attn.qkv.bias",
           "attn.proj.weight", "attn.proj.bias", "ln2.gamma", "ln2.beta",
@@ -82,47 +80,33 @@ def params_from_jax(arrays) -> dict:
     return out
 
 
-def gluon_param_order(module, prefix=""):
-    """[(state-dict name, parameter)] of a port module in gluon's
-    ``collect_params`` order: each submodule's parameters (recursively, in
-    registration order), then the module's own."""
-    out = []
-    for name, child in module.named_children():
-        out += gluon_param_order(child, f"{prefix}{name}.")
-    for name, p in module.named_parameters(recurse=False):
-        out.append((prefix + name, p))
-    return out
-
-
 def bert_params_from_jax(model, params) -> dict:
     """``params``: the JAX ``BERTForPretraining`` (or ``BERTModel``)
-    parameters as numpy arrays in ``collect_params()`` order — a dict of
-    names to arrays, or a sequence of arrays. ``model``: the port's model
-    of the same configuration. Returns its ``state_dict`` (CPU tensors,
-    each in the JAX array's dtype; ``load_state_dict`` moves them to the
-    model's device). The tied decoder reads ``bert.word_embed.weight``, so
-    it follows the word embedding. Raises ``MXNetError`` on a count,
-    kind, shape or dtype mismatch."""
-    names = list(params) if isinstance(params, dict) else None
-    arrays = [np.asarray(a) for a in (params.values()
-                                      if isinstance(params, dict)
-                                      else params)]
-    order = gluon_param_order(model)
-    if len(arrays) != len(order):
-        raise MXNetError(f"{len(arrays)} arrays for a model of "
-                         f"{len(order)} parameters")
+    parameters as a dict of structural names
+    (``_collect_params_with_prefix()``) to arrays. ``model``: the port's
+    model of the same configuration, initialized. Returns its
+    ``state_dict`` (CPU tensors, each in the JAX array's dtype;
+    ``load_state_dict`` writes them into the parameters in place). Raises
+    ``MXNetError`` on a missing or extra name, or a shape or dtype
+    mismatch."""
+    if not isinstance(params, dict):
+        raise MXNetError("bert_params_from_jax takes a dict of structural "
+                         "names to arrays (_collect_params_with_prefix())")
+    want = model._collect_params_with_prefix()
+    missing = sorted(set(want) - set(params))
+    extra = sorted(set(params) - set(want))
+    if missing or extra:
+        raise MXNetError(f"structural names differ: missing {missing[:4]}, "
+                         f"extra {extra[:4]}")
     out = {}
-    for i, ((name, p), a) in enumerate(zip(order, arrays)):
-        kind = name.rsplit(".", 1)[-1].rsplit("_", 1)[-1]
-        if names is not None and not names[i].endswith(kind):
-            raise MXNetError(f"parameter {name}: JAX parameter {names[i]} "
-                             f"is not a {kind}")
+    for name, p in want.items():
+        a = np.asarray(params[name])
         if tuple(a.shape) != tuple(p.shape):
             raise MXNetError(f"parameter {name}: shape {tuple(a.shape)} "
                              f"!= expected {tuple(p.shape)}")
         t = _to_tensor(a)
-        if t.dtype != p.dtype:
+        if t.dtype != p.data()._data.dtype:
             raise MXNetError(f"parameter {name}: dtype {t.dtype} != "
-                             f"expected {p.dtype}")
+                             f"expected {p.data()._data.dtype}")
         out[name] = t
     return out

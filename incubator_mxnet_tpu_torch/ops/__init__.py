@@ -3,7 +3,14 @@ with the flash forward / backward kernels of the training path), the
 ragged paged-attention kernels of the serving path (decode, chunked
 prefill, speculative verify; raw or quantized pools) and symmetric
 quantization. ``LAUNCHES`` counts the ragged kernels' launches,
-``flash_attention.LAUNCHES`` the flash kernels'."""
+``flash_attention.LAUNCHES`` the flash kernels'.
+
+Importing the package also fills the operator registry (``registry``)
+with the tensor and neural-network ops ``mx.nd`` surfaces."""
+
+from . import registry
+from . import tensor  # noqa: F401  (registers ops)
+from . import nn  # noqa: F401  (registers ops)
 
 from .attention import scaled_dot_product_attention
 from .flash_attention import (cuda_kernel_eligible, flash_attention_bhtd,
@@ -16,7 +23,7 @@ from .ragged_attention import (LAUNCHES, ragged_attention_reference,
                                ragged_verify_reference,
                                reset_launch_counts)
 
-__all__ = ["scaled_dot_product_attention", "flash_attention_bhtd",
+__all__ = ["registry", "scaled_dot_product_attention", "flash_attention_bhtd",
            "use_flash_attention", "cuda_kernel_eligible",
            "ragged_paged_attention",
            "ragged_attention_reference", "ragged_prefill_attention",

@@ -1,6 +1,7 @@
 """Fused optimizer updates: the port of the JAX package's
-``incubator_mxnet_tpu/ops/optimizer_ops.py`` for the optimizers the port
-has (SGD, Adam, LAMB), as plain tensor functions.
+``incubator_mxnet_tpu/ops/optimizer_ops.py``, as plain tensor functions
+(SGD, NAG, Adam, AdamW, RMSProp and its centered form, Ftrl, signSGD /
+Signum, LAMB, LARS's trust ratio, FTML, AdaGrad, AdaDelta).
 
 Each returns new tensors and leaves its inputs untouched. Scalars (``lr``,
 ``t``, ``rescale_grad``) may be Python numbers or 0-d tensors; a trainer
@@ -18,8 +19,11 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["sgd_update", "sgd_mom_update", "adam_update",
-           "lamb_update_phase1", "lamb_update_phase2"]
+__all__ = ["sgd_update", "sgd_mom_update", "nag_mom_update", "adam_update",
+           "adamw_update", "rmsprop_update", "rmspropalex_update",
+           "ftrl_update", "signsgd_update", "signum_update",
+           "lamb_update_phase1", "lamb_update_phase2", "lars_lr",
+           "ftml_update", "adagrad_update", "adadelta_update"]
 
 
 def _rescale_clip(grad, rescale_grad, clip_gradient):
@@ -52,6 +56,133 @@ def adam_update(weight, grad, mean, var, lr=0.001, beta1=0.9, beta2=0.999,
     new_var = beta2 * var + (1.0 - beta2) * torch.square(g)
     new_weight = weight - lr * new_mean / (torch.sqrt(new_var) + epsilon)
     return new_weight, new_mean, new_var
+
+
+def nag_mom_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
+                   rescale_grad=1.0, clip_gradient=-1.0):
+    """Nesterov momentum; returns (new_weight, new_mom)."""
+    g = _rescale_clip(grad, rescale_grad, clip_gradient) + wd * weight
+    new_mom = momentum * mom + g
+    return weight - lr * (g + momentum * new_mom), new_mom
+
+
+def adamw_update(weight, grad, mean, var, lr=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, wd=0.0, eta=1.0, rescale_grad=1.0,
+                 clip_gradient=-1.0):
+    """Adam with decoupled weight decay; returns (new_weight, new_mean,
+    new_var)."""
+    g = _rescale_clip(grad, rescale_grad, clip_gradient)
+    new_mean = beta1 * mean + (1.0 - beta1) * g
+    new_var = beta2 * var + (1.0 - beta2) * torch.square(g)
+    new_weight = weight - eta * (lr * new_mean / (torch.sqrt(new_var)
+                                                  + epsilon) + wd * weight)
+    return new_weight, new_mean, new_var
+
+
+def rmsprop_update(weight, grad, n, lr=0.001, gamma1=0.9, epsilon=1e-8,
+                   wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                   clip_weights=-1.0):
+    """Returns (new_weight, new_n)."""
+    g = _rescale_clip(grad, rescale_grad, clip_gradient) + wd * weight
+    new_n = gamma1 * n + (1.0 - gamma1) * torch.square(g)
+    new_weight = weight - lr * g / torch.sqrt(new_n + epsilon)
+    if clip_weights is not None and clip_weights > 0:
+        new_weight = torch.clamp(new_weight, -clip_weights, clip_weights)
+    return new_weight, new_n
+
+
+def rmspropalex_update(weight, grad, n, g_avg, delta, lr=0.001, gamma1=0.95,
+                       gamma2=0.9, epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+                       clip_gradient=-1.0):
+    """Centered RMSProp; returns (new_weight, new_n, new_g, new_delta)."""
+    g = _rescale_clip(grad, rescale_grad, clip_gradient) + wd * weight
+    new_n = gamma1 * n + (1.0 - gamma1) * torch.square(g)
+    new_g = gamma1 * g_avg + (1.0 - gamma1) * g
+    new_delta = gamma2 * delta - \
+        lr * g / torch.sqrt(new_n - torch.square(new_g) + epsilon)
+    return weight + new_delta, new_n, new_g, new_delta
+
+
+def ftrl_update(weight, grad, z, n, lr=0.1, lamda1=0.01, beta=1.0, wd=0.0,
+                rescale_grad=1.0, clip_gradient=-1.0):
+    """Returns (new_weight, new_z, new_n)."""
+    g = _rescale_clip(grad, rescale_grad, clip_gradient)
+    new_n = n + torch.square(g)
+    sigma = (torch.sqrt(new_n) - torch.sqrt(n)) / lr
+    new_z = z + g - sigma * weight
+    new_weight = torch.where(
+        torch.abs(new_z) > lamda1,
+        -(new_z - torch.sign(new_z) * lamda1)
+        / ((beta + torch.sqrt(new_n)) / lr + wd),
+        torch.zeros((), dtype=weight.dtype, device=weight.device))
+    return new_weight, new_z, new_n
+
+
+def signsgd_update(weight, grad, lr=0.01, wd=0.0, rescale_grad=1.0,
+                   clip_gradient=-1.0):
+    g = _rescale_clip(grad, rescale_grad, clip_gradient)
+    return weight - lr * (torch.sign(g) + wd * weight)
+
+
+def signum_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
+                  rescale_grad=1.0, clip_gradient=-1.0, wd_lh=0.0):
+    """Returns (new_weight, new_mom)."""
+    g = _rescale_clip(grad, rescale_grad, clip_gradient) + wd * weight
+    new_mom = momentum * mom - (1.0 - momentum) * g
+    new_weight = (1.0 - lr * wd_lh) * weight + lr * torch.sign(new_mom)
+    return new_weight, new_mom
+
+
+def lars_lr(lr, weight, grad, wd=0.0, eta=0.001, eps=1e-8,
+            rescale_grad=1.0):
+    """LARS's layer-wise learning rate: ``lr`` times the trust ratio
+    eta ||w|| / (||g|| + wd ||w|| + eps) (1 where a norm is 0), the norms
+    from f32 sums of squares (the JAX package's multi_sum_sq /
+    multi_lars)."""
+    w_norm = torch.sqrt(torch.sum(torch.square(weight.float())))
+    g_norm = torch.sqrt(torch.sum(torch.square(grad.float()))) * \
+        rescale_grad
+    trust = torch.where((w_norm > 0) & (g_norm > 0),
+                        eta * w_norm / (g_norm + wd * w_norm + eps),
+                        torch.ones_like(w_norm))
+    return lr * trust
+
+
+def ftml_update(weight, grad, d, v, z, lr=0.0025, beta1=0.6, beta2=0.999,
+                epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_grad=-1.0,
+                t=1):
+    """FTML; returns (new_weight, new_d, new_v, new_z). The clip applies to
+    the whole rescale * grad + wd * weight."""
+    g = grad * rescale_grad + wd * weight
+    if clip_grad is not None and clip_grad > 0:
+        g = torch.clamp(g, -clip_grad, clip_grad)
+    new_v = beta2 * v + (1 - beta2) * torch.square(g)
+    bias2 = 1 - beta2 ** t
+    d_t = (1 - beta1 ** t) / lr * (torch.sqrt(new_v / bias2) + epsilon)
+    sigma = d_t - beta1 * d
+    new_z = beta1 * z + (1 - beta1) * g - sigma * weight
+    new_w = -new_z / d_t
+    return (new_w.to(weight.dtype), d_t.to(d.dtype), new_v,
+            new_z.to(z.dtype))
+
+
+def adagrad_update(weight, grad, history, lr=0.01, epsilon=1e-7, wd=0.0,
+                   rescale_grad=1.0, clip_gradient=-1.0):
+    """Returns (new_weight, new_history); epsilon inside the sqrt."""
+    g = _rescale_clip(grad, rescale_grad, clip_gradient) + wd * weight
+    new_hist = history + torch.square(g)
+    return weight - lr * g / torch.sqrt(new_hist + epsilon), new_hist
+
+
+def adadelta_update(weight, grad, acc_g, acc_delta, rho=0.9, epsilon=1e-5,
+                    wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    """Returns (new_weight, new_acc_g, new_acc_delta)."""
+    g = _rescale_clip(grad, rescale_grad, clip_gradient) + wd * weight
+    new_acc_g = rho * acc_g + (1 - rho) * torch.square(g)
+    delta = torch.sqrt(acc_delta + epsilon) / \
+        torch.sqrt(new_acc_g + epsilon) * g
+    new_acc_delta = rho * acc_delta + (1 - rho) * torch.square(delta)
+    return weight - delta, new_acc_g, new_acc_delta
 
 
 def _tensors(x):

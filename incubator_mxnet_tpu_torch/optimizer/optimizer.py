@@ -1,5 +1,7 @@
 """Optimizers: the port of the JAX package's
-``incubator_mxnet_tpu/optimizer/optimizer.py`` for SGD, Adam and LAMB.
+``incubator_mxnet_tpu/optimizer/optimizer.py``: SGD, NAG, Adam, AdamW,
+RMSProp, Ftrl, Signum, LAMB, LARS, FTML, AdaGrad, AdaDelta, Adamax,
+Nadam, DCASGD and SGLD, with ``Updater`` / ``get_updater``.
 
 The parity surface is the reference's: ``rescale_grad``, ``wd``,
 ``clip_gradient``, ``learning_rate`` (or an ``lr_scheduler`` of the update
@@ -12,20 +14,29 @@ select between the old and new values on a device flag (the non-finite
 guard). ``update_many`` does the same over several parameters at once
 (LAMB in one multi-tensor pass; the others loop ``update``). Inside
 ``fused.apply_updates`` the step count and learning rate are 0-d device
-tensors (``_traced_t`` / ``_traced_lr``), as the JAX package's traced
-scalars are.
+tensors (``_traced_t`` / ``_traced_lr``; the step count may be one per
+parameter), as the JAX package's traced scalars are. Nadam (its momentum
+schedule) and SGLD (a fresh draw per update) keep host state from step to
+step and set ``fusable = False``: gluon's Trainer runs them eagerly.
+``Updater`` holds the per-parameter states of gluon's Trainer and writes
+each update into the weight and the state tensors in place.
 """
 
 from __future__ import annotations
 
+import pickle
 from typing import Dict
 
+import numpy as np
 import torch
 
 from ..base import MXNetError
 from . import ops
 
-__all__ = ["Optimizer", "SGD", "Adam", "LAMB", "create", "register"]
+__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "RMSProp", "Ftrl",
+           "Signum", "LAMB", "LARS", "FTML", "AdaGrad", "AdaDelta", "Adamax",
+           "Nadam", "DCASGD", "SGLD", "Updater", "create", "register",
+           "get_updater"]
 
 _REGISTRY: Dict[str, type] = {}
 
@@ -51,6 +62,10 @@ def create(name, **kwargs) -> "Optimizer":
 
 class Optimizer:
     """Base optimizer."""
+
+    #: ``update`` is a pure function of (weight, grad, state, t, lr): safe
+    #: to capture once and replay (``fused.FusedApplier``)
+    fusable = True
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
@@ -98,8 +113,10 @@ class Optimizer:
         self.num_update = max(count, self.num_update)
 
     def _step_t(self, index):
-        """The step count: a 0-d tensor inside a trainer's step, else the
-        parameter's own update count."""
+        """The step count: a 0-d tensor inside a trainer's step (or one
+        per parameter index), else the parameter's own update count."""
+        if isinstance(self._traced_t, dict):
+            return self._traced_t[index]
         if self._traced_t is not None:
             return self._traced_t
         return self._index_update_count[index]
@@ -263,3 +280,432 @@ class LAMB(Optimizer):
             list(weights), g_upd, lr=lr, lower_bound=self.lower_bound,
             upper_bound=self.upper_bound)
         return new_w, list(zip(new_mean, new_var))
+
+
+def _zeros(weight, n):
+    return tuple(torch.zeros_like(weight) for _ in range(n))
+
+
+def _clip(g, clip_gradient):
+    if clip_gradient is not None and clip_gradient > 0:
+        return torch.clamp(g, -clip_gradient, clip_gradient)
+    return g
+
+
+@register("nag")
+class NAG(Optimizer):
+    """SGD with Nesterov momentum."""
+
+    def __init__(self, momentum=0.9, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        return ops.nag_mom_update(
+            weight, grad, state, lr=self._get_lr(index),
+            momentum=self.momentum, wd=self._get_wd(index),
+            rescale_grad=self.rescale_grad,
+            clip_gradient=self.clip_gradient)
+
+
+@register("adamw")
+class AdamW(Adam):
+    """Adam with decoupled weight decay."""
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._step_t(index)
+        lr = self._get_lr(index)
+        lr = lr * (1.0 - self.beta2 ** t) ** 0.5 / (1.0 - self.beta1 ** t)
+        mean, var = state
+        new_w, new_mean, new_var = ops.adamw_update(
+            weight, grad, mean, var, lr=lr, beta1=self.beta1,
+            beta2=self.beta2, epsilon=self.epsilon, wd=self._get_wd(index),
+            rescale_grad=self.rescale_grad,
+            clip_gradient=self.clip_gradient)
+        return new_w, (new_mean, new_var)
+
+
+@register("rmsprop")
+class RMSProp(Optimizer):
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1, self.gamma2 = gamma1, gamma2
+        self.epsilon = epsilon
+        self.centered = centered
+        self.clip_weights = clip_weights if clip_weights is not None \
+            else -1.0
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return _zeros(weight, 3)
+        return torch.zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        if self.centered:
+            n, g_avg, delta = state
+            new_w, new_n, new_g, new_delta = ops.rmspropalex_update(
+                weight, grad, n, g_avg, delta, lr=lr, gamma1=self.gamma1,
+                gamma2=self.gamma2, epsilon=self.epsilon, wd=wd,
+                rescale_grad=self.rescale_grad,
+                clip_gradient=self.clip_gradient)
+            return new_w, (new_n, new_g, new_delta)
+        return ops.rmsprop_update(
+            weight, grad, state, lr=lr, gamma1=self.gamma1,
+            epsilon=self.epsilon, wd=wd, rescale_grad=self.rescale_grad,
+            clip_gradient=self.clip_gradient,
+            clip_weights=self.clip_weights)
+
+
+@register("ftrl")
+class Ftrl(Optimizer):
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1, self.beta = lamda1, beta
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 2)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        z, n = state
+        new_w, new_z, new_n = ops.ftrl_update(
+            weight, grad, z, n, lr=self._get_lr(index), lamda1=self.lamda1,
+            beta=self.beta, wd=self._get_wd(index),
+            rescale_grad=self.rescale_grad,
+            clip_gradient=self.clip_gradient)
+        return new_w, (new_z, new_n)
+
+
+@register("signum")
+class Signum(Optimizer):
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return torch.zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        if state is None:
+            return ops.signsgd_update(weight, grad, lr=lr, wd=wd,
+                                      rescale_grad=self.rescale_grad,
+                                      clip_gradient=self.clip_gradient), \
+                None
+        return ops.signum_update(
+            weight, grad, state, lr=lr, momentum=self.momentum, wd=wd,
+            rescale_grad=self.rescale_grad,
+            clip_gradient=self.clip_gradient, wd_lh=self.wd_lh)
+
+
+@register("lars")
+class LARS(Optimizer):
+    """Layer-wise adaptive rate scaling: the trust ratio rescales each
+    parameter's learning rate, then momentum SGD steps."""
+
+    def __init__(self, learning_rate=0.1, momentum=0.9, eta=0.001,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.eta = eta
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return torch.zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        lr_eff = ops.lars_lr(lr, weight, grad, wd=wd, eta=self.eta,
+                             eps=self.epsilon,
+                             rescale_grad=self.rescale_grad)
+        if state is None:
+            return ops.sgd_update(weight, grad, lr=lr_eff, wd=wd,
+                                  rescale_grad=self.rescale_grad,
+                                  clip_gradient=self.clip_gradient), None
+        return ops.sgd_mom_update(weight, grad, state, lr=lr_eff,
+                                  momentum=self.momentum, wd=wd,
+                                  rescale_grad=self.rescale_grad,
+                                  clip_gradient=self.clip_gradient)
+
+
+@register("ftml")
+class FTML(Optimizer):
+    def __init__(self, beta1=0.6, beta2=0.999, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 3)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        d, v, z = state
+        new_w, new_d, new_v, new_z = ops.ftml_update(
+            weight, grad, d, v, z, lr=self._get_lr(index), beta1=self.beta1,
+            beta2=self.beta2, epsilon=self.epsilon, wd=self._get_wd(index),
+            rescale_grad=self.rescale_grad, clip_grad=self.clip_gradient,
+            t=self._step_t(index))
+        return new_w, (new_d, new_v, new_z)
+
+
+@register("adagrad")
+class AdaGrad(Optimizer):
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        return ops.adagrad_update(
+            weight, grad, state, lr=self._get_lr(index),
+            epsilon=self.float_stable_eps, wd=self._get_wd(index),
+            rescale_grad=self.rescale_grad,
+            clip_gradient=self.clip_gradient)
+
+
+@register("adadelta")
+class AdaDelta(Optimizer):
+    def __init__(self, rho=0.9, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho, self.epsilon = rho, epsilon
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 2)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        acc_g, acc_delta = state
+        new_w, new_g, new_d = ops.adadelta_update(
+            weight, grad, acc_g, acc_delta, rho=self.rho,
+            epsilon=self.epsilon, wd=self._get_wd(index),
+            rescale_grad=self.rescale_grad,
+            clip_gradient=self.clip_gradient)
+        return new_w, (new_g, new_d)
+
+
+@register("adamax")
+class Adamax(Optimizer):
+    """Adam with an infinity-norm second moment; weight decay folds in
+    before clipping."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 2)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._step_t(index)
+        lr = self._get_lr(index) / (1.0 - self.beta1 ** t)
+        g = _clip(grad * self.rescale_grad + self._get_wd(index) * weight,
+                  self.clip_gradient)
+        m, u = state
+        new_m = self.beta1 * m + (1.0 - self.beta1) * g
+        new_u = torch.maximum(self.beta2 * u, torch.abs(g))
+        return weight - lr * new_m / (new_u + self.epsilon), (new_m, new_u)
+
+
+@register("nadam")
+class Nadam(Optimizer):
+    """Nesterov Adam with the 0.96^(t * schedule_decay) momentum schedule,
+    a host product carried from update to update."""
+
+    fusable = False
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 2)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._step_t(index)
+        lr = self._get_lr(index)
+        g = _clip(grad * self.rescale_grad + self._get_wd(index) * weight,
+                  self.clip_gradient)
+        momentum_t = self.beta1 * (1.0 - 0.5 * 0.96 ** (
+            t * self.schedule_decay))
+        momentum_t_1 = self.beta1 * (1.0 - 0.5 * 0.96 ** (
+            (t + 1) * self.schedule_decay))
+        self.m_schedule = self.m_schedule * momentum_t
+        m_schedule_next = self.m_schedule * momentum_t_1
+        m, v = state
+        new_m = self.beta1 * m + (1.0 - self.beta1) * g
+        new_v = self.beta2 * v + (1.0 - self.beta2) * g * g
+        g_prime = g / (1.0 - self.m_schedule)
+        m_prime = new_m / (1.0 - m_schedule_next)
+        v_prime = new_v / (1.0 - self.beta2 ** t)
+        m_bar = (1.0 - momentum_t) * g_prime + momentum_t_1 * m_prime
+        return weight - lr * m_bar / (torch.sqrt(v_prime) + self.epsilon), \
+            (new_m, new_v)
+
+
+@register("dcasgd")
+class DCASGD(Optimizer):
+    """Delay-compensated SGD: lambda g^2 (w - w_prev) compensates the
+    gradient's staleness."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.0, lamda=0.04,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        mom = torch.zeros_like(weight) if self.momentum != 0.0 else None
+        return (mom, weight.detach().clone())
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        g = _clip(grad * self.rescale_grad, self.clip_gradient)
+        mom, prev = state
+        comp = (g + self._get_wd(index) * weight
+                + self.lamda * g * g * (weight - prev))
+        if mom is not None:
+            mom = self.momentum * mom - lr * comp
+            step = mom
+        else:
+            step = -lr * comp
+        return weight + step, (mom, weight.clone())
+
+
+@register("sgld")
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: a half-gradient step plus
+    N(0, lr) noise drawn from ``mx.random``'s generator for the weight's
+    device."""
+
+    fusable = False
+
+    def __init__(self, learning_rate=0.01, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+
+    def update(self, index, weight, grad, state):
+        from .. import random as _random
+        self._update_count(index)
+        lr = self._get_lr(index)
+        g = _clip(grad * self.rescale_grad, self.clip_gradient)
+        g = g + self._get_wd(index) * weight
+        noise = torch.empty_like(weight).normal_(
+            0.0, 1.0, generator=_random.generator(weight.device)) * \
+            float(lr) ** 0.5
+        return weight - 0.5 * lr * g + noise, None
+
+
+def _leaves(tree):
+    if tree is None:
+        return []
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+def _host_tree(tree):
+    from ..ndarray.ndarray import host_array
+    if tree is None:
+        return None
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_host_tree(t) for t in tree)
+    return host_array(tree)
+
+
+def _device_tree(tree, device):
+    if tree is None:
+        return None
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_device_tree(t, device) for t in tree)
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()) \
+            .view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _tensor(x):
+    return x._data if hasattr(x, "_data") else x
+
+
+class Updater:
+    """The per-parameter optimizer states of gluon's Trainer (index ->
+    state), applying one parameter's update in place (parity:
+    ``get_updater``)."""
+
+    def __init__(self, optimizer: Optimizer):
+        self.optimizer = optimizer
+        self.states: Dict = {}
+
+    def __call__(self, index, grad, weight):
+        w = _tensor(weight).detach()
+        g = _tensor(grad).detach()
+        if index not in self.states:
+            self.states[index] = \
+                self.optimizer.create_state_multi_precision(index, w)
+        state = self.states[index]
+        new_w, new_s = self.optimizer.update_multi_precision(index, w, g,
+                                                             state)
+        with torch.no_grad():
+            w.copy_(new_w)
+            for old, new in zip(_leaves(state), _leaves(new_s)):
+                old.copy_(new)
+
+    def get_states(self) -> bytes:
+        """The states (numpy) and the update counters, pickled."""
+        payload = {
+            "states": {i: _host_tree(s) for i, s in self.states.items()},
+            "counters": {
+                "num_update": self.optimizer.num_update,
+                "index_update_count":
+                    dict(self.optimizer._index_update_count)},
+        }
+        return pickle.dumps(payload)
+
+    def set_states(self, states: bytes, device="cpu"):
+        """Restore ``get_states``' payload: into the existing state tensors
+        in place where there are, else onto ``device``."""
+        data = pickle.loads(states)
+        for i, tree in data["states"].items():
+            new = _device_tree(tree, device)
+            old = self.states.get(i)
+            if old is not None and len(_leaves(old)) == len(_leaves(new)):
+                with torch.no_grad():
+                    for o, n in zip(_leaves(old), _leaves(new)):
+                        o.copy_(n)
+            else:
+                self.states[i] = new
+        counters = data.get("counters")
+        if counters is not None:
+            self.optimizer.num_update = counters["num_update"]
+            self.optimizer._index_update_count = dict(
+                counters["index_update_count"])
+
+
+def get_updater(optimizer: Optimizer) -> Updater:
+    return Updater(optimizer)

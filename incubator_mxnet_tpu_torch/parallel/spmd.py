@@ -7,16 +7,20 @@ A step is the JAX program's sequence:
   1. materialize the optimizer state (f32 masters with
      ``multi_precision``) at the first step;
   2. open the step in the ``StepRecorder``;
-  3. loss x scale through autograd (the model in training mode, dropout
-     drawing from the model's generators), and the gradients;
+  3. loss x scale through autograd (the model in training mode inside
+     ``autograd.record(train_mode=True)``, dropout drawing from the
+     model's generators and ``mx.random``'s generator for the device),
+     and the gradients; a gluon block's forward takes the batch as
+     ``NDArray``s over the static buffers;
   4. ``all_finite`` over the gradients, on the device;
   5. ``apply_updates`` with ``rescale_grad = base / scale``, the step
      count ``t`` and the learning rate as 0-d device tensors;
   6. the guard: ``torch.where`` on the device flag selects the new or the
      old parameters, optimizer state and module buffers (a BatchNorm's
      running statistics and ``num_batches_tracked``, which the forward
-     wrote), so a vetoed step leaves all three bit-identical; all three
-     are written IN PLACE;
+     wrote; a gluon BatchNorm's running statistics are parameters that
+     do not require grad and are kept the same way), so a vetoed step
+     leaves all three bit-identical; all three are written IN PLACE;
   7. one readback of the loss and the flag, which steer ``step_count``,
      the recorder (APPLIED / SKIPPED_NONFINITE / HALTED_POISONED) and the
      loss scaler.
@@ -58,7 +62,11 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import autograd
+from .. import random as _random
 from ..base import MXNetError, getenv_bool
+from ..gluon.block import Block
+from ..ndarray import NDArray
 from ..optimizer import create as opt_create
 from ..optimizer.fused import all_finite, apply_updates, tree_leaves
 from ..serve.program import GraphCapture, Packed, add_launches
@@ -132,7 +140,8 @@ def _not_ported(what):
 class SPMDTrainer:
     """Fused train step over one device.
 
-    Parameters follow the JAX package's: ``block`` (an ``nn.Module``),
+    Parameters follow the JAX package's: ``block`` (an ``nn.Module``; a
+    gluon ``Block``, initialized, is one),
     ``loss`` (``loss(out, *labels)``) or ``forward_loss``
     (``fn(block, *batch) -> scalar``), ``optimizer`` with
     ``optimizer_params``, ``loss_scaler`` (``amp.LossScaler``), ``guard``
@@ -190,11 +199,19 @@ class SPMDTrainer:
         named = list(block.named_parameters())
         if not named:
             raise MXNetError("the block has no parameters")
+        if any(isinstance(p, torch.nn.UninitializedParameter)
+               for _, p in named):
+            raise MXNetError("the block has uninitialized parameters: call "
+                             "initialize() (and run a forward for deferred "
+                             "shapes) before building the trainer")
+        self._gluon = isinstance(block, Block)
         self._names = [n for n, _ in named]
         self._params = [p for _, p in named]
         self._train_idx = [i for i, p in enumerate(self._params)
                            if p.requires_grad]
-        self._buffers = list(block.buffers())
+        # what the forward may write besides the trained parameters
+        self._buffers = list(block.buffers()) + [
+            p for p in self._params if not p.requires_grad]
         self.device = self._params[0].device
         if isinstance(optimizer, str):
             self._optimizer = opt_create(
@@ -246,12 +263,16 @@ class SPMDTrainer:
         params = [self._params[i] for i in self._train_idx]
         was_training = self.block.training
         self.block.train()
+        if self._gluon:
+            batch = [NDArray(b) for b in batch]
         try:
-            with torch.enable_grad():
+            with torch.enable_grad(), autograd.record(train_mode=True):
                 if self.forward_loss is not None:
                     L = self.forward_loss(self.block, *batch)
                 else:
                     L = self.loss(self.block(batch[0]), *batch[1:])
+                if isinstance(L, NDArray):
+                    L = L._data
                 if L.dim() > 0:
                     L = L.mean()
                 scaled = L * scale
@@ -316,8 +337,12 @@ class SPMDTrainer:
             opt._index_update_count, opt.num_update = saved
 
     def _generators(self):
-        """The CUDA generators the block's modules draw from."""
+        """The CUDA generators the block's modules draw from, and
+        ``mx.random``'s for the device (gluon's Dropout draws from it)."""
         gens = {}
+        if self.device.type == "cuda":
+            g = _random.generator(self.device)
+            gens[id(g)] = g
         for m in self.block.modules():
             g = getattr(m, "generator", None)
             if isinstance(g, torch.Generator) and g.device.type == "cuda":
@@ -350,10 +375,14 @@ class SPMDTrainer:
         prog.build_ms = (time.perf_counter() - t0) * 1e3
 
     def step(self, *batch):
-        """Run one fused train step; returns the loss, a device tensor of
-        its own. The first step of a batch signature builds its program
-        (see the module's docstring); later ones stage and replay it."""
-        batch = [b if torch.is_tensor(b) else torch.as_tensor(np.asarray(b))
+        """Run one fused train step; returns the loss, an ``NDArray`` on
+        the device of its own. The batch may be ``NDArray``s, tensors or
+        array-likes (an ``NDArray``'s tensor is read where it lies, never
+        through the host). The first step of a batch signature builds its
+        program (see the module's docstring); later ones stage and replay
+        it."""
+        batch = [b._data if isinstance(b, NDArray) else
+                 b if torch.is_tensor(b) else torch.as_tensor(np.asarray(b))
                  for b in batch]
         if self._opt_state is None:
             self._materialize()
@@ -375,7 +404,7 @@ class SPMDTrainer:
                 prog.replay()
             else:
                 self._run_body(prog, False)
-            loss = prog.out.dev["loss"].clone()
+            loss = NDArray(prog.out.dev["loss"].clone())
             verdict = prog.read() if self.guard else None
         except BaseException:
             # the step died before any outcome existed — close it so the

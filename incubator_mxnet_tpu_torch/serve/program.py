@@ -38,6 +38,7 @@ failed capture.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -209,8 +210,13 @@ class GraphCapture:
     def record(self, fn: Callable) -> Dict[str, int]:
         """Capture ``fn()`` (nothing runs). Returns the launches the
         kernel wrappers counted during the capture and leaves their
-        counters as they were; a failed capture raises ``MXNetError``."""
+        counters as they were; a failed capture raises ``MXNetError``.
+        The garbage collector is off during the capture: collecting an
+        unreachable object that holds a CUDA graph or pinned memory
+        destroys it, a call that invalidates a capture in progress."""
         saved = launch_counts()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with self._capture:
                 fn()
@@ -219,6 +225,8 @@ class GraphCapture:
             self._close_generators()
             raise MXNetError(f"program capture failed: {e}") from e
         finally:
+            if collecting:
+                gc.enable()
             counted = launch_counts()
             _set_launch_counts(saved)
         return {k: n - saved[k] for k, n in counted.items() if n != saved[k]}

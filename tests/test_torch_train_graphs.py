@@ -1,8 +1,9 @@
 """The train step's CUDA graphs, on the card.
 
-bert_tiny, bf16 with f32 masters, the flash kernels' tensor-core bodies
-(D = 64), LAMB, dropout 0.1 drawn from the model's own CUDA generator
-(registered with each graph). Each case skips without a CUDA device.
+bert_tiny (the gluon ``HybridBlock`` model, initialized on ``gpu(0)``),
+bf16 with f32 masters, the flash kernels' tensor-core bodies (D = 64),
+LAMB, dropout 0.1 drawn from ``mx.random``'s CUDA generator (registered
+with each graph; ``mx.random.seed`` reseeds it). Each case skips without a CUDA device.
 Held here: a replay equals the step's body run eagerly on the current
 stream bitwise (loss, every parameter, every optimizer-state tensor) over
 3 steps reseeded alike, so the replay's dropout masks are the eager
@@ -14,7 +15,13 @@ batch through a replay leaves every parameter and state tensor bitwise
 (and a BatchNorm's running statistics and step count);
 a capture that fails raises ``MXNetError`` after the eager first step is
 recorded (and leaves the generators drawing eagerly again), and no step
-runs eagerly in its place. This file imports no JAX, so
+runs eagerly in its place. gluon.Trainer's applier programs (one CUDA
+graph per parameter group, the all-finite guard and the f32 accumulate
+program): replays follow the CPU run's weights, ``load_parameters``
+after a capture writes the weights the graph reads (a step then equals a
+fresh trainer's), a NaN gradient through a replay leaves weights and
+state bitwise with no new capture, and accumulation rounds of 1, 3 and 2
+microbatches capture one accumulate program. This file imports no JAX, so
 ``chip_smoke.py`` runs it with ``pytest --noconftest -m cuda``.
 """
 
@@ -22,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import incubator_mxnet_tpu_torch as mx
 from incubator_mxnet_tpu_torch import models
 from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.ops import flash_attention as fa
@@ -54,12 +62,16 @@ def _batch(T, seed, poison=False):
 
 def _trainer(dropout=0.1, lr=1e-3, forward_loss=models.pretraining_loss,
              like=None):
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
+    """A trainer and the CUDA generator its dropout draws from (every
+    trainer here shares ``mx.random``'s, so a test reseeds it before each
+    step it compares)."""
+    mx.random.seed(0)
     bert = models.bert_tiny(vocab_size=V, max_length=128, dtype="bfloat16",
-                            flash=True, dropout=dropout, device="cuda",
-                            generator=gen)
+                            flash=True, dropout=dropout)
+    bert.initialize(ctx=mx.gpu(0))
     pre = models.BERTForPretraining(bert)
+    pre.initialize(ctx=mx.gpu(0))
+    gen = mx.random.generator("cuda")
     if like is not None:
         pre.load_state_dict(like.block.state_dict())
     tr = SPMDTrainer(pre, forward_loss=forward_loss, optimizer="lamb",
@@ -83,6 +95,11 @@ def _eager_step(tr, batch):
     return loss
 
 
+def _loss(x):
+    """The tensor of a step's returned loss (an ``NDArray``)."""
+    return x._data
+
+
 def _state(tr):
     return [p.detach().clone() for p in tr._params] + \
         [x.clone() for x in tree_leaves(tr._opt_state)]
@@ -101,12 +118,12 @@ def _prog(tr, T):
 @pytest.mark.cuda
 def test_replay_equals_eager_body_bitwise(cuda):
     tr, gen = _trainer()
-    ref, ref_gen = _trainer(like=tr)
+    ref, _ = _trainer(like=tr)
     batch = _batch(128, 0)
     for i in range(3):
         gen.manual_seed(10 + i)
-        ref_gen.manual_seed(10 + i)
-        got = tr.step(*batch)
+        got = _loss(tr.step(*batch))
+        gen.manual_seed(10 + i)
         want = _eager_step(ref, batch)
         assert torch.equal(got, want), (i, float(got), float(want))
         assert _differ(_state(tr), _state(ref)) == [], i
@@ -126,7 +143,7 @@ def test_replay_draws_from_the_generators_current_state(cuda):
     for seed in (1, 1, 2, None):
         if seed is not None:
             gen.manual_seed(seed)
-        losses.append(tr.step(*batch))
+        losses.append(_loss(tr.step(*batch)))
     assert torch.equal(losses[0], losses[1])
     assert not torch.equal(losses[1], losses[2])
     assert not torch.equal(losses[2], losses[3])
@@ -137,12 +154,12 @@ def test_replay_draws_from_the_generators_current_state(cuda):
 @pytest.mark.cuda
 def test_two_signatures_alternating_equal_eager_body(cuda):
     tr, gen = _trainer()
-    ref, ref_gen = _trainer(like=tr)
+    ref, _ = _trainer(like=tr)
     batches = {128: _batch(128, 2), 64: _batch(64, 3)}
     for i, T in enumerate((128, 64, 128, 64, 128)):
         gen.manual_seed(i)
-        ref_gen.manual_seed(i)
-        got = tr.step(*batches[T])
+        got = _loss(tr.step(*batches[T]))
+        gen.manual_seed(i)
         want = _eager_step(ref, batches[T])
         assert torch.equal(got, want), (i, T, float(got), float(want))
         assert _differ(_state(tr), _state(ref)) == [], (i, T)
@@ -245,3 +262,142 @@ def test_batchnorm_buffers_through_a_skipped_replay(cuda):
     assert not torch.equal(bn.running_mean, before[0])
     prog = next(iter(tr._programs.values()))
     assert tr.step_trace_count == 1 and prog.replays == 3
+
+
+# --------------------------------------------------------------------- #
+# gluon.Trainer's applier programs on the card
+# --------------------------------------------------------------------- #
+
+def _gluon_net(ctx, seed=0):
+    from incubator_mxnet_tpu_torch import gluon
+    mx.random.seed(seed)
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Dense(32, in_units=16, activation="relu"),
+            gluon.nn.Dense(4, in_units=32))
+    net.initialize(ctx=ctx)
+    return net
+
+
+def _gluon_pair():
+    """The net on the CPU and its copy on the card."""
+    cpu, gpu = _gluon_net(mx.cpu()), _gluon_net(mx.gpu(0))
+    for a, b in zip(gpu.collect_params().values(),
+                    cpu.collect_params().values()):
+        a.set_data(b.data())
+    return {"cpu": cpu, "gpu": gpu}
+
+
+def _gluon_steps(net, tr, ctx, n, seed=0, poison=None, accum=None):
+    from incubator_mxnet_tpu_torch import autograd, nd
+    rng = np.random.RandomState(seed)
+    for i in range(n):
+        for _ in range(accum or 1):
+            x = nd.array(rng.randn(8, 16).astype(np.float32), ctx=ctx)
+            y = nd.array(rng.randn(8, 4).astype(np.float32), ctx=ctx)
+            with autograd.record():
+                loss = ((net(x) - y) ** 2).mean()
+            loss.backward()
+            if poison == i:
+                net[0].weight.grad()._data[0, 0] = float("nan")
+            if accum:
+                tr.accumulate_grads()
+        tr.step(accum or 8)
+
+
+def _gluon_state(net, tr):
+    return [p.detach().clone() for p in net.parameters()] + [
+        x.clone() for s in tr._updaters[0].states.values()
+        for x in tree_leaves(s)]
+
+
+@pytest.mark.cuda
+def test_gluon_trainer_replays_equal_the_cpu_steps(cuda):
+    """Adam through gluon.Trainer: the first step runs the group's body
+    and captures it, the next replay the graph; the weights follow the
+    CPU run (the body every step) within f32 summation error, with one
+    build on each side."""
+    from incubator_mxnet_tpu_torch import gluon
+    runs, nets = {}, _gluon_pair()
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        net = nets[ctx.device_type]
+        tr = gluon.Trainer(net.collect_params(), "adam",
+                           {"learning_rate": 0.01})
+        _gluon_steps(net, tr, ctx, 4)
+        runs[ctx.device_type] = (net, tr)
+    tr = runs["gpu"][1]
+    prog = next(iter(tr._fused._programs.values()))
+    assert prog.graph is not None and prog.replays == 3
+    assert (tr._fused.trace_count, tr._fused.guard_trace_count) == (1, 1)
+    for a, b in zip(runs["gpu"][0].parameters(),
+                    runs["cpu"][0].parameters()):
+        np.testing.assert_allclose(a.detach().cpu().numpy(),
+                                   b.detach().numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_gluon_load_parameters_after_a_capture(cuda, tmp_path):
+    """The applier's graph holds the weights by address: after captured
+    steps, ``load_parameters`` (in place) then a step gives the weights a
+    fresh trainer gives on the loaded weights (SGD: no state)."""
+    from incubator_mxnet_tpu_torch import gluon
+    ctx = mx.gpu(0)
+    src = _gluon_net(ctx, seed=5)
+    path = str(tmp_path / "w.params")
+    src.save_parameters(path)
+    net = _gluon_net(ctx)
+    tr = gluon.Trainer(net.collect_params(), "sgd", {"learning_rate": 0.1})
+    _gluon_steps(net, tr, ctx, 3)
+    where = [p.data_ptr() for p in net.parameters()]
+    net.load_parameters(path)
+    assert [p.data_ptr() for p in net.parameters()] == where
+    _gluon_steps(net, tr, ctx, 1, seed=9)
+    fresh = _gluon_net(ctx, seed=7)
+    fresh.load_parameters(path)
+    ftr = gluon.Trainer(fresh.collect_params(), "sgd",
+                        {"learning_rate": 0.1})
+    _gluon_steps(fresh, ftr, ctx, 1, seed=9)
+    assert next(iter(tr._fused._programs.values())).replays == 3
+    for a, b in zip(net.parameters(), fresh.parameters()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_gluon_skipped_step_through_a_replay(cuda):
+    from incubator_mxnet_tpu_torch import gluon
+    ctx = mx.gpu(0)
+    net = _gluon_net(ctx)
+    tr = gluon.Trainer(net.collect_params(), "lamb",
+                       {"learning_rate": 0.01, "multi_precision": True})
+    _gluon_steps(net, tr, ctx, 2)
+    before = _gluon_state(net, tr)
+    counts = (tr._fused.trace_count, tr._fused.guard_trace_count)
+    _gluon_steps(net, tr, ctx, 1, seed=3, poison=0)
+    assert tr.last_outcome is StepOutcome.SKIPPED_NONFINITE
+    assert _differ(before, _gluon_state(net, tr)) == []
+    assert (tr._fused.trace_count, tr._fused.guard_trace_count) == counts
+    _gluon_steps(net, tr, ctx, 1, seed=4)
+    assert tr.last_outcome is StepOutcome.APPLIED
+    assert next(iter(tr._fused._programs.values())).replays == 3
+
+
+@pytest.mark.cuda
+def test_gluon_accumulation_captures_once(cuda):
+    """Rounds of 1, 3 and 2 microbatches: one accumulate capture, the
+    weights as the CPU run's."""
+    from incubator_mxnet_tpu_torch import gluon
+    runs, nets = {}, _gluon_pair()
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        net = nets[ctx.device_type]
+        tr = gluon.Trainer(net.collect_params(), "adam",
+                           {"learning_rate": 0.01}, kvstore=None)
+        for k in (1, 3, 2):
+            _gluon_steps(net, tr, ctx, 1, seed=k, accum=k)
+        runs[ctx.device_type] = (net, tr)
+    tr = runs["gpu"][1]
+    assert tr._fused.accum_trace_count == 1
+    prog = next(iter(tr._fused._accum_programs.values()))
+    assert prog.graph is not None and prog.replays == 5
+    for a, b in zip(runs["gpu"][0].parameters(),
+                    runs["cpu"][0].parameters()):
+        np.testing.assert_allclose(a.detach().cpu().numpy(),
+                                   b.detach().numpy(), rtol=1e-5, atol=1e-6)

@@ -44,6 +44,7 @@ from incubator_mxnet_tpu.base import MXNetError as JMXNetError
 from incubator_mxnet_tpu.models import bert as jb
 from incubator_mxnet_tpu.optimizer import lr_scheduler as jls
 
+import incubator_mxnet_tpu_torch as mx
 from incubator_mxnet_tpu_torch import amp
 from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.models import bert as tb, convert
@@ -97,8 +98,10 @@ def _jax_trainer(optimizer_params, **kw):
 
 
 def _port_trainer(params, optimizer="lamb", optimizer_params=None, **kw):
-    tp = tb.BERTForPretraining(tb.bert_tiny(vocab_size=V, max_length=T,
-                                            dropout=0.0, device="cpu"))
+    bert = tb.bert_tiny(vocab_size=V, max_length=T, dropout=0.0)
+    bert.initialize(ctx=mx.cpu())
+    tp = tb.BERTForPretraining(bert)
+    tp.initialize(ctx=mx.cpu())
     tp.load_state_dict(convert.bert_params_from_jax(tp, params))
     return SPMDTrainer(tp, forward_loss=tb.pretraining_loss,
                        optimizer=optimizer,
@@ -122,7 +125,7 @@ def jax_runs():
     """Every JAX trainer scenario, run once: the weights, and per
     scenario what each step gave."""
     params = {n: p.data().asnumpy()
-              for n, p in _jax_model().collect_params().items()}
+              for n, p in _jax_model()._collect_params_with_prefix().items()}
     rng = np.random.RandomState(0)
     a, b = _batch(rng), _batch(rng, T2)
     out = {"params": params, "a": a, "b": b}
@@ -360,9 +363,9 @@ def test_returned_losses_are_tensors_of_their_own(jax_runs):
     want = [float(ref.step(*a)) for _ in range(3)]
     assert [float(x) for x in losses] == want
     assert len(set(want)) == 3
-    assert len({x.data_ptr() for x in losses}) == 3
+    assert len({x._data.data_ptr() for x in losses}) == 3
     out = next(iter(tt._programs.values())).out.dev["loss"]
-    assert all(x.data_ptr() != out.data_ptr() for x in losses)
+    assert all(x._data.data_ptr() != out.data_ptr() for x in losses)
 
 
 def test_replay_adds_launches_to_both_counters():
@@ -484,3 +487,90 @@ def test_step_guard_reads_the_environment(monkeypatch, env, want):
     tt.step(torch.tensor(X), torch.zeros(4, 4))
     assert tt.last_outcome is (StepOutcome.SKIPPED_NONFINITE if want
                                else StepOutcome.APPLIED)
+
+
+def _gluon_bn_nets():
+    """The same net as ``_bn_nets`` in gluon in both packages (Dense 8->16
+    relu, BatchNorm(16), Dense 16->4); the port's carries the JAX net's
+    parameters by structural name."""
+    from incubator_mxnet_tpu.gluon import nn as jnn
+    from incubator_mxnet_tpu_torch import gluon as tgluon
+
+    def build(nn):
+        net = nn.Sequential()
+        net.add(nn.Dense(16, in_units=8, activation="relu"),
+                nn.BatchNorm(in_channels=16), nn.Dense(4, in_units=16))
+        return net
+    jmx.random.seed(7)
+    jnet = build(jnn)
+    jnet.initialize()
+    tnet = build(tgluon.nn)
+    tnet.initialize(ctx=mx.cpu())
+    src = jnet._collect_params_with_prefix()
+    for name, p in tnet._collect_params_with_prefix().items():
+        p.set_data(src[name].data().asnumpy())
+    return jnet, tnet
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_skipped_replay_keeps_gluon_batchnorm_stats(device):
+    """Fault 1's case on the gluon BatchNorm, whose running statistics
+    are parameters that do not require grad: two clean Adam steps (on the
+    card the second a replay of the step graph) with the JAX trainer's
+    losses, then a batch with one NaN skipped by both trainers — the
+    port's parameters, optimizer state and running statistics bitwise, as
+    the JAX trainer's running statistics — and a clean step after it; one
+    build throughout."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from incubator_mxnet_tpu import gluon as jgluon
+    from incubator_mxnet_tpu.parallel import mesh as jmesh
+    from incubator_mxnet_tpu_torch import gluon as tgluon
+    jnet, tnet = _gluon_bn_nets()
+    if device == "cuda":
+        tnet.collect_params().reset_ctx(mx.gpu(0))
+    opt = {"learning_rate": 0.01}
+    jt = jparallel.SPMDTrainer(
+        jnet, loss=jgluon.loss.SoftmaxCrossEntropyLoss(), optimizer="adam",
+        optimizer_params=dict(opt),
+        mesh=jmesh.build_mesh(axis_sizes={"dp": 8}), sharding="replicated")
+    tt = SPMDTrainer(tnet, loss=tgluon.loss.SoftmaxCrossEntropyLoss(),
+                     optimizer="adam", optimizer_params=dict(opt),
+                     sharding="replicated")
+    rng = np.random.RandomState(2)
+    X = rng.randn(16, 8).astype(np.float32)
+    y = rng.randint(0, 4, size=(16,)).astype(np.float32)
+    bad = X.copy()
+    bad[0, 0] = np.nan
+
+    def port(a):
+        return torch.tensor(a, device=device)
+    jl = [float(jt.step(nd.array(X), nd.array(y)).asnumpy())
+          for _ in range(2)]
+    tl = [float(tt.step(port(X), port(y))) for _ in range(2)]
+    np.testing.assert_allclose(tl, jl, rtol=1e-5 if device == "cpu"
+                               else 1e-4)
+    stats = [p for n, p in tnet.collect_params().items() if "running" in n]
+    assert len(stats) == 2 and all(
+        any(s.data()._data is b for b in tt._buffers) for s in stats)
+    jstats = [p.data().asnumpy().copy()
+              for n, p in jnet.collect_params().items() if "running" in n]
+    before = _state(tt) + [s.data()._data.clone() for s in stats]
+    jt.step(nd.array(bad), nd.array(y))
+    tt.step(port(bad), port(y))
+    assert jt.last_outcome.value == tt.last_outcome.value == \
+        StepOutcome.SKIPPED_NONFINITE.value
+    for b, a in zip(jstats, [p.data().asnumpy() for n, p in
+                             jnet.collect_params().items()
+                             if "running" in n]):
+        np.testing.assert_array_equal(a, b)
+    after = _state(tt) + [s.data()._data for s in stats]
+    for b, a in zip(before, after):
+        assert torch.equal(a, b)
+    tt.step(port(X), port(y))
+    assert tt.last_outcome is StepOutcome.APPLIED
+    assert not torch.equal(stats[0].data()._data, before[-2])
+    prog = next(iter(tt._programs.values()))
+    assert tt.step_trace_count == 1
+    assert prog.replays == (3 if device == "cuda" else 0)
