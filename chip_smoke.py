@@ -165,6 +165,41 @@ failure exits non-zero before the result line:
                 (the mma.sync bodies bert_base runs), and in bf16 every
                 parameter's first-step gradient within 5e-2 of its
                 largest |gradient|;
+  7b. gluon   — the verify drive on the card, bert_base bf16 through
+                autograd.record() / gluon.Trainer("lamb");
+  7c. vision  — convolutional image classification, which runs no kernel
+                of the port's own (cuDNN convolutions, torch pooling):
+                (1) Convolution (1-3-d, stride, dilation, groups,
+                depthwise, a 256-channel 3x3), Deconvolution (adj),
+                Pooling (max / avg / sum, valid and full at odd padded
+                sizes, count_include_pad off) and AdaptiveAvgPooling2D on
+                the card against the port on the CPU, f32 within 1e-4 of
+                the output's largest |entry| (forward, and the input and
+                weight gradients), bf16 within 2e-2, with cuDNN's f32
+                convolutions left at torch's TF32 default: the ops set
+                IEEE f32 per call (a direct F.conv2d is timed against it
+                as the control); (2) resnet50_v1 bf16, B=64, 224x224, as
+                bench.py builds it (one forward, cast, SPMDTrainer SGD lr
+                0.1 momentum 0.9 multi_precision), 3 warm-up and 10 timed
+                steps on one batch: one capture, every timed step a
+                replay, finite losses, the last below the first, the
+                BatchNorm running statistics moved and finite; img/s, ms
+                a step, MFU (3 x 4.1 GFLOP an image over the card's
+                peak), peak memory, the eager first step's and the
+                capture's ms, and from one profiled step the busy share,
+                the top device operations and the shares of the layout
+                transposes, of PyTorch's elementwise and reduction
+                kernels and of cuDNN / cuBLAS; (3) resnet18_v1(thumbnail=True, classes=10) f32,
+                B=32, 32x32, 3 SGD steps (lr 1e-3, momentum 0.9) on the
+                card against the port on the CPU from the same weights:
+                losses within rtol 1e-4, every parameter and running
+                statistic within 1e-3 of its largest |entry| + 1e-5; (4)
+                LeNet through
+                DataLoader(MNIST(synthetic=True).transform_first(
+                ToTensor())), split_and_load, autograd.record(),
+                gluon.Trainer("sgd") and metric.Accuracy for 3 epochs
+                (282 batches): the loss falls; accuracy and batches/s.
+                One `[vision]` JSON line with the card's name and limit;
   8. times    — the flash kernels held against their plain versions
                 once more on the training batch's own shapes and lengths
                 (B=32, T=512, bf16); each kernel's device time (CUDA events around it, the
@@ -3210,6 +3245,375 @@ def phase_gluon(torch, device_name):
     return stats
 
 
+# --------------------------------------------------------------------- #
+# convolutional vision training
+# --------------------------------------------------------------------- #
+
+VISION = dict(B=64, side=224, steps=10, warmup=3, classes=1000,
+              gflop_per_image=4.1)
+VISION_PARITY = dict(B=32, side=32, steps=3, loss_rtol=1e-4, scale=1e-3,
+                     floor=1e-5)
+VISION_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # of the largest |ref|
+# (name, op, input shapes, keywords)
+VISION_OPS = [
+    ("conv1d", "Convolution", [(4, 8, 37), (16, 8, 5), (16,)],
+     dict(kernel=(5,), stride=(2,), pad=(2,), num_filter=16)),
+    ("conv2d-dilate", "Convolution", [(4, 16, 29, 31), (32, 16, 3, 3),
+                                      (32,)],
+     dict(kernel=(3, 3), stride=(2, 1), dilate=(2, 2), pad=(2, 1),
+          num_filter=32)),
+    ("conv2d-256", "Convolution", [(8, 256, 14, 14), (256, 256, 3, 3)],
+     dict(kernel=(3, 3), pad=(1, 1), num_filter=256, no_bias=True)),
+    ("conv2d-groups", "Convolution", [(4, 32, 15, 15), (64, 8, 3, 3)],
+     dict(kernel=(3, 3), pad=(1, 1), num_filter=64, num_group=4,
+          no_bias=True)),
+    ("conv2d-depthwise", "Convolution", [(4, 64, 28, 28), (64, 1, 3, 3)],
+     dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), num_filter=64,
+          num_group=64, no_bias=True)),
+    ("conv3d", "Convolution", [(2, 4, 9, 10, 11), (8, 4, 3, 3, 3), (8,)],
+     dict(kernel=(3, 3, 3), stride=(1, 2, 2), pad=(1, 1, 1),
+          num_filter=8)),
+    ("deconv2d-adj", "Deconvolution", [(4, 16, 13, 13), (16, 8, 4, 4),
+                                       (8,)],
+     dict(kernel=(4, 4), stride=(2, 2), pad=(1, 1), adj=(1, 1),
+          num_filter=8, no_bias=False)),
+    ("max-valid-pad", "Pooling", [(8, 64, 112, 112)],
+     dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="max")),
+    ("max-full", "Pooling", [(4, 32, 7, 7)],
+     dict(kernel=(3, 3), stride=(2, 2), pool_type="max",
+          pooling_convention="full")),
+    ("max-full-pad", "Pooling", [(4, 32, 7, 6)],
+     dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="max",
+          pooling_convention="full")),
+    ("avg-full-pad", "Pooling", [(4, 32, 7, 7)],
+     dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="avg",
+          pooling_convention="full")),
+    ("avg-full-exclude", "Pooling", [(4, 32, 7, 7)],
+     dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="avg",
+          pooling_convention="full", count_include_pad=False)),
+    ("avg-valid-exclude", "Pooling", [(4, 32, 7, 7)],
+     dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="avg",
+          count_include_pad=False)),
+    ("sum-full", "Pooling", [(4, 32, 9, 9)],
+     dict(kernel=(2, 2), stride=(2, 2), pool_type="sum",
+          pooling_convention="full")),
+    ("global-avg", "Pooling", [(8, 2048, 7, 7)],
+     dict(global_pool=True, pool_type="avg")),
+    ("adaptive", "AdaptiveAvgPooling2D", [(4, 32, 13, 11)],
+     dict(output_size=(3, 4))),
+]
+
+
+def _rel_err(torch, got, want):
+    """max |got - want| over max |want|, in f64 on the host."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def vision_ops(torch, np):
+    """Each VISION_OPS case on the card against the port on the CPU: f32
+    forward and gradients, bf16 forward (its reference: the CPU on the
+    bf16-rounded inputs in f32). cuDNN's f32 convolutions are left at
+    torch's TF32 default here, so only the ops' own per-call setting
+    keeps them IEEE f32; a direct F.conv2d on conv2d-256 is the
+    control."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd, nd
+    conv = torch.backends.cudnn.conv
+    old = conv.fp32_precision
+    conv.fp32_precision = "tf32"
+    worst = {}
+    try:
+        rng = np.random.RandomState(0)
+        for name, op, shapes, kw in VISION_OPS:
+            arrays = [rng.randn(*sh).astype(np.float32) for sh in shapes]
+            fn = getattr(nd, op)
+            res = {}
+            for ctx in (mx.cpu(), mx.gpu(0)):
+                xs = [nd.array(a, ctx=ctx) for a in arrays]
+                for x in xs:
+                    x.attach_grad()
+                with autograd.record():
+                    out = fn(*xs, **kw)
+                    r = nd.array(np.random.RandomState(1).randn(
+                        *out.shape).astype(np.float32), ctx=ctx)
+                    (out * r).sum().backward()
+                res[ctx.device_type] = [out._data] + [x.grad._data
+                                                      for x in xs]
+            errs = [_rel_err(torch, g, c)
+                    for g, c in zip(res["gpu"], res["cpu"])]
+            bf = [nd.array(a, ctx=mx.gpu(0)).astype("bfloat16")
+                  for a in arrays]
+            ref = fn(*[nd.array(b._data.float().cpu(), ctx=mx.cpu())
+                       for b in bf], **kw)
+            got = fn(*bf, **kw)
+            check(str(got.dtype) == "bfloat16",
+                  f"vision op {name}: bf16 in, {got.dtype} out")
+            bf_err = _rel_err(torch, got._data, ref._data)
+            check(max(errs) <= VISION_TOL["float32"],
+                  f"vision op {name}: f32 card vs CPU (output, gradients) "
+                  f"{errs} > {VISION_TOL['float32']}")
+            check(bf_err <= VISION_TOL["bfloat16"],
+                  f"vision op {name}: bf16 card vs CPU {bf_err:.2e} > "
+                  f"{VISION_TOL['bfloat16']}")
+            worst[name] = dict(f32=max(errs), bf16=bf_err)
+        x = torch.tensor(rng.randn(8, 256, 14, 14).astype(np.float32))
+        w = torch.tensor(rng.randn(256, 256, 3, 3).astype(np.float32))
+        want = torch.nn.functional.conv2d(x, w, padding=1)
+        control = _rel_err(torch, torch.nn.functional.conv2d(
+            x.cuda(), w.cuda(), padding=1), want)
+        port = _rel_err(torch, nd.Convolution(
+            nd.array(x.numpy(), ctx=mx.gpu(0)),
+            nd.array(w.numpy(), ctx=mx.gpu(0)), kernel=(3, 3), pad=(1, 1),
+            num_filter=256, no_bias=True)._data, want)
+    finally:
+        conv.fp32_precision = old
+    print(f"[vision] ops: {len(VISION_OPS)} cases card vs CPU, worst f32 "
+          f"{max(v['f32'] for v in worst.values()):.2e}, bf16 "
+          f"{max(v['bf16'] for v in worst.values()):.2e}; TF32 control: "
+          f"F.conv2d {control:.2e}, nd.Convolution {port:.2e}", flush=True)
+    return dict(worst=worst, tf32_control=control, port_under_tf32=port)
+
+
+def vision_resnet50(torch, np, device_name):
+    """bench.py's _run_resnet on the card: resnet50_v1 bf16 through
+    SPMDTrainer with SGD, one CUDA graph."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import nd, parallel
+    from incubator_mxnet_tpu_torch.gluon import loss as gloss
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from incubator_mxnet_tpu_torch.utils import flops
+    B, side = VISION["B"], VISION["side"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mx.random.seed(0)
+    net = resnet50_v1()
+    net.initialize()
+    rng0 = np.random.RandomState(0)
+    net(nd.array(rng0.rand(1, 3, side, side).astype("float32")))
+    net.cast("bfloat16")
+    rng = np.random.RandomState(0)
+    x = nd.array(rng.rand(B, 3, side, side).astype("float32")) \
+        .astype("bfloat16")
+    y = nd.array(rng.randint(0, VISION["classes"], (B,)), dtype="int32")
+    tr = parallel.SPMDTrainer(
+        net, loss=gloss.SoftmaxCrossEntropyLoss(), optimizer="sgd",
+        optimizer_params={"learning_rate": 0.1, "momentum": 0.9,
+                          "multi_precision": True},
+        sharding="replicated")
+    stats = {k: p for k, p in net._collect_params_with_prefix().items()
+             if "running_" in k}
+    before = {k: p.data()._data.clone() for k, p in stats.items()}
+    losses = [float(tr.step(x, y).asnumpy())
+              for _ in range(VISION["warmup"])]
+    check(tr.step_trace_count == 1 and len(tr._programs) == 1,
+          f"resnet50: {tr.step_trace_count} step programs built in the "
+          f"warm-up")
+    prog = next(iter(tr._programs.values()))
+    replays = prog.replays
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [tr.step(x, y) for _ in range(VISION["steps"])]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    losses += [float(v.asnumpy()) for v in timed]
+    n_steps = VISION["warmup"] + VISION["steps"]
+    check(all(np.isfinite(losses)), f"resnet50: non-finite loss {losses}")
+    check(losses[-1] < losses[0],
+          f"resnet50: loss did not fall over {n_steps} steps: {losses}")
+    check(tr.step_count == n_steps and tr.step_trace_count == 1 and
+          prog.replays - replays == VISION["steps"],
+          f"resnet50: {tr.step_count} steps applied, "
+          f"{prog.replays - replays} of {VISION['steps']} timed steps "
+          f"replayed, {tr.step_trace_count} builds")
+    moved = sum(not torch.equal(p.data()._data, before[k])
+                for k, p in stats.items())
+    finite = all(bool(torch.isfinite(p.data()._data).all())
+                 for p in stats.values())
+    check(moved == len(stats) and finite and len(stats) == 106,
+          f"resnet50: {moved} of {len(stats)} running statistics moved, "
+          f"finite {finite}")
+    ms = dt * 1e3 / VISION["steps"]
+    img_s = B / (ms / 1e3)
+    out = dict(config=f"resnet50_v1 bf16 B={B} {side}x{side} SGD lr 0.1 "
+                      f"momentum 0.9 multi_precision",
+               losses=losses, ms_per_step=ms, img_per_s=img_s,
+               mfu=img_s * 3 * VISION["gflop_per_image"] * 1e9
+               / flops.peak_flops(device_name),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               first_step_ms=prog.first_ms, capture_ms=prog.build_ms,
+               step_trace_count=tr.step_trace_count,
+               replays=prog.replays)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        tr.step(x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    kern = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if kern:
+        busy = sum(t for _, t, _ in kern) / 1e3
+        layout = sum(t for k, t, _ in kern if re.search(
+            r"nchwToNhwc|nhwcToNchw|[Tt]ranspose", k)) / 1e3
+        # PyTorch's own kernels: BatchNorm's passes, casts, ReLU, the
+        # residual adds, the SGD apply; the rest is cuDNN / cuBLAS
+        aten = sum(t for k, t, _ in kern if "at::native" in k) / 1e3
+        out.update(profiled_wall_ms=wall_ms, device_busy_ms=busy,
+                   device_busy_share=busy / wall_ms,
+                   layout_transpose_ms=layout,
+                   layout_transpose_share_of_busy=layout / busy,
+                   aten_elementwise_reduce_ms=aten,
+                   aten_share_of_busy=aten / busy,
+                   cudnn_cublas_ms=busy - aten - layout,
+                   cudnn_cublas_share_of_busy=(busy - aten - layout)
+                   / busy,
+                   top=[(k[:90], round(t / 1e3, 3), n) for k, t, n in
+                        sorted(kern, key=lambda e: -e[1])[:14]])
+    else:
+        out["device_busy_share"] = "not measured (no kernel traced)"
+    print(f"[capture] resnet50: step_trace_count {tr.step_trace_count}, "
+          f"eager first step {prog.first_ms:.1f} ms, capture "
+          f"{prog.build_ms:.1f} ms, replays {prog.replays}", flush=True)
+    del tr, net, x, y, prog, stats, before
+    torch.cuda.empty_cache()
+    return out
+
+
+def vision_parity(torch, np):
+    """resnet18_v1(thumbnail=True, classes=10) f32: SGD steps on the card
+    against the port on the CPU from the same weights, cuDNN's f32
+    convolutions left at torch's TF32 default (the ops set IEEE)."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import nd
+    from incubator_mxnet_tpu_torch.gluon import loss as gloss
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet18_v1
+    from incubator_mxnet_tpu_torch.parallel import SPMDTrainer
+    P = VISION_PARITY
+    rng = np.random.RandomState(0)
+    x = rng.rand(P["B"], 3, P["side"], P["side"]).astype(np.float32)
+    y = rng.randint(0, 10, (P["B"],)).astype(np.int32)
+    conv = torch.backends.cudnn.conv
+    old = conv.fp32_precision
+    conv.fp32_precision = "tf32"
+    runs = {}
+    try:
+        state = None
+        for ctx in (mx.cpu(), mx.gpu(0)):
+            mx.random.seed(0)
+            net = resnet18_v1(thumbnail=True, classes=10)
+            net.initialize(ctx=ctx)
+            net(nd.array(x, ctx=ctx))
+            if state is None:
+                state = {k: v.clone() for k, v in net.state_dict().items()}
+            net.load_state_dict(state)
+            tr = SPMDTrainer(net, loss=gloss.SoftmaxCrossEntropyLoss(),
+                             optimizer="sgd",
+                             optimizer_params={"learning_rate": 1e-3,
+                                               "momentum": 0.9})
+            xs, ys = nd.array(x, ctx=ctx), nd.array(y, ctx=ctx,
+                                                    dtype="int32")
+            losses = [float(tr.step(xs, ys).asnumpy())
+                      for _ in range(P["steps"])]
+            runs[ctx.device_type] = (losses, {
+                k: p.data()._data.detach().cpu() for k, p in
+                net._collect_params_with_prefix().items()}, tr)
+    finally:
+        conv.fp32_precision = old
+    (lc, pc, _), (lg, pg, trg) = runs["cpu"], runs["gpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    check(loss_err <= P["loss_rtol"],
+          f"resnet18 card vs CPU: losses {lg} vs {lc}")
+    check(trg.step_trace_count == 1 and
+          next(iter(trg._programs.values())).replays == P["steps"] - 1,
+          "resnet18 on the card: not one capture and replays")
+    # a tensor within scale x its largest |entry| (a weight near 0 has no
+    # relative precision of its own), or floor: a BatchNorm beta is a
+    # sum with cancellation; after 3 steps one of 3.3e-4 is 6.7e-6 off
+    # float64 in f32 (tools/torch_vision_conditioning.py float64)
+    errs = {k: float((pg[k] - pc[k]).abs().max()) for k in pc}
+    bad = {k: (e, float(pc[k].abs().max())) for k, e in errs.items()
+           if e > P["scale"] * float(pc[k].abs().max()) + P["floor"]}
+    check(not bad, f"resnet18 card vs CPU: {len(bad)} tensors past "
+                   f"{P['scale']} x max + {P['floor']}: "
+                   f"{sorted(bad.items())[:6]}")
+    worst = max(errs[k] / float(pc[k].abs().max().clamp_min(1e-30))
+                for k in pc)
+    print(f"[vision] resnet18_v1 thumbnail f32 B={P['B']} card vs CPU: "
+          f"losses {lg} vs {lc} (max rel {loss_err:.2e}); {len(pc)} "
+          f"parameters and running statistics within {P['scale']} x "
+          f"their largest |entry| + {P['floor']} (worst {worst:.2e} of "
+          f"the largest)", flush=True)
+    return dict(losses_card=lg, losses_cpu=lc, loss_rel_err=loss_err,
+                worst_param_rel=worst)
+
+
+def vision_lenet(torch, np):
+    """BASELINE.md config #1 as users write it, on the card."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd, gluon, metric
+    from incubator_mxnet_tpu_torch.gluon.data.vision import (MNIST,
+                                                             transforms)
+    mx.random.seed(0)
+    data = gluon.data.DataLoader(
+        MNIST(synthetic=True).transform_first(transforms.ToTensor()),
+        batch_size=64)
+    net = mx.models.LeNet()
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    acc = metric.Accuracy()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for epoch in range(3):
+        acc.reset()
+        for x, y in data:
+            x = gluon.utils.split_and_load(x, [mx.gpu(0)])[0]
+            y = gluon.utils.split_and_load(y, [mx.gpu(0)])[0]
+            with autograd.record():
+                out = net(x)
+                L = loss_fn(out, y)
+            L.backward()
+            trainer.step(x.shape[0])
+            acc.update(y, out)
+            losses.append(L.mean())
+    accuracy = acc.get()[1]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(v.asnumpy()) for v in losses]
+    check(acc.sum_metric.is_cuda and out.context == mx.gpu(0),
+          "lenet: the metric or the net is not on the card")
+    first, last = np.mean(losses[:20]), np.mean(losses[-20:])
+    check(np.isfinite(losses).all() and last < 0.5 * first,
+          f"lenet: loss {first:.4f} -> {last:.4f}, not below half")
+    out = dict(batches=len(losses), batches_per_s=len(losses) / wall,
+               loss_first20=first, loss_last20=last,
+               last_epoch_accuracy=accuracy)
+    print(f"[vision] lenet: {len(losses)} batches, loss {first:.4f} -> "
+          f"{last:.4f}, accuracy {accuracy:.4f}, "
+          f"{len(losses) / wall:.1f} batches/s", flush=True)
+    return out
+
+
+def phase_vision(torch, smi):
+    """The vision slice on the card (module docstring, phase 7c)."""
+    import numpy as np
+    t0 = time.perf_counter()
+    out = dict(card=smi, ops=vision_ops(torch, np),
+               resnet50=vision_resnet50(torch, np,
+                                        torch.cuda.get_device_name(0)),
+               parity=vision_parity(torch, np), lenet=vision_lenet(torch, np))
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[vision] {json.dumps(out)}", flush=True)
+
+
 def flash_work(B, H, T, D, lens, elem):
     """(bytes, flops) each flash kernel needs at these lengths: K/V rows
     of live keys, every q / dO / out row, f32 lse and delta; operations
@@ -3365,6 +3769,7 @@ def main():
         phase_long_sequence(torch)
         phase_bert_parity(torch)
         phase_gluon(torch, torch.cuda.get_device_name(0))
+        phase_vision(torch, smi)
         times = phase_times(torch)
         times.update(phase_flash_times(torch, lens, err))
         for mod in ("jax", "incubator_mxnet_tpu"):

@@ -5,8 +5,11 @@ MXNet 1.x's imperative front end: ``nd`` (``NDArray`` over a
 ``torch.Tensor`` and the registered ops), ``autograd`` on
 ``torch.autograd``, ``gluon`` (``Parameter``, ``Block`` /
 ``HybridBlock`` as ``torch.nn.Module``s, ``nn``, ``loss``, ``Trainer``
-with its fused applier as CUDA graphs) and ``init``. The model slices are
-GPT serving and BERT pretraining:
+with its fused applier as CUDA graphs; ``gluon.data``, ``gluon.model_zoo``
+and ``gluon.utils``), ``metric`` and ``init``. The model slices are
+GPT serving, BERT pretraining and convolutional vision training (the
+model zoo's ResNets through ``parallel.SPMDTrainer``, ``models.LeNet``
+through ``gluon.Trainer``):
 ``models.gpt`` (GPT-2-small widths and a tiny test config),
 ``serve.InferenceEngine`` over a paged KV cache with speculative decoding
 and int8 / fp8 pages; ``models.bert`` (``bert_base``,
@@ -49,7 +52,7 @@ caller asks for the CPU (``with mx.cpu():``, ``ctx=mx.cpu()`` or
 imports neither ``jax`` nor the JAX package.
 """
 
-from . import (amp, autograd, checkpoint, initializer, models, ops,
+from . import (amp, autograd, checkpoint, initializer, metric, models, ops,
                optimizer, parallel, random, runtime, serve, train)
 from . import ndarray
 from . import ndarray as nd
@@ -63,5 +66,6 @@ from .optimizer import lr_scheduler
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "NDArray", "nd", "ndarray", "autograd", "gluon",
            "init", "initializer", "lr_scheduler", "runtime", "amp",
-           "checkpoint", "models", "ops", "optimizer", "parallel", "random",
+           "checkpoint", "metric", "models", "ops", "optimizer", "parallel",
+           "random",
            "serve", "train"]

@@ -1,6 +1,7 @@
 """Gluon: the port of the JAX package's ``incubator_mxnet_tpu/gluon/``
-(``Parameter``, ``Block`` / ``HybridBlock``, ``nn``, ``loss`` and
-``Trainer``)."""
+(``Parameter``, ``Block`` / ``HybridBlock``, ``nn``, ``loss``,
+``Trainer`` and ``utils``; ``data`` and ``model_zoo`` load on first
+use)."""
 
 from . import parameter
 from .parameter import Parameter, ParameterDict, Constant
@@ -10,6 +11,17 @@ from . import loss
 from . import nn
 from . import trainer
 from .trainer import Trainer
+from . import utils
+from .utils import split_and_load
 
 __all__ = ["Parameter", "ParameterDict", "Constant", "Block", "HybridBlock",
-           "SymbolBlock", "Trainer", "loss", "nn"]
+           "SymbolBlock", "Trainer", "loss", "nn", "split_and_load"]
+
+
+def __getattr__(name):
+    if name in ("data", "model_zoo"):
+        import importlib
+        mod = importlib.import_module("." + name, __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -16,10 +16,13 @@ arrays come in ``collect_params()`` order, which for L layers is
 
 MXNet ``Dense`` weights are (out, in), the same as ``nn.Linear``.
 
-BERT (``bert_params_from_jax``): by structural name. Both packages'
-BERTs are gluon blocks, and ``_collect_params_with_prefix()`` names every
-parameter by its path ('bert.layer0.attention.qkv.weight', 'mlm_bias');
-the port's ``state_dict()`` keys are the same names.
+Gluon blocks (``block_params_from_jax``; ``bert_params_from_jax`` calls
+it): by structural name. ``_collect_params_with_prefix()`` names every
+parameter of a gluon block by its path
+('bert.layer0.attention.qkv.weight', 'features.1.0.body.1.running_mean'),
+in both packages, and the port's ``state_dict()`` keys are the same
+names: a model zoo network, LeNet and BERT convert alike, convolution
+weights and BatchNorm running statistics included.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["params_from_jax", "gpt_param_names", "bert_params_from_jax"]
+__all__ = ["params_from_jax", "gpt_param_names", "bert_params_from_jax",
+           "block_params_from_jax"]
 
 _BLOCK = ("ln1.gamma", "ln1.beta", "attn.qkv.weight", "attn.qkv.bias",
           "attn.proj.weight", "attn.proj.bias", "ln2.gamma", "ln2.beta",
@@ -80,17 +84,16 @@ def params_from_jax(arrays) -> dict:
     return out
 
 
-def bert_params_from_jax(model, params) -> dict:
-    """``params``: the JAX ``BERTForPretraining`` (or ``BERTModel``)
-    parameters as a dict of structural names
-    (``_collect_params_with_prefix()``) to arrays. ``model``: the port's
-    model of the same configuration, initialized. Returns its
-    ``state_dict`` (CPU tensors, each in the JAX array's dtype;
-    ``load_state_dict`` writes them into the parameters in place). Raises
-    ``MXNetError`` on a missing or extra name, or a shape or dtype
-    mismatch."""
+def block_params_from_jax(model, params) -> dict:
+    """``params``: a JAX gluon block's parameters as a dict of structural
+    names (``_collect_params_with_prefix()``) to arrays. ``model``: the
+    port's block of the same configuration, its shapes known (initialized,
+    and run once where a shape was deferred). Returns its ``state_dict``
+    (CPU tensors, each in the JAX array's dtype; ``load_state_dict``
+    writes them into the parameters in place). Raises ``MXNetError`` on a
+    missing or extra name, or a shape or dtype mismatch."""
     if not isinstance(params, dict):
-        raise MXNetError("bert_params_from_jax takes a dict of structural "
+        raise MXNetError("block_params_from_jax takes a dict of structural "
                          "names to arrays (_collect_params_with_prefix())")
     want = model._collect_params_with_prefix()
     missing = sorted(set(want) - set(params))
@@ -110,3 +113,9 @@ def bert_params_from_jax(model, params) -> dict:
                              f"expected {p.data()._data.dtype}")
         out[name] = t
     return out
+
+
+def bert_params_from_jax(model, params) -> dict:
+    """``block_params_from_jax`` for the JAX ``BERTForPretraining`` (or
+    ``BERTModel``) and the port's model of the same configuration."""
+    return block_params_from_jax(model, params)

@@ -1,8 +1,8 @@
 """Neural-network operators: the port of the JAX package's
-``incubator_mxnet_tpu/ops/nn.py`` for dense, embedding, normalization,
-activation, softmax and dropout, plus the registered
-``scaled_dot_product_attention`` (``ops.attention``; with ``flash=True``
-the flash kernels on a CUDA tensor).
+``incubator_mxnet_tpu/ops/nn.py`` (dense, convolution, deconvolution,
+pooling, embedding, normalization, activation, softmax and dropout),
+plus the registered ``scaled_dot_product_attention`` (``ops.attention``;
+with ``flash=True`` the flash kernels on a CUDA tensor).
 
 The JAX numerics are kept: LayerNorm, BatchNorm, InstanceNorm and
 GroupNorm compute statistics and the affine transform in f32 and return
@@ -10,11 +10,26 @@ the input dtype; BatchNorm returns ``(out, batch_mean, batch_var)`` and
 the gluon layer updates the running statistics; Dropout is inverted
 dropout whose mask is drawn from ``mx.random``'s generator for the
 input's device (the ``generator=`` the front end passes) in place of the
-JAX op's PRNG key. ``Convolution``, ``Pooling``, ``CTCLoss`` and the other
-ops of the JAX module are not ported yet.
+JAX op's PRNG key.
+
+Convolution and deconvolution are NC(D)HW with OI(D)HW weights
+(deconvolution's ``(in, out / groups, *k)``, torch's transposed layout),
+one ``aten.convolution`` each; the JAX op is one
+``lax.conv_general_dilated``, outside any Pallas kernel. A CUDA f32
+convolution runs its forward and both backward products with cuDNN's
+f32 math set to IEEE (cuDNN would take TF32 by default), set around each
+call and restored after it. Pooling builds the JAX op's windows: the
+``full`` convention pads the high side by ``max(need, pad)`` and
+``count_include_pad`` divides by the whole kernel, so where torch's
+window rule differs (``ceil_mode``, or a pad over half the kernel) the
+input is padded explicitly and pooled without padding.
+``AdaptiveAvgPooling2D`` keeps the JAX op's f32 integral image for bins
+that do not divide the input. ``CTCLoss`` is not ported.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +56,242 @@ def embedding(data, weight, input_dim=None, output_dim=None,
               dtype="float32", sparse_grad=False):
     """Row lookup, indices clipped to the table."""
     return F.embedding(data.long().clamp(0, weight.shape[0] - 1), weight)
+
+
+def _tup(v, n):
+    if v is None:
+        return (0,) * n
+    if isinstance(v, int):
+        return (v,) * n
+    return tuple(v)
+
+
+def _spatial(kernel, weight):
+    nsp = len(kernel) if kernel is not None else weight.ndim - 2
+    if not 1 <= nsp <= 3:
+        raise MXNetError("convolution supports 1-3 spatial dims")
+    return nsp
+
+
+def _check_layout(layout, nsp):
+    if layout is not None and layout != "NC" + "DHW"[-nsp:]:
+        raise MXNetError(f"layout {layout!r}: the port's convolutions and "
+                         f"pooling are channels-first (NC{'DHW'[-nsp:]})")
+
+
+@contextlib.contextmanager
+def _ieee_fp32(device):
+    """cuDNN's f32 convolutions in IEEE f32 (not TF32) for the block, on a
+    CUDA device; the setting in force before is restored after it."""
+    if device.type != "cuda":
+        yield
+        return
+    conv = torch.backends.cudnn.conv
+    old = conv.fp32_precision
+    conv.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        conv.fp32_precision = old
+
+
+class _Convolution(torch.autograd.Function):
+    """``aten.convolution`` whose forward and backward both run under
+    ``_ieee_fp32`` (the backward reads cuDNN's settings when it runs, not
+    when the forward did)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, conf):
+        ctx.conf = conf
+        ctx.has_bias = b is not None
+        ctx.save_for_backward(x, w)
+        with _ieee_fp32(x.device):
+            return torch.ops.aten.convolution(x, w, b, *conf)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, pad, dilate, transposed, adj, groups = ctx.conf
+        out_c = w.shape[1] * groups if transposed else w.shape[0]
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                ctx.has_bias and ctx.needs_input_grad[2]]
+        with _ieee_fp32(x.device):
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                g, x, w, [out_c] if ctx.has_bias else None, stride, pad,
+                dilate, transposed, adj, groups, mask)
+        return gx, gw, gb, None
+
+
+def _convolve(data, weight, bias, stride, pad, dilate, transposed, adj,
+              groups):
+    conf = (list(stride), list(pad), list(dilate), transposed, list(adj),
+            int(groups))
+    return _Convolution.apply(data, weight, bias, conf)
+
+
+@register("Convolution", aliases=("convolution",))
+def convolution(data, weight, bias=None, kernel=None, stride=None,
+                dilate=None, pad=None, num_filter=None, num_group=1,
+                no_bias=False, layout=None):
+    """N-d convolution (1-3 spatial dims), NC(D)HW data, OI(D)HW weight,
+    symmetric ``pad``, ``num_group`` feature groups."""
+    nsp = _spatial(kernel, weight)
+    _check_layout(layout, nsp)
+    stride = tuple(s or 1 for s in _tup(stride, nsp))
+    dilate = tuple(d or 1 for d in _tup(dilate, nsp))
+    return _convolve(data, weight, None if no_bias else bias, stride,
+                     _tup(pad, nsp), dilate, False, (0,) * nsp, num_group)
+
+
+@register("Deconvolution", aliases=("deconvolution",))
+def deconvolution(data, weight, bias=None, kernel=None, stride=None,
+                  dilate=None, pad=None, adj=None, num_filter=None,
+                  num_group=1, no_bias=True, target_shape=None,
+                  layout=None):
+    """Transposed convolution, weight ``(in, out / groups, *k)``; ``adj``
+    adds to the output's high side. ``target_shape`` is accepted and, as
+    in the JAX op, does not change the output."""
+    nsp = _spatial(kernel, weight)
+    _check_layout(layout, nsp)
+    stride = tuple(s or 1 for s in _tup(stride, nsp))
+    dilate = tuple(d or 1 for d in _tup(dilate, nsp))
+    return _convolve(data, weight, None if no_bias else bias, stride,
+                     _tup(pad, nsp), dilate, True, _tup(adj, nsp),
+                     num_group)
+
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def _avg_pool(x, kernel, stride, pad=None, count_include_pad=True,
+              divisor_override=None):
+    """avg_pool{2,3}d (a 1-d input through the 2-d one)."""
+    if len(kernel) == 1:
+        out = _avg_pool(x.unsqueeze(-2), (1,) + kernel, (1,) + stride,
+                        None if pad is None else (0,) + pad,
+                        count_include_pad, divisor_override)
+        return out.squeeze(-2)
+    return _AVG_POOL[len(kernel)](
+        x, kernel, stride, pad or 0, count_include_pad=count_include_pad,
+        divisor_override=divisor_override)
+
+
+@register("Pooling", aliases=("pooling",))
+def pooling(data, kernel=None, pool_type="max", global_pool=False,
+            stride=None, pad=None, pooling_convention="valid",
+            count_include_pad=True, layout=None):
+    """Max / avg / sum pooling over NC(D)HW data, the JAX op's windows:
+    ``valid`` or ``full`` (ceil) convention, symmetric ``pad`` (the
+    ``full`` high side padded to cover the last window), ``avg`` dividing
+    by the whole kernel unless ``count_include_pad=False``."""
+    nsp = data.ndim - 2
+    _check_layout(layout, nsp)
+    if pool_type not in ("max", "avg", "sum"):
+        raise MXNetError(f"pool_type {pool_type}")
+    if global_pool:
+        axes = tuple(range(2, data.ndim))
+        if pool_type == "max":
+            return data.amax(dim=axes, keepdim=True)
+        if pool_type == "avg":
+            return data.mean(dim=axes, keepdim=True)
+        return data.sum(dim=axes, keepdim=True)
+    kernel = _tup(kernel, nsp)
+    stride = tuple(s or 1 for s in _tup(stride, nsp))
+    pad = _tup(pad, nsp)
+    if pooling_convention == "full":
+        hi = []
+        for i in range(nsp):
+            size = data.shape[2 + i]
+            out = -(-(size + 2 * pad[i] - kernel[i]) // stride[i]) + 1
+            hi.append(max((out - 1) * stride[i] + kernel[i] - size - pad[i],
+                          pad[i]))
+    elif pooling_convention == "valid":
+        hi = list(pad)
+    else:
+        raise MXNetError(f"pooling_convention {pooling_convention!r}")
+    native = hi == list(pad) and all(2 * p <= k for p, k in zip(pad, kernel))
+    if native:
+        if pool_type == "max":
+            return _MAX_POOL[nsp](data, kernel, stride, pad)
+        if pool_type == "sum":
+            return _avg_pool(data, kernel, stride, pad, divisor_override=1)
+        # a valid window never passes the padded input, so torch divides
+        # by the whole kernel (or by the unpadded count), as the JAX op
+        return _avg_pool(data, kernel, stride, pad, count_include_pad)
+    flat = []
+    for lo, h in zip(reversed(pad), reversed(hi)):
+        flat += [lo, h]
+    if pool_type == "max":
+        return _MAX_POOL[nsp](F.pad(data, flat, value=float("-inf")),
+                              kernel, stride)
+    padded = F.pad(data, flat)
+    if pool_type == "sum":
+        return _avg_pool(padded, kernel, stride, divisor_override=1)
+    if count_include_pad:
+        return _avg_pool(padded, kernel, stride)
+    ones = torch.ones((1, 1) + tuple(data.shape[2:]), dtype=data.dtype,
+                      device=data.device)
+    counts = _avg_pool(F.pad(ones, flat), kernel, stride,
+                       divisor_override=1)
+    return _avg_pool(padded, kernel, stride, divisor_override=1) / counts
+
+
+@register("AdaptiveAvgPooling2D", aliases=("contrib_AdaptiveAvgPooling2D",
+                                           "_contrib_AdaptiveAvgPooling2D"))
+def adaptive_avg_pooling2d(data, output_size=None):
+    """Average over ``output_size`` (default 1 x 1) bins of NCHW data, bin
+    i spanning ``[floor(i H / oh), ceil((i + 1) H / oh))``."""
+    if output_size is None:
+        output_size = (1, 1)
+    if isinstance(output_size, int):
+        output_size = (output_size, output_size)
+    n, c, h, w = data.shape
+    oh, ow = output_size
+    if h % oh == 0 and w % ow == 0:
+        return data.reshape(n, c, oh, h // oh, ow, w // ow).mean(dim=(3, 5))
+    # exact per-bin averages from an integral image: its magnitude reaches
+    # H * W, past bf16's 8-bit mantissa, and the a - b - c + d difference
+    # would cancel, so it is summed in f32
+    ii = torch.cumsum(torch.cumsum(data.float(), dim=2), dim=3)
+    ii = F.pad(ii, (1, 0, 1, 0))
+    dev = data.device
+    hs = (torch.arange(oh, device=dev) * h) // oh
+    he = ((torch.arange(oh, device=dev) + 1) * h + oh - 1) // oh
+    ws = (torch.arange(ow, device=dev) * w) // ow
+    we = ((torch.arange(ow, device=dev) + 1) * w + ow - 1) // ow
+    a = ii[:, :, he[:, None], we[None, :]]
+    b = ii[:, :, hs[:, None], we[None, :]]
+    c_ = ii[:, :, he[:, None], ws[None, :]]
+    d = ii[:, :, hs[:, None], ws[None, :]]
+    area = ((he - hs)[:, None] * (we - ws)[None, :]).float()
+    return ((a - b - c_ + d) / area).to(data.dtype)
+
+
+@register("L2Normalization")
+def l2_normalization(data, eps=1e-10, mode="instance"):
+    """``data / sqrt(sum(data^2) + eps)`` over every axis but the batch
+    (``instance``), the channel axis (``channel``) or the spatial axes
+    (``spatial``)."""
+    if mode == "instance":
+        axes = tuple(range(1, data.ndim))
+    elif mode == "channel":
+        axes = (1,)
+    elif mode == "spatial":
+        axes = tuple(range(2, data.ndim))
+    else:
+        raise MXNetError(f"mode {mode}")
+    return data / torch.sqrt(data.square().sum(dim=axes, keepdim=True) + eps)
+
+
+@register("LRN")
+def lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response normalization across channels:
+    ``data / (knorm + alpha * window_sum(data^2) / nsize) ^ beta``."""
+    pad = nsize // 2
+    sq = F.pad(data.square(), (0, 0) * (data.ndim - 2) + (pad, pad))
+    windows = sum(sq[:, i:i + data.shape[1]] for i in range(nsize))
+    return data / torch.pow(knorm + alpha * windows / nsize, beta)
 
 
 @register("BatchNorm", aliases=("batch_norm",), num_outputs=3,

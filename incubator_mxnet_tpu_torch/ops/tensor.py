@@ -327,6 +327,32 @@ def swapaxes(data, dim1=0, dim2=0):
     return data.transpose(dim1, dim2)
 
 
+_PAD_MODES = {"constant": "constant", "edge": "replicate",
+              "reflect": "reflect"}
+
+
+@register("pad", aliases=("Pad",))
+def pad(data, mode="constant", pad_width=None, constant_value=0.0):
+    """N-d padding; ``pad_width`` holds (before, after) pairs per axis,
+    flat. ``edge`` and ``reflect`` pad only the trailing 1-3 axes of a
+    batched (N, C, ...) input."""
+    if mode not in _PAD_MODES:
+        raise MXNetError(f"pad mode {mode!r}")
+    pairs = [(pad_width[2 * i], pad_width[2 * i + 1])
+             for i in range(len(pad_width) // 2)]
+    flat = []
+    for lo, hi in reversed(pairs):
+        flat += [lo, hi]
+    if mode == "constant":
+        return torch.nn.functional.pad(data, flat, value=constant_value)
+    while flat[-2:] == [0, 0]:
+        flat = flat[:-2]
+    if len(flat) > 6 or len(flat) // 2 > data.ndim - 2:
+        raise MXNetError(f"pad mode {mode!r} pads at most the trailing 3 "
+                         f"axes after (N, C)")
+    return torch.nn.functional.pad(data, flat, mode=_PAD_MODES[mode])
+
+
 @register("concat", aliases=("Concat",), wrap_list=True)
 def concat(*data, dim=1):
     if len(data) == 1 and isinstance(data[0], (list, tuple)):

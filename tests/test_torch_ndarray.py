@@ -3,8 +3,9 @@ ops) against the JAX package's, on the same numpy inputs, on the CPU.
 
   - every op the port registers, parametrised over its name (the case
     table must cover the registry), equals the JAX ``nd.<op>`` on the same
-    inputs and keywords: f32 at rtol 1e-6, except the reductions, products
-    and normalizations (rtol 1e-5: the packages sum in different orders)
+    inputs and keywords: f32 at rtol 1e-6, except the reductions, products,
+    convolutions, pooling and normalizations (rtol 1e-5: the packages sum
+    in different orders)
     and the transcendental functions (rtol 2e-6: XLA's and ATen's
     polynomial approximations differ by a few ulps); the ops that take
     bf16 once more in bf16 at rtol 1e-2; the result dtypes agree;
@@ -47,6 +48,10 @@ def ints(hi, *shape, lo=0, seed=1):
 RED, TRANS = 1e-5, 2e-6
 # name: (inputs, keywords, rtol, also bf16)
 CASES = {
+    "AdaptiveAvgPooling2D": [(lambda: [f(2, 3, 7, 5)],
+                              dict(output_size=(3, 2)), RED, True),
+                             (lambda: [f(2, 3, 8, 4)],
+                              dict(output_size=2), RED, False)],
     "Activation": [(lambda: [f(3, 5)], dict(act_type=a), TRANS, True)
                    for a in ("relu", "sigmoid", "tanh", "softrelu",
                              "softsign")],
@@ -56,6 +61,30 @@ CASES = {
          dict(fix_gamma=False, training=t), RED, False)
         for t in (True, False)],
     "BlockGrad": [(lambda: [f(2, 3)], {}, 0, True)],
+    "Convolution": [
+        (lambda: [f(2, 3, 9, 8), f(4, 3, 3, 3, seed=2), f(4, seed=3)],
+         dict(kernel=(3, 3), stride=(2, 1), pad=(1, 1), num_filter=4), RED,
+         True),
+        (lambda: [f(2, 4, 7), f(4, 1, 3, seed=2)],
+         dict(kernel=(3,), num_filter=4, num_group=4, no_bias=True), RED,
+         False)],
+    "Deconvolution": [(lambda: [f(2, 3, 5, 4), f(3, 2, 3, 3, seed=2)],
+                       dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                            adj=(1, 1), num_filter=2), RED, True)],
+    "L2Normalization": [(lambda: [f(3, 4, 5)], dict(mode=m), RED, False)
+                        for m in ("instance", "channel", "spatial")],
+    "LRN": [(lambda: [f(2, 6, 3, 3)], dict(nsize=3), RED, False)],
+    "Pooling": [
+        (lambda: [f(2, 3, 7, 7)],
+         dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type=t,
+              pooling_convention=c), RED, True)
+        for t in ("max", "avg", "sum") for c in ("valid", "full")] + [
+        (lambda: [f(2, 3, 7, 7)],
+         dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="avg",
+              pooling_convention="full", count_include_pad=False), RED,
+         False),
+        (lambda: [f(2, 3, 5, 4)], dict(global_pool=True, pool_type="avg"),
+         RED, True)],
     "Cast": [(lambda: [f(2, 3) * 10], dict(dtype=d), 0, False)
              for d in ("bfloat16", "int32", "float32")],
     "Dropout": [(lambda: [f(4, 4)], dict(p=0.5), 0, True)],
@@ -166,6 +195,15 @@ CASES = {
              (lambda: [f(3, 4)], dict(ord=1, axis=1), RED, False),
              (lambda: [f(3, 4, 2)], dict(axis=(1, 2), keepdims=True), RED,
               False)],
+    "pad": [(lambda: [f(2, 3, 4)],
+             dict(pad_width=(0, 0, 1, 2, 2, 1), constant_value=0.5), 0,
+             True),
+            (lambda: [f(2, 3, 4, 5)],
+             dict(mode="reflect", pad_width=(0, 0, 0, 0, 2, 1, 1, 3)), 0,
+             False),
+            (lambda: [f(2, 3, 4, 5)],
+             dict(mode="edge", pad_width=(0, 0, 0, 0, 1, 1, 0, 2)), 0,
+             True)],
     "one_hot": [(lambda: [ints(6, 3, 2, lo=-1)],
                  dict(depth=5, on_value=2.0, off_value=-1.0), 0, False),
                 (lambda: [ints(5, 4)], dict(depth=5, dtype="int32"), 0,
