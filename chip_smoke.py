@@ -128,7 +128,8 @@ failure exits non-zero before the result line:
                 (the prefill kernel's CUDA-core body); then the graphs'
                 cuda tests (tests/test_torch_serve_graphs.py,
                 tests/test_torch_page_graphs.py and
-                tests/test_torch_train_graphs.py, pytest without the
+                tests/test_torch_train_graphs.py and
+                tests/test_torch_gpt_graphs.py, pytest without the
                 conftest, so no JAX): replay == body bitwise (steps and
                 chunks; train steps with dropout from a registered
                 generator, two signatures alternating), a build touches
@@ -200,9 +201,38 @@ failure exits non-zero before the result line:
                 gluon.Trainer("sgd") and metric.Accuracy for 3 epochs
                 (282 batches): the loss falls; accuracy and batches/s.
                 One `[vision]` JSON line with the card's name and limit;
+  7d. gpt_training — bench.py `_run_gpt`'s configuration: gpt_small
+                bf16 (flash, dropout 0.1, built by `gpt_small(...)` +
+                `initialize()`) through SPMDTrainer(forward_loss=lm_loss)
+                with AdamW (lr 1e-4, f32 masters), B=16, T=512, one
+                repeating batch: 3 warm-up steps (one capture) and 10
+                timed replays, each launching the causal flash forward,
+                dq and dk/dv 12 times (counts set to 0 just before the
+                timed steps); finite losses that fall; ms a step,
+                tokens/s, MFU (`utils/flops.gpt_train_flops`, 6.30e12
+                FLOP a step, over the card's peak), peak memory, the
+                eager first step and capture ms, the busy and attention
+                shares of a profiled step; a trainer each with remat=True
+                and "dots" (first loss within 1e-2 relative of the
+                no-remat one, one capture, peak memory); gpt_mini f32 on
+                the card against the CPU from one set of weights (3 AdamW
+                steps within 1e-5 relative; greedy_generate's tokens
+                equal);
+  7e. nmt     — bench.py `_run_nmt`'s configuration: transformer_base
+                (max_length=256) f32, B=16, Ts=64, Tgen=48, K=4:
+                beam_search_translate_cached once to warm up, 3 timed
+                runs (tokens/s, busy share); the cached search's tokens
+                equal the uncached search's, scores within 1e-4
+                relative, with and without src_valid_length; a small
+                flash Transformer (units 256, 4 heads of 64) whose logits
+                are within 1e-4 of the largest |logit| of flash=False,
+                and 2 SPMDTrainer Adam steps launching the flash kernels
+                3 times a layer (encoder, decoder causal, cross);
   8. times    — the flash kernels held against their plain versions
                 once more on the training batch's own shapes and lengths
-                (B=32, T=512, bf16); each kernel's device time (CUDA events around it, the
+                (B=32, T=512, bf16), and causal at gpt_small's (B=16,
+                T=512, every length 512; the `_causal` rows of the
+                kernels line, with their launches from 7d); each kernel's device time (CUDA events around it, the
                 host held ahead by a sleep kernel, cold L2, median), its
                 plain version's, a library call's (on the gathered, and
                 dequantized, window for the ragged kernels; the same
@@ -287,6 +317,8 @@ FLASH_TOL = {                # atol, rtol, frac, floor
 # DELTA_ULPS x D x 2^-24 x sum |dO ⊙ O| (two f32 summations of D terms)
 DELTA_ULPS = 2
 BERT = dict(B=32, T=512, M=76, steps=10, warmup=3)
+GPT = dict(B=16, T=512, steps=10, warmup=3)
+NMT = dict(B=16, Ts=64, Tgen=48, K=4, reps=3)
 
 
 class PhaseError(RuntimeError):
@@ -1315,10 +1347,20 @@ def serve_monolithic(torch, np, model, label, kv_quant=None):
     torch.cuda.empty_cache()
 
 
+def bench_gpt(seed, dtype="bfloat16", **kw):
+    """GPT-2 small as bench.py builds it: ``mx.random.seed``,
+    ``gpt_small(dtype=, ...)``, ``initialize()`` (on the card)."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.models.gpt import gpt_small
+    mx.random.seed(seed)
+    model = gpt_small(dtype=dtype, **kw)
+    model.initialize(ctx=mx.gpu(0))
+    return model
+
+
 def phase_serving(torch):
     import numpy as np
-    from incubator_mxnet_tpu_torch.models.gpt import gpt_small
-    model = gpt_small(dtype="bfloat16", device="cuda", seed=0)
+    model = bench_gpt(0)
     runs = {}
     runs["plain"], streams = serve_run(
         torch, np, model, "gpt_small bf16, 8 slots, chunk_pages=4",
@@ -1601,12 +1643,11 @@ def phase_warm_start(torch, np):
     prefill graphs captured), then takes the seed-1 model's weights by
     ``warm_start`` and serves 4 more: no new capture, the streams those
     of a fresh engine on the seed-1 model, the prefix index flushed."""
-    from incubator_mxnet_tpu_torch.models.gpt import gpt_small
     from incubator_mxnet_tpu_torch.serve import InferenceEngine, Request
     kw = dict(num_slots=4, page_size=16, max_len=1024, chunk_pages=4,
               prefix_cache=True)
-    live = gpt_small(dtype="bfloat16", device="cuda", seed=0)
-    other = gpt_small(dtype="bfloat16", device="cuda", seed=1)
+    live = bench_gpt(0)
+    other = bench_gpt(1)
     rng = np.random.RandomState(9)
     prompts = [rng.randint(0, live.vocab_size, size=int(n)).astype(np.int32)
                for n in (80, 200, 333, 500)]
@@ -1674,8 +1715,7 @@ def phase_brownout(torch, np, model):
 
 def phase_surface(torch):
     import numpy as np
-    from incubator_mxnet_tpu_torch.models.gpt import gpt_small
-    model = gpt_small(dtype="bfloat16", device="cuda", seed=0)
+    model = bench_gpt(0)
     phase_tiers(torch, np, model)
     phase_transport(torch, np, model)
     phase_brownout(torch, np, model)
@@ -1695,8 +1735,7 @@ FLEET = dict(replicas=3, router_seed=5, max_new=64,
 
 
 def fleet_model(seed):
-    from incubator_mxnet_tpu_torch.models.gpt import gpt_small
-    return gpt_small(dtype="bfloat16", device="cuda", seed=seed)
+    return bench_gpt(seed)
 
 
 def fleet_requests(np, Request, vocab, seeds=None, n=16):
@@ -2477,10 +2516,9 @@ def chunk_host_costs(torch, np, eng, Request):
 
 def phase_parity(torch):
     import numpy as np
-    from incubator_mxnet_tpu_torch.models.gpt import (cached_generate,
-                                                      gpt_small)
+    from incubator_mxnet_tpu_torch.models.gpt import cached_generate
     from incubator_mxnet_tpu_torch.serve import InferenceEngine, Request
-    model = gpt_small(dtype="float32", device="cuda", seed=1)
+    model = bench_gpt(1, dtype="float32")
     rng = np.random.RandomState(1)
     prompt = rng.randint(0, model.vocab_size, size=150).astype(np.int32)
     ref = cached_generate(model, torch.tensor(prompt[None], device="cuda"),
@@ -2527,7 +2565,8 @@ def phase_graph_tests():
     (tests/test_torch_train_graphs.py: replay == eager body bitwise with
     dropout from a registered generator, two alternating signatures, flash
     launches per replay, a NaN batch through a replay, a failed capture
-    raising)."""
+    raising; tests/test_torch_gpt_graphs.py: a GPT causal step's replay
+    == its eager body, and remat replays equal to no remat's bitwise)."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTEST_DISABLE_PLUGIN_AUTOLOAD="1")
     run = ("import sys, pytest\n"
@@ -2542,7 +2581,8 @@ def phase_graph_tests():
          "ignore::pytest.PytestUnknownMarkWarning",
          "tests/test_torch_serve_graphs.py",
          "tests/test_torch_page_graphs.py",
-         "tests/test_torch_train_graphs.py"],
+         "tests/test_torch_train_graphs.py",
+         "tests/test_torch_gpt_graphs.py"],
         cwd=root, env=env, capture_output=True, text=True, timeout=600)
     tail = proc.stdout.strip().splitlines()[-1:] or [""]
     print(f"[graphs] cuda tests: {tail[0]} "
@@ -3614,13 +3654,363 @@ def phase_vision(torch, smi):
     print(f"[vision] {json.dumps(out)}", flush=True)
 
 
-def flash_work(B, H, T, D, lens, elem):
+# --------------------------------------------------------------------- #
+# GPT causal-LM training and the WMT Transformer's beam search
+# --------------------------------------------------------------------- #
+
+def gpt_trainer(model, lr=1e-4):
+    """bench.py ``_run_gpt``'s trainer: ``SPMDTrainer(forward_loss=
+    lm_loss)``, AdamW, f32 masters for a bf16 model."""
+    from incubator_mxnet_tpu_torch import parallel
+    from incubator_mxnet_tpu_torch.models import gpt as gpt_mod
+    return parallel.SPMDTrainer(
+        model, forward_loss=gpt_mod.lm_loss, optimizer="adamw",
+        optimizer_params={"learning_rate": lr,
+                          "multi_precision": model._dtype != "float32"},
+        sharding="replicated")
+
+
+def busy_share(torch, fn, pattern=None):
+    """One profiled call of ``fn``: wall ms, device-busy ms and share, the
+    top device operations and (with ``pattern``, a regex over kernel
+    names) that group's share of busy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    kern = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if not kern:
+        return dict(device_busy_share="not measured (no kernel traced)")
+    busy = sum(t for _, t in kern) / 1e3
+    out = dict(profiled_wall_ms=wall_ms, device_busy_ms=busy,
+               device_busy_share=busy / wall_ms,
+               top=[(k[:60], t / 1e3) for k, t in
+                    sorted(kern, key=lambda kt: -kt[1])[:8]])
+    if pattern is not None:
+        group = sum(t for k, t in kern if re.search(pattern, k)) / 1e3
+        out.update(group_ms=group, group_share_of_busy=group / busy)
+    return out
+
+
+def gpt_mini_parity(torch, np):
+    """gpt_mini f32 (dropout 0, flash: the f32 kernel bodies on the card)
+    from one set of weights on the card and on the CPU: 3 AdamW steps,
+    the losses within 1e-5 relative; greedy_generate's tokens equal."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import nd
+    from incubator_mxnet_tpu_torch.models import gpt as gpt_mod
+
+    def build(ctx, like=None):
+        mx.random.seed(2)
+        m = gpt_mod.gpt_mini(vocab_size=512, max_length=128, flash=True)
+        m.initialize(ctx=ctx)
+        if like is not None:
+            m.load_state_dict(like.state_dict())
+        return m
+
+    rng = np.random.RandomState(3)
+    X = rng.randint(0, 512, (8, 65))
+    prompt = rng.randint(0, 512, (2, 16))
+    cpu = build(mx.cpu())
+    card = build(mx.gpu(0), like=cpu)
+    gen_cpu = gpt_mod.greedy_generate(cpu, prompt, max_new_tokens=16)
+    gen_card = gpt_mod.greedy_generate(card, prompt, max_new_tokens=16)
+    losses = {}
+    for name, m, ctx in (("card", card, mx.gpu(0)), ("cpu", cpu, mx.cpu())):
+        tr = gpt_trainer(m, lr=1e-3)
+        batch = [nd.array(a, ctx=ctx, dtype="int32")
+                 for a in (X[:, :-1], X[:, 1:])]
+        losses[name] = [float(tr.step(*batch).asnumpy()) for _ in range(3)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                  losses["cpu"]))
+    same = bool((gen_cpu.asnumpy() == gen_card.asnumpy()).all())
+    print(f"[gpt_training] gpt_mini f32 card vs CPU: losses {losses}, max "
+          f"relative difference {rel:.3e}; greedy_generate tokens equal "
+          f"{same}", flush=True)
+    check(rel <= 1e-5, f"gpt_mini f32: card losses {losses['card']} vs "
+                       f"CPU {losses['cpu']} (rel {rel:.2e} > 1e-5)")
+    check(same, f"gpt_mini greedy_generate: card {gen_card.asnumpy()} != "
+                f"CPU {gen_cpu.asnumpy()}")
+    return dict(losses=losses, max_rel=rel, greedy_equal=same)
+
+
+def phase_gpt_training(torch, smi):
+    """bench.py ``_run_gpt``'s configuration: gpt_small bf16 (flash,
+    dropout 0.1) through SPMDTrainer(forward_loss=lm_loss) with AdamW (lr
+    1e-4, f32 masters), B=16, T=512, one repeating batch (its dropout
+    masks too): 3 warm-up steps (the first eager, the capture after it)
+    and 10 timed replays, each launching the causal flash forward, dq and
+    dk/dv once a layer; beside it a trainer each with remat=True and
+    "dots" (first-step loss, one capture, peak memory), and gpt_mini f32
+    on the card against the CPU. Returns the run's stats, with the
+    flash launch counts of the timed replays (counts set to 0 just
+    before them)."""
+    import numpy as np
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import nd
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    from incubator_mxnet_tpu_torch.utils import flops
+    t_phase = time.perf_counter()
+    B, T = GPT["B"], GPT["T"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = bench_gpt(0, flash=True, dropout=0.1)
+    L, V = model.num_layers, model.vocab_size
+    rng = np.random.RandomState(0)
+    batch = [nd.array(rng.randint(0, V, (B, T)), ctx=mx.gpu(0),
+                      dtype="int32") for _ in range(2)]
+    tr = gpt_trainer(model)
+
+    def step(trainer):
+        mx.random.seed(1)         # a repeating batch: its dropout masks too
+        return trainer.step(*batch)
+
+    losses = [float(step(tr).asnumpy()) for _ in range(GPT["warmup"])]
+    check(tr.step_trace_count == 1 and len(tr._programs) == 1,
+          f"gpt_training: {tr.step_trace_count} step programs built in "
+          f"the warm-up")
+    prog = next(iter(tr._programs.values()))
+    replays = prog.replays
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    timed = [step(tr) for _ in range(GPT["steps"])]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES, **fa.CAUSAL_LAUNCHES)
+    losses += [float(x.asnumpy()) for x in timed]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_steps = GPT["warmup"] + GPT["steps"]
+    check(all(np.isfinite(losses)), f"gpt_training: non-finite loss "
+                                    f"{losses}")
+    check(losses[-1] < losses[0],
+          f"gpt_training: loss did not fall over {n_steps} steps: {losses}")
+    check(tr.step_count == n_steps, f"gpt_training: {tr.step_count} of "
+                                    f"{n_steps} steps applied")
+    check(tr.step_trace_count == 1 and
+          prog.replays - replays == GPT["steps"],
+          f"gpt_training: {prog.replays - replays} of {GPT['steps']} "
+          f"timed steps replayed, {tr.step_trace_count} builds")
+    for name in FLASH:
+        want = L * GPT["steps"]
+        check(launches[name + "_causal"] == want == launches[name],
+              f"gpt_training: {name} launches {launches[name]} (causal "
+              f"{launches[name + '_causal']}) over {GPT['steps']} replays "
+              f"!= {L} layers a replay")
+    print(f"[capture] gpt_training: step_trace_count "
+          f"{tr.step_trace_count}, eager first step {prog.first_ms:.1f} "
+          f"ms, capture {prog.build_ms:.1f} ms, replays {prog.replays}",
+          flush=True)
+    step_flops = flops.gpt_train_flops(B, T, L, model.units,
+                                       model.hidden_size, V)
+    ms_step = dt * 1e3 / GPT["steps"]
+    stats = dict(card=smi,
+                 config=f"gpt_small bf16 flash dropout=0.1 AdamW lr=1e-4 "
+                        f"multi_precision B={B} T={T}",
+                 losses=losses, ms_per_step=ms_step,
+                 tokens_per_s=B * T / (ms_step / 1e3),
+                 flops_per_step=step_flops,
+                 mfu=step_flops / (ms_step / 1e3) /
+                 flops.peak_flops(torch.cuda.get_device_name(0)),
+                 peak_memory_gb=peak_gb,
+                 step_trace_count=tr.step_trace_count,
+                 first_step_ms=prog.first_ms, capture_ms=prog.build_ms,
+                 launches=launches)
+    prof = busy_share(torch, lambda: step(tr),
+                      r"mxt::flash_(fwd|bwd_dq|bwd_dkv)_([mt]ma_)?kernel")
+    if "group_ms" in prof:
+        prof["attention_ms"] = prof.pop("group_ms")
+        prof["attention_share_of_busy"] = prof.pop("group_share_of_busy")
+    stats.update(prof)
+    first = losses[0]
+    del tr, model, prog, timed
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat = {}
+    for mode in (True, "dots"):
+        torch.cuda.reset_peak_memory_stats()
+        m = bench_gpt(0, flash=True, dropout=0.1, remat=mode)
+        rt = gpt_trainer(m)
+        rl = [float(step(rt).asnumpy()) for _ in range(3)]
+        torch.cuda.synchronize()
+        rprog = next(iter(rt._programs.values()))
+        diff = abs(rl[0] - first)
+        remat[str(mode)] = dict(
+            losses=rl, first_loss_diff=diff,
+            loss_diffs=[abs(a - b) for a, b in zip(rl, losses)],
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            step_trace_count=rt.step_trace_count,
+            capture_ms=rprog.build_ms, replays=rprog.replays)
+        check(rt.step_trace_count == 1 and rprog.replays == 2,
+              f"gpt_training remat={mode!r}: {rt.step_trace_count} builds, "
+              f"{rprog.replays} replays")
+        check(all(np.isfinite(rl)) and diff <= 1e-2 * abs(first),
+              f"gpt_training remat={mode!r}: first loss {rl[0]} vs "
+              f"{first} without remat")
+        del rt, m, rprog
+        gc.collect()
+        torch.cuda.empty_cache()
+    stats["remat"] = remat
+    print(f"[gpt_training] peak memory (GB): remat False {peak_gb:.2f}, "
+          f"True {remat['True']['peak_memory_gb']:.2f}, dots "
+          f"{remat['dots']['peak_memory_gb']:.2f}", flush=True)
+    stats["parity"] = gpt_mini_parity(torch, np)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    print(f"[gpt_training] {json.dumps(stats)}", flush=True)
+    return stats
+
+
+def nmt_loss(model, src, tgt_in, tgt_out, src_valid_length):
+    """Teacher-forced token cross entropy of the Transformer."""
+    logits = model(src, tgt_in, src_valid_length)
+    return -logits.log_softmax(axis=-1).pick(tgt_out, axis=-1).mean()
+
+
+def nmt_flash_step(torch, np):
+    """A small Transformer (units 256, 4 heads of 64, 2 layers, f32) with
+    flash=True: its logits against flash=False on the same weights
+    (within 1e-4 of the largest |logit|), then 2 Adam steps through
+    SPMDTrainer (an eager first step, then a replay), each launching the
+    flash kernels for encoder self-attention, decoder causal
+    self-attention and cross-attention (3 a layer, 1 of them causal)."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd, nd, parallel
+    from incubator_mxnet_tpu_torch.models import transformer as tm
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    cfg = dict(src_vocab=1000, tgt_vocab=1000, units=256, hidden_size=1024,
+               num_heads=4, num_layers=2, max_length=128, dropout=0.0)
+    mx.random.seed(3)
+    dense = tm.TransformerModel(**cfg)
+    dense.initialize(ctx=mx.gpu(0))
+    flash = tm.TransformerModel(flash=True, **cfg)
+    flash.initialize(ctx=mx.gpu(0))
+    flash.load_state_dict(dense.state_dict())
+    rng = np.random.RandomState(5)
+    B, S, T = 8, 48, 40
+    arr = lambda a: nd.array(a, ctx=mx.gpu(0), dtype="int32")
+    src = arr(rng.randint(3, 1000, (B, S)))
+    tgt = rng.randint(3, 1000, (B, T + 1))
+    vl = arr(rng.randint(S // 2, S + 1, B))
+    tgt_in, tgt_out = arr(tgt[:, :-1]), arr(tgt[:, 1:])
+    with autograd.predict_mode():
+        want = dense(src, tgt_in, vl)._data
+        got = flash(src, tgt_in, vl)._data
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(err <= 1e-4 * scale, f"nmt flash logits: max |err| {err:.3e} > "
+                               f"1e-4 x {scale:.3e}")
+    tr = parallel.SPMDTrainer(flash, forward_loss=nmt_loss, optimizer="adam",
+                              optimizer_params={"learning_rate": 1e-3})
+    L = cfg["num_layers"]
+    per_step = []
+    losses = []
+    for _ in range(2):
+        fa.reset_launch_counts()
+        losses.append(float(tr.step(src, tgt_in, tgt_out, vl).asnumpy()))
+        torch.cuda.synchronize()
+        per_step.append(dict(fa.LAUNCHES, **fa.CAUSAL_LAUNCHES))
+    check(tr.step_trace_count == 1 and all(np.isfinite(losses)),
+          f"nmt flash training: {tr.step_trace_count} builds, losses "
+          f"{losses}")
+    for n, launches in enumerate(per_step):
+        for name in FLASH:
+            check(launches[name] == 3 * L and
+                  launches[name + "_causal"] == L,
+                  f"nmt flash step {n}: {name} launches {launches[name]} "
+                  f"(causal {launches[name + '_causal']}), want {3 * L} "
+                  f"({L} causal)")
+    out = dict(logits_max_err=err, logits_max=scale, losses=losses,
+               launches_per_step=per_step[-1])
+    del tr, flash, dense
+    return out
+
+
+def phase_nmt(torch, smi):
+    """bench.py ``_run_nmt``'s configuration: transformer_base
+    (max_length=256) f32, B=16, Ts=64, Tgen=48, K=4,
+    beam_search_translate_cached once to warm up and 3 timed runs
+    (tokens/s = B Tgen reps / s, the busy share of a profiled run); the
+    cached search's tokens equal the uncached search's on the card with
+    scores within 1e-4 relative, with and without src_valid_length; and
+    a flash Transformer's training step (``nmt_flash_step``)."""
+    import numpy as np
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import nd
+    from incubator_mxnet_tpu_torch.models import transformer as tm
+    t_phase = time.perf_counter()
+    B, Ts, Tgen, K, reps = (NMT[k] for k in ("B", "Ts", "Tgen", "K",
+                                             "reps"))
+    mx.random.seed(0)
+    model = tm.transformer_base(max_length=256)
+    model.initialize(ctx=mx.gpu(0))
+    rng = np.random.RandomState(0)
+    src = nd.array(rng.randint(3, 1000, (B, Ts)), ctx=mx.gpu(0),
+                   dtype="int32")
+
+    def run(cached=True, vl=None):
+        search = tm.beam_search_translate_cached if cached else \
+            tm.beam_search_translate
+        return search(model, src, beam_size=K, max_length=Tgen,
+                      src_valid_length=vl)
+
+    t0 = time.perf_counter()
+    run()[1].asnumpy()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        _, scores = run()
+    scores.asnumpy()
+    dt = time.perf_counter() - t0
+    stats = dict(card=smi,
+                 config=f"transformer_base(max_length=256) f32 B={B} "
+                        f"Ts={Ts} Tgen={Tgen} K={K}",
+                 tokens_per_s=B * Tgen * reps / dt, ms_per_search=dt * 1e3 /
+                 reps, warmup_s=warm_s)
+    stats.update(busy_share(torch, lambda: run()[1].asnumpy()))
+    vl = nd.array(rng.randint(Ts // 2, Ts + 1, B), ctx=mx.gpu(0),
+                  dtype="int32")
+    parity = {}
+    for label, v in (("full", None), ("valid_length", vl)):
+        (ct, cs), (ut, us) = run(True, v), run(False, v)
+        ct, cs, ut, us = (x.asnumpy() for x in (ct, cs, ut, us))
+        rows = int((ct != ut).any(axis=-1).sum())
+        rel = float(np.max(np.abs(cs - us) / np.abs(us)))
+        parity[label] = dict(rows_differing=rows, score_rel=rel)
+        check(rows == 0, f"nmt {label}: {rows} of {B * K} beams of the "
+                         f"cached search differ from the uncached")
+        check(rel <= 1e-4, f"nmt {label}: scores differ by {rel:.2e} "
+                           f"relative")
+    stats["parity"] = parity
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["flash_step"] = nmt_flash_step(torch, np)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    print(f"[nmt] {json.dumps(stats)}", flush=True)
+
+
+def flash_work(B, H, T, D, lens, elem, causal=False):
     """(bytes, flops) each flash kernel needs at these lengths: K/V rows
     of live keys, every q / dO / out row, f32 lse and delta; operations
-    over the live keys (non-causal): 4, 6 and 8 x B H Tq keys D. dq reads
-    out and writes delta (it computes delta); dk/dv reads delta."""
+    over the (query, key) pairs the mask keeps: 4, 6 and 8 x pairs x D.
+    Not causal, every row sees the live keys (H T live pairs a batch
+    row); causal, row i sees min(i + 1, length) keys (H T (T + 1) / 2 at
+    full length): half the operations, the same bytes. dq reads out and
+    writes delta (it computes delta); dk/dv reads delta."""
     live = sum(min(n, T) for n in lens)
-    pairs = H * T * live
+    if causal:
+        pairs = H * sum(min(n, T) * (min(n, T) + 1) // 2 +
+                        (T - min(n, T)) * min(n, T) for n in lens)
+    else:
+        pairs = H * T * live
     rows = B * H * T * D * elem           # one (B, H, T, D) tensor
     kv = H * live * D * elem              # K or V, live rows
     vec = B * H * T * 4                   # one f32 (B, H, T) vector
@@ -3632,64 +4022,70 @@ def flash_work(B, H, T, D, lens, elem):
                               8 * pairs * D)}
 
 
-def phase_flash_times(torch, lens, err):
-    """Each flash kernel at the training run's shapes (bert_base, bf16,
-    B=32, H=12, T=512, D=64, its batch's lengths), first held against its
-    plain version on these inputs (folded into ``err``), then timed:
-    kernel, plain version (the dq and dk/dv rows share the one plain
-    backward), and the library call with the same boolean mask (forward;
-    for both backward rows the library's whole backward). Beside them:
-    the port's whole backward as ``_FlashAttention.backward`` runs it
-    (autograd, dq with Δ then dk/dv) against the library's, and the
-    eager ``attn_delta`` that the backward ran before Δ moved into dq."""
+def flash_times(torch, B, T, lens, causal, err):
+    """The three flash kernels at (B, H=12, T, D=64) bf16 with these
+    lengths, held against their plain versions on these inputs (folded
+    into ``err``), then timed: kernel, plain version (the dq and dk/dv
+    rows share the one plain backward), and the library call on the same
+    mask (forward; for both backward rows the library's whole backward:
+    a boolean key mask, or ``is_causal=True`` at full length). Beside
+    them: the port's whole backward as ``_FlashAttention.backward`` runs
+    it (autograd, dq with Δ then dk/dv) against the library's, and the
+    eager ``attn_delta``. Returns each kernel's times and bound."""
     import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.ops import flash_attention as fa
-    B, H, T, D = BERT["B"], 12, BERT["T"], 64
+    H, D = 12, 64
     gen = torch.Generator(device="cuda")
     gen.manual_seed(9)
     q, k, v, do, vl = flash_inputs(torch, gen, B, H, T, T, D, lens,
                                    torch.bfloat16)
-    compare_flash(torch, fa, q, k, v, do, vl, False,
-                  f"B={B} H={H} T={T} D={D} the training batch's lengths "
-                  f"in [{min(lens)}, {max(lens)}]", err)
+    label = (f"B={B} H={H} T={T} D={D} bf16 causal={causal} lengths in "
+             f"[{min(lens)}, {max(lens)}]")
+    compare_flash(torch, fa, q, k, v, do, vl, causal, label, err)
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
-    out, lse = fa._flash_fwd_cuda(q, k, v, vl, False, None)
-    _, delta = fa._flash_bwd_dq_cuda(q, k, v, vl, do, out, lse, False, None)
-    mask = (torch.arange(T, device="cuda")[None, :] <
-            vl.long()[:, None])[:, None, None, :]
+    out, lse = fa._flash_fwd_cuda(q, k, v, vl, causal, None)
+    _, delta = fa._flash_bwd_dq_cuda(q, k, v, vl, do, out, lse, causal,
+                                     None)
+    if causal:
+        check(min(lens) == T, "the causal library call needs full lengths")
+        lib_kw = dict(is_causal=True)
+    else:
+        lib_kw = dict(attn_mask=(torch.arange(T, device="cuda")[None, :] <
+                                 vl.long()[:, None])[:, None, None, :])
     ql, kl, vlib = (x.detach().clone().requires_grad_() for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(ql, kl, vlib, attn_mask=mask)
+    lib_out = F.scaled_dot_product_attention(ql, kl, vlib, **lib_kw)
     qp, kp, vp = (x.detach().clone().requires_grad_() for x in (q, k, v))
-    port_out = fa.flash_attention_bhtd(qp, kp, vp, vl)
+    port_out = fa.flash_attention_bhtd(qp, kp, vp, vl, causal)
     ms = {
         "flash_fwd": (
-            _time_ms(torch, lambda: fa._flash_fwd_cuda(q, k, v, vl, False,
+            _time_ms(torch, lambda: fa._flash_fwd_cuda(q, k, v, vl, causal,
                                                        None), flush),
-            _time_ms(torch, lambda: fa.dense_attn_lse(q, k, v, vl), flush),
+            _time_ms(torch, lambda: fa.dense_attn_lse(q, k, v, vl, causal),
+                     flush),
             _time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask), flush)),
+                q, k, v, **lib_kw), flush)),
         "flash_bwd_dq": (
             _time_ms(torch, lambda: fa._flash_bwd_dq_cuda(
-                q, k, v, vl, do, out, lse, False, None), flush),),
+                q, k, v, vl, do, out, lse, causal, None), flush),),
         "flash_bwd_dkv": (
             _time_ms(torch, lambda: fa._flash_bwd_dkv_cuda(
-                q, k, v, vl, do, lse, delta, False, None), flush),),
+                q, k, v, vl, do, lse, delta, causal, None), flush),),
     }
     plain_bwd = _time_ms(torch, lambda: fa.dense_attn_bwd(
-        q, k, v, vl, out, lse, do), flush)
+        q, k, v, vl, out, lse, do, causal), flush)
     lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(
         lib_out, (ql, kl, vlib), do, retain_graph=True), flush)
     port_bwd = _time_ms(torch, lambda: torch.autograd.grad(
         port_out, (qp, kp, vp), do, retain_graph=True), flush)
     delta_ms = _time_ms(torch, lambda: fa.attn_delta(out, do), flush)
     pair = ms["flash_bwd_dq"][0] + ms["flash_bwd_dkv"][0]
-    print(f"[times] flash backward B={B} H={H} T={T} D={D} bf16: dq + "
-          f"dk/dv {pair:.4f} ms; the port's whole backward (autograd, Δ "
-          f"inside dq) {port_bwd:.4f} ms; the library's whole backward "
-          f"{lib_bwd:.4f} ms ({lib_bwd / pair:.2f}x dq + dk/dv, "
-          f"{lib_bwd / port_bwd:.2f}x the port's whole); the eager "
-          f"attn_delta {delta_ms:.4f} ms", flush=True)
-    work = flash_work(B, H, T, D, lens, 2)
+    print(f"[times] flash backward {label}: dq + dk/dv {pair:.4f} ms; the "
+          f"port's whole backward (autograd, Δ inside dq) {port_bwd:.4f} "
+          f"ms; the library's whole backward {lib_bwd:.4f} ms "
+          f"({lib_bwd / pair:.2f}x dq + dk/dv, {lib_bwd / port_bwd:.2f}x "
+          f"the port's whole); the eager attn_delta {delta_ms:.4f} ms",
+          flush=True)
+    work = flash_work(B, H, T, D, lens, 2, causal)
     out_times = {}
     for name in FLASH:
         t = ms[name]
@@ -3700,8 +4096,7 @@ def phase_flash_times(torch, lens, err):
         out_times[name] = dict(ms=kernel_ms, plain_ms=plain_ms,
                                library_ms=library_ms, bound_ms=bms,
                                bound_by=by)
-        print(f"[times] {name} B={B} H={H} T={T} D={D} bf16 lengths in "
-              f"[{min(lens)}, {max(lens)}]: {kernel_ms:.4f} ms (plain "
+        print(f"[times] {name} {label}: {kernel_ms:.4f} ms (plain "
               f"{plain_ms:.4f}, library {library_ms:.4f}, bound "
               f"{bms:.5f} by {by})", flush=True)
     del flush, q, k, v, do, out, lse, lib_out, port_out, delta
@@ -3709,30 +4104,48 @@ def phase_flash_times(torch, lens, err):
     return out_times
 
 
+def phase_flash_times(torch, lens, err):
+    """The flash kernels timed at both training runs' shapes: bert_base's
+    (B=32, T=512, its batch's lengths, not causal) and gpt_small's
+    (B=16, T=512, every length 512, causal: the ``_causal`` rows, their
+    errors folded into ``err`` under those names)."""
+    out = flash_times(torch, BERT["B"], BERT["T"], lens, False, err)
+    cerr = {k: 0.0 for k in FLASH}
+    causal = flash_times(torch, GPT["B"], GPT["T"], [GPT["T"]] * GPT["B"],
+                         True, cerr)
+    for name in FLASH:
+        out[name + "_causal"] = causal[name]
+        err[name + "_causal"] = cerr[name]
+    return out
+
+
 def kernel_record(err, runs, times):
     """The kernels' JSON record; each kernel's launches come from the run
     of its own path (decode / prefill: plain; verify: spec_k=4 on raw
     pools; the _q variants: spec_k=4 on int8 pools; both replaying the
     plain run's streams as drafts; the flash kernels: the bert_base
-    training run)."""
+    training run; their causal rows: the gpt_small training run's timed
+    replays)."""
     path_of = {"ragged_decode": "plain", "ragged_prefill": "plain",
                "ragged_verify": "spec", "ragged_decode_q": "spec_int8",
                "ragged_prefill_q": "spec_int8",
                "ragged_verify_q": "spec_int8",
                "flash_fwd": "training", "flash_bwd_dq": "training",
                "flash_bwd_dkv": "training"}
+    path_of.update({f"{k}_causal": "gpt_training" for k in FLASH})
     source = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd",
               "flash_bwd_dkv": "flash_bwd"}
     kernels = []
-    for name in KERNELS:
+    for name in KERNELS + tuple(f"{k}_causal" for k in FLASH):
         t = times[name]
         launches = runs[path_of[name]]["launches"].get(name, 0)
         check(launches > 0, f"{name} never launched on its path")
-        src = source.get(name, name.removesuffix("_q"))
+        base = name.removesuffix("_causal")
+        src = source.get(base, base.removesuffix("_q"))
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"incubator_mxnet_tpu_torch/csrc/{src}.cu",
-            "replaces": REPLACES[name],
+            "replaces": REPLACES[base],
             "launches": launches,
             "max_abs_err": err[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -3770,6 +4183,8 @@ def main():
         phase_bert_parity(torch)
         phase_gluon(torch, torch.cuda.get_device_name(0))
         phase_vision(torch, smi)
+        runs["gpt_training"] = phase_gpt_training(torch, smi)
+        phase_nmt(torch, smi)
         times = phase_times(torch)
         times.update(phase_flash_times(torch, lens, err))
         for mod in ("jax", "incubator_mxnet_tpu"):

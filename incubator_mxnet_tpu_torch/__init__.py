@@ -7,12 +7,14 @@ MXNet 1.x's imperative front end: ``nd`` (``NDArray`` over a
 ``HybridBlock`` as ``torch.nn.Module``s, ``nn``, ``loss``, ``Trainer``
 with its fused applier as CUDA graphs; ``gluon.data``, ``gluon.model_zoo``
 and ``gluon.utils``), ``metric`` and ``init``. The model slices are
-GPT serving, BERT pretraining and convolutional vision training (the
+GPT serving and causal-LM training, BERT pretraining, the WMT
+Transformer's beam searches and convolutional vision training (the
 model zoo's ResNets through ``parallel.SPMDTrainer``, ``models.LeNet``
 through ``gluon.Trainer``):
-``models.gpt`` (GPT-2-small widths and a tiny test config),
-``serve.InferenceEngine`` over a paged KV cache with speculative decoding
-and int8 / fp8 pages; ``models.bert`` (``bert_base``,
+``models.gpt`` (GPT-2-small widths and a tiny test config, ``lm_loss``,
+rematerialization), ``serve.InferenceEngine`` over a paged KV cache with
+speculative decoding and int8 / fp8 pages; ``models.transformer``
+(``transformer_base``, KV-cached beam search); ``models.bert`` (``bert_base``,
 ``BERTForPretraining``, ``pretraining_loss``) trained by
 ``parallel.SPMDTrainer`` with LAMB; and the hand-written CUDA kernels of
 both paths in ``csrc/`` (ragged decode, chunked-prefill and
@@ -32,7 +34,10 @@ use.
     L.backward()
     trainer.step(x.shape[0])
 
-    model = mx.models.gpt_small(dtype="bfloat16")        # on the GPU
+    model = mx.models.gpt_small(dtype="bfloat16", flash=True)
+    model.initialize()                                    # on gpu(0)
+    lm = mx.parallel.SPMDTrainer(model, forward_loss=mx.models.lm_loss,
+                                 optimizer="adamw")
     eng = mx.serve.InferenceEngine(model, chunk_pages=4, spec_k=4,
                                    kv_quant="int8")
 

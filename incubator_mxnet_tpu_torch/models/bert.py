@@ -32,8 +32,12 @@ on the context ``initialize`` is given (the current one by default),
 drawn by ``TruncNorm(0.02)`` (zero biases). Parameter names follow the
 JAX model's (``collect_params()``), and ``state_dict()`` keys are gluon's
 structural names, through which ``models.convert.bert_params_from_jax``
-carries the JAX model's weights. Not ported: ``remat`` and
-``seq_parallel`` (both raise) and ``pretraining_pipeline``.
+carries the JAX model's weights. ``remat=True | "dots"``
+rematerializes each encoder layer in the backward
+(``models/_remat.py``: the dropout masks are saved, not redrawn). Not
+ported: ``seq_parallel`` (raises ``MXNetError``: ring attention is
+ROADMAP Queue 1 item 11) and ``pretraining_pipeline`` (the pipelined
+step, the same item).
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from ..gluon.block import HybridBlock
 from ..gluon.parameter import Parameter
 from .. import initializer as init
 from ._attention import packed_flash_self_attention, use_packed_fast_path
+from ._remat import remat_call, resolve_policy
 
 __all__ = ["BERTModel", "BERTForPretraining", "BERTClassifier",
            "pretraining_loss", "bert_tiny", "bert_base", "bert_large"]
@@ -132,18 +137,18 @@ class BERTModel(HybridBlock):
                  type_vocab_size=2, dropout=0.1, layer_norm_eps=1e-12,
                  dtype="float32", flash=False, remat=False,
                  seq_parallel=False, **kwargs):
-        if remat:
-            raise MXNetError(f"BERTModel(remat={remat!r}): "
-                             f"rematerialization is not ported")
+        resolve_policy(remat)
         if seq_parallel:
             raise MXNetError("BERTModel(seq_parallel=True): sequence-"
-                             "parallel ring attention is not ported")
+                             "parallel ring attention is not ported "
+                             "(ROADMAP Queue 1 item 11)")
         if dtype not in ("float32", "bfloat16"):
             raise MXNetError(f"unsupported dtype {dtype!r} (one of "
                              f"['bfloat16', 'float32'])")
         super().__init__(**kwargs)
         self._units = units
         self._dtype = dtype
+        self._remat = remat
         self.units = units
         self.num_layers = num_layers
         self.num_heads = num_heads
@@ -187,8 +192,13 @@ class BERTModel(HybridBlock):
         if valid_length is not None:
             ar = F.arange(0, T, dtype="float32", ctx=ctx).reshape((1, T))
             mask = ar < valid_length.astype("float32").reshape((-1, 1))
+        policy = resolve_policy(self._remat)
         for i in range(self.num_layers):
-            x = getattr(self, f"layer{i}")(x, mask, valid_length)
+            layer = getattr(self, f"layer{i}")
+            if policy:
+                x = remat_call(layer, x, mask, valid_length, policy=policy)
+            else:
+                x = layer(x, mask, valid_length)
         # the sequence output stays in the compute dtype; only the pooled
         # [CLS] path is promoted
         cls = x.slice_axis(axis=1, begin=0, end=1).reshape(

@@ -1,37 +1,68 @@
-"""Decoder-only causal language model (GPT-style), inference forward.
+"""Decoder-only causal language model (GPT-style) on gluon ``HybridBlock``s:
+the port of the JAX package's ``incubator_mxnet_tpu/models/gpt.py``.
 
-The port of ``incubator_mxnet_tpu/models/gpt.py``: the same modules,
-widths and numerics as ``nn.Module``s —
+``CausalSelfAttention``, ``GPTBlock`` and ``GPTModel`` are built from
+``gluon.nn`` under the JAX model's structural names (``word_embed``,
+``position_embed``, ``block{i}.ln1`` / ``attn.qkv`` / ``attn.proj`` /
+``ln2`` / ``ffn_in`` / ``ffn_out``, ``ln_f``), with its numerics:
 
-  - pre-norm blocks: LN -> causal attention -> residual, LN -> MLP
-    (exact GELU) -> residual;
+  - pre-norm blocks: LN -> causal attention -> Dropout -> residual,
+    LN -> MLP (exact GELU) -> Dropout -> residual;
   - LayerNorm statistics and affine in f32 with the output in the input
-    dtype (eps 1e-5), gamma/beta kept in f32;
-  - f32 embeddings, the activation stream cast to the model dtype after
-    them, and an LM head tied to the word embedding;
-  - the decode paths' head (``_lm_head``) casts to f32 BEFORE ``ln_f``.
+    dtype (eps 1e-5), gamma/beta kept in f32; the qkv, proj, ffn_in and
+    ffn_out Dense layers in the model dtype;
+  - f32 embeddings, embedding dropout, the stream cast to the model dtype
+    after them, and an LM head tied to the word embedding, computed in
+    the model dtype;
+  - ``flash=True``: the packed (3, B, H, T, D) fast path at a head width
+    the kernels take (``models/_attention.py``: the causal flash kernels
+    on the card), else ``scaled_dot_product_attention(causal=True,
+    flash=)``; ``remat=True | "dots"`` rematerializes each block
+    (``models/_remat.py``).
 
-Weights are made from a seed (truncated normal, std 0.02, cut at two
-standard deviations; zero biases). ``models.convert.params_from_jax``
-copies the JAX model's weights across. Entry points run on the GPU
-unless ``device`` says otherwise (``context.resolve_device``).
+``gpt_small(dtype=, flash=, dropout=)`` then ``initialize()`` is the
+MXNet contract: parameters land on the context ``initialize`` is given
+(the current one, ``gpu(0)``, by default), drawn by ``TruncNorm(0.02)``
+(zero biases) from ``mx.random``'s generator. ``lm_loss`` is the
+next-token loss for ``SPMDTrainer(forward_loss=)``, ``greedy_generate``
+the full-recompute fixed-shape decode.
+
+The serving functions (``_embed``, ``_norm``, ``_linear``, ``_qkv_heads``,
+``_mlp``, ``_lm_head``, the dense KV-cache ``init_kv_cache`` /
+``decode_forward`` / ``cached_generate``) work on the parameters' tensors
+directly (each gluon ``Parameter`` keeps one ``torch.nn.Parameter`` for
+life, which the engine's CUDA graphs hold by address), with no dropout
+and no autograd recording. The decode paths' head casts to f32 BEFORE
+``ln_f``.
+
+Not ported, and refused with ``MXNetError``: ``seq_parallel=True`` (ring
+attention) and ``lm_pipeline`` (the pipelined SPMD step), both ROADMAP
+Queue 1 item 11.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
+from .. import autograd
+from .. import initializer as init
+from .. import random as _random
 from ..base import MXNetError
-from ..context import resolve_device
-from ..initializer import TruncNorm
+from ..gluon import nn
+from ..gluon.block import HybridBlock
+from ..ndarray import NDArray
 from ..ops.attention import scaled_dot_product_attention as _sdpa
+from ._attention import packed_flash_self_attention, use_packed_fast_path
+from ._remat import remat_call, resolve_policy
 
-__all__ = ["GPTModel", "gpt_mini", "gpt_small", "cached_generate",
-           "init_kv_cache", "decode_forward"]
+__all__ = ["GPTModel", "gpt_mini", "gpt_small", "lm_loss", "lm_pipeline",
+           "greedy_generate", "cached_generate", "init_kv_cache",
+           "decode_forward"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_QUEUE_ITEM_11 = ("ring attention and the pipelined step are ROADMAP "
+                  "Queue 1 item 11")
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -43,114 +74,206 @@ def _torch_dtype(dtype) -> torch.dtype:
     return _DTYPES[dtype]
 
 
-class LayerNorm(nn.Module):
-    """MXNet LayerNorm: statistics and affine in f32, output cast back to
-    the input dtype, so bf16 activations stay bf16."""
-
-    def __init__(self, units, eps=1e-5, device=None):
-        super().__init__()
-        self.eps = eps
-        self.gamma = nn.Parameter(torch.ones(units, device=device))
-        self.beta = nn.Parameter(torch.zeros(units, device=device))
-
-    def forward(self, x):
-        return F.layer_norm(x.float(), self.gamma.shape, self.gamma,
-                            self.beta, self.eps).to(x.dtype)
+def _trunc():
+    return init.TruncNorm(stdev=0.02)
 
 
-class CausalSelfAttention(nn.Module):
-    def __init__(self, units, num_heads, dtype=torch.float32, device=None):
-        super().__init__()
+class CausalSelfAttention(HybridBlock):
+    """Fused-qkv causal self-attention; dropout on the projected output."""
+
+    def __init__(self, units, num_heads, dropout=0.0, dtype="float32",
+                 flash=False, seq_parallel=False, **kwargs):
+        if seq_parallel:
+            raise MXNetError(f"CausalSelfAttention(seq_parallel=True) is "
+                             f"not ported: {_QUEUE_ITEM_11}")
         if units % num_heads:
             raise MXNetError(f"units {units} % heads {num_heads} != 0")
-        self.units, self.heads = units, num_heads
-        self.qkv = nn.Linear(units, 3 * units, dtype=dtype, device=device)
-        self.proj = nn.Linear(units, units, dtype=dtype, device=device)
+        super().__init__(**kwargs)
+        self._units, self._heads, self._flash = units, num_heads, flash
+        with self.name_scope():
+            self.qkv = nn.Dense(3 * units, in_units=units, flatten=False,
+                                dtype=dtype, weight_initializer=_trunc())
+            self.proj = nn.Dense(units, in_units=units, flatten=False,
+                                 dtype=dtype, weight_initializer=_trunc())
+            self.dropout = nn.Dropout(dropout)
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         B, T = x.shape[0], x.shape[1]
-        q, k, v = _qkv_heads(self, x)
-        out = _sdpa(q, k, v, causal=True)
-        return self.proj(out.reshape(B, T, self.units))
+        H, D = self._heads, self._units // self._heads
+        qkv = self.qkv(x).reshape((B, T, 3, H, D))
+        if self._flash and use_packed_fast_path(D):
+            out = packed_flash_self_attention(F, qkv, B, T, H, D,
+                                              self._units, causal=True)
+        else:
+            q = qkv.slice_axis(axis=2, begin=0, end=1).reshape((B, T, H, D))
+            k = qkv.slice_axis(axis=2, begin=1, end=2).reshape((B, T, H, D))
+            v = qkv.slice_axis(axis=2, begin=2, end=3).reshape((B, T, H, D))
+            out = F.scaled_dot_product_attention(q, k, v, causal=True,
+                                                 flash=self._flash)
+            out = out.reshape((B, T, self._units))
+        return self.dropout(self.proj(out))
 
 
-class GPTBlock(nn.Module):
-    """Pre-norm transformer decoder block."""
+class GPTBlock(HybridBlock):
+    """Pre-norm transformer decoder block (LN -> attn -> residual,
+    LN -> MLP -> residual)."""
 
-    def __init__(self, units, hidden_size, num_heads, layer_norm_eps=1e-5,
-                 dtype=torch.float32, device=None):
-        super().__init__()
-        self.ln1 = LayerNorm(units, layer_norm_eps, device)
-        self.attn = CausalSelfAttention(units, num_heads, dtype, device)
-        self.ln2 = LayerNorm(units, layer_norm_eps, device)
-        self.ffn_in = nn.Linear(units, hidden_size, dtype=dtype,
-                                device=device)
-        self.ffn_out = nn.Linear(hidden_size, units, dtype=dtype,
-                                 device=device)
+    def __init__(self, units, hidden_size, num_heads, dropout=0.0,
+                 layer_norm_eps=1e-5, dtype="float32", flash=False,
+                 seq_parallel=False, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.ln1 = nn.LayerNorm(epsilon=layer_norm_eps,
+                                    in_channels=units)
+            self.attn = CausalSelfAttention(units, num_heads, dropout,
+                                            dtype=dtype, flash=flash,
+                                            seq_parallel=seq_parallel)
+            self.ln2 = nn.LayerNorm(epsilon=layer_norm_eps,
+                                    in_channels=units)
+            self.ffn_in = nn.Dense(hidden_size, in_units=units,
+                                   flatten=False, dtype=dtype,
+                                   weight_initializer=_trunc())
+            self.ffn_out = nn.Dense(units, in_units=hidden_size,
+                                    flatten=False, dtype=dtype,
+                                    weight_initializer=_trunc())
+            self.dropout = nn.Dropout(dropout)
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         x = x + self.attn(self.ln1(x))
-        return x + _mlp(self, x)
+        h = self.ffn_in(self.ln2(x))
+        return x + self.dropout(self.ffn_out(F.gelu(h)))
 
 
-class GPTModel(nn.Module):
-    """forward(input_ids (B, T)) -> logits (B, T, vocab); the LM head is
-    tied to the word embedding. ``device`` None means the GPU (raises
-    ``MXNetError`` without one); ``seed`` fixes the random weights."""
+class GPTModel(HybridBlock):
+    """forward(input_ids (B, T)) -> logits (B, T, vocab) in the model
+    dtype; the LM head is tied to the word embedding. ``units``,
+    ``num_heads``, ``dtype`` (a torch dtype), ``device`` (once
+    initialized) and ``blocks`` are what the serving engine reads."""
 
     def __init__(self, vocab_size=50257, units=768, hidden_size=3072,
                  num_layers=12, num_heads=12, max_length=1024,
-                 layer_norm_eps=1e-5, dtype="float32", device=None,
-                 seed=0):
-        super().__init__()
-        device = resolve_device(device)
-        dt = _torch_dtype(dtype)
+                 dropout=0.0, layer_norm_eps=1e-5, dtype="float32",
+                 flash=False, remat=False, seq_parallel=False, **kwargs):
+        if seq_parallel:
+            raise MXNetError(f"GPTModel(seq_parallel=True) is not ported: "
+                             f"{_QUEUE_ITEM_11}")
+        _torch_dtype(dtype)
+        resolve_policy(remat)
+        super().__init__(**kwargs)
         self.vocab_size = vocab_size
-        self.units = units
-        self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.num_heads = num_heads
+        self._units = units
+        self.hidden_size = hidden_size
+        self._dtype = dtype
+        self._remat = remat
         self.max_length = max_length
-        self.dtype = dt
-        self.device = device
-        self.word_embed = nn.Embedding(vocab_size, units, device=device)
-        self.position_embed = nn.Embedding(max_length, units, device=device)
-        self.blocks = nn.ModuleList(
-            GPTBlock(units, hidden_size, num_heads, layer_norm_eps, dt,
-                     device) for _ in range(num_layers))
-        self.ln_f = LayerNorm(units, layer_norm_eps, device)
-        self.reset_parameters(seed)
-        self.eval()
-        self.requires_grad_(False)
+        with self.name_scope():
+            self.word_embed = nn.Embedding(vocab_size, units, sharded=True,
+                                           weight_initializer=_trunc())
+            self.position_embed = nn.Embedding(max_length, units,
+                                               weight_initializer=_trunc())
+            self.embed_dropout = nn.Dropout(dropout)
+            for i in range(num_layers):
+                blk = GPTBlock(units, hidden_size, num_heads, dropout,
+                               layer_norm_eps, dtype=dtype, flash=flash)
+                self.register_child(blk, f"block{i}")
+                setattr(self, f"block{i}", blk)
+            self.ln_f = nn.LayerNorm(epsilon=layer_norm_eps,
+                                     in_channels=units)
 
-    @torch.no_grad()
-    def reset_parameters(self, seed=0):
-        """Truncated-normal weights (std 0.02, cut at +-2 std) from
-        ``seed``, zero biases, unit LayerNorm gains."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
-        for name, p in self.named_parameters():
-            if name.endswith("gamma"):
-                p.fill_(1.0)
-            elif name.endswith("beta") or name.endswith("bias"):
-                p.zero_()
-            else:
-                TruncNorm(stdev=0.02)(p, gen)
+    @property
+    def units(self) -> int:
+        return self._units
 
-    def embed(self, ids, pos):
-        """Word + position embeddings in f32, cast to the model dtype."""
-        x = self.word_embed(ids) + self.position_embed(pos)
-        return x.to(self.dtype)
+    @property
+    def dtype(self) -> torch.dtype:
+        return _DTYPES[self._dtype]
 
-    @torch.no_grad()
-    def forward(self, input_ids):
+    @property
+    def device(self) -> torch.device:
+        return self.word_embed.weight.data()._data.device
+
+    @property
+    def blocks(self):
+        return [getattr(self, f"block{i}") for i in range(self.num_layers)]
+
+    def hybrid_forward(self, F, input_ids):
         B, T = input_ids.shape
-        pos = torch.arange(T, device=input_ids.device).expand(B, T)
-        x = self.embed(input_ids, pos)
+        pos = F.arange(0, T, dtype="int32", ctx=input_ids.context) \
+            .reshape((1, T)).broadcast_to((B, T))
+        x = self.word_embed(input_ids) + self.position_embed(pos)
+        x = self.embed_dropout(x)
+        if self._dtype != "float32":
+            x = x.astype(self._dtype)
+        policy = resolve_policy(self._remat)
         for blk in self.blocks:
-            x = blk(x)
+            x = remat_call(blk, x, policy=policy) if policy else blk(x)
+        # ln_f returns the input dtype: the (B, T, vocab) head runs at the
+        # compute dtype's rate, and the loss reduces with f32 accumulation
         x = self.ln_f(x)
-        return x @ self.word_embed.weight.to(x.dtype).T
+        embed_w = self.word_embed.weight.data()
+        return F.dot(x, embed_w.astype(x.dtype), transpose_b=True)
+
+
+def lm_loss(model: GPTModel, input_ids, labels, weights=None):
+    """Next-token cross entropy, shaped for ``SPMDTrainer.forward_loss``:
+    pick - logsumexp with f32 accumulation (the (B, T, vocab) log-
+    probabilities are never written)."""
+    logits = model(input_ids)
+    label_scores = logits.pick(labels, axis=-1)       # (B, T)
+    lse = logits._op("logsumexp", axis=-1)
+    ll = label_scores.astype("float32") - lse
+    if weights is None:
+        return -ll.mean()
+    denom = weights.sum() + 1e-6
+    return -(ll * weights).sum() / denom
+
+
+def lm_pipeline(model: GPTModel, weighted: bool = False):
+    """Not ported: the pipelined SPMD step's spec."""
+    raise MXNetError(f"lm_pipeline is not ported: {_QUEUE_ITEM_11}")
+
+
+def _ids(ids, device) -> torch.Tensor:
+    """Token ids (an NDArray, tensor or array-like) as int64 on
+    ``device``."""
+    if isinstance(ids, NDArray):
+        ids = ids._data
+    return torch.as_tensor(ids, device=device).long()
+
+
+def _draw(last, temperature, generator):
+    """The next token of each row: argmax at temperature 0, else a
+    categorical draw over ``last / temperature`` from ``generator``."""
+    if temperature > 0:
+        probs = torch.softmax(last.float() / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return torch.argmax(last, dim=-1)
+
+
+def greedy_generate(model: GPTModel, prompt_ids, max_new_tokens=32,
+                    temperature: float = 0.0, generator=None):
+    """Fixed-shape autoregressive decode over a pre-allocated
+    (B, T0 + max_new_tokens) buffer: the full-prefix forward each step (no
+    KV cache), outside recording and training. Greedy at temperature 0;
+    otherwise the draw comes from ``generator`` (``mx.random``'s for the
+    device by default). Returns the buffer as an int32 ``NDArray``."""
+    dev = model.device
+    ids = _ids(prompt_ids, dev)
+    B, T0 = ids.shape
+    total = T0 + int(max_new_tokens)
+    if total > model.max_length:
+        raise MXNetError(f"decode length {total} exceeds max_length "
+                         f"{model.max_length}")
+    gen = generator if generator is not None else _random.generator(dev)
+    buf = torch.zeros(B, total, dtype=torch.int32, device=dev)
+    buf[:, :T0] = ids
+    with autograd._ModeScope(recording=False, training=False):
+        for t in range(T0, total):
+            logits = model(NDArray(buf))._data
+            buf[:, t] = _draw(logits[:, t - 1], temperature, gen)
+    return NDArray(buf)
 
 
 def gpt_mini(vocab_size=512, max_length=128, **kwargs) -> GPTModel:
@@ -169,22 +292,44 @@ def gpt_small(**kwargs) -> GPTModel:
 
 
 # --------------------------------------------------------------------- #
-# shared by the dense KV-cache decode below and the serving engine
-# (serve/engine.py), so projection, MLP and head numerics cannot drift
-# between the two caches
+# on the parameters' tensors: shared by the dense KV-cache decode below
+# and the serving engine (serve/engine.py), so embedding, norm,
+# projection, MLP and head numerics cannot drift between the two caches
 # --------------------------------------------------------------------- #
+
+def _linear(dense, x):
+    """A gluon ``Dense`` (flatten=False) on a tensor."""
+    bias = None if dense.bias is None else dense.bias._var
+    return F.linear(x, dense.weight._var, bias)
+
+
+def _norm(ln, x):
+    """A gluon ``LayerNorm`` on a tensor: statistics and affine in f32,
+    the output in x's dtype."""
+    g = ln.gamma._var
+    return F.layer_norm(x.float(), g.shape, g, ln.beta._var,
+                        ln._epsilon).to(x.dtype)
+
+
+def _embed(model: GPTModel, ids, pos):
+    """Word + position embeddings in f32, cast to the model dtype."""
+    x = F.embedding(ids, model.word_embed.weight._var) + \
+        F.embedding(pos, model.position_embed.weight._var)
+    return x.to(model.dtype)
+
 
 def _qkv_heads(attn: CausalSelfAttention, x):
     """x (B, T, units) -> q, k, v each (B, T, H, D) (views)."""
     B, T = x.shape[0], x.shape[1]
-    H, D = attn.heads, attn.units // attn.heads
-    qkv = attn.qkv(x).reshape(B, T, 3, H, D)
+    H, D = attn._heads, attn._units // attn._heads
+    qkv = _linear(attn.qkv, x).reshape(B, T, 3, H, D)
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
 def _mlp(blk: GPTBlock, x):
     """ln2 -> ffn_in -> exact GELU -> ffn_out (inference: no dropout)."""
-    return blk.ffn_out(F.gelu(blk.ffn_in(blk.ln2(x))))
+    return _linear(blk.ffn_out, F.gelu(_linear(blk.ffn_in,
+                                               _norm(blk.ln2, x))))
 
 
 def _lm_head(model: GPTModel, x):
@@ -192,7 +337,7 @@ def _lm_head(model: GPTModel, x):
     f32 BEFORE ``ln_f`` (norming in bf16 then casting would feed rounded
     activations to the vocab projection). (B, T, units) -> (B, T, V)
     f32."""
-    return model.ln_f(x.float()) @ model.word_embed.weight.T
+    return _norm(model.ln_f, x.float()) @ model.word_embed.weight._var.T
 
 
 # --------------------------------------------------------------------- #
@@ -218,17 +363,17 @@ def init_kv_cache(model: GPTModel, batch_size: int, max_len=None,
 def decode_forward(model: GPTModel, ids, caches, start_pos: int,
                    last_only: bool = False):
     """Forward positions [start_pos, start_pos + Tin) against the dense
-    caches, which are updated IN PLACE. ids: (B, Tin) int. Returns
-    (logits, caches): logits (B, Tin, V) f32, or (B, 1, V) with
-    ``last_only``."""
-    B, Tin = ids.shape
+    caches, which are updated IN PLACE. ids: (B, Tin) int (a tensor or an
+    NDArray). Returns (logits, caches): logits (B, Tin, V) f32, or
+    (B, 1, V) with ``last_only``."""
     dev = model.device
-    ids = ids.to(dev).long()
+    ids = _ids(ids, dev)
+    B, Tin = ids.shape
     pos = (start_pos + torch.arange(Tin, device=dev)).expand(B, Tin)
-    x = model.embed(ids, pos)
+    x = _embed(model, ids, pos)
     for blk, (k_buf, v_buf) in zip(model.blocks, caches):
         attn = blk.attn
-        q, k, v = _qkv_heads(attn, blk.ln1(x))
+        q, k, v = _qkv_heads(attn, _norm(blk.ln1, x))
         k_buf[:, start_pos:start_pos + Tin] = k.to(k_buf.dtype)
         v_buf[:, start_pos:start_pos + Tin] = v.to(v_buf.dtype)
         Tmax = k_buf.shape[1]
@@ -236,7 +381,7 @@ def decode_forward(model: GPTModel, ids, caches, start_pos: int,
         pos_k = torch.arange(Tmax, device=dev)[None, :]
         mask = (pos_k <= pos_q)[None, None]          # (1, 1, Tin, Tmax)
         out = _sdpa(q, k_buf.to(q.dtype), v_buf.to(q.dtype), mask=mask)
-        x = x + attn.proj(out.reshape(B, Tin, attn.units))
+        x = x + _linear(attn.proj, out.reshape(B, Tin, attn._units))
         x = x + _mlp(blk, x)
     if last_only:
         x = x[:, -1:]
@@ -250,7 +395,7 @@ def cached_generate(model: GPTModel, prompt_ids, max_new_tokens=32,
     then one single-token forward per step. Greedy at temperature 0,
     categorical over logits / temperature otherwise (``generator`` draws
     the samples). Returns (B, T0 + max_new_tokens) int64 token ids."""
-    ids = torch.as_tensor(prompt_ids, device=model.device).long()
+    ids = _ids(prompt_ids, model.device)
     B, T0 = ids.shape
     total = T0 + int(max_new_tokens)
     if total > model.max_length:
@@ -262,11 +407,7 @@ def cached_generate(model: GPTModel, prompt_ids, max_new_tokens=32,
     buf = torch.zeros(B, total, dtype=torch.long, device=model.device)
     buf[:, :T0] = ids
     for t in range(T0, total):
-        if temperature > 0:
-            probs = torch.softmax(last / temperature, dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
-        else:
-            nxt = torch.argmax(last, dim=-1)
+        nxt = _draw(last, temperature, generator)
         buf[:, t] = nxt
         if t + 1 < total:
             logits, caches = decode_forward(model, nxt[:, None], caches, t)

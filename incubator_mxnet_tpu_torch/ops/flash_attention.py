@@ -31,8 +31,9 @@ softmax in plain torch (the port of the JAX package's
 kernel failed.
 
 The contract: a fully masked row gives zero output, lse = -1e30 and
-finite gradients. ``LAUNCHES`` counts kernel launches; the wrappers add
-one only where they launch.
+finite gradients. ``LAUNCHES`` counts kernel launches and
+``CAUSAL_LAUNCHES`` those of them made with causal masking (GPT's
+training step); the wrappers add one only where they launch.
 """
 
 from __future__ import annotations
@@ -46,18 +47,27 @@ from . import _build
 
 __all__ = ["dense_attn_lse", "dense_attn_bwd", "flash_attention_bhtd",
            "use_flash_attention", "cuda_kernel_eligible", "attn_delta",
-           "valid_length_mask", "LAUNCHES", "reset_launch_counts"]
+           "valid_length_mask", "LAUNCHES", "CAUSAL_LAUNCHES",
+           "reset_launch_counts"]
 
 _NEG_INF = -1e30
 _MAX_HEAD_DIM = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+CAUSAL_LAUNCHES = {f"{k}_causal": 0 for k in LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, CAUSAL_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _count(name, causal):
+    LAUNCHES[name] += 1
+    if causal:
+        CAUSAL_LAUNCHES[name + "_causal"] += 1
 
 
 # --------------------------------------------------------------------- #
@@ -284,7 +294,7 @@ def _flash_fwd_cuda(q, k, v, valid_len, causal, scale):
             _scale(D, scale), int(causal), _DTYPE_CODE[q.dtype],
             _stream(q.device))
     _raise_if_failed(lib, rc, "flash forward")
-    LAUNCHES["flash_fwd"] += 1
+    _count("flash_fwd", causal)
     return out, lse
 
 
@@ -303,7 +313,7 @@ def _flash_bwd_dq_cuda(q, k, v, valid_len, dout, out, lse, causal, scale):
             _scale(D, scale), int(causal), _DTYPE_CODE[q.dtype],
             _stream(q.device))
     _raise_if_failed(lib, rc, "flash dq")
-    LAUNCHES["flash_bwd_dq"] += 1
+    _count("flash_bwd_dq", causal)
     return dq, delta
 
 
@@ -321,7 +331,7 @@ def _flash_bwd_dkv_cuda(q, k, v, valid_len, dout, lse, delta, causal,
             dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk, D, _scale(D, scale),
             int(causal), _DTYPE_CODE[q.dtype], _stream(q.device))
     _raise_if_failed(lib, rc, "flash dkv")
-    LAUNCHES["flash_bwd_dkv"] += 1
+    _count("flash_bwd_dkv", causal)
     return dk, dv
 
 

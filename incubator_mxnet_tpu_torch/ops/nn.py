@@ -464,8 +464,11 @@ def dropout(data, p=0.5, mode="training", axes=(), generator=None,
     for a in axes:
         shape[a] = 1
     keep = 1.0 - p
-    mask = torch.empty(shape, dtype=data.dtype, device=data.device) \
-        .bernoulli_(keep, generator=generator)
+    # one out-of-place draw (the in-place form's values): a selective
+    # checkpoint saves it, so a rematerialized block replays its masks
+    mask = torch.bernoulli(torch.empty(shape, dtype=data.dtype,
+                                       device=data.device), keep,
+                           generator=generator)
     return data * mask / keep
 
 

@@ -108,7 +108,7 @@ import torch
 
 from ..base import MXNetError
 from ..models.convert import _to_tensor, gpt_param_names
-from ..models.gpt import _lm_head, _mlp, _qkv_heads
+from ..models.gpt import _embed, _linear, _lm_head, _mlp, _norm, _qkv_heads
 from ..ops.attention import scaled_dot_product_attention as _sdpa
 from ..ops.ragged_attention import (ragged_paged_attention,
                                     ragged_prefill_attention,
@@ -274,8 +274,10 @@ class _Slot:
 
 class InferenceEngine:
     """Fixed-slot continuous-batching decode over a GPT-style model
-    (models/gpt.py: word_embed / position_embed / blocks[i](ln1,
-    attn.{qkv,proj}, ln2, ffn_*) / ln_f and a tied LM head).
+    (models/gpt.py, initialized: word_embed / position_embed /
+    block{i}(ln1, attn.{qkv,proj}, ln2, ffn_*) / ln_f and a tied LM
+    head), read through the parameters' tensors: no dropout, no autograd
+    recording.
 
     Runs on the model's device. ``num_pages``
     defaults to the worst case (every slot at max_len) so admission
@@ -770,9 +772,9 @@ class InferenceEngine:
         amax = i.get("amax")
         new_amax = [None] * (2 * len(self._kamax))
 
-        x = model.embed(i["tokens"], emb_pos)                 # (S, W, U)
+        x = _embed(model, i["tokens"], emb_pos)               # (S, W, U)
         for li, blk in enumerate(model.blocks):
-            q, k, v = _qkv_heads(blk.attn, blk.ln1(x))        # (S,W,H,D)
+            q, k, v = _qkv_heads(blk.attn, _norm(blk.ln1, x))  # (S,W,H,D)
             kp, vp, ks, vs = self._write_kv(li, k, v, wpage, woff, amax,
                                             new_amax)
             q = q.to(self._attn_dtype(kp))
@@ -784,8 +786,8 @@ class InferenceEngine:
                 out = ragged_verify_attention(
                     q.contiguous(), kp, vp, i["table"], eff_len, dl,
                     k_scale=ks, v_scale=vs)
-            x = x + blk.attn.proj(out.to(x.dtype).reshape(S, W,
-                                                          model.units))
+            x = x + _linear(blk.attn.proj,
+                            out.to(x.dtype).reshape(S, W, model.units))
             x = x + _mlp(blk, x)
         if amax is not None:
             o["amax"].copy_(torch.stack(new_amax))
@@ -899,14 +901,14 @@ class InferenceEngine:
                 (ar[None, :] < t0))[None, None]
         amax = i.get("amax")
         new_amax = [None] * (2 * len(self._kamax))
-        x = model.embed(ids[None],
-                        torch.clamp(ar, max=model.max_length - 1)[None])
+        x = _embed(model, ids[None],
+                   torch.clamp(ar, max=model.max_length - 1)[None])
         for li, blk in enumerate(model.blocks):
-            q, k, v = _qkv_heads(blk.attn, blk.ln1(x))        # (1,T,H,D)
+            q, k, v = _qkv_heads(blk.attn, _norm(blk.ln1, x))  # (1,T,H,D)
             self._write_kv(li, k[0], v[0], i["pages"], None, amax,
                            new_amax)
             out = _sdpa(q, k, v, mask=mask)
-            x = x + blk.attn.proj(out.reshape(1, T, model.units))
+            x = x + _linear(blk.attn.proj, out.reshape(1, T, model.units))
             x = x + _mlp(blk, x)
         if amax is not None:
             o["amax"].copy_(torch.stack(new_amax))
@@ -936,17 +938,17 @@ class InferenceEngine:
         toff = pos % ps
         amax = i.get("amax")
         new_amax = [None] * (2 * len(self._kamax))
-        x = model.embed(ids[None],
-                        torch.clamp(pos, max=model.max_length - 1)[None])
+        x = _embed(model, ids[None],
+                   torch.clamp(pos, max=model.max_length - 1)[None])
         for li, blk in enumerate(model.blocks):
-            q, k, v = _qkv_heads(blk.attn, blk.ln1(x))       # (1,C,H,D)
+            q, k, v = _qkv_heads(blk.attn, _norm(blk.ln1, x))  # (1,C,H,D)
             kp, vp, ks, vs = self._write_kv(li, k[0], v[0], tpage, toff,
                                             amax, new_amax)
             out = ragged_prefill_attention(
                 q[0].to(self._attn_dtype(kp)).contiguous(), kp, vp, row,
                 span, k_scale=ks, v_scale=vs)
-            x = x + blk.attn.proj(out.to(x.dtype).reshape(1, C,
-                                                          model.units))
+            x = x + _linear(blk.attn.proj,
+                            out.to(x.dtype).reshape(1, C, model.units))
             x = x + _mlp(blk, x)
         if amax is not None:
             o["amax"].copy_(torch.stack(new_amax))

@@ -23,7 +23,8 @@ CPU the same object runs its body eagerly. A capture that fails raises
 card.
 
 Launch accounting: the kernel wrappers count launches in Python
-(``ops.ragged_attention.LAUNCHES`` and ``ops.flash_attention.LAUNCHES``),
+(``ops.ragged_attention.LAUNCHES``, ``ops.flash_attention.LAUNCHES`` and
+its ``CAUSAL_LAUNCHES``),
 which happens at capture only. ``GraphCapture.record`` keeps its
 capture's count per kernel and restores the counters the capture touched;
 the program restores those its warm-up touched, and adds the capture's
@@ -54,7 +55,8 @@ __all__ = ["Packed", "StepProgram", "GraphCapture", "launch_counts",
 _ALIGN = 16
 Field = Tuple[str, Tuple[int, ...], torch.dtype]
 # every kernel wrapper's launch counter (kernel names are unique across)
-_COUNTERS = (ragged_attention.LAUNCHES, flash_attention.LAUNCHES)
+_COUNTERS = (ragged_attention.LAUNCHES, flash_attention.LAUNCHES,
+             flash_attention.CAUSAL_LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,8 +1,8 @@
 """Analytic training FLOPs and the card's peak, for MFU: the port of the
 JAX package's ``incubator_mxnet_tpu/utils/flops.py``
-(``transformer_train_flops``) and of ``bench.py``'s BERT count
+(``transformer_train_flops``) and of ``bench.py``'s BERT and GPT counts
 (``_bert_flops_per_step``, which charges the MLM head only for the M
-masked positions it runs on).
+masked positions it runs on, and ``_gpt_flops_per_step``).
 
 ``peak_flops`` reads a table keyed by ``torch.cuda.get_device_name()``
 (dense bf16 tensor-core rates from the vendor's data sheets). An unknown
@@ -13,8 +13,8 @@ from __future__ import annotations
 
 from ..base import MXNetError
 
-__all__ = ["transformer_train_flops", "bert_train_flops", "peak_flops",
-           "PEAK_BF16_FLOPS"]
+__all__ = ["transformer_train_flops", "bert_train_flops", "gpt_train_flops",
+           "peak_flops", "PEAK_BF16_FLOPS"]
 
 # dense bf16 FLOP/s (NVIDIA H100 SXM data sheet, at its 700 W limit)
 PEAK_BF16_FLOPS = {
@@ -46,6 +46,19 @@ def bert_train_flops(batch, seq_len, masked, num_layers, units, hidden,
     heads = 6.0 * B * M * units * (vocab + units) + 6.0 * B * (
         units * units + 2 * units)
     return enc + attn + heads
+
+
+def gpt_train_flops(batch, seq_len, num_layers, units, hidden,
+                    vocab) -> float:
+    """Forward + backward FLOPs of one causal-LM training step (6x matmul
+    rule): the decoder's matmuls, the causal attention (half of the
+    O(T^2) products) and the full-vocabulary LM head; embedding gathers
+    left out."""
+    B, T, L = batch, seq_len, num_layers
+    dec = 6.0 * B * T * L * (4 * units * units + 2 * units * hidden)
+    attn = 6.0 * L * B * T * T * units
+    head = 6.0 * B * T * units * vocab
+    return dec + attn + head
 
 
 def peak_flops(device_name: str = None) -> float:

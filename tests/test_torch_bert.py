@@ -196,10 +196,10 @@ def test_dropout_draws_from_the_model_generator():
 
 
 def test_refused_options_and_default_device():
-    with pytest.raises(MXNetError, match="remat"):
-        tb.bert_tiny(remat=True)
-    with pytest.raises(MXNetError, match="remat"):
-        tb.bert_tiny(remat="dots")
+    for remat in (True, "dots"):                  # ported: accepted
+        assert tb.bert_tiny(remat=remat)._remat == remat
+    with pytest.raises(ValueError, match="remat"):
+        tb.bert_tiny(remat="bogus")
     with pytest.raises(MXNetError, match="seq_parallel"):
         tb.bert_tiny(seq_parallel=True)
     if not torch.cuda.is_available():

@@ -35,13 +35,14 @@ from incubator_mxnet_tpu.serve import build_fleet
 from incubator_mxnet_tpu.serve import metrics as jmetrics
 from incubator_mxnet_tpu.serve import slo as jslo
 
-from incubator_mxnet_tpu_torch.models import convert, gpt as tg
 from incubator_mxnet_tpu_torch.serve import (BrownoutController,
                                              InferenceEngine, Outcome,
                                              Request, Tier,
                                              render_frontend_metrics,
                                              render_metrics,
                                              wants_rebalance)
+
+from test_torch_parity import port_gpt
 
 V = 64
 
@@ -51,9 +52,7 @@ def models():
     jmx.random.seed(0)
     jm = jg.gpt_mini(vocab_size=V, max_length=64)
     jm.initialize()
-    tm = tg.gpt_mini(vocab_size=V, max_length=64, device="cpu")
-    tm.load_state_dict(convert.params_from_jax(
-        [p.data().asnumpy() for p in jm.collect_params().values()]))
+    tm = port_gpt(jm, vocab_size=V, max_length=64)
     return jm, tm
 
 

@@ -39,9 +39,10 @@ from incubator_mxnet_tpu.serve import chaos as jchaos
 
 from incubator_mxnet_tpu_torch import serve as tserve
 from incubator_mxnet_tpu_torch.base import MXNetError
-from incubator_mxnet_tpu_torch.models import convert, gpt as tg
 from incubator_mxnet_tpu_torch.serve import InferenceEngine, Request
 from incubator_mxnet_tpu_torch.serve import chaos as tchaos
+
+from test_torch_parity import port_gpt
 
 V = 64
 ENG = dict(num_slots=2, page_size=8, max_len=64)
@@ -70,9 +71,7 @@ def _jax_model(seed=0):
 @pytest.fixture(scope="module")
 def pkgs(tmp_path_factory):
     jm = _jax_model(0)
-    tm = tg.gpt_mini(vocab_size=V, max_length=64, device="cpu")
-    tm.load_state_dict(convert.params_from_jax(
-        [p.data().asnumpy() for p in jm.collect_params().values()]))
+    tm = port_gpt(jm, vocab_size=V, max_length=64)
     root = tmp_path_factory.mktemp("chaos")
     # the JAX package's warm_start writes into its model's Parameters:
     # the poisoning scenario takes a model of its own

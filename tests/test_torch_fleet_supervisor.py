@@ -30,12 +30,13 @@ from incubator_mxnet_tpu.serve import Request as JaxRequest
 from incubator_mxnet_tpu.serve import build_fleet as jax_build_fleet
 
 from incubator_mxnet_tpu_torch.base import MXNetError
-from incubator_mxnet_tpu_torch.models import convert, gpt as tg
 from incubator_mxnet_tpu_torch.serve import (FleetSupervisor,
                                              InferenceEngine, ReplicaState,
                                              Request, build_fleet)
 from incubator_mxnet_tpu_torch.serve.chaos import (
     SupervisorChaos, assert_fleet_health_consistent, run_fleet_chaos)
+
+from test_torch_parity import port_gpt
 
 V = 64
 ENG_KW = dict(num_slots=2, page_size=8, max_len=64, chunk_pages=1,
@@ -246,9 +247,7 @@ def models():
     jmx.random.seed(0)
     jm = jg.gpt_mini(vocab_size=V, max_length=64)
     jm.initialize()
-    tm = tg.gpt_mini(vocab_size=V, max_length=64, device="cpu")
-    tm.load_state_dict(convert.params_from_jax(
-        [p.data().asnumpy() for p in jm.collect_params().values()]))
+    tm = port_gpt(jm, vocab_size=V, max_length=64)
     return jm, tm
 
 

@@ -33,13 +33,14 @@ from incubator_mxnet_tpu.serve import ServeFrontend as JaxFrontend
 from incubator_mxnet_tpu.serve import frontend as jfe
 
 from incubator_mxnet_tpu_torch.base import MXNetError
-from incubator_mxnet_tpu_torch.models import convert, gpt as tg
 from incubator_mxnet_tpu_torch.serve import (OUTCOME_HTTP_STATUS,
                                              InferenceEngine, Outcome,
                                              Request, ServeFrontend,
                                              build_fleet, stream_completion)
 from incubator_mxnet_tpu_torch.serve import frontend as tfe
 from incubator_mxnet_tpu_torch.serve.frontend import http_request
+
+from test_torch_parity import port_gpt
 
 V = 64
 HOST = "127.0.0.1"
@@ -61,9 +62,7 @@ def models():
     jmx.random.seed(0)
     jm = jg.gpt_mini(vocab_size=V, max_length=64)
     jm.initialize()
-    tm = tg.gpt_mini(vocab_size=V, max_length=64, device="cpu")
-    tm.load_state_dict(convert.params_from_jax(
-        [p.data().asnumpy() for p in jm.collect_params().values()]))
+    tm = port_gpt(jm, vocab_size=V, max_length=64)
     return jm, tm
 
 

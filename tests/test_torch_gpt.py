@@ -1,8 +1,9 @@
 """The port's GPT model against the JAX package's, on the same weights.
 
 One ``gpt_mini`` is initialized in the JAX package from a seed; its
-parameters go across through ``models.convert.params_from_jax`` into the
-port's ``GPTModel`` on the CPU. Logits must agree to atol 1e-4 in f32
+parameters go across by structural name
+(``models.convert.block_params_from_jax``) into the port's gluon
+``GPTModel``, initialized on the CPU. Logits must agree to atol 1e-4 in f32
 (the two frameworks sum matmuls in different orders), and greedy token
 streams of ``cached_generate`` must be equal."""
 
@@ -14,8 +15,12 @@ import incubator_mxnet_tpu as jmx
 from incubator_mxnet_tpu import nd
 from incubator_mxnet_tpu.models import gpt as jg
 
+import incubator_mxnet_tpu_torch as mx
+from incubator_mxnet_tpu_torch import nd as tnd
 from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.models import convert, gpt as tg
+
+from test_torch_parity import cpu_gpt, jax_params, port_gpt
 
 
 @pytest.fixture(scope="module")
@@ -24,9 +29,12 @@ def models():
     jm = jg.gpt_mini(vocab_size=64, max_length=64)
     jm.initialize()
     arrays = [p.data().asnumpy() for p in jm.collect_params().values()]
-    tm = tg.gpt_mini(vocab_size=64, max_length=64, device="cpu")
-    tm.load_state_dict(convert.params_from_jax(arrays))
+    tm = port_gpt(jm, vocab_size=64, max_length=64)
     return jm, tm, arrays
+
+
+def _ids(ids):
+    return tnd.array(ids, ctx=mx.cpu(), dtype="int32")
 
 
 def test_params_from_jax_round_trip(models):
@@ -39,20 +47,25 @@ def test_params_from_jax_round_trip(models):
 
 
 def test_params_from_jax_refuses_bad_input(models):
-    _, _, arrays = models
-    with pytest.raises(MXNetError, match="2 \\+ 12 L \\+ 2"):
-        convert.params_from_jax(arrays[:-1])
-    bad = list(arrays)
-    bad[4] = bad[4][:-1]                          # qkv weight one row short
+    """GPT's weights cross by structural name: a missing name or a short
+    tensor is refused."""
+    jm, tm, _ = models
+    params = jax_params(jm)
+    del params["ln_f.beta"]
+    with pytest.raises(MXNetError, match="ln_f.beta"):
+        convert.block_params_from_jax(tm, params)
+    params = jax_params(jm)
+    params["block0.attn.qkv.weight"] = \
+        params["block0.attn.qkv.weight"][:-1]     # one row short
     with pytest.raises(MXNetError, match="attn.qkv.weight"):
-        convert.params_from_jax(bad)
+        convert.block_params_from_jax(tm, params)
 
 
 def test_logits_match_jax(models):
     jm, tm, _ = models
     ids = np.random.RandomState(1).randint(0, 64, size=(2, 13))
     want = jm(nd.array(ids, dtype="int32")).asnumpy()
-    got = tm(torch.tensor(ids)).numpy()
+    got = tm(_ids(ids)).asnumpy()
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
@@ -102,26 +115,26 @@ def test_cached_generate_temperature_is_seeded(models):
 
 def test_bf16_model_keeps_f32_norms_and_head(models):
     _, tm, _ = models
-    bm = tg.gpt_mini(vocab_size=64, max_length=64, dtype="bfloat16",
-                     device="cpu")
+    bm = cpu_gpt(vocab_size=64, max_length=64, dtype="bfloat16")
     bm.load_state_dict(tm.state_dict())
-    assert bm.blocks[0].attn.qkv.weight.dtype == torch.bfloat16
-    assert bm.blocks[0].ln1.gamma.dtype == torch.float32
-    assert bm.word_embed.weight.dtype == torch.float32
+    assert bm.blocks[0].attn.qkv.weight._var.dtype == torch.bfloat16
+    assert bm.blocks[0].ln1.gamma._var.dtype == torch.float32
+    assert bm.word_embed.weight._var.dtype == torch.float32
     ids = torch.tensor(np.random.RandomState(6).randint(0, 64,
                                                         size=(1, 8)))
     caches = tg.init_kv_cache(bm, 1, max_len=8)
     assert caches[0][0].dtype == torch.bfloat16
     logits, _ = tg.decode_forward(bm, ids, caches, 0)
     assert logits.dtype == torch.float32          # the f32 head
-    np.testing.assert_allclose(logits.numpy(), tm(ids).numpy(), atol=0.1)
+    np.testing.assert_allclose(logits.numpy(),
+                               tm(_ids(ids.numpy())).asnumpy(), atol=0.1)
 
 
 def test_entry_points_default_to_the_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid")
     with pytest.raises(MXNetError, match="CUDA"):
-        tg.gpt_small()
+        tg.gpt_small().initialize()
     with pytest.raises(MXNetError, match="CUDA"):
         tg.GPTModel(vocab_size=8, units=8, hidden_size=8, num_layers=1,
-                    num_heads=2, max_length=8)
+                    num_heads=2, max_length=8).initialize()

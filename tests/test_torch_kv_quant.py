@@ -30,11 +30,12 @@ from incubator_mxnet_tpu.serve import Request as JaxRequest
 from incubator_mxnet_tpu.serve import paged_kv as JP
 
 from incubator_mxnet_tpu_torch.base import MXNetError
-from incubator_mxnet_tpu_torch.models import convert, gpt as tg
 from incubator_mxnet_tpu_torch.ops import quantization as TQ
 from incubator_mxnet_tpu_torch.serve import (NULL_PAGE, InferenceEngine,
                                              Outcome, Request)
 from incubator_mxnet_tpu_torch.serve import paged_kv as TP
+
+from test_torch_parity import port_gpt
 
 V = 64
 
@@ -44,9 +45,7 @@ def models():
     jmx.random.seed(0)
     jm = jg.gpt_mini(vocab_size=V, max_length=64)
     jm.initialize()
-    tm = tg.gpt_mini(vocab_size=V, max_length=64, device="cpu")
-    tm.load_state_dict(convert.params_from_jax(
-        [p.data().asnumpy() for p in jm.collect_params().values()]))
+    tm = port_gpt(jm, vocab_size=V, max_length=64)
     return jm, tm
 
 

@@ -39,10 +39,11 @@ from incubator_mxnet_tpu.serve import paged_kv as jpk
 
 from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.checkpoint import manifest
-from incubator_mxnet_tpu_torch.models import convert, gpt as tg
 from incubator_mxnet_tpu_torch.serve import (EventType, InferenceEngine,
                                              KVTierStore, Request,
                                              payload_crc)
+
+from test_torch_parity import port_gpt
 
 V = 64
 PS = 8
@@ -60,9 +61,7 @@ def models():
     jmx.random.seed(0)
     jm = jg.gpt_mini(vocab_size=V, max_length=64)
     jm.initialize()
-    tm = tg.gpt_mini(vocab_size=V, max_length=64, device="cpu")
-    tm.load_state_dict(convert.params_from_jax(
-        [p.data().asnumpy() for p in jm.collect_params().values()]))
+    tm = port_gpt(jm, vocab_size=V, max_length=64)
     return jm, tm
 
 

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import incubator_mxnet_tpu_torch as mx
 from incubator_mxnet_tpu_torch.models.gpt import GPTModel
 from incubator_mxnet_tpu_torch.serve import (InferenceEngine, KVTierStore,
                                              Request)
@@ -30,9 +31,11 @@ QUANTS = [None, "int8", "fp8_e4m3"]
 
 
 def _model(device, seed=0):
-    return GPTModel(vocab_size=V, units=256, hidden_size=1024, num_layers=2,
-                    num_heads=4, max_length=256, dtype="bfloat16",
-                    device=device, seed=seed)
+    mx.random.seed(seed)
+    m = GPTModel(vocab_size=V, units=256, hidden_size=1024, num_layers=2,
+                 num_heads=4, max_length=256, dtype="bfloat16")
+    m.initialize(ctx=device)
+    return m
 
 
 @pytest.fixture(scope="module")

@@ -15,7 +15,10 @@ helpers:
   - ``copy_params``: the JAX block's parameter values into the port's;
   - ``build_pair``: construct, initialize, run the port once on
     ``inputs`` (deferred shapes) and copy;
-  - ``assert_close``: outputs (nested tuples) against each other.
+  - ``assert_close``: outputs (nested tuples) against each other;
+  - ``cpu_gpt`` / ``port_gpt``: the port's ``gpt_mini`` initialized on
+    the CPU, the latter holding a JAX GPT's weights (by structural name,
+    ``convert.block_params_from_jax``).
 
 Its cases: a Dense and a HybridSequential MLP equal the JAX block's
 forward and input / parameter gradients (f32 rtol 1e-5: one matmul's
@@ -40,6 +43,7 @@ from incubator_mxnet_tpu_torch import autograd, nd
 from incubator_mxnet_tpu_torch.gluon import block as tblock
 from incubator_mxnet_tpu_torch.gluon import nn as tnn
 from incubator_mxnet_tpu_torch.models import bert as tb
+from incubator_mxnet_tpu_torch.models import convert, gpt as tg
 
 
 def _dtype(a):
@@ -101,6 +105,27 @@ def build_pair(jax_ctor, port_ctor, inputs=None, seed=0):
         tblk(*port_arrays(inputs))
     copy_params(jblk, tblk)
     return jblk, tblk
+
+
+def jax_params(jax_block):
+    """A JAX block's parameters as numpy arrays by structural name."""
+    return {k: p.data().asnumpy()
+            for k, p in jax_block._collect_params_with_prefix().items()}
+
+
+def cpu_gpt(**kw):
+    """The port's ``gpt_mini(**kw)``, initialized on the CPU."""
+    tm = tg.gpt_mini(**kw)
+    tm.initialize(ctx=mx.cpu())
+    return tm
+
+
+def port_gpt(jax_model, **kw):
+    """``cpu_gpt(**kw)`` holding ``jax_model``'s weights."""
+    tm = cpu_gpt(**kw)
+    tm.load_state_dict(convert.block_params_from_jax(tm,
+                                                     jax_params(jax_model)))
+    return tm
 
 
 def assert_close(got, want, rtol=1e-5, atol=0.0, scale_atol=0.0):

@@ -42,12 +42,13 @@ from incubator_mxnet_tpu.serve import chaos as jchaos
 
 from incubator_mxnet_tpu_torch import serve as tserve
 from incubator_mxnet_tpu_torch.base import MXNetError
-from incubator_mxnet_tpu_torch.models import convert, gpt as tg
 from incubator_mxnet_tpu_torch.serve import (InferenceEngine, Outcome,
                                              ReplicaState, Request, Router,
                                              build_fleet)
 from incubator_mxnet_tpu_torch.serve import chaos as tchaos
 from incubator_mxnet_tpu_torch.serve.router import _Tracked
+
+from test_torch_parity import port_gpt
 
 V = 64
 ENG_KW = dict(num_slots=2, page_size=8, max_len=64, chunk_pages=1,
@@ -81,9 +82,7 @@ def _arrays(jm):
 
 
 def _port_model(jm):
-    tm = tg.gpt_mini(vocab_size=V, max_length=64, device="cpu")
-    tm.load_state_dict(convert.params_from_jax(_arrays(jm)))
-    return tm
+    return port_gpt(jm, vocab_size=V, max_length=64)
 
 
 @pytest.fixture(scope="module")

@@ -24,10 +24,12 @@ from incubator_mxnet_tpu.serve import Request as JaxRequest
 from incubator_mxnet_tpu.serve import SamplingParams as JaxSampling
 
 from incubator_mxnet_tpu_torch.base import MXNetError
-from incubator_mxnet_tpu_torch.models import convert, gpt as tg
+from incubator_mxnet_tpu_torch.models import gpt as tg
 from incubator_mxnet_tpu_torch.serve import (EventType, InferenceEngine,
                                              Outcome, Request,
                                              SamplingParams, Tier)
+
+from test_torch_parity import cpu_gpt, port_gpt
 
 V = 64
 
@@ -37,9 +39,7 @@ def models():
     jmx.random.seed(0)
     jm = jg.gpt_mini(vocab_size=V, max_length=64)
     jm.initialize()
-    tm = tg.gpt_mini(vocab_size=V, max_length=64, device="cpu")
-    tm.load_state_dict(convert.params_from_jax(
-        [p.data().asnumpy() for p in jm.collect_params().values()]))
+    tm = port_gpt(jm, vocab_size=V, max_length=64)
     return jm, tm
 
 
@@ -196,10 +196,10 @@ def test_nonfinite_guard_quarantines_the_slot(models):
     _, tm = models
     """Position 9's embedding is NaN: the 10-token prompt is poisoned
     in prefill; the 4-token one never reaches position 9."""
-    bad = tg.gpt_mini(vocab_size=V, max_length=64, device="cpu")
+    bad = cpu_gpt(vocab_size=V, max_length=64)
     bad.load_state_dict(tm.state_dict())
     with torch.no_grad():
-        bad.position_embed.weight[9] = float("nan")
+        bad.position_embed.weight.data()._data[9] = float("nan")
     rng = np.random.RandomState(7)
     poisoned = rng.randint(0, V, size=10)
     healthy = rng.randint(0, V, size=4)
@@ -262,6 +262,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import incubator_mxnet_tpu_torch.serve.fleet_supervisor\n"
             "import incubator_mxnet_tpu_torch.serve.frontend\n"
             "import incubator_mxnet_tpu_torch.serve.chaos\n"
+            "import incubator_mxnet_tpu_torch.models.transformer\n"
+            "import incubator_mxnet_tpu_torch.models._remat\n"
+            "mx.models.transformer.beam_search_translate_cached\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('ml_dtypes') or "
             "m.startswith('incubator_mxnet_tpu')"

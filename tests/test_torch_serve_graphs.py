@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import incubator_mxnet_tpu_torch as mx
 from incubator_mxnet_tpu_torch.models.gpt import GPTModel
 from incubator_mxnet_tpu_torch.ops import LAUNCHES
 from incubator_mxnet_tpu_torch.serve import InferenceEngine, Outcome, Request
@@ -34,9 +35,11 @@ QUANTS = [None, "int8"]
 def model():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (the ragged kernels)")
-    return GPTModel(vocab_size=V, units=256, hidden_size=1024, num_layers=2,
-                    num_heads=4, max_length=256, dtype="bfloat16",
-                    device="cuda", seed=0)
+    mx.random.seed(0)
+    m = GPTModel(vocab_size=V, units=256, hidden_size=1024, num_layers=2,
+                 num_heads=4, max_length=256, dtype="bfloat16")
+    m.initialize(ctx="cuda")
+    return m
 
 
 class _Drafter:

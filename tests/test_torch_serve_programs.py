@@ -24,7 +24,6 @@ from incubator_mxnet_tpu.serve import SamplingParams as JaxSampling
 from incubator_mxnet_tpu.serve import Tier as JaxTier
 from incubator_mxnet_tpu.serve import choice_grammar as jax_choice
 
-from incubator_mxnet_tpu_torch.models import convert, gpt as tg
 from incubator_mxnet_tpu_torch.serve import (InferenceEngine, Request,
                                              SamplingParams, Tier,
                                              choice_grammar)
@@ -32,6 +31,8 @@ from incubator_mxnet_tpu_torch.serve.sampling import (ACCEPT_STREAM,
                                                       DRAW_STREAM,
                                                       draw_uniform,
                                                       sample_inverse_cdf)
+
+from test_torch_parity import port_gpt
 
 V = 64
 
@@ -41,9 +42,7 @@ def models():
     jmx.random.seed(0)
     jm = jg.gpt_mini(vocab_size=V, max_length=64)
     jm.initialize()
-    tm = tg.gpt_mini(vocab_size=V, max_length=64, device="cpu")
-    tm.load_state_dict(convert.params_from_jax(
-        [p.data().asnumpy() for p in jm.collect_params().values()]))
+    tm = port_gpt(jm, vocab_size=V, max_length=64)
     return jm, tm
 
 

@@ -29,10 +29,12 @@ from incubator_mxnet_tpu.serve import choice_grammar as jax_choice
 from incubator_mxnet_tpu.serve import ngram_propose as jax_ngram
 
 from incubator_mxnet_tpu_torch.base import MXNetError
-from incubator_mxnet_tpu_torch.models import convert, gpt as tg
+from incubator_mxnet_tpu_torch.models import gpt as tg
 from incubator_mxnet_tpu_torch.serve import (InferenceEngine, Outcome,
                                              Request, SamplingParams,
                                              choice_grammar, ngram_propose)
+
+from test_torch_parity import cpu_gpt, port_gpt
 
 V = 64
 COUNTERS = ("drafted_tokens", "accepted_tokens", "spec_steps",
@@ -44,9 +46,7 @@ def models():
     jmx.random.seed(0)
     jm = jg.gpt_mini(vocab_size=V, max_length=64)
     jm.initialize()
-    tm = tg.gpt_mini(vocab_size=V, max_length=64, device="cpu")
-    tm.load_state_dict(convert.params_from_jax(
-        [p.data().asnumpy() for p in jm.collect_params().values()]))
+    tm = port_gpt(jm, vocab_size=V, max_length=64)
     return jm, tm
 
 
@@ -314,7 +314,7 @@ def test_rejection_sampling_keeps_the_distribution(models):
 
 def test_nonfinite_verify_step_records_no_drafted_token(models):
     _, tm = models
-    bad = tg.gpt_mini(vocab_size=V, max_length=64, device="cpu")
+    bad = cpu_gpt(vocab_size=V, max_length=64)
     bad.load_state_dict(tm.state_dict())
     prompt = np.random.RandomState(12).randint(0, V, size=(8,)) \
         .astype(np.int32)
@@ -329,7 +329,7 @@ def test_nonfinite_verify_step_records_no_drafted_token(models):
     before = (list(req.token_ids), eng.drafted_tokens, eng.accepted_tokens,
               eng.spec_steps)
     with torch.no_grad():                         # the tied head goes NaN
-        bad.word_embed.weight[0, :4] = float("nan")
+        bad.word_embed.weight.data()._data[0, :4] = float("nan")
     eng.step()
     assert req.outcome is Outcome.FAILED_NONFINITE
     assert (list(req.token_ids), eng.drafted_tokens,

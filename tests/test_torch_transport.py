@@ -37,9 +37,11 @@ from incubator_mxnet_tpu.serve import PageTransport as JaxTransport
 from incubator_mxnet_tpu.serve import Request as JaxRequest
 
 from incubator_mxnet_tpu_torch.base import MXNetError
-from incubator_mxnet_tpu_torch.models import convert, gpt as tg
+from incubator_mxnet_tpu_torch.models import convert
 from incubator_mxnet_tpu_torch.serve import (InferenceEngine, PageTransport,
                                              Request)
+
+from test_torch_parity import cpu_gpt, port_gpt
 
 V = 64
 PS = 8
@@ -57,9 +59,7 @@ def _jax_model(seed):
 
 
 def _port_model(jm):
-    tm = tg.gpt_mini(vocab_size=V, max_length=64, device="cpu")
-    tm.load_state_dict(convert.params_from_jax(
-        [p.data().asnumpy() for p in jm.collect_params().values()]))
+    tm = port_gpt(jm, vocab_size=V, max_length=64)
     return tm
 
 
@@ -355,7 +355,7 @@ def test_warm_start_swaps_weights_in_place(models, model_b, form):
     them); the cached prefix was flushed."""
     _, tm = models
     jb, tb, prompt, want = model_b
-    live = tg.gpt_mini(vocab_size=V, max_length=64, device="cpu")
+    live = cpu_gpt(vocab_size=V, max_length=64)
     live.load_state_dict(tm.state_dict())
     eng = InferenceEngine(live, num_slots=2, page_size=8, max_len=64)
     old = _serve(eng, prompt)
@@ -386,7 +386,7 @@ def test_warm_start_swaps_weights_in_place(models, model_b, form):
 
 def test_warm_start_refuses_a_shape_mismatch(models):
     _, tm = models
-    live = tg.gpt_mini(vocab_size=V, max_length=64, device="cpu")
+    live = cpu_gpt(vocab_size=V, max_length=64)
     live.load_state_dict(tm.state_dict())
     eng = InferenceEngine(live, num_slots=2, page_size=8, max_len=64)
     before = [p.clone() for p in live.parameters()]
