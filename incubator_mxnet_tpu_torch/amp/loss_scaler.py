@@ -26,11 +26,21 @@ class LossScaler:
         self._unskipped = 0
 
     def has_overflow(self, params) -> bool:
-        """True if any gradient (a tensor, or a parameter's ``.grad``)
-        holds inf/nan; one small readback."""
+        """True if any gradient holds inf/nan; one small readback. Takes
+        gluon ``Parameter``s (their ``grad()``; a ``grad_req='null'``
+        parameter has none and is skipped), ``NDArray``s, tensors, and
+        ``torch.nn.Parameter``s (their ``.grad``)."""
         total = None
         for p in params:
-            g = p.grad if isinstance(p, torch.nn.Parameter) else p
+            if isinstance(p, torch.nn.Parameter):
+                g = p.grad
+            elif callable(getattr(p, "grad", None)):
+                if getattr(p, "grad_req", None) == "null":
+                    continue
+                g = p.grad()
+            else:
+                g = p
+            g = getattr(g, "_data", g)
             if g is None:
                 continue
             bad = torch.logical_not(torch.isfinite(g)).sum()

@@ -83,10 +83,16 @@
 //     its O rows, computes delta, and walks the K/V tiles up to the tile's
 //     key end (tiles past valid_len or past the diagonal are skipped),
 //     keeping dq (BM x D) in registers;
-//   - dk/dv: (ceil(Tk / BN), H, B). A block stages its K and V rows and
-//     walks the q tiles that can see them (all of them, or from the
-//     diagonal on when causal), keeping dk and dv (BN x D) in registers.
-//     A block whose keys all lie past valid_len writes zeros.
+//   - dk/dv: one block a (key tile, batch, head), ceil(Tk / BN) H B
+//     blocks. A block stages its K and V rows and walks the q tiles that
+//     can see them (all of them, or from the diagonal on when causal),
+//     keeping dk and dv (BN x D) in registers. A block whose keys all lie
+//     past valid_len writes zeros. The tensor-core body takes its unit
+//     from `flash_unit` (flash_common.cuh): causal, key block j walks
+//     ceil(Tq / 64) - j query tiles, so the units are numbered heaviest
+//     first (key block 0 of every (batch, head), then block 1, ...) and
+//     the in-order dispatch schedules longest first; not causal, in the
+//     (tile, head, batch) order of the other grids.
 
 #include "flash_common.cuh"
 
@@ -586,10 +592,10 @@ flash_bwd_dkv_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
   constexpr int BN = kDkvKeys, NTHR = 32 * kDkvWarps, ND = kMmaD / 8;
   constexpr int QT = kDkvQ;
   constexpr int kQTile = QT * 128;           // one q (or dO) tile, bytes
-  const int n0 = blockIdx.x * BN, h = blockIdx.y, b = blockIdx.z;
+  const FlashUnit u = flash_unit((Tk + BN - 1) / BN, causal, false);
+  const int n0 = u.tile * BN, bhi = u.bh, b = bhi / H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int bhi = b * H + h;
   const int64_t bh = bhi;
   const int vl = max(0, min(valid_len[b], Tk));
   const int nkeys = min(BN, Tk - n0);
@@ -762,7 +768,8 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
   const auto kernel = flash_bwd_dkv_tma_kernel;
   e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((Tk + kDkvKeys - 1) / kDkvKeys, H, B);
+  const unsigned grid = flash_grid((Tk + kDkvKeys - 1) / kDkvKeys, B, H);
+  if (grid == 0) return cudaErrorInvalidValue;
   kernel<<<grid, 32 * kDkvWarps, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], lse, delta, valid_len,
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Tq, Tk, scale,

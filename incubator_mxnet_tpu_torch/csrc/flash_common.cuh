@@ -89,6 +89,37 @@ __device__ __forceinline__ int tile_key_end(int vl, int Tk, int q0, int BM,
   return end;
 }
 
+// The work order of a tensor-core flash launch (forward, dk/dv): a 1-D
+// grid of ntiles x BH units, a unit one 64-row tile of one (batch, head)
+// row bh = b H + h. The hardware hands out blocks in linear-index order as
+// slots free.
+//   - Not causal, every tile of a row does the same work: the units go in
+//     the order of a (ntiles, H, B) grid, the tiles of one row side by
+//     side (they share its K/V, or its q/dO, in L2).
+//   - Causal, a unit's work grows with its tile index (a query tile i
+//     walks i + 1 key tiles: `grows`) or shrinks with it (key block j
+//     walks ntiles - j query tiles): the units are numbered by decreasing
+//     work, the heaviest tile of every row first, then the next, so the
+//     dispatch order is longest-first scheduling and the last blocks
+//     handed out are the shortest. No scratch, no host state.
+struct FlashUnit {
+  int tile, bh;
+};
+
+__device__ __forceinline__ FlashUnit flash_unit(int ntiles, int causal,
+                                                bool grows) {
+  const int i = blockIdx.x;
+  if (!causal) return {i % ntiles, i / ntiles};
+  const int BH = gridDim.x / ntiles, rank = i / BH;   // 0: the heaviest
+  return {grows ? ntiles - 1 - rank : rank, i - rank * BH};
+}
+
+// the 1-D grid of flash_unit, or 0 blocks when it would not fit
+inline unsigned flash_grid(int ntiles, int B, int H) {
+  const long long n = (long long)ntiles * B * H;
+  return n <= 0x7fffffffLL ? (unsigned)n : 0u;
+}
+
 // ---------------------------------------------------------------------
 // Tensor-core path (bf16 operands, head dim kMmaD): mma.sync m16n8k16
 // with f32 accumulation. With g = lane / 4 and t = lane % 4, a thread

@@ -25,10 +25,11 @@
 // copies off the chain, shortens it, and keeps as many blocks resident as
 // the registers allow.
 //
-// Design: grid (ceil(Tq / 64), H, B). A block holds its query rows for the
-// whole walk and goes over the K/V tiles in order, stopping at the tile's
-// key end (past valid_len, or past the diagonal when causal: dead tiles
-// are never loaded), with the online softmax (m, l) per row. Two bodies:
+// Design: a block takes one (query tile, batch, head), holds its query
+// rows for the whole walk and goes over the K/V tiles in order, stopping
+// at the tile's key end (past valid_len, or past the diagonal when causal:
+// dead tiles are never loaded), with the online softmax (m, l) per row.
+// Two bodies:
 //   - bf16 with D = 64 (BERT, GPT-2): the design of the backward's dq body
 //     (flash_bwd.cu), with one product fewer a step:
 //     1. TMA copies: one thread asks for each tile (q, then K and V in a
@@ -53,7 +54,21 @@
 //        bf16 rounding of p (ROADMAP.md, Queue 3). The sentinel -1e30 is
 //        never scaled;
 //     5. 4 warps x 16 query rows, <= 128 registers (no spills): four
-//        blocks an SM.
+//        blocks an SM;
+//     6. causal work order and the diagonal: query tile i walks i + 1 key
+//        tiles, so a (ceil(Tq / 64), H, B) grid interleaves blocks of 1
+//        to ntiles tiles of work, and a heavy block handed out late sets
+//        a tail while most SMs idle. A causal launch numbers its units
+//        heaviest first (`flash_unit`, flash_common.cuh: the last query
+//        tile of every (batch, head), then the one before, ...), which
+//        the in-order dispatch turns into longest-first scheduling;
+//        without causal masking the units keep the (tile, head, batch)
+//        order. On the tile the diagonal (or key_end) cuts, a warp forms
+//        S, p and P V only for the 16-key chunks one of its rows sees
+//        (warp w of the diagonal tile: chunks 0..w, 10 of the tile's 16
+//        chunk products). A value of V past the diagonal therefore
+//        reaches a row's P V only inside its warp's diagonal chunk (with
+//        p = 0), where the plain version multiplies all of them by 0.
 //     TMA zero-fills only past Tk, so the rows of the last tile at or past
 //     key_end are zeroed in shared memory: V past valid_len is SELECTED
 //     out of P V (a NaN there cannot reach the output; the Pallas kernel
@@ -188,6 +203,74 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int kFwdWarps = 4;                    // 16 query rows each
 constexpr int kFwdRows = 16 * kFwdWarps;        // query rows a block
 
+// One 64-key tile of a warp's walk (rows row0 and row0 + 8 of its 16):
+// S = Q K^T on the tile's first NC 16-key chunks (a chunk past them is
+// masked for every row of the warp, so its products and exponentials,
+// p = 0, are skipped), the online softmax on the C fragments in the log2
+// domain (one rescale of o a tile), then P V in NC 16-key k steps (V
+// read through ldmatrix.trans). MASK: a key of those chunks lies at or
+// past key_end, or past a row's diagonal; without it the path has no
+// mask predicates.
+template <int NC, bool MASK>
+__device__ __forceinline__ void fwd_tile(
+    const uint32_t (&qa)[kMmaD / 16][4], const unsigned char* k_t,
+    const unsigned char* v_t, int k0, int key_end, int row0, int causal,
+    float sl2, float (&m)[2], float (&l)[2], float (&o)[kMmaD / 8][4]) {
+  constexpr int NJ = 2 * NC, ND = kMmaD / 8;  // n tiles (8 keys) of S
+  const int t = threadIdx.x & 3;
+  float s[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int j2 = 0; j2 < NC; ++j2)
+    mma_rows_chunk(qa, [k_t](int r, int ch) {
+      return reinterpret_cast<const bf16*>(k_t + sw128(r, ch));
+    }, s[2 * j2], s[2 * j2 + 1], j2);
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (MASK) {
+        const int key = k0 + 8 * j + 2 * t + (e & 1);
+        const int row = row0 + 8 * (e >> 1);
+        const bool live = key < key_end && (!causal || key <= row);
+        s[j][e] = live ? s[j][e] * sl2 : kNegInf;
+      } else {
+        s[j][e] *= sl2;
+      }
+      mx[e >> 1] = nan_max(mx[e >> 1], s[j][e]);
+    }
+  // p = 2^(s scale log2e - m); o and l rescaled by 2^(m_old - m_new).
+  // The sentinel -1e30 is never scaled: a row that has seen no live key
+  // keeps m = -1e30 exactly.
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = nan_max(m[r], quad_max(mx[r]));
+    alpha[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = ex2(s[j][e] - m[e >> 1]);
+      l[e >> 1] += s[j][e];
+    }
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nd][e] *= alpha[e >> 1];
+#pragma unroll
+  for (int k2 = 0; k2 < NC; ++k2) {
+    uint32_t a[4];
+    pack_a(s[2 * k2], s[2 * k2 + 1], a);
+    mma_p_step(a, v_t, k2, o);
+  }
+}
+
 // The tensor-core forward (bf16, D = kMmaD): kFwdRows query rows a block,
 // 16 a warp. The query tile arrives as one TMA box and stays in registers
 // as A fragments; each 64-key tile of K and V arrives as two more boxes in
@@ -195,9 +278,9 @@ constexpr int kFwdRows = 16 * kFwdWarps;        // query rows a block
 // barrier; an mbarrier per stage counts the bytes). Key rows of the last
 // tile at or past key_end are zeroed in shared memory once it lands (TMA
 // zero-fills only past Tk), so no value past the bound reaches P V. A warp
-// takes each 64-key tile whole: S for the tile, the online softmax on its C
-// fragments in the log2 domain (one rescale of o a tile), then P V in four
-// 16-key k steps (V read through ldmatrix.trans).
+// takes each 64-key tile through `fwd_tile`: whole and without a mask
+// inside the bounds, or on the tile key_end or the diagonal cuts, the
+// chunks its rows see, masked. The block's unit comes from `flash_unit`.
 __global__ void __launch_bounds__(32 * kFwdWarps, 16 / kFwdWarps)
 flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -208,10 +291,10 @@ flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
   constexpr int BM = kFwdRows, NTHR = 32 * kFwdWarps, ND = kMmaD / 8;
   constexpr int NJ = kMmaTile / 8;           // n tiles (8 keys) of S
   constexpr int kTile = kMmaTile * 128;      // one 64-row tile, bytes
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const FlashUnit u = flash_unit((Tq + BM - 1) / BM, causal, true);
+  const int q0 = u.tile * BM, bhi = u.bh, b = bhi / H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int bhi = b * H + h;
   const int64_t bh = bhi;
   const int key_end = tile_key_end(valid_len[b], Tk, q0, BM, causal);
   const int nkt = (key_end + kMmaTile - 1) / kMmaTile;
@@ -273,65 +356,24 @@ flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (w0 >= Tq) continue;
     const int k0 = kt * kMmaTile;            // the tile's first key
     if (causal && k0 > w0 + 15) continue;    // no row of the warp sees it
-    float s[NJ][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int j2 = 0; j2 < NJ / 2; ++j2)
-      mma_rows_chunk(qa, [k_t](int r, int ch) {
-        return reinterpret_cast<const bf16*>(k_t + sw128(r, ch));
-      }, s[2 * j2], s[2 * j2 + 1], j2);
     // no mask inside the tile: every key live and seen by every row
-    const bool full = k0 + kMmaTile <= key_end &&
-                      (!causal || k0 + kMmaTile - 1 <= w0);
-    float mx[2] = {kNegInf, kNegInf};
-    if (full) {
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] *= sl2;
-          mx[e >> 1] = nan_max(mx[e >> 1], s[j][e]);
-        }
-    } else {
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + 8 * j + 2 * t + (e & 1);
-          const int row = row0 + 8 * (e >> 1);
-          const bool live = key < key_end && (!causal || key <= row);
-          s[j][e] = live ? s[j][e] * sl2 : kNegInf;
-          mx[e >> 1] = nan_max(mx[e >> 1], s[j][e]);
-        }
+    if (k0 + kMmaTile <= key_end && (!causal || k0 + kMmaTile - 1 <= w0)) {
+      fwd_tile<NJ / 2, false>(qa, k_t, v_t, k0, key_end, row0, causal, sl2,
+                              m, l, o);
+      continue;
     }
-    // p = 2^(s scale log2e - m); o and l rescaled by 2^(m_old - m_new).
-    // The sentinel -1e30 is never scaled: a row that has seen no live key
-    // keeps m = -1e30 exactly.
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = nan_max(m[r], quad_max(mx[r]));
-      alpha[r] = ex2(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = ex2(s[j][e] - m[e >> 1]);
-        l[e >> 1] += s[j][e];
-      }
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[nd][e] *= alpha[e >> 1];
-#pragma unroll
-    for (int k2 = 0; k2 < NJ / 2; ++k2) {
-      uint32_t a[4];
-      pack_a(s[2 * k2], s[2 * k2 + 1], a);
-      mma_p_step(a, v_t, k2, o);
+    // the tile the causal bound (the diagonal) or key_end cuts: the
+    // 16-key chunks some row of the warp sees, the first nch
+    const int see = min(key_end, causal ? w0 + 16 : key_end) - k0;
+    switch ((see + 15) >> 4) {
+      case 1: fwd_tile<1, true>(qa, k_t, v_t, k0, key_end, row0, causal,
+                                sl2, m, l, o); break;
+      case 2: fwd_tile<2, true>(qa, k_t, v_t, k0, key_end, row0, causal,
+                                sl2, m, l, o); break;
+      case 3: fwd_tile<3, true>(qa, k_t, v_t, k0, key_end, row0, causal,
+                                sl2, m, l, o); break;
+      default: fwd_tile<4, true>(qa, k_t, v_t, k0, key_end, row0, causal,
+                                 sl2, m, l, o);
     }
   }
 
@@ -373,7 +415,8 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
   const auto kernel = flash_fwd_tma_kernel;
   e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((Tq + BM - 1) / BM, H, B);
+  const unsigned grid = flash_grid((Tq + BM - 1) / BM, B, H);
+  if (grid == 0) return cudaErrorInvalidValue;
   kernel<<<grid, 32 * kFwdWarps, smem, stream>>>(
       maps[0], maps[1], maps[2], valid_len, static_cast<bf16*>(out), lse, H,
       Tq, Tk, scale, causal);

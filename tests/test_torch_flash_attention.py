@@ -11,8 +11,10 @@ blockwise; CPU tensors -> plain versions, no launch). The CUDA kernels
 against the plain versions run only on a card (``cuda`` marker): every
 body, and for the backward's tensor-core bodies (bf16, D = 64) lengths
 0, 1, 63, 64, 65, 127, 128, 129 and T for T in {1, 16, 37, 64, 200, 512}
-causal and not, Tq != Tk on both sides of one tile, a fully masked batch,
-two launches bitwise equal, one launch per entry point, and NaN in the K
+causal and not, Tq != Tk on both sides of one tile, causal shapes
+awkward for the heaviest-first work order (T = 576 with B x H = 15, 65,
+511, 2048), a fully masked batch, two launches bitwise equal (causal and
+not), one launch per entry point, and NaN in the K
 and V rows past valid_len reaching no output (T in {37, 200, 512}). On
 the CPU, the same NaN leaves the plain versions unchanged, where the
 Pallas kernels multiply it into the output (a departure by design).
@@ -367,13 +369,21 @@ BWD_CASES = (
      for T in (1, 16, 37, 64, 200, 512) for causal in (False, True)] +
     [(len(BWD_LENGTHS) + 1, 2, Tq, Tk, 64, BWD_LENGTHS + (Tk,), False)
      for Tq, Tk in ((40, 24), (24, 40), (96, 160), (200, 72), (129, 512))])
+# causal bf16 D = 64 shapes awkward for the tensor-core bodies'
+# heaviest-first work order and the forward's diagonal by warp: 9 tiles
+# with an odd B x H, one tile and a row, a row short of 8 tiles, 32 tiles
+CAUSAL_ORDER_CASES = [
+    (3, 5, 576, 576, 64, (576, 300, 1), True),
+    (1, 12, 65, 65, 64, (65,), True),
+    (2, 12, 511, 511, 64, (511, 64), True),
+    (4, 12, 2048, 2048, 64, (2048,) * 4, True)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "dtype,B,H,Tq,Tk,D,lens,causal",
     [(dt,) + c for dt in ("float32", "bfloat16") for c in CARD_CASES] +
-    [("bfloat16",) + c for c in BWD_CASES])
+    [("bfloat16",) + c for c in BWD_CASES + CAUSAL_ORDER_CASES])
 def test_kernels_match_plain_on_card(cuda_device, dtype, B, H, Tq, Tk, D,
                                      lens, causal):
     q, k, v, do, vl = _card_inputs(cuda_device, getattr(torch, dtype), B,
@@ -420,11 +430,14 @@ def test_fully_masked_batch_gives_zero_finite_gradients(cuda_device, dtype,
 
 
 @pytest.mark.cuda
-def test_two_launches_bitwise_equal(cuda_device):
-    args = _card_inputs(cuda_device, torch.bfloat16, 4, 12, 512, 512, 64,
-                        (512, 300, 129, 1), seed=5)
-    first = _card_run(*args, False)
-    second = _card_run(*args, False)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,H,T,lens", [(4, 12, 512, (512, 300, 129, 1)),
+                                        (3, 5, 576, (576, 300, 1))])
+def test_two_launches_bitwise_equal(cuda_device, B, H, T, lens, causal):
+    args = _card_inputs(cuda_device, torch.bfloat16, B, H, T, T, 64, lens,
+                        seed=5)
+    first = _card_run(*args, causal)
+    second = _card_run(*args, causal)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
