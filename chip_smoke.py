@@ -231,6 +231,29 @@ failure exits non-zero before the result line:
                 are within 1e-4 of the largest |logit| of flash=False,
                 and 2 SPMDTrainer Adam steps launching the flash kernels
                 3 times a layer (encoder, decoder causal, cross);
+  7f. checkpoint — gpt_small bf16 (flash, dropout 0.1, AdamW with f32
+                masters) through SPMDTrainer at B=16, T=512, 8 steps on
+                8 batches with the dropout masks drawn on (not reseeded):
+                two uninterrupted runs first (bitwise equal, or their
+                spread); `save_checkpoint` at step 2 (its write drained)
+                and at step 4, which returns before steps 5-8 run while
+                the write is in flight: the committed step 4 bitwise a
+                synchronous host copy taken at step 4; a restore of step
+                4 into the same trainer (no new capture) reruns 5-8, the
+                losses bitwise or within the spread (12 launches of each
+                causal flash kernel a replay), a restore into a fresh
+                trainer from another seed gives the saved parameters,
+                optimizer leaves, counters and generator state bitwise,
+                then one capture; a live gpt_small engine
+                `warm_start(manager=)` from the training capsule keeps its
+                captures and serves the greedy streams of a `params=`
+                warm start from the same arrays (ragged decode / prefill
+                launched); `train.Supervisor` runs `train.example_target`
+                on the card killed at two steps, its per-step losses equal
+                an uninterrupted run's. One `[checkpoint]` JSON line: the
+                gather (cold and warm), background write and restore ms
+                beside the card's name and power limit (the supervised
+                runs go on beside the engine part);
   8. times    — the flash kernels held against their plain versions
                 once more on the training batch's own shapes and lengths
                 (B=32, T=512, bf16), and causal at gpt_small's (B=16,
@@ -3898,6 +3921,303 @@ def phase_gpt_training(torch, smi):
     return stats
 
 
+def host_state(torch, tr):
+    """A synchronous host copy of an SPMDTrainer's parameters and
+    optimizer leaves (and the card's generator state), in capsule
+    order."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.optimizer.fused import tree_leaves
+    torch.cuda.synchronize()
+    out = {f"param/{i}": p.detach().to("cpu", copy=True)
+           for i, p in enumerate(tr._params)}
+    for i, st in enumerate(tr._opt_state):
+        for j, leaf in enumerate(tree_leaves(st)):
+            out[f"opt/{i}/{j}"] = leaf.to("cpu", copy=True)
+    out["generator"] = mx.random.generator(tr.device).get_state()
+    return out
+
+
+def same_state(torch, want, tr):
+    """Every parameter, optimizer leaf and the generator state of ``tr``
+    bitwise ``want`` (a ``host_state``)."""
+    got = host_state(torch, tr)
+    return sorted(got) == sorted(want) and all(
+        torch.equal(got[k], want[k]) for k in want)
+
+
+def committed_equals(torch, np, arrays, want):
+    """A committed step's ``param/`` and ``opt/`` entries bitwise the host
+    copy ``want``."""
+    from incubator_mxnet_tpu_torch.checkpoint.capsule import host_leaf
+    keys = {k for k in want if k != "generator"}
+    stored = {k for k in arrays if k.startswith(("param/", "opt/"))}
+    return stored == keys and all(
+        np.array_equal(arrays[k], host_leaf(want[k])[1]) for k in keys)
+
+
+def target_run(tmp, tag, env_extra):
+    """``train.example_target`` on the card under a ``train.Supervisor``;
+    returns the report and the per-step loss map."""
+    from incubator_mxnet_tpu_torch.train import Supervisor
+    ckpt_dir = os.path.join(tmp, f"target_{tag}")
+    results = os.path.join(tmp, f"target_{tag}.jsonl")
+    os.makedirs(ckpt_dir)
+    env = {"PYTHONPATH": os.path.dirname(os.path.abspath(__file__)),
+           "MXTPU_TGT_CKPT_DIR": ckpt_dir, "MXTPU_TGT_RESULTS": results,
+           "MXTPU_TGT_STEPS": "14", "MXTPU_TGT_SAVE_EVERY": "2"}
+    env.update(env_extra)
+    sup = Supervisor(
+        [sys.executable, "-m",
+         "incubator_mxnet_tpu_torch.train.example_target"],
+        ckpt_dir=ckpt_dir, progress_file=results, max_restarts=4,
+        backoff_s=0.05, env=env)
+    report = sup.run(raise_on_failure=False)
+    losses = {}
+    if os.path.exists(results):
+        with open(results) as f:
+            for line in f:
+                rec = json.loads(line)
+                losses[rec["step"]] = rec["loss"]
+    return report, losses
+
+
+def checkpoint_supervisor(tmp):
+    """The clean target run (in a thread) beside the one killed at steps
+    5 and 9: two restarts, the per-step losses equal."""
+    clean = {}
+    th = threading.Thread(target=lambda: clean.update(
+        zip(("report", "losses"), target_run(tmp, "clean", {}))))
+    th.start()
+    report, killed = target_run(tmp, "killed", {"MXTPU_TGT_KILL_AT": "5,9"})
+    th.join(timeout=600)
+    check(not th.is_alive() and "report" in clean and
+          clean["report"].completed,
+          f"checkpoint: the clean example_target run did not complete: "
+          f"{clean.get('report') and clean['report'].summary()}")
+    check(report.completed and report.restarts == 2,
+          f"checkpoint: the killed example_target run: {report.summary()}")
+    check(killed == clean["losses"] and sorted(killed) == list(range(14)),
+          f"checkpoint: supervised losses {killed} != uninterrupted "
+          f"{clean['losses']}")
+    return dict(restarts=report.restarts,
+                attempts=[a.reason for a in report.attempts],
+                wall_s=report.total_wall_s, steps=len(killed))
+
+
+def phase_checkpoint(torch, smi):
+    """Checkpointing on gpt_small (see the module's docstring, 7f)."""
+    import tempfile
+    import numpy as np
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import nd
+    from incubator_mxnet_tpu_torch.checkpoint import CheckpointManager
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    from incubator_mxnet_tpu_torch.ops import ragged_attention as ra
+    from incubator_mxnet_tpu_torch.serve import InferenceEngine, Request
+    t_phase = time.perf_counter()
+    B, T = GPT["B"], GPT["T"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="mxt_ckpt_")
+    sup_thread = None
+    try:
+        def trainer(seed):
+            return gpt_trainer(bench_gpt(seed, flash=True, dropout=0.1))
+
+        def steps(tr, idx):
+            return [float(tr.step(*batches[i]).asnumpy()) for i in idx]
+
+        # two uninterrupted runs: what "the same steps" give on this card
+        ref_tr = trainer(0)
+        V = ref_tr.block.vocab_size
+        rng = np.random.RandomState(0)
+        batches = [[nd.array(rng.randint(0, V, (B, T)), ctx=mx.gpu(0),
+                             dtype="int32") for _ in range(2)]
+                   for _ in range(8)]
+        mx.random.seed(1)
+        ref = steps(ref_tr, range(8))
+        del ref_tr
+        gc.collect()
+        tr = trainer(0)
+        mx.random.seed(1)
+        losses = steps(tr, range(2))
+        mgr = CheckpointManager(tmp + "/run", keep=3)
+        tr.save_checkpoint(mgr, step=2)
+        gather_cold_ms = mgr.last_gather_ms
+        mgr.wait()
+        losses += steps(tr, range(2, 4))
+        at4 = host_state(torch, tr)
+        saved = tr.save_checkpoint(mgr, step=4)
+        gather_ms = mgr.last_gather_ms
+        in_flight = 0
+        for i in range(4, 8):
+            losses += steps(tr, [i])
+            in_flight += mgr._pending is not None
+        mgr.wait()
+        write_ms = mgr.last_write_ms
+        print(f"[checkpoint] gather ms cold {gather_cold_ms:.1f}, warm "
+              f"{gather_ms:.1f}; write ms {write_ms:.1f}; steps 5-8 "
+              f"finished during the write: {in_flight}; losses {losses}, "
+              f"uninterrupted {ref}", flush=True)
+        check(saved == 4 and mgr.all_steps() == [2, 4],
+              f"checkpoint: committed steps {mgr.all_steps()}")
+        check(in_flight >= 1, "checkpoint: the step-4 write had finished "
+                              "before step 5 did")
+        arrays, meta = mgr.restore(4)
+        check(committed_equals(torch, np, arrays, at4),
+              "checkpoint: the committed step 4 differs from the host copy "
+              "taken at step 4")
+        del arrays
+        bitwise = losses == ref
+        spread = max(abs(a - b) for a, b in zip(losses, ref))
+
+        def held(got, want):
+            if bitwise:
+                return got == want
+            return all(abs(a - b) <= spread for a, b in zip(got, want))
+
+        check(held(losses, ref), f"checkpoint: {losses} vs {ref}")
+
+        # restore into the same trainer: no new capture
+        prog = next(iter(tr._programs.values()))
+        builds = tr.step_trace_count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.restore_checkpoint(mgr, step=4)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        check(same_state(torch, at4, tr) and tr.step_count == 4,
+              "checkpoint: the restored state differs from step 4's")
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        resumed = steps(tr, range(4, 8))
+        ms_step = (time.perf_counter() - t0) * 1e3 / 4
+        launches = dict(fa.CAUSAL_LAUNCHES)
+        print(f"[checkpoint] restore ms {restore_ms:.1f}; resumed "
+              f"{resumed}; causal launches {launches}; "
+              f"{tr.step_trace_count} step programs", flush=True)
+        check(tr.step_trace_count == builds == 1 and
+              len(tr._programs) == 1,
+              f"checkpoint: {tr.step_trace_count} step programs after the "
+              f"restore")
+        check(all(n == 12 * 4 for n in launches.values()),
+              f"checkpoint: causal flash launches {launches} over 4 "
+              f"replays != 12 a replay")
+        check(held(resumed, losses[4:]),
+              f"checkpoint: resumed losses {resumed} vs {losses[4:]} "
+              f"({'bitwise' if bitwise else f'spread {spread:g}'})")
+        replays = prog.replays
+        num_update = tr._optimizer.num_update
+        del tr, prog
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # restore into a fresh trainer from another seed
+        fresh = trainer(5)
+        t0 = time.perf_counter()
+        fresh.restore_checkpoint(mgr, step=4)
+        torch.cuda.synchronize()
+        fresh_restore_ms = (time.perf_counter() - t0) * 1e3
+        check(same_state(torch, at4, fresh) and fresh.step_count == 4 and
+              fresh._optimizer.num_update == meta["num_update"],
+              "checkpoint: the fresh trainer's restored state differs")
+        fresh_loss = steps(fresh, [4])
+        print(f"[checkpoint] fresh trainer: restore ms "
+              f"{fresh_restore_ms:.1f}, step-5 loss {fresh_loss[0]!r}",
+              flush=True)
+        check(fresh.step_trace_count == 1 and np.isfinite(fresh_loss[0]),
+              f"checkpoint: fresh trainer {fresh.step_trace_count} "
+              f"captures, loss {fresh_loss}")
+        del fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the supervised example_target runs (child processes, a few MB
+        # of the card) go on beside the train-to-serve part
+        box = {}
+
+        def supervise():
+            try:
+                box["stats"] = checkpoint_supervisor(tmp)
+            except PhaseError as e:          # raised on the phase's thread
+                box["error"] = e
+
+        sup_thread = threading.Thread(target=supervise)
+        sup_thread.start()
+
+        # train to serve
+        kw = dict(num_slots=4, page_size=16, max_len=1024, chunk_pages=4,
+                  prefix_cache=True)
+        prng = np.random.RandomState(9)
+        prompts = [prng.randint(0, V, size=int(n)).astype(np.int32)
+                   for n in (80, 200, 333, 500)]
+        mk = lambda: [Request(p, max_new_tokens=32) for p in prompts]
+        live = InferenceEngine(bench_gpt(2), **kw)
+        live.run(mk())
+        engine_builds = (live.decode_trace_count,
+                         dict(live.prefill_trace_counts))
+        t0 = time.perf_counter()
+        live.warm_start(manager=mgr)
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        ra.reset_launch_counts()
+        served = mk()
+        live.run(served)
+        serve_launches = {k: ra.LAUNCHES[k]
+                          for k in ("ragged_decode", "ragged_prefill")}
+        live.audit_pages()
+        print(f"[checkpoint] warm_start(manager=) ms {warm_ms:.1f}, "
+              f"launches {serve_launches}", flush=True)
+        check((live.decode_trace_count, dict(live.prefill_trace_counts))
+              == engine_builds,
+              f"checkpoint: warm_start(manager=) moved the engine's "
+              f"captures from {engine_builds}")
+        check(all(n > 0 for n in serve_launches.values()),
+              f"checkpoint: the warm-started engine's ragged launches "
+              f"{serve_launches}")
+        arrays, _ = mgr.restore()
+        other = InferenceEngine(bench_gpt(3), **kw)
+        other.warm_start(params=arrays)
+        ref_served = mk()
+        other.run(ref_served)
+        check([r.token_ids for r in served] ==
+              [r.token_ids for r in ref_served],
+              "checkpoint: warm_start(manager=) streams differ from a "
+              "params= warm start's")
+        mgr.close()
+        del live, other, arrays
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        sup_thread.join(timeout=600)
+        if "error" in box:
+            raise box["error"]
+        check("stats" in box, "checkpoint: the supervised runs did not end")
+        supervised = box["stats"]
+    finally:
+        if sup_thread is not None:
+            sup_thread.join(timeout=600)
+        shutil.rmtree(tmp, ignore_errors=True)
+    stats = dict(
+        card=smi, config=f"gpt_small bf16 flash dropout=0.1 AdamW "
+                         f"multi_precision B={B} T={T}",
+        capsule_gb=sum(a.numel() * a.element_size()
+                       for k, a in at4.items() if k != "generator") / 1e9,
+        gather_cold_ms=gather_cold_ms, gather_ms=gather_ms,
+        write_ms=write_ms, restore_ms=restore_ms,
+        fresh_restore_ms=fresh_restore_ms, ms_per_step=ms_step,
+        gather_share_of_step=gather_ms / ms_step,
+        steps_during_write=in_flight,
+        losses_held="bitwise" if bitwise else f"within spread {spread!r}",
+        uninterrupted=ref, losses=losses, resumed=resumed,
+        fresh_step5_loss=fresh_loss[0], replays=replays,
+        num_update=num_update, causal_launches=launches,
+        warm_start_ms=warm_ms, serve_launches=serve_launches,
+        supervisor=supervised, phase_s=time.perf_counter() - t_phase)
+    print(f"[checkpoint] {json.dumps(stats)}", flush=True)
+    return stats
+
+
 def nmt_loss(model, src, tgt_in, tgt_out, src_valid_length):
     """Teacher-forced token cross entropy of the Transformer."""
     logits = model(src, tgt_in, src_valid_length)
@@ -4215,6 +4535,7 @@ def main():
         phase_gluon(torch, torch.cuda.get_device_name(0))
         phase_vision(torch, smi)
         runs["gpt_training"] = phase_gpt_training(torch, smi)
+        phase_checkpoint(torch, smi)
         phase_nmt(torch, smi)
         times = phase_times(torch)
         times.update(phase_flash_times(torch, lens, err))

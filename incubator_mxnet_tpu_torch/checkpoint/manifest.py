@@ -26,8 +26,10 @@ an entry's ``dtype`` names the logical dtype (``"bfloat16"``,
 ``"float8_e4m3fn"``, ``"float8_e5m2"``, as the JAX package writes it) and
 its shards are arrays of the same width (``uint16`` / ``uint8``: a
 torch tensor's ``.view(torch.int16 | torch.uint8)`` bits); ``load_step``
-returns those arrays as the bits (``bits_dtype``), bitwise. The files
-are the JAX package's: a step either package writes, the other loads.
+returns those arrays as the bits (``bits_dtype``), bitwise, in a
+``HostArrays`` dict whose ``dtypes`` name each entry's logical dtype.
+The files are the JAX package's: a step either package writes, the
+other loads.
 
 ``MXTPU_CKPT_WRITE_DELAY`` (seconds) throttles the writer between
 shards (a fault-injection hook); ``MXTPU_CKPT_FSYNC=1`` also fsyncs the
@@ -48,7 +50,8 @@ import numpy as np
 from ..base import MXNetError
 
 __all__ = ["write_step", "load_step", "list_steps", "gc_steps",
-           "step_dir", "bits_dtype", "FORMAT_VERSION", "MANIFEST_NAME"]
+           "step_dir", "bits_dtype", "HostArrays", "FORMAT_VERSION",
+           "MANIFEST_NAME"]
 
 FORMAT_VERSION = 1
 MANIFEST_NAME = "manifest.json"
@@ -99,6 +102,16 @@ def bits_dtype(name: str) -> np.dtype:
     the dtype itself, or for bf16 / float8 the unsigned integer of their
     width (the bits)."""
     return np.dtype(_BITS.get(name, name))
+
+
+class HostArrays(dict):
+    """name -> numpy array, as ``load_step`` returns it, with ``dtypes``:
+    name -> the entry's logical dtype (``"bfloat16"`` for a ``uint16``
+    array of bf16 bits)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtypes: Dict[str, str] = {}
 
 
 def _raw_bytes(a: np.ndarray, dtype: str):
@@ -256,7 +269,7 @@ def load_step(root: str, step: int) -> Tuple[Dict[str, np.ndarray], dict]:
             files[fname] = open(path, "rb")
         return files[fname]
 
-    out: Dict[str, np.ndarray] = {}
+    out = HostArrays()
     try:
         for name, rec in merged.items():
             shape = tuple(rec["shape"])
@@ -292,6 +305,7 @@ def load_step(root: str, step: int) -> Tuple[Dict[str, np.ndarray], dict]:
                     f"{d}: shards of '{name}' cover {covered}/{total} "
                     f"elements — a process's shard file is missing")
             out[name] = arr
+            out.dtypes[name] = rec["dtype"]
     finally:
         for f in files.values():
             f.close()

@@ -18,11 +18,17 @@ ends in one ``StepOutcome`` (``last_outcome``, ``health``,
 persistent f32 accumulators (one program per signature, whatever k) and
 applies them with one guard verdict and one scaler update.
 
+``save_states`` writes the checkpoint subsystem's capsule blob (the JAX
+package's file; ``load_states`` also reads the port's older pickle), and
+``save_checkpoint`` / ``restore_checkpoint`` / ``install_preemption`` go
+through ``checkpoint.CheckpointManager``. A restore writes the parameters
+and the optimizer states in place and rebuilds the fused applier, as the
+JAX Trainer does: its programs are built anew at the next step.
+
 ``kvstore`` 'device', 'local' or None reduces nothing over one device.
 Not ported, and refused with ``MXNetError``: the ``dist_*`` kvstores and
-kvstore objects, ``compression_params``, ``int8_allreduce``,
-``overlap_allreduce=True``, ``save_checkpoint``, ``restore_checkpoint``
-and ``install_preemption``.
+kvstore objects, ``compression_params``, ``int8_allreduce`` and
+``overlap_allreduce=True``.
 """
 
 from __future__ import annotations
@@ -341,26 +347,73 @@ class Trainer:
         return "non-finite grads: " + (", ".join(bad) or "<none found>")
 
     # ------------------------------------------------------------------ #
+    def _rebuild_applier(self):
+        """A fresh fused applier after a restore (the JAX Trainer rebinds
+        its applier the same way): its programs are built at the next
+        step, over the restored state tensors."""
+        if self._fused is not None:
+            self._fused = opt_mod.FusedApplier(self._optimizer,
+                                               guard=self._fused.guard)
+
     def save_states(self, fname):
-        """The optimizer states and update counters (a pickle of numpy
-        arrays; the JAX package's checkpoint capsule is not ported)."""
-        with open(fname, "wb") as f:
-            f.write(self._updaters[0].get_states())
+        """The optimizer states and update counters, as a capsule blob
+        (crc32-checked; the JAX package's ``save_states`` file)."""
+        from .. import checkpoint as _ckpt
+        tree, meta = _ckpt.updater_capsule(self._updaters[0])
+        _ckpt.save_capsule_file(fname, tree, meta)
 
     def load_states(self, fname):
-        """Restore ``save_states``' file; existing state tensors are
-        written in place (a captured update keeps reading them)."""
+        """Restore a ``save_states`` file of either package (a capsule
+        blob) or the port's older pickle; existing state tensors are
+        written in place."""
+        from .. import checkpoint as _ckpt
         with open(fname, "rb") as f:
             payload = f.read()
-        dev = self._params[0].data()._data.device if self._params else "cpu"
-        self._updaters[0].set_states(payload, device=dev)
+        if _ckpt.is_capsule_bytes(payload):
+            arrays, meta = _ckpt.load_capsule_bytes(payload)
+            _ckpt.restore_updater(self._updaters[0], self._params, arrays,
+                                  meta)
+        else:
+            dev = self._params[0].data()._data.device if self._params \
+                else "cpu"
+            self._updaters[0].set_states(payload, device=dev)
+        self._rebuild_applier()
 
     def save_checkpoint(self, manager, step=None, iterator=None,
                         block=False):
-        raise _not_ported("save_checkpoint")
+        """Snapshot the full training capsule (parameters, optimizer
+        states, the scheduler's num_update, the random state, the
+        iterator's position) into ``manager`` asynchronously. ``step``
+        defaults to the optimizer's update count. Returns the step
+        saved."""
+        from .. import checkpoint as _ckpt
+        tree, meta = _ckpt.trainer_capsule(self, iterator=iterator)
+        if step is None:
+            step = meta["step"]
+        else:
+            # an explicit step is the caller's loop position: num_update
+            # drifts below it once the guard skips steps, and resuming
+            # from num_update would re-run applied batches
+            meta["step"] = int(step)
+        manager.save(int(step), tree, meta=meta, block=block)
+        return int(step)
 
     def restore_checkpoint(self, manager, step=None, iterator=None):
-        raise _not_ported("restore_checkpoint")
+        """Bit-exact resume from ``manager`` (default: the latest committed
+        step). Returns the restored step."""
+        from .. import checkpoint as _ckpt
+        arrays, meta = manager.restore(step)
+        _ckpt.restore_trainer(self, arrays, meta, iterator=iterator)
+        return int(meta.get("step", 0))
 
     def install_preemption(self, manager, iterator=None, exit_after=True):
-        raise _not_ported("install_preemption")
+        """Arm SIGTERM: drain any in-flight snapshot and write one final
+        synchronous capsule before the process dies."""
+        from .. import checkpoint as _ckpt
+
+        def _state():
+            tree, meta = _ckpt.trainer_capsule(self, iterator=iterator)
+            return meta["step"], tree, meta
+
+        return manager.install_preemption_hook(_state,
+                                               exit_after=exit_after)

@@ -48,10 +48,15 @@ and the guard. Staged every step: ``t``, the learning rate (a schedule's
 included) and the loss scale. The optimizer's host update counters move
 at a build only, as they move at trace time in the JAX package.
 
+``save_checkpoint`` / ``restore_checkpoint`` / ``install_preemption``
+go through ``checkpoint.CheckpointManager`` and the capsule
+(``checkpoint.spmd_capsule``): a restore writes the parameters, the
+optimizer state and the random state into the tensors and generators the
+step graphs hold, so no capture follows it (``step_trace_count`` stays).
+
 Not ported, and refused with ``MXNetError``: a mesh of more than one
 device, ``sharding="fsdp"``, ``pipeline=``, ``int8_allreduce``,
-``remat_plan``, ``grad_collective="ring"``, ``step_microbatches`` and
-checkpoint save / restore.
+``remat_plan``, ``grad_collective="ring"`` and ``step_microbatches``.
 """
 
 from __future__ import annotations
@@ -452,9 +457,46 @@ class SPMDTrainer:
         raise _not_ported("step_microbatches (in-step gradient "
                           "accumulation)")
 
+    # ------------------------------------------------------------------ #
+    # checkpointing (checkpoint/): the gather copies every leaf to the
+    # host before save returns, and a restore copies into the tensors the
+    # step graphs hold, so a resume replays the captured graphs as they
+    # are.
+    # ------------------------------------------------------------------ #
     def save_checkpoint(self, manager, step=None, iterator=None,
                         block=False):
-        raise _not_ported("save_checkpoint")
+        """Async full-capsule snapshot (parameters, optimizer state, step
+        count, the scheduler's num_update, the random state, the
+        iterator's position); ``step`` defaults to ``step_count``.
+        Returns the step saved."""
+        from .. import checkpoint as _ckpt
+        tree, meta = _ckpt.spmd_capsule(self, iterator=iterator)
+        if step is None:
+            step = meta["step"]
+        else:
+            # the caller's loop position wins: step_count does not advance
+            # on guard-skipped steps, and a resume must not re-run batches
+            meta["step"] = int(step)
+        manager.save(int(step), tree, meta=meta, block=block)
+        return int(step)
 
     def restore_checkpoint(self, manager, step=None, iterator=None):
-        raise _not_ported("restore_checkpoint")
+        """Bit-exact resume from ``manager`` (default: the latest committed
+        step), in place (see ``checkpoint.restore_spmd``). The block must
+        be initialized with known shapes. Returns the restored step."""
+        from .. import checkpoint as _ckpt
+        arrays, meta = manager.restore(step)
+        _ckpt.restore_spmd(self, arrays, meta, iterator=iterator)
+        return int(meta.get("step", 0))
+
+    def install_preemption(self, manager, iterator=None, exit_after=True):
+        """Arm SIGTERM: drain any in-flight snapshot, write one final
+        synchronous capsule, then let the process die."""
+        from .. import checkpoint as _ckpt
+
+        def _state():
+            tree, meta = _ckpt.spmd_capsule(self, iterator=iterator)
+            return meta["step"], tree, meta
+
+        return manager.install_preemption_hook(_state,
+                                               exit_after=exit_after)

@@ -88,9 +88,11 @@ Around the programs, the engine's remaining surface:
 
 Anything that writes the pools or the parameters from outside a program
 does so in place (``copy_``, index writes), never by rebinding: the
-graphs hold them by address. The tp ``mesh`` and the checkpoint
-manager's ``warm_start(manager=)`` / ``save_checkpoint`` /
-``install_preemption`` are not ported yet; asking for them raises
+graphs hold them by address. ``warm_start(manager=)`` reads the
+``param/<i>`` entries of a committed step of a ``checkpoint.
+CheckpointManager`` (a training capsule's or ``save_checkpoint``'s) and
+``copy_``-s them in; ``install_preemption`` arms the manager's SIGTERM
+save. The tp ``mesh`` is not ported yet; asking for it raises
 ``MXNetError``.
 """
 
@@ -2530,19 +2532,24 @@ class InferenceEngine:
         own ``state_dict()`` names, or positional keys ``"<i>"`` /
         ``"param/<i>"`` in the JAX package's ``collect_params()`` order
         (``models.convert.gpt_param_names``; a training capsule's other
-        entries are ignored) -> tensors or numpy arrays. Every shape and
+        entries are ignored) -> tensors or numpy arrays; or ``manager``
+        (with an optional ``step``, default the latest committed) to read
+        them from a ``checkpoint.CheckpointManager``. Every shape and
         dtype is checked before the first write; the values are then
         ``copy_``-ed into the model's parameters, which the captured
         graphs hold by address, so they serve the new weights with no new
         capture. The prefix index and the tiers are flushed: cached K/V
-        was computed under the old weights. ``manager=`` needs the
-        checkpoint manager, which is not ported yet."""
-        if manager is not None:
-            raise MXNetError("warm_start(manager=...): the checkpoint "
-                             "manager is not ported to the PyTorch engine "
-                             "yet")
+        was computed under the old weights."""
         if params is None:
-            raise MXNetError("warm_start needs params")
+            if manager is None:
+                raise MXNetError("warm_start needs params or a "
+                                 "CheckpointManager")
+            params, _meta = manager.restore(step)
+        dtypes = getattr(params, "dtypes", None)
+        if dtypes is not None:          # host arrays of a checkpoint
+            from ..checkpoint.capsule import host_to_tensor, logical_dtype
+            params = {k: host_to_tensor(a, logical_dtype(params, k))
+                      for k, a in params.items()}
         items = {k[len("param/"):]: v for k, v in params.items()
                  if k.startswith("param/")} or dict(params)
         targets = dict(self.model.named_parameters())
@@ -2576,13 +2583,36 @@ class InferenceEngine:
             self._tiers.flush()
         self.warm_restarts += 1
 
-    def save_checkpoint(self, manager, step=None, block=False):
-        raise MXNetError("save_checkpoint: the checkpoint manager is not "
-                         "ported to the PyTorch engine yet")
+    def _weights_tree(self):
+        """The serving weights as ``param/<i>`` entries in
+        ``gpt_param_names`` order, and those names."""
+        names = gpt_param_names(self.model.num_layers)
+        targets = dict(self.model.named_parameters())
+        return {f"param/{i}": targets[n] for i, n in enumerate(names)}, \
+            names
+
+    def save_checkpoint(self, manager, step=None, block=False) -> int:
+        """Snapshot the serving weights into ``manager`` (async) so a
+        replacement engine can ``warm_start(manager=...)``; ``step``
+        defaults to ``decode_steps``. Returns the step saved."""
+        tree, names = self._weights_tree()
+        meta = {"kind": "serve", "param_names": names,
+                "step": int(step if step is not None
+                            else self.decode_steps)}
+        manager.save(int(meta["step"]), tree, meta=meta, block=block)
+        return int(meta["step"])
 
     def install_preemption(self, manager, exit_after=True):
-        raise MXNetError("install_preemption: the checkpoint manager is "
-                         "not ported to the PyTorch engine yet")
+        """SIGTERM: drain the in-flight snapshot, then a final synchronous
+        save of the weights (the serving tier's preemption contract)."""
+
+        def _state():
+            tree, _names = self._weights_tree()
+            return self.decode_steps, tree, {"kind": "serve",
+                                             "step": self.decode_steps}
+
+        return manager.install_preemption_hook(_state,
+                                               exit_after=exit_after)
 
     # ------------------------------------------------------------- #
     # driving

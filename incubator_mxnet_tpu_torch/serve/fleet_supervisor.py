@@ -1,10 +1,10 @@
 """FleetSupervisor: the control loop over elastic Router membership.
 
 The port of ``incubator_mxnet_tpu/serve/fleet_supervisor.py``, the same
-policy over the port's ``Router``. ``manager=`` (re-warming a
-replacement from the latest checkpoint, or rolling a checkpoint out)
-needs the checkpoint manager, which is not ported yet: asking for it
-raises ``MXNetError``; a roll takes ``params=``.
+policy over the port's ``Router``. ``manager=`` (a
+``checkpoint.CheckpointManager``) re-warms a replacement from the latest
+committed step, and ``start_upgrade(manager=)`` rolls a checkpoint out;
+both reach the engines through ``warm_start(manager=)``.
 
 The Router (serve/router.py) owns the MECHANISM of elasticity —
 ``add_replica`` (WARMING admission), ``remove_replica`` /
@@ -65,9 +65,6 @@ from .router import ReplicaState, Router
 
 __all__ = ["FleetSupervisor"]
 
-_NO_MANAGER = ("{}(manager=...): the checkpoint manager is not ported "
-               "to the PyTorch engine yet")
-
 _LIVE = (ReplicaState.SERVING, ReplicaState.WARMING,
          ReplicaState.DEGRADED, ReplicaState.DRAINING)
 
@@ -90,8 +87,6 @@ class FleetSupervisor:
         if max_replicas < min_replicas:
             raise MXNetError(f"max_replicas ({max_replicas}) < "
                              f"min_replicas ({min_replicas})")
-        if manager is not None:
-            raise MXNetError(_NO_MANAGER.format("FleetSupervisor"))
         self.router = router
         self.spawn = spawn
         self.min_replicas = int(min_replicas)
@@ -223,8 +218,6 @@ class FleetSupervisor:
                              "— one fleet, one roll at a time")
         if params is None and manager is None:
             raise MXNetError("start_upgrade needs params= or manager=")
-        if manager is not None:
-            raise MXNetError(_NO_MANAGER.format("start_upgrade"))
         src = ({"params": params} if params is not None
                else {"manager": manager, "step": step})
         targets = [r.idx for r in self.router.replicas

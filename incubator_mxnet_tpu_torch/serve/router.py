@@ -1371,10 +1371,6 @@ class Router:
         if params is None and manager is None:
             raise MXNetError("upgrade_replica needs params= or "
                              "manager= (a weight source to swap in)")
-        if manager is not None:
-            raise MXNetError("upgrade_replica(manager=...): the checkpoint "
-                             "manager is not ported to the PyTorch "
-                             "engine yet")
         rep = self._check_removable(idx, "upgrade_replica")
         shared = self._shares_weights(rep)
         if shared:

@@ -22,8 +22,10 @@ package loads in the other:
 Arrays are copied to the host to save; ``load_ndarrays`` returns
 ``NDArray``s on ``device``. As in the JAX package, an MXNet file's int64
 records are narrowed to int32 (refused when a value does not fit) and
-float64 to float32. The JAX package's third input, a training capsule of
-its checkpoint subsystem, is not ported.
+float64 to float32. The third input is a training capsule blob of the
+checkpoint subsystem (magic ``MXTPUCK\x01``): ``load_ndarrays`` returns
+its ``param/`` entries keyed by parameter name (``meta.param_names``), or
+every entry when it holds no parameter.
 """
 
 from __future__ import annotations
@@ -142,6 +144,28 @@ def _tensor(name: str, raw: bytes, shape, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _load_capsule(fname: str, device):
+    """A capsule blob's ``param/<i>`` entries keyed by their parameter
+    names (every entry when it holds no parameter)."""
+    from ..checkpoint import capsule as _capsule
+    from ..ndarray.ndarray import NDArray
+    arrays, meta = _capsule.load_capsule_file(fname)
+    names = meta.get("param_names") or []
+    out = {}
+    for key, a in arrays.items():
+        if not key.startswith("param/"):
+            continue
+        idx = key[len("param/"):]
+        name = names[int(idx)] \
+            if idx.isdigit() and int(idx) < len(names) else idx
+        out[name] = a, _capsule.logical_dtype(arrays, key)
+    if not out:
+        out = {k: (a, _capsule.logical_dtype(arrays, k))
+               for k, a in arrays.items()}
+    return {k: NDArray(_capsule.host_to_tensor(a, dt).to(device))
+            for k, (a, dt) in out.items()}
+
+
 def _load_mxnet(fname: str, device):
     from ..ndarray.ndarray import NDArray
     records = []
@@ -209,8 +233,11 @@ def load_ndarrays(fname: str, device="cpu"):
             if (len(magic) == 8
                     and struct.unpack("<Q", magic)[0] == _MX_LIST_MAGIC):
                 return _load_mxnet(fname, device)
-            raise MXNetError(f"{fname}: neither a MXTPU params file nor a "
-                             f"MXNet 1.x .params file")
+            from ..checkpoint import capsule as _capsule
+            if magic == _capsule.CAPSULE_MAGIC:
+                return _load_capsule(fname, device)
+            raise MXNetError(f"{fname}: neither a MXTPU params file, a "
+                             f"MXNet 1.x .params file nor a capsule")
         (hlen,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(hlen).decode("utf-8"))
         pos = len(MAGIC) + 8 + hlen

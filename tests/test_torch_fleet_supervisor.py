@@ -8,7 +8,9 @@ calls at the same ticks: scale-up after ``up_steps`` pressured ticks
 of the newest SERVING replica after ``down_steps`` idle ticks (never
 below ``min_replicas``), one replacement per death, and a rolling
 upgrade one replica at a time that halts while the fleet is degraded.
-``manager=`` (the checkpoint manager, not ported) is refused.
+``manager=`` (a checkpoint manager) arms a roll whose source is the
+manager (``tests/test_torch_serve_checkpoint.py`` rolls one out on live
+engines).
 
 Live, on the port's engines (``gpt_mini`` f32 on the CPU, weights from
 the JAX model): a supervisor grows the fleet under a burst and rolls a
@@ -226,14 +228,13 @@ def test_refusals():
         _sup(FleetSupervisor, rt, min_replicas=0)
     with pytest.raises(MXNetError, match="max_replicas"):
         _sup(FleetSupervisor, rt, min_replicas=3, max_replicas=2)
-    with pytest.raises(MXNetError, match="not ported"):
-        _sup(FleetSupervisor, rt, manager=object())
-    sup = _sup(FleetSupervisor, rt)
-    with pytest.raises(MXNetError, match="not ported"):
-        sup.start_upgrade(manager=object())
+    mgr = object()
+    sup = _sup(FleetSupervisor, rt, manager=mgr)
+    assert sup.manager is mgr
     with pytest.raises(MXNetError, match="params= or manager="):
         sup.start_upgrade()
-    sup.start_upgrade(params={})
+    sup.start_upgrade(manager=mgr, step=7)
+    assert sup._roll["src"] == {"manager": mgr, "step": 7}
     with pytest.raises(MXNetError, match="one roll"):
         sup.start_upgrade(params={})
 

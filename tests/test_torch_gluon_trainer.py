@@ -25,7 +25,8 @@ The same small Dense net (the JAX tests' ``_build_net``: 8 -> 16 relu ->
     step for step as the JAX Trainer's; consecutive skips halt; stale
     gradients warn or skip;
   - ``save_states`` / ``load_states`` restore into the live state
-    tensors, and the options the port does not have are refused.
+    tensors, the options the port does not have are refused, and the
+    checkpoint entry points run.
 """
 
 import contextlib
@@ -48,6 +49,7 @@ from incubator_mxnet_tpu_torch import gluon as tgluon
 from incubator_mxnet_tpu_torch import nd as tnd
 from incubator_mxnet_tpu_torch.amp import LossScaler as TLossScaler
 from incubator_mxnet_tpu_torch.base import MXNetError
+from incubator_mxnet_tpu_torch.checkpoint import CheckpointManager
 from incubator_mxnet_tpu_torch.train import StepOutcome
 
 from test_torch_parity import copy_params
@@ -442,7 +444,7 @@ def test_backward_folds_the_loss_scale_into_the_head_gradient():
     np.testing.assert_allclose(grads[1], 4.0 * grads[0], rtol=1e-6)
 
 
-def test_refused_options():
+def test_refused_options(tmp_path):
     net = _net(PORT)
     params = net.collect_params()
     for kw, match in ((dict(kvstore="dist_sync"), "dist_sync"),
@@ -454,11 +456,11 @@ def test_refused_options():
             tgluon.Trainer(params, "sgd", **kw)
         assert match
     tr = tgluon.Trainer(params, "sgd", kvstore="local")
-    for call in (lambda: tr.save_checkpoint(None),
-                 lambda: tr.restore_checkpoint(None),
-                 lambda: tr.install_preemption(None)):
-        with pytest.raises(MXNetError, match="not ported"):
-            call()
+    mgr = CheckpointManager(str(tmp_path))       # checkpointing runs
+    assert tr.save_checkpoint(mgr, block=True) == 0
+    assert tr.restore_checkpoint(mgr) == 0
+    tr.install_preemption(mgr, exit_after=False)
+    assert mgr.uninstall_preemption_hook() is not None
     with pytest.raises(MXNetError, match="Parameter"):
         tgluon.Trainer(["not a parameter"], "sgd")
     with pytest.warns(UserWarning, match="guard is off"):

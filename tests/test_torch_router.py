@@ -420,8 +420,14 @@ def test_upgrade_refuses_shared_weights(pkgs):
     with pytest.raises(MXNetError, match="share storage"):
         rt.upgrade_replica(0, params=ns.params1)
     assert rt.replicas[0].state is ReplicaState.SERVING
-    with pytest.raises(MXNetError, match="not ported"):
-        _fleet(ns).upgrade_replica(0, manager=object())
+    mgr = object()
+    with pytest.raises(MXNetError, match="share storage"):
+        rt.upgrade_replica(0, manager=mgr)
+    assert rt.replicas[0].state is ReplicaState.SERVING
+    fleet = _fleet(ns)                   # a manager is a weight source
+    fleet.upgrade_replica(0, manager=mgr, step=3)
+    assert fleet.replicas[0].state is ReplicaState.DRAINING
+    assert fleet.replicas[0].upgrade_src == {"manager": mgr, "step": 3}
 
 
 def test_build_fleet_copies_weights_and_keeps_the_model_unbound(pkgs):

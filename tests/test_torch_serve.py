@@ -10,6 +10,8 @@ streams use different generators in the two frameworks, so they are
 held inside the port: reproducible per (request seed, position) and
 independent of chunking and occupancy."""
 
+import os
+import signal
 import subprocess
 import sys
 
@@ -24,6 +26,7 @@ from incubator_mxnet_tpu.serve import Request as JaxRequest
 from incubator_mxnet_tpu.serve import SamplingParams as JaxSampling
 
 from incubator_mxnet_tpu_torch.base import MXNetError
+from incubator_mxnet_tpu_torch.checkpoint import CheckpointManager
 from incubator_mxnet_tpu_torch.models import gpt as tg
 from incubator_mxnet_tpu_torch.serve import (EventType, InferenceEngine,
                                              Outcome, Request,
@@ -237,19 +240,25 @@ def test_latency_tier_preempts_batch_and_resume_is_exact(models):
     eng.audit_pages()
 
 
-def test_out_of_scope_options_raise(models):
-    """What stays refused: the tp mesh and the checkpoint manager's
-    entry points."""
+def test_out_of_scope_options_raise(models, tmp_path):
+    """What stays refused: the tp mesh. The checkpoint manager's entry
+    points run: a save, a warm start from it, the SIGTERM hook."""
     _, tm = models
     with pytest.raises(MXNetError, match="not ported"):
         InferenceEngine(tm, num_slots=1, page_size=8, max_len=64,
                         mesh=object())
     eng = InferenceEngine(tm, num_slots=1, page_size=8, max_len=64)
-    for call in (lambda: eng.warm_start(manager=object()),
-                 lambda: eng.save_checkpoint(None),
-                 lambda: eng.install_preemption(None)):
-        with pytest.raises(MXNetError, match="not ported"):
-            call()
+    mgr = CheckpointManager(str(tmp_path))
+    assert eng.save_checkpoint(mgr, step=5, block=True) == 5
+    eng.warm_start(manager=mgr)
+    assert eng.warm_restarts == 1 and eng.decode_trace_count == 0
+    eng.install_preemption(mgr, exit_after=False)
+    try:
+        os.kill(os.getpid(), signal.SIGTERM)    # final save at step 0
+    finally:
+        mgr.uninstall_preemption_hook()
+    assert mgr.all_steps() == [0, 5]
+    mgr.close()
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -258,6 +267,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import incubator_mxnet_tpu_torch.serve.transport\n"
             "import incubator_mxnet_tpu_torch.serve.metrics\n"
             "import incubator_mxnet_tpu_torch.checkpoint.manifest\n"
+            "import incubator_mxnet_tpu_torch.checkpoint.manager\n"
+            "import incubator_mxnet_tpu_torch.checkpoint.capsule\n"
+            "import incubator_mxnet_tpu_torch.train.supervisor\n"
+            "import incubator_mxnet_tpu_torch.train.chaos\n"
+            "import incubator_mxnet_tpu_torch.train.example_target\n"
             "import incubator_mxnet_tpu_torch.serve.router\n"
             "import incubator_mxnet_tpu_torch.serve.fleet_supervisor\n"
             "import incubator_mxnet_tpu_torch.serve.frontend\n"

@@ -14,7 +14,8 @@ package's, on the same numpy inputs.
   - the in-step guard: a NaN batch leaves parameters and optimizer state
     bit-identical, records SKIPPED_NONFINITE, halves the loss scale and
     does not move ``step_count``; consecutive NaN steps escalate to
-    HALTED_POISONED; the options this slice does not port are refused.
+    HALTED_POISONED; the options this slice does not port are refused,
+    and checkpointing refuses only a trainer that has taken no step.
 """
 
 import numpy as np
@@ -31,6 +32,7 @@ from incubator_mxnet_tpu.ops import optimizer_ops as jops
 import incubator_mxnet_tpu_torch as mx
 from incubator_mxnet_tpu_torch import amp, optimizer as topt
 from incubator_mxnet_tpu_torch.base import MXNetError
+from incubator_mxnet_tpu_torch.checkpoint import CheckpointManager
 from incubator_mxnet_tpu_torch.models import bert as tb, convert
 from incubator_mxnet_tpu_torch.optimizer import ops as tops
 from incubator_mxnet_tpu_torch.optimizer.fused import (all_finite,
@@ -250,7 +252,7 @@ def test_consecutive_nonfinite_steps_halt():
     assert tr.step_count == 0
 
 
-def test_refused_options():
+def test_refused_options(tmp_path):
     tp = _port_model()
     kw = dict(forward_loss=tb.pretraining_loss, optimizer="lamb")
     for bad, match in ((dict(mesh=["cuda:0", "cuda:1"]), "mesh of 2"),
@@ -264,11 +266,16 @@ def test_refused_options():
     with pytest.raises(MXNetError, match="loss"):
         SPMDTrainer(tp, optimizer="lamb")
     tr = SPMDTrainer(tp, **kw, mesh=["cpu"])
-    for call in (lambda: tr.step_microbatches([]),
-                 lambda: tr.save_checkpoint(None),
-                 lambda: tr.restore_checkpoint(None)):
-        with pytest.raises(MXNetError, match="not ported"):
-            call()
+    with pytest.raises(MXNetError, match="not ported"):
+        tr.step_microbatches([])
+    # checkpointing runs: refused only before the first step (no state)
+    mgr = CheckpointManager(str(tmp_path))
+    with pytest.raises(MXNetError, match="no step taken"):
+        tr.save_checkpoint(mgr)
+    tr.step(*[torch.tensor(a) for a in _batch(np.random.RandomState(2))])
+    assert tr.save_checkpoint(mgr, block=True) == 1
+    assert tr.restore_checkpoint(mgr) == 1
+    assert tr.step_trace_count == 1 and tr.step_count == 1
     with pytest.raises(MXNetError, match="unknown optimizer"):
         topt.create("nope")
 
