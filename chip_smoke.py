@@ -145,6 +145,15 @@ failure exits non-zero before the result line:
                 fp8 payloads bitwise through DRAM and disk, a promotion
                 on the card writing the CPU path's bytes, a warm start
                 seen by the next replays;
+  6b. ops     — every registered op (the port's 279: the JAX registry less
+                the contrib, vision, quantization and RNN ops that wait)
+                on the card against the port on the CPU, every case of
+                tests/test_torch_op_cases.py (f32 within 1e-5 of the
+                output's largest |entry| or the case's rtol if larger,
+                bf16 within 2e-2; gesvd / syevd / gelqf by reconstruction
+                and orthogonality), the samplers by their moments on the
+                card (that file's `cuda` test, pytest without the
+                conftest: no JAX);
   7. training — bert_base bf16 (flash, dropout 0.1) + BERTForPretraining
                 through SPMDTrainer with LAMB (lr 1e-4, f32 masters), the
                 bench's batch (B=32, T=512, M=76; lengths in [256, 512]):
@@ -204,6 +213,25 @@ failure exits non-zero before the result line:
                 gluon.Trainer("sgd") and metric.Accuracy for 3 epochs
                 (282 batches): the loss falls; accuracy and batches/s.
                 One `[vision]` JSON line with the card's name and limit;
+  7c2. amp    — the MXNet 1.x mixed-precision front end: under
+                amp.init("bfloat16") Convolution, FullyConnected, dot,
+                batch_dot and interleaved_matmul_selfatt_qk on f32 inputs
+                are bitwise the unwrapped op on bf16-cast inputs cast back
+                to f32, softmax and BatchNorm on bf16 inputs bitwise the
+                f32 computation cast back to bf16; resnet50_v1 (f32
+                parameters, B=64, 224x224, one seeded batch) through
+                autograd.record() -> amp.scale_loss -> backward ->
+                gluon.Trainer("sgd", momentum 0.9).step(64), 3 warm-up and
+                10 timed steps, beside the same loop without amp (ms a
+                step, img/s, busy share; every loss and every f32
+                gradient finite); the first amp bf16 loss of resnet18_v1
+                at B=8 on the card within 2e-2 of the port on the CPU;
+                then amp.init("float16") (scale from 2^16): resnet18_v1
+                B=32, 20 steps, each skipped step keeping the parameters
+                and momenta bitwise and halving the scale, at least one
+                applied, a batch with an inf skipped bitwise; after
+                _deinit_for_tests() no OpSpec.fn stays wrapped. One `[amp]`
+                JSON line with the card's name and limit;
   7d. gpt_training — bench.py `_run_gpt`'s configuration: gpt_small
                 bf16 (flash, dropout 0.1, built by `gpt_small(...)` +
                 `initialize()`) through SPMDTrainer(forward_loss=lm_loss)
@@ -4470,6 +4498,307 @@ def phase_flash_times(torch, lens, err):
     return out
 
 
+# --------------------------------------------------------------------- #
+# the operator surface and the amp front end
+# --------------------------------------------------------------------- #
+
+def phase_ops():
+    """Every registered op on the card against the port on the CPU
+    (tests/test_torch_op_cases.py's ``cuda`` test in a pytest subprocess
+    without the conftest: no JAX; the subprocess fails if JAX or the JAX
+    package was imported), the samplers by their moments on the card."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTEST_DISABLE_PLUGIN_AUTOLOAD="1")
+    run = ("import sys, pytest\n"
+           "rc = int(pytest.main(sys.argv[1:]))\n"
+           "jax = {'jax', 'incubator_mxnet_tpu'} & set(sys.modules)\n"
+           "print('imported', sorted(jax)) if jax else None\n"
+           "sys.exit(rc or (3 if jax else 0))\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", run, "-q", "--noconftest", "-m", "cuda",
+         "-p", "no:cacheprovider", "-W",
+         "ignore::pytest.PytestUnknownMarkWarning",
+         "tests/test_torch_op_cases.py"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    sys.path.insert(0, os.path.join(root, "tests"))
+    try:
+        import test_torch_op_cases as cases
+        n_ops, n_cases = len(cases.CASES), len(cases.CASE_IDS)
+    finally:
+        sys.path.pop(0)
+    print(f"[ops] {n_ops} registered ops, {n_cases} cases on the card "
+          f"against the CPU: {tail[0]} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(proc.returncode == 0 and "1 passed" in tail[0],
+          f"op cuda test failed:\n{proc.stdout[-6000:]}"
+          f"{proc.stderr[-3000:]}")
+
+
+AMP = dict(B=64, side=224, warmup=3, steps=10, classes=1000,
+           f16_B=32, f16_side=224, f16_steps=20, parity_B=8,
+           parity_side=224, parity_rtol=2e-2)
+
+
+def amp_casts(torch, np):
+    """Under amp.init("bfloat16"), on the card: the target ops on f32
+    inputs equal the unwrapped op on bf16-cast inputs, cast back to f32;
+    softmax and BatchNorm on bf16 inputs equal the f32 computation cast
+    back to bf16; bitwise."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import nd
+    from incubator_mxnet_tpu_torch.ops import registry
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    target = [("Convolution", [r(8, 16, 14, 14), r(32, 16, 3, 3), r(32)],
+               dict(kernel=(3, 3), num_filter=32, pad=(1, 1))),
+              ("FullyConnected", [r(64, 256), r(128, 256), r(128)],
+               dict(num_hidden=128)),
+              ("dot", [r(64, 96), r(96, 80)], {}),
+              ("batch_dot", [r(4, 64, 32), r(4, 32, 48)], {}),
+              ("interleaved_matmul_selfatt_qk", [r(32, 4, 8 * 3 * 64)],
+               dict(heads=8))]
+    pinned = [("softmax", [r(16, 1000).bfloat16()], {}),
+              ("BatchNorm", [r(8, 64, 7, 7).bfloat16(), r(64).bfloat16(),
+                             r(64).bfloat16(), r(64).bfloat16(),
+                             r(64).abs().bfloat16() + 0.5],
+               dict(fix_gamma=False, training=False))]
+    cast_in = {n for n, _, _ in target}
+    done = []
+    for name, ins, kw in target + pinned:
+        spec = registry.get(name)
+        raw = spec.fn.__wrapped__
+        got = getattr(nd, name)(*[nd.NDArray(t) for t in ins], **kw)
+        if name in cast_in:
+            want = raw(*[t.bfloat16() for t in ins], **kw).float()
+        else:
+            want = raw(*[t.float() for t in ins], **kw)
+            want = [w.bfloat16() for w in want] \
+                if isinstance(want, (tuple, list)) else want.bfloat16()
+        gots = got if isinstance(got, list) else [got]
+        wants = want if isinstance(want, (list, tuple)) else [want]
+        for g, w in zip(gots, wants):
+            check(g._data.dtype == w.dtype and torch.equal(g._data, w),
+                  f"amp: {name} is not the unwrapped op on cast inputs "
+                  f"({g._data.dtype} vs {w.dtype})")
+        done.append(name)
+    print(f"[amp] casts bitwise on the card: {', '.join(done)}", flush=True)
+    return done
+
+
+def amp_resnet50(torch, np, use_amp):
+    """resnet50_v1 with f32 parameters, B=64 224^2, one fixed batch, the
+    MXNet 1.x loop: record -> amp.scale_loss -> backward ->
+    gluon.Trainer("sgd", momentum 0.9).step(64); 3 warm-up and 10 timed
+    steps."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import amp, autograd, gluon, nd
+    from incubator_mxnet_tpu_torch.gluon import loss as gloss
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    B, side = AMP["B"], AMP["side"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mx.random.seed(0)
+    net = resnet50_v1()
+    net.initialize()
+    rng = np.random.RandomState(0)
+    x = nd.array(rng.rand(B, 3, side, side).astype("float32"))
+    y = nd.array(rng.randint(0, AMP["classes"], (B,)), dtype="int32")
+    net(x[:1])
+    tr = gluon.Trainer(net.collect_params(), "sgd",
+                       {"learning_rate": 0.1, "momentum": 0.9})
+    if use_amp:
+        amp.init_trainer(tr)
+    lossf = gloss.SoftmaxCrossEntropyLoss()
+    losses = []
+
+    def step():
+        with autograd.record():
+            loss = lossf(net(x), y).mean()
+            if use_amp:
+                with amp.scale_loss(loss, tr) as scaled:
+                    scaled.backward()
+            else:
+                loss.backward()
+        tr.step(B)
+        return loss
+
+    losses += [float(step().asnumpy()) for _ in range(AMP["warmup"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [step() for _ in range(AMP["steps"])]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    losses += [float(v.asnumpy()) for v in timed]
+    label = "amp bf16" if use_amp else "f32"
+    check(all(np.isfinite(losses)), f"resnet50 {label}: loss {losses}")
+    grads = [p.grad()._data for p in net.collect_params().values()
+             if p.grad_req != "null"]
+    check(all(g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+              for g in grads),
+          f"resnet50 {label}: a parameter gradient is not f32 or finite")
+    ms = dt * 1e3 / AMP["steps"]
+    out = dict(losses=losses, ms_per_step=ms, img_per_s=B / (ms / 1e3),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               outcomes=tr.last_outcome.value)
+    out.update(busy_share(torch, step))
+    out.pop("top", None)
+    del tr, net, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def amp_float16(torch, np):
+    """resnet18_v1 under amp.init("float16") (scale from 2^16), B=32: up
+    to 20 steps; every skipped step keeps the parameters and the momentum
+    bitwise and halves the scale; at least one step applies; a batch
+    holding an inf is skipped bitwise."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import amp, autograd, gluon, nd
+    from incubator_mxnet_tpu_torch.gluon import loss as gloss
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet18_v1
+    from incubator_mxnet_tpu_torch.train import StepOutcome
+    B, side = AMP["f16_B"], AMP["f16_side"]
+    mx.random.seed(0)
+    net = resnet18_v1()
+    net.initialize()
+    rng = np.random.RandomState(1)
+    x = nd.array(rng.rand(B, 3, side, side).astype("float32"))
+    y = nd.array(rng.randint(0, AMP["classes"], (B,)), dtype="int32")
+    net(x[:1])
+    tr = gluon.Trainer(net.collect_params(), "sgd",
+                       {"learning_rate": 0.01, "momentum": 0.9})
+    amp.init_trainer(tr)
+    check(tr.loss_scaler.loss_scale == 2.0 ** 16,
+          f"float16: initial scale {tr.loss_scaler.loss_scale}")
+    lossf = gloss.SoftmaxCrossEntropyLoss()
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+
+    def snapshot():
+        w = [p.data()._data.clone() for p in params]
+        m = [s.clone() for s in tr._updaters[0].states.values()]
+        return w, m
+
+    def same(a, b):
+        """Parameters and momenta bitwise (momenta the step created:
+        zero)."""
+        if len(a[1]) != len(b[1]):
+            moms = not a[1] and all(not bool(v.any()) for v in b[1])
+        else:
+            moms = all(torch.equal(u, v) for u, v in zip(a[1], b[1]))
+        return moms and all(torch.equal(u, v) for u, v in zip(a[0], b[0]))
+
+    def step(batch):
+        before, scale = snapshot(), tr.loss_scaler.loss_scale
+        with autograd.record():
+            loss = lossf(net(batch), y).mean()
+            with amp.scale_loss(loss, tr) as scaled:
+                scaled.backward()
+        tr.step(B)
+        outcome = tr.last_outcome
+        after = snapshot()
+        if outcome is StepOutcome.SKIPPED_NONFINITE:
+            check(same(before, after) and
+                  tr.loss_scaler.loss_scale == scale / 2,
+                  f"float16: a skipped step changed the state or the "
+                  f"scale went {scale} -> {tr.loss_scaler.loss_scale}")
+        else:
+            check(outcome is StepOutcome.APPLIED and
+                  not same(before, after),
+                  f"float16: step {outcome} left the parameters alone")
+        return outcome, scale
+
+    runs = [step(x) for _ in range(AMP["f16_steps"])]
+    applied = sum(o is StepOutcome.APPLIED for o, _ in runs)
+    check(applied >= 1, f"float16: no step applied in {len(runs)}")
+    bad = x.copy()
+    bad[0, 0, 0, 0] = float("inf")
+    outcome, scale = step(bad)
+    check(outcome is StepOutcome.SKIPPED_NONFINITE,
+          f"float16: a batch with an inf was not skipped ({outcome})")
+    skipped = sum(o is StepOutcome.SKIPPED_NONFINITE for o, _ in runs)
+    out = dict(steps=len(runs), applied=applied, skipped=skipped,
+               scales=[s for _, s in runs] + [scale],
+               final_scale=tr.loss_scaler.loss_scale)
+    print(f"[amp] float16 resnet18_v1 B={B}: {skipped} skipped / "
+          f"{applied} applied, scale {out['scales'][0]:.0f} -> "
+          f"{out['final_scale']:.0f}; the inf batch skipped bitwise",
+          flush=True)
+    del tr, net
+    torch.cuda.empty_cache()
+    return out
+
+
+def amp_parity(torch, np):
+    """The first amp bf16 loss of resnet18_v1 at B=8 on the card against
+    the port on the CPU, from the same weights."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import nd
+    from incubator_mxnet_tpu_torch.gluon import loss as gloss
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet18_v1
+    B, side = AMP["parity_B"], AMP["parity_side"]
+    rng = np.random.RandomState(2)
+    x = rng.rand(B, 3, side, side).astype(np.float32)
+    y = rng.randint(0, AMP["classes"], (B,)).astype(np.int32)
+    state, vals = None, []
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        mx.random.seed(0)
+        net = resnet18_v1()
+        net.initialize(ctx=ctx)
+        net(nd.array(x[:1], ctx=ctx))
+        if state is None:
+            state = {k: v.clone() for k, v in net.state_dict().items()}
+        net.load_state_dict(state)
+        loss = gloss.SoftmaxCrossEntropyLoss()(
+            net(nd.array(x, ctx=ctx)), nd.array(y, ctx=ctx, dtype="int32"))
+        vals.append(float(loss.mean().asnumpy()))
+    losses = dict(cpu=vals[0], gpu=vals[1])
+    rel = abs(losses["gpu"] - losses["cpu"]) / abs(losses["cpu"])
+    check(rel <= AMP["parity_rtol"],
+          f"amp bf16 resnet18 card vs CPU: {losses} (rel {rel:.3e})")
+    print(f"[amp] bf16 resnet18_v1 B={B} first loss card {losses['gpu']} "
+          f"vs CPU {losses['cpu']} (rel {rel:.2e} <= "
+          f"{AMP['parity_rtol']})", flush=True)
+    return dict(card=losses["gpu"], cpu=losses["cpu"], rel_err=rel)
+
+
+def phase_amp(torch, smi):
+    """The amp front end on the card (module docstring, phase 7c2)."""
+    import numpy as np
+    from incubator_mxnet_tpu_torch import amp
+    from incubator_mxnet_tpu_torch.ops import registry
+    t0 = time.perf_counter()
+    fns = {n: registry.get(n).fn for n in registry.list_all_ops()}
+    out = dict(card=smi)
+    try:
+        out["resnet50_f32"] = amp_resnet50(torch, np, use_amp=False)
+        amp.init("bfloat16")
+        out["casts"] = amp_casts(torch, np)
+        out["resnet50_amp_bf16"] = amp_resnet50(torch, np, use_amp=True)
+        out["parity"] = amp_parity(torch, np)
+        amp._deinit_for_tests()
+        amp.init("float16")
+        out["float16"] = amp_float16(torch, np)
+    finally:
+        amp._deinit_for_tests()
+    wrapped = [n for n in fns if registry.get(n).fn is not fns[n]]
+    check(not wrapped, f"amp: ops still wrapped after _deinit_for_tests: "
+                       f"{wrapped}")
+    a, f = out["resnet50_amp_bf16"], out["resnet50_f32"]
+    print(f"[amp] resnet50_v1 B={AMP['B']} {AMP['side']}x{AMP['side']} "
+          f"gluon.Trainer sgd: amp bf16 {a['ms_per_step']:.1f} ms/step "
+          f"{a['img_per_s']:.0f} img/s busy {a.get('device_busy_share')}; "
+          f"f32 {f['ms_per_step']:.1f} ms/step {f['img_per_s']:.0f} img/s "
+          f"busy {f.get('device_busy_share')}", flush=True)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[amp] {json.dumps(out)}", flush=True)
+
+
 def kernel_record(err, runs, times):
     """The kernels' JSON record; each kernel's launches come from the run
     of its own path (decode / prefill: plain; verify: spec_k=4 on raw
@@ -4528,12 +4857,14 @@ def main():
         phase_fleet(torch)
         phase_parity(torch)
         phase_graph_tests()
+        phase_ops()
         runs["training"], lens = phase_training(
             torch, torch.cuda.get_device_name(0))
         phase_long_sequence(torch)
         phase_bert_parity(torch)
         phase_gluon(torch, torch.cuda.get_device_name(0))
         phase_vision(torch, smi)
+        phase_amp(torch, smi)
         runs["gpt_training"] = phase_gpt_training(torch, smi)
         phase_checkpoint(torch, smi)
         phase_nmt(torch, smi)

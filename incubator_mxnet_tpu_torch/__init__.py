@@ -6,7 +6,12 @@ MXNet 1.x's imperative front end: ``nd`` (``NDArray`` over a
 ``torch.autograd``, ``gluon`` (``Parameter``, ``Block`` /
 ``HybridBlock`` as ``torch.nn.Module``s, ``nn``, ``loss``, ``Trainer``
 with its fused applier as CUDA graphs; ``gluon.data``, ``gluon.model_zoo``
-and ``gluon.utils``), ``metric`` and ``init``. The model slices are
+and ``gluon.utils``), ``metric``, ``init`` and ``amp`` (``amp.init``
+casting the registry's tensor-core ops to bf16 / f16, the dynamic loss
+scale through ``gluon.Trainer``). The registry holds the JAX package's
+operators (``nd.linalg``, ``nd.contrib``, ``nd.random``, the optimizer
+updates) but its detection / deformable, vision sampling, quantized and
+fused-RNN ops. The model slices are
 GPT serving and causal-LM training, BERT pretraining, the WMT
 Transformer's beam searches and convolutional vision training (the
 model zoo's ResNets through ``parallel.SPMDTrainer``, ``models.LeNet``

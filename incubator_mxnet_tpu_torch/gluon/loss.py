@@ -1,6 +1,5 @@
 """Loss layers: the port of the JAX package's
-``incubator_mxnet_tpu/gluon/loss.py``, over the ``mx.nd`` ops. ``CTCLoss``
-raises ``MXNetError`` until its op is ported."""
+``incubator_mxnet_tpu/gluon/loss.py``, over the ``mx.nd`` ops."""
 
 from __future__ import annotations
 
@@ -204,11 +203,29 @@ class TripletLoss(Loss):
 
 
 class CTCLoss(Loss):
-    """Not ported: the ``CTCLoss`` op is not ported yet."""
+    """Connectionist temporal classification loss (op: ``CTCLoss``, blank
+    the last class); ``layout`` TNC or NTC, labels padded with -1 unless
+    ``label_lengths`` are given."""
 
     def __init__(self, layout="NTC", label_layout="NT", weight=None,
                  **kwargs):
-        raise MXNetError("CTCLoss: the CTCLoss op is not ported")
+        if layout not in ("NTC", "TNC"):
+            raise MXNetError(f"layout {layout}")
+        self._layout = layout
+        self._label_layout = label_layout
+        super().__init__(weight, label_layout.find("N"), **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, 0, 1)
+        if self._batch_axis == 1:
+            label = F.swapaxes(label, 0, 1)
+        loss = F.CTCLoss(pred, label, pred_lengths, label_lengths,
+                         use_data_lengths=pred_lengths is not None,
+                         use_label_lengths=label_lengths is not None,
+                         blank_label="last")
+        return _apply_weighting(F, loss, self._weight, sample_weight)
 
 
 class CosineEmbeddingLoss(Loss):

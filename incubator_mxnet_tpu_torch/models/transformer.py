@@ -36,6 +36,7 @@ from ..gluon import nn
 from ..gluon.block import HybridBlock
 from ..ndarray import NDArray
 from ..ops.attention import scaled_dot_product_attention as _sdpa
+from ..ops.tensor import top_k
 from .gpt import _linear, _norm
 
 __all__ = ["TransformerModel", "TransformerEncoder", "TransformerDecoder",
@@ -278,13 +279,6 @@ def transformer_big(**kwargs):
 # beam search (reference: GluonNLP BeamSearchTranslator semantics)
 # ------------------------------------------------------------------ #
 
-def _top_k(x, k):
-    """``lax.top_k`` along the last axis: values descending, the lower
-    index first among equal values (a stable descending sort)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
 def _beam_advance(tokens, scores, finished, logp, t, K, V, eos_id):
     """One selection step shared by both decoders: finished beams are
     frozen to EOS at zero cost, the global top-K continuations taken and
@@ -295,7 +289,7 @@ def _beam_advance(tokens, scores, finished, logp, t, K, V, eos_id):
     eos_only[eos_id] = 0.0
     logp = torch.where(finished[:, :, None], eos_only, logp)
     cand = scores[:, :, None] + logp                  # (B, K, V)
-    top_scores, top_idx = _top_k(cand.reshape(B, K * V), K)
+    top_scores, top_idx = top_k(cand.reshape(B, K * V), K)
     beam_idx = top_idx // V
     tok_idx = top_idx % V
     tokens = torch.gather(tokens, 1, beam_idx[:, :, None].expand(

@@ -7,8 +7,11 @@ or on the current context (``gpu(0)`` unless a ``with mx.cpu():`` block
 says otherwise; without CUDA that raises ``MXNetError``). Python lists
 and float64 / int64 numpy arrays enter as float32 / int32, the JAX
 package's 32-bit defaults. ``waitall`` waits for the device, ``save`` /
-``load`` use ``utils.serialization`` (the JAX package's two formats), and
-``nd.random`` draws from ``mx.random``'s generator for the device.
+``load`` use ``utils.serialization`` (the JAX package's two formats),
+``nd.random`` maps onto the registered samplers (``mx.random``'s
+generator for the device), ``nd.linalg`` and ``nd.contrib`` surface the
+``linalg_*`` and ``_contrib_*`` ops (with ``foreach`` / ``while_loop`` /
+``cond``).
 """
 
 from __future__ import annotations
@@ -103,6 +106,46 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None,
     return NDArray(out)
 
 
+def linspace(start, stop, num, endpoint=True, ctx=None,
+             dtype="float32") -> NDArray:
+    """``num`` evenly spaced values over [start, stop] (``stop``
+    excluded unless ``endpoint``)."""
+    if endpoint:
+        out = _torch.linspace(start, stop, num, dtype=_torch.float64,
+                              device=_device(ctx))
+    else:
+        out = _torch.linspace(start, stop, num + 1, dtype=_torch.float64,
+                              device=_device(ctx))[:num]
+    return NDArray(out.to(to_torch_dtype(dtype)))
+
+
+def eye(N, M=0, k=0, ctx=None, dtype="float32") -> NDArray:
+    """An N x M (N x N when M is 0) array with ones on diagonal ``k``."""
+    dev = _device(ctx)
+    r = _torch.arange(N, device=dev)[:, None]
+    c = _torch.arange(M or N, device=dev)[None, :]
+    return NDArray((c - r == k).to(to_torch_dtype(dtype)))
+
+
+def from_numpy(arr, zero_copy=False) -> NDArray:
+    return array(arr)
+
+
+def from_dlpack(capsule) -> NDArray:
+    """An NDArray sharing the memory of a DLPack capsule (or of an object
+    with ``__dlpack__``)."""
+    return NDArray(_torch.from_dlpack(capsule))
+
+
+def to_dlpack_for_read(data: NDArray):
+    """A DLPack capsule of ``data``'s memory."""
+    return _torch.utils.dlpack.to_dlpack(data._data.detach())
+
+
+def moveaxis(data: NDArray, source, destination) -> NDArray:
+    return NDArray(_torch.movedim(data._data, source, destination))
+
+
 def concatenate(arrays, axis=0, always_copy=True) -> NDArray:
     return invoke_by_name("concat", list(arrays), dim=axis)
 
@@ -129,36 +172,24 @@ def load(fname: str, ctx=None):
 
 
 class _RandomNS:
-    """``mx.nd.random``: samplers drawing from ``mx.random``'s generator
-    for the output's device."""
+    """``mx.nd.random``: the registered samplers under their short names
+    (``nd.random.uniform`` is ``random_uniform``), drawing from
+    ``mx.random``'s generator for ``ctx`` (the current context when
+    None)."""
 
-    @staticmethod
-    def _out(shape, ctx, dtype):
-        dev = _device(ctx)
-        from .. import random as _r
-        return (_torch.empty(_shape(shape), dtype=to_torch_dtype(dtype),
-                             device=dev), _r.generator(dev))
-
-    def uniform(self, low=0.0, high=1.0, shape=(1,), ctx=None,
-                dtype="float32"):
-        t, g = self._out(shape, ctx, dtype)
-        return NDArray(t.uniform_(low, high, generator=g))
-
-    def normal(self, loc=0.0, scale=1.0, shape=(1,), ctx=None,
-               dtype="float32"):
-        t, g = self._out(shape, ctx, dtype)
-        return NDArray(t.normal_(loc, scale, generator=g))
-
-    def randn(self, *shape, loc=0.0, scale=1.0, ctx=None, dtype="float32"):
-        return self.normal(loc, scale, shape, ctx, dtype)
-
-    def randint(self, low, high, shape=(1,), ctx=None, dtype="int32"):
-        t, g = self._out(shape, ctx, dtype)
-        return NDArray(t.random_(low, high, generator=g))
-
-    def bernoulli(self, prob=0.5, shape=(1,), ctx=None, dtype="float32"):
-        t, g = self._out(shape, ctx, dtype)
-        return NDArray(t.bernoulli_(prob, generator=g))
+    def __init__(self):
+        for nm, target in [
+            ("uniform", "random_uniform"), ("normal", "random_normal"),
+            ("gamma", "random_gamma"), ("exponential", "random_exponential"),
+            ("poisson", "random_poisson"), ("randint", "random_randint"),
+            ("bernoulli", "random_bernoulli"), ("shuffle", "shuffle"),
+            ("multinomial", "sample_multinomial"),
+            ("laplace", "random_laplace"), ("randn", "random_randn"),
+            ("negative_binomial", "random_negative_binomial"),
+            ("generalized_negative_binomial",
+             "random_generalized_negative_binomial"),
+        ]:
+            setattr(self, nm, make_op_function(_registry.get(target), nm))
 
     @staticmethod
     def seed(seed_state, ctx="all"):
@@ -168,6 +199,11 @@ class _RandomNS:
 
 random = _RandomNS()
 
+from . import contrib  # noqa: E402,F401  (nd.contrib)
+from . import linalg  # noqa: E402,F401  (nd.linalg)
+
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
+           "linspace", "eye", "from_numpy", "from_dlpack",
+           "to_dlpack_for_read", "moveaxis", "contrib", "linalg",
            "concatenate", "waitall", "save", "load", "random",
            "imperative_invoke", "invoke_by_name", "MXNetError"]

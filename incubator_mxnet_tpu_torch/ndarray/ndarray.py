@@ -417,6 +417,15 @@ class NDArray:
     def swapaxes(self, dim1, dim2):
         return self._op("swapaxes", dim1=dim1, dim2=dim2)
 
+    def flip(self, axis):
+        return self._op("flip", axis=axis)
+
+    def tile(self, reps):
+        return self._op("tile", reps=reps)
+
+    def repeat(self, repeats, axis=None):
+        return self._op("repeat", repeats=repeats, axis=axis)
+
     def broadcast_to(self, shape):
         return self._op("broadcast_to", shape=tuple(shape))
 
@@ -448,6 +457,20 @@ class NDArray:
 
     def argmin(self, axis=None, keepdims=False):
         return self._op("argmin", axis=axis, keepdims=keepdims)
+
+    def argsort(self, axis=-1, is_ascend=True):
+        return self._op("argsort", axis=axis, is_ascend=is_ascend)
+
+    def sort(self, axis=-1, is_ascend=True):
+        return self._op("sort", axis=axis, is_ascend=is_ascend)
+
+    def topk(self, axis=-1, k=1, ret_typ="indices", is_ascend=False):
+        return self._op("topk", axis=axis, k=k, ret_typ=ret_typ,
+                        is_ascend=is_ascend)
+
+    def pad(self, mode="constant", pad_width=None, constant_value=0.0):
+        return self._op("pad", mode=mode, pad_width=pad_width,
+                        constant_value=constant_value)
 
     def clip(self, a_min, a_max):
         return self._op("clip", a_min=a_min, a_max=a_max)

@@ -4,7 +4,8 @@
 ``imperative_invoke`` runs a registered op on ``NDArray`` inputs: it
 resolves ``training=`` from ``autograd.is_training()`` for
 training-aware ops, passes ``mx.random``'s generator for the input's
-device to ops that draw random numbers, unwraps the arrays (positional,
+device (``ctx``'s, or the current context's, for a sampler without array
+inputs, which then draws on that device) to ops that draw random numbers, unwraps the arrays (positional,
 keyword, and inside lists), and calls the op under
 ``torch.set_grad_enabled(autograd.is_recording())``: MXNet records only
 inside ``autograd.record()``, so outside it no op builds a graph, even on
@@ -18,6 +19,7 @@ import torch
 
 from .. import autograd, random as _random
 from ..base import MXNetError
+from ..context import current_context
 from ..ops import registry as _reg
 from .ndarray import NDArray
 
@@ -53,8 +55,9 @@ def imperative_invoke(spec: _reg.OpSpec, *args, out=None, ctx=None,
             spec.training_aware and not kwargs["training"]
             and kwargs.get("mode", "training") != "always"):
         dev = _first_device(args) or _first_device(kwargs.values())
-        kwargs["generator"] = _random.generator(
-            dev if dev is not None else "cpu")
+        if dev is None:          # a sampler without array inputs
+            dev = (ctx or current_context()).torch_device
+        kwargs["generator"] = _random.generator(dev)
     call_args = [_unwrap(a) for a in args]
     call_kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
     try:

@@ -6,11 +6,21 @@ quantization. ``LAUNCHES`` counts the ragged kernels' launches,
 ``flash_attention.LAUNCHES`` the flash kernels'.
 
 Importing the package also fills the operator registry (``registry``)
-with the tensor and neural-network ops ``mx.nd`` surfaces."""
+with the ops ``mx.nd`` surfaces: tensor, neural-network, miscellaneous,
+random, optimizer-update, linear-algebra and attention ops. The JAX
+package's contrib (detection, deformable convolution), vision (sampling,
+im2col, fft), quantization and fused RNN ops are not registered yet.
+``control_flow`` holds ``foreach`` / ``while_loop`` / ``cond``
+(``nd.contrib``)."""
 
 from . import registry
 from . import tensor  # noqa: F401  (registers ops)
 from . import nn  # noqa: F401  (registers ops)
+from . import misc  # noqa: F401  (registers ops)
+from . import random_ops  # noqa: F401  (registers ops)
+from . import optimizer_ops  # noqa: F401  (registers ops)
+from . import linalg  # noqa: F401  (registers ops)
+from . import attention  # noqa: F401  (registers ops)
 
 from .attention import scaled_dot_product_attention
 from .flash_attention import (cuda_kernel_eligible, flash_attention_bhtd,

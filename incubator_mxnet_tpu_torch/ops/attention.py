@@ -17,6 +17,7 @@ import torch
 
 from ..base import MXNetError
 from .flash_attention import use_flash_attention, valid_length_mask
+from .registry import register
 
 __all__ = ["scaled_dot_product_attention"]
 
@@ -73,3 +74,136 @@ def scaled_dot_product_attention(q, k, v, mask=None, scale=None,
                         device=q.device).tril(Tk - Tq)[None, None]
         m = cm if m is None else (m & cm)
     return _sdpa_dense(q, k, v, m, sc)
+
+
+@register("masked_softmax")
+def masked_softmax(scores, mask=None, axis=-1):
+    """Softmax where ``mask`` (nonzero = keep) holds; -1e30 elsewhere."""
+    if mask is not None:
+        scores = torch.where(mask.bool(), scores, _NEG_INF)
+    return torch.softmax(scores, dim=axis)
+
+
+@register("div_sqrt_dim", aliases=("_contrib_div_sqrt_dim",))
+def div_sqrt_dim(data):
+    """data / sqrt(last dimension)."""
+    return data * (data.shape[-1] ** -0.5)
+
+
+def _split_interleaved(qkv, heads, parts):
+    """(S, B, heads * parts * D) -> ``parts`` tensors of (B * heads, S,
+    D)."""
+    S, B = qkv.shape[0], qkv.shape[1]
+    x = qkv.reshape(S, B, heads, parts, -1)
+    return [x[:, :, :, p, :].permute(1, 2, 0, 3).reshape(B * heads, S, -1)
+            for p in range(parts)]
+
+
+def _heads_to_seq(out, B, heads):
+    """(B * heads, S, D) -> (S, B, heads * D)."""
+    S = out.shape[1]
+    return out.reshape(B, heads, S, -1).permute(2, 0, 1, 3).reshape(S, B,
+                                                                      -1)
+
+
+@register("interleaved_matmul_selfatt_qk",
+          aliases=("_contrib_interleaved_matmul_selfatt_qk",))
+def interleaved_matmul_selfatt_qk(queries_keys_values, heads=1):
+    """Scaled Q K^T of an interleaved (S, B, H * 3 * D) projection:
+    (B * H, S, S)."""
+    q, k, _ = _split_interleaved(queries_keys_values, heads, 3)
+    return torch.matmul(q * (q.shape[-1] ** -0.5), k.transpose(1, 2))
+
+
+@register("interleaved_matmul_selfatt_valatt",
+          aliases=("_contrib_interleaved_matmul_selfatt_valatt",))
+def interleaved_matmul_selfatt_valatt(queries_keys_values, attention,
+                                      heads=1):
+    """attention @ V, back in the (S, B, H * D) layout."""
+    _, _, v = _split_interleaved(queries_keys_values, heads, 3)
+    return _heads_to_seq(torch.matmul(attention, v),
+                         queries_keys_values.shape[1], heads)
+
+
+@register("interleaved_matmul_encdec_qk",
+          aliases=("_contrib_interleaved_matmul_encdec_qk",))
+def interleaved_matmul_encdec_qk(queries, keys_values, heads=1):
+    """Scaled Q K^T of queries (Sq, B, H * D) against interleaved
+    keys / values (Sk, B, H * 2 * D): (B * H, Sq, Sk)."""
+    Sq, B = queries.shape[0], queries.shape[1]
+    q = queries.reshape(Sq, B, heads, -1).permute(1, 2, 0, 3) \
+        .reshape(B * heads, Sq, -1)
+    k, _ = _split_interleaved(keys_values, heads, 2)
+    return torch.matmul(q * (q.shape[-1] ** -0.5), k.transpose(1, 2))
+
+
+@register("interleaved_matmul_encdec_valatt",
+          aliases=("_contrib_interleaved_matmul_encdec_valatt",))
+def interleaved_matmul_encdec_valatt(keys_values, attention, heads=1):
+    """attention @ V for cross-attention: (Sq, B, H * D)."""
+    _, v = _split_interleaved(keys_values, heads, 2)
+    return _heads_to_seq(torch.matmul(attention, v), keys_values.shape[1],
+                         heads)
+
+
+def _sldwin_band_mask(L, w, symmetric, dilation, dtype, device):
+    """(L, L) band: key j within ``w`` dilated steps of query i (before it
+    only, unless ``symmetric``), on the dilation's grid. ``dilation`` may
+    be an int or a tensor (the reference passes it as an input)."""
+    i = torch.arange(L, device=device)[:, None]
+    d = torch.arange(L, device=device)[None, :] - i
+    dil = torch.as_tensor(dilation, device=device).reshape(-1)[0].long()
+    lo = -w * dil
+    hi = w * dil if symmetric else torch.zeros_like(dil)
+    band = (d >= lo) & (d <= hi) & \
+        (torch.remainder(d, torch.clamp(dil, min=1)) == 0)
+    return band.to(dtype)
+
+
+@register("sldwin_atten_mask_like",
+          aliases=("_contrib_sldwin_atten_mask_like",))
+def sldwin_atten_mask_like(score, dilation, valid_length, num_heads=1,
+                           w=1, symmetric=True):
+    """Ones where a (B * H, L, L) banded score is valid: in the band and
+    both positions inside their sequence's length."""
+    L = score.shape[-1]
+    band = _sldwin_band_mask(L, int(w), bool(symmetric), dilation,
+                             score.dtype, score.device)
+    B = score.shape[0] // num_heads
+    vl = valid_length.long().reshape(B, 1)
+    keyok = (torch.arange(L, device=score.device)[None, :] < vl) \
+        .to(score.dtype)
+    keyok = torch.repeat_interleave(keyok, num_heads, dim=0)
+    return band[None] * keyok[:, None, :] * keyok[:, :, None]
+
+
+@register("sldwin_atten_score", aliases=("_contrib_sldwin_atten_score",))
+def sldwin_atten_score(query, key, dilation, num_heads=1, w=1,
+                       symmetric=True):
+    """Banded Q K^T of (B, L, H * D) inputs: (B * H, L, L), zero outside
+    the band."""
+    B, L, HD = query.shape
+    D = HD // num_heads
+    q = query.reshape(B, L, num_heads, D).permute(0, 2, 1, 3)
+    k = key.reshape(B, L, num_heads, D).permute(0, 2, 1, 3)
+    scores = torch.matmul(q, k.transpose(-1, -2)).reshape(B * num_heads, L,
+                                                          L)
+    return scores * _sldwin_band_mask(L, int(w), bool(symmetric), dilation,
+                                      scores.dtype, scores.device)[None]
+
+
+@register("sldwin_atten_context",
+          aliases=("_contrib_sldwin_atten_context",))
+def sldwin_atten_context(score, value, dilation, num_heads=1, w=1,
+                         symmetric=True):
+    """attention @ V over the band: (B * H, L, L) scores and (B, L, H * D)
+    values -> (B, L, H * D)."""
+    BH, L, _ = score.shape
+    B = BH // num_heads
+    D = value.shape[-1] // num_heads
+    band = _sldwin_band_mask(L, int(w), bool(symmetric), dilation,
+                             score.dtype, score.device)
+    s = (score * band[None]).reshape(B, num_heads, L, L)
+    v = value.reshape(B, L, num_heads, D).permute(0, 2, 1, 3)
+    return torch.matmul(s, v).permute(0, 2, 1, 3).reshape(B, L,
+                                                          num_heads * D)

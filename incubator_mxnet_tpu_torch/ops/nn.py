@@ -24,7 +24,13 @@ call and restored after it. Pooling builds the JAX op's windows: the
 window rule differs (``ceil_mode``, or a pad over half the kernel) the
 input is padded explicitly and pooled without padding.
 ``AdaptiveAvgPooling2D`` keeps the JAX op's f32 integral image for bins
-that do not divide the input. ``CTCLoss`` is not ported.
+that do not divide the input. ``SoftmaxOutput`` is a
+``torch.autograd.Function`` whose backward is the JAX custom VJP's
+(softmax - one-hot, label smoothing, ``ignore_label``, normalization),
+whatever the head gradient. ``CTCLoss`` is the JAX op's forward
+recursion over time with -1e30 for an impossible state, so an alignment
+that cannot exist gives a large finite loss (``F.ctc_loss`` would give
+inf).
 """
 
 from __future__ import annotations
@@ -444,6 +450,68 @@ def log_softmax(data, axis=-1, temperature=None):
     return torch.log_softmax(data, dim=axis)
 
 
+@register("softmin")
+def softmin(data, axis=-1):
+    return torch.softmax(-data, dim=axis)
+
+
+@register("SoftmaxActivation")
+def softmax_activation(data, mode="instance"):
+    """Softmax over the channels (``mode="channel"``) or over each
+    instance's flattened values."""
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1), dim=-1) \
+        .reshape(data.shape)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, label, axis, grad_fn):
+        p = torch.softmax(data, dim=axis)
+        ctx.save_for_backward(p, label)
+        ctx.grad_fn = grad_fn
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        p, label = ctx.saved_tensors
+        return ctx.grad_fn(p, label), torch.zeros_like(label), None, None
+
+
+@register("SoftmaxOutput", aliases=("softmax_output",))
+def softmax_output(data, label, grad_scale=1.0, ignore_label=-1,
+                   use_ignore=False, multi_output=False, normalization="null",
+                   smooth_alpha=0.0, out_grad=False, preserve_shape=False):
+    """Softmax forward; backward (p - onehot(label)) * grad_scale, with
+    label smoothing, ``ignore_label`` rows zeroed and ``batch`` / ``valid``
+    normalization. A label with a trailing singleton class axis is
+    squeezed."""
+    axis = 1 if multi_output else -1
+
+    def grad(p, l):
+        depth = p.shape[axis]
+        if l.ndim == p.ndim and l.shape[axis] == 1:
+            l = l.squeeze(axis)
+        oh = F.one_hot(l.long(), depth).to(p.dtype)
+        if multi_output:
+            oh = torch.movedim(oh, -1, 1)
+        out = p - oh
+        if smooth_alpha:
+            out = out + smooth_alpha * (oh - 1.0 / depth)
+        if use_ignore:
+            keep = (l != ignore_label).to(p.dtype)
+            out = out * keep.unsqueeze(axis % p.ndim)
+        scale = grad_scale
+        if normalization == "batch":
+            scale = scale / p.shape[0]
+        elif normalization == "valid" and use_ignore:
+            scale = scale / torch.clamp((l != ignore_label).sum(), min=1)
+        return out * scale
+
+    return _SoftmaxOutput.apply(data, label, axis, grad)
+
+
 @register("softmax_cross_entropy")
 def softmax_cross_entropy(data, label):
     """Summed cross entropy of (B, C) scores against (B,) labels."""
@@ -470,6 +538,78 @@ def dropout(data, p=0.5, mode="training", axes=(), generator=None,
                                        device=data.device), keep,
                            generator=generator)
     return data * mask / keep
+
+
+class _LogAddExp(torch.autograd.Function):
+    """log(e^a + e^b) with ``jnp.logaddexp``'s gradient, e^(x - out) for
+    each input: where one value absorbs the other (two -1e30 states), each
+    gets a weight of 1, not torch's 1/2."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        out = torch.logaddexp(a, b)
+        ctx.save_for_backward(a, b, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, out = ctx.saved_tensors
+        return g * torch.exp(a - out), g * torch.exp(b - out)
+
+
+@register("CTCLoss", aliases=("ctc_loss",))
+def ctc_loss(data, label, data_lengths=None, label_lengths=None,
+             use_data_lengths=False, use_label_lengths=False,
+             blank_label="first"):
+    """Connectionist temporal classification loss of (T, B, C) raw
+    activations (log-softmax taken here) against (B, L) labels, padded
+    with -1 unless ``label_lengths`` are used; the blank is class 0
+    (``first``) or C - 1 (``last``). Returns (B,) negative
+    log-likelihoods; an impossible state holds -1e30, not -inf."""
+    T, B, C = data.shape
+    dev = data.device
+    logp = torch.log_softmax(data, dim=-1)
+    blank = 0 if blank_label == "first" else C - 1
+    lab = label.long()
+    L = lab.shape[1]
+    if use_label_lengths and label_lengths is not None:
+        lab_len = label_lengths.long()
+    else:
+        lab_len = (lab >= 0).long().sum(dim=1)
+        lab = torch.where(lab >= 0, lab, torch.zeros_like(lab))
+    if use_data_lengths and data_lengths is not None:
+        in_len = data_lengths.long()
+    else:
+        in_len = torch.full((B,), T, dtype=torch.long, device=dev)
+    S = 2 * L + 1
+    ext = torch.full((B, S), blank, dtype=torch.long, device=dev)
+    ext[:, 1::2] = lab
+    pos = torch.arange(S, device=dev)[None, :]
+    ext_valid = pos < (2 * lab_len + 1)[:, None]
+    neg = torch.tensor(-1e30, dtype=logp.dtype, device=dev)
+    same2 = torch.cat([torch.zeros((B, 2), dtype=torch.bool, device=dev),
+                       ext[:, 2:] == ext[:, :-2]], dim=1)
+    can_skip = (ext != blank) & ~same2
+    ext = ext.clamp(min=0)      # -1 padding lies past 2 * lab_len: masked
+    pad1 = neg.expand(B, 1)
+    pad2 = neg.expand(B, 2)
+    emit0 = torch.gather(logp[0], 1, ext)
+    alpha = torch.cat([emit0[:, :1],
+                       torch.where(lab_len > 0, emit0[:, 1], neg)[:, None],
+                       neg.expand(B, S - 2)], dim=1)
+    for t in range(1, T):
+        shift1 = torch.cat([pad1, alpha[:, :-1]], dim=1)
+        shift2 = torch.where(can_skip, torch.cat([pad2, alpha[:, :-2]],
+                                                 dim=1), neg)
+        new = _LogAddExp.apply(_LogAddExp.apply(alpha, shift1), shift2) + \
+            torch.gather(logp[t], 1, ext)
+        new = torch.where(ext_valid, new, neg)
+        alpha = torch.where((t < in_len)[:, None], new, alpha)
+    sl = 2 * lab_len
+    a_last = torch.gather(alpha, 1, sl[:, None])[:, 0]
+    a_prev = torch.gather(alpha, 1, torch.clamp(sl - 1, min=0)[:, None])[:, 0]
+    a_prev = torch.where(lab_len > 0, a_prev, neg)
+    return -_LogAddExp.apply(a_last, a_prev)
 
 
 @register("scaled_dot_product_attention", aliases=("sdpa",))

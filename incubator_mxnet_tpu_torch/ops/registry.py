@@ -17,7 +17,7 @@ from ``jax.vjp``. Two flags steer the imperative front end:
 from __future__ import annotations
 
 import inspect
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Tuple, Union
 
 from ..base import MXNetError
 
@@ -29,7 +29,8 @@ _OP_REGISTRY: Dict[str, "OpSpec"] = {}
 
 class OpSpec:
     """A registered operator: ``name`` (canonical), ``fn``, ``aliases``,
-    ``num_outputs`` (None when variadic), ``needs_key``,
+    ``num_outputs`` (None when variadic, or a callable of the attributes
+    dict when they decide it, as ``amp_multicast``'s), ``needs_key``,
     ``training_aware`` and ``wrap_list`` (the first argument may be a list
     of arrays)."""
 
@@ -52,7 +53,8 @@ class OpSpec:
 
 
 def register(name: str, aliases: Tuple[str, ...] = (),
-             num_outputs: Optional[int] = 1, needs_key: bool = False,
+             num_outputs: Union[int, None, Callable[[dict], int]] = 1,
+             needs_key: bool = False,
              training_aware: bool = False,
              wrap_list: bool = False) -> Callable:
     """Register ``fn`` under ``name`` and ``aliases``; a name registered

@@ -13,6 +13,15 @@ The LAMB phases also take equal-length LISTS of tensors (and per-tensor
 ``wd`` / ``lr`` / ``t``): one multi-tensor pass (``torch._foreach_*``)
 over every parameter instead of a dozen small ops per parameter. A single
 tensor is the one-element case of the same code.
+
+The ``mp_*`` forms update an f32 master copy and return the weight cast
+back to its own (low) precision beside it; the ``multi_*`` forms apply a
+rule to lists of tensors (per-tensor ``lrs`` / ``wds``, 0.01 / 0 when
+absent), the ``preloaded_multi_*`` ones with ``lrs`` / ``wds`` as device
+vectors; ``multi_sum_sq`` and ``multi_lars`` are LARS's norms and trust
+ratios over stacked per-layer sums. ``ops/optimizer_ops.py`` registers
+every one of them as an MXNet operator (``nd.sgd_update(...)``), with
+the outputs in the JAX package's order.
 """
 
 from __future__ import annotations
@@ -23,7 +32,15 @@ __all__ = ["sgd_update", "sgd_mom_update", "nag_mom_update", "adam_update",
            "adamw_update", "rmsprop_update", "rmspropalex_update",
            "ftrl_update", "signsgd_update", "signum_update",
            "lamb_update_phase1", "lamb_update_phase2", "lars_lr",
-           "ftml_update", "adagrad_update", "adadelta_update"]
+           "ftml_update", "adagrad_update", "adadelta_update",
+           "mp_sgd_update", "mp_sgd_mom_update", "mp_nag_mom_update",
+           "mp_adam_update", "mp_adamw_update", "multi_sgd_update",
+           "multi_sgd_mom_update", "multi_mp_sgd_update",
+           "multi_mp_sgd_mom_update", "preloaded_multi_sgd_update",
+           "preloaded_multi_sgd_mom_update",
+           "preloaded_multi_mp_sgd_update",
+           "preloaded_multi_mp_sgd_mom_update", "multi_sum_sq",
+           "multi_lars"]
 
 
 def _rescale_clip(grad, rescale_grad, clip_gradient):
@@ -34,13 +51,15 @@ def _rescale_clip(grad, rescale_grad, clip_gradient):
 
 
 def sgd_update(weight, grad, lr=0.01, wd=0.0, rescale_grad=1.0,
-               clip_gradient=-1.0):
+               clip_gradient=-1.0, lazy_update=True):
+    """``lazy_update`` is accepted for the reference's signature: the
+    tensors are dense, so every row updates."""
     g = _rescale_clip(grad, rescale_grad, clip_gradient) + wd * weight
     return weight - lr * g
 
 
 def sgd_mom_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
-                   rescale_grad=1.0, clip_gradient=-1.0):
+                   rescale_grad=1.0, clip_gradient=-1.0, lazy_update=True):
     """Returns (new_weight, new_mom)."""
     g = _rescale_clip(grad, rescale_grad, clip_gradient) + wd * weight
     new_mom = momentum * mom - lr * g
@@ -48,7 +67,8 @@ def sgd_mom_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
 
 
 def adam_update(weight, grad, mean, var, lr=0.001, beta1=0.9, beta2=0.999,
-                epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+                epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                lazy_update=True):
     """Returns (new_weight, new_mean, new_var). Bias correction is folded
     into ``lr`` by the optimizer, as in the reference."""
     g = _rescale_clip(grad, rescale_grad, clip_gradient) + wd * weight
@@ -133,19 +153,35 @@ def signum_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
     return new_weight, new_mom
 
 
+def _sum_sq(a):
+    return torch.sum(torch.square(a.float()))
+
+
+def multi_sum_sq(*arrays, num_arrays=None):
+    """Each array's f32 sum of squares, stacked into one (N,) vector."""
+    if len(arrays) == 1 and isinstance(arrays[0], (list, tuple)):
+        arrays = tuple(arrays[0])
+    return torch.stack([_sum_sq(a) for a in arrays])
+
+
+def multi_lars(lrs, weights_sum_sq, grads_sum_sq, wds, eta=0.001, eps=1e-8,
+               rescale_grad=1.0):
+    """LARS's layer-wise learning rates: ``lrs`` times the trust ratios
+    eta ||w|| / (||g|| + wd ||w|| + eps) (1 where a norm is 0), from the
+    stacked sums of squares."""
+    w_norm = torch.sqrt(weights_sum_sq)
+    g_norm = torch.sqrt(grads_sum_sq) * rescale_grad
+    trust = torch.where((w_norm > 0) & (g_norm > 0),
+                        eta * w_norm / (g_norm + wds * w_norm + eps),
+                        torch.ones_like(w_norm))
+    return lrs * trust
+
+
 def lars_lr(lr, weight, grad, wd=0.0, eta=0.001, eps=1e-8,
             rescale_grad=1.0):
-    """LARS's layer-wise learning rate: ``lr`` times the trust ratio
-    eta ||w|| / (||g|| + wd ||w|| + eps) (1 where a norm is 0), the norms
-    from f32 sums of squares (the JAX package's multi_sum_sq /
-    multi_lars)."""
-    w_norm = torch.sqrt(torch.sum(torch.square(weight.float())))
-    g_norm = torch.sqrt(torch.sum(torch.square(grad.float()))) * \
-        rescale_grad
-    trust = torch.where((w_norm > 0) & (g_norm > 0),
-                        eta * w_norm / (g_norm + wd * w_norm + eps),
-                        torch.ones_like(w_norm))
-    return lr * trust
+    """``multi_lars`` for one tensor: ``lr`` times its trust ratio."""
+    return multi_lars(lr, _sum_sq(weight), _sum_sq(grad), wd, eta=eta,
+                      eps=eps, rescale_grad=rescale_grad)
 
 
 def ftml_update(weight, grad, d, v, z, lr=0.0025, beta1=0.6, beta2=0.999,
@@ -258,3 +294,123 @@ def lamb_update_phase2(weight, g_update, r1=None, r2=None, lr=0.001,
     step = (lr * ratio).reshape(-1)
     new = torch._foreach_sub(W, torch._foreach_mul(U, list(step.unbind())))
     return _out(single, new)
+
+
+# ------------------------------------------------------------------ #
+# multi-precision: the rule on the f32 master, the weight cast back
+# ------------------------------------------------------------------ #
+def mp_sgd_update(weight, grad, weight32, lr=0.01, wd=0.0, rescale_grad=1.0,
+                  clip_gradient=-1.0):
+    """Returns (new_weight, new_weight32)."""
+    new_w32 = sgd_update(weight32, grad.float(), lr=lr, wd=wd,
+                         rescale_grad=rescale_grad,
+                         clip_gradient=clip_gradient)
+    return new_w32.to(weight.dtype), new_w32
+
+
+def mp_sgd_mom_update(weight, grad, mom, weight32, lr=0.01, momentum=0.0,
+                      wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    """Returns (new_weight, new_mom, new_weight32)."""
+    new_w32, new_mom = sgd_mom_update(
+        weight32, grad.float(), mom, lr=lr, momentum=momentum, wd=wd,
+        rescale_grad=rescale_grad, clip_gradient=clip_gradient)
+    return new_w32.to(weight.dtype), new_mom, new_w32
+
+
+def mp_nag_mom_update(weight, grad, mom, weight32, lr=0.01, momentum=0.0,
+                      wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    """Returns (new_weight, new_mom, new_weight32)."""
+    new_w32, new_mom = nag_mom_update(
+        weight32, grad.float(), mom, lr=lr, momentum=momentum, wd=wd,
+        rescale_grad=rescale_grad, clip_gradient=clip_gradient)
+    return new_w32.to(weight.dtype), new_mom, new_w32
+
+
+def mp_adam_update(weight, grad, mean, var, weight32, lr=0.001, beta1=0.9,
+                   beta2=0.999, epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+                   clip_gradient=-1.0):
+    """Returns (new_weight, new_mean, new_var, new_weight32)."""
+    new_w32, new_mean, new_var = adam_update(
+        weight32, grad.float(), mean, var, lr=lr, beta1=beta1, beta2=beta2,
+        epsilon=epsilon, wd=wd, rescale_grad=rescale_grad,
+        clip_gradient=clip_gradient)
+    return new_w32.to(weight.dtype), new_mean, new_var, new_w32
+
+
+def mp_adamw_update(weight, grad, mean, var, weight32, lr=0.001, beta1=0.9,
+                    beta2=0.999, epsilon=1e-8, wd=0.0, eta=1.0,
+                    rescale_grad=1.0, clip_gradient=-1.0):
+    """Returns (new_weight, new_mean, new_var, new_weight32)."""
+    new_w32, new_mean, new_var = adamw_update(
+        weight32, grad.float(), mean, var, lr=lr, beta1=beta1, beta2=beta2,
+        epsilon=epsilon, wd=wd, eta=eta, rescale_grad=rescale_grad,
+        clip_gradient=clip_gradient)
+    return new_w32.to(weight.dtype), new_mean, new_var, new_w32
+
+
+# ------------------------------------------------------------------ #
+# multi-tensor forms: one rule over lists, outputs flattened per tensor
+# ------------------------------------------------------------------ #
+def _multi(rule, tensors, lrs, wds, **kw):
+    outs = []
+    for i, group in enumerate(zip(*tensors)):
+        out = rule(*group, lr=lrs[i] if lrs is not None else 0.01,
+                   wd=wds[i] if wds is not None else 0.0, **kw)
+        outs.extend(out if isinstance(out, tuple) else (out,))
+    return tuple(outs)
+
+
+def multi_sgd_update(weights, grads, lrs=None, wds=None, rescale_grad=1.0,
+                     clip_gradient=-1.0):
+    return _multi(sgd_update, (weights, grads), lrs or None, wds or None,
+                  rescale_grad=rescale_grad, clip_gradient=clip_gradient)
+
+
+def multi_sgd_mom_update(weights, grads, moms, lrs=None, wds=None,
+                         momentum=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    return _multi(sgd_mom_update, (weights, grads, moms), lrs or None,
+                  wds or None, momentum=momentum, rescale_grad=rescale_grad,
+                  clip_gradient=clip_gradient)
+
+
+def multi_mp_sgd_update(weights, grads, weights32, lrs=None, wds=None,
+                        rescale_grad=1.0, clip_gradient=-1.0):
+    return _multi(mp_sgd_update, (weights, grads, weights32), lrs or None,
+                  wds or None, rescale_grad=rescale_grad,
+                  clip_gradient=clip_gradient)
+
+
+def multi_mp_sgd_mom_update(weights, grads, moms, weights32, lrs=None,
+                            wds=None, momentum=0.0, rescale_grad=1.0,
+                            clip_gradient=-1.0):
+    return _multi(mp_sgd_mom_update, (weights, grads, moms, weights32),
+                  lrs or None, wds or None, momentum=momentum,
+                  rescale_grad=rescale_grad, clip_gradient=clip_gradient)
+
+
+def preloaded_multi_sgd_update(weights, grads, lrs, wds, rescale_grad=1.0,
+                               clip_gradient=-1.0):
+    return _multi(sgd_update, (weights, grads), lrs, wds,
+                  rescale_grad=rescale_grad, clip_gradient=clip_gradient)
+
+
+def preloaded_multi_sgd_mom_update(weights, grads, moms, lrs, wds,
+                                   momentum=0.0, rescale_grad=1.0,
+                                   clip_gradient=-1.0):
+    return _multi(sgd_mom_update, (weights, grads, moms), lrs, wds,
+                  momentum=momentum, rescale_grad=rescale_grad,
+                  clip_gradient=clip_gradient)
+
+
+def preloaded_multi_mp_sgd_update(weights, grads, weights32, lrs, wds,
+                                  rescale_grad=1.0, clip_gradient=-1.0):
+    return _multi(mp_sgd_update, (weights, grads, weights32), lrs, wds,
+                  rescale_grad=rescale_grad, clip_gradient=clip_gradient)
+
+
+def preloaded_multi_mp_sgd_mom_update(weights, grads, moms, weights32, lrs,
+                                      wds, momentum=0.0, rescale_grad=1.0,
+                                      clip_gradient=-1.0):
+    return _multi(mp_sgd_mom_update, (weights, grads, moms, weights32), lrs,
+                  wds, momentum=momentum, rescale_grad=rescale_grad,
+                  clip_gradient=clip_gradient)

@@ -24,7 +24,11 @@ package's, on the CPU.
   - the Block surface: ``cast``, hooks, ``summary``, ``apply``, name
     scopes, ``zero_grad``, ``set_data`` in place, ``Constant``,
     ``ParameterDict``, and the refusals (``SymbolBlock``, ``export``,
-    ``optimize_for``, ``CTCLoss``, sparse storage).
+    ``optimize_for``, sparse storage, a CTCLoss layout other than NTC /
+    TNC);
+  - gluon ``CTCLoss`` (NTC and TNC, with and without lengths, an
+    impossible alignment among the rows) and its input gradient equal the
+    JAX loss's.
 """
 
 
@@ -47,7 +51,7 @@ from incubator_mxnet_tpu_torch.base import (DeferredInitializationError,
                                             MXNetError)
 from incubator_mxnet_tpu_torch.models import bert as tb
 
-from test_torch_parity import (assert_close, build_pair, fresh_names,
+from test_torch_parity import (assert_close, build_pair, fresh_names, host,
                                jax_arrays, port_arrays)
 
 
@@ -266,8 +270,49 @@ def test_loss_equals_jax(name):
 
 
 def test_ctc_loss_is_refused():
-    with pytest.raises(MXNetError, match="not ported"):
-        tgluon.loss.CTCLoss()
+    """CTCLoss refuses a layout other than NTC / TNC, as the JAX loss
+    does; the default builds."""
+    for L in (jgluon.loss, tgluon.loss):
+        with pytest.raises(Exception, match="layout"):
+            L.CTCLoss(layout="NCT")
+    assert isinstance(tgluon.loss.CTCLoss(), tgluon.loss.Loss)
+
+
+def _ctc_case(layout, lengths):
+    """(B=3, T=6, C=5) activations; label rows padded with -1, the middle
+    one impossible (four repeats of one class need 7 frames)."""
+    B, T, C = 3, 6, 5
+    x = _x(B, T, C, seed=7)
+    if layout == "TNC":
+        x = np.ascontiguousarray(x.transpose(1, 0, 2))
+    label = np.array([[1, 2, -1, -1], [3, 3, 3, 3], [0, 2, 1, -1]],
+                     np.float32)
+    if not lengths:
+        return [x, label]
+    return [x, label, np.array([6, 6, 5], np.float32),
+            np.array([2, 4, 3], np.float32)]
+
+
+@pytest.mark.parametrize("layout,lengths", [("NTC", False), ("TNC", True)])
+def test_ctc_loss_equals_jax(layout, lengths):
+    """gluon CTCLoss (blank last) against the JAX loss, loss and input
+    gradient, with and without lengths; the impossible alignment holds
+    the JAX recursion's large finite loss."""
+    inputs = _ctc_case(layout, lengths)
+    jl = jgluon.loss.CTCLoss(layout=layout)
+    tl = tgluon.loss.CTCLoss(layout=layout)
+    jx, tx = jax_arrays(inputs), port_arrays(inputs)
+    jx[0].attach_grad()
+    tx[0].attach_grad()
+    with jag.record():
+        jy = jl(*jx)
+    jy.backward()
+    with tag.record():
+        ty = tl(*tx)
+    ty.backward()
+    assert np.isfinite(host(ty)).all() and host(ty).max() > 1e29
+    assert_close(ty, jy, rtol=1e-5, scale_atol=1e-6)
+    assert_close(tx[0].grad, jx[0].grad, rtol=1e-4, scale_atol=1e-5)
 
 
 # --------------------------------------------------------------------- #
