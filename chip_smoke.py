@@ -130,9 +130,10 @@ failure exits non-zero before the result line:
                 (which runs no kernel), through the step and chunk graphs
                 (the prefill kernel's CUDA-core body); then the graphs'
                 cuda tests (tests/test_torch_serve_graphs.py,
-                tests/test_torch_page_graphs.py and
-                tests/test_torch_train_graphs.py and
-                tests/test_torch_gpt_graphs.py, pytest without the
+                tests/test_torch_page_graphs.py,
+                tests/test_torch_train_graphs.py,
+                tests/test_torch_gpt_graphs.py and
+                tests/test_torch_symbol_graphs.py, pytest without the
                 conftest, so no JAX): replay == body bitwise (steps and
                 chunks; train steps with dropout from a registered
                 generator, two signatures alternating), a build touches
@@ -232,6 +233,32 @@ failure exits non-zero before the result line:
                 applied, a batch with an inf skipped bitwise; after
                 _deinit_for_tests() no OpSpec.fn stays wrapped. One `[amp]`
                 JSON line with the card's name and limit;
+  7c3. symbolic — MXNet 1.x's train_imagenet.py flow on resnet50_v1 f32,
+                B=64, 224x224: the gluon block hybridized and exported,
+                the -symbol.json loaded back (its "[..]" __shape__
+                strings parsed) under SoftmaxOutput(normalization=
+                "batch"), mx.mod.Module on gpu(0) bound at (64, 3, 224,
+                224), set_params from the exported .params, SGD (lr 1e-3,
+                momentum 0.9) over seeded batches of an NDArrayIter: 3
+                warm-up and 10 timed forward_backward + update steps, the
+                train program captured once (its eager first call and
+                capture ms), every later step a replay; its first 3 losses
+                against the same weights and batches through
+                gluon.Trainer on the card (the first loss within 1e-5,
+                the parameters after the first update within 1e-4 of
+                each tensor's largest |entry|, losses 2-3 within 4x the
+                gap a 1e-7 weight perturbation opens between two
+                gluon.Trainer runs: a random ResNet-50 is chaotic); a
+                replay against the Executor's body run eagerly from the
+                same state (outputs within 1e-5, gradients and running
+                statistics within 5e-4 of each tensor's largest |entry|:
+                cuDNN's backward is not deterministic by default); the
+                eager body's step timed
+                beside the replayed one; score on the same iterator adds
+                the eval program (one capture); SymbolBlock.imports of the
+                files against the block at rtol 1e-5. One `[symbolic]`
+                JSON line with the card's name and limit (ms a step,
+                img/s, busy share, captures and their ms);
   7d. gpt_training — bench.py `_run_gpt`'s configuration: gpt_small
                 bf16 (flash, dropout 0.1, built by `gpt_small(...)` +
                 `initialize()`) through SPMDTrainer(forward_loss=lm_loss)
@@ -2629,7 +2656,11 @@ def phase_graph_tests():
     dropout from a registered generator, two alternating signatures, flash
     launches per replay, a NaN batch through a replay, a failed capture
     raising; tests/test_torch_gpt_graphs.py: a GPT causal step's replay
-    == its eager body, and remat replays equal to no remat's bitwise)."""
+    == its eager body, and remat replays equal to no remat's bitwise) and
+    the symbolic Executor's (tests/test_torch_symbol_graphs.py: a train
+    replay == its eager body bitwise, one capture per signature, outputs
+    that later replays leave alone, grad_req add, dropout from the
+    registered generator, a host-reading op failing its capture)."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTEST_DISABLE_PLUGIN_AUTOLOAD="1")
     run = ("import sys, pytest\n"
@@ -2645,7 +2676,8 @@ def phase_graph_tests():
          "tests/test_torch_serve_graphs.py",
          "tests/test_torch_page_graphs.py",
          "tests/test_torch_train_graphs.py",
-         "tests/test_torch_gpt_graphs.py"],
+         "tests/test_torch_gpt_graphs.py",
+         "tests/test_torch_symbol_graphs.py"],
         cwd=root, env=env, capture_output=True, text=True, timeout=600)
     tail = proc.stdout.strip().splitlines()[-1:] or [""]
     print(f"[graphs] cuda tests: {tail[0]} "
@@ -4799,6 +4831,258 @@ def phase_amp(torch, smi):
     print(f"[amp] {json.dumps(out)}", flush=True)
 
 
+# Module against gluon.Trainer from the same weights and batches: the
+# first loss (a forward) within loss_rtol, the parameters after the first
+# update within param_frac of each tensor's largest |entry|, and losses 2
+# and 3 within spread_k times the gap between two gluon.Trainer runs, one
+# from weights perturbed by perturb (relative). A randomly initialized
+# ResNet-50 in training mode is chaotic: on the CPU (B=16, 64x64) such a
+# perturbation moves the second loss by 1.6e-2 and some BatchNorm betas
+# by 6% of their largest entry after one update. A replay against the
+# Executor's eager body: outputs within out_tol of their largest |entry|,
+# each gradient and running statistic within state_frac of its own
+# (cuDNN's default backward algorithms sum with atomics; two runs on an
+# H100 showed 6.2e-5 and 8.0e-5).
+SYMBOLIC = dict(B=64, side=224, classes=1000, batches=4, warmup=3,
+                steps=10, eager_steps=3, lr=1e-3, momentum=0.9,
+                loss_rtol=1e-5, param_frac=1e-4, perturb=1e-7,
+                spread_k=4.0, out_tol=1e-5, state_frac=5e-4,
+                block_B=8, block_rtol=1e-5)
+
+
+def _nll(torch, probs, labels):
+    """Mean -log p[label] of a batch's softmax outputs."""
+    p = probs._data.float()
+    lab = labels._data.to(p.device).long()
+    return float(-torch.log(p.gather(1, lab[:, None])).mean())
+
+
+def _bound_state(exe):
+    return {f"{k}:{n}": v._data.clone() for k, d in
+            (("grad", exe.grad_dict), ("aux", exe.aux_dict))
+            for n, v in d.items()}
+
+
+def symbolic_replay_vs_eager(torch, mod, key, batch):
+    """One step replayed, then the same step from the same state with the
+    Executor's body run eagerly: the largest output error over the
+    largest output, and the largest gradient / running-statistic error
+    over each tensor's largest |entry|."""
+    exe = mod._exec
+    aux0 = {n: v._data.clone() for n, v in exe.aux_dict.items()}
+    mod.forward(batch, is_train=True)
+    exe.backward()
+    replay_out = exe.outputs[0]._data.clone()
+    replayed = _bound_state(exe)
+    with torch.no_grad():
+        for n, v in exe.aux_dict.items():
+            v._data.copy_(aux0[n])
+    mod.forward(batch, is_train=True)
+    eager_out = exe._body(key)[0]
+    exe._pending = None
+    torch.cuda.synchronize()
+    out_err = _rel_err(torch, eager_out, replay_out)
+    state_err = max((_rel_err(torch, v, replayed[k]), k)
+                    for k, v in _bound_state(exe).items())
+    return out_err, state_err
+
+
+def symbolic_gluon_run(torch, np, net, x, y, perturb):
+    """3 gluon.Trainer SGD steps of ``net`` from its current weights
+    (multiplied by 1 + perturb x N(0, 1) when perturb), on the phase's
+    first 3 batches; the weights are put back after. Returns the losses
+    and each parameter (and running statistic) after the first step, by
+    name."""
+    from incubator_mxnet_tpu_torch import autograd, gluon, nd
+    from incubator_mxnet_tpu_torch.gluon import loss as gloss
+    S = SYMBOLIC
+    B = S["B"]
+    saved = {k: v.clone() for k, v in net.state_dict().items()}
+    params = list(net.collect_params().values())
+    if perturb:
+        gen = torch.Generator(device=params[0].data()._data.device)
+        gen.manual_seed(1)
+        with torch.no_grad():
+            for p in params:
+                if p.grad_req != "null":
+                    t = p.data()._data
+                    t.mul_(1 + perturb * torch.randn(
+                        t.shape, generator=gen, device=t.device))
+    tr = gluon.Trainer(params, "sgd", {"learning_rate": S["lr"],
+                                       "momentum": S["momentum"]})
+    lossf = gloss.SoftmaxCrossEntropyLoss()
+    losses, after1 = [], None
+    for i in range(S["warmup"]):
+        with autograd.record():
+            L = lossf(net(nd.array(x[i * B:(i + 1) * B])),
+                      nd.array(y[i * B:(i + 1) * B]))
+        L.backward()
+        tr.step(B)
+        losses.append(float(L.mean().asnumpy()))
+        if after1 is None:
+            after1 = {p.name: p.data()._data.clone() for p in params}
+    net.load_state_dict(saved)
+    return losses, after1
+
+
+def phase_symbolic(torch, smi):
+    """The symbolic front end on the card (module docstring, phase
+    7c3)."""
+    import tempfile
+
+    import numpy as np
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon, nd
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    S = SYMBOLIC
+    B, side = S["B"], S["side"]
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(0)
+    n = B * S["batches"]
+    x = rng.rand(n, 3, side, side).astype(np.float32)
+    y = rng.randint(0, S["classes"], (n,)).astype(np.float32)
+    mx.random.seed(0)
+    net = resnet50_v1(classes=S["classes"])
+    net.initialize()
+    net(nd.array(x[:1]))
+    net.hybridize()
+    out = dict(card=smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "resnet50_v1")
+        t1 = time.perf_counter()
+        net.export(prefix)
+        out["export_s"] = time.perf_counter() - t1
+        xb = nd.array(x[:S["block_B"]])
+        blk = gluon.SymbolBlock.imports(prefix + "-symbol.json", ["data"],
+                                        prefix + "-0000.params")
+        out["symbolblock_rel_err"] = _rel_err(torch, blk(xb)._data,
+                                              net(xb)._data)
+        check(out["symbolblock_rel_err"] <= S["block_rtol"],
+              f"symbolic: SymbolBlock.imports vs the block "
+              f"{out['symbolblock_rel_err']:.3e}")
+        del blk
+        sym = mx.sym.load(prefix + "-symbol.json")
+        params = nd.load(prefix + "-0000.params", ctx=mx.cpu())
+    arg = {k[4:]: v for k, v in params.items() if k.startswith("arg:")}
+    aux = {k[4:]: v for k, v in params.items() if k.startswith("aux:")}
+    ref, after1 = symbolic_gluon_run(torch, np, net, x, y, 0.0)
+    spread = symbolic_gluon_run(torch, np, net, x, y, S["perturb"])[0]
+    it = mx.io.NDArrayIter(x, y, batch_size=B)
+    mod = mx.mod.Module(mx.sym.SoftmaxOutput(
+        sym, mx.sym.Variable("softmax_label"), normalization="batch"),
+        context=mx.gpu(0))
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.set_params(arg, aux)
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": S["lr"], "momentum": S["momentum"]})
+    exe = mod._exec
+
+    def next_batch():
+        try:
+            return it.next()
+        except StopIteration:
+            it.reset()
+            return it.next()
+
+    def step():
+        batch = next_batch()
+        mod.forward_backward(batch)
+        mod.update()
+        return batch
+
+    losses, param_err = [], None
+    for _ in range(S["warmup"]):
+        batch = step()
+        losses.append(_nll(torch, mod.get_outputs()[0], batch.label[0]))
+        if param_err is None:
+            got = {**mod.get_params()[0], **mod.get_params()[1]}
+            param_err = max(_rel_err(torch, got[n]._data, v)
+                            for n, v in after1.items())
+    check(len(exe._programs) == 1, f"symbolic: programs "
+                                   f"{list(exe._programs)} after warm-up")
+    key = next(iter(exe._programs))
+    train = exe._programs[key]
+    prog = next(iter(train.values()))
+    check(len(train) == 1 and prog.graph is not None,
+          f"symbolic: {len(train)} train signatures, graph {prog.graph}")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(S["steps"]):
+        batch = step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3 / S["steps"]
+    check(prog.replays == S["warmup"] - 1 + S["steps"],
+          f"symbolic: {prog.replays} replays")
+    last = _nll(torch, mod.get_outputs()[0], batch.label[0])
+    check(all(np.isfinite(losses + [last])), f"symbolic: losses {losses}")
+    module = dict(ms_per_step=ms, img_per_s=B / (ms / 1e3), losses=losses,
+                  first_call_ms=prog.first_ms, capture_ms=prog.capture_ms,
+                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    module.update(busy_share(torch, step))
+    module["replays"] = prog.replays
+    out["module"] = module
+    out_err, state_err = symbolic_replay_vs_eager(torch, mod, key,
+                                                  next_batch())
+    out["replay_vs_eager"] = dict(output=out_err, state=state_err[0],
+                                  worst=state_err[1])
+    check(out_err <= S["out_tol"] and state_err[0] <= S["state_frac"],
+          f"symbolic: replay vs eager body: outputs {out_err:.3e}, "
+          f"gradients / statistics {state_err}")
+
+    def eager_step():
+        mod.forward(next_batch(), is_train=True)
+        exe._body(key)
+        exe._pending = None
+        mod.update()
+
+    eager_step()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(S["eager_steps"]):
+        eager_step()
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t1) * 1e3 / S["eager_steps"]
+    out["eager_body"] = dict(ms_per_step=eager_ms,
+                             img_per_s=B / (eager_ms / 1e3))
+    score = dict(mod.score(it, "acc"))
+    evals = exe._programs.get(False, {})
+    check(len(evals) == 1 and all(p.graph is not None
+                                  for p in evals.values()),
+          f"symbolic: {len(evals)} eval signatures after score")
+    ev = next(iter(evals.values()))
+    check(ev.replays == S["batches"] - 1, f"symbolic: eval replays "
+                                          f"{ev.replays}")
+    out["captures"] = dict(train=len(train), eval=len(evals),
+                           train_capture_ms=prog.capture_ms,
+                           eval_capture_ms=ev.capture_ms,
+                           eval_first_call_ms=ev.first_ms,
+                           accuracy=score["accuracy"])
+    gaps = [abs(a - b) / abs(b) for a, b in zip(spread, ref)]
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    out["vs_gluon"] = dict(module_losses=losses, gluon_losses=ref,
+                           perturbed_gluon_losses=spread, loss_rel=rels,
+                           perturbed_rel=gaps, param_err_step1=param_err)
+    check(rels[0] <= S["loss_rtol"] and param_err <= S["param_frac"] and
+          all(r <= max(S["loss_rtol"], S["spread_k"] * g)
+              for r, g in zip(rels[1:], gaps[1:])),
+          f"symbolic: Module vs gluon.Trainer: losses {losses} vs {ref} "
+          f"(rel {rels}, perturbed gluon rel {gaps}), parameters after "
+          f"the first update {param_err:.3e}")
+    del mod, exe, net, params, arg, aux
+    gc.collect()
+    torch.cuda.empty_cache()
+    m = out["module"]
+    print(f"[symbolic] resnet50_v1 f32 B={B} {side}x{side} Module "
+          f"sgd: {m['ms_per_step']:.1f} ms/step {m['img_per_s']:.0f} img/s "
+          f"busy {m.get('device_busy_share')}; eager body "
+          f"{eager_ms:.1f} ms/step; captures train "
+          f"{prog.capture_ms:.0f} ms eval {ev.capture_ms:.0f} ms; losses "
+          f"rel {rels} vs gluon.Trainer ({gaps} perturbed)", flush=True)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[symbolic] {json.dumps(out)}", flush=True)
+
+
 def kernel_record(err, runs, times):
     """The kernels' JSON record; each kernel's launches come from the run
     of its own path (decode / prefill: plain; verify: spec_k=4 on raw
@@ -4865,6 +5149,7 @@ def main():
         phase_gluon(torch, torch.cuda.get_device_name(0))
         phase_vision(torch, smi)
         phase_amp(torch, smi)
+        phase_symbolic(torch, smi)
         runs["gpt_training"] = phase_gpt_training(torch, smi)
         phase_checkpoint(torch, smi)
         phase_nmt(torch, smi)

@@ -56,6 +56,20 @@ use.
         optimizer_params={"learning_rate": 1e-4, "multi_precision": True})
     loss = trainer.step(*batch)
 
+The symbolic front end (``mx.sym`` / ``mx.symbol``, ``mx.mod``,
+``mx.io``, ``mx.kv``, ``mx.model``, ``mx.callback``, ``mx.viz``,
+``mx.executor``, ``mx.name``, ``mx.attribute`` and ``mx.AttrScope``,
+loaded at first use) runs MXNet 1.x's ``Module.fit`` flow: a Symbol bound
+by ``simple_bind`` / ``Module.bind`` runs as one CUDA graph per
+signature; gluon's ``export`` / ``SymbolBlock.imports`` cross between
+the front ends.
+
+    sym = mx.sym.load("resnet50-symbol.json")
+    net = mx.sym.SoftmaxOutput(sym, mx.sym.Variable("softmax_label"))
+    mod = mx.mod.Module(net)                              # on gpu(0)
+    mod.fit(mx.io.NDArrayIter(x, y, batch_size=64), num_epoch=1,
+            optimizer_params={"learning_rate": 0.1, "momentum": 0.9})
+
 Entry points run on the GPU (``gpu(0)``, the default context) unless the
 caller asks for the CPU (``with mx.cpu():``, ``ctx=mx.cpu()`` or
 ``device="cpu"``); without CUDA they raise ``MXNetError``. The port
@@ -72,6 +86,31 @@ from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
 from .ndarray import NDArray
 from .optimizer import lr_scheduler
+
+_LAZY_SUBMODULES = {
+    "symbol": ".symbol", "sym": ".symbol", "module": ".module",
+    "mod": ".module", "io": ".io", "kvstore": ".kvstore", "kv": ".kvstore",
+    "callback": ".callback", "model": ".model",
+    "visualization": ".visualization", "viz": ".visualization",
+    "executor": ".symbol.executor", "attribute": ".attribute",
+    "name": ".name",
+}
+
+
+def __getattr__(name):
+    """The symbolic front end's modules, loaded at first use (as the JAX
+    package loads its submodules)."""
+    if name == "AttrScope":
+        from .attribute import AttrScope
+        globals()["AttrScope"] = AttrScope
+        return AttrScope
+    if name in _LAZY_SUBMODULES:
+        import importlib
+        mod = importlib.import_module(_LAZY_SUBMODULES[name], __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "NDArray", "nd", "ndarray", "autograd", "gluon",

@@ -20,9 +20,15 @@ parameter shapes and dtypes, the positions and reprs of non-array
 arguments, the training flag), so ``len(block._cached_op._cache)`` equals
 the JAX block's on the same calls; an entry runs the block's eager body
 (one CUDA graph per signature is later work). Nested hybridized blocks
-inline into the outer one, as in the JAX package. ``SymbolBlock``,
-``export`` and ``optimize_for`` raise ``MXNetError`` until ``symbol/`` is
-ported.
+inline into the outer one, as in the JAX package.
+
+Called on ``mx.sym.Symbol`` inputs, a ``HybridBlock`` builds a graph:
+``hybrid_forward`` receives ``F`` = ``mx.sym`` and each parameter as its
+``Parameter.var()``. ``export`` writes that graph and the parameters
+(``symbol.save_block_symbol``); ``SymbolBlock`` (``SymbolBlock.imports``)
+runs a saved graph as a block through ``symbol.executor.evaluate``, so
+``autograd.record()`` sees its ops. ``optimize_for`` hybridizes and warms
+the cache.
 """
 
 from __future__ import annotations
@@ -388,6 +394,15 @@ class HybridBlock(Block):
         return self.hybrid_forward(nd, *args, **kwargs)
 
     def forward(self, *args):
+        from ..symbol.symbol import Symbol
+        if any(isinstance(a, Symbol) for a in args):
+            # symbolic composition: a graph node instead of a computation
+            if type(self).hybrid_forward is not HybridBlock.hybrid_forward:
+                from .. import symbol as sym_mod
+                kwargs = {name: p.var()
+                          for name, p in self._reg_params.items()}
+                return self.hybrid_forward(sym_mod, *args, **kwargs)
+            return self.hybrid_call(*args)     # containers: children do it
         if self._active and not in_hybrid_trace():
             for p in self.collect_params().values():
                 if p._deferred_init is not None:
@@ -401,22 +416,60 @@ class HybridBlock(Block):
         raise NotImplementedError
 
     def export(self, path, epoch=0):
-        raise MXNetError("HybridBlock.export: the symbolic front end "
-                         "(symbol/) is not ported")
+        """``<path>-symbol.json`` and ``<path>-NNNN.params`` (parity:
+        ``HybridBlock.export``)."""
+        from ..symbol import save_block_symbol
+        save_block_symbol(self, path, epoch)
 
     def optimize_for(self, x, backend=None, **kwargs):
-        raise MXNetError("HybridBlock.optimize_for: the symbolic front end "
-                         "(symbol/) is not ported")
+        """Hybridize and run once on ``x`` (the port has no other
+        backend)."""
+        self.hybridize()
+        self(x)
 
 
 class SymbolBlock(HybridBlock):
-    """Not ported: a block from a saved symbolic graph needs ``symbol/``."""
+    """A block that runs a symbolic graph (parity: ``gluon.SymbolBlock``):
+    ``outputs`` a Symbol, ``inputs`` its input variables (or names), and
+    ``params`` (optional) the arrays or Parameters of its other
+    variables."""
 
     def __init__(self, outputs, inputs, params=None):
-        raise MXNetError("SymbolBlock: the symbolic front end (symbol/) is "
-                         "not ported")
+        super().__init__(prefix="", params=None)
+        from ..symbol import Variable
+        self._sym_outputs = outputs
+        inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+        self._sym_inputs = [Variable(n) if isinstance(n, str) else n
+                            for n in inputs]
+        for name, p in (params.items() if params is not None else ()):
+            data = p if isinstance(p, NDArray) else p.data()
+            self._add_param(name, data, getattr(p, "grad_req", "write"))
+
+    def _add_param(self, name, data: NDArray, grad_req):
+        p = Parameter(name, shape=data.shape, dtype=str(data.dtype),
+                      grad_req=grad_req)
+        p.set_data(data)
+        self._reg_params[name] = p
+        self._params._params[name] = p
+        self._parameters[name] = p._var
 
     @staticmethod
     def imports(symbol_file, input_names, param_file=None, ctx=None):
-        raise MXNetError("SymbolBlock.imports: the symbolic front end "
-                         "(symbol/) is not ported")
+        """A block from ``export``'s files (either package's, or MXNet
+        1.x's): ``aux:`` arrays become ``grad_req='null'``
+        parameters."""
+        from ..ndarray import load as nd_load
+        from ..symbol import load as sym_load
+        block = SymbolBlock(sym_load(symbol_file), input_names)
+        params = nd_load(param_file, ctx=ctx) if param_file else {}
+        for name, data in params.items():
+            block._add_param(name.split(":", 1)[-1], data,
+                             "null" if name.startswith("aux:") else "write")
+        return block
+
+    def hybrid_call(self, *args):
+        from ..symbol.executor import evaluate
+        bindings = {v.name: a for v, a in zip(self._sym_inputs, args)}
+        for name, p in self._reg_params.items():
+            bindings[name] = p.data()
+        return evaluate(self._sym_outputs, bindings)

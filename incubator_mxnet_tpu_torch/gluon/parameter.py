@@ -231,6 +231,16 @@ class Parameter:
             if self._grad is not None:
                 self._init_grad()
 
+    def var(self):
+        """The parameter as a ``mx.sym.Variable`` of its name, shape and
+        dtype; ``grad_req='null'`` (running statistics) makes it an
+        auxiliary state."""
+        from ..symbol import Variable
+        attrs = {"__aux__": 1} if self.grad_req == "null" else {}
+        return Variable(self.name,
+                        shape=self._shape if self._shape_known() else None,
+                        dtype=str(self.dtype), **attrs)
+
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self._shape}, "
                 f"dtype={self.dtype})")

@@ -25,10 +25,11 @@ through ``checkpoint.CheckpointManager``. A restore writes the parameters
 and the optimizer states in place and rebuilds the fused applier, as the
 JAX Trainer does: its programs are built anew at the next step.
 
-``kvstore`` 'device', 'local' or None reduces nothing over one device.
-Not ported, and refused with ``MXNetError``: the ``dist_*`` kvstores and
-kvstore objects, ``compression_params``, ``int8_allreduce`` and
-``overlap_allreduce=True``.
+``kvstore`` 'device', 'local', None or a ``kvstore.create('local' |
+'device')`` object (one worker) reduces nothing over one device. Not
+ported, and refused with ``MXNetError``: the ``dist_*`` kvstores,
+``compression_params``, ``int8_allreduce`` and ``overlap_allreduce=True``
+(the bucketed multi-worker reduction is ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -66,8 +67,10 @@ class Trainer:
             param_list = list(params)
         else:
             raise MXNetError("params must be a (Parameter)Dict or list")
-        if kvstore is not None and not (
-                isinstance(kvstore, str) and kvstore in ("device", "local")):
+        from ..kvstore import KVStore
+        if isinstance(kvstore, KVStore):
+            kvstore = kvstore.type        # one worker: nothing to reduce
+        if kvstore is not None and kvstore not in ("device", "local"):
             raise _not_ported(f"kvstore={kvstore!r}")
         if compression_params:
             raise _not_ported("compression_params")

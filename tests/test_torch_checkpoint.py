@@ -532,3 +532,79 @@ def test_sigterm_skips_when_step_already_committed(tmp_path):
         m.uninstall_preemption_hook()
     assert m.all_steps() == before       # no duplicate-step crash
     m.close()
+
+
+# ------------------------------------------------------------------ #
+# iterator position export (tests/test_checkpoint.py's four cases; the
+# port's shuffles draw from mx.random's host stream)
+# ------------------------------------------------------------------ #
+
+def test_ndarrayiter_tell_set_position_mid_epoch_shuffled(tmp_path):
+    from incubator_mxnet_tpu_torch.io import NDArrayIter
+    mx.random.seed(4)
+    a = NDArrayIter(_X, _Y, batch_size=8, shuffle=True)
+    [a.next() for _ in range(4)]
+    pos = a.tell()
+    rest_ref = [b.data[0].asnumpy() for b in list(a)]
+    b_it = NDArrayIter(_X, _Y, batch_size=8, shuffle=True)
+    b_it.set_position(pos)
+    rest = [b.data[0].asnumpy() for b in list(b_it)]
+    assert len(rest) == len(rest_ref) == 6
+    for r, rr in zip(rest, rest_ref):
+        np.testing.assert_array_equal(r, rr)
+    # the capsule carries it: a trainer's checkpoint with iterator=
+    net, tr = make_trainer(0)
+    m = ckpt.CheckpointManager(str(tmp_path), keep=0)
+    a.reset()
+    [a.next() for _ in range(3)]
+    tr.save_checkpoint(m, step=3, iterator=a, block=True)
+    want = [b.data[0].asnumpy() for b in list(a)]
+    c = NDArrayIter(_X, _Y, batch_size=8, shuffle=True)
+    make_trainer(1)[1].restore_checkpoint(m, iterator=c)
+    got = [b.data[0].asnumpy() for b in list(c)]
+    assert len(got) == len(want) == 7
+    for r, rr in zip(got, want):
+        np.testing.assert_array_equal(r, rr)
+    m.close()
+
+
+def test_prefetching_iter_reports_resumable_position():
+    from incubator_mxnet_tpu_torch.io import NDArrayIter, PrefetchingIter
+    mx.random.seed(5)
+    pf = PrefetchingIter(NDArrayIter(_X, _Y, batch_size=8, shuffle=True))
+    [pf.next() for _ in range(4)]
+    pos = pf.tell()
+    assert pos["delivered"] == 4
+    rest_ref = [b.data[0].asnumpy() for b in list(pf)]
+    pf2 = PrefetchingIter(NDArrayIter(_X, _Y, batch_size=8, shuffle=True))
+    pf2.set_position(pos)
+    rest = [b.data[0].asnumpy() for b in list(pf2)]
+    assert len(rest) == len(rest_ref) == 6
+    for r, rr in zip(rest, rest_ref):
+        np.testing.assert_array_equal(r, rr)
+
+
+def test_resize_iter_position_delegates():
+    from incubator_mxnet_tpu_torch.io import NDArrayIter, ResizeIter
+    r = ResizeIter(NDArrayIter(_X, _Y, batch_size=8), size=6)
+    r.next(), r.next()
+    pos = r.tell()
+    assert pos["cur"] == 2 and pos["inner"]["cursor"] >= 0
+    r2 = ResizeIter(NDArrayIter(_X, _Y, batch_size=8), size=6)
+    r2.set_position(pos)
+    np.testing.assert_array_equal(r2.next().data[0].asnumpy(),
+                                  r.next().data[0].asnumpy())
+
+
+def test_non_resumable_iterator_refuses_loudly():
+    from incubator_mxnet_tpu_torch.io import DataIter, PrefetchingIter
+    with pytest.raises(MXNetError, match="position export"):
+        DataIter().tell()
+    with pytest.raises(MXNetError, match="position restore"):
+        DataIter().set_position({})
+
+    class Plain(DataIter):
+        def next(self):
+            raise StopIteration
+    with pytest.raises(MXNetError, match="not resumable"):
+        PrefetchingIter(Plain(8)).tell()

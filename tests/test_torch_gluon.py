@@ -502,7 +502,7 @@ def test_orthogonal_and_registry_and_mixed_and_load(tmp_path):
 # the Block surface
 # --------------------------------------------------------------------- #
 
-def test_block_surface(capsys):
+def test_block_surface(capsys, tmp_path):
     with mx.cpu():
         mx.random.seed(0)
         net = _seq(tgluon, tgluon.nn.HybridSequential)
@@ -550,12 +550,23 @@ def test_block_surface(capsys):
             tgluon.Parameter("s", stype="row_sparse")
         with pytest.raises(MXNetError, match="not ported"):
             tgluon.nn.Embedding(4, 2, sparse_grad=True)
-        with pytest.raises(MXNetError, match="symbol"):
-            net.export("x")
-        with pytest.raises(MXNetError, match="symbol"):
-            net.optimize_for(x)
-        with pytest.raises(MXNetError, match="symbol"):
-            tgluon.SymbolBlock(None, None)
+        # the symbolic front end: export, SymbolBlock, optimize_for (a
+        # net without the shape-reading hooks above)
+        sym_net = _seq(tgluon, tgluon.nn.HybridSequential)
+        sym_net.initialize()
+        want = sym_net(x).asnumpy()
+        path = str(tmp_path / "net")
+        sym_net.export(path, epoch=1)
+        blk = tgluon.SymbolBlock.imports(path + "-symbol.json", ["data"],
+                                         path + "-0001.params")
+        np.testing.assert_array_equal(blk(x).asnumpy(), want)
+        sb = tgluon.SymbolBlock(sym_net(mx.sym.Variable("data")), ["data"],
+                                sym_net.collect_params())
+        np.testing.assert_array_equal(sb(x).asnumpy(), want)
+        assert sorted(sb.collect_params().keys()) == \
+            sorted(p.name for p in sym_net.collect_params().values())
+        sym_net.optimize_for(x)
+        assert sym_net._active and len(sym_net._cached_op._cache) == 1
         with pytest.raises(MXNetError, match="cannot infer"):
             class NoInfer(tgluon.HybridBlock):
                 def __init__(self):

@@ -455,6 +455,11 @@ def test_refused_options(tmp_path):
         with pytest.raises(MXNetError, match="not ported"):
             tgluon.Trainer(params, "sgd", **kw)
         assert match
+    for t in ("dist_sync", "dist_async"):         # no such store object
+        with pytest.raises(MXNetError, match="item 11"):
+            mx.kv.create(t)
+    for kv in (mx.kv.create("local"), mx.kv.create("device")):
+        assert tgluon.Trainer(params, "sgd", kvstore=kv)._fused is not None
     tr = tgluon.Trainer(params, "sgd", kvstore="local")
     mgr = CheckpointManager(str(tmp_path))       # checkpointing runs
     assert tr.save_checkpoint(mgr, block=True) == 0

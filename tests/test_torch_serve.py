@@ -279,6 +279,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import incubator_mxnet_tpu_torch.models.transformer\n"
             "import incubator_mxnet_tpu_torch.models._remat\n"
             "mx.models.transformer.beam_search_translate_cached\n"
+            "mx.sym.FullyConnected; mx.symbol.contrib; mx.mod.Module\n"
+            "mx.module.BucketingModule; mx.io.NDArrayIter; mx.kv.create\n"
+            "mx.kvstore.KVStore; mx.callback.Speedometer\n"
+            "mx.model.load_checkpoint; mx.viz.print_summary\n"
+            "mx.executor.Executor; mx.attribute; mx.name.Prefix\n"
+            "mx.AttrScope; mx.visualization; mx.symbol.passes\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('ml_dtypes') or "
             "m.startswith('incubator_mxnet_tpu')"
