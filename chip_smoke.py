@@ -259,6 +259,33 @@ failure exits non-zero before the result line:
                 files against the block at rtol 1e-5. One `[symbolic]`
                 JSON line with the card's name and limit (ms a step,
                 img/s, busy share, captures and their ms);
+  7c4. detection — bench.py `_run_ssd`'s configuration:
+                ssd_300(num_classes=20) f32, B=32, 300x300 (7424 anchors),
+                two boxes an image from RandomState(0), through
+                SPMDTrainer(forward_loss=...) with SGD (lr 0.05, momentum
+                0.9, wd 5e-4): MultiBoxTarget (bipartite matching, hard
+                negative mining) and the joint loss inside the one
+                captured step; 3 warm-up steps (the first eager, then the
+                capture) and 10 timed replays; the 3 warm-up losses
+                against a second trainer's step body run eagerly from the
+                same weights (within 1e-4), finite losses that fall,
+                step_trace_count 1; ms a step, img/s, the busy share and
+                leading device ops of one profiled step, peak memory.
+                SSD.detect (nms_topk 400) on 8 images on the card (the
+                initial random weights, where rows survive), timed
+                and profiled, against MultiBoxDetection on the CPU from
+                the card's probabilities (class ids bitwise, scores and
+                boxes within 1e-5; the softmax card vs CPU within 1e-5).
+                faster_rcnn_small(num_classes=20) f32, B=2, 600x800: the
+                forward and the toy loss of tests/test_contrib_det.py on
+                the card against the CPU at the same weights (the RoI
+                half of the CPU run from the card's RPN probabilities:
+                rois within 1e-2 px with the same batch column and empty
+                rows; scores, deltas, RPN outputs, loss and the first
+                backbone weight's gradient within 1e-4 of each largest
+                |entry|), then net(x, im_info), the toy loss and one
+                gluon.Trainer("sgd") step. One `[detection]` JSON line
+                with the card's name and limit;
   7d. gpt_training — bench.py `_run_gpt`'s configuration: gpt_small
                 bf16 (flash, dropout 0.1, built by `gpt_small(...)` +
                 `initialize()`) through SPMDTrainer(forward_loss=lm_loss)
@@ -2677,7 +2704,8 @@ def phase_graph_tests():
          "tests/test_torch_page_graphs.py",
          "tests/test_torch_train_graphs.py",
          "tests/test_torch_gpt_graphs.py",
-         "tests/test_torch_symbol_graphs.py"],
+         "tests/test_torch_symbol_graphs.py",
+         "tests/test_torch_detection_graphs.py"],
         cwd=root, env=env, capture_output=True, text=True, timeout=600)
     tail = proc.stdout.strip().splitlines()[-1:] or [""]
     print(f"[graphs] cuda tests: {tail[0]} "
@@ -5083,6 +5111,279 @@ def phase_symbolic(torch, smi):
     print(f"[symbolic] {json.dumps(out)}", flush=True)
 
 
+# --------------------------------------------------------------------- #
+# object detection: SSD-300 training and detection, Faster R-CNN
+# --------------------------------------------------------------------- #
+
+DETECTION = dict(B=32, side=300, classes=20, boxes=2, warmup=3, steps=10,
+                 lr=0.05, momentum=0.9, wd=5e-4, loss_rtol=1e-4,
+                 detect_B=8, prob_rtol=1e-5, box_atol=1e-5,
+                 rcnn_B=2, rcnn_h=600, rcnn_w=800, rcnn_lr=0.01,
+                 rcnn_frac=1e-4, roi_atol=1e-2)
+
+
+def ssd_batch(np, B, side, classes):
+    """bench.py ``_run_ssd``'s batch: uniform pixels, two boxes an image
+    from ``RandomState(0)``."""
+    rng = np.random.RandomState(0)
+    x = rng.rand(B, 3, side, side).astype(np.float32)
+    labels = np.full((B, 2, 5), -1.0, np.float32)
+    for b in range(B):
+        for o in range(2):
+            x1, y1 = rng.uniform(0.0, 0.6, 2)
+            w, h = rng.uniform(0.2, 0.35, 2)
+            labels[b, o] = (rng.randint(0, classes), x1, y1,
+                            min(x1 + w, 1.0), min(y1 + h, 1.0))
+    return x, labels
+
+
+def ssd_forward_loss(model, xb, yb):
+    """bench.py ``_run_ssd``'s objective: MultiBoxTarget (hard negative
+    mining) and the joint loss, inside the captured step."""
+    anchors, cls_preds, box_preds = model(xb)
+    bt, bm, ct = model.training_targets(anchors, cls_preds, yb)
+    return model.loss(cls_preds, box_preds, bt, bm, ct)
+
+
+def detection_ssd(torch, np):
+    """bench.py ``_run_ssd`` on the card: ssd_300(num_classes=20) f32
+    through SPMDTrainer(forward_loss=...) with SGD; a second trainer from
+    the same weights runs the step body eagerly, the reference of the
+    first steps' losses. Then SSD.detect on the card against the CPU."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import nd, parallel
+    from incubator_mxnet_tpu_torch.models.ssd import ssd_300
+    D = DETECTION
+    B, side = D["B"], D["side"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x, labels = ssd_batch(np, B, side, D["classes"])
+    xs, ys = nd.array(x), nd.array(labels)
+    nets = []
+    for _ in range(2):
+        mx.random.seed(0)
+        net = ssd_300(num_classes=D["classes"])
+        net.initialize()
+        net(xs[:1])
+        nets.append(net)
+    net, ref = nets
+    ref.load_state_dict(net.state_dict())
+    # detection from the random weights (13 steps on one batch teach the
+    # network background everywhere: no row would survive)
+    detect = detection_detect(torch, np, net, xs[:D["detect_B"]])
+    opt = {"learning_rate": D["lr"], "momentum": D["momentum"],
+           "wd": D["wd"]}
+    tr, ref_tr = (parallel.SPMDTrainer(n, forward_loss=ssd_forward_loss,
+                                       optimizer="sgd",
+                                       optimizer_params=dict(opt),
+                                       sharding="replicated")
+                  for n in (net, ref))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "tests"))
+    try:
+        # the step body run eagerly outside any graph: a replay's reference
+        from test_torch_train_graphs import _eager_step
+    finally:
+        sys.path.pop(0)
+    losses, eager = [], []
+    for _ in range(D["warmup"]):
+        losses.append(float(tr.step(xs, ys).asnumpy()))
+        eager.append(float(_eager_step(ref_tr, [xs._data, ys._data])))
+    check(tr.step_trace_count == 1 and len(tr._programs) == 1,
+          f"ssd: {tr.step_trace_count} step programs built in the warm-up")
+    prog = next(iter(tr._programs.values()))
+    replays = prog.replays
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [tr.step(xs, ys) for _ in range(D["steps"])]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / D["steps"]
+    losses += [float(v.asnumpy()) for v in timed]
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses, eager)]
+    check(all(np.isfinite(losses)), f"ssd: non-finite loss {losses}")
+    check(max(rels) <= D["loss_rtol"],
+          f"ssd: the first losses {losses[:len(eager)]} against the eager "
+          f"body's {eager} (rel {rels}) > {D['loss_rtol']}")
+    check(losses[-1] < losses[0], f"ssd: loss did not fall: {losses}")
+    check(tr.step_trace_count == 1 and
+          prog.replays - replays == D["steps"],
+          f"ssd: {prog.replays - replays} of {D['steps']} timed steps "
+          f"replayed, {tr.step_trace_count} builds")
+    out = dict(config=f"ssd_300(num_classes={D['classes']}) f32 B={B} "
+                      f"{side}x{side}, SGD lr {D['lr']} momentum "
+                      f"{D['momentum']} wd {D['wd']}",
+               losses=losses, eager_body_losses=eager, loss_rel=rels,
+               ms_per_step=ms, img_per_s=B / (ms / 1e3),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               first_step_ms=prog.first_ms, capture_ms=prog.build_ms,
+               step_trace_count=tr.step_trace_count)
+    out.update(busy_share(torch, lambda: tr.step(xs, ys)))
+    out["replays"] = prog.replays
+    del ref_tr, ref, nets
+    out["detect"] = detect
+    del tr, net, xs, ys, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def detection_detect(torch, np, net, xs):
+    """SSD.detect on the card (timed and profiled) against the port on
+    the CPU from the card's class probabilities: the detection is a
+    selection by score, and scores an ulp apart (softmax on two devices)
+    would order rows differently, so the CPU decodes and suppresses the
+    card's probabilities (``detect`` is that softmax, then
+    MultiBoxDetection); the softmax itself is held to ``prob_rtol``."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import nd
+    D = DETECTION
+    anchors, cls_preds, box_preds = net(xs)
+    kw = dict(nms_threshold=0.45, threshold=0.01, nms_topk=400)
+    dets = net.detect(cls_preds, box_preds, anchors, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.detect(cls_preds, box_preds, anchors, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    prof = busy_share(torch, lambda: net.detect(cls_preds, box_preds,
+                                                anchors, **kw))
+    probs = nd.softmax(cls_preds, axis=1)
+    cpu = [nd.array(a._data.cpu(), ctx=mx.cpu())
+           for a in (cls_preds, box_preds, anchors, probs)]
+    with mx.cpu():
+        prob_err = _rel_err(torch, probs._data,
+                            nd.softmax(cpu[0], axis=1)._data)
+        want = nd.MultiBoxDetection(cpu[3], cpu[1], cpu[2], **kw)._data
+    got = dets._data.cpu()
+    valid = int((want[..., 0] >= 0).sum())
+    ids_equal = bool(torch.equal(got[..., :2] >= 0, want[..., :2] >= 0) and
+                     torch.equal(got[..., 0], want[..., 0]))
+    score_err = float((got[..., 1] - want[..., 1]).abs().max())
+    box_err = float((got[..., 2:] - want[..., 2:]).abs().max())
+    check(prob_err <= D["prob_rtol"],
+          f"ssd detect: softmax card vs CPU {prob_err:.2e}")
+    check(ids_equal and valid > 0 and score_err <= D["box_atol"] and
+          box_err <= D["box_atol"],
+          f"ssd detect: card vs CPU rows: ids equal {ids_equal}, {valid} "
+          f"valid, scores {score_err:.2e}, boxes {box_err:.2e}")
+    return dict(B=int(xs.shape[0]), anchors=int(anchors.shape[1]),
+                valid_rows=valid, ms=ms, softmax_rel_err=prob_err,
+                score_max_abs_err=score_err, box_max_abs_err=box_err,
+                **{f"profile_{k}": v for k, v in prof.items()})
+
+
+def rcnn_toy_loss(s, d):
+    """tests/test_contrib_det.py's toy loss over the head's outputs."""
+    return (s.log_softmax(axis=-1)[:, :, 0]).mean() * -1 + (d * d).mean()
+
+
+def rcnn_staged(mx, nd, autograd, net, x, info, probs=None):
+    """The model's forward (``rpn_forward`` then ``roi_forward``), its toy
+    loss and the backward; the RoI half reads ``probs`` when given (the
+    other device's RPN probabilities). Returns the outputs by name and
+    the first backbone weight's gradient."""
+    with autograd.record():
+        feat, rpn_cls, rpn_box, own = net.rpn_forward(nd, x)
+        rois, s, d = net.roi_forward(nd, feat, own if probs is None
+                                     else probs, rpn_box, info)
+        loss = rcnn_toy_loss(s, d)
+    loss.backward()
+    outs = dict(rois=rois, scores=s, deltas=d, rpn_cls=rpn_cls,
+                rpn_box=rpn_box, probs=own, loss=loss)
+    return outs, net.backbone.body[0].weight.grad()._data.clone()
+
+
+def detection_rcnn(torch, np):
+    """faster_rcnn_small(num_classes=20) f32 at its defaults, B=2 at 600 x
+    800: the forward and the toy loss on the card against the port on
+    the CPU at the same weights (the RoI half of the CPU run reads the
+    card's RPN probabilities: proposals are a selection by score), then
+    one gluon.Trainer("sgd") step on the card through ``net(x, im_info)``."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd, gluon, nd
+    from incubator_mxnet_tpu_torch.models.faster_rcnn import \
+        faster_rcnn_small
+    D = DETECTION
+    B, H, W = D["rcnn_B"], D["rcnn_h"], D["rcnn_w"]
+    rng = np.random.RandomState(0)
+    x = rng.rand(B, 3, H, W).astype(np.float32)
+    info = np.tile([H, W, 1.0], (B, 1)).astype(np.float32)
+    mx.random.seed(0)
+    net = faster_rcnn_small(num_classes=D["classes"])
+    net.initialize()
+    xg, ig = nd.array(x), nd.array(info)
+    net(xg, ig)
+    with mx.cpu():
+        cpu_net = faster_rcnn_small(num_classes=D["classes"])
+        cpu_net.initialize()
+        cpu_net(nd.array(x[:, :, :64, :64]), nd.array(info))
+        cpu_net.load_state_dict({k: v.cpu() for k, v in
+                                 net.state_dict().items()})
+    card, g_card = rcnn_staged(mx, nd, autograd, net, xg, ig)
+    with mx.cpu():
+        probs = nd.array(card["probs"]._data.cpu())
+        ref, g_cpu = rcnn_staged(mx, nd, autograd, cpu_net, nd.array(x),
+                                 nd.array(info), probs)
+    errs = {k: _rel_err(torch, card[k]._data, ref[k]._data)
+            for k in ("scores", "deltas", "rpn_cls", "rpn_box", "probs",
+                      "loss")}
+    errs["backbone_grad"] = _rel_err(torch, g_card, g_cpu)
+    rg, rc = card["rois"]._data.detach().cpu(), ref["rois"]._data.detach()
+    roi_err = float((rg[..., 1:] - rc[..., 1:]).abs().max())
+    live = int((rc[..., 1:] != 0).any(dim=-1).sum())
+    check(torch.equal(rg[..., 0], rc[..., 0]) and
+          torch.equal(rg[..., 1:] == 0, rc[..., 1:] == 0) and
+          roi_err <= D["roi_atol"] and live > 0,
+          f"faster_rcnn: rois card vs CPU: {roi_err:.2e} px, {live} live")
+    check(max(errs.values()) <= D["rcnn_frac"],
+          f"faster_rcnn: card vs CPU (of each largest |entry|) {errs}")
+    # the user's path: net(x, im_info), the toy loss, one SGD step
+    tr = gluon.Trainer(net.collect_params(), "sgd",
+                       {"learning_rate": D["rcnn_lr"]})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with autograd.record():
+        rois, s, d, _, _ = net(xg, ig)
+        loss = rcnn_toy_loss(s, d)
+    loss.backward()
+    tr.step(1)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    # the toy loss is a mean over the rois: the staged forward's, whatever
+    # the order of proposals an ulp apart
+    loss_rel = _rel_err(torch, loss._data, card["loss"]._data)
+    finite = all(bool(torch.isfinite(p.data()._data).all())
+                 for p in net.collect_params().values())
+    check(loss_rel <= D["rcnn_frac"] and finite,
+          f"faster_rcnn: net(x)'s loss vs the staged forward's {loss_rel:.2e}"
+          f", parameters finite after the step {finite}")
+    prof = busy_share(torch, lambda: net(xg, ig))
+    return dict(config=f"faster_rcnn_small(num_classes={D['classes']}) f32 "
+                       f"B={B} {H}x{W}, rpn_post_nms_top_n=64",
+                rois_max_abs_err_px=roi_err, live_rois=live, rel_err=errs,
+                sgd_step_ms=step_ms, loss=float(loss.asnumpy()),
+                loss_vs_staged=loss_rel,
+                **{f"forward_{k}": v for k, v in prof.items()})
+
+
+def phase_detection(torch, smi):
+    """Object detection on the card (module docstring, phase 7c4)."""
+    import numpy as np
+    t0 = time.perf_counter()
+    out = dict(card=smi, ssd=detection_ssd(torch, np),
+               faster_rcnn=detection_rcnn(torch, np))
+    s, det = out["ssd"], out["ssd"]["detect"]
+    print(f"[detection] ssd_300 f32 B={DETECTION['B']} 300x300 SPMDTrainer "
+          f"sgd: {s['ms_per_step']:.2f} ms/step {s['img_per_s']:.0f} img/s "
+          f"busy {s.get('device_busy_share')}; capture "
+          f"{s['capture_ms']:.0f} ms; peak {s['peak_memory_gb']:.2f} GB; "
+          f"detect B={det['B']} {det['ms']:.1f} ms ({det['valid_rows']} "
+          f"rows); faster_rcnn card vs CPU {out['faster_rcnn']['rel_err']}",
+          flush=True)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[detection] {json.dumps(out)}", flush=True)
+
+
 def kernel_record(err, runs, times):
     """The kernels' JSON record; each kernel's launches come from the run
     of its own path (decode / prefill: plain; verify: spec_k=4 on raw
@@ -5150,6 +5451,7 @@ def main():
         phase_vision(torch, smi)
         phase_amp(torch, smi)
         phase_symbolic(torch, smi)
+        phase_detection(torch, smi)
         runs["gpt_training"] = phase_gpt_training(torch, smi)
         phase_checkpoint(torch, smi)
         phase_nmt(torch, smi)

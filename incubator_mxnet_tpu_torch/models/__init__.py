@@ -1,8 +1,8 @@
 """Model zoo of the PyTorch port: GPT (causal-LM training and the
 serving slices), BERT pretraining and LeNet, all gluon ``HybridBlock``s;
-``resnet`` (the vision zoo's ResNets) and ``transformer`` (the WMT
-Transformer and its beam searches) load on first use, as in the JAX
-package."""
+``resnet`` (the vision zoo's ResNets), ``transformer`` (the WMT
+Transformer and its beam searches), ``ssd`` (SSD-300) and ``faster_rcnn``
+load on first use, as in the JAX package."""
 
 from . import lenet
 from .lenet import LeNet
@@ -23,7 +23,7 @@ __all__ = ["GPTModel", "gpt_mini", "gpt_small", "cached_generate",
 
 
 def __getattr__(name):
-    if name in ("resnet", "transformer"):
+    if name in ("resnet", "transformer", "ssd", "faster_rcnn"):
         import importlib
         mod = importlib.import_module("." + name, __name__)
         globals()[name] = mod

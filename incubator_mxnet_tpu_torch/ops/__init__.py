@@ -7,9 +7,10 @@ quantization. ``LAUNCHES`` counts the ragged kernels' launches,
 
 Importing the package also fills the operator registry (``registry``)
 with the ops ``mx.nd`` surfaces: tensor, neural-network, miscellaneous,
-random, optimizer-update, linear-algebra and attention ops. The JAX
-package's contrib (detection, deformable convolution), vision (sampling,
-im2col, fft), quantization and fused RNN ops are not registered yet.
+random, optimizer-update, linear-algebra, attention, contrib (detection,
+deformable convolution, count sketch, Hawkes, mask targets) and vision
+(sampling, upsampling, im2col, fft) ops. The JAX package's quantization
+and fused RNN ops are not registered yet.
 ``control_flow`` holds ``foreach`` / ``while_loop`` / ``cond``
 (``nd.contrib``)."""
 
@@ -21,6 +22,8 @@ from . import random_ops  # noqa: F401  (registers ops)
 from . import optimizer_ops  # noqa: F401  (registers ops)
 from . import linalg  # noqa: F401  (registers ops)
 from . import attention  # noqa: F401  (registers ops)
+from . import vision  # noqa: F401  (registers ops)
+from . import contrib  # noqa: F401  (registers ops)
 
 from .attention import scaled_dot_product_attention
 from .flash_attention import (cuda_kernel_eligible, flash_attention_bhtd,

@@ -51,8 +51,19 @@ def _dtype(dtype):
     return to_torch_dtype(dtype)
 
 
+def _fill(value, like):
+    """A Python number as a 0-d tensor on ``like``'s device, in the dtype
+    the JAX op's weak typing gives the pair (a fill, not a host copy)."""
+    return torch.full((), value, dtype=torch.result_type(like, value),
+                      device=like.device)
+
+
 def _binary(name, fn, aliases=()):
     def op(lhs, rhs):
+        if not torch.is_tensor(rhs):
+            rhs = _fill(rhs, lhs)
+        elif not torch.is_tensor(lhs):
+            lhs = _fill(lhs, rhs)
         return fn(lhs, rhs)
 
     op.__name__ = name

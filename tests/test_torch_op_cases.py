@@ -11,7 +11,10 @@ functions whose polynomial approximations differ by a few ulps), and
 ``bf16`` asks for the case once more with its float inputs in bfloat16
 (then at rtol 1e-2). ``BASE_CASES`` are the ops the port registered
 first (``tests/test_torch_ndarray.py`` holds them against JAX);
-``FAMILY`` sorts the rest by the test file that holds them against JAX.
+``FAMILY`` sorts the rest by the test file that holds them against JAX
+(``contrib`` and ``vision``: ``tests/test_torch_ops_contrib.py`` and
+``tests/test_torch_ops_vision.py``; the detection ops' tied-score cases
+come first).
 
 Classes, as ``tests/test_op_gradient_sweep.py`` classifies the JAX
 registry: ``NONDIFF`` (integer, boolean, constant or piecewise-constant
@@ -783,14 +786,231 @@ LINALG_ATTENTION_CASES = {
          dict(dilation=1, num_heads=2, w=2), RED, True)],
 }
 
+# --------------------------------------------------------------------- #
+# contrib (detection, deformable convolution, misc) and vision ops
+# --------------------------------------------------------------------- #
+def boxes(n, seed=0, lo=0.0, hi=1.0, lead=()):
+    """``n`` corner boxes (x1, y1, x2, y2) with x1 < x2, y1 < y2."""
+    c = RS(seed).uniform(lo, hi, lead + (n, 2, 2))
+    c.sort(axis=-1)
+    return c[..., [0, 1, 0, 1], [0, 0, 1, 1]].astype(np.float32)
+
+
+def nms_rows(seed=0):
+    """(2, 8, 6) rows [id, score, x1, y1, x2, y2]: tied scores, boxes that
+    overlap in pairs, two classes, -1 rows and a background row."""
+    b = boxes(4, seed=seed, hi=0.6, lead=(2,))
+    b = np.concatenate([b, b + 0.02], axis=1)       # pairs overlap
+    ids = a32([[0, 0, 1, 1, 0, 0, 1, 1], [1, 0, 0, 0, 1, 1, 0, 0]])
+    scores = a32([[0.9, 0.5, 0.5, 0.9, 0.9, 0.5, -1, 0.5],
+                  [0.3, 0.3, 0.3, -1, 0.3, 0.7, 0.7, -1]])
+    return np.concatenate([ids[..., None], scores[..., None], b], -1)
+
+
+def anchors_grid(side=4):
+    """(1, side*side*2, 4) corner anchors over [0, 1]."""
+    c = (np.arange(side, dtype=np.float32) + 0.5) / side
+    cy, cx = np.meshgrid(c, c, indexing="ij")
+    out = [np.stack([cx - s, cy - s, cx + s, cy + s], -1)
+           for s in (0.15, 0.3)]
+    return np.stack(out, 2).reshape(1, -1, 4).astype(np.float32)
+
+
+def mbt_labels():
+    """(2, 3, 5) ground truth, class -1 padding rows."""
+    return a32([[[1, 0.1, 0.1, 0.45, 0.4], [0, 0.55, 0.5, 0.95, 0.9],
+                 [-1, 0, 0, 0, 0]],
+                [[2, 0.3, 0.3, 0.7, 0.75], [-1, 0, 0, 0, 0],
+                 [-1, 0, 0, 0, 0]]])
+
+
+def tied_cls(N, seed=0):
+    """(2, 4, N) class scores rounded to 0.25: ties in bulk."""
+    return (np.round(f(2, 4, N, seed=seed) * 4) / 4).astype(np.float32)
+
+
+def rpn_probs(A, H, W, seed=0):
+    """(1, 2A, H, W) RPN scores rounded to 0.1: ties in bulk."""
+    return (np.round(RS(seed).rand(1, 2 * A, H, W) * 10) / 10) \
+        .astype(np.float32)
+
+
+_ROIS = a32([[0, 0.6, 0.6, 5.3, 6.1], [1, 1.2, 0.5, 7.9, 4.4],
+             [0, 2.2, 3.1, 3.0, 3.5]])
+
+CONTRIB_CASES = {
+    "box_nms": [
+        (lambda: [nms_rows()], dict(id_index=0), 0, False),
+        (lambda: [nms_rows(1)], dict(id_index=0, force_suppress=True,
+                                     topk=3, overlap_thresh=0.3), 0, False),
+        (lambda: [nms_rows(2)], dict(id_index=0, background_id=0,
+                                     in_format="center",
+                                     out_format="corner"), 0, False),
+        (lambda: [nms_rows(3)[1]], dict(valid_thresh=0.3, out_format=
+                                        "center"), 0, False)],
+    "Proposal": [
+        (lambda: [np.concatenate([rpn_probs(9, 4, 5), rpn_probs(
+            9, 4, 5, seed=1)]), f(2, 36, 4, 5, seed=2) * 0.1,
+                  a32([[64, 80, 1.0], [60, 70, 1.0]])],
+         dict(scales=(2, 4, 8), rpn_pre_nms_top_n=50,
+              rpn_post_nms_top_n=12), TRANS, False),
+        (lambda: [rpn_probs(9, 4, 4), f(1, 36, 4, 4, seed=3) * 0.3,
+                  a32([[64, 64, 1.0]])],
+         dict(scales=(2, 4, 8), rpn_min_size=40, rpn_pre_nms_top_n=100,
+              rpn_post_nms_top_n=40, threshold=0.5), TRANS, False),
+        (lambda: [rpn_probs(3, 3, 3, seed=4), f(1, 12, 3, 3, seed=5) * 0.2,
+                  a32([[48, 48, 1.0]])],
+         dict(scales=(4,), rpn_pre_nms_top_n=8, rpn_post_nms_top_n=12),
+         TRANS, False)],
+    "MultiBoxTarget": [
+        (lambda: [anchors_grid(), mbt_labels(), tied_cls(32)],
+         dict(negative_mining_ratio=3.0), TRANS, False),
+        (lambda: [anchors_grid(), mbt_labels(), tied_cls(32, seed=1)],
+         dict(negative_mining_ratio=2.0, minimum_negative_samples=5,
+              negative_mining_thresh=0.4, overlap_threshold=0.3), TRANS,
+         False),
+        (lambda: [anchors_grid(), mbt_labels(), tied_cls(32)], {}, TRANS,
+         False)],
+    "MultiBoxDetection": [
+        (lambda: [np.abs(tied_cls(32)), f(2, 128, seed=2) * 0.1,
+                  anchors_grid()], {}, 0, False),
+        (lambda: [np.abs(tied_cls(32, seed=3)), f(2, 128, seed=4) * 0.1,
+                  anchors_grid()],
+         dict(nms_topk=5, threshold=0.3, force_suppress=True), 0, False)],
+    "MultiBoxPrior": [
+        (lambda: [f(1, 3, 4, 5)], dict(sizes=(0.5, 0.25),
+                                       ratios=(1, 2, 0.5), clip=True), 0,
+         False),
+        (lambda: [f(2, 3, 3, 2)], dict(sizes=(0.3,), ratios=(1, 3),
+                                       steps=(0.2, 0.25),
+                                       offsets=(0.3, 0.6)), 0, False)],
+    "box_iou": [(lambda: [boxes(5), boxes(7, seed=1)], {}, RED, False),
+                (lambda: [boxes(3, seed=2, lead=(2,)),
+                          boxes(4, seed=3, lead=(2,))],
+                 dict(format="center"), RED, False)],
+    "ROIAlign": [
+        (lambda: [f(2, 3, 8, 8), _ROIS * a32([1, 2, 2, 2, 2])],
+         dict(pooled_size=(2, 2), sample_ratio=-1, max_samples=4,
+              spatial_scale=0.5), RED, False),
+        (lambda: [f(2, 3, 8, 8), _ROIS], dict(pooled_size=(2, 3)), RED,
+         True),
+        (lambda: [f(2, 2 * 4, 6, 6), _ROIS * a32([1, .7, .7, .7, .7])],
+         dict(pooled_size=(2, 2), position_sensitive=True, sample_ratio=0),
+         RED, False)],
+    "ROIPooling": [
+        (lambda: [f(2, 3, 8, 8), a32([[0, 2.5, 1.5, 6.5, 5.49],
+                                      [1, 0, 0, 7, 7],
+                                      [0, 3.2, 3.3, 3.4, 3.6]])],
+         dict(pooled_size=(2, 2)), 0, True),
+        (lambda: [f(1, 2, 9, 7), a32([[0, 1, 3, 12, 17], [0, 5, 5, 9, 6]])],
+         dict(pooled_size=(3, 2), spatial_scale=0.5), 0, False)],
+    "box_encode": [
+        (lambda: [a32([[1, 0, -1, 1], [1, 1, 0, -1]]),
+                  a32([[0, 2, 1, 1], [2, 0, 0, 1]]),
+                  boxes(4, seed=1, lead=(2,)), boxes(3, seed=2, lead=(2,))],
+         {}, TRANS, False),
+        (lambda: [a32([[1, 1, -1]]), a32([[1, -1, 0]]),
+                  boxes(3, seed=3, lead=(1,)), boxes(2, seed=4, lead=(1,))],
+         dict(means=(0.1, -0.1, 0.0, 0.2), stds=(0.2, 0.2, 0.5, 0.5)),
+         TRANS, False)],
+    "box_decode": [(lambda: [u(2, 3, 4, lo=-0.2, hi=0.2),
+                             boxes(3, seed=1, lead=(1,))], {}, TRANS,
+                    False),
+                   (lambda: [u(2, 3, 4, lo=-2.0, hi=2.0),
+                             boxes(3, seed=2, lead=(2,))],
+                    dict(format="center", clip=0.1, std0=0.3), TRANS,
+                    False)],
+    "bipartite_matching": [
+        (lambda: [a32([[0.5, 0.8, 0.8], [0.8, 0.3, 0.8], [0.1, 0.8, 0.6],
+                       [0.8, 0.8, 0.2]])], dict(threshold=0.4), 0, False),
+        (lambda: [a32([[0.5, 0.2, 0.2], [0.2, 0.3, 0.2], [0.1, 0.2, 0.6],
+                       [0.7, 0.2, 0.9]])], dict(is_ascend=True,
+                                                threshold=0.5), 0, False),
+        (lambda: [np.round(u(2, 3, 4, lo=0, hi=1) * 4) / 4],
+         dict(threshold=0.2, topk=2), 0, False)],
+    "gradientmultiplier": [(lambda: [f(3, 4)], dict(scalar=-0.5), 0,
+                            True)],
+    "group_adagrad_update": [
+        (lambda: [f(4, 3), f(4, 3, seed=2), f(4, lo=0.1, seed=3)],
+         dict(lr=0.1), 1e-6, False),
+        (lambda: [f(4, 3, 2), f(4, 3, 2, seed=2),
+                  f(4, 1, 1, lo=0.1, seed=3)],
+         dict(lr=0.05, rescale_grad=0.5, clip_gradient=0.7), 1e-6, False)],
+    "DeformableConvolution": [
+        (lambda: [f(1, 4, 5, 5), u(1, 18, 3, 3, lo=-0.8, hi=0.8, seed=2),
+                  f(2, 4, 3, 3, seed=3)],
+         dict(kernel=(3, 3), num_filter=2, no_bias=True), RED, False),
+        (lambda: [f(2, 4, 6, 6), u(2, 36, 3, 3, lo=-1.5, hi=1.5, seed=2),
+                  f(4, 2, 3, 3, seed=3), f(4, seed=4)],
+         dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), dilate=(1, 1),
+              num_filter=4, num_group=2, num_deformable_group=2), RED,
+         False)],
+    "ModulatedDeformableConvolution": [
+        (lambda: [f(1, 4, 5, 5), u(1, 18, 3, 3, lo=-0.8, hi=0.8, seed=2),
+                  u(1, 9, 3, 3, lo=0.2, hi=1.0, seed=5),
+                  f(2, 4, 3, 3, seed=3), f(2, seed=4)],
+         dict(kernel=(3, 3), num_filter=2), RED, False)],
+    "count_sketch": [(lambda: [f(2, 8), ints(4, 8),
+                               RS(6).choice([-1.0, 1.0], 8)
+                               .astype(np.float32)],
+                      dict(out_dim=4), RED, False)],
+    "hawkes_ll": [
+        (lambda: [f(3, lo=0.2), f(3, lo=0.1, seed=2) * 0.3,
+                  f(3, lo=0.5, seed=3), f(2, 3, lo=0.0, seed=4) * 0.2,
+                  f(2, 4, lo=0.1, seed=5), ints(3, 2, 4), i32([4, 2])],
+         dict(max_time=10.0), RED, False)],
+    "mrcnn_mask_target": [
+        (lambda: [boxes(3, seed=1, hi=8.0, lead=(2,)),
+                  (f(2, 2, 8, 8) > 0).astype(np.float32),
+                  a32([[0, 1, 1], [1, 0, 0]]), a32([[1, 2, -1], [0, 2, 1]])],
+         dict(num_classes=3, mask_size=(4, 4)), RED, False)],
+}
+
+VISION_CASES = {
+    "UpSampling": [
+        (lambda: [f(1, 2, 5, 6)], dict(scale=2, sample_type="bilinear"),
+         RED, True),
+        (lambda: [f(2, 3, 4, 5)], dict(scale=2), 0, True),
+        (lambda: [f(1, 2, 8, 8), f(1, 3, 4, 4, seed=2)], dict(scale=1),
+         0, False),
+        (lambda: [f(1, 2, 4, 3)], dict(scale=3, sample_type="bilinear"),
+         RED, False),
+        (lambda: [f(1, 2, 4, 4), f(2, 1, 4, 4, seed=2)],
+         dict(scale=2, sample_type="bilinear"), RED, False)],
+    "BilinearSampler": [(lambda: [f(2, 3, 5, 7), u(2, 2, 4, 6, lo=-1.2,
+                                                    hi=1.2, seed=2)],
+                         {}, RED, True)],
+    "GridGenerator": [(lambda: [f(2, 6)], dict(target_shape=(4, 5)), RED,
+                       False),
+                      (lambda: [f(2, 2, 4, 5)],
+                       dict(transform_type="warp"), RED, False)],
+    "SpatialTransformer": [
+        (lambda: [f(1, 2, 6, 6), a32([[0.9, 0.1, 0.05, -0.1, 0.8, 0.02]])],
+         dict(target_shape=(5, 5)), RED, False)],
+    "im2col": [(lambda: [f(2, 3, 5, 5)], dict(kernel=(2, 2), stride=(2, 2),
+                                              pad=(1, 1)), 0, True),
+               (lambda: [f(1, 2, 7, 6)], dict(kernel=(3, 2), dilate=(2, 1),
+                                              stride=(1, 2)), 0, False)],
+    "col2im": [(lambda: [f(2, 12, 9)], dict(output_size=(5, 5),
+                                            kernel=(2, 2), stride=(2, 2),
+                                            pad=(1, 1)), RED, False),
+               (lambda: [f(1, 18, 16)], dict(output_size=(6, 6),
+                                             kernel=(3, 3)), RED, False)],
+    "fft": [(lambda: [f(3, 8)], {}, RED, False)],
+    "ifft": [(lambda: [f(3, 16)], {}, RED, False)],
+}
+
 FAMILY = {**{n: "base" for n in BASE_CASES},
           **{n: "tensor" for n in TENSOR_CASES},
           **{n: "misc_nn" for n in MISC_NN_CASES},
           **{n: "random" for n in RANDOM_CASES},
           **{n: "optimizer" for n in OPTIMIZER_CASES},
-          **{n: "linalg_attention" for n in LINALG_ATTENTION_CASES}}
+          **{n: "linalg_attention" for n in LINALG_ATTENTION_CASES},
+          **{n: "contrib" for n in CONTRIB_CASES},
+          **{n: "vision" for n in VISION_CASES}}
 CASES = {**BASE_CASES, **TENSOR_CASES, **MISC_NN_CASES, **RANDOM_CASES,
-         **OPTIMIZER_CASES, **LINALG_ATTENTION_CASES}
+         **OPTIMIZER_CASES, **LINALG_ATTENTION_CASES, **CONTRIB_CASES,
+         **VISION_CASES}
 
 # --------------------------------------------------------------------- #
 # classes (tests/test_op_gradient_sweep.py's buckets)
@@ -808,11 +1028,15 @@ NONDIFF = {
     "index_array", "zeros_like", "ones_like", "full_like", "arange_like",
     "ceil", "floor", "fix", "rint", "round", "trunc", "sign",
     "sldwin_atten_mask_like",
+    # anchors, matching, NMS and target assignment
+    "MultiBoxPrior", "box_nms", "bipartite_matching", "MultiBoxDetection",
+    "MultiBoxTarget", "Proposal", "mrcnn_mask_target", "box_encode",
+    "group_adagrad_update",
     *OPTIMIZER_CASES,
 }
 CUSTOM_GRAD = {"SoftmaxOutput", "LinearRegressionOutput",
                "LogisticRegressionOutput", "MAERegressionOutput",
-               "SVMOutput", "make_loss", "BlockGrad"}
+               "SVMOutput", "make_loss", "BlockGrad", "gradientmultiplier"}
 DISTRIBUTION = {*RANDOM_CASES, "shuffle", "Dropout"}
 
 # (mean, variance) of each sampler case's draws, a row for each row of a

@@ -9,10 +9,11 @@ the ``NDArray`` methods and ``nd`` helpers this part adds.
     ``argsort`` and ``gamma``'s JAX magnitude for negative non-integers;
   - each differentiable op's gradient against ``jax.vjp`` of the JAX op
     at rtol 1e-5 (``make_loss`` and ``LinearRegressionOutput`` custom);
-  - the registry is the JAX registry less exactly the 33 ops that wait
-    for later items (contrib 18, vision 8, quantization 6, rnn 1), with
-    each op's aliases; every op is in exactly one class of the
-    gradient sweep's;
+  - the registry is the JAX registry less exactly the 7 ops that wait
+    for later items (quantization 6, rnn 1), with each op's aliases;
+    every op is in exactly one class of the gradient sweep's;
+  - a binary op takes a Python number as its other operand, in the
+    dtype JAX's weak typing gives the pair;
   - ``NDArray.{argsort, flip, pad, repeat, sort, tile, topk}`` and
     ``nd.{eye, linspace, moveaxis, from_numpy, from_dlpack}`` equal the
     JAX package's; ``to_dlpack_for_read`` shares the array's memory (the
@@ -40,14 +41,6 @@ CASE_IDS = [c for c in case_ids("tensor") if c[0] not in DISTRIBUTION]
 
 # the JAX ops that wait for later items, by the JAX module that holds them
 WAITING = {
-    "contrib": {"DeformableConvolution", "ModulatedDeformableConvolution",
-                "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
-                "Proposal", "ROIAlign", "ROIPooling", "bipartite_matching",
-                "box_decode", "box_encode", "box_iou", "box_nms",
-                "count_sketch", "gradientmultiplier", "group_adagrad_update",
-                "hawkes_ll", "mrcnn_mask_target"},
-    "vision": {"BilinearSampler", "GridGenerator", "SpatialTransformer",
-               "UpSampling", "col2im", "fft", "ifft", "im2col"},
     "quantization": {"dequantize", "quantize", "quantize_v2",
                      "quantized_conv", "quantized_fully_connected",
                      "requantize"},
@@ -72,7 +65,7 @@ def test_only_the_waiting_ops_are_missing():
         mod = jreg.get(n).fn.__module__.rsplit(".", 1)[-1]
         by_module.setdefault(mod, set()).add(n)
     assert by_module == WAITING
-    assert sum(map(len, WAITING.values())) == 33
+    assert sum(map(len, WAITING.values())) == 7
     assert set(treg.list_all_ops()) <= set(jreg.list_all_ops())
     for n in treg.list_all_ops():
         assert set(treg.get(n).aliases) == set(jreg.get(n).aliases), n
@@ -83,10 +76,22 @@ def test_registry_fully_classified():
     custom gradient or distribution."""
     ops = set(treg.list_all_ops())
     grad = set(grad_names({"base", "tensor", "misc_nn", "random",
-                           "optimizer", "linalg_attention"})) - CUSTOM_GRAD
+                           "optimizer", "linalg_attention", "contrib",
+                           "vision"})) - CUSTOM_GRAD
     classes = [grad, NONDIFF, CUSTOM_GRAD, DISTRIBUTION]
     assert set().union(*classes) == ops
     assert sum(map(len, classes)) == len(ops)
+
+
+@pytest.mark.parametrize("name,lhs,rhs", [
+    ("maximum", f(2, 3), 0.5), ("broadcast_minimum", f(2, 3), -0.25),
+    ("maximum", np.arange(6, dtype=np.int32).reshape(2, 3), 1.5),
+    ("broadcast_add", np.arange(6, dtype=np.int32).reshape(2, 3), 2)])
+def test_binary_ops_take_a_python_scalar(name, lhs, rhs):
+    got = getattr(nd, name)(nd.array(lhs, ctx=mx.cpu(), dtype=lhs.dtype),
+                            rhs)
+    want = getattr(jnd, name)(jnd.array(lhs, dtype=lhs.dtype), rhs)
+    compare(got, want, 0, "float32")
 
 
 def _pair(a):
