@@ -286,6 +286,30 @@ failure exits non-zero before the result line:
                 |entry|), then net(x, im_info), the toy loss and one
                 gluon.Trainer("sgd") step. One `[detection]` JSON line
                 with the card's name and limit;
+  7c5. imagenet — BASELINE.md config #2 on one card, the ImageNet input
+                path: 1024 JPEGs at MXNet's recipe size (short side 256)
+                in 32 class folders, packed by the port's im2rec; the
+                reader alone (every record a JPEG, the native RecordIO
+                reader built, the decoder named, img/s at 1 thread and at
+                the machine's core count, the normalization on the card
+                bitwise numpy's, a batch bitwise the same at 1 and N
+                threads); resnet50_v1 bf16 (1000 classes, each
+                bottleneck's last gamma 0) through
+                SPMDTrainer.step_microbatches, k = 4 x B = 64 at 224x224
+                (a global batch of 256), SGD lr 0.1 momentum 0.9 wd 1e-4
+                multi_precision, fed by ImageRecordIter(rand_crop,
+                rand_mirror, ImageNet mean / std, bf16) under
+                PrefetchingIter: rounds of k = 1, 4, 4 (one build, every
+                later microbatch a replay), 5 timed rounds fed and 5 from
+                one resident batch (ms a round, img/s, busy share of a
+                profiled round each), finite losses that fall, every
+                round applied; one round with a NaN microbatch skipped
+                bitwise (parameters, optimizer state, BatchNorm
+                statistics; one skip, the loss scale 2 -> 1), the next
+                applied by the same build; the device ms of the apply the
+                accumulation computes on every microbatch; peak memory.
+                One `[imagenet]` JSON line with the card's name and
+                limit;
   7d. gpt_training — bench.py `_run_gpt`'s configuration: gpt_small
                 bf16 (flash, dropout 0.1, built by `gpt_small(...)` +
                 `initialize()`) through SPMDTrainer(forward_loss=lm_loss)
@@ -2687,7 +2711,12 @@ def phase_graph_tests():
     the symbolic Executor's (tests/test_torch_symbol_graphs.py: a train
     replay == its eager body bitwise, one capture per signature, outputs
     that later replays leave alone, grad_req add, dropout from the
-    registered generator, a host-reading op failing its capture)."""
+    registered generator, a host-reading op failing its capture) and the
+    accumulation step's (tests/test_torch_microbatch_graphs.py: rounds of
+    1, 4 and 4 replayed from one capture == the eager body bitwise, a NaN
+    round through a replay skipped bitwise, ImageRecordIter normalizing
+    on the card as numpy does and staging batches on its thread while the
+    step graph is captured)."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTEST_DISABLE_PLUGIN_AUTOLOAD="1")
     run = ("import sys, pytest\n"
@@ -2705,7 +2734,8 @@ def phase_graph_tests():
          "tests/test_torch_train_graphs.py",
          "tests/test_torch_gpt_graphs.py",
          "tests/test_torch_symbol_graphs.py",
-         "tests/test_torch_detection_graphs.py"],
+         "tests/test_torch_detection_graphs.py",
+         "tests/test_torch_microbatch_graphs.py"],
         cwd=root, env=env, capture_output=True, text=True, timeout=600)
     tail = proc.stdout.strip().splitlines()[-1:] or [""]
     print(f"[graphs] cuda tests: {tail[0]} "
@@ -5384,6 +5414,362 @@ def phase_detection(torch, smi):
     print(f"[detection] {json.dumps(out)}", flush=True)
 
 
+IMAGENET = dict(records=1024, labels=32, short=256, long=(256, 384),
+                quality=90, B=64, k=4, side=224, classes=1000,
+                warmup=(1, 4, 4), rounds=5, lr=0.1, momentum=0.9, wd=1e-4,
+                rate_batches=(3, 8), mean=(123.68, 116.28, 103.53),
+                std=(58.395, 57.12, 57.375), apply_reps=20)
+
+
+def imagenet_pack(np, root):
+    """IMAGENET["records"] JPEGs at MXNet's recipe size (short side 256,
+    the long side drawn in [256, 384), landscape or portrait), in
+    ``labels`` class folders (each class a coarse colour field of its own
+    under per-pixel noise), packed by the port's im2rec into
+    ``root/imagenet.rec`` / ``.idx``. Returns the prefix and the mean
+    JPEG size."""
+    from concurrent.futures import ThreadPoolExecutor
+    from incubator_mxnet_tpu_torch.io import recordio
+    from incubator_mxnet_tpu_torch.tools import im2rec
+    D = IMAGENET
+    rng = np.random.RandomState(0)
+    protos = rng.rand(D["labels"], 8, 12, 3)
+    specs = []
+    for i in range(D["records"]):
+        long_side = int(rng.randint(*D["long"]))
+        hw = (D["short"], long_side) if i % 2 else (long_side, D["short"])
+        specs.append((i, i % D["labels"], hw, int(rng.randint(1 << 30))))
+
+    def write(spec):
+        i, label, (h, w), seed = spec
+        r = np.random.RandomState(seed)
+        field = protos[label] * 0.7 + r.rand(8, 12, 3) * 0.3
+        img = np.repeat(np.repeat(field, 32, 0), 32, 1)
+        img = np.resize(img, (max(h, 256), max(w, 384), 3))[:h, :w] * 220
+        img = (img + r.randint(0, 32, (h, w, 3))).astype(np.uint8)
+        payload = recordio._encode_img(img, D["quality"], ".jpg")
+        check(payload[:3] == b"\xff\xd8\xff",
+              "imagenet: no JPEG encoder (cv2 / PIL) on this machine")
+        folder = os.path.join(root, "images", f"n{label:08d}")
+        os.makedirs(folder, exist_ok=True)
+        with open(os.path.join(folder, f"{i:05d}.jpg"), "wb") as f:
+            f.write(payload)
+        return len(payload)
+
+    with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        sizes = list(pool.map(write, specs))
+    prefix = os.path.join(root, "imagenet")
+    im2rec.main([prefix, os.path.join(root, "images"), "--recursive"])
+    return prefix, float(np.mean(sizes))
+
+
+def imagenet_iter(mx, prefix, threads, **kw):
+    """The recipe's training reader: random 224 crops and flips,
+    ImageNet's mean and std, bf16 batches on the card."""
+    D = IMAGENET
+    args = dict(path_imgrec=prefix + ".rec", data_shape=(3, D["side"],
+                                                          D["side"]),
+                batch_size=D["B"], rand_crop=True, rand_mirror=True,
+                shuffle=True, preprocess_threads=threads, dtype="bfloat16",
+                **{f"mean_{c}": m for c, m in zip("rgb", D["mean"])},
+                **{f"std_{c}": v for c, v in zip("rgb", D["std"])})
+    args.update(kw)
+    return mx.io.ImageRecordIter(**args)
+
+
+def imagenet_reader(torch, np, mx, prefix):
+    """The reader alone: every record a JPEG, the native RecordIO reader,
+    img/s at 1 thread and at the machine's core count; on the card the
+    normalization bitwise the host formula, and a batch bitwise the same
+    at 1 and at N threads for one seed."""
+    from incubator_mxnet_tpu_torch.io import _native_image, recordio
+    D = IMAGENET
+    rec = recordio.MXRecordIO(prefix + ".rec", "r")
+    n_rec = n_jpeg = 0
+    while (payload := rec.read()) is not None:
+        n_rec += 1
+        n_jpeg += recordio.unpack(payload)[1][:3] == b"\xff\xd8\xff"
+    rec.close()
+    check(n_rec == D["records"] and n_jpeg == n_rec,
+          f"imagenet: {n_jpeg} of {n_rec} records hold a JPEG")
+    decoder = mx.image.decoder()
+    check(decoder != "none", "imagenet: no JPEG decoder on this machine")
+    cores = os.cpu_count() or 1
+    rates = {}
+    for threads, batches in zip((1, cores), D["rate_batches"]):
+        it = imagenet_iter(mx, prefix, threads)
+        check(it.reader == "native",
+              f"imagenet: the native RecordIO reader did not build "
+              f"({it.reader})")
+        next(it)                      # the pool and the pinned buffers
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            b = next(it)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(b.data[0].shape == (D["B"], 3, D["side"], D["side"]) and
+              b.data[0].dtype == "bfloat16" and b.data[0].context.device_type
+              == "gpu", f"imagenet: batch {b.data[0].shape} "
+                        f"{b.data[0].dtype} on {b.data[0].context}")
+        rates[threads] = batches * D["B"] / dt
+    # the normalization on the card against numpy's formula on the
+    # decoded pixels (mean 0, std 1 gives them as floats)
+    plain = dict(rand_crop=False, rand_mirror=False, shuffle=False,
+                 dtype="float32")
+    card = next(imagenet_iter(mx, prefix, cores, **plain)).data[0]
+    with mx.cpu():
+        pix = next(imagenet_iter(
+            mx, prefix, cores, **plain, mean_r=0.0, mean_g=0.0, mean_b=0.0,
+            std_r=1.0, std_g=1.0, std_b=1.0)).data[0].asnumpy()
+    mean = np.asarray(D["mean"], np.float32).reshape(1, 3, 1, 1)
+    std = np.asarray(D["std"], np.float32).reshape(1, 3, 1, 1)
+    want = (pix - mean) / std
+    norm_equal = bool(np.array_equal(card.asnumpy(), want))
+    check(norm_equal, "imagenet: the normalization on the card differs "
+                      "from numpy's (x - mean) / std")
+    batches = []
+    for threads in (1, cores):
+        mx.random.seed(5)
+        batches.append(next(imagenet_iter(mx, prefix, threads)))
+    threads_equal = all(
+        torch.equal(a._data, b._data)
+        for a, b in zip(batches[0].data + batches[0].label,
+                        batches[1].data + batches[1].label))
+    check(threads_equal, f"imagenet: a batch at 1 thread differs from "
+                         f"the same batch at {cores}")
+    native_jpeg = _native_image.lib() is not None
+    return dict(decoder=decoder, reader="native", records=n_rec,
+                jpeg_records=n_jpeg,
+                native_jpeg="built" if native_jpeg else
+                (_native_image.build_error("mxtpu_image") or "")
+                .strip().splitlines()[-1][:160],
+                img_per_s_1_thread=rates[1], cores=cores,
+                img_per_s_all_cores=rates[cores],
+                normalization_bitwise_numpy=norm_equal,
+                batch_bitwise_1_vs_all_threads=threads_equal)
+
+
+def imagenet_state(torch, tr, net):
+    from incubator_mxnet_tpu_torch.optimizer.fused import tree_leaves
+    return [p.detach().clone() for p in tr._params] + \
+        [t.clone() for t in tree_leaves(tr._opt_state)] + \
+        [b.clone() for b in net.buffers()]
+
+
+def imagenet_apply_ms(torch, tr):
+    """The device ms of the update the accumulation body computes on
+    every microbatch and keeps on the last (``_accum_apply`` with the
+    select false: nothing changes), as one graph replayed."""
+    prog = next(iter(tr._accum_programs.values()))
+    never = torch.zeros((), dtype=torch.bool, device=tr.device)
+    opt = tr._optimizer
+    saved = dict(opt._index_update_count), opt.num_update
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tr._accum_apply(prog.inp.dev, never)       # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        tr._accum_apply(prog.inp.dev, never)
+    opt._index_update_count, opt.num_update = saved
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    graph.replay()
+    start.record()
+    for _ in range(IMAGENET["apply_reps"]):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / IMAGENET["apply_reps"]
+    del graph
+    return ms
+
+
+def imagenet_training(torch, np, mx, prefix, device_name):
+    """resnet50_v1 bf16 through SPMDTrainer.step_microbatches, k = 4 x 64
+    from ImageRecordIter under PrefetchingIter, against the same rounds
+    from one resident batch; captures, a NaN round, the apply's cost."""
+    from incubator_mxnet_tpu_torch import amp, nd, parallel
+    from incubator_mxnet_tpu_torch.gluon import loss as gloss
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import \
+        BottleneckV1
+    from incubator_mxnet_tpu_torch.train import StepOutcome
+    from incubator_mxnet_tpu_torch.utils import flops
+    D = IMAGENET
+    B, k, side = D["B"], D["k"], D["side"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mx.random.seed(0)
+    net = resnet50_v1(classes=D["classes"])
+    net.initialize()
+    net(nd.array(np.random.RandomState(0).rand(1, 3, side, side)
+                 .astype(np.float32)))
+    # GluonCV's last_gamma: each bottleneck's last BatchNorm starts at
+    # gamma 0, so every residual block starts as the identity (from the
+    # default init at a constant lr 0.1 the loss on these records rose)
+    for block in net.modules():
+        if isinstance(block, BottleneckV1):
+            gamma = block.body[-1].gamma
+            gamma.set_data(nd.zeros(gamma.shape))
+    net.cast("bfloat16")
+    # a power-of-two scale changes no bf16 value; the NaN round halves it
+    scaler = amp.LossScaler(init_scale=2.0, scale_window=1 << 30)
+    tr = parallel.SPMDTrainer(
+        net, loss=gloss.SoftmaxCrossEntropyLoss(), optimizer="sgd",
+        optimizer_params={"learning_rate": D["lr"],
+                          "momentum": D["momentum"], "wd": D["wd"],
+                          "multi_precision": True},
+        loss_scaler=scaler)
+    fed_batches = sum(D["warmup"]) + (D["rounds"] + 1) * k
+    pf = mx.io.PrefetchingIter(mx.io.ResizeIter(
+        imagenet_iter(mx, prefix, os.cpu_count() or 1), fed_batches))
+
+    def fed(n):
+        return [(b.data[0], b.label[0]) for b in (next(pf) for _ in range(n))]
+
+    losses = []
+    for n in D["warmup"]:
+        micros = fed(n)
+        losses.append(float(tr.step_microbatches(micros).asnumpy()))
+    resident = micros[0]
+    check(tr.accum_step_trace_count == 1 and len(tr._accum_programs) == 1,
+          f"imagenet: {tr.accum_step_trace_count} accumulation programs "
+          f"built over rounds of k = {D['warmup']}")
+    prog = next(iter(tr._accum_programs.values()))
+    check(prog.graph is not None and prog.replays == sum(D["warmup"]) - 1,
+          f"imagenet: {prog.replays} replays after the warm-up rounds")
+    # what else the host does meanwhile: the process's threads, its CPU
+    # seconds, and the garbage collector's pauses over the fed rounds
+    pauses = []
+
+    def gc_timer(phase, info):
+        if phase == "start":
+            pauses.append(-time.perf_counter())
+        elif pauses:
+            pauses[-1] += time.perf_counter()
+
+    host = dict(threads=threading.active_count(),
+                gc_tracked_objects=len(gc.get_objects()),
+                loadavg_1min=os.getloadavg()[0])
+    gc.callbacks.append(gc_timer)
+    torch.cuda.synchronize()
+    t0, cpu0 = time.perf_counter(), time.process_time()
+    try:
+        timed = [tr.step_microbatches(fed(k)) for _ in range(D["rounds"])]
+        torch.cuda.synchronize()
+    finally:
+        gc.callbacks.remove(gc_timer)
+    wall = time.perf_counter() - t0
+    fed_ms = wall * 1e3 / D["rounds"]
+    host.update(process_cpu_s_per_wall_s=(time.process_time() - cpu0) / wall,
+                gc_pauses=len(pauses), gc_ms=sum(pauses) * 1e3)
+    losses += [float(v.asnumpy()) for v in timed]
+    fed_profile = busy_share(torch, lambda: tr.step_microbatches(fed(k)))
+    drained = len(list(pf))
+    t0 = time.perf_counter()
+    for _ in range(D["rounds"]):
+        tr.step_microbatches([resident] * k)
+    torch.cuda.synchronize()
+    resident_ms = (time.perf_counter() - t0) * 1e3 / D["rounds"]
+    resident_profile = busy_share(
+        torch, lambda: tr.step_microbatches([resident] * k))
+    n_rounds = len(D["warmup"]) + 2 * D["rounds"] + 2
+    check(all(np.isfinite(losses)), f"imagenet: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"imagenet: the fed rounds' loss did not "
+                                  f"fall: {losses}")
+    check(tr.step_count == n_rounds and tr.health["APPLIED"] == n_rounds,
+          f"imagenet: {tr.step_count} of {n_rounds} rounds applied "
+          f"({tr.health})")
+    # one NaN microbatch (the second) skips the round bitwise
+    bad = resident[0].copy()
+    bad._data[0, 0, 0, 0] = float("nan")
+    before = imagenet_state(torch, tr, net)
+    health = dict(tr.health)
+    tr.step_microbatches([resident, (bad, resident[1])] + [resident] * 2)
+    after = imagenet_state(torch, tr, net)
+    changed = sum(not torch.equal(a, b) for a, b in zip(before, after))
+    skipped = tr.health["SKIPPED_NONFINITE"] - health["SKIPPED_NONFINITE"]
+    check(tr.last_outcome is StepOutcome.SKIPPED_NONFINITE and
+          skipped == 1 and changed == 0 and tr.step_count == n_rounds and
+          scaler.loss_scale == 1.0,
+          f"imagenet: the NaN round changed {changed} tensors, "
+          f"{skipped} skips, outcome {tr.last_outcome}, step_count "
+          f"{tr.step_count}, loss scale {scaler.loss_scale}")
+    tr.step_microbatches([resident] * k)
+    check(tr.last_outcome is StepOutcome.APPLIED and
+          tr.accum_step_trace_count == 1,
+          f"imagenet: after the NaN round {tr.last_outcome}, "
+          f"{tr.accum_step_trace_count} builds")
+    apply_ms = imagenet_apply_ms(torch, tr)
+    img = B * k
+    gflop = img * 3 * VISION["gflop_per_image"] * 1e9
+    out = dict(config=f"resnet50_v1 bf16 {D['classes']} classes, "
+                      f"step_microbatches k={k} x B={B} at {side}x{side} "
+                      f"(global batch {img}), last_gamma, SGD lr {D['lr']} "
+                      f"momentum "
+                      f"{D['momentum']} wd {D['wd']} multi_precision, "
+                      f"ImageRecordIter(rand_crop, rand_mirror, ImageNet "
+                      f"mean/std, bf16) under PrefetchingIter",
+               losses=losses, fed_ms_per_round=fed_ms,
+               fed_img_per_s=img / (fed_ms / 1e3),
+               resident_ms_per_round=resident_ms,
+               resident_img_per_s=img / (resident_ms / 1e3),
+               fed_over_resident=fed_ms / resident_ms,
+               mfu_resident=gflop / (resident_ms / 1e3)
+               / flops.peak_flops(device_name),
+               apply_select_ms_per_microbatch=apply_ms,
+               accum_step_trace_count=tr.accum_step_trace_count,
+               last_accum_count=tr.last_accum_count,
+               first_microbatch_ms=prog.first_ms, capture_ms=prog.build_ms,
+               replays=prog.replays, nan_round="skipped bitwise, one "
+               "SKIPPED_NONFINITE, loss scale 2 -> 1",
+               drained_batches=drained, fed_host=host,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    out.update({f"fed_{k_}": v for k_, v in fed_profile.items()})
+    out.update({f"resident_{k_}": v for k_, v in resident_profile.items()})
+    del tr, net, pf, prog, resident, micros, bad, before, after
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_imagenet(torch, smi):
+    """The ImageNet input path on the card (module docstring, 7c5)."""
+    import tempfile
+    import numpy as np
+    import incubator_mxnet_tpu_torch as mx
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="mx_imagenet_")
+    try:
+        prefix, jpeg_bytes = imagenet_pack(np, root)
+        pack_s = time.perf_counter() - t0
+        reader = imagenet_reader(torch, np, mx, prefix)
+        train = imagenet_training(torch, np, mx, prefix,
+                                  torch.cuda.get_device_name(0))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = dict(card=smi, pack_s=pack_s, mean_jpeg_bytes=jpeg_bytes,
+               reader=reader, training=train,
+               phase_s=time.perf_counter() - t0)
+    print(f"[imagenet] {smi}: decoder {reader['decoder']}, reader "
+          f"{reader['reader']}; ImageRecordIter {reader['img_per_s_1_thread']:.0f}"
+          f" img/s at 1 thread, {reader['img_per_s_all_cores']:.0f} at "
+          f"{reader['cores']}; resnet50_v1 bf16 k=4 x 64: fed "
+          f"{train['fed_ms_per_round']:.1f} ms/round "
+          f"({train['fed_img_per_s']:.0f} img/s, busy "
+          f"{train.get('fed_device_busy_share')}), resident "
+          f"{train['resident_ms_per_round']:.1f} ms/round "
+          f"({train['resident_img_per_s']:.0f} img/s, busy "
+          f"{train.get('resident_device_busy_share')}); builds "
+          f"{train['accum_step_trace_count']}, capture "
+          f"{train['capture_ms'] or 0:.0f} ms; apply+select "
+          f"{train['apply_select_ms_per_microbatch']:.3f} ms/microbatch; "
+          f"peak {train['peak_memory_gb']:.2f} GB", flush=True)
+    print(f"[imagenet] {json.dumps(out)}", flush=True)
+
+
 def kernel_record(err, runs, times):
     """The kernels' JSON record; each kernel's launches come from the run
     of its own path (decode / prefill: plain; verify: spec_k=4 on raw
@@ -5452,6 +5838,7 @@ def main():
         phase_amp(torch, smi)
         phase_symbolic(torch, smi)
         phase_detection(torch, smi)
+        phase_imagenet(torch, smi)
         runs["gpt_training"] = phase_gpt_training(torch, smi)
         phase_checkpoint(torch, smi)
         phase_nmt(torch, smi)

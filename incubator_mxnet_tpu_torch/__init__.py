@@ -58,8 +58,9 @@ use.
 
 The symbolic front end (``mx.sym`` / ``mx.symbol``, ``mx.mod``,
 ``mx.io``, ``mx.kv``, ``mx.model``, ``mx.callback``, ``mx.viz``,
-``mx.executor``, ``mx.name``, ``mx.attribute`` and ``mx.AttrScope``,
-loaded at first use) runs MXNet 1.x's ``Module.fit`` flow: a Symbol bound
+``mx.executor``, ``mx.name``, ``mx.attribute`` and ``mx.AttrScope``)
+and the image input path (``mx.recordio``, ``mx.image``), all loaded at
+first use, runs MXNet 1.x's ``Module.fit`` flow: a Symbol bound
 by ``simple_bind`` / ``Module.bind`` runs as one CUDA graph per
 signature; gluon's ``export`` / ``SymbolBlock.imports`` cross between
 the front ends.
@@ -93,7 +94,7 @@ _LAZY_SUBMODULES = {
     "callback": ".callback", "model": ".model",
     "visualization": ".visualization", "viz": ".visualization",
     "executor": ".symbol.executor", "attribute": ".attribute",
-    "name": ".name",
+    "name": ".name", "recordio": ".io.recordio", "image": ".image",
 }
 
 

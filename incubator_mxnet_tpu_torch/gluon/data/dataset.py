@@ -1,7 +1,5 @@
 """Datasets: the port of the JAX package's
-``incubator_mxnet_tpu/gluon/data/dataset.py``. ``RecordFileDataset``
-needs ``io/recordio.py``, which is not ported, and raises
-``MXNetError``."""
+``incubator_mxnet_tpu/gluon/data/dataset.py``."""
 
 from __future__ import annotations
 
@@ -112,8 +110,18 @@ class ArrayDataset(Dataset):
 
 
 class RecordFileDataset(Dataset):
-    """Random-access dataset over an indexed RecordIO file: not ported
-    (it waits for ``io/recordio.py``)."""
+    """The records of an indexed RecordIO file (``name.rec`` beside
+    ``name.idx``) by position, as bytes (parity:
+    ``gluon.data.RecordFileDataset``)."""
 
     def __init__(self, filename):
-        raise MXNetError("RecordFileDataset: io/recordio.py is not ported")
+        from ...io.recordio import IndexedRecordIO
+        self._filename = filename
+        idx_file = filename[:filename.rfind(".")] + ".idx"
+        self._record = IndexedRecordIO(idx_file, filename, "r")
+
+    def __len__(self):
+        return len(self._record.keys)
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])

@@ -2,7 +2,9 @@
 ``incubator_mxnet_tpu/gluon/data/vision/``."""
 
 from . import datasets
-from .datasets import MNIST, FashionMNIST, CIFAR10, CIFAR100
+from .datasets import (MNIST, FashionMNIST, CIFAR10, CIFAR100,
+                       ImageFolderDataset, ImageRecordDataset)
 from . import transforms
 
-__all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100", "transforms"]
+__all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100",
+           "ImageFolderDataset", "ImageRecordDataset", "transforms"]

@@ -7,8 +7,10 @@ there; without them ``synthetic=True`` makes the JAX package's
 deterministic class-structured stand-in (the same seeds, so the same
 images and labels), and without either the dataset raises: nothing is
 downloaded. Images are HWC uint8 numpy arrays, labels int32.
-``ImageFolderDataset`` and ``ImageRecordDataset`` wait for ``image/`` and
-``io/recordio.py``.
+``ImageFolderDataset`` (a class per subfolder) and ``ImageRecordDataset``
+(an ``im2rec`` pack) decode through ``mx.image``'s codec chain and give
+HWC uint8 numpy images too, where the JAX package's give ``NDArray``s: a
+DataLoader worker then returns host arrays, as with every dataset here.
 """
 
 from __future__ import annotations
@@ -21,9 +23,10 @@ import struct
 import numpy as np
 
 from ....base import MXNetError
-from ..dataset import Dataset
+from ..dataset import Dataset, RecordFileDataset
 
-__all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100"]
+__all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100",
+           "ImageFolderDataset", "ImageRecordDataset"]
 
 
 def _synthetic_images(n, shape, classes, seed):
@@ -177,3 +180,62 @@ class CIFAR100(_DownloadedDataset):
         self._data = arr.transpose(0, 2, 3, 1).astype(np.uint8)
         key = "fine_labels" if self._fine else "coarse_labels"
         self._label = np.asarray(batch[key], np.int32)
+
+
+class ImageFolderDataset(Dataset):
+    """Images in a class per subfolder of ``root`` (parity:
+    ``gluon.data.vision.ImageFolderDataset``): ``synsets`` are the
+    subfolders in sorted order, ``items`` the ``(path, label)`` pairs;
+    an item is ``(HWC uint8 image, label)``, ``flag=0`` for one gray
+    channel."""
+
+    _EXTS = (".jpg", ".jpeg", ".png", ".bmp")
+
+    def __init__(self, root, flag=1, transform=None):
+        self._root = os.path.expanduser(root)
+        self._flag = flag
+        self._transform = transform
+        self.synsets = []
+        self.items = []
+        for folder in sorted(os.listdir(self._root)):
+            path = os.path.join(self._root, folder)
+            if not os.path.isdir(path):
+                continue
+            label = len(self.synsets)
+            self.synsets.append(folder)
+            for fname in sorted(os.listdir(path)):
+                if os.path.splitext(fname)[1].lower() in self._EXTS:
+                    self.items.append((os.path.join(path, fname), label))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, idx):
+        from ....image import decode_to_numpy
+        path, label = self.items[idx]
+        with open(path, "rb") as f:
+            img = decode_to_numpy(f.read(), self._flag,
+                                  to_rgb=bool(self._flag))
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
+
+
+class ImageRecordDataset(RecordFileDataset):
+    """``(HWC uint8 image, label)`` pairs of an ``im2rec`` pack (parity:
+    ``gluon.data.vision.ImageRecordDataset``): each record an
+    ``IRHeader``-packed label and image."""
+
+    def __init__(self, filename, flag=1, transform=None):
+        super().__init__(filename)
+        self._flag = flag
+        self._transform = transform
+
+    def __getitem__(self, idx):
+        from ....io.recordio import unpack
+        from ....image import decode_to_numpy
+        header, img_bytes = unpack(super().__getitem__(idx))
+        img = decode_to_numpy(img_bytes, self._flag, to_rgb=bool(self._flag))
+        if self._transform is not None:
+            return self._transform(img, header.label)
+        return img, header.label

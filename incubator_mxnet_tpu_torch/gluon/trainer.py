@@ -115,6 +115,7 @@ class Trainer:
         self._accum: Dict[int, torch.Tensor] = {}   # persistent f32 sums
         self._accum_round: List[int] = []           # indices this round
         self._accum_count = 0
+        self._accum_mode = False    # latched by accumulate_grads()
 
     # ------------------------------------------------------------------ #
     @property
@@ -222,6 +223,14 @@ class Trainer:
         from ..ndarray import NDArray
         return {i: NDArray(self._accum[i]) for i in self._accum_round}
 
+    def set_grad_accumulation(self, active: bool):
+        """Declare that the next backwards belong to accumulation rounds
+        (parity: the JAX Trainer's flag, which makes an overlapped
+        allreduce wait for the apply from the first microbatch on).
+        Without ``overlap_allreduce``, which the port refuses, the flag is
+        recorded and changes nothing; ``accumulate_grads`` sets it."""
+        self._accum_mode = bool(active)
+
     def accumulate_grads(self):
         """Fold the fresh gradients into the f32 accumulators and mark
         them consumed; returns the microbatches folded this round."""
@@ -255,6 +264,7 @@ class Trainer:
         for _, g in items:
             g._fresh = False
         self._accum_count += 1
+        self._accum_mode = True
         return self._accum_count
 
     def _update(self, ignore_stale_grad=False, overrides=None):

@@ -12,9 +12,13 @@ host stream (``np_rng``), where the JAX package draws it from its
 threefry key, so a shuffled epoch is another permutation in each
 package; unshuffled batches are equal.
 
-``ImageRecordIter``, ``ImageDetRecordIter``, ``MNISTIter`` and
-``LibSVMIter`` raise ``MXNetError``: the record and image readers and
-sparse inputs are not ported.
+``ImageRecordIter`` reads a ``.rec`` of images (``recordio``, the
+native reader where it builds), decodes and crops on
+``preprocess_threads`` threads and normalizes on the device the batch
+lands on (the context current at construction); ``ImageDetRecordIter``
+is ``image.ImageDetIter``'s reader; ``MNISTIter`` reads
+``gluon.data.vision.MNIST``. ``LibSVMIter`` raises ``MXNetError``: sparse
+inputs are not ported.
 """
 
 from __future__ import annotations
@@ -30,11 +34,17 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from ..context import current_context, resolve_device
 from ..ndarray import NDArray
+from . import recordio
+from .recordio import (IRHeader, IndexedRecordIO, MXIndexedRecordIO,
+                       MXRecordIO, pack, pack_img, unpack, unpack_img)
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "CSVIter",
            "LibSVMIter", "ImageRecordIter", "ImageDetRecordIter",
-           "MNISTIter", "ResizeIter", "PrefetchingIter"]
+           "MNISTIter", "ResizeIter", "PrefetchingIter", "recordio",
+           "MXRecordIO", "IndexedRecordIO", "MXIndexedRecordIO", "IRHeader",
+           "pack", "unpack", "pack_img", "unpack_img"]
 
 
 class DataDesc(collections.namedtuple("DataDesc", ["name", "shape", "dtype",
@@ -267,19 +277,314 @@ class CSVIter(DataIter):
         self._inner.set_position(state)
 
 
-def _not_ported(name, what):
-    def refuse(*args, **kwargs):
-        raise MXNetError(f"mx.io.{name}: {what} is not ported (ROADMAP "
-                         f"Queue 1 item 13)")
-    refuse.__name__ = name
-    return refuse
+def LibSVMIter(*args, **kwargs):
+    """Refused: it emits CSR batches, and sparse inputs are not ported."""
+    raise MXNetError("mx.io.LibSVMIter: sparse (CSR) input is not ported "
+                     "(ROADMAP Queue 1 item 13, the sparse bullet)")
 
 
-LibSVMIter = _not_ported("LibSVMIter", "sparse (CSR) input")
-ImageRecordIter = _not_ported("ImageRecordIter", "the RecordIO image reader")
-ImageDetRecordIter = _not_ported("ImageDetRecordIter",
-                                 "the RecordIO detection reader")
-MNISTIter = _not_ported("MNISTIter", "the MNIST file reader")
+class MNISTIter(DataIter):
+    """MNIST batches (parity: ``mx.io.MNISTIter``) over
+    ``gluon.data.vision.MNIST``: the IDX files next to ``image``, else the
+    synthetic stand-in (nothing is downloaded); images scaled to [0, 1],
+    NCHW or ``flat``; ``num_parts`` / ``part_index`` take every
+    ``num_parts``-th image. Batches are host ``NDArray``s, as
+    ``NDArrayIter``'s over numpy are."""
+
+    def __init__(self, image=None, label=None, batch_size=128, shuffle=True,
+                 flat=False, seed=0, silent=False, num_parts=1, part_index=0,
+                 **kwargs):
+        super().__init__(batch_size)
+        from ..gluon.data.vision.datasets import MNIST
+        root = os.path.dirname(image) if image else "~/.mxnet/datasets/mnist"
+        train = image is None or "train" in os.path.basename(image)
+        try:
+            ds = MNIST(root=root, train=train)
+        except MXNetError:
+            ds = MNIST(root=root, train=train, synthetic=True)
+        imgs = ds._data.astype(np.float32) / 255.0
+        labels = ds._label
+        imgs = imgs.reshape(len(imgs), -1) if flat \
+            else imgs.transpose(0, 3, 1, 2)
+        if num_parts > 1:
+            imgs = imgs[part_index::num_parts]
+            labels = labels[part_index::num_parts]
+        self._inner = NDArrayIter(imgs, labels.astype(np.float32),
+                                  batch_size, shuffle=shuffle,
+                                  last_batch_handle="discard")
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()
+
+    def iter_next(self):
+        return self._inner.iter_next()
+
+    def tell(self) -> dict:
+        return self._inner.tell()
+
+    def set_position(self, state: dict):
+        self._inner.set_position(state)
+
+
+_DTYPES = {"float32": torch.float32, "float16": torch.float16,
+           "bfloat16": torch.bfloat16}
+
+
+def normalize_batch(u8, mean, std, dtype=torch.float32):
+    """A uint8 NHWC batch as NCHW ``(x - mean) / std`` in ``dtype`` (f32
+    arithmetic, IEEE subtract and divide by per-channel tensors, so it is
+    bitwise numpy's ``(x.astype(float32) - mean) / std`` on any device);
+    one channel is only cast, as the JAX iterator does."""
+    n, h, w, c = u8.shape
+    x = torch.empty((n, c, h, w), dtype=torch.float32, device=u8.device)
+    x.copy_(u8.permute(0, 3, 1, 2))
+    if c >= 3:
+        x.sub_(mean.view(1, -1, 1, 1)).div_(std.view(1, -1, 1, 1))
+    return x if dtype == torch.float32 else x.to(dtype)
+
+
+class ImageRecordIter(DataIter):
+    """Image batches from a RecordIO file (parity: ``mx.io.
+    ImageRecordIter``, MXNet's ``iter_image_recordio_2.cc``), as the JAX
+    package's iterator makes them: records in file order or shuffled by a
+    drawn seed (``tell`` / ``set_position`` carry it), ``num_parts`` /
+    ``part_index``, each image decoded by the codec chain
+    (``image.decode_to_numpy``), cut to ``data_shape`` (a random window
+    with ``rand_crop`` on an image larger than it, else the centre, and
+    edge padding where it is smaller), flipped with ``rand_mirror``, then
+    ``(x - mean) / std`` per channel and NCHW, in ``dtype``;
+    ``round_batch`` fills the last batch from the epoch's start (``pad``
+    says how many).
+
+    The records are read by the native reader where it builds (``reader``
+    says which), decoded and cut on ``preprocess_threads`` threads; every
+    random draw is made on the calling thread in record order, so a batch
+    is bitwise the same at any thread count for one ``mx.random.seed``.
+    The uint8 batch goes to the device through pinned memory on a stream
+    of the iterator's own and is normalized there (a quarter of the f32
+    bytes cross the bus); the stream current where ``next`` runs (the
+    default stream under ``PrefetchingIter``) waits for it. Batches land
+    on the context current at construction."""
+
+    def __init__(self, path_imgrec, data_shape, batch_size, label_width=1,
+                 shuffle=False, rand_crop=False, rand_mirror=False,
+                 mean_r=0.0, mean_g=0.0, mean_b=0.0, std_r=1.0, std_g=1.0,
+                 std_b=1.0, num_parts=1, part_index=0, preprocess_threads=4,
+                 round_batch=True, seed=0, dtype="float32", **kwargs):
+        super().__init__(batch_size)
+        if str(dtype) not in _DTYPES:
+            raise MXNetError(f"ImageRecordIter: dtype {dtype!r} is not one "
+                             f"of {sorted(_DTYPES)}")
+        self._path = path_imgrec
+        self._shape = tuple(data_shape)
+        self._label_width = label_width
+        self._shuffle = shuffle
+        self._rand_crop = rand_crop
+        self._rand_mirror = rand_mirror
+        self._round = round_batch
+        self._dtype = _DTYPES[str(dtype)]
+        self._threads = max(1, int(preprocess_threads))
+        self._pool = None
+        self._stream = None
+        self._device = resolve_device(current_context())
+        self._mean = torch.tensor([mean_r, mean_g, mean_b],
+                                  dtype=torch.float32, device=self._device)
+        self._std = torch.tensor([std_r, std_g, std_b],
+                                 dtype=torch.float32, device=self._device)
+        from ._native import NativeRecordReader
+        try:
+            self._native = NativeRecordReader(path_imgrec,
+                                              n_threads=self._threads)
+            n = len(self._native)
+            self.reader = "native"
+        except RuntimeError:
+            self._native = None
+            self._plain = MXRecordIO(path_imgrec, "r")
+            self._offsets = []
+            while True:
+                pos = self._plain.tell()
+                if self._plain.read() is None:
+                    break
+                self._offsets.append(pos)
+            n = len(self._offsets)
+            self.reader = "python"
+        idx = np.arange(n)
+        if num_parts > 1:
+            idx = idx[part_index::num_parts]
+        self._indices = idx
+        self._order = np.array(idx)
+        self._shuffle_seed = None
+        self.reset()
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size,) + self._shape,
+                         str(self._dtype).replace("torch.", ""))]
+
+    @property
+    def provide_label(self):
+        shape = (self.batch_size,) if self._label_width == 1 else \
+            (self.batch_size, self._label_width)
+        return [DataDesc("softmax_label", shape)]
+
+    def _shuffled(self, seed: int):
+        self._shuffle_seed = seed
+        self._order = np.array(self._indices)
+        np.random.RandomState(seed).shuffle(self._order)
+
+    def reset(self):
+        if self._shuffle:
+            self._shuffled(_draw_shuffle_seed())
+        self._cursor = 0
+
+    def iter_next(self):
+        return self._cursor < len(self._order)
+
+    def tell(self) -> dict:
+        return {"cursor": int(self._cursor),
+                "num_records": len(self._indices),
+                "shuffle_seed": self._shuffle_seed}
+
+    def set_position(self, state: dict):
+        if state.get("num_records") is not None and \
+                int(state["num_records"]) != len(self._indices):
+            raise MXNetError(
+                f"iterator position is for {state['num_records']} "
+                f"records, this record set has {len(self._indices)}")
+        if state.get("shuffle_seed") is not None:
+            self._shuffled(int(state["shuffle_seed"]))
+        self._cursor = int(state["cursor"])
+
+    def _map(self, fn, items):
+        if self._threads == 1:
+            return list(map(fn, items))
+        if self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+            self._pool = ThreadPoolExecutor(
+                self._threads, thread_name_prefix="ImageRecordIter")
+        return list(self._pool.map(fn, items))
+
+    def _read_records(self, ids):
+        if self._native is not None:
+            return self._native.read_batch(ids)
+        out = []
+        for i in ids:
+            self._plain.seek(self._offsets[i])
+            out.append(self._plain.read())
+        return out
+
+    def _window(self, rng, h, w):
+        """``(y0, x0, mirror)`` of one image of ``h`` x ``w``: the draws of
+        the JAX iterator, in its order."""
+        _, H, W = self._shape
+        if self._rand_crop and (h > H or w > W):
+            y0 = rng.randint(0, max(h - H, 0) + 1)
+            x0 = rng.randint(0, max(w - W, 0) + 1)
+        else:
+            y0, x0 = max((h - H) // 2, 0), max((w - W) // 2, 0)
+        return y0, x0, bool(self._rand_mirror and rng.rand() < 0.5)
+
+    def _cut(self, img, window, out):
+        """The window of ``img``, edge-padded to the data shape and
+        flipped when asked, written into ``out`` (H, W, C)."""
+        _, H, W = self._shape
+        y0, x0, mirror = window
+        img = img[y0:y0 + H, x0:x0 + W]
+        h, w = img.shape[:2]
+        if h < H or w < W:
+            img = np.pad(img, ((0, H - h), (0, W - w), (0, 0)), mode="edge")
+        out[...] = img[:, ::-1] if mirror else img
+
+    def next(self):
+        if not self.iter_next():
+            raise StopIteration
+        from ..image import decode_to_numpy
+        from .. import random as _random
+        end = self._cursor + self.batch_size
+        ids = self._order[self._cursor:end].tolist()
+        pad = 0
+        if len(ids) < self.batch_size:
+            if not self._round:
+                self._cursor = len(self._order)
+                if not ids:
+                    raise StopIteration
+            else:
+                pad = self.batch_size - len(ids)
+                ids = ids + self._order[:pad].tolist()
+        self._cursor = end
+        records = [unpack(p) for p in self._read_records(ids)]
+        imgs = self._map(decode_to_numpy, [payload for _, payload in records])
+        rng = _random.np_rng() if (self._rand_crop or self._rand_mirror) \
+            else None
+        windows = [self._window(rng, *img.shape[:2]) for img in imgs]
+        _, H, W = self._shape
+        shape = (len(imgs), H, W, imgs[0].shape[2])
+        cuda = self._device.type == "cuda"
+        host = torch.empty(shape, dtype=torch.uint8, pin_memory=cuda)
+        u8 = host.numpy()
+        self._map(lambda i: self._cut(imgs[i], windows[i], u8[i]),
+                  range(len(imgs)))
+        labels = np.stack([np.atleast_1d(np.asarray(h.label, np.float32))
+                           [:self._label_width] for h, _ in records])
+        if self._label_width == 1:
+            labels = labels.squeeze(-1)
+        lab = torch.empty(labels.shape, dtype=torch.float32, pin_memory=cuda)
+        lab.numpy()[...] = labels
+        data, label = self._to_device(host, lab)
+        return DataBatch([NDArray(data)], [NDArray(label)], pad=pad)
+
+    def _to_device(self, host, lab):
+        if self._device.type != "cuda":
+            return normalize_batch(host, self._mean, self._std,
+                                   self._dtype), lab
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self._device)
+        consumer = torch.cuda.current_stream(self._device)
+        with torch.cuda.stream(self._stream):
+            u8 = host.to(self._device, non_blocking=True)
+            label = lab.to(self._device, non_blocking=True)
+            data = normalize_batch(u8, self._mean, self._std, self._dtype)
+        consumer.wait_stream(self._stream)
+        data.record_stream(consumer)
+        label.record_stream(consumer)
+        return data, label
+
+    def __del__(self):
+        pool = getattr(self, "_pool", None)
+        if pool is not None:
+            pool.shutdown(wait=False)
+
+
+def ImageDetRecordIter(**kwargs):
+    """Detection batches from a RecordIO file (parity surface:
+    ``mx.io.ImageDetRecordIter``): ``image.ImageDetIter`` with MXNet's
+    keyword arguments translated (``mean_r`` / ``_g`` / ``_b`` and
+    ``std_*`` to ``mean`` / ``std``); its tuning knobs
+    (``preprocess_threads``, ``label_pad_width``, ...) are accepted and
+    have no effect."""
+    from ..image.detection import ImageDetIter
+    mean = tuple(kwargs.pop(f"mean_{c}", 0.0) for c in "rgb")
+    std = tuple(kwargs.pop(f"std_{c}", 1.0) for c in "rgb")
+    passthrough = {k: kwargs.pop(k) for k in (
+        "batch_size", "data_shape", "path_imgrec", "shuffle", "max_objects",
+        "aug_list", "resize", "rand_crop", "rand_mirror")
+        if k in kwargs}
+    if any(mean):
+        passthrough["mean"] = mean
+    if std != (1.0, 1.0, 1.0):
+        passthrough["std"] = std
+    return ImageDetIter(**passthrough)
 
 
 class ResizeIter(DataIter):

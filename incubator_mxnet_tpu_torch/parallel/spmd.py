@@ -48,6 +48,25 @@ and the guard. Staged every step: ``t``, the learning rate (a schedule's
 included) and the loss scale. The optimizer's host update counters move
 at a build only, as they move at trace time in the JAX package.
 
+``step_microbatches(microbatches)`` is one optimizer step over k
+microbatches (gradient accumulation inside the step, the JAX trainer's
+contract): one program per microbatch signature, built as the step's
+are, runs once per microbatch. It adds the microbatch's gradients into
+f32 accumulators, multiplies its all-finite flag into the round's verdict
+and adds its loss, all device tensors of the trainer's that every such
+graph holds by address (written with ``copy_``). The apply of the mean
+gradient is computed on every microbatch and selected on the device
+(``torch.where``) only on the round's last one and only when every
+microbatch was finite, as the JAX program's where-select does; the
+BatchNorm statistics the forwards advance are copied aside on the first
+microbatch and put back after a vetoed round. ``first``, ``last`` and
+``1 / k`` are staged inputs, so k is host data: rounds of 1, 4 and 8
+microbatches of one shape run one build (``accum_step_trace_count``).
+One readback a round, after the last microbatch, steers the same
+counters as a step's: a round with a non-finite microbatch leaves
+parameters, optimizer state and module buffers bitwise, records one
+``SKIPPED_NONFINITE`` and halves the loss scale once.
+
 ``save_checkpoint`` / ``restore_checkpoint`` / ``install_preemption``
 go through ``checkpoint.CheckpointManager`` and the capsule
 (``checkpoint.spmd_capsule``): a restore writes the parameters, the
@@ -56,7 +75,7 @@ step graphs hold, so no capture follows it (``step_trace_count`` stays).
 
 Not ported, and refused with ``MXNetError``: a mesh of more than one
 device, ``sharding="fsdp"``, ``pipeline=``, ``int8_allreduce``,
-``remat_plan``, ``grad_collective="ring"`` and ``step_microbatches``.
+``remat_plan`` and ``grad_collective="ring"``.
 """
 
 from __future__ import annotations
@@ -82,6 +101,9 @@ __all__ = ["SPMDTrainer"]
 
 _INPUTS = (("t", (), torch.float32), ("lr", (), torch.float32),
            ("scale", (), torch.float32))
+_ACCUM_INPUTS = _INPUTS + (("inv_k", (), torch.float32),
+                           ("first", (), torch.float32),
+                           ("last", (), torch.float32))
 _OUTPUTS = (("loss", (), torch.float32), ("ok", (), torch.float32))
 
 
@@ -92,10 +114,10 @@ class _StepProgram:
     ``first_ms`` times the signature's eager first step, ``build_ms`` the
     capture."""
 
-    def __init__(self, signature, device: torch.device):
+    def __init__(self, signature, device: torch.device, inputs=_INPUTS):
         self.batch = [torch.empty(shape, dtype=dtype, device=device)
                       for shape, dtype in signature]
-        self.inp = Packed(_INPUTS, device)
+        self.inp = Packed(inputs, device)
         self.out = Packed(_OUTPUTS, device)
         self.capture: Optional[GraphCapture] = None   # until it is built
         self.graph = None
@@ -107,16 +129,19 @@ class _StepProgram:
         self._staged = torch.cuda.Event() if device.type == "cuda" \
             else None
 
-    def stage(self, batch, t, lr, scale):
+    def stage(self, batch, t, lr, scale, **scalars):
         """A step's inputs into the static buffers: each batch tensor by
         ``copy_`` (device to device when it lies on the device), ``t``,
-        ``lr`` and ``scale`` in one copy. Does not wait."""
+        ``lr``, ``scale`` and the program's other scalar inputs in one
+        copy. Does not wait."""
         if self._staged is not None:
             self._staged.synchronize()
         host = self.inp.host
         host["t"][...] = t
         host["lr"][...] = lr
         host["scale"][...] = scale
+        for name, value in scalars.items():
+            host[name][...] = value
         for dst, src in zip(self.batch, batch):
             dst.copy_(src, non_blocking=True)
         self.inp.dev_bytes.copy_(self.inp.host_bytes, non_blocking=True)
@@ -135,6 +160,35 @@ class _StepProgram:
         step)."""
         self.out.host_bytes.copy_(self.out.dev_bytes)
         return float(self.out.host["loss"]), float(self.out.host["ok"])
+
+
+class _AccumState:
+    """The trainer's accumulation state, device tensors every
+    accumulation graph holds by address: an f32 sum per trainable
+    parameter, the round's verdict and loss sum, and the round-start copy
+    of the module buffers the guard may put back (``snap``)."""
+
+    def __init__(self, params, buffers, device):
+        self.grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                  device=device) for p in params]
+        self.ok = torch.ones((), dtype=torch.float32, device=device)
+        self.loss = torch.zeros((), dtype=torch.float32, device=device)
+        self.snap = [b.detach().clone() for b in buffers]
+
+    def restart(self):
+        """Zero sums and a clean verdict, in place."""
+        with torch.no_grad():
+            torch._foreach_zero_(self.grads)
+            self.ok.fill_(1.0)
+            self.loss.zero_()
+
+
+def _tensors(batch):
+    """A batch's tensors: an ``NDArray``'s where it lies, a tensor as is,
+    anything else through numpy."""
+    return [b._data if isinstance(b, NDArray) else
+            b if torch.is_tensor(b) else torch.as_tensor(np.asarray(b))
+            for b in batch]
 
 
 def _not_ported(what):
@@ -230,6 +284,10 @@ class SPMDTrainer:
         self.step_trace_count = 0   # step programs built (jit-once)
         self._programs = {}         # batch signature -> _StepProgram
         self._graph_pool = None     # shared by the trainer's graphs
+        self.accum_step_trace_count = 0   # accumulation programs built
+        self.last_accum_count = 0   # microbatches of the last round
+        self._accum_programs = {}   # microbatch signature -> _StepProgram
+        self._accum = None          # _AccumState, held by address
 
     # ------------------------------------------------------------------ #
     @property
@@ -253,6 +311,8 @@ class SPMDTrainer:
                               else float(self.loss_scaler.loss_scale))
         snap["guard"] = self.guard
         snap["step_trace_count"] = self.step_trace_count
+        snap["accum_step_trace_count"] = self.accum_step_trace_count
+        snap["last_accum_count"] = self.last_accum_count
         return snap
 
     # ------------------------------------------------------------------ #
@@ -354,28 +414,29 @@ class SPMDTrainer:
                 gens[id(g)] = g
         return list(gens.values())
 
-    def _first_run(self, prog: _StepProgram):
-        """A signature's first step, eagerly: on the card on the capture
-        stream, ahead of the capture (``_capture``)."""
+    def _first_run(self, prog: _StepProgram, body):
+        """A signature's first run of ``body(prog, moves_counters)``,
+        eagerly: on the card on the capture stream, ahead of the capture
+        (``_capture``)."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
             prog.capture = GraphCapture(self.device, self._graph_pool,
                                         self._generators())
-            prog.capture.eager(lambda: self._run_body(prog, False))
+            prog.capture.eager(lambda: body(prog, False))
         else:
-            self._run_body(prog, True)
+            body(prog, True)
         prog.first_ms = (time.perf_counter() - t0) * 1e3
 
-    def _capture(self, prog: _StepProgram):
-        """On the card, capture the body into ``prog.graph`` (raises
+    def _capture(self, prog: _StepProgram, body):
+        """On the card, capture ``body`` into ``prog.graph`` (raises
         ``MXNetError`` if the capture fails); nothing on the CPU."""
         cap, prog.capture = prog.capture, None
         if cap is None:
             return
         t0 = time.perf_counter()
-        prog.launches = cap.record(lambda: self._run_body(prog, True))
+        prog.launches = cap.record(lambda: body(prog, True))
         prog.graph = cap.graph
         prog.build_ms = (time.perf_counter() - t0) * 1e3
 
@@ -386,9 +447,7 @@ class SPMDTrainer:
         through the host). The first step of a batch signature builds its
         program (see the module's docstring); later ones stage and replay
         it."""
-        batch = [b._data if isinstance(b, NDArray) else
-                 b if torch.is_tensor(b) else torch.as_tensor(np.asarray(b))
-                 for b in batch]
+        batch = _tensors(batch)
         if self._opt_state is None:
             self._materialize()
         sig = tuple((tuple(b.shape), b.dtype) for b in batch)
@@ -404,7 +463,7 @@ class SPMDTrainer:
         self._recorder.open_step()
         try:
             if build:
-                self._first_run(prog)
+                self._first_run(prog, self._run_body)
             elif prog.graph is not None:
                 prog.replay()
             else:
@@ -419,20 +478,22 @@ class SPMDTrainer:
         failure = None
         if build:
             try:
-                self._capture(prog)
+                self._capture(prog, self._run_body)
             except MXNetError as e:
                 failure = e             # raised once the step is recorded
             else:
                 self._programs[sig] = prog
                 self.step_trace_count += 1
-        self._settle(verdict)
+        self._settle(verdict, f"non-finite gradient in fused SPMD step at "
+                              f"step_count={self.step_count}")
         if failure is not None:
             raise failure
         return loss
 
-    def _settle(self, verdict):
+    def _settle(self, verdict, what):
         """Host counters, the recorder and the loss scaler from the
-        step's read-back ``(loss, ok)`` (None without the guard)."""
+        step's read-back ``(loss, ok)`` (None without the guard); ``what``
+        begins the detail of a skipped step."""
         applied = (not self.guard) or verdict[1] > 0
         if applied:
             self.step_count += 1
@@ -442,8 +503,7 @@ class SPMDTrainer:
             return
         if self.loss_scaler is not None:
             self.loss_scaler.update_scale(overflow=True)
-        detail = (f"non-finite gradient in fused SPMD step at "
-                  f"step_count={self.step_count} (loss={verdict[0]:g})")
+        detail = f"{what} (loss={verdict[0]:g})"
         outcome = self._recorder.record(StepOutcome.SKIPPED_NONFINITE,
                                         detail)
         if outcome is StepOutcome.HALTED_POISONED:
@@ -453,9 +513,121 @@ class SPMDTrainer:
                 else self.loss_scaler.loss_scale)
 
     # ------------------------------------------------------------------ #
+    def _accum_state(self) -> "_AccumState":
+        if self._accum is None:
+            self._accum = _AccumState(
+                [self._params[i] for i in self._train_idx],
+                self._buffers if self.guard else [], self.device)
+        return self._accum
+
+    @torch.no_grad()
+    def _accum_apply(self, inp, apply):
+        """The update from the accumulators' mean, computed whatever
+        ``apply`` (a 0-d bool device tensor) holds and written into the
+        parameters and the optimizer state only where it is true."""
+        weights = [self._params[i].detach() for i in self._train_idx]
+        base = torch.full((), float(self._optimizer.rescale_grad),
+                          dtype=torch.float32, device=self.device)
+        new_w, new_states = apply_updates(
+            self._optimizer, self._train_idx, weights,
+            [a * inp["inv_k"] for a in self._accum.grads], self._opt_state,
+            inp["t"], inp["lr"], rescale_grad=base / inp["scale"])
+        torch._foreach_copy_(weights, [
+            torch.where(apply, nw, w) for nw, w in zip(new_w, weights)])
+        old_leaves = tree_leaves(self._opt_state)
+        if old_leaves:
+            torch._foreach_copy_(old_leaves, [
+                torch.where(apply, n, o)
+                for n, o in zip(tree_leaves(new_states), old_leaves)])
+
+    def _run_accum_body(self, prog: _StepProgram, moves_counters: bool):
+        """One microbatch over ``prog``'s static buffers and the trainer's
+        accumulators (see the module's docstring). The optimizer's host
+        update counters keep their values unless ``moves_counters``."""
+        opt = self._optimizer
+        saved = dict(opt._index_update_count), opt.num_update
+        inp, out, acc = prog.inp.dev, prog.out.dev, self._accum
+        first, last = inp["first"] > 0, inp["last"] > 0
+        if acc.snap:
+            with torch.no_grad():   # the round-start copy of the buffers
+                torch._foreach_copy_(acc.snap, [
+                    torch.where(first, b, s)
+                    for b, s in zip(self._buffers, acc.snap)])
+        loss, grads = self._forward_backward(prog.batch, inp["scale"])
+        with torch.no_grad():
+            torch._foreach_add_(acc.grads, [g.float() for g in grads])
+            ok = acc.ok * all_finite(grads) if self.guard else acc.ok
+            loss_round = acc.loss + loss
+            self._accum_apply(inp, last & (ok > 0))
+            if acc.snap:
+                veto = last & (ok <= 0)
+                torch._foreach_copy_(self._buffers, [
+                    torch.where(veto, s, b)
+                    for b, s in zip(self._buffers, acc.snap)])
+            # the accumulators start again after a round's last microbatch
+            torch._foreach_copy_(acc.grads, [
+                torch.where(last, 0.0, a) for a in acc.grads])
+            out["loss"].copy_(loss_round * inp["inv_k"])
+            out["ok"].copy_(ok)
+            acc.ok.copy_(torch.where(last, 1.0, ok))
+            acc.loss.copy_(torch.where(last, 0.0, loss_round))
+        if not moves_counters:
+            opt._index_update_count, opt.num_update = saved
+
     def step_microbatches(self, microbatches):
-        raise _not_ported("step_microbatches (in-step gradient "
-                          "accumulation)")
+        """One optimizer step over ``microbatches`` (each a batch tuple, or
+        one array): the gradients of each, accumulated in f32 on the
+        device, and the update from their mean applied once; returns the
+        round's mean loss, an ``NDArray`` of its own. The count is host
+        data: rounds of any count over one microbatch signature run one
+        build (``accum_step_trace_count``), a graph on the card. A
+        non-finite gradient in any microbatch skips the whole apply
+        (parameters, optimizer state and module buffers bitwise those at
+        the round's start), records one ``SKIPPED_NONFINITE`` and halves
+        the loss scale once; ``step_count`` does not advance."""
+        rounds = [_tensors(b if isinstance(b, (tuple, list)) else (b,))
+                  for b in microbatches]
+        if not rounds:
+            raise MXNetError("step_microbatches needs >= 1 microbatch")
+        k = len(rounds)
+        if self._opt_state is None:
+            self._materialize()
+        acc = self._accum_state()
+        self._optimizer.num_update = self.step_count  # drive lr schedules
+        scalars = dict(t=self.step_count + 1,
+                       lr=self._optimizer.learning_rate,
+                       scale=1.0 if self.loss_scaler is None
+                       else self.loss_scaler.loss_scale, inv_k=1.0 / k)
+        self._recorder.open_step()
+        try:
+            for m, batch in enumerate(rounds):
+                sig = tuple((tuple(b.shape), b.dtype) for b in batch)
+                prog = self._accum_programs.get(sig)
+                if prog is None:
+                    prog = _StepProgram(sig, self.device, _ACCUM_INPUTS)
+                prog.stage(batch, first=float(m == 0),
+                           last=float(m == k - 1), **scalars)
+                if sig not in self._accum_programs:
+                    self._first_run(prog, self._run_accum_body)
+                    self._capture(prog, self._run_accum_body)
+                    self._accum_programs[sig] = prog
+                    self.accum_step_trace_count += 1
+                elif prog.graph is not None:
+                    prog.replay()
+                else:
+                    self._run_accum_body(prog, False)
+            loss = NDArray(prog.out.dev["loss"].clone())
+            verdict = prog.read() if self.guard else None
+        except BaseException:
+            # a round that died drops what it accumulated
+            self._recorder.abort_step()
+            acc.restart()
+            raise
+        self.last_accum_count = k
+        self._settle(verdict, f"non-finite gradient in accumulated SPMD "
+                              f"round (k={k}) at step_count="
+                              f"{self.step_count}")
+        return loss
 
     # ------------------------------------------------------------------ #
     # checkpointing (checkpoint/): the gather copies every leaf to the

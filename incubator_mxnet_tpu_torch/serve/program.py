@@ -187,7 +187,11 @@ class GraphCapture:
     (registered with the graph, so each replay draws from the
     generator's state at the replay and advances it as an eager run
     would). ``eager(fn)`` runs ``fn`` uncaptured on that stream;
-    ``record(fn)`` captures it."""
+    ``record(fn)`` captures it. The capture refuses unsafe CUDA calls
+    (an allocation that synchronizes, say) on the capturing thread only
+    (``thread_local``): a data iterator's thread (``io.ImageRecordIter``
+    under ``io.PrefetchingIter``) goes on staging batches on its own
+    stream meanwhile."""
 
     def __init__(self, device: torch.device, pool=None, generators=()):
         self.device = device
@@ -195,7 +199,8 @@ class GraphCapture:
         self.graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             self.graph.register_generator_state(gen)
-        self._capture = torch.cuda.graph(self.graph, pool=pool)
+        self._capture = torch.cuda.graph(self.graph, pool=pool,
+                                         capture_error_mode="thread_local")
 
     def eager(self, fn: Callable) -> None:
         """``fn()`` once, uncaptured, on the capture stream, after the

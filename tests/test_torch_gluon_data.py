@@ -13,8 +13,9 @@ package's, on the CPU.
     land on the current context (none without CUDA unless the caller asks
     for the CPU);
   - ``MNIST`` / ``FashionMNIST`` / ``CIFAR10`` / ``CIFAR100``: the
-    synthetic stand-ins and the standard files equal the JAX datasets';
-    ``RecordFileDataset`` raises;
+    synthetic stand-ins and the standard files equal the JAX datasets'
+    (``RecordFileDataset`` and the record and folder image datasets are
+    held in ``tests/test_torch_image.py``);
   - every transform's output equals the JAX transform's (the random ones
     by their properties);
   - every metric's value equals the JAX metric's on the same inputs
@@ -107,7 +108,7 @@ def test_datasets_equal_jax():
         _same_items(j, t)
     with pytest.raises(MXNetError, match="out of range"):
         tdata.ArrayDataset(x).shard(2, 2)
-    with pytest.raises(MXNetError, match="recordio"):
+    with pytest.raises(FileNotFoundError):  # a reader now (test_torch_image)
         tdata.RecordFileDataset("no.rec")
 
 

@@ -266,8 +266,8 @@ def test_refused_options(tmp_path):
     with pytest.raises(MXNetError, match="loss"):
         SPMDTrainer(tp, optimizer="lamb")
     tr = SPMDTrainer(tp, **kw, mesh=["cpu"])
-    with pytest.raises(MXNetError, match="not ported"):
-        tr.step_microbatches([])
+    with pytest.raises(MXNetError, match=">= 1 microbatch"):
+        tr.step_microbatches([])      # ported: tests/test_torch_microbatch
     # checkpointing runs: refused only before the first step (no state)
     mgr = CheckpointManager(str(tmp_path))
     with pytest.raises(MXNetError, match="no step taken"):
