@@ -310,6 +310,48 @@ failure exits non-zero before the result line:
                 accumulation computes on every microbatch; peak memory.
                 One `[imagenet]` JSON line with the card's name and
                 limit;
+  7c6. rnn    — the fused RNN op (ops/rnn.py: one cuDNN call a layer, f32
+                forward and backward in IEEE f32) in every mode at 1 and 2
+                layers, one and two directions, state_outputs, at T=35,
+                B=32, H=650: outputs and the gradients of data, flat
+                vector and states card against CPU within 5e-5 of each
+                one's largest |entry|; bf16 once (taken, its distance from
+                f32); one LSTM layer at PyTorch's default TF32 RNN math
+                for the record; the device ms of cuDNN's weight copy (the
+                LM's second layer from the flat vector's views against
+                the same weights in cuDNN's own layout). MXNet 1.x's word_language_model in its 650-wide
+                tied setting (V = 33278, LSTM(650, 2, dropout 0.5), the
+                decoder tied by params=, bptt 35, B = 32, f32, seeded
+                tokens): the first window's loss (dropout off) on the card
+                within 1e-5 of the CPU's from the same weights; 20 windows
+                of the example's loop (hidden carried and detached,
+                clip_global_norm 0.25 x bptt x B, gluon.Trainer SGD lr
+                20): finite losses, ms a window of the last 15 and the
+                busy share; the same model through SPMDTrainer's step
+                graph (zero begin state a batch, SGD clip_gradient 0.25):
+                the first 3 steps against the eager step body of a second
+                trainer within 1e-4 (the dropout generator reseeded alike
+                for each pair), one build, 10 timed replays (ms a step,
+                busy share); cuDNN's weight-copy warnings listed. One
+                `[rnn]` JSON line with the card's name and limit;
+  7c7. quantization — the six int8 ops (quantize, quantize_v2,
+                dequantize, requantize, quantized_fully_connected,
+                quantized_conv) card against CPU at k = 147 and m <= 16
+                (the padding of the card's int8 product) and at
+                ResNet-50's shapes: every output and the int32
+                accumulators bitwise. quantize_net (naive) on resnet50_v1
+                (1000 classes, Xavier from seed 0, 224²) over 4 seeded
+                batches of 32; the int8 net on the card against the same
+                int8 net on the CPU (B = 2): every int8 layer bitwise on
+                the CPU chain's own input to it; the two chains as they
+                run: the first layer whose input codes differ at most one
+                quantum apart (a float input on a rounding edge), the
+                share flipped and the logits' distance; its logits
+                against the f32 net's (top-1 agreement, relative error),
+                ms a batch of 32 int8 against f32, and torch.profiler:
+                one aten::_int_mm a quantized layer, running cuBLASLt's
+                int8 GEMM kernels (their share of busy). One
+                `[quantization]` JSON line;
   7d. gpt_training — bench.py `_run_gpt`'s configuration: gpt_small
                 bf16 (flash, dropout 0.1, built by `gpt_small(...)` +
                 `initialize()`) through SPMDTrainer(forward_loss=lm_loss)
@@ -5770,6 +5812,673 @@ def phase_imagenet(torch, smi):
     print(f"[imagenet] {json.dumps(out)}", flush=True)
 
 
+# --------------------------------------------------------------------- #
+# recurrent networks (module docstring, phase 7c6)
+# --------------------------------------------------------------------- #
+# the RNN op card against CPU: T, B, H of the 650-wide language model;
+# each output and gradient within RNN_TOL of its largest |entry| (IEEE
+# f32 on both sides: cuDNN's TF32 default misses it by an order)
+RNN = dict(T=35, B=32, H=650, tol=5e-5, vocab=33278, bptt=35, windows=20,
+           timed_from=5, lr=20.0, clip=0.25, dropout=0.5, warmup=3,
+           steps=10, loss_rtol=1e-4, first_loss_rtol=1e-5)
+RNN_MODES = ("lstm", "gru", "rnn_tanh", "rnn_relu")
+
+
+def rnn_inputs(torch, mode, layers, bidirectional, seed):
+    """The op's inputs on the host: data (T, B, H), the flat vector at
+    PyTorch's default RNN init (uniform +-1/sqrt(H)), states."""
+    from incubator_mxnet_tpu_torch.ops.rnn import rnn_param_size
+    T, B, H = RNN["T"], RNN["B"], RNN["H"]
+    d = 2 if bidirectional else 1
+    g = torch.Generator().manual_seed(seed)
+    n = rnn_param_size(layers, H, H, mode, bidirectional)
+    ins = [torch.randn(T, B, H, generator=g),
+           (torch.rand(n, generator=g) * 2 - 1) / H ** 0.5,
+           torch.randn(layers * d, B, H, generator=g) * 0.5]
+    if mode == "lstm":
+        ins.append(torch.randn(layers * d, B, H, generator=g) * 0.5)
+    return ins
+
+
+def rnn_forward_backward(torch, fn, inputs, kw, device, dtype, seed):
+    """The outputs and the gradients of every input under seeded
+    cotangents."""
+    xs = [t.to(device, dtype).requires_grad_() for t in inputs]
+    outs = fn(*xs, **kw)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    g = torch.Generator().manual_seed(seed)
+    cts = [torch.randn(o.shape, generator=g).to(device, dtype)
+           for o in outs]
+    grads = torch.autograd.grad(outs, xs, cts)
+    return [t.detach() for t in outs], list(grads)
+
+
+def rnn_op_on_card(torch):
+    """Every mode at 1 and 2 layers, one and two directions, f32 with
+    state_outputs: card against CPU (outputs and the gradients of data,
+    flat vector and states); bf16 once; the default TF32 once."""
+    from incubator_mxnet_tpu_torch.ops import registry
+    fn = registry.get("RNN").fn
+    H = RNN["H"]
+    worst, cases = 0.0, []
+    t0 = time.perf_counter()
+    for i, (mode, layers, bi) in enumerate(
+            (m, n, b) for m in RNN_MODES for n in (1, 2)
+            for b in (False, True)):
+        inputs = rnn_inputs(torch, mode, layers, bi, seed=i)
+        kw = dict(state_size=H, num_layers=layers, mode=mode,
+                  bidirectional=bi, state_outputs=True)
+        card = rnn_forward_backward(torch, fn, inputs, kw, "cuda",
+                                    torch.float32, seed=100 + i)
+        host = rnn_forward_backward(torch, fn, inputs, kw, "cpu",
+                                    torch.float32, seed=100 + i)
+        errs = [_rel_err(torch, a, b) for a, b in zip(card[0] + card[1],
+                                                      host[0] + host[1])]
+        cases.append(dict(mode=mode, layers=layers, bidirectional=bi,
+                          fwd_rel=max(errs[:len(card[0])]),
+                          grad_rel=max(errs[len(card[0]):])))
+        worst = max(worst, max(errs))
+        check(max(errs) <= RNN["tol"],
+              f"rnn op {mode} L={layers} bi={bi}: card vs CPU rel "
+              f"{errs} > {RNN['tol']}")
+    # bf16 once: does cuDNN take it (f32 is the slice's dtype)
+    inputs = rnn_inputs(torch, "lstm", 2, False, seed=50)
+    kw = dict(state_size=H, num_layers=2, mode="lstm", state_outputs=True)
+    b16 = rnn_forward_backward(torch, fn, inputs, kw, "cuda",
+                               torch.bfloat16, seed=150)
+    f32 = rnn_forward_backward(torch, fn, inputs, kw, "cuda",
+                               torch.float32, seed=150)
+    bf16_rel = max(_rel_err(torch, a.float(), b) for a, b in
+                   zip(b16[0] + b16[1], f32[0] + f32[1]))
+    check(all(bool(torch.isfinite(t.float()).all())
+              for t in b16[0] + b16[1]), "rnn op bf16: non-finite")
+    # what the precision setting buys: one LSTM layer through torch._VF
+    # at PyTorch's default RNN math (TF32) against the CPU
+    inputs = rnn_inputs(torch, "lstm", 1, False, seed=60)
+    w = list(_rnn_views(inputs[1], H))
+
+    def vf(dev):
+        xs = [t.to(dev).requires_grad_() for t in inputs[:1] + inputs[2:]]
+        p = [t.to(dev) for t in w]
+        out = torch._VF.lstm(xs[0], (xs[1], xs[2]), p, True, 1, 0.0, True,
+                             False, False)
+        g = torch.Generator().manual_seed(160)
+        cts = [torch.randn(o.shape, generator=g).to(dev) for o in out]
+        return torch.autograd.grad(out, xs, cts)
+    rnn_backend = torch.backends.cudnn.rnn
+    old = rnn_backend.fp32_precision
+    rnn_backend.fp32_precision = "tf32"        # PyTorch's default
+    try:
+        card = vf("cuda")
+    finally:
+        rnn_backend.fp32_precision = old
+    tf32_rel = max(_rel_err(torch, a, b) for a, b in zip(card, vf("cpu")))
+    return dict(cases=len(cases), worst_rel=worst, by_case=cases,
+                tol=RNN["tol"], bf16_vs_f32_rel=bf16_rel,
+                tf32_grad_rel=tf32_rel,
+                seconds=time.perf_counter() - t0)
+
+
+def _rnn_views(flat, H):
+    """A one-layer, one-direction LSTM's four weights in ops/rnn.py's
+    layout."""
+    G = 4 * H
+    return (flat[:G * H].view(G, H), flat[G * H:2 * G * H].view(G, H),
+            flat[2 * G * H:2 * G * H + G], flat[2 * G * H + G:])
+
+
+def rnn_weight_copy(torch):
+    """The cost of cuDNN's weight copy: the second layer of the 650-wide
+    two-layer LSTM (forward, T=35, B=32, IEEE f32) from views of the
+    JAX-layout flat vector (its biases lie after every layer's weights,
+    so cuDNN packs a copy each call) against the same weights in one
+    buffer laid out as cuDNN's own (no copy); median device ms, cold
+    L2."""
+    from incubator_mxnet_tpu_torch.ops.rnn import (_ieee_fp32, _unpack,
+                                                   rnn_param_size)
+    T, B, H = RNN["T"], RNN["B"], RNN["H"]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    flat = (torch.rand(rnn_param_size(2, H, H, "lstm"), device="cuda",
+                       generator=g) * 2 - 1) / H ** 0.5
+    weights, biases = _unpack(flat, 2, H, H, "lstm", 1)
+    views = list(weights[1][0] + biases[1][0])
+    packed = torch.cat([v.reshape(-1) for v in views])
+    sizes = [v.numel() for v in views]
+    own = [t.view(v.shape) for t, v in zip(packed.split(sizes), views)]
+    x, h, c = (torch.randn(*shape, device="cuda", generator=g) for shape in
+               ((T, B, H), (1, B, H), (1, B, H)))
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def run(ws):
+        with _ieee_fp32(x.device):
+            return torch._VF.lstm(x, (h, c), ws, True, 1, 0.0, False,
+                                  False, False)
+    check(max(_rel_err(torch, a, b) for a, b in zip(run(views), run(own)))
+          <= RNN["tol"], "rnn weight copy: packed and copied weights "
+                         "disagree")
+    views_ms = _time_ms(torch, lambda: run(views), flush)
+    own_ms = _time_ms(torch, lambda: run(own), flush)
+    return dict(layer_forward_ms_views=views_ms,
+                layer_forward_ms_cudnn_layout=own_ms,
+                copy_ms=views_ms - own_ms,
+                weight_bytes=packed.numel() * 4)
+
+
+def word_lm(mx, vocab, units, layers, dropout):
+    """MXNet 1.x's example/gluon/word_language_model ``RNNModel`` in its
+    README's 650-wide tied setting: embedding, rnn.LSTM with a dropout
+    between layers, dropout, the decoder tied to the embedding by
+    ``params=encoder.params``."""
+    from incubator_mxnet_tpu_torch.gluon import Block, nn, rnn
+
+    class RNNModel(Block):
+        def __init__(self):
+            super().__init__()
+            with self.name_scope():
+                self.drop = nn.Dropout(dropout)
+                self.encoder = nn.Embedding(
+                    vocab, units, weight_initializer=mx.init.Uniform(0.1))
+                self.rnn = rnn.LSTM(units, layers, dropout=dropout,
+                                    input_size=units)
+                self.decoder = nn.Dense(vocab, in_units=units,
+                                        params=self.encoder.params)
+
+        def forward(self, inputs, hidden):
+            emb = self.drop(self.encoder(inputs))
+            output, hidden = self.rnn(emb, hidden)
+            output = self.drop(output)
+            return self.decoder(output.reshape((-1, units))), hidden
+
+        def begin_state(self, *args, **kwargs):
+            return self.rnn.begin_state(*args, **kwargs)
+
+    return RNNModel()
+
+
+def rnn_lm_loop(torch, np, mx):
+    """(a) the example's train() loop on the card: ~20 windows, the
+    hidden state carried and detached, clip_global_norm, SGD lr 20; the
+    first window's loss (dropout off) on the card against the CPU from
+    the same weights."""
+    from incubator_mxnet_tpu_torch import autograd, gluon, nd
+    R = RNN
+    V, U, B, T = R["vocab"], R["H"], R["B"], R["bptt"]
+    rng = np.random.RandomState(0)
+    tokens = rng.randint(0, V, (R["windows"] * T + 1, B))
+    windows = [(nd.array(tokens[i * T:(i + 1) * T], dtype="int32"),
+                nd.array(tokens[i * T + 1:(i + 1) * T + 1].reshape(-1),
+                         dtype="int32")) for i in range(R["windows"])]
+    mx.random.seed(0)
+    model = word_lm(mx, V, U, 2, R["dropout"])
+    model.initialize(mx.init.Xavier())
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def eval_loss(m, ctx):
+        data, target = (w.as_in_context(ctx) for w in windows[0])
+        hidden = m.begin_state(batch_size=B, ctx=ctx)
+        out, _ = m(data, hidden)
+        return float(loss_fn(out, target).mean().asnumpy())
+
+    with mx.cpu():
+        host = word_lm(mx, V, U, 2, R["dropout"])
+        host.initialize()
+        host.load_state_dict({k: v.cpu() for k, v in
+                              model.state_dict().items()})
+        host_loss = eval_loss(host, mx.cpu())
+    del host
+    card_loss = eval_loss(model, mx.gpu(0))
+    first_rel = abs(card_loss - host_loss) / abs(host_loss)
+    check(first_rel <= R["first_loss_rtol"],
+          f"rnn lm: first loss {card_loss} on the card, {host_loss} on the "
+          f"CPU (rel {first_rel})")
+    trainer = gluon.Trainer(model.collect_params(), "sgd",
+                            {"learning_rate": R["lr"], "momentum": 0,
+                             "wd": 0})
+    params = list(model.collect_params().values())
+    hidden = model.begin_state(func=nd.zeros, batch_size=B, ctx=mx.gpu(0))
+    losses = []
+
+    def window(data, target):
+        nonlocal hidden
+        hidden = [h.detach() for h in hidden]
+        with autograd.record():
+            output, hidden = model(data, hidden)
+            L = loss_fn(output, target)
+            L.backward()
+        gluon.utils.clip_global_norm([p.grad() for p in params],
+                                     R["clip"] * T * B)
+        trainer.step(B)
+        return L.mean()
+
+    t_start = None
+    for i, (data, target) in enumerate(windows):
+        if i == R["timed_from"]:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        losses.append(window(data, target))
+    torch.cuda.synchronize()
+    n_timed = R["windows"] - R["timed_from"]
+    ms = (time.perf_counter() - t_start) * 1e3 / n_timed
+    losses = [float(v.asnumpy()) for v in losses]
+    check(all(np.isfinite(losses)), f"rnn lm: non-finite loss {losses}")
+    out = dict(config=f"word_language_model tied: V={V}, embedding {U}, "
+                      f"LSTM({U}, 2, dropout {R['dropout']}), bptt {T}, "
+                      f"B={B}, f32, SGD lr {R['lr']}, clip_global_norm "
+                      f"{R['clip']} x bptt x B",
+               first_loss_card=card_loss, first_loss_cpu=host_loss,
+               first_loss_rel=first_rel, losses=losses,
+               ms_per_window=ms, tokens_per_s=T * B / (ms / 1e3))
+    out.update(busy_share(torch, lambda: window(*windows[0]).asnumpy()))
+    return out
+
+
+def rnn_lm_step_graph(torch, np, mx):
+    """(b) the same model through SPMDTrainer(forward_loss=...): a zero
+    begin state a batch, SGD with clip_gradient; one capture; the first
+    steps against the step body run eagerly by a second trainer from the
+    same weights, each pair of steps drawing its dropout masks from the
+    generator reseeded alike."""
+    from incubator_mxnet_tpu_torch import gluon, nd, parallel
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "tests"))
+    try:
+        from test_torch_train_graphs import _eager_step
+    finally:
+        sys.path.pop(0)
+    R = RNN
+    V, U, B, T = R["vocab"], R["H"], R["B"], R["bptt"]
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def forward_loss(model, data, target):
+        hidden = model.begin_state(batch_size=B, ctx=data.context)
+        out, _ = model(data, hidden)
+        return loss_fn(out, target).mean()
+
+    models = []
+    for _ in range(2):
+        mx.random.seed(1)
+        m = word_lm(mx, V, U, 2, R["dropout"])
+        m.initialize(mx.init.Xavier())
+        models.append(m)
+    models[1].load_state_dict(models[0].state_dict())
+    opt = {"learning_rate": R["lr"], "clip_gradient": R["clip"]}
+    tr, ref = (parallel.SPMDTrainer(m, forward_loss=forward_loss,
+                                    optimizer="sgd",
+                                    optimizer_params=dict(opt),
+                                    sharding="replicated") for m in models)
+    rng = np.random.RandomState(1)
+    tokens = rng.randint(0, V, (T + 1, B))
+    data = nd.array(tokens[:T], dtype="int32")
+    target = nd.array(tokens[1:].reshape(-1), dtype="int32")
+    gen = mx.random.generator(torch.device("cuda", 0))
+    losses, eager = [], []
+    for i in range(R["warmup"]):
+        gen.manual_seed(10 + i)
+        losses.append(float(tr.step(data, target).asnumpy()))
+        gen.manual_seed(10 + i)
+        eager.append(float(_eager_step(ref, [data._data, target._data])))
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses, eager)]
+    check(max(rels) <= R["loss_rtol"],
+          f"rnn lm step graph: replays {losses} against the eager body "
+          f"{eager} (rel {rels})")
+    prog = next(iter(tr._programs.values()))
+    replays = prog.replays
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [tr.step(data, target) for _ in range(R["steps"])]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / R["steps"]
+    losses += [float(v.asnumpy()) for v in timed]
+    check(all(np.isfinite(losses)), f"rnn lm step graph: {losses}")
+    check(tr.step_trace_count == 1 and
+          prog.replays - replays == R["steps"],
+          f"rnn lm step graph: {tr.step_trace_count} builds, "
+          f"{prog.replays - replays} of {R['steps']} steps replayed")
+    out = dict(optimizer=f"sgd lr {R['lr']} clip_gradient {R['clip']}",
+               losses=losses, eager_body_losses=eager, loss_rel=rels,
+               ms_per_step=ms, tokens_per_s=T * B / (ms / 1e3),
+               step_trace_count=tr.step_trace_count,
+               first_step_ms=prog.first_ms, capture_ms=prog.build_ms)
+    out.update(busy_share(torch, lambda: tr.step(data, target)))
+    return out
+
+
+def phase_rnn(torch, smi):
+    """Recurrent networks on the card (module docstring, 7c6)."""
+    import warnings
+
+    import numpy as np
+    import incubator_mxnet_tpu_torch as mx
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        op = rnn_op_on_card(torch)
+        op["weight_copy"] = rnn_weight_copy(torch)
+        loop = rnn_lm_loop(torch, np, mx)
+        graph = rnn_lm_step_graph(torch, np, mx)
+    # cuDNN's weight copy where the views are not its packed buffer: kept
+    # and reported, not silenced
+    copy_warnings = sorted({str(w.message)[:120] for w in caught
+                            if "contiguous chunk" in str(w.message)})
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(card=smi, op=op, gluon_loop=loop, step_graph=graph,
+               weight_copy_warnings=copy_warnings,
+               phase_s=time.perf_counter() - t0)
+    print(f"[rnn] {smi}: RNN op {op['cases']} cases card vs CPU worst "
+          f"rel {op['worst_rel']:.2e} (tol {op['tol']}; cuDNN's TF32 "
+          f"default: grad rel {op['tf32_grad_rel']:.2e}); bf16 taken, rel "
+          f"{op['bf16_vs_f32_rel']:.2e} vs f32; cuDNN's weight copy "
+          f"{op['weight_copy']['copy_ms']:.4f} ms of a "
+          f"{op['weight_copy']['layer_forward_ms_views']:.4f} ms layer "
+          f"forward; word LM 650 tied V=33278: "
+          f"first loss rel {loop['first_loss_rel']:.2e}, gluon loop "
+          f"{loop['ms_per_window']:.2f} ms/window (busy "
+          f"{loop.get('device_busy_share')}), losses "
+          f"{loop['losses'][0]:.3f} -> {loop['losses'][-1]:.3f}; step "
+          f"graph {graph['ms_per_step']:.2f} ms/step, builds "
+          f"{graph['step_trace_count']}, replay vs eager rel "
+          f"{max(graph['loss_rel']):.2e}", flush=True)
+    print(f"[rnn] {json.dumps(out)}", flush=True)
+
+
+# --------------------------------------------------------------------- #
+# int8 post-training quantization (module docstring, phase 7c7)
+# --------------------------------------------------------------------- #
+QUANT = dict(B=32, side=224, classes=1000, calib=4, small_B=2, reps=10)
+
+
+def quant_op_cases(torch):
+    """(name, inputs, keywords) of the six ops at shapes that need the
+    card's int8 product padded (k = 147, m <= 16) and at ResNet-50's."""
+    g = torch.Generator().manual_seed(0)
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=g,
+                             dtype=torch.int32).to(torch.int8)
+
+    def f(*shape):
+        return torch.randn(*shape, generator=g)
+
+    r = [torch.tensor(v) for v in (-1.0, 1.0, -0.5, 0.5)]
+    stem = dict(kernel=(7, 7), stride=(2, 2), pad=(3, 3), num_filter=64)
+    return [
+        ("quantize", [f(64, 1000), torch.tensor(-2.0), torch.tensor(3.0)],
+         dict(out_type="uint8")),
+        ("quantize", [f(64, 1000), torch.tensor(-2.0), torch.tensor(3.0)],
+         dict(out_type="int8")),
+        ("quantize_v2", [f(32, 64, 56, 56)], {}),
+        ("quantize_v2", [f(32, 64, 56, 56)],
+         dict(min_calib_range=-1.5, max_calib_range=1.5)),
+        ("dequantize", [codes(32, 64, 56, 56), torch.tensor(-1.0),
+                        torch.tensor(2.0)], {}),
+        ("requantize", [torch.randint(-(1 << 20), 1 << 20, (64, 1000),
+                                      generator=g, dtype=torch.int32),
+                        torch.tensor(-1000.0), torch.tensor(1000.0)], {}),
+        ("requantize", [torch.randint(-(1 << 20), 1 << 20, (64, 1000),
+                                      generator=g, dtype=torch.int32),
+                        torch.tensor(-1000.0), torch.tensor(1000.0)],
+         dict(min_calib_range=-0.25, max_calib_range=0.25)),
+        ("quantized_fully_connected",
+         [codes(5, 147), codes(9, 147), f(9)] + r, dict(num_hidden=9)),
+        ("quantized_fully_connected",
+         [codes(32, 2048), codes(1000, 2048), f(1000)] + r,
+         dict(num_hidden=1000)),
+        ("quantized_conv", [codes(2, 3, 224, 224), codes(64, 3, 7, 7),
+                            f(64)] + r, stem),
+        ("quantized_conv", [codes(8, 64, 56, 56), codes(64, 64, 3, 3),
+                            f(64)] + r,
+         dict(kernel=(3, 3), pad=(1, 1), num_filter=64)),
+        ("quantized_conv", [codes(2, 4, 9, 8), codes(6, 2, 3, 3), f(6)] + r,
+         dict(kernel=(3, 3), pad=(2, 2), dilate=(2, 2), num_filter=6,
+              num_group=2)),
+    ]
+
+
+def quant_ops_on_card(torch):
+    """Each case on the card against the port on the CPU: every output
+    bitwise (codes, ranges, float outputs); the int32 accumulators of the
+    products bitwise."""
+    from incubator_mxnet_tpu_torch.ops import registry
+    from incubator_mxnet_tpu_torch.ops.quantization import (int8_conv,
+                                                            int8_matmul)
+    n_out = 0
+    for name, inputs, kw in quant_op_cases(torch):
+        fn = registry.get(name).fn
+        card = fn(*[t.cuda() for t in inputs], **kw)
+        host = fn(*inputs, **kw)
+        card = card if isinstance(card, tuple) else (card,)
+        host = host if isinstance(host, tuple) else (host,)
+        for a, b in zip(card, host):
+            check(a.dtype == b.dtype and torch.equal(a.cpu(), b),
+                  f"quantization op {name} {kw}: card != CPU (max |diff| "
+                  f"{(a.cpu().double() - b.double()).abs().max()})")
+            n_out += 1
+        if name == "quantized_fully_connected":
+            acc = [int8_matmul(x, w) for x, w in
+                   ((inputs[0].cuda(), inputs[1].cuda()),
+                    (inputs[0], inputs[1]))]
+        elif name == "quantized_conv":
+            conv = [kw.get(k, d) for k, d in (("stride", (1, 1)),
+                                              ("pad", (0, 0)),
+                                              ("dilate", (1, 1)),
+                                              ("num_group", 1))]
+            acc = [int8_conv(x, w, *conv) for x, w in
+                   ((inputs[0].cuda(), inputs[1].cuda()),
+                    (inputs[0], inputs[1]))]
+        else:
+            continue
+        check(acc[0].dtype == torch.int32 and
+              torch.equal(acc[0].cpu(), acc[1]),
+              f"quantization op {name} {kw}: int32 accumulators differ")
+    return n_out
+
+
+def quantized_twin(qnet, fnet):
+    """``fnet`` (the float net of the same structure) with each layer
+    that ``qnet`` quantized swapped for its int8 twin at ``qnet``'s
+    threshold (the same int8 weights, made on ``fnet``'s device)."""
+    from incubator_mxnet_tpu_torch.contrib.quantization import (
+        QuantizedConv2D, QuantizedDense)
+    for name, qc in qnet._children.items():
+        fc = fnet._children[name]
+        if isinstance(qc, (QuantizedDense, QuantizedConv2D)):
+            twin = type(qc)(fc, qc._thresh)
+            fnet._children[name] = twin
+            setattr(fnet, name, twin)
+        else:
+            quantized_twin(qc, fc)
+    return fnet
+
+
+def quantized_layers(net):
+    from incubator_mxnet_tpu_torch.contrib.quantization import (
+        QuantizedConv2D, QuantizedDense)
+    return [b for b in net.modules()
+            if isinstance(b, (QuantizedDense, QuantizedConv2D))]
+
+
+def record_inputs(torch, net, codes, inputs=None):
+    """Forward pre-hooks keeping each quantized layer's input codes (and,
+    with ``inputs``, the input itself on the host)."""
+    from incubator_mxnet_tpu_torch import nd
+    from incubator_mxnet_tpu_torch.contrib.quantization import \
+        QuantizedDense
+    for block in quantized_layers(net):
+        def hook(blk, args):
+            x = args[0]
+            if inputs is not None:
+                inputs.append(x._data.detach().cpu().clone())
+            if isinstance(blk, QuantizedDense) and blk._flatten and \
+                    x.ndim > 2:
+                x = nd.flatten(x)
+            q = nd.quantize_v2(x, min_calib_range=-blk._thresh,
+                               max_calib_range=blk._thresh)[0]
+            codes.append(q._data.cpu().to(torch.int16))
+        block.register_forward_pre_hook(hook)
+
+
+def quant_resnet50(torch, np, mx):
+    """quantize_net on resnet50_v1 (1000 classes, seeded weights, 224²),
+    naive calibration on 4 seeded batches of 32; the int8 net on the card
+    against the same int8 net on the CPU, against the f32 net, timed and
+    profiled."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from incubator_mxnet_tpu_torch import nd
+    from incubator_mxnet_tpu_torch.contrib import quantization
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    Q = QUANT
+    B, side = Q["B"], Q["side"]
+    rng = np.random.RandomState(0)
+    nets = []
+    for ctx in (mx.gpu(0), mx.gpu(0), mx.cpu()):
+        with ctx:
+            mx.random.seed(0)
+            net = resnet50_v1(classes=Q["classes"])
+            net.initialize(mx.init.Xavier())
+            net(nd.array(np.zeros((1, 3, side, side), np.float32)))
+            nets.append(net)
+    fnet, qnet, host = nets
+    state = fnet.state_dict()
+    qnet.load_state_dict(state)
+    host.load_state_dict({k: v.cpu() for k, v in state.items()})
+    calib = [nd.array(rng.randn(B, 3, side, side).astype(np.float32))
+             for _ in range(Q["calib"])]
+    t0 = time.perf_counter()
+    quantization.quantize_net(qnet, calib_data=calib, calib_mode="naive")
+    calib_s = time.perf_counter() - t0
+    n_int8 = sum(isinstance(b, (quantization.QuantizedConv2D,
+                                quantization.QuantizedDense))
+                 for b in qnet.modules())
+    with mx.cpu():
+        quantized_twin(qnet, host)
+    # the int8 net on the card against itself on the CPU: each quantized
+    # layer on the CPU chain's own input, then the two chains as they run
+    small = rng.randn(Q["small_B"], 3, side, side).astype(np.float32)
+    codes_card, codes_host, host_inputs = [], [], []
+    record_inputs(torch, qnet, codes_card)
+    record_inputs(torch, host, codes_host, host_inputs)
+    card_logits = qnet(nd.array(small)).asnumpy()
+    with mx.cpu():
+        host_logits = host(nd.array(small)).asnumpy()
+    for blk in list(qnet.modules()) + list(host.modules()):
+        if hasattr(blk, "_gluon_pre_hooks"):
+            blk._gluon_pre_hooks.clear()
+    check(len(codes_card) == len(codes_host) == len(host_inputs) == n_int8,
+          f"quantization: {len(codes_card)} / {len(codes_host)} layers "
+          f"hooked of {n_int8}")
+    layer_bitwise = 0
+    for qb, hb, x in zip(quantized_layers(qnet), quantized_layers(host),
+                         host_inputs):
+        got = qb(nd.array(x, ctx=mx.gpu(0)))._data.cpu()
+        with mx.cpu():
+            want = hb(nd.array(x))._data
+        layer_bitwise += bool(torch.equal(got, want))
+    check(layer_bitwise == n_int8,
+          f"quantization: {n_int8 - layer_bitwise} int8 layers differ card "
+          f"against CPU on the same input")
+    per_layer = [(a - b).abs() for a, b in zip(codes_card, codes_host)]
+    flipped = [int((d > 0).sum()) for d in per_layer]
+    worst = [int(d.max()) for d in per_layer]
+    first = next((i for i, n in enumerate(flipped) if n), None)
+    # the first layer whose input codes differ: its float input differs in
+    # the last bits only, so a code moves by one quantum at a rounding
+    # edge; later layers inherit the moved codes through the chain
+    check(first is None or worst[first] <= 1,
+          f"quantization: the first diverging layer ({first}) has codes "
+          f"{worst[first] if first is not None else 0} quanta apart")
+    total = sum(d.numel() for d in per_layer)
+    logit_rel = float(np.abs(card_logits - host_logits).max()
+                      / np.abs(host_logits).max())
+    # int8 against f32, timed
+    x = nd.array(rng.randn(B, 3, side, side).astype(np.float32))
+    f32 = fnet(x).asnumpy()
+    int8 = qnet(x).asnumpy()
+    check(np.isfinite(int8).all(), "quantization: non-finite int8 logits")
+    top1 = float((f32.argmax(1) == int8.argmax(1)).mean())
+    rel = float(np.linalg.norm(int8 - f32) / np.linalg.norm(f32))
+    times = {}
+    for label, net in (("f32", fnet), ("int8", qnet)):
+        net(x).asnumpy()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(Q["reps"]):
+            net(x)
+        torch.cuda.synchronize()
+        times[label] = (time.perf_counter() - t1) * 1e3 / Q["reps"]
+    profiles = {label: busy_share(torch, lambda n=net: n(x).asnumpy())
+                for label, net in (("f32", fnet), ("int8", qnet))}
+    # the int8 products: cuBLASLt's int8 kernels under aten::_int_mm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        qnet(x).asnumpy()
+    ev = prof.key_averages()
+    int_mm = sum(e.count for e in ev if e.key == "aten::_int_mm")
+    kern = [(e.key, e.self_device_time_total) for e in ev
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    gemm = [(k, t) for k, t in kern
+            if re.search(r"(^|[^a-z])(s8|i8|int8|imma)|i8816|i16832|"
+                         r"i161616", k)]
+    busy = sum(t for _, t in kern)
+    check(int_mm == n_int8, f"quantization: {int_mm} aten::_int_mm calls "
+                            f"for {n_int8} int8 layers")
+    check(gemm, "quantization: no int8 GEMM kernel in the profile: "
+                f"{[k[:80] for k, _ in kern][:12]}")
+    return dict(config=f"resnet50_v1 ({Q['classes']} classes, Xavier "
+                       f"seed 0) f32 {side}x{side}; quantize_net naive on "
+                       f"{Q['calib']} seeded batches of {B}",
+                int8_layers=n_int8, calib_s=calib_s,
+                card_vs_cpu=dict(batch=Q["small_B"],
+                                 layers_bitwise_on_same_input=layer_bitwise,
+                                 codes=total, codes_flipped=sum(flipped),
+                                 flipped_share=sum(flipped) / total,
+                                 first_diverging_layer=first,
+                                 worst_code_diff_by_layer=worst,
+                                 flipped_by_layer=flipped,
+                                 logits_rel=logit_rel,
+                                 top1_equal=bool((card_logits.argmax(1) ==
+                                                  host_logits.argmax(1))
+                                                 .all())),
+                top1_agreement_int8_vs_f32=top1, logits_rel_int8_vs_f32=rel,
+                ms_per_batch_f32=times["f32"], ms_per_batch_int8=times["int8"],
+                int_mm_calls=int_mm,
+                int8_gemm_kernels=sorted({k[:120] for k, _ in gemm}),
+                int8_gemm_share_of_busy=sum(t for _, t in gemm) / busy,
+                profile_f32=profiles["f32"], profile_int8=profiles["int8"])
+
+
+def phase_quantization(torch, smi):
+    """int8 post-training quantization on the card (module docstring,
+    7c7)."""
+    import numpy as np
+    import incubator_mxnet_tpu_torch as mx
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    n_out = quant_ops_on_card(torch)
+    net = quant_resnet50(torch, np, mx)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(card=smi, op_outputs_bitwise=n_out, resnet50=net,
+               phase_s=time.perf_counter() - t0)
+    cv = net["card_vs_cpu"]
+    print(f"[quantization] {smi}: {n_out} op outputs and the int32 "
+          f"accumulators card == CPU bitwise; resnet50_v1 int8 "
+          f"({net['int8_layers']} layers, each bitwise card vs CPU on one "
+          f"input): chained codes {cv['flipped_share']:.2e} flipped (first "
+          f"at layer {cv['first_diverging_layer']}, worst "
+          f"{max(cv['worst_code_diff_by_layer'])}), logits rel "
+          f"{cv['logits_rel']:.2e}; top-1 vs f32 "
+          f"{net['top1_agreement_int8_vs_f32']:.3f}, rel "
+          f"{net['logits_rel_int8_vs_f32']:.3e}; "
+          f"{net['ms_per_batch_int8']:.1f} ms/batch int8 vs "
+          f"{net['ms_per_batch_f32']:.1f} f32 (B={QUANT['B']}); int8 "
+          f"GEMMs {net['int8_gemm_share_of_busy']:.2f} of busy", flush=True)
+    print(f"[quantization] {json.dumps(out)}", flush=True)
+
+
 def kernel_record(err, runs, times):
     """The kernels' JSON record; each kernel's launches come from the run
     of its own path (decode / prefill: plain; verify: spec_k=4 on raw
@@ -5839,6 +6548,8 @@ def main():
         phase_symbolic(torch, smi)
         phase_detection(torch, smi)
         phase_imagenet(torch, smi)
+        phase_rnn(torch, smi)
+        phase_quantization(torch, smi)
         runs["gpt_training"] = phase_gpt_training(torch, smi)
         phase_checkpoint(torch, smi)
         phase_nmt(torch, smi)

@@ -8,10 +8,12 @@ MXNet 1.x's imperative front end: ``nd`` (``NDArray`` over a
 with its fused applier as CUDA graphs; ``gluon.data``, ``gluon.model_zoo``
 and ``gluon.utils``), ``metric``, ``init`` and ``amp`` (``amp.init``
 casting the registry's tensor-core ops to bf16 / f16, the dynamic loss
-scale through ``gluon.Trainer``). The registry holds the JAX package's
-operators (``nd.linalg``, ``nd.contrib``, ``nd.random``, the optimizer
-updates) but its detection / deformable, vision sampling, quantized and
-fused-RNN ops. The model slices are
+scale through ``gluon.Trainer``). The registry holds all 312 of the JAX
+package's operators (``nd.linalg``, ``nd.contrib``, ``nd.random``, the
+optimizer updates, the fused ``RNN`` on cuDNN and the int8 quantization
+ops), with ``gluon.rnn`` (fused layers and cells), ``gluon.contrib``
+(``nn``, ``rnn``, ``estimator``) and ``mx.contrib.quantization``
+(``quantize_net``) over them. The model slices are
 GPT serving and causal-LM training, BERT pretraining, the WMT
 Transformer's beam searches and convolutional vision training (the
 model zoo's ResNets through ``parallel.SPMDTrainer``, ``models.LeNet``
@@ -58,10 +60,10 @@ use.
 
 The symbolic front end (``mx.sym`` / ``mx.symbol``, ``mx.mod``,
 ``mx.io``, ``mx.kv``, ``mx.model``, ``mx.callback``, ``mx.viz``,
-``mx.executor``, ``mx.name``, ``mx.attribute`` and ``mx.AttrScope``)
-and the image input path (``mx.recordio``, ``mx.image``), all loaded at
-first use, runs MXNet 1.x's ``Module.fit`` flow: a Symbol bound
-by ``simple_bind`` / ``Module.bind`` runs as one CUDA graph per
+``mx.executor``, ``mx.name``, ``mx.attribute`` and ``mx.AttrScope``),
+the image input path (``mx.recordio``, ``mx.image``) and ``mx.contrib``
+load at first use. The symbolic front end runs MXNet 1.x's
+``Module.fit`` flow: a Symbol bound by ``simple_bind`` / ``Module.bind`` runs as one CUDA graph per
 signature; gluon's ``export`` / ``SymbolBlock.imports`` cross between
 the front ends.
 
@@ -95,6 +97,7 @@ _LAZY_SUBMODULES = {
     "visualization": ".visualization", "viz": ".visualization",
     "executor": ".symbol.executor", "attribute": ".attribute",
     "name": ".name", "recordio": ".io.recordio", "image": ".image",
+    "contrib": ".contrib",
 }
 
 

@@ -1,7 +1,7 @@
 """Gluon: the port of the JAX package's ``incubator_mxnet_tpu/gluon/``
 (``Parameter``, ``Block`` / ``HybridBlock``, ``nn``, ``loss``,
-``Trainer`` and ``utils``; ``data`` and ``model_zoo`` load on first
-use)."""
+``Trainer`` and ``utils``; ``data``, ``rnn``, ``model_zoo`` and
+``contrib`` load on first use)."""
 
 from . import parameter
 from .parameter import Parameter, ParameterDict, Constant
@@ -19,7 +19,7 @@ __all__ = ["Parameter", "ParameterDict", "Constant", "Block", "HybridBlock",
 
 
 def __getattr__(name):
-    if name in ("data", "model_zoo"):
+    if name in ("data", "rnn", "model_zoo", "contrib"):
         import importlib
         mod = importlib.import_module("." + name, __name__)
         globals()[name] = mod

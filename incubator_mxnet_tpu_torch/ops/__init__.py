@@ -9,8 +9,9 @@ Importing the package also fills the operator registry (``registry``)
 with the ops ``mx.nd`` surfaces: tensor, neural-network, miscellaneous,
 random, optimizer-update, linear-algebra, attention, contrib (detection,
 deformable convolution, count sketch, Hawkes, mask targets) and vision
-(sampling, upsampling, im2col, fft) ops. The JAX package's quantization
-and fused RNN ops are not registered yet.
+(sampling, upsampling, im2col, fft), the fused RNN (``rnn``: cuDNN's on
+the card) and the int8 quantization ops (``quantization``): all 312 of
+the JAX registry's.
 ``control_flow`` holds ``foreach`` / ``while_loop`` / ``cond``
 (``nd.contrib``)."""
 
@@ -24,6 +25,8 @@ from . import linalg  # noqa: F401  (registers ops)
 from . import attention  # noqa: F401  (registers ops)
 from . import vision  # noqa: F401  (registers ops)
 from . import contrib  # noqa: F401  (registers ops)
+from . import rnn  # noqa: F401  (registers ops)
+from . import quantization  # noqa: F401  (registers ops)
 
 from .attention import scaled_dot_product_attention
 from .flash_attention import (cuda_kernel_eligible, flash_attention_bhtd,

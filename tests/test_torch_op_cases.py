@@ -14,7 +14,8 @@ first (``tests/test_torch_ndarray.py`` holds them against JAX);
 ``FAMILY`` sorts the rest by the test file that holds them against JAX
 (``contrib`` and ``vision``: ``tests/test_torch_ops_contrib.py`` and
 ``tests/test_torch_ops_vision.py``; the detection ops' tied-score cases
-come first).
+come first; ``rnn`` and ``quantization``: ``tests/test_torch_rnn.py``
+and ``tests/test_torch_quantization.py``, the int8 ops exact).
 
 Classes, as ``tests/test_op_gradient_sweep.py`` classifies the JAX
 registry: ``NONDIFF`` (integer, boolean, constant or piecewise-constant
@@ -1000,6 +1001,80 @@ VISION_CASES = {
     "ifft": [(lambda: [f(3, 16)], {}, RED, False)],
 }
 
+
+def rnn_inputs(mode, layers=2, bidirectional=True, T=5, B=3, I=4, H=6,
+               seed=0):
+    """The fused RNN op's inputs: data (T, B, I), the flat parameter
+    vector of ``layers`` layers (ops/rnn.py's layout), the state (and the
+    LSTM's cell state)."""
+    G = {"lstm": 4, "gru": 3}.get(mode, 1)
+    d = 2 if bidirectional else 1
+    n = sum(d * G * H * ((I if k == 0 else H * d) + H + 2)
+            for k in range(layers))
+    ins = [f(T, B, I, seed=seed), f(n, seed=seed + 1) * 0.3,
+           f(layers * d, B, H, seed=seed + 2)]
+    if mode == "lstm":
+        ins.append(f(layers * d, B, H, seed=seed + 3))
+    return ins
+
+
+RNN_CASES = {
+    "RNN": [(lambda m=m, bi=bi: rnn_inputs(m, bidirectional=bi),
+             dict(state_size=6, num_layers=2, mode=m, bidirectional=bi,
+                  state_outputs=True), RED, False)
+            for m, bi in (("lstm", True), ("gru", False), ("rnn_tanh", True),
+                          ("rnn_relu", False))] + [
+        (lambda: rnn_inputs("lstm", layers=1, bidirectional=False),
+         dict(state_size=6, mode="lstm"), RED, False)],
+}
+
+
+def codes(*shape, seed=1):
+    """int8 codes in [-127, 127] (int32 arrays, as every integer input)."""
+    return ints(128, *shape, lo=-127, seed=seed)
+
+
+def ranges(*bounds):
+    return [a32(b) for b in bounds]
+
+
+# one rounding of ``acc * scale + bias``: XLA fuses it into one FMA under
+# jit, the port rounds the product and the sum apart
+FMA = 1e-6
+
+
+QUANTIZATION_CASES = {
+    "quantize": [(lambda: [f(4, 6)] + ranges(-2.0, 3.0), dict(out_type=t), 0,
+                  False) for t in ("uint8", "int8")],
+    "quantize_v2": [
+        (lambda: [f(4, 6)], {}, 0, False),
+        (lambda: [f(3, 5, 7)], dict(min_calib_range=-1.5,
+                                    max_calib_range=1.5), 0, False)],
+    "dequantize": [(lambda: [codes(4, 6)] + ranges(-1.0, 2.0), {}, 0, False)],
+    "requantize": [
+        (lambda: [ints(1 << 20, 4, 5, lo=-(1 << 20))]
+         + ranges(-1000.0, 1000.0), kw, 0, False)
+        for kw in ({}, dict(min_calib_range=-0.25, max_calib_range=0.25))],
+    # k = 147 (the ResNet stem's 3 x 7 x 7) and m <= 16: the card's int8
+    # product needs both padded. The float outputs at FMA (the int32
+    # accumulators are held bitwise in tests/test_torch_quantization.py)
+    "quantized_fully_connected": [
+        (lambda: [codes(5, 147), codes(9, 147, seed=2), f(9, seed=3)]
+         + ranges(-1.0, 1.0, -0.5, 0.5), dict(num_hidden=9), FMA, False),
+        (lambda: [codes(2, 3, 16), codes(4, 16, seed=2), f(4, seed=3)]
+         + ranges(-0.3, 0.7, -2.0, 2.0), dict(num_hidden=4, no_bias=True),
+         FMA, False)],
+    "quantized_conv": [
+        (lambda: [codes(2, 3, 9, 9), codes(8, 3, 7, 7, seed=2), f(8, seed=3)]
+         + ranges(-1.0, 1.0, -0.5, 0.5),
+         dict(kernel=(7, 7), stride=(2, 2), pad=(3, 3), num_filter=8), FMA,
+         False),
+        (lambda: [codes(2, 4, 6, 5), codes(6, 2, 3, 3, seed=2), f(6, seed=3)]
+         + ranges(-1.0, 1.0, -0.5, 0.5),
+         dict(kernel=(3, 3), pad=(2, 2), dilate=(2, 2), num_filter=6,
+              num_group=2), FMA, False)],
+}
+
 FAMILY = {**{n: "base" for n in BASE_CASES},
           **{n: "tensor" for n in TENSOR_CASES},
           **{n: "misc_nn" for n in MISC_NN_CASES},
@@ -1007,10 +1082,12 @@ FAMILY = {**{n: "base" for n in BASE_CASES},
           **{n: "optimizer" for n in OPTIMIZER_CASES},
           **{n: "linalg_attention" for n in LINALG_ATTENTION_CASES},
           **{n: "contrib" for n in CONTRIB_CASES},
-          **{n: "vision" for n in VISION_CASES}}
+          **{n: "vision" for n in VISION_CASES},
+          **{n: "rnn" for n in RNN_CASES},
+          **{n: "quantization" for n in QUANTIZATION_CASES}}
 CASES = {**BASE_CASES, **TENSOR_CASES, **MISC_NN_CASES, **RANDOM_CASES,
          **OPTIMIZER_CASES, **LINALG_ATTENTION_CASES, **CONTRIB_CASES,
-         **VISION_CASES}
+         **VISION_CASES, **RNN_CASES, **QUANTIZATION_CASES}
 
 # --------------------------------------------------------------------- #
 # classes (tests/test_op_gradient_sweep.py's buckets)
@@ -1033,6 +1110,8 @@ NONDIFF = {
     "MultiBoxTarget", "Proposal", "mrcnn_mask_target", "box_encode",
     "group_adagrad_update",
     *OPTIMIZER_CASES,
+    # int8 codes and integer accumulators
+    *QUANTIZATION_CASES,
 }
 CUSTOM_GRAD = {"SoftmaxOutput", "LinearRegressionOutput",
                "LogisticRegressionOutput", "MAERegressionOutput",

@@ -9,9 +9,8 @@ the ``NDArray`` methods and ``nd`` helpers this part adds.
     ``argsort`` and ``gamma``'s JAX magnitude for negative non-integers;
   - each differentiable op's gradient against ``jax.vjp`` of the JAX op
     at rtol 1e-5 (``make_loss`` and ``LinearRegressionOutput`` custom);
-  - the registry is the JAX registry less exactly the 7 ops that wait
-    for later items (quantization 6, rnn 1), with each op's aliases;
-    every op is in exactly one class of the gradient sweep's;
+  - the registry is the JAX registry, all 312 ops, with each op's
+    aliases; every op is in exactly one class of the gradient sweep's;
   - a binary op takes a Python number as its other operand, in the
     dtype JAX's weak typing gives the pair;
   - ``NDArray.{argsort, flip, pad, repeat, sort, tile, topk}`` and
@@ -40,12 +39,8 @@ from torch_op_parity import gradient_equals_jax, op_equals_jax
 CASE_IDS = [c for c in case_ids("tensor") if c[0] not in DISTRIBUTION]
 
 # the JAX ops that wait for later items, by the JAX module that holds them
-WAITING = {
-    "quantization": {"dequantize", "quantize", "quantize_v2",
-                     "quantized_conv", "quantized_fully_connected",
-                     "requantize"},
-    "rnn": {"RNN"},
-}
+# (none: the registry is whole)
+WAITING = {}
 
 
 @pytest.mark.parametrize("name,i,dtype", CASE_IDS, ids=ids(CASE_IDS))
@@ -65,8 +60,8 @@ def test_only_the_waiting_ops_are_missing():
         mod = jreg.get(n).fn.__module__.rsplit(".", 1)[-1]
         by_module.setdefault(mod, set()).add(n)
     assert by_module == WAITING
-    assert sum(map(len, WAITING.values())) == 7
-    assert set(treg.list_all_ops()) <= set(jreg.list_all_ops())
+    assert len(treg.list_all_ops()) == len(jreg.list_all_ops()) == 312
+    assert set(treg.list_all_ops()) == set(jreg.list_all_ops())
     for n in treg.list_all_ops():
         assert set(treg.get(n).aliases) == set(jreg.get(n).aliases), n
 
@@ -77,7 +72,7 @@ def test_registry_fully_classified():
     ops = set(treg.list_all_ops())
     grad = set(grad_names({"base", "tensor", "misc_nn", "random",
                            "optimizer", "linalg_attention", "contrib",
-                           "vision"})) - CUSTOM_GRAD
+                           "vision", "rnn", "quantization"})) - CUSTOM_GRAD
     classes = [grad, NONDIFF, CUSTOM_GRAD, DISTRIBUTION]
     assert set().union(*classes) == ops
     assert sum(map(len, classes)) == len(ops)
