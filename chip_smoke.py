@@ -402,6 +402,43 @@ failure exits non-zero before the result line:
                 gather (cold and warm), background write and restore ms
                 beside the card's name and power limit (the supervised
                 runs go on beside the engine part);
+  7g. sparse  — MXNet 1.x's example/sparse/matrix_factorization
+                (matrix_fact_net in gluon) at MovieLens-10M's id ranges:
+                SparseEmbedding(71569, 128) for users and (65135, 128) for
+                items, a Dense(64) on each, their product summed, L2 loss,
+                f32, B = 128, gluon.Trainer SGD momentum 0.9 with
+                lazy_update; ids from a seeded power law over each range,
+                ratings from a seeded low-rank target in half-star steps.
+                3 steps on the card against the CPU from one set of
+                weights (losses and every parameter within 1e-5
+                relative); 200 steps whose loss falls, after each the rows
+                its batch did not look up bitwise unchanged in both
+                tables' weight and momentum; row_sparse_pull of a batch's
+                user rows from a local kvstore equal to the table's rows;
+                a NaN rating skips its step with every parameter and
+                state bitwise unchanged; ms a step over 50 steps, the
+                busy share of a profiled step, host syncs a step
+                (torch.cuda's sync debug mode) and active rows a step.
+                Then LibSVMIter -> Module.fit: 2-class logistic
+                regression at a9a's shape (32,561 rows, 123 binary
+                features, 11-14 set a row; a seeded file in a temporary
+                directory), B = 128, 2 epochs: the first epoch's
+                per-batch losses on the card within 1e-5 of the CPU's,
+                the loss falls. One `[sparse]` JSON line;
+  7h. contrib — resnet50_v1 f32 224² exported to ONNX from the card,
+                imported back and bound by the Executor there (logits at
+                B = 2 within 1e-4 of the block's largest |logit|; the file
+                byte-equal to the one a CPU copy of the weights writes);
+                SVRGModule on a linear regression at YearPredictionMSD's
+                90 features (MXNet 1.x's example/svrg_module; seeded): the
+                gradient at the snapshot equals mu, the loss falls; one
+                matrix-factorization step under mx.profiler with the
+                device trace on (the dumped Chrome trace holds its CUDA
+                kernels); a Monitor's rows from the MF net; nd.Custom
+                forward and backward on the card equal numpy, and refused
+                inside a CUDA graph capture; test_utils.check_consistency
+                cpu() against gpu(0) on seven registry ops;
+                gpu_memory_info. One `[contrib]` JSON line;
   8. times    — the flash kernels held against their plain versions
                 once more on the training batch's own shapes and lengths
                 (B=32, T=512, bf16), and causal at gpt_small's (B=16,
@@ -6479,6 +6516,607 @@ def phase_quantization(torch, smi):
     print(f"[quantization] {json.dumps(out)}", flush=True)
 
 
+# --------------------------------------------------------------------- #
+# sparse storage: matrix factorization and LibSVM (module docstring, 7g)
+# --------------------------------------------------------------------- #
+MF = dict(users=71569, items=65135, factor=128, hidden=64, B=128,
+          lr=0.05, momentum=0.9, alpha=1.0, rank=8, parity_steps=3,
+          steps=200, timed=50, sync_steps=5)
+A9A = dict(rows=32561, features=123, nnz=(11, 15), B=128, epochs=2,
+           lr=0.5)
+
+
+def fresh_names():
+    """The port's block and symbol name counters back to zero (two
+    builds of one model then carry the same parameter names)."""
+    from incubator_mxnet_tpu_torch.gluon import block
+    from incubator_mxnet_tpu_torch.symbol import symbol
+    block._naming.counter = {}
+    symbol._name_counters.clear()
+
+
+def mf_net(gluon):
+    """MXNet 1.x example/sparse/matrix_factorization's matrix_fact_net in
+    gluon: a row-sparse embedding each for users and items, a Dense each,
+    their product summed over the hidden units."""
+    class MatrixFact(gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.user = gluon.contrib.nn.SparseEmbedding(
+                    MF["users"], MF["factor"])
+                self.item = gluon.contrib.nn.SparseEmbedding(
+                    MF["items"], MF["factor"])
+                self.user_fc = gluon.nn.Dense(MF["hidden"],
+                                              in_units=MF["factor"])
+                self.item_fc = gluon.nn.Dense(MF["hidden"],
+                                              in_units=MF["factor"])
+
+        def hybrid_forward(self, F, u, i):
+            return (self.user_fc(self.user(u))
+                    * self.item_fc(self.item(i))).sum(axis=1)
+    return MatrixFact()
+
+
+def mf_batches(np, n, seed=0):
+    """``n`` batches of (user, item, rating): ids from a power law over
+    each range (popular ids spread over it), ratings from a low-rank
+    target in MovieLens' half-star steps, 0.5 to 5."""
+    rng = np.random.RandomState(seed)
+    B = MF["B"]
+
+    def ids(n_ids):
+        p = np.arange(1, n_ids + 1, dtype=np.float64) ** -MF["alpha"]
+        return rng.permutation(n_ids)[rng.choice(n_ids, n * B, p=p / p.sum())]
+    users, items = ids(MF["users"]), ids(MF["items"])
+    U = rng.randn(MF["users"], MF["rank"]) * 0.5
+    V = rng.randn(MF["items"], MF["rank"]) * 0.5
+    r = np.clip(np.round(2 * (3.5 + (U[users] * V[items]).sum(1))) / 2,
+                0.5, 5.0)
+    return [(users[k * B:(k + 1) * B].astype(np.float32),
+             items[k * B:(k + 1) * B].astype(np.float32),
+             r[k * B:(k + 1) * B].astype(np.float32)) for k in range(n)]
+
+
+def mf_trainer(gluon, net):
+    return gluon.Trainer(net.collect_params(), "sgd",
+                         {"learning_rate": MF["lr"],
+                          "momentum": MF["momentum"], "lazy_update": True})
+
+
+def mf_step(mx, net, tr, batch, ctx):
+    from incubator_mxnet_tpu_torch import autograd, gluon, nd
+    u, i, r = (nd.array(a, ctx=ctx) for a in batch)
+    with autograd.record():
+        L = gluon.loss.L2Loss()(net(u, i), r)
+    L.backward()
+    tr.step(MF["B"])
+    return L.mean()
+
+
+def mf_tables(tr, net):
+    """(weight, momentum) tensors of the two row-sparse tables."""
+    out = []
+    for emb in (net.user, net.item):
+        p = emb.weight
+        idx = tr._params.index(p)
+        out.append((p.data()._data, tr._updaters[0].states[idx]))
+    return out
+
+
+def mf_card_vs_cpu(torch, np, mx, net, batches):
+    """The same weights on the card and on the CPU, ``parity_steps``
+    steps each: losses and every parameter within 1e-5 relative."""
+    from incubator_mxnet_tpu_torch import gluon
+    with mx.cpu():
+        fresh_names()
+        host = mf_net(gluon)
+        host.initialize()
+        card_params = net._collect_params_with_prefix()
+        for name, p in host._collect_params_with_prefix().items():
+            p.set_data(card_params[name].data().asnumpy())
+        host_tr = mf_trainer(gluon, host)
+        host_losses = [float(mf_step(mx, host, host_tr, b, mx.cpu())
+                             .asnumpy())
+                       for b in batches[:MF["parity_steps"]]]
+    tr = mf_trainer(gluon, net)
+    card_losses = [float(mf_step(mx, net, tr, b, mx.gpu(0)).asnumpy())
+                   for b in batches[:MF["parity_steps"]]]
+    loss_rel = max(abs(c - h) / abs(h)
+                   for c, h in zip(card_losses, host_losses))
+    param_rel = 0.0
+    host_params = host._collect_params_with_prefix()
+    for name, p in net._collect_params_with_prefix().items():
+        a = p.data().asnumpy()
+        b = host_params[name].data().asnumpy()
+        param_rel = max(param_rel, float(np.abs(a - b).max()
+                                         / np.abs(b).max()))
+    check(loss_rel <= 1e-5 and param_rel <= 1e-5,
+          f"sparse: MF card vs CPU after {MF['parity_steps']} steps: loss "
+          f"rel {loss_rel:.2e}, parameter rel {param_rel:.2e}")
+    return tr, dict(losses_card=card_losses, losses_cpu=host_losses,
+                    loss_rel=loss_rel, param_rel=param_rel)
+
+
+def mf_training(torch, np, mx, net, tr, batches):
+    """``steps`` steps; after each, the rows its batch did not look up
+    are bitwise unchanged in both tables' weight and momentum (one device
+    flag, read at the end)."""
+    tables = mf_tables(tr, net)
+    dev = tables[0][0].device
+    bad = torch.zeros((), dtype=torch.bool, device=dev)
+    losses = []
+    for u, i, r in batches:
+        before = [(w.clone(), m.clone()) for w, m in tables]
+        losses.append(mf_step(mx, net, tr, (u, i, r), mx.gpu(0)))
+        for (w, m), (w0, m0), ids in zip(tables, before, (u, i)):
+            seen = torch.zeros(w.shape[0], dtype=torch.bool, device=dev)
+            seen[torch.from_numpy(ids.astype(np.int64)).to(dev)] = True
+            moved = (w != w0).any(1) | (m != m0).any(1)
+            bad |= (moved & ~seen).any()
+    losses = [float(v.asnumpy()) for v in losses]
+    check(bool(np.isfinite(losses).all()), "sparse: non-finite MF loss")
+    check(not bool(bad.item()),
+          "sparse: a row no batch looked up moved (weight or momentum)")
+    head, tail = np.mean(losses[:20]), np.mean(losses[-20:])
+    check(tail < head, f"sparse: MF loss did not fall ({head} -> {tail})")
+    return dict(losses=losses[::20] + [losses[-1]], first20=head,
+                last20=tail, untouched_rows_bitwise=True)
+
+
+def mf_pull(torch, np, mx, net, batch):
+    """``row_sparse_pull`` of a batch's user rows from a local kvstore
+    holding the user table: the rows, bitwise."""
+    from incubator_mxnet_tpu_torch import nd
+    w = net.user.weight.data()
+    kv = mx.kv.create("local")
+    kv.init("user_weight", w)
+    out = nd.sparse.zeros("row_sparse", w.shape, ctx=mx.gpu(0))
+    kv.row_sparse_pull("user_weight", out=out,
+                       row_ids=nd.array(batch[0], ctx=mx.gpu(0)))
+    want = np.unique(batch[0].astype(np.int64))
+    check(np.array_equal(out.indices.asnumpy(), want),
+          "sparse: row_sparse_pull indices are not the batch's rows")
+    check(torch.equal(out.data._data, w._data[torch.from_numpy(want)
+                                              .to(w._data.device)]),
+          "sparse: row_sparse_pull rows differ from the table's")
+    return len(want)
+
+
+def mf_nan_skip(torch, np, mx, net, tr, batch):
+    """A NaN rating: the step is skipped, every parameter and state
+    bitwise unchanged."""
+    from incubator_mxnet_tpu_torch.optimizer.fused import tree_leaves
+    params = [p.data()._data for p in net.collect_params().values()]
+    states = [s for st in tr._updaters[0].states.values()
+              for s in tree_leaves(st)]
+    before = [t.clone() for t in params + states]
+    skipped = tr._fused.skipped_steps
+    u, i, r = batch
+    r = r.copy()
+    r[5] = np.nan
+    mf_step(mx, net, tr, (u, i, r), mx.gpu(0))
+    check(tr._fused.skipped_steps == skipped + 1,
+          "sparse: the NaN step was not skipped")
+    check(all(torch.equal(a, b) for a, b in zip(params + states, before)),
+          "sparse: the skipped step changed a parameter or a state")
+    return str(tr.last_outcome.value)
+
+
+def mf_costs(torch, np, mx, net, tr, batches):
+    """ms a step (``timed`` steps), host syncs and active rows a step, and
+    one profiled step's busy share."""
+    import warnings
+    for b in batches[:3]:
+        mf_step(mx, net, tr, b, mx.gpu(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[:MF["timed"]]:
+        last = mf_step(mx, net, tr, b, mx.gpu(0))
+    last.asnumpy()
+    ms = (time.perf_counter() - t0) * 1e3 / MF["timed"]
+    syncs = []
+    active = []
+    from incubator_mxnet_tpu_torch.ndarray.sparse import _row_sparse_of
+    for b in batches[:MF["sync_steps"]]:
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                mf_step(mx, net, tr, b, mx.gpu(0))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+        active.append(sum(_row_sparse_of(e.weight.grad()._data).nnz
+                          for e in (net.user, net.item)))
+    looked_up = [len(np.unique(b[0])) + len(np.unique(b[1]))
+                 for b in batches[:MF["sync_steps"]]]
+    out = dict(ms_per_step=ms, samples_per_s=MF["B"] / (ms / 1e3),
+               host_syncs_per_step=syncs, active_rows_per_step=active,
+               looked_up_rows_per_step=looked_up)
+    out.update(busy_share(torch, lambda: mf_step(
+        mx, net, tr, batches[0], mx.gpu(0)).asnumpy()))
+    return out
+
+
+def a9a_file(np, path):
+    """A seeded LibSVM file at a9a's shape: 123 binary features, 11-14
+    set a row, 0/1 labels from a noisy linear rule."""
+    rng = np.random.RandomState(1)
+    w = rng.randn(A9A["features"])
+    lo, hi = A9A["nnz"]
+    with open(path, "w") as f:
+        for _ in range(A9A["rows"]):
+            cols = np.sort(rng.choice(A9A["features"], rng.randint(lo, hi),
+                                      replace=False))
+            label = int(w[cols].sum() + rng.randn() > 0)
+            f.write(f"{label} " + " ".join(f"{c}:1" for c in cols) + "\n")
+
+
+def a9a_fit(np, mx, path, ctx, epochs):
+    """LibSVMIter -> Module.fit: 2-class logistic regression, the
+    per-batch cross-entropy."""
+    losses = []
+
+    def record(param):
+        losses.append(param.eval_metric.get()[1])
+        param.eval_metric.reset()
+    rng = np.random.RandomState(2)
+    params = {"fc_weight": rng.randn(2, A9A["features"]) * 0.01,
+              "fc_bias": np.zeros(2)}
+    fresh_names()
+    data = mx.sym.Variable("data")
+    net = mx.sym.SoftmaxOutput(
+        mx.sym.FullyConnected(data, num_hidden=2, name="fc"),
+        mx.sym.Variable("softmax_label"), name="softmax")
+    it = mx.io.LibSVMIter(data_libsvm=path, data_shape=(A9A["features"],),
+                          batch_size=A9A["B"])
+    mod = mx.mod.Module(net, context=ctx)
+    mod.fit(it, eval_metric=mx.metric.CrossEntropy(),
+            batch_end_callback=record, optimizer="sgd",
+            optimizer_params={"learning_rate": A9A["lr"],
+                              "rescale_grad": 1.0 / A9A["B"]},
+            arg_params={k: mx.nd.array(v.astype(np.float32), ctx=ctx)
+                        for k, v in params.items()}, num_epoch=epochs)
+    return mod, losses
+
+
+def a9a_module(torch, np, mx, tmp):
+    path = os.path.join(tmp, "a9a.libsvm")
+    t0 = time.perf_counter()
+    a9a_file(np, path)
+    write_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod, card = a9a_fit(np, mx, path, mx.gpu(0), A9A["epochs"])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    with mx.cpu():
+        _, host = a9a_fit(np, mx, path, mx.cpu(), 1)
+    per_epoch = len(host)
+    rel = max(abs(c - h) / abs(h) for c, h in zip(card[:per_epoch], host))
+    check(rel <= 1e-5, f"sparse: a9a first-epoch losses card vs CPU rel "
+                       f"{rel:.2e}")
+    head, tail = np.mean(card[:20]), np.mean(card[-20:])
+    check(bool(np.isfinite(card).all()) and tail < head,
+          f"sparse: a9a loss did not fall ({head} -> {tail})")
+    return dict(config=f"a9a shape: {A9A['rows']} rows x "
+                       f"{A9A['features']} features, {A9A['nnz'][0]}-"
+                       f"{A9A['nnz'][1] - 1} set a row (seeded file), "
+                       f"B={A9A['B']}, SGD lr {A9A['lr']} (rescale 1/B), "
+                       f"{A9A['epochs']} epochs",
+                batches_per_epoch=per_epoch, first_epoch_rel=rel,
+                loss_first20=head, loss_last20=tail, write_s=write_s,
+                fit_s=fit_s, ms_per_batch=fit_s * 1e3 / len(card),
+                signature_counts={str(k): v for k, v in
+                                  mod._exec.signature_counts().items()})
+
+
+def phase_sparse(torch, smi):
+    """Sparse storage on the card (module docstring, 7g); returns the MF
+    net, its trainer and batches for the contrib phase."""
+    import tempfile
+
+    import numpy as np
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    batches = mf_batches(np, MF["steps"])
+    data_s = time.perf_counter() - t0
+    mx.random.seed(0)
+    fresh_names()
+    net = mf_net(gluon)
+    net.initialize(ctx=mx.gpu(0))
+    tr, parity = mf_card_vs_cpu(torch, np, mx, net, batches)
+    train = mf_training(torch, np, mx, net, tr, batches)
+    pulled = mf_pull(torch, np, mx, net, batches[7])
+    outcome = mf_nan_skip(torch, np, mx, net, tr, batches[8])
+    costs = mf_costs(torch, np, mx, net, tr, batches)
+    with tempfile.TemporaryDirectory() as tmp:
+        a9a = a9a_module(torch, np, mx, tmp)
+    out = dict(card=smi, mf=dict(
+        config=f"matrix_fact_net at MovieLens-10M's id ranges: users "
+               f"{MF['users']}, items {MF['items']}, SparseEmbedding "
+               f"{MF['factor']} -> Dense {MF['hidden']} each, L2 loss, f32, "
+               f"B={MF['B']}, SGD lr {MF['lr']} momentum {MF['momentum']} "
+               f"lazy_update; seeded power-law ids, low-rank ratings",
+        card_vs_cpu=parity, training=train, pulled_rows=pulled,
+        nan_step=outcome, skipped_steps=tr._fused.skipped_steps,
+        trace_count=tr._fused.trace_count,
+        guard_trace_count=tr._fused.guard_trace_count,
+        data_s=data_s, **costs), a9a=a9a,
+        phase_s=time.perf_counter() - t0)
+    print(f"[sparse] {smi}: MF {costs['ms_per_step']:.2f} ms/step (busy "
+          f"{costs.get('device_busy_share')}), host syncs a step "
+          f"{costs['host_syncs_per_step']}, active rows a step "
+          f"{costs['active_rows_per_step']}; card vs CPU loss rel "
+          f"{parity['loss_rel']:.2e}, params {parity['param_rel']:.2e}; "
+          f"loss {train['first20']:.3f} -> {train['last20']:.3f} over "
+          f"{MF['steps']} steps, untouched rows bitwise; row_sparse_pull "
+          f"{pulled} rows bitwise; NaN step skipped; a9a LibSVMIter -> "
+          f"Module.fit first epoch rel {a9a['first_epoch_rel']:.2e}, loss "
+          f"{a9a['loss_first20']:.4f} -> {a9a['loss_last20']:.4f}",
+          flush=True)
+    print(f"[sparse] {json.dumps(out)}", flush=True)
+    return net, tr, batches
+
+
+# --------------------------------------------------------------------- #
+# mx.contrib and the small modules (module docstring, 7h)
+# --------------------------------------------------------------------- #
+def contrib_onnx(torch, np, mx, tmp):
+    """resnet50_v1 f32 224² exported by the port on the card, imported
+    back and bound by the Executor there; the same weights exported from
+    a CPU copy: byte-equal files."""
+    from incubator_mxnet_tpu_torch import nd
+    from incubator_mxnet_tpu_torch.contrib import onnx
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    x = np.random.RandomState(0).rand(2, 3, 224, 224).astype(np.float32)
+    mx.random.seed(0)
+    fresh_names()
+    net = vision.resnet50_v1()
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    xd = nd.array(x, ctx=mx.gpu(0))
+    logits = net(xd).asnumpy()
+    sym, _ = mx.sym.trace_block(net)
+    params = {p.name: p.data() for p in net.collect_params().values()}
+    t0 = time.perf_counter()
+    card_file = onnx.export_model(sym, params, {"data": x.shape},
+                                  os.path.join(tmp, "card.onnx"))
+    export_s = time.perf_counter() - t0
+    with mx.cpu():
+        fresh_names()
+        host = vision.resnet50_v1()
+        host.initialize()
+        host(nd.array(x[:1]))
+        src = net._collect_params_with_prefix()
+        for name, p in host._collect_params_with_prefix().items():
+            p.set_data(src[name].data().asnumpy())
+        hsym, _ = mx.sym.trace_block(host)
+        host_file = onnx.export_model(
+            hsym, {p.name: p.data() for p in host.collect_params().values()},
+            {"data": x.shape}, os.path.join(tmp, "cpu.onnx"))
+    with open(card_file, "rb") as f:
+        blob = f.read()
+    with open(host_file, "rb") as f:
+        check(f.read() == blob, "contrib: the ONNX files written on the "
+                                "card and on the CPU differ")
+    t0 = time.perf_counter()
+    isym, args, _ = onnx.import_model(card_file)
+    import_s = time.perf_counter() - t0
+    aux_names = set(isym.list_auxiliary_states())
+    exe = isym.simple_bind(mx.gpu(0), grad_req="null", data=x.shape)
+    exe.copy_params_from(
+        {k: v for k, v in args.items() if k not in aux_names},
+        {k: v for k, v in args.items() if k in aux_names})
+    out = exe.forward(is_train=False, data=xd)[0].asnumpy()
+    rel = float(np.abs(out - logits).max() / np.abs(logits).max())
+    check(rel <= 1e-4, f"contrib: imported resnet50_v1 logits rel {rel:.2e}")
+    n_nodes = len(onnx.graph_to_ir(sym, params, {"data": x.shape})["nodes"])
+    return dict(model="resnet50_v1 f32 224x224 B=2", nodes=n_nodes,
+                bytes=len(blob), byte_equal_card_cpu=True,
+                logits_rel=rel, export_s=export_s, import_s=import_s)
+
+
+def contrib_svrg(torch, np, mx):
+    """SVRGModule on a linear regression at YearPredictionMSD's 90
+    features (MXNet 1.x's example/svrg_module), seeded data."""
+    from incubator_mxnet_tpu_torch.contrib import SVRGModule
+    rng = np.random.RandomState(3)
+    X = rng.randn(4096, 90).astype(np.float32)
+    y = (X @ (rng.randn(90) * 0.1) + 0.1 * rng.randn(4096)) \
+        .astype(np.float32)
+
+    def it():
+        return mx.io.NDArrayIter(X, y, batch_size=128, shuffle=False,
+                                 label_name="lin_reg_label")
+
+    def module():
+        fresh_names()
+        data = mx.sym.Variable("data")
+        sym = mx.sym.LinearRegressionOutput(
+            mx.sym.FullyConnected(data, num_hidden=1, name="fc"),
+            mx.sym.Variable("lin_reg_label"), name="lro")
+        return SVRGModule(sym, data_names=["data"],
+                          label_names=["lin_reg_label"], update_freq=2,
+                          context=mx.gpu(0))
+    mod = module()
+    d = it()
+    mod.bind(data_shapes=d.provide_data, label_shapes=d.provide_label)
+    mod.init_params(initializer=mx.init.Xavier())
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.0})
+    mod.update_full_grads(d)
+    d.reset()
+    mod.forward_backward(next(iter(d)))
+    exact = max(float((mod._exec.grad_dict[n]._data - mu._data).abs().max()
+                      / mu._data.abs().max())
+                for n, mu in mod._mu.items())
+    check(exact <= 1e-6, f"contrib: SVRG gradient at the snapshot off mu "
+                         f"by {exact:.2e}")
+    losses = []
+
+    def record(param):
+        losses.append(param.eval_metric.get()[1])
+        param.eval_metric.reset()
+    mod = module()
+    t0 = time.perf_counter()
+    mod.fit(it(), eval_metric="mse", optimizer="sgd",
+            optimizer_params={"learning_rate": 0.005,
+                              "rescale_grad": 1.0 / 128}, num_epoch=4,
+            batch_end_callback=record, initializer=mx.init.Xavier())
+    fit_s = time.perf_counter() - t0
+    check(bool(np.isfinite(losses).all())
+          and np.mean(losses[-8:]) < np.mean(losses[:8]),
+          f"contrib: SVRG loss did not fall ({losses[:3]} ... "
+          f"{losses[-3:]})")
+    return dict(config="linear regression, 90 features, 4096 rows, B=128, "
+                       "update_freq 2, SGD lr 0.005 (rescale 1/B), 4 "
+                       "epochs",
+                snapshot_rel=exact, mse_first8=float(np.mean(losses[:8])),
+                mse_last8=float(np.mean(losses[-8:])), fit_s=fit_s)
+
+
+def contrib_profiler_monitor(torch, np, mx, net, tr, batch, tmp):
+    """One MF step under mx.profiler (device trace on): the dumped Chrome
+    trace holds its CUDA kernels; a Monitor's rows from the MF net."""
+    from incubator_mxnet_tpu_torch import nd
+    prof = mx.profiler
+    path = os.path.join(tmp, "mf_trace.json")
+    prof.set_config(filename=path, profile_all=True, aggregate_stats=True)
+    prof.start()
+    with prof.scope("mf_step"):
+        mf_step(mx, net, tr, batch, mx.gpu(0)).asnumpy()
+    prof.stop()
+    prof.set_config(profile_all=False)
+    with open(prof.dump()) as f:
+        trace = json.load(f)
+    kernels = [e for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    check(len(kernels) > 0, "contrib: the profiler's dump holds no CUDA "
+                            "kernel")
+    check(any(e["name"] == "mf_step" for e in trace["traceEvents"]),
+          "contrib: the profiler's dump lacks the step's scope")
+    names = sorted({e["name"][:48] for e in kernels})
+    mon = mx.monitor.Monitor(interval=1).install(net)
+    mon.tic()
+    net(nd.array(batch[0], ctx=mx.gpu(0)), nd.array(batch[1],
+                                                    ctx=mx.gpu(0)))
+    rows = mon.toc()
+    check(len(rows) >= 4 and all(np.isfinite(s).all() for _, _, s in rows),
+          f"contrib: monitor rows {rows}")
+    return dict(profiler=dict(events=len(trace["traceEvents"]),
+                              kernels=len(kernels),
+                              kernel_device_us=sum(e["dur"]
+                                                   for e in kernels),
+                              kernel_names=names[:12]),
+                monitor=[(s, n, float(np.asarray(v).ravel()[0]))
+                         for s, n, v in rows])
+
+
+def contrib_custom(torch, np, mx):
+    """nd.Custom forward and backward on the card against numpy; refused
+    inside a CUDA graph capture."""
+    from incubator_mxnet_tpu_torch import autograd, nd
+
+    class Cube(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0], in_data[0] ** 3)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0], 3 * in_data[0] ** 2
+                        * out_grad[0])
+
+    @mx.operator.register("chip_cube")
+    class CubeProp(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return Cube()
+    a = np.random.RandomState(4).randn(64, 32).astype(np.float32)
+    x = nd.array(a, ctx=mx.gpu(0))
+    x.attach_grad()
+    with autograd.record():
+        y = nd.Custom(x, op_type="chip_cube")
+        (y * 2).sum().backward()
+    check(y.context == mx.gpu(0) and
+          np.array_equal(y.asnumpy(), a ** 3) and
+          np.array_equal(x.grad.asnumpy(), 3 * a ** 2 * 2),
+          "contrib: nd.Custom on the card differs from numpy")
+    g = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    refused = None
+    with torch.cuda.stream(stream):
+        try:
+            with torch.cuda.graph(g, stream=stream):
+                x._data.mul(2)
+                nd.Custom(x, op_type="chip_cube")
+        except mx.MXNetError as e:
+            refused = str(e)
+    torch.cuda.synchronize()
+    check(refused is not None and "capture" in refused,
+          f"contrib: nd.Custom inside a capture: {refused}")
+    check(float((x * 2).sum().asnumpy()) == float(a.sum() * 2),
+          "contrib: the card is not usable after the refused capture")
+    return dict(forward_backward_equal_numpy=True, capture_refusal=refused)
+
+
+def contrib_consistency(torch, np, mx):
+    """check_consistency, cpu() against gpu(0), over a handful of ops."""
+    from incubator_mxnet_tpu_torch import nd, test_utils
+    rng = np.random.RandomState(5)
+    a = rng.randn(16, 32).astype(np.float32)
+    b = rng.randn(32, 8).astype(np.float32)
+    cases = {"softmax": (lambda v: nd.softmax(v), [a]),
+             "log_softmax": (lambda v: nd.log_softmax(v), [a]),
+             "relu": (nd.relu, [a]), "sigmoid": (nd.sigmoid, [a]),
+             "sum": (lambda v: nd.sum(v, axis=1), [a]),
+             "dot": (nd.dot, [a, b]),
+             "FullyConnected": (lambda v, w: nd.FullyConnected(
+                 v, w.T, no_bias=True, num_hidden=8), [a, b])}
+    for name, (fn, ins) in cases.items():
+        test_utils.check_consistency(fn, ins)
+    return sorted(cases)
+
+
+def phase_contrib(torch, smi, mf):
+    """mx.contrib and the small modules on the card (module docstring,
+    7h)."""
+    import tempfile
+
+    import numpy as np
+    import incubator_mxnet_tpu_torch as mx
+    net, tr, batches = mf
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        onnx_out = contrib_onnx(torch, np, mx, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        svrg = contrib_svrg(torch, np, mx)
+        pm = contrib_profiler_monitor(torch, np, mx, net, tr, batches[1],
+                                      tmp)
+    custom = contrib_custom(torch, np, mx)
+    ops = contrib_consistency(torch, np, mx)
+    free, total = mx.gpu_memory_info(0)
+    check(0 < free <= total, f"contrib: gpu_memory_info {free}, {total}")
+    out = dict(card=smi, onnx=onnx_out, svrg=svrg, custom=custom,
+               check_consistency_ops=ops,
+               gpu_memory_info=dict(free=free, total=total),
+               phase_s=time.perf_counter() - t0, **pm)
+    print(f"[contrib] {smi}: ONNX resnet50_v1 ({onnx_out['nodes']} nodes, "
+          f"{onnx_out['bytes']} bytes) card == CPU bytes, imported logits "
+          f"rel {onnx_out['logits_rel']:.2e}; SVRG snapshot rel "
+          f"{svrg['snapshot_rel']:.1e}, mse {svrg['mse_first8']:.4f} -> "
+          f"{svrg['mse_last8']:.4f}; profiler {pm['profiler']['kernels']} "
+          f"CUDA kernels in the MF step's trace; monitor "
+          f"{len(pm['monitor'])} rows; nd.Custom == numpy, refused in a "
+          f"capture; check_consistency cpu vs gpu(0) on {len(ops)} ops; "
+          f"gpu_memory_info free {free / 2**30:.1f} of "
+          f"{total / 2**30:.1f} GiB", flush=True)
+    print(f"[contrib] {json.dumps(out)}", flush=True)
+
+
 def kernel_record(err, runs, times):
     """The kernels' JSON record; each kernel's launches come from the run
     of its own path (decode / prefill: plain; verify: spec_k=4 on raw
@@ -6553,6 +7191,9 @@ def main():
         runs["gpt_training"] = phase_gpt_training(torch, smi)
         phase_checkpoint(torch, smi)
         phase_nmt(torch, smi)
+        mf = phase_sparse(torch, smi)
+        phase_contrib(torch, smi, mf)
+        del mf
         times = phase_times(torch)
         times.update(phase_flash_times(torch, lens, err))
         for mod in ("jax", "incubator_mxnet_tpu"):

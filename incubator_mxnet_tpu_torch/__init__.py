@@ -61,8 +61,15 @@ use.
 The symbolic front end (``mx.sym`` / ``mx.symbol``, ``mx.mod``,
 ``mx.io``, ``mx.kv``, ``mx.model``, ``mx.callback``, ``mx.viz``,
 ``mx.executor``, ``mx.name``, ``mx.attribute`` and ``mx.AttrScope``),
-the image input path (``mx.recordio``, ``mx.image``) and ``mx.contrib``
-load at first use. The symbolic front end runs MXNet 1.x's
+the image input path (``mx.recordio``, ``mx.image``), ``mx.contrib``
+(quantization, ONNX, SVRG, text) and the small modules (``mx.monitor`` /
+``mx.mon``, ``mx.profiler``, ``mx.operator``, ``mx.engine``,
+``mx.util``, ``mx.test_utils``, ``mx.rtc``) load at first use.
+``nd.sparse`` holds the row-sparse and CSR storage types: an
+``Embedding(sparse_grad=True)`` table trains by lazy row updates through
+``gluon.Trainer`` and ``mx.kv``'s ``row_sparse_pull``, and
+``mx.io.LibSVMIter`` feeds CSR batches to ``Module``. ``mx.tpu()``
+raises: the port's accelerator is ``mx.gpu()``. The symbolic front end runs MXNet 1.x's
 ``Module.fit`` flow: a Symbol bound by ``simple_bind`` / ``Module.bind`` runs as one CUDA graph per
 signature; gluon's ``export`` / ``SymbolBlock.imports`` cross between
 the front ends.
@@ -86,7 +93,8 @@ from . import ndarray as nd
 from . import gluon
 from . import initializer as init
 from .base import MXNetError
-from .context import Context, cpu, current_context, gpu, num_gpus
+from .context import (Context, cpu, cpu_pinned, current_context, gpu,
+                      gpu_memory_info, num_devices, num_gpus, num_tpus, tpu)
 from .ndarray import NDArray
 from .optimizer import lr_scheduler
 
@@ -97,7 +105,9 @@ _LAZY_SUBMODULES = {
     "visualization": ".visualization", "viz": ".visualization",
     "executor": ".symbol.executor", "attribute": ".attribute",
     "name": ".name", "recordio": ".io.recordio", "image": ".image",
-    "contrib": ".contrib",
+    "contrib": ".contrib", "monitor": ".monitor", "mon": ".monitor",
+    "profiler": ".profiler", "operator": ".operator", "engine": ".engine",
+    "util": ".util", "test_utils": ".test_utils", "rtc": ".rtc",
 }
 
 
@@ -116,8 +126,9 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
-           "num_gpus", "NDArray", "nd", "ndarray", "autograd", "gluon",
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
+           "current_context", "num_gpus", "num_devices", "gpu_memory_info",
+           "num_tpus", "tpu", "NDArray", "nd", "ndarray", "autograd", "gluon",
            "init", "initializer", "lr_scheduler", "runtime", "amp",
            "checkpoint", "metric", "models", "ops", "optimizer", "parallel",
            "random",

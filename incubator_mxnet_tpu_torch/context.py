@@ -9,6 +9,10 @@ caller asks for the CPU, and a call that needs the default device raises
 ``MXNetError`` when no CUDA device is present instead of quietly running
 on the host. Tests run under ``with mx.cpu():`` or pass ``device="cpu"``.
 
+``tpu()`` raises ``MXNetError`` naming ``gpu()`` and ``num_tpus()`` is 0:
+the port's accelerator is the CUDA device. ``gpu_memory_info`` reads
+``torch.cuda.mem_get_info``.
+
 ``resolve_device`` turns ``None`` (the current context), a ``Context``, a
 string or a ``torch.device`` into a checked ``torch.device``.
 """
@@ -22,7 +26,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["Context", "cpu", "gpu", "cpu_pinned", "current_context",
-           "num_gpus", "resolve_device"]
+           "num_gpus", "num_devices", "gpu_memory_info", "num_tpus", "tpu",
+           "resolve_device"]
 
 
 class Context:
@@ -102,6 +107,35 @@ def gpu(device_id: int = 0) -> Context:
 
 def num_gpus() -> int:
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def num_devices() -> int:
+    """The devices a context can name: the host and every CUDA device."""
+    return 1 + num_gpus()
+
+
+def gpu_memory_info(device_id: int = 0):
+    """(free, total) bytes of CUDA device ``device_id`` (parity:
+    ``mx.context.gpu_memory_info``, ``cudaMemGetInfo``)."""
+    if not torch.cuda.is_available():
+        raise MXNetError("gpu_memory_info: no CUDA device")
+    if not 0 <= device_id < torch.cuda.device_count():
+        raise MXNetError(f"gpu_memory_info: device_id {device_id} out of "
+                         f"range ({torch.cuda.device_count()} devices)")
+    free, total = torch.cuda.mem_get_info(device_id)
+    return int(free), int(total)
+
+
+def num_tpus() -> int:
+    """0: the port runs on CUDA devices (``gpu()``), never on a TPU."""
+    return 0
+
+
+def tpu(device_id: int = 0):
+    """Refused: the port has no TPU context; its accelerator is
+    ``gpu(device_id)`` (the JAX package's ``tpu()`` names its TPU)."""
+    raise MXNetError(f"mx.tpu({device_id}): the PyTorch port runs on CUDA "
+                     f"devices; use mx.gpu({device_id})")
 
 
 def current_context() -> Context:

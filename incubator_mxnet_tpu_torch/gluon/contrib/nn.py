@@ -2,10 +2,9 @@
 ``incubator_mxnet_tpu/gluon/contrib/nn.py`` (parity:
 python/mxnet/gluon/contrib/nn/basic_layers.py).
 
-``SparseEmbedding`` waits for sparse storage (row_sparse gradients,
-ROADMAP Queue 1 item 13) and refuses at construction, as
-``nn.Embedding(sparse_grad=True)`` does. ``SyncBatchNorm`` on one device
-is ``nn.BatchNorm`` with ``num_devices`` kept.
+``SparseEmbedding`` is ``nn.Embedding(sparse_grad=True)`` under the JAX
+block's names. ``SyncBatchNorm`` on one device is ``nn.BatchNorm`` with
+``num_devices`` kept.
 """
 
 from __future__ import annotations
@@ -55,15 +54,23 @@ class Identity(HybridBlock):
 class SparseEmbedding(HybridBlock):
     """Embedding with row_sparse gradients (parity:
     contrib.nn.SparseEmbedding), sugar over
-    ``nn.Embedding(sparse_grad=True)``: refused until sparse storage is
-    ported (ROADMAP Queue 1 item 13)."""
+    ``nn.Embedding(sparse_grad=True)``: the optimizer's lazy update
+    touches only the looked-up rows (``optimizer._rows_update``)."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, **kwargs):
-        raise MXNetError(
-            "SparseEmbedding: row_sparse gradients are not ported; it "
-            "waits for sparse storage (ROADMAP Queue 1 item 13), as "
-            "nn.Embedding(sparse_grad=True) does")
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self._emb = nn.Embedding(input_dim, output_dim, dtype=dtype,
+                                     weight_initializer=weight_initializer,
+                                     sparse_grad=True, prefix="")
+        self.weight = self._emb.weight
+
+    def hybrid_call(self, x):
+        return self._emb(x)
+
+    def forward(self, x):
+        return self.hybrid_call(x)
 
 
 class PixelShuffle2D(HybridBlock):

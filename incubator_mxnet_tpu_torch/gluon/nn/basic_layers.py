@@ -5,8 +5,9 @@ Layers are ``HybridBlock``s over the ``mx.nd`` ops. BatchNorm's running
 statistics are ``grad_req='null'`` parameters, updated in place (under
 ``torch.no_grad``) when the forward runs in training mode, so a CUDA
 graph holding them sees each update. ``Embedding(sparse_grad=True)``
-(row_sparse gradients) is not ported; ``sharded=`` is the JAX package's
-mesh hint and has no effect on one device.
+gives its table ``grad_stype='row_sparse'``: gluon's Trainer updates only
+the rows a batch looked up (the lazy update); ``sharded=`` is the JAX
+package's mesh hint and has no effect on one device.
 """
 
 from __future__ import annotations
@@ -135,15 +136,13 @@ class Embedding(HybridBlock):
                  weight_initializer=None, sparse_grad=False,
                  sharded=False, **kwargs):
         super().__init__(**kwargs)
-        if sparse_grad:
-            raise MXNetError("Embedding(sparse_grad=True): row_sparse "
-                             "gradients are not ported")
         self._input_dim = input_dim
         self._output_dim = output_dim
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(input_dim, output_dim), dtype=dtype,
-                init=weight_initializer)
+                init=weight_initializer,
+                grad_stype="row_sparse" if sparse_grad else "default")
 
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, input_dim=self._input_dim,

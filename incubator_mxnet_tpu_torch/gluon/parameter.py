@@ -15,8 +15,11 @@ swap its storage) and make a new gradient buffer; call them before a
 trainer captures its graphs.
 
 ``grad_req='null'`` parameters (a BatchNorm's running statistics) do not
-require grad and have no buffer. ``stype`` / ``grad_stype`` other than
-'default' are not ported and raise ``MXNetError``.
+require grad and have no buffer. ``stype`` / ``grad_stype`` are stored
+as the JAX package stores them; ``grad_stype='row_sparse'`` (an
+``Embedding(sparse_grad=True)`` table) keeps a dense gradient buffer,
+which gluon's Trainer reads as a row-sparse gradient for the lazy
+update.
 """
 
 from __future__ import annotations
@@ -55,10 +58,10 @@ class Parameter:
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
-        if stype != "default" or grad_stype != "default":
-            raise MXNetError(f"parameter {name}: sparse storage "
-                             f"(stype={stype!r}, grad_stype={grad_stype!r})"
-                             f" is not ported")
+        for what, st in (("stype", stype), ("grad_stype", grad_stype)):
+            if st not in ("default", "row_sparse", "csr"):
+                raise MXNetError(f"parameter {name}: unknown {what} "
+                                 f"{st!r}")
         self.name = name
         self._grad_req = grad_req if differentiable else "null"
         if self._grad_req not in ("write", "add", "null"):
@@ -74,6 +77,9 @@ class Parameter:
         self._data: Optional[NDArray] = None
         self._grad: Optional[NDArray] = None
         self._deferred_init = None          # (initializer, ctx)
+        self._stype = stype
+        # 'row_sparse': gluon's Trainer applies the optimizer to the
+        # gradient's active rows only (the lazy update)
         self._grad_stype = grad_stype
 
     # ------------------------------------------------------------------ #

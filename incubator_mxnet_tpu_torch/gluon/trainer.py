@@ -14,6 +14,14 @@ ends in one ``StepOutcome`` (``last_outcome``, ``health``,
 ``health_snapshot()``); K consecutive non-finite steps halt with
 ``HALTED_POISONED``.
 
+A parameter with ``grad_stype='row_sparse'`` (``Embedding(sparse_grad=
+True)``) takes the lazy update: its dense gradient buffer is read as a
+``RowSparseNDArray`` (the rows with a nonzero entry; one host sync) and
+the optimizer writes those rows in place, after the guard's verdict and
+only on a step it did not veto. Its gradient joins the guard's
+all-finite reduction (``FusedApplier.apply``'s ``extra_grads``; an
+all-sparse step runs ``grad_all_finite`` alone).
+
 ``accumulate_grads()`` + ``step(k)`` folds microbatch gradients into
 persistent f32 accumulators (one program per signature, whatever k) and
 applies them with one guard verdict and one scaler update.
@@ -277,7 +285,7 @@ class Trainer:
 
     def _update_inner(self, ignore_stale_grad=False, overrides=None):
         updater = self._updaters[0]
-        fused_items, eager_items, touched = [], [], []
+        fused_items, sparse_items, eager_items, touched = [], [], [], []
         saw_stale_skip = False
         for i, p in enumerate(self._params):
             if p.grad_req == "null":
@@ -306,20 +314,39 @@ class Trainer:
                         f"ignore_stale_grad=True to skip such parameters.",
                         UserWarning, stacklevel=4)
             touched.append(p)
-            if self._fused is not None:
+            if p._grad_stype == "row_sparse":
+                # the active rows change from step to step, so the lazy
+                # update runs eagerly, after the guard's verdict
+                sparse_items.append((i, p, grad))
+            elif self._fused is not None:
                 fused_items.append((i, p, grad))
             else:
                 eager_items.append((i, p, grad))
         applied = True
+        guard_on = self._fused is not None and self._fused.guard
+        sparse_grads = [g._data for _, _, g in sparse_items]
         if fused_items:
-            applied = self._fused.apply(fused_items, updater)
+            applied = self._fused.apply(
+                fused_items, updater,
+                extra_grads=sparse_grads if guard_on else ())
+        elif sparse_items and guard_on:
+            # an all-sparse step: no group program carries the verdict
+            if self._fused.grad_all_finite(sparse_grads):
+                applied = float(self._fused._ok.item()) > 0
+                if not applied:
+                    self._fused.skipped_steps += 1
         for i, p, grad in eager_items:
             updater(i, grad, p.data())
+        if applied:
+            # a skipped step leaves every parameter bit-identical
+            from ..ndarray.sparse import _row_sparse_of
+            for i, p, grad in sparse_items:
+                updater(i, _row_sparse_of(grad._data.detach()), p.data())
         for p in touched:
             if p._grad is not None:
                 p._grad._fresh = False
         self._finish_step(applied, bool(touched), saw_stale_skip,
-                          fused_items)
+                          fused_items + sparse_items)
 
     def _finish_step(self, applied, any_touched, saw_stale_skip,
                      fused_items):

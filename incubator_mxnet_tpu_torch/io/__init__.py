@@ -17,8 +17,8 @@ native reader where it builds), decodes and crops on
 ``preprocess_threads`` threads and normalizes on the device the batch
 lands on (the context current at construction); ``ImageDetRecordIter``
 is ``image.ImageDetIter``'s reader; ``MNISTIter`` reads
-``gluon.data.vision.MNIST``. ``LibSVMIter`` raises ``MXNetError``: sparse
-inputs are not ported.
+``gluon.data.vision.MNIST``; ``LibSVMIter`` reads LibSVM text into CSR
+batches (``ndarray.sparse.CSRNDArray``).
 """
 
 from __future__ import annotations
@@ -277,10 +277,109 @@ class CSVIter(DataIter):
         self._inner.set_position(state)
 
 
-def LibSVMIter(*args, **kwargs):
-    """Refused: it emits CSR batches, and sparse inputs are not ported."""
-    raise MXNetError("mx.io.LibSVMIter: sparse (CSR) input is not ported "
-                     "(ROADMAP Queue 1 item 13, the sparse bullet)")
+class LibSVMIter(DataIter):
+    """LibSVM text-format reader emitting CSR data batches (parity:
+    ``mx.io.LibSVMIter``). Lines are ``label idx:val idx:val ...``
+    (0-based indices); ``label_libsvm`` names a second file whose lines'
+    ``idx:val`` pairs fill dense label rows of ``label_shape``. The
+    dataset is held on the host as one CSR triple and sliced per batch;
+    a short last batch pads with empty rows under ``round_batch``.
+    Batches are host arrays (a ``CSRNDArray`` and an ``NDArray``), as
+    ``NDArrayIter``'s over numpy are; ``Module`` makes the data dense at
+    its graph's boundary."""
+
+    def __init__(self, data_libsvm, data_shape, label_libsvm=None,
+                 label_shape=None, batch_size=1, round_batch=True,
+                 **kwargs):
+        super().__init__(batch_size)
+        self._feat_dim = int(data_shape[0] if isinstance(
+            data_shape, (tuple, list)) else data_shape)
+        labels, data, indices, indptr = [], [], [], [0]
+        with open(data_libsvm) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                labels.append(float(parts[0]))
+                for p in parts[1:]:
+                    k, v = p.split(":")
+                    indices.append(int(k))
+                    data.append(float(v))
+                indptr.append(len(data))
+        self._data = np.asarray(data, np.float32)
+        self._indices = np.asarray(indices, np.int32)
+        self._indptr = np.asarray(indptr, np.int64)
+        self._num = len(labels)
+        label = np.asarray(labels, np.float32).reshape(-1, 1)
+        if label_libsvm is not None:
+            ldim = int(label_shape[0] if isinstance(
+                label_shape, (tuple, list)) else (label_shape or 1))
+            rows = []
+            with open(label_libsvm) as f:
+                for line in f:
+                    parts = line.split()
+                    if not parts:
+                        continue
+                    row = np.zeros(ldim, np.float32)
+                    for p in parts[1:]:
+                        k, v = p.split(":")
+                        row[int(k)] = float(v)
+                    rows.append(row)
+            label = np.asarray(rows, np.float32)
+        self._label = label
+        self._round = round_batch
+        self._cursor = 0
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size, self._feat_dim),
+                         np.float32)]
+
+    @property
+    def provide_label(self):
+        return [DataDesc("softmax_label",
+                         (self.batch_size,) + self._label.shape[1:],
+                         np.float32)]
+
+    def reset(self):
+        self._cursor = 0
+
+    def iter_next(self):
+        return self._cursor < self._num
+
+    def tell(self) -> dict:
+        return {"cursor": int(self._cursor)}
+
+    def set_position(self, state: dict):
+        self._cursor = int(state["cursor"])
+
+    def _rows(self, lo, hi):
+        from ..ndarray.sparse import CSRNDArray
+        sl = slice(self._indptr[lo], self._indptr[hi])
+        indptr = self._indptr[lo:hi + 1] - self._indptr[lo]
+        pad = self.batch_size - (hi - lo)
+        if pad:
+            indptr = np.concatenate(
+                [indptr, np.full(pad, indptr[-1], np.int64)])
+        return CSRNDArray(self._data[sl], self._indices[sl], indptr,
+                          (self.batch_size, self._feat_dim), device="cpu")
+
+    def next(self):
+        if not self.iter_next():
+            raise StopIteration
+        lo = self._cursor
+        hi = min(lo + self.batch_size, self._num)
+        if not self._round and hi - lo < self.batch_size:
+            raise StopIteration
+        self._cursor = hi
+        lab = self._label[lo:hi]
+        pad = self.batch_size - (hi - lo)
+        if pad:
+            lab = np.concatenate(
+                [lab, np.zeros((pad,) + lab.shape[1:], np.float32)])
+        return DataBatch(data=[self._rows(lo, hi)],
+                         label=[NDArray(torch.from_numpy(lab.copy()))],
+                         pad=pad)
 
 
 class MNISTIter(DataIter):

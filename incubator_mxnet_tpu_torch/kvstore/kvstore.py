@@ -12,9 +12,11 @@ weight with the sum as the gradient (MXNet's server-side update);
 ``init`` then ``pull``. The optimizer's states save and load in the
 JAX package's pickle layout, so either package reads the other's file.
 
+``row_sparse_pull`` gathers only the requested rows of a stored table.
+
 Not ported, and refused with ``MXNetError``: the ``dist_*`` types,
 ``horovod`` / ``byteps`` and gradient compression (ROADMAP Queue 1 item
-11), and ``row_sparse_pull`` (sparse arrays, item 13).
+11).
 """
 
 from __future__ import annotations
@@ -130,8 +132,35 @@ class KVStore(_base.KVStoreBase):
         self.pull(key, out=out, priority=priority)
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        raise MXNetError("KVStore.row_sparse_pull: sparse arrays are not "
-                         "ported (ROADMAP Queue 1 item 13)")
+        """Pull only the requested rows (the sparse embedding flow): the
+        row ids are deduplicated and sorted, the gather clips ids past
+        the table to its last row, and each output is written in place.
+        A ``RowSparseNDArray`` output takes the rows as its compact parts
+        (its dense mirror rewritten in place); a dense output is zero
+        outside the rows. Without ``row_ids`` this is ``pull``."""
+        if row_ids is None:
+            return self.pull(key, out=out, priority=priority)
+        from ..ndarray.sparse import RowSparseNDArray
+        keys, outs = self._normalize(key, out)
+        rids = row_ids if _is_list(row_ids) else [row_ids] * len(keys)
+        for k, o, r in zip(keys, outs, rids):
+            if k not in self._data:
+                raise MXNetError(f"key {k} not initialized in kvstore")
+            src = self._data[k]._data
+            n = src.shape[0]
+            ids = torch.unique(_tensor(r).detach().to(torch.int64)
+                               .to(src.device))
+            gathered = src.index_select(0, ids.clamp(0, n - 1))
+            # the mirror keeps the rows inside the table
+            keep = (ids >= 0) & (ids < n)
+            with torch.no_grad():
+                for t in o if _is_list(o) else [o]:
+                    rows = gathered.to(t._data.dtype)
+                    if isinstance(t, RowSparseNDArray):
+                        t._sp_indices = ids.to(torch.int32)
+                        t._sp_values = rows
+                    t._data.zero_()
+                    t._data[ids[keep]] = rows[keep]
 
     def set_gradient_compression(self, compression_params):
         raise MXNetError("KVStore.set_gradient_compression: gradient "

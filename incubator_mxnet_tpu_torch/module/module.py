@@ -372,11 +372,11 @@ class Module(BaseModule):
         feeds = dict(zip(self._data_names, data_batch.data))
         if data_batch.label is not None:
             feeds.update(zip(self._label_names, data_batch.label))
-        for name, arr in feeds.items():
-            if getattr(arr, "stype", "default") != "default":
-                raise MXNetError(
-                    f"Module.forward: {name!r} is a sparse array; sparse "
-                    f"inputs are not ported (ROADMAP Queue 1 item 13)")
+        # sparse batches (LibSVMIter's CSR) become dense at the graph's
+        # boundary: the executor's graph reads a dense (B, feat) buffer
+        feeds = {name: arr.tostype("default")
+                 if getattr(arr, "stype", "default") != "default" else arr
+                 for name, arr in feeds.items()}
         self._exec.forward(is_train=is_train, **feeds)
 
     def backward(self, out_grads=None):

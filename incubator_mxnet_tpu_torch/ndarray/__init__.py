@@ -11,7 +11,9 @@ package's 32-bit defaults. ``waitall`` waits for the device, ``save`` /
 ``nd.random`` maps onto the registered samplers (``mx.random``'s
 generator for the device), ``nd.linalg`` and ``nd.contrib`` surface the
 ``linalg_*`` and ``_contrib_*`` ops (with ``foreach`` / ``while_loop`` /
-``cond``).
+``cond``), ``nd.sparse`` the row-sparse and CSR storage types
+(``cast_storage`` too) and ``nd.Custom`` the operators of
+``mx.operator``.
 """
 
 from __future__ import annotations
@@ -201,9 +203,22 @@ random = _RandomNS()
 
 from . import contrib  # noqa: E402,F401  (nd.contrib)
 from . import linalg  # noqa: E402,F401  (nd.linalg)
+from . import sparse  # noqa: E402,F401  (nd.sparse)
+from .sparse import cast_storage  # noqa: E402,F401
+
+
+def Custom(*inputs, op_type=None, **kwargs):
+    """A registered custom operator (parity: ``mx.nd.Custom``; see
+    ``mx.operator``)."""
+    if op_type is None:
+        raise MXNetError("Custom requires op_type=")
+    from ..operator import custom
+    return custom(*inputs, op_type=op_type, **kwargs)
+
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "linspace", "eye", "from_numpy", "from_dlpack",
            "to_dlpack_for_read", "moveaxis", "contrib", "linalg",
            "concatenate", "waitall", "save", "load", "random",
-           "imperative_invoke", "invoke_by_name", "MXNetError"]
+           "imperative_invoke", "invoke_by_name", "MXNetError", "sparse",
+           "cast_storage", "Custom"]

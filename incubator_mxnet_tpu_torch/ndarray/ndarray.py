@@ -235,9 +235,12 @@ class NDArray:
         return _invoke("cast", self, dtype=d)
 
     def tostype(self, stype: str) -> "NDArray":
+        """This array in storage type ``stype`` ('default', 'row_sparse'
+        or 'csr'; ``ndarray.sparse.cast_storage``)."""
         if stype == "default":
             return self
-        raise MXNetError(f"storage type {stype!r} is not ported")
+        from . import sparse as _sp
+        return _sp.cast_storage(self, stype)
 
     # ------------------------------------------------------------------ #
     # indexing

@@ -9,7 +9,8 @@ inputs, which then draws on that device) to ops that draw random numbers, unwrap
 keyword, and inside lists), and calls the op under
 ``torch.set_grad_enabled(autograd.is_recording())``: MXNet records only
 inside ``autograd.record()``, so outside it no op builds a graph, even on
-a parameter. A shape or type error of the op surfaces as ``MXNetError``.
+a parameter. A shape or type error of the op surfaces as ``MXNetError``;
+under ``engine.set_sync(True)`` each op waits for its device.
 ``make_op_function`` builds the ``mx.nd.<op>`` functions.
 """
 
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import autograd, random as _random
+from .. import autograd, engine as _engine, random as _random
 from ..base import MXNetError
 from ..context import current_context
 from ..ops import registry as _reg
@@ -71,6 +72,8 @@ def imperative_invoke(spec: _reg.OpSpec, *args, out=None, ctx=None,
         raise MXNetError(f"operator {spec.name} failed: {e}") from e
     multi = isinstance(result, (tuple, list))
     outs = [NDArray(r) for r in (result if multi else (result,))]
+    if _engine.is_sync():
+        _engine._maybe_sync(outs)
     if out is not None:
         targets = out if isinstance(out, (tuple, list)) else (out,)
         with torch.no_grad():

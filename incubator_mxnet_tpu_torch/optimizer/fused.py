@@ -265,11 +265,16 @@ class FusedApplier:
         if prog.run(list(acc_vals) + list(grad_vals)):
             self.accum_trace_count += 1
 
-    def apply(self, items: Sequence, updater) -> bool:
+    def apply(self, items: Sequence, updater,
+              extra_grads: Sequence = ()) -> bool:
         """Apply one update to ``items`` = [(index, param, grad NDArray)];
         the optimizer states live in ``updater.states``. Returns True when
         applied, False when the guard skipped the step (weights and state
-        bit-identical, host counters rolled back)."""
+        bit-identical, host counters rolled back). ``extra_grads`` are
+        gradient tensors applied outside this call (the Trainer's
+        row_sparse parameters) that join the all-finite verdict: with any
+        of them the guard runs as one program ahead of the groups, as the
+        JAX applier's does."""
         opt = self.optimizer
         groups: Dict = {}
         for i, p, g in items:
@@ -280,10 +285,11 @@ class FusedApplier:
                                                  "default"))
             groups.setdefault(gkey, []).append((i, p, g))
         grads = [g._data for _, _, g in items]
+        extra = [getattr(g, "_data", g) for g in extra_grads]
         self._flag(grads[0].device)
-        inline = self.guard and len(groups) == 1
+        inline = self.guard and len(groups) == 1 and not extra
         external = self.guard and not inline and \
-            self.grad_all_finite(grads)
+            self.grad_all_finite(grads + extra)
         mode = "inline" if inline else "external" if external else "off"
         counts = opt._index_update_count
         prev_counts = dict(counts)

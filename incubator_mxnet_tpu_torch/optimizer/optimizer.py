@@ -20,6 +20,13 @@ schedule) and SGLD (a fresh draw per update) keep host state from step to
 step and set ``fusable = False``: gluon's Trainer runs them eagerly.
 ``Updater`` holds the per-parameter states of gluon's Trainer and writes
 each update into the weight and the state tensors in place.
+
+The one exception to the functional form is the lazy update (SGD, with
+or without momentum, and Adam, ``lazy_update=True``, the default): given
+a ``RowSparseNDArray`` gradient, ``update`` runs the registered update
+op on the active rows and writes them into the weight and the state in
+place (``_rows_update``), returning those same tensors; the rows outside
+the active set stay bit-identical, momentum included.
 """
 
 from __future__ import annotations
@@ -39,6 +46,29 @@ __all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "RMSProp", "Ftrl",
            "get_updater"]
 
 _REGISTRY: Dict[str, type] = {}
+
+
+def _rows_update(weight, grad, states, op_name, **op_kwargs):
+    """The lazy row_sparse update: the registered update op ``op_name``
+    (``ops/optimizer_ops.py``) on the gradient's active rows only, each
+    result written back into its rows IN PLACE (``index_copy_`` into the
+    weight and every state tensor, which CUDA graphs hold by address).
+    Rows outside the active set are neither read nor written."""
+    from ..ndarray import NDArray
+    from ..ndarray.register import invoke_by_name
+    idx = grad._sp_indices.long()
+    rows = [NDArray(t.index_select(0, idx)) for t in [weight] + states]
+    out = invoke_by_name(op_name, rows[0], NDArray(grad._sp_values),
+                         *rows[1:], **op_kwargs)
+    outs = out if isinstance(out, (list, tuple)) else (out,)
+    with torch.no_grad():
+        for t, new in zip([weight] + states, outs):
+            t.index_copy_(0, idx, new._data.to(t.dtype))
+
+
+def _lazy(optimizer, grad) -> bool:
+    from ..ndarray.sparse import RowSparseNDArray
+    return isinstance(grad, RowSparseNDArray) and optimizer.lazy_update
 
 
 def register(name, aliases=()):
@@ -184,10 +214,10 @@ class Optimizer:
 class SGD(Optimizer):
     """SGD with momentum (reference: optimizer.py SGD + sgd_mom_update)."""
 
-    def __init__(self, momentum=0.0, **kwargs):
-        kwargs.pop("lazy_update", None)       # row_sparse only: no-op here
+    def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
+        self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
         if self.momentum == 0.0:
@@ -195,8 +225,21 @@ class SGD(Optimizer):
         return torch.zeros_like(weight)
 
     def update(self, index, weight, grad, state):
+        """With a ``RowSparseNDArray`` gradient and ``lazy_update`` the
+        active rows are written in place and ``(weight, state)`` come
+        back as they are (the same tensors)."""
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
+        if _lazy(self, grad):
+            kw = dict(lr=lr, wd=wd, rescale_grad=self.rescale_grad,
+                      clip_gradient=self.clip_gradient)
+            if state is None:
+                _rows_update(weight, grad, [], "sgd_update", **kw)
+            else:
+                _rows_update(weight, grad, [state], "sgd_mom_update",
+                             momentum=self.momentum, **kw)
+            return weight, state
+        grad = getattr(grad, "_data", grad)
         if state is None:
             return ops.sgd_update(weight, grad, lr=lr, wd=wd,
                                   rescale_grad=self.rescale_grad,
@@ -213,20 +256,30 @@ class Adam(Optimizer):
     folded into lr, as in the reference."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, **kwargs):
-        kwargs.pop("lazy_update", None)
+                 epsilon=1e-8, lazy_update=True, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
         return (torch.zeros_like(weight), torch.zeros_like(weight))
 
     def update(self, index, weight, grad, state):
+        """A ``RowSparseNDArray`` gradient with ``lazy_update`` updates
+        the active rows in place, as ``SGD.update`` does."""
         self._update_count(index)
         t = self._step_t(index)
         lr = self._get_lr(index)
         lr = lr * (1.0 - self.beta2 ** t) ** 0.5 / (1.0 - self.beta1 ** t)
         mean, var = state
+        if _lazy(self, grad):
+            _rows_update(weight, grad, [mean, var], "adam_update", lr=lr,
+                         beta1=self.beta1, beta2=self.beta2,
+                         epsilon=self.epsilon, wd=self._get_wd(index),
+                         rescale_grad=self.rescale_grad,
+                         clip_gradient=self.clip_gradient)
+            return weight, state
+        grad = getattr(grad, "_data", grad)
         new_w, new_mean, new_var = ops.adam_update(
             weight, grad, mean, var, lr=lr, beta1=self.beta1,
             beta2=self.beta2, epsilon=self.epsilon, wd=self._get_wd(index),
@@ -314,9 +367,11 @@ class NAG(Optimizer):
 
 @register("adamw")
 class AdamW(Adam):
-    """Adam with decoupled weight decay."""
+    """Adam with decoupled weight decay (a row-sparse gradient updates
+    every row, as the JAX AdamW does)."""
 
     def update(self, index, weight, grad, state):
+        grad = getattr(grad, "_data", grad)
         self._update_count(index)
         t = self._step_t(index)
         lr = self._get_lr(index)
@@ -664,17 +719,26 @@ class Updater:
 
     def __call__(self, index, grad, weight):
         w = _tensor(weight).detach()
-        g = _tensor(grad).detach()
         if index not in self.states:
             self.states[index] = \
                 self.optimizer.create_state_multi_precision(index, w)
         state = self.states[index]
-        new_w, new_s = self.optimizer.update_multi_precision(index, w, g,
-                                                             state)
+        opt = self.optimizer
+        if getattr(opt, "lazy_update", False) and \
+                getattr(grad, "stype", "default") == "row_sparse" and not (
+                    opt.multi_precision and w.dtype != torch.float32):
+            # SGD / Adam write the active rows in place and hand back the
+            # same tensors
+            new_w, new_s = opt.update(index, w, grad, state)
+        else:
+            new_w, new_s = opt.update_multi_precision(
+                index, w, _tensor(grad).detach(), state)
         with torch.no_grad():
-            w.copy_(new_w)
+            if new_w is not w:
+                w.copy_(new_w)
             for old, new in zip(_leaves(state), _leaves(new_s)):
-                old.copy_(new)
+                if new is not old:
+                    old.copy_(new)
 
     def get_states(self) -> bytes:
         """The states (numpy) and the update counters, pickled."""

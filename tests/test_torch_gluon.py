@@ -546,10 +546,16 @@ def test_block_surface(capsys, tmp_path):
         assert pd.get("w") is w and w.name == "blk_w" and "blk_w" in pd
         pd.initialize(init=tinit.One())
         assert w.data().asnumpy().tolist() == [1.0, 1.0]
-        with pytest.raises(MXNetError, match="not ported"):
-            tgluon.Parameter("s", stype="row_sparse")
-        with pytest.raises(MXNetError, match="not ported"):
-            tgluon.nn.Embedding(4, 2, sparse_grad=True)
+        # sparse storage types are stored as the JAX package stores them
+        sp = tgluon.Parameter("s", stype="row_sparse", grad_stype="csr")
+        jsp_ = jgluon.Parameter("s", stype="row_sparse", grad_stype="csr")
+        assert (sp._stype, sp._grad_stype) == \
+            (jsp_._stype, jsp_._grad_stype) == ("row_sparse", "csr")
+        assert tgluon.nn.Embedding(4, 2, sparse_grad=True).weight \
+            ._grad_stype == jgluon.nn.Embedding(
+                4, 2, sparse_grad=True).weight._grad_stype == "row_sparse"
+        with pytest.raises(MXNetError, match="unknown stype"):
+            tgluon.Parameter("s", stype="coo")
         # the symbolic front end: export, SymbolBlock, optimize_for (a
         # net without the shape-reading hooks above)
         sym_net = _seq(tgluon, tgluon.nn.HybridSequential)

@@ -12,8 +12,8 @@
   - ``HybridConcurrent`` / ``Concurrent`` / ``Identity`` at rtol 1e-5,
     ``PixelShuffle1D/2D/3D`` bitwise, ``SyncBatchNorm``'s output and
     running statistics after a training step at rtol 1e-5 (its
-    ``num_devices`` kept); ``SparseEmbedding`` refused until sparse
-    storage is ported;
+    ``num_devices`` kept); ``SparseEmbedding``'s names, gradient storage
+    type and lookup;
   - ``Estimator.fit`` over an ``NDArrayIter`` with shuffle off: the loss
     after every batch at rtol 1e-5, the final parameters at rtol 1e-4,
     ``evaluate``, the epoch log lines, ``EarlyStoppingHandler``'s stop and
@@ -169,8 +169,18 @@ def test_sync_batch_norm_equals_jax():
 
 
 def test_sparse_embedding_waits_for_sparse_storage():
-    with pytest.raises(mx.MXNetError, match="sparse storage"):
-        tcontrib.nn.SparseEmbedding(50, 8)
+    """``SparseEmbedding`` (sparse storage is ported): the JAX block's
+    parameter names, a row-sparse gradient type and its lookup at rtol
+    1e-5 (its training: ``tests/test_torch_sparse.py``)."""
+    ids = np.array([[3, 7], [49, 3]], np.float32)
+    jb, tb = build_pair(lambda: jcontrib.nn.SparseEmbedding(50, 8),
+                        lambda: tcontrib.nn.SparseEmbedding(50, 8))
+    assert sorted(tb._collect_params_with_prefix()) == \
+        sorted(jb._collect_params_with_prefix())
+    assert tb.weight._grad_stype == jb.weight._grad_stype == "row_sparse"
+    with mx.cpu():
+        assert_close(tb(port_arrays([ids])[0]), jb(jax_arrays([ids])[0]),
+                     rtol=1e-5)
 
 
 # --------------------------------------------------------------------- #

@@ -7,14 +7,15 @@ package's, on the CPU.
     JAX iterators on the same numpy arrays (``shuffle=False``: the
     packages draw shuffles from different streams); a shuffled epoch is
     a permutation; a host array gives host batches; the prefetcher
-    retries transient read errors and propagates a persistent one; the
-    image and sparse iterators refuse;
+    retries transient read errors and propagates a persistent one;
+    ``LibSVMIter``'s CSR batch equals the JAX iterator's and the MNIST
+    reader reads;
   - the local store: ``init`` / ``push`` (a list summed) / ``pull`` /
     ``pushpull`` / ``broadcast`` equal the JAX ``KVStore``'s, as do the
     updates of an optimizer set on the store, and its optimizer states
     cross the packages both ways through ``save_optimizer_states`` /
-    ``load_optimizer_states``; the multi-worker types, compression and
-    ``row_sparse_pull`` refuse.
+    ``load_optimizer_states``; the multi-worker types and compression
+    refuse, as does ``row_sparse_pull`` of a key never initialized.
 """
 
 import numpy as np
@@ -126,13 +127,25 @@ def test_prefetching_iter_equals_jax_and_fails_loudly(monkeypatch):
 
 
 def test_image_and_sparse_iterators_refuse(tmp_path):
-    """Of the iterators that refused before the image path was ported,
-    LibSVMIter alone still does (its CSR batches wait for the sparse
-    bullet of ROADMAP Queue 1 item 13); the record and MNIST readers read
-    (tests/test_torch_image.py holds them against the JAX package's)."""
-    with pytest.raises(MXNetError, match="not ported.*sparse"):
-        mx.io.LibSVMIter(data_libsvm=str(tmp_path / "a.libsvm"),
-                         data_shape=(4,), batch_size=4)
+    """The iterators that refused before the image and sparse paths were
+    ported read now: LibSVMIter's CSR batches equal the JAX iterator's
+    (``tests/test_torch_sparse.py`` holds more), the record and MNIST
+    readers read (``tests/test_torch_image.py`` holds them against the
+    JAX package's)."""
+    path = str(tmp_path / "a.libsvm")
+    with open(path, "w") as f:
+        f.write("1 0:1.5 3:-2\n0 2:0.5\n1 1:2\n")
+    tb = mx.io.LibSVMIter(data_libsvm=path, data_shape=(4,),
+                          batch_size=2).next()
+    jb = jmx.io.LibSVMIter(data_libsvm=path, data_shape=(4,),
+                           batch_size=2).next()
+    assert tb.data[0].stype == jb.data[0].stype == "csr"
+    for part in ("data", "indices", "indptr"):
+        np.testing.assert_array_equal(
+            getattr(tb.data[0], part).asnumpy(),
+            getattr(jb.data[0], part).asnumpy())
+    np.testing.assert_array_equal(tb.label[0].asnumpy(),
+                                  jb.label[0].asnumpy())
     with mx.cpu():
         it = mx.io.MNISTIter(image=str(tmp_path / "train-images-idx3-ubyte"),
                              batch_size=4)
@@ -215,7 +228,10 @@ def test_kvstore_refusals():
     kv = mx.kv.create()
     with pytest.raises(MXNetError, match="compression"):
         kv.set_gradient_compression({"type": "2bit"})
-    with pytest.raises(MXNetError, match="sparse"):
-        kv.row_sparse_pull(0, out=None, row_ids=None)
+    # row_sparse_pull is ported (tests/test_torch_sparse.py): a key
+    # that was never initialized is refused, as pull refuses it
+    with pytest.raises(MXNetError, match="not initialized"):
+        kv.row_sparse_pull(0, out=nd.zeros((2, 2), ctx=mx.cpu()),
+                           row_ids=nd.array([1.0], ctx=mx.cpu()))
     with pytest.raises(MXNetError, match="no optimizer"):
         kv.save_optimizer_states("x")

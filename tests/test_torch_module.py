@@ -1,6 +1,6 @@
 """The port's ``Module`` / ``BucketingModule`` against the JAX package's,
-on the CPU (the cases of ``tests/test_module.py`` but its LibSVM one,
-whose sparse input the port refuses).
+on the CPU (the cases of ``tests/test_module.py``; its LibSVM one is in
+``tests/test_torch_sparse.py``).
 
   - ``fit`` on the MLP (``NDArrayIter``, ``shuffle=False``, SGD with
     momentum, 2 epochs of 6 batches from the same initial parameters):

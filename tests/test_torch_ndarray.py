@@ -176,8 +176,13 @@ def test_ndarray_surface():
             .astype(np.float32))
         assert a.detach()._data.data_ptr() == a._data.data_ptr()
         assert a.astype("float32", copy=False) is a
-        with pytest.raises(MXNetError, match="not ported"):
-            a.tostype("row_sparse")
+        rsp = a.tostype("row_sparse")
+        jrsp = jnd.array(a.asnumpy()).tostype("row_sparse")
+        assert rsp.stype == jrsp.stype == "row_sparse"
+        np.testing.assert_array_equal(rsp.indices.asnumpy(),
+                                      jrsp.indices.asnumpy())
+        np.testing.assert_array_equal(rsp.asnumpy(), jrsp.asnumpy())
+        assert a.tostype("default") is a
         assert "NDArray 3x4 @cpu(0)" in repr(a)
 
 
