@@ -439,6 +439,33 @@ failure exits non-zero before the result line:
                 inside a CUDA graph capture; test_utils.check_consistency
                 cpu() against gpu(0) on seven registry ops;
                 gpu_memory_info. One `[contrib]` JSON line;
+  7i. parallel — data parallelism over a real NCCL process group of
+                one rank, formed by parallel.initialize() from the
+                variables tools/launch.py sets (MXTPU_COORDINATOR /
+                MXTPU_NUM_PROCS / MXTPU_PROC_ID): gpt_small bf16 (flash,
+                dropout 0.1, AdamW with f32 masters) B=16 T=512 through
+                SPMDTrainer(mesh=build_mesh()) with sharding "replicated"
+                and "fsdp" (over an fsdp axis of 1 the JAX rule shards
+                nothing, so it is the replicated step), losses of 15
+                steps bitwise the single-device trainer's (run before the
+                group formed), each with ms a step over 12 back-to-back
+                replays, the busy share and the NCCL kernels found in a
+                profiled replay (the collectives are in the step graph);
+                resnet50_v1 f32 B=64 224² through gluon.Trainer(kvstore=
+                "dist_sync", int8_allreduce=True, overlap_allreduce=True)
+                for 3 SGD steps against the first step of the same path
+                in a CPU process over a gloo group of one, started first
+                (the first loss within 1e-4; the first update of the
+                trained parameters within 0.1 of the CPU's in L1
+                relative, between what an H100 read for int8, 0.034,
+                and for the plain f32 step, 0.44, which must read above
+                it; the running statistics within 1e-4), then 3 more
+                steps timed beside the plain gluon step's; a
+                dist_sync store with 2-bit compression on the card
+                (pulled values and residuals bitwise the CPU's); and a
+                dozen mx.np / mx.npx calls against numpy. Everything
+                timed runs after the CPU process has exited. One
+                `[parallel]` JSON line;
   8. times    — the flash kernels held against their plain versions
                 once more on the training batch's own shapes and lengths
                 (B=32, T=512, bf16), and causal at gpt_small's (B=16,
@@ -7117,6 +7144,443 @@ def phase_contrib(torch, smi, mf):
     print(f"[contrib] {json.dumps(out)}", flush=True)
 
 
+# --------------------------------------------------------------------- #
+# data parallelism over a process group (parallel/), mx.np / mx.npx
+# --------------------------------------------------------------------- #
+
+PAR = dict(gpt_replays=12, rn_steps=3, rn_timed=3, rn_B=64, rn_side=224,
+           rn_lr=0.1, rn_update_limit=0.1, rn_stats_limit=1e-4)
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def par_launch_env(n=1, rank=0):
+    """What tools/launch.py --launcher local sets for a worker."""
+    return {"MXTPU_COORDINATOR": f"127.0.0.1:{_free_port()}",
+            "MXTPU_NUM_PROCS": str(n), "MXTPU_PROC_ID": str(rank)}
+
+
+def nccl_kernels(torch, fn):
+    """One profiled call of ``fn``: the busy share (``busy_share``) and
+    the NCCL kernels the trace holds, by name and count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    # NCCL's own kernels; with one rank a scaled reduction runs its
+    # oneRankReduce kernel
+    nccl = {e.key[:80]: e.count for e in kern
+            if re.search(r"nccl|onerankreduce", e.key.lower())}
+    return dict(profiled_wall_ms=wall_ms, device_busy_ms=busy,
+                device_busy_share=busy / wall_ms if kern else
+                "not measured (no kernel traced)", nccl_kernels=nccl,
+                kernel_names=sorted({e.key[:60] for e in kern}))
+
+
+def par_gpt(torch, np, sharding):
+    """gpt_small bf16 B=16 T=512 through SPMDTrainer(forward_loss=lm_loss,
+    AdamW, f32 masters); ``sharding`` None is the single-device trainer
+    (no process group), else the mesh of the group. The first step runs
+    eager, the second is captured and replayed, then PAR["gpt_replays"]
+    replays are timed back to back and one more is profiled."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import nd, parallel
+    from incubator_mxnet_tpu_torch.models import gpt as gpt_mod
+    B, T = GPT["B"], GPT["T"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = bench_gpt(0, flash=True, dropout=0.1)
+    rng = np.random.RandomState(0)
+    batch = [nd.array(rng.randint(0, model.vocab_size, (B, T)),
+                      ctx=mx.gpu(0), dtype="int32") for _ in range(2)]
+    kw = {} if sharding is None else dict(mesh=parallel.build_mesh(),
+                                          sharding=sharding)
+    tr = parallel.SPMDTrainer(
+        model, forward_loss=gpt_mod.lm_loss, optimizer="adamw",
+        optimizer_params={"learning_rate": 1e-4, "multi_precision": True},
+        **kw)
+
+    def step():
+        mx.random.seed(1)         # a repeating batch: its dropout masks too
+        return tr.step(*batch)
+
+    losses = [float(step().asnumpy()) for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [step() for _ in range(PAR["gpt_replays"])]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(timed)
+    losses += [float(x.asnumpy()) for x in timed]
+    holder = []
+    prof = nccl_kernels(torch, lambda: holder.append(step()))
+    losses.append(float(holder[0].asnumpy()))
+    prog = next(iter(tr._programs.values()))
+    out = dict(losses=losses, ms_per_step=ms,
+               step_trace_count=tr.step_trace_count, replays=prog.replays,
+               first_step_ms=prog.first_ms, capture_ms=prog.build_ms,
+               **prof)
+    if sharding is not None:
+        out["collective"] = tr._collective
+        out["sharded_params"] = sum(d is not None for d in tr._shard_dims)
+    print(f"[parallel] gpt {sharding or 'single-device'}: "
+          f"{json.dumps(out)}", flush=True)
+    check(all(np.isfinite(losses)), f"parallel gpt {sharding}: loss "
+                                    f"{losses}")
+    check(tr.step_trace_count == 1 and prog.replays == PAR["gpt_replays"] + 2,
+          f"parallel gpt {sharding}: {tr.step_trace_count} builds, "
+          f"{prog.replays} replays")
+    del tr, model, prog, batch, timed, holder
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_resnet_data(np):
+    rng = np.random.RandomState(0)
+    B, side = PAR["rn_B"], PAR["rn_side"]
+    return (rng.rand(B, 3, side, side).astype("float32"),
+            rng.randint(0, 1000, (B,)).astype("int32"))
+
+
+def par_resnet_run(mx, np, x, y, params_file, dist_kw, ctx, steps,
+                   timed=0):
+    """resnet50_v1 f32 from ``params_file`` through gluon.Trainer("sgd",
+    momentum 0.9) with ``dist_kw``: ``steps`` steps of the MXNet 1.x loop
+    and ``timed`` more, timed; returns the untimed steps' losses, the
+    parameters before and after the first step (and which are trained:
+    BatchNorm's running statistics move in the forward), the ms a timed
+    step, the int8 bucket count and the issue schedule."""
+    from incubator_mxnet_tpu_torch import autograd, gluon, nd
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    with ctx:
+        net = resnet50_v1()
+        net.initialize()
+        xb, yb = nd.array(x), nd.array(y, dtype="int32")
+        net(xb[:1])                   # the deferred shapes
+        net.load_parameters(params_file, ctx=ctx)
+        init = [p.data().asnumpy() for p in net.collect_params().values()]
+        trained = [p.grad_req != "null"
+                   for p in net.collect_params().values()]
+        tr = gluon.Trainer(net.collect_params(), "sgd",
+                           {"learning_rate": PAR["rn_lr"], "momentum": 0.9},
+                           **dist_kw)
+        lossf = gluon.loss.SoftmaxCrossEntropyLoss()
+        losses, first, t0 = [], None, None
+        for i in range(steps + timed):
+            if i == steps:
+                import torch
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            with autograd.record():
+                loss = lossf(net(xb), yb).mean()
+            loss.backward()
+            tr.step(PAR["rn_B"])
+            losses.append(loss)
+            if i == 0:
+                first = [p.data().asnumpy() for p in
+                         net.collect_params().values()]
+        losses = [float(v.asnumpy()) for v in losses[:steps]]
+        ms = (time.perf_counter() - t0) * 1e3 / timed if timed else None
+        return dict(losses=losses, init=init, first=first, trained=trained,
+                    ms_per_step=ms,
+                    int8_buckets=getattr(tr, "int8_buckets", 0),
+                    schedule=list(getattr(tr, "grad_issue_schedule", [])),
+                    outcome=tr.last_outcome.value)
+
+
+def par_cpu_worker(d):
+    """The CPU half of the parallel phase, in a process of its own over a
+    gloo group of one (the environment tools/launch.py sets): the first
+    step of the resnet50_v1 dist_sync int8 / overlap run (the one the
+    card is held to) and the 2-bit store, into ``d``/cpu.npz."""
+    import numpy as np
+    import torch
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import parallel
+    torch.set_num_threads(os.cpu_count() or 1)
+    with mx.cpu():
+        parallel.initialize()
+        check(torch.distributed.get_backend() == "gloo",
+              "parallel cpu worker: not a gloo group")
+        x, y = np.load(os.path.join(d, "x.npy")), \
+            np.load(os.path.join(d, "y.npy"))
+        t0 = time.perf_counter()
+        run = par_resnet_run(mx, np, x, y, os.path.join(d, "rn.params"),
+                             dict(kvstore="dist_sync", int8_allreduce=True,
+                                  overlap_allreduce=True), mx.cpu(), 1)
+        run_s = time.perf_counter() - t0
+        kv = par_kv_2bit(mx, np)
+    np.savez(os.path.join(d, "cpu.npz"), losses=np.array(run["losses"]),
+             int8_buckets=run["int8_buckets"], run_s=run_s,
+             **{f"first{i}": a for i, a in enumerate(run["first"])},
+             **{f"kv_{k}": v for k, v in kv.items()})
+    torch.distributed.destroy_process_group()
+
+
+def par_kv_2bit(mx, np):
+    """A dist_sync store with 2-bit compression (threshold 0.5): three
+    pushes of a seeded gradient, each pulled, with the key's residual."""
+    from incubator_mxnet_tpu_torch import nd
+    kv = mx.kv.create("dist_sync")
+    kv.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+    g = np.random.RandomState(7).randn(1003).astype(np.float32) * 0.4
+    kv.init("g", nd.zeros((1003,)))
+    out, got = nd.zeros((1003,)), {}
+    for t in range(3):
+        kv.push("g", nd.array(g))
+        kv.pull("g", out=out)
+        got[f"pull{t}"] = out.asnumpy().copy()
+        got[f"residual{t}"] = kv._residuals["g"].cpu().numpy().copy()
+    return got
+
+
+def par_numpy(torch, np, mx):
+    """A dozen mx.np / mx.npx calls on the card against numpy."""
+    rng = np.random.RandomState(11)
+    a = rng.randn(8, 16).astype(np.float32)
+    b = rng.randn(16, 4).astype(np.float32)
+    x, y = mx.np.array(a), mx.np.array(b)
+    check(x.context == mx.gpu(0), f"mx.np.array landed on {x.context}")
+    cases = {
+        "exp": (mx.np.exp(x), np.exp(a)),
+        "matmul": (mx.np.matmul(x, y), a @ b),
+        "sum": (mx.np.sum(x, axis=1), a.sum(1)),
+        "std": (mx.np.std(x, axis=0), a.std(0)),
+        "maximum": (mx.np.maximum(x, 0.5), np.maximum(a, 0.5)),
+        "transpose": (mx.np.transpose(x), a.T),
+        "concatenate": (mx.np.concatenate([x, x], axis=0),
+                        np.concatenate([a, a], 0)),
+        "argsort": (mx.np.argsort(x, axis=1), np.argsort(a, 1,
+                                                         kind="stable")),
+        "where": (mx.np.where(x > 0, x, -x), np.abs(a)),
+        "arange": (mx.np.arange(2, 20, 3), np.arange(2, 20, 3)),
+        "linspace": (mx.np.linspace(0.0, 1.0, 5), np.linspace(0, 1, 5)),
+        "npx.relu": (mx.npx.relu(x), np.maximum(a, 0)),
+        "npx.softmax": (mx.npx.softmax(x),
+                        np.exp(a) / np.exp(a).sum(1, keepdims=True)),
+    }
+    errs = {}
+    for name, (got, want) in cases.items():
+        g = got.asnumpy()
+        check(got.context == mx.gpu(0), f"mx.np {name} on {got.context}")
+        errs[name] = float(np.abs(g.astype(np.float64) - want).max())
+        check(g.shape == np.shape(want) and np.allclose(
+            g, want, rtol=1e-5, atol=1e-5),
+            f"mx.np {name}: max abs err {errs[name]:.2e}")
+    mx.npx.waitall()
+    return errs
+
+
+def phase_parallel(torch, smi):
+    """Data parallelism over a one-rank NCCL group on the card (module
+    docstring, 7i). The CPU process of the ResNet comparison starts
+    first; only the mx.np calls run beside it, and everything timed runs
+    after it has exited, with the host's cores to itself."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import parallel
+    t_phase = time.perf_counter()
+    out = dict(card=smi)
+    env = par_launch_env()
+    with tempfile.TemporaryDirectory() as tmp:
+        worker = par_resnet_start(np, mx, tmp)
+        try:
+            out["np"] = par_numpy(torch, np, mx)
+            cpu = par_resnet_wait(np, tmp, worker)
+            gpt = {"single": par_gpt(torch, np, None)}
+            os.environ.update(env)
+            parallel.initialize()
+            check(dist.is_initialized() and dist.get_backend() == "nccl"
+                  and dist.get_world_size() == 1,
+                  "parallel: the NCCL group of one did not form")
+            gpt["replicated"] = par_gpt(torch, np, "replicated")
+            gpt["fsdp"] = par_gpt(torch, np, "fsdp")
+            out["gpt"] = par_gpt_checks(gpt)
+            out["gpt_s"] = time.perf_counter() - t_phase
+            out["resnet"], out["kv_2bit"] = par_resnet_finish(
+                np, mx, tmp, cpu)
+        finally:
+            if worker.poll() is None:
+                os.killpg(worker.pid, 9)
+                worker.wait()
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            parallel.set_default_mesh(None)
+            for k in env:
+                os.environ.pop(k, None)
+    out["phase_s"] = time.perf_counter() - t_phase
+    g = out["gpt"]
+    print(f"[parallel] {smi}: gpt_small bf16 B=16 T=512 ms a step: single "
+          f"{g['single']['ms_per_step']:.2f}, replicated "
+          f"{g['replicated']['ms_per_step']:.2f}, fsdp "
+          f"{g['fsdp']['ms_per_step']:.2f}; NCCL kernels replicated "
+          f"{g['replicated']['nccl_kernels']}, fsdp "
+          f"{g['fsdp']['nccl_kernels']}; resnet50_v1 dist_sync int8 "
+          f"overlap {out['resnet']['ms_per_step']:.2f} ms vs plain "
+          f"{out['resnet']['plain_ms_per_step']:.2f} ms", flush=True)
+    print(f"[parallel] {json.dumps(out)}", flush=True)
+    return out
+
+
+def par_gpt_checks(gpt):
+    """The GPT runs against the single-device trainer's: replicated and
+    fsdp losses bitwise (over an fsdp axis of 1 the JAX rule shards
+    nothing, so fsdp is the replicated step); an NCCL kernel in each
+    profiled replay."""
+    ref = gpt["single"]["losses"]
+    for name in ("replicated", "fsdp"):
+        check(gpt[name]["losses"] == ref,
+              f"parallel gpt {name}: losses {gpt[name]['losses']} != "
+              f"single-device {ref}")
+        check(gpt[name]["collective"] and gpt[name]["nccl_kernels"],
+              f"parallel gpt {name}: no NCCL kernel in the profiled "
+              f"replay; its kernels: {gpt[name]['kernel_names']}")
+    check(gpt["fsdp"]["sharded_params"] == 0,
+          f"parallel gpt fsdp: {gpt['fsdp']['sharded_params']} parameters "
+          f"sharded over an fsdp axis of 1")
+    for name in gpt:
+        gpt[name].pop("kernel_names", None)
+    return gpt
+
+
+def par_resnet_start(np, mx, tmp):
+    """resnet50_v1's weights (seeded on the card) and the batch into
+    ``tmp``, and the CPU process of the comparison started over them
+    (a gloo group of one, the launcher's variables)."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    x, y = par_resnet_data(np)
+    np.save(os.path.join(tmp, "x.npy"), x)
+    np.save(os.path.join(tmp, "y.npy"), y)
+    mx.random.seed(0)
+    net = resnet50_v1()
+    net.initialize()
+    net(mx.nd.array(x[:1]))
+    net.save_parameters(os.path.join(tmp, "rn.params"))
+    del net
+    env = dict(os.environ, **par_launch_env(), CUDA_VISIBLE_DEVICES="")
+    worker = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-cpu-worker",
+         tmp], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+    worker.t0 = time.perf_counter()
+    return worker
+
+
+def par_resnet_wait(np, tmp, worker):
+    """The CPU process's results (cpu.npz) once it has exited, with its
+    wall time."""
+    try:
+        log, _ = worker.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        raise PhaseError("parallel: the CPU worker passed 600 s")
+    check(worker.returncode == 0,
+          f"parallel: the CPU worker failed:\n{log[-3000:]}")
+    cpu = dict(np.load(os.path.join(tmp, "cpu.npz")))
+    cpu["worker_s"] = time.perf_counter() - worker.t0
+    return cpu
+
+
+def par_resnet_finish(np, mx, tmp, cpu):
+    """resnet50_v1 f32 B=64 through gluon.Trainer(kvstore="dist_sync",
+    int8_allreduce=True, overlap_allreduce=True) on the card against the
+    CPU process's first step from the same weights and batch: the first
+    loss within 1e-4; the first step's change of the trained parameters
+    within PAR["rn_update_limit"] of the CPU's in L1 (the summed
+    |difference| over the summed |change|), and of the running
+    statistics within PAR["rn_stats_limit"]. An element-wise maximum
+    cannot tell int8 from f32 here: card and CPU gradients put some codes
+    on either side of a rounding edge, a whole int8 step apart, as far
+    as f32 is from int8. The plain gluon step (f32 gradients, no
+    reduction) is timed beside it, and its update must read above the
+    limit against the CPU's int8 one, or the limit could not tell an
+    int8 reduction from none. Then the 2-bit store on the card against
+    the CPU's."""
+    x, y = np.load(os.path.join(tmp, "x.npy")), \
+        np.load(os.path.join(tmp, "y.npy"))
+    params_file = os.path.join(tmp, "rn.params")
+    steps, timed = PAR["rn_steps"], PAR["rn_timed"]
+    card = par_resnet_run(mx, np, x, y, params_file,
+                          dict(kvstore="dist_sync", int8_allreduce=True,
+                               overlap_allreduce=True), mx.gpu(0), steps,
+                          timed)
+    plain = par_resnet_run(mx, np, x, y, params_file,
+                           dict(kvstore="device"), mx.gpu(0), steps, timed)
+    kv_card = par_kv_2bit(mx, np)
+    cl = float(cpu["losses"][0])
+    first_rel = abs(card["losses"][0] - cl) / abs(cl)
+    init = card["init"]
+    cpu_first = [cpu[f"first{k}"] for k in range(len(init))]
+
+    def l1_rel(first, trained):
+        pick = [k for k, t in enumerate(card["trained"]) if t == trained]
+        diff = sum(float(np.abs(first[k].astype(np.float64) - cpu_first[k])
+                         .sum()) for k in pick)
+        move = sum(float(np.abs(cpu_first[k].astype(np.float64) - init[k])
+                         .sum()) for k in pick)
+        return diff / move
+
+    update_rel, stats_rel = l1_rel(card["first"], True), \
+        l1_rel(card["first"], False)
+    plain_rel = l1_rel(plain["first"], True)
+    limit, stats_limit = PAR["rn_update_limit"], PAR["rn_stats_limit"]
+    res = dict(losses=card["losses"], cpu_first_loss=cl,
+               first_loss_rel=first_rel, first_update_l1_rel=update_rel,
+               running_stats_l1_rel=stats_rel,
+               plain_first_update_l1_rel=plain_rel,
+               first_update_max_abs_err=max(
+                   float(np.abs(a - b).max())
+                   for a, b in zip(card["first"], cpu_first)),
+               ms_per_step=card["ms_per_step"],
+               plain_ms_per_step=plain["ms_per_step"],
+               plain_losses=plain["losses"],
+               int8_buckets=card["int8_buckets"],
+               cpu_int8_buckets=int(cpu["int8_buckets"]),
+               buckets_a_step=len(card["schedule"]),
+               outcome=card["outcome"], cpu_worker_s=cpu["worker_s"],
+               cpu_step_s=float(cpu["run_s"]))
+    print(f"[parallel] resnet: {json.dumps(res)}", flush=True)
+    check(card["int8_buckets"] > 0 and card["outcome"] == "APPLIED",
+          f"parallel resnet: int8 buckets {card['int8_buckets']}, outcome "
+          f"{card['outcome']}")
+    check(all(np.isfinite(card["losses"] + plain["losses"])),
+          f"parallel resnet: losses {card['losses']}, plain "
+          f"{plain['losses']}")
+    check(first_rel <= 1e-4, f"parallel resnet: first loss card "
+                             f"{card['losses'][0]} vs CPU {cl}")
+    check(update_rel <= limit and stats_rel <= stats_limit,
+          f"parallel resnet: first step card vs CPU, L1 relative "
+          f"{update_rel:.3e} (trained; limit {limit:.1e}), "
+          f"{stats_rel:.3e} (running statistics; limit "
+          f"{stats_limit:.1e})")
+    check(plain_rel > limit,
+          f"parallel resnet: the f32 step's first update is within "
+          f"{plain_rel:.3e} (L1 relative) of the CPU's int8 one, under "
+          f"the limit {limit:.1e}")
+    kv_ok = {k: bool(np.array_equal(v, cpu["kv_" + k]))
+             for k, v in kv_card.items()}
+    check(all(kv_ok.values()), f"parallel dist_sync 2-bit: card != CPU "
+                               f"({kv_ok})")
+    return res, dict(equal_to_cpu=kv_ok,
+                     pulled_nonzero=int(np.count_nonzero(
+                         kv_card["pull0"])))
+
+
 def kernel_record(err, runs, times):
     """The kernels' JSON record; each kernel's launches come from the run
     of its own path (decode / prefill: plain; verify: spec_k=4 on raw
@@ -7153,6 +7617,9 @@ def kernel_record(err, runs, times):
 
 
 def main():
+    if len(sys.argv) == 3 and sys.argv[1] == "--parallel-cpu-worker":
+        par_cpu_worker(sys.argv[2])
+        return 0
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this script needs the GPU",
@@ -7194,6 +7661,7 @@ def main():
         mf = phase_sparse(torch, smi)
         phase_contrib(torch, smi, mf)
         del mf
+        phase_parallel(torch, smi)
         times = phase_times(torch)
         times.update(phase_flash_times(torch, lens, err))
         for mod in ("jax", "incubator_mxnet_tpu"):

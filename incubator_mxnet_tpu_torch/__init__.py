@@ -64,7 +64,8 @@ The symbolic front end (``mx.sym`` / ``mx.symbol``, ``mx.mod``,
 the image input path (``mx.recordio``, ``mx.image``), ``mx.contrib``
 (quantization, ONNX, SVRG, text) and the small modules (``mx.monitor`` /
 ``mx.mon``, ``mx.profiler``, ``mx.operator``, ``mx.engine``,
-``mx.util``, ``mx.test_utils``, ``mx.rtc``) load at first use.
+``mx.util``, ``mx.test_utils``, ``mx.rtc``) and the NumPy-style
+namespaces (``mx.np`` / ``mx.numpy``, ``mx.npx``) load at first use.
 ``nd.sparse`` holds the row-sparse and CSR storage types: an
 ``Embedding(sparse_grad=True)`` table trains by lazy row updates through
 ``gluon.Trainer`` and ``mx.kv``'s ``row_sparse_pull``, and
@@ -108,6 +109,7 @@ _LAZY_SUBMODULES = {
     "contrib": ".contrib", "monitor": ".monitor", "mon": ".monitor",
     "profiler": ".profiler", "operator": ".operator", "engine": ".engine",
     "util": ".util", "test_utils": ".test_utils", "rtc": ".rtc",
+    "np": ".numpy_shim", "numpy": ".numpy_shim", "npx": ".numpy_extension",
 }
 
 

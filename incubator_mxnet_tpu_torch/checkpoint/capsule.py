@@ -522,6 +522,55 @@ def restore_updater(updater, params: List, arrays: Dict[str, np.ndarray],
 # parallel.SPMDTrainer capsule
 # ---------------------------------------------------------------------- #
 
+def _shard_spec(ndim: int, dim: int) -> str:
+    """The manifest's sharding string, in the JAX package's spelling."""
+    return "PartitionSpec(" + ", ".join(
+        "'fsdp'" if k == dim else "None" for k in range(ndim)) + ")"
+
+
+def _shard_index(shape, sl):
+    d, start, n = sl
+    return [(start, start + n) if k == d else (0, int(s))
+            for k, s in enumerate(shape)]
+
+
+def _spmd_tree(trainer) -> Dict[str, object]:
+    """The capsule's arrays of this rank: each fsdp shard (parameter and
+    shard-shaped optimizer state) as a ``ShardLeaf`` written by the ranks
+    of dp index 0, every replicated entry by rank 0 alone."""
+    from ..parallel import mesh as _mesh
+    from .manager import ShardLeaf
+    lead = _mesh.rank() == 0
+    slots = {i: k for k, i in enumerate(trainer._train_idx)}
+    tree: Dict[str, object] = {}
+    for i, p in enumerate(trainer._params):
+        slot = slots.get(i)
+        sl = None if slot is None else trainer._shard_slice(slot)
+        if sl is None:
+            if lead:
+                tree[f"param/{i}"] = p
+        elif trainer._dp_index == 0:
+            tree[f"param/{i}"] = ShardLeaf(
+                trainer._shards[slot], _shard_index(p.shape, sl), p.shape,
+                _shard_spec(p.dim(), sl[0]))
+    for slot, st in enumerate(trainer._opt_state):
+        leaves, _ = flatten_state(st)
+        sl = trainer._shard_slice(slot)
+        shard = None if sl is None else trainer._shards[slot]
+        full = trainer._params[trainer._train_idx[slot]].shape
+        for j, leaf in enumerate(leaves):
+            if shard is not None and tuple(leaf.shape) == tuple(shard.shape):
+                if trainer._dp_index == 0:
+                    tree[f"opt/{slot}/{j}"] = ShardLeaf(
+                        leaf, _shard_index(full, sl), full,
+                        _shard_spec(len(full), sl[0]))
+            elif lead:
+                tree[f"opt/{slot}/{j}"] = leaf
+    if lead:
+        _rng_entry(tree)
+    return tree
+
+
 def spmd_capsule(trainer, iterator=None,
                  extra_meta: Optional[dict] = None
                  ) -> Tuple[Dict[str, object], dict]:
@@ -530,10 +579,9 @@ def spmd_capsule(trainer, iterator=None,
             "SPMDTrainer has no optimizer state yet (no step taken); "
             "nothing to checkpoint — save Block parameters instead")
     opt = trainer._optimizer
-    tree: Dict[str, object] = {f"param/{i}": p
-                               for i, p in enumerate(trainer._params)}
-    leaf_counts = _opt_entries(tree, enumerate(trainer._opt_state))
-    _rng_entry(tree)
+    tree = _spmd_tree(trainer)
+    leaf_counts = {str(k): len(flatten_state(st)[0])
+                   for k, st in enumerate(trainer._opt_state)}
     meta = {
         "kind": "spmd",
         "step": int(trainer.step_count),
@@ -554,12 +602,38 @@ def spmd_capsule(trainer, iterator=None,
     return tree, meta
 
 
+def _shard_arrays(trainer, arrays):
+    """``arrays`` with each fsdp slot's shard-shaped optimizer entries cut
+    to this rank's shard, plus ``shard/<i>``: the rank's slice of each
+    sharded parameter (the tensor the update writes)."""
+    out = HostArrays(arrays)
+    out.dtypes = dict(getattr(arrays, "dtypes", {}))
+    for slot, shard in enumerate(trainer._shards or ()):
+        if shard is None:
+            continue
+        i = trainer._train_idx[slot]
+        d, start, n = trainer._shard_slice(slot)
+        cut = (slice(None),) * d + (slice(start, start + n),)
+        src = f"param/{i}"
+        if src in arrays:
+            out[f"shard/{i}"] = np.ascontiguousarray(arrays[src][cut])
+            out.dtypes[f"shard/{i}"] = out.dtypes.get(src)
+        for j, leaf in enumerate(flatten_state(
+                trainer._opt_state[slot])[0]):
+            key = f"opt/{slot}/{j}"
+            if key in arrays and tuple(leaf.shape) == tuple(shard.shape) \
+                    and tuple(arrays[key].shape) != tuple(shard.shape):
+                out[key] = np.ascontiguousarray(arrays[key][cut])
+    return out
+
+
 def restore_spmd(trainer, arrays: Dict[str, np.ndarray], meta: dict,
                  iterator=None) -> None:
     """Fill a ``SPMDTrainer`` in place: its captured step graphs go on
     reading the same tensors, now holding the restored values, and no
     new capture is made. A trainer that has taken no step materializes
-    its optimizer state first."""
+    its optimizer state first. Under fsdp each rank takes its slice of
+    the assembled arrays into its shard tensors and optimizer state."""
     if meta.get("kind") != "spmd":
         raise MXNetError(f"capsule kind {meta.get('kind')!r} is not an "
                          f"SPMDTrainer capsule")
@@ -574,6 +648,12 @@ def restore_spmd(trainer, arrays: Dict[str, np.ndarray], meta: dict,
     pairs = _param_pairs(trainer._params, arrays, trainer._names)
     if trainer._opt_state is None:
         trainer._materialize()
+    arrays = _shard_arrays(trainer, arrays)
+    for slot, shard in enumerate(trainer._shards):
+        if shard is not None:
+            i = trainer._train_idx[slot]
+            pairs.append(_pair(f"shard of param/{i}", arrays, f"shard/{i}",
+                               shard))
     counts = meta.get("opt_leaf_counts") or {}
     for slot, st in enumerate(trainer._opt_state):
         pairs += _state_pairs(st, arrays, f"opt/{slot}",

@@ -25,8 +25,17 @@ attempts, ``MXTPU_CKPT_RETRY_BACKOFF`` (default 0.1 s) base delay,
 doubling per retry. ``MXTPU_CKPT_FAIL_WRITES=n`` fault-injects ``n``
 transient failures (one per attempt) for tests.
 
-One process: the multi-process barrier before a commit
-(``_process_barrier``) does nothing here.
+Across the processes of a ``torch.distributed`` job every rank calls
+``save`` with the same step: each writes its own shard file and manifest
+piece (``process_index`` / ``process_count`` in it), a tree leaf given as
+a ``ShardLeaf`` (an fsdp shard) is written with its index into the
+global array, and a leaf a rank does not own is left out of its tree, so
+each piece of global data is written once. ``_process_barrier`` is a
+real barrier over a gloo group of the manager's own (made by every rank
+at its first multi-process save; the writer thread's barriers never
+interleave with the training collectives of the default group): before
+the ranks write, before rank 0 commits and after the commit. Rank 0
+alone collects old steps.
 """
 
 from __future__ import annotations
@@ -46,11 +55,25 @@ from . import manifest as _manifest
 from .capsule import (_as_tensor, bits_of, host_leaf, numpy_of_bits,
                       torch_dtype_name)
 
-__all__ = ["CheckpointManager", "gather_tree"]
+__all__ = ["CheckpointManager", "gather_tree", "ShardLeaf"]
 
 
 def _full_index(shape):
     return [(0, int(s)) for s in shape]
+
+
+class ShardLeaf:
+    """A capsule leaf this rank holds one shard of: ``tensor`` is the
+    shard, ``index`` its ``[(start, stop)]`` per dimension of the global
+    ``shape``, ``spec`` the manifest's sharding string."""
+
+    __slots__ = ("tensor", "index", "shape", "spec")
+
+    def __init__(self, tensor, index, shape, spec):
+        self.tensor = tensor
+        self.index = [(int(a), int(b)) for a, b in index]
+        self.shape = tuple(int(s) for s in shape)
+        self.spec = spec
 
 
 def gather_tree(tree: Dict[str, object]) -> Dict[str, dict]:
@@ -63,7 +86,8 @@ def gather_tree(tree: Dict[str, object]) -> Dict[str, dict]:
     entries: Dict[str, dict] = {}
     devices = set()
     for name, leaf in tree.items():          # phase 1: issue every copy
-        t = _as_tensor(leaf)
+        shard = leaf if isinstance(leaf, ShardLeaf) else None
+        t = _as_tensor(shard.tensor if shard is not None else leaf)
         if torch.is_tensor(t) and t.is_cuda:
             bits = bits_of(t)
             host = torch.empty(bits.shape, dtype=bits.dtype,
@@ -74,6 +98,11 @@ def gather_tree(tree: Dict[str, object]) -> Dict[str, dict]:
                 numpy_of_bits(host, t.dtype)
         else:
             dtype, arr = host_leaf(t)
+        if shard is not None:
+            entries[name] = {"shape": shard.shape, "dtype": dtype,
+                             "spec": shard.spec,
+                             "shards": [(shard.index, arr)]}
+            continue
         entries[name] = {"shape": tuple(int(s) for s in arr.shape),
                          "dtype": dtype, "spec": None,
                          "shards": [(_full_index(arr.shape), arr)]}
@@ -124,6 +153,8 @@ class CheckpointManager:
         self._injected_failures = 0             # MXTPU_CKPT_FAIL_WRITES
         self.last_gather_ms: Optional[float] = None
         self.last_write_ms: Optional[float] = None
+        self._group = None          # the barrier group of a multi-rank job
+        self._ranks = (0, 1)        # (process_index, process_count)
 
     # -- background writer -------------------------------------------- #
     def _ensure_thread(self):
@@ -198,8 +229,9 @@ class CheckpointManager:
 
     def _write_once(self, step, entries, meta):
         t0 = time.perf_counter()
+        index, count = self._ranks
         _manifest.write_step(self.directory, step, entries, meta=meta,
-                             process_index=0, process_count=1,
+                             process_index=index, process_count=count,
                              sync_fn=self._process_barrier)
         with self._lock:
             self.committed_steps += 1
@@ -208,13 +240,25 @@ class CheckpointManager:
         self.flight.emit("checkpoint", EventType.CHECKPOINT_COMMIT,
                          entity=self.directory, step=int(step),
                          preempted=bool(meta.get("preempted", False)))
-        if self.keep:
+        if self.keep and index == 0:
             _manifest.gc_steps(self.directory, self.keep)
 
-    @staticmethod
-    def _process_barrier():
-        """The cross-process barrier before a commit: nothing to wait for
-        in one process."""
+    def _join_job(self):
+        """At a save in a multi-process job: this rank's place, and (once,
+        on every rank) the manager's barrier group."""
+        import torch.distributed as dist
+        if not (dist.is_available() and dist.is_initialized()):
+            return
+        self._ranks = (dist.get_rank(), dist.get_world_size())
+        if self._group is None and self._ranks[1] > 1:
+            self._group = dist.new_group(backend="gloo")
+
+    def _process_barrier(self):
+        """The cross-process barrier around a commit (nothing to wait for
+        in one process)."""
+        if self._group is not None:
+            import torch.distributed as dist
+            dist.barrier(group=self._group)
 
     def _raise_pending_error(self):
         if self._error is not None:
@@ -233,6 +277,7 @@ class CheckpointManager:
         ``async_save=False``) the write itself also runs here."""
         if self._closed:
             raise MXNetError("CheckpointManager is closed")
+        self._join_job()
         t0 = time.perf_counter()
         entries = gather_tree(tree)
         self.last_gather_ms = (time.perf_counter() - t0) * 1e3

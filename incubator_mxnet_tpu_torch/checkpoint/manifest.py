@@ -133,7 +133,8 @@ def write_step(root: str, step: int, entries: Dict[str, dict],
     [start, stop) pairs into the global shape (already deduplicated to
     this process's replica-0 shards). ``sync_fn`` is the cross-process
     barrier for multi-host runs (no-op when process_count == 1); rank 0
-    commits after it returns. Returns the committed directory.
+    commits after it returns, and every rank returns only after a third
+    barrier behind the commit. Returns the committed directory.
     """
     final = step_dir(root, step)
     tmp = final + _TMP_SUFFIX
@@ -183,6 +184,7 @@ def write_step(root: str, step: int, entries: Dict[str, dict],
     manifest = {
         "format_version": FORMAT_VERSION,
         "step": int(step),
+        "process_index": int(process_index),
         "process_count": int(process_count),
         "timestamp": time.time(),
         "meta": meta or {},
@@ -201,6 +203,8 @@ def write_step(root: str, step: int, entries: Dict[str, dict],
         _fsync_dir(tmp)
         os.rename(tmp, final)
         _fsync_dir(root)
+    if sync_fn is not None and process_count > 1:
+        sync_fn()               # every rank returns after the commit
     return final
 
 

@@ -3,13 +3,19 @@
 python/mxnet/gluon/contrib/nn/basic_layers.py).
 
 ``SparseEmbedding`` is ``nn.Embedding(sparse_grad=True)`` under the JAX
-block's names. ``SyncBatchNorm`` on one device is ``nn.BatchNorm`` with
-``num_devices`` kept.
+block's names. ``SyncBatchNorm`` all-reduces its batch statistics over
+the process group of a multi-process step; without one it is
+``nn.BatchNorm`` with ``num_devices`` kept.
 """
 
 from __future__ import annotations
 
+import torch
+import torch.distributed as dist
+
+from ... import autograd
 from ...base import MXNetError
+from ...ndarray import NDArray
 from .. import nn
 from ..block import HybridBlock
 
@@ -135,10 +141,38 @@ class PixelShuffle3D(HybridBlock):
         return F.reshape(x, shape=(B, c, D * f1, H * f2, W * f3))
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over the process group whose gradient is the sum of the
+    ranks' gradients (each rank's input feeds every rank's output)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = grad.clone()
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
+
+
 class SyncBatchNorm(nn.BatchNorm):
-    """Cross-device synchronized BatchNorm (parity: contrib.nn.SyncBatchNorm;
-    reference src/operator/contrib/sync_batch_norm.cc). On one device it
-    is ``nn.BatchNorm``; ``num_devices`` is kept for the API, as in the
+    """Cross-device synchronized BatchNorm (parity:
+    contrib.nn.SyncBatchNorm; reference
+    src/operator/contrib/sync_batch_norm.cc, which all-reduces the batch
+    statistics over the workers).
+
+    In training mode its batch mean and variance are those of the global
+    batch: the per-channel sum and count, then the sum of squared
+    deviations from the global mean, are summed over the process group
+    by differentiable all-reduces (``_AllReduceSum``), so the
+    gradient flows through the other ranks' statistics as well. The group
+    is the one a running ``parallel.SPMDTrainer`` step splits its batch
+    over, else the default group of a multi-process job. Without one it
+    is ``nn.BatchNorm``. ``num_devices`` is kept for the API, as in the
     JAX class, whose mesh defines the group.
     """
 
@@ -158,3 +192,40 @@ class SyncBatchNorm(nn.BatchNorm):
                              running_variance_initializer),
                          in_channels=in_channels, **kwargs)
         self._num_devices = num_devices
+
+    @staticmethod
+    def _group():
+        from ...parallel.spmd import batch_group
+        group = batch_group()
+        if group is None and dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            group = dist.group.WORLD
+        return group
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        group = self._group()
+        if group is None or not autograd.is_training() or \
+                self._use_global_stats:
+            return super().hybrid_forward(F, x, gamma, beta, running_mean,
+                                          running_var)
+        data = x._data.float()
+        axes = tuple(i for i in range(data.dim()) if i != 1)
+        bshape = (1, -1) + (1,) * (data.dim() - 2)
+        count = torch.full((1,), float(data.numel() // data.shape[1]),
+                           dtype=torch.float32, device=data.device)
+        summed = _AllReduceSum.apply(torch.cat([data.sum(dim=axes), count]),
+                                     group)
+        mean = summed[:-1] / summed[-1]
+        var = _AllReduceSum.apply(((data - mean.reshape(bshape)) ** 2)
+                                  .sum(dim=axes), group) / summed[-1]
+        out, _, _ = F.BatchNorm(
+            x, gamma, beta, NDArray(mean), NDArray(var),
+            eps=self._epsilon, momentum=self._momentum,
+            fix_gamma=not self._scale, use_global_stats=True, axis=1)
+        m = self._momentum
+        with torch.no_grad():
+            running_mean._data.copy_(m * running_mean._data + (1 - m) *
+                                     mean.detach().to(running_mean._data.dtype))
+            running_var._data.copy_(m * running_var._data + (1 - m) *
+                                    var.detach().to(running_var._data.dtype))
+        return out

@@ -1,5 +1,5 @@
 """Gluon ``Trainer``: the port of the JAX package's
-``incubator_mxnet_tpu/gluon/trainer.py`` on one device.
+``incubator_mxnet_tpu/gluon/trainer.py``.
 
 ``step(batch_size)`` applies the optimizer to every parameter whose
 gradient a backward refreshed. By default the update runs through
@@ -33,11 +33,21 @@ through ``checkpoint.CheckpointManager``. A restore writes the parameters
 and the optimizer states in place and rebuilds the fused applier, as the
 JAX Trainer does: its programs are built anew at the next step.
 
-``kvstore`` 'device', 'local', None or a ``kvstore.create('local' |
-'device')`` object (one worker) reduces nothing over one device. Not
-ported, and refused with ``MXNetError``: the ``dist_*`` kvstores,
-``compression_params``, ``int8_allreduce`` and ``overlap_allreduce=True``
-(the bucketed multi-worker reduction is ROADMAP Queue 1 item 11).
+Gradient reduction goes through the kvstore (``kvstore`` a type string,
+a ``kvstore.create`` object, or None for none), as the JAX Trainer's
+does: over workers with a ``dist_*`` store (one process a device,
+``parallel.initialize``), with ``compression_params`` set on the store.
+It runs when the store has more than one worker or ``int8_allreduce`` is
+on, in buckets of ``parallel.collectives.plan_grad_buckets`` (one flat
+pushpull a dtype bucket, reduced values copied back into the gradient
+buffers in place). ``int8_allreduce=True`` ships each bucket as int8
+codes under one scale (the workers' summed amax), summed as int32 and
+dequantized before the guarded apply, at one worker too.
+``overlap_allreduce=True`` issues each bucket's pushpull during backward,
+as its last gradient becomes final (the grad-ready hooks), strictly in
+the plan's order, which is the same on every worker; ``step`` flushes
+the tail. Accumulation (``accumulate_grads``) reduces the accumulated
+sums once, at ``step``.
 """
 
 from __future__ import annotations
@@ -56,11 +66,6 @@ from .parameter import Parameter, ParameterDict
 __all__ = ["Trainer"]
 
 
-def _not_ported(what):
-    return MXNetError(f"gluon.Trainer: {what} is not ported (the port's "
-                      f"Trainer runs on one device)")
-
-
 class Trainer:
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device", compression_params=None,
@@ -75,17 +80,6 @@ class Trainer:
             param_list = list(params)
         else:
             raise MXNetError("params must be a (Parameter)Dict or list")
-        from ..kvstore import KVStore
-        if isinstance(kvstore, KVStore):
-            kvstore = kvstore.type        # one worker: nothing to reduce
-        if kvstore is not None and kvstore not in ("device", "local"):
-            raise _not_ported(f"kvstore={kvstore!r}")
-        if compression_params:
-            raise _not_ported("compression_params")
-        if int8_allreduce:
-            raise _not_ported("int8_allreduce")
-        if overlap_allreduce:
-            raise _not_ported("overlap_allreduce=True")
         for p in param_list:
             if not isinstance(p, Parameter):
                 raise MXNetError(f"expected Parameter, got {type(p)}")
@@ -125,6 +119,66 @@ class Trainer:
         self._accum_count = 0
         self._accum_mode = False    # latched by accumulate_grads()
 
+        # the EQuARX seam: int8 codes under one scale a bucket, the guard
+        # judging the dequantized gradients
+        self._int8_allreduce = bool(int8_allreduce)
+        self.int8_buckets = 0            # buckets shipped quantized
+        self.int8_bytes_saved = 0        # gradient bytes - int8 bytes
+        if self._int8_allreduce and not self._fuse_step:
+            warnings.warn(
+                "int8_allreduce=True but the fused step is off "
+                "(fuse_step=False or a non-fusable optimizer) — "
+                "gradient bucketing never runs, so the compressed "
+                "allreduce is INERT and gradients ship uncompressed",
+                UserWarning, stacklevel=2)
+        self._compression_params = compression_params
+        self._kvstore = None
+        self._kv_initialized = False
+        self._kvstore_type = kvstore
+        if overlap_allreduce is None:
+            overlap_allreduce = getenv_bool("MXTPU_OVERLAP_ALLREDUCE",
+                                            False)
+        if overlap_allreduce and not self._fuse_step:
+            warnings.warn(
+                "overlap_allreduce=True but the fused step is off — "
+                "gradient bucketing never runs, so the overlapped "
+                "collective is INERT", UserWarning, stacklevel=2)
+        self._overlap = bool(overlap_allreduce) and self._fuse_step
+        self._overlap_sched = None     # BucketSchedule | False = disabled
+        self._ov_members = {}          # id(grad buffer) -> (buffer, index)
+        self.grad_issue_schedule = []  # last round's issued bucket keys
+        self._hook_handle = None
+        if self._overlap:
+            import weakref
+            from .. import autograd as _ag
+            ref = weakref.ref(self)
+            handle_box = []
+
+            def _hook(leaf, gbuf, _ref=ref, _box=handle_box):
+                tr = _ref()
+                if tr is None:           # trainer collected: self-remove
+                    _ag.remove_grad_ready_hook(_box[0])
+                    return
+                tr._on_grad_ready(leaf, gbuf)
+
+            handle_box.append(_ag.register_grad_ready_hook(_hook))
+            self._hook_handle = handle_box[0]
+
+    def _init_kvstore(self):
+        """The store, made at the first step (a type string through
+        ``kvstore.create``; an object as given), with the compression
+        set."""
+        if self._kv_initialized:
+            return
+        kv = self._kvstore_type
+        if isinstance(kv, str):
+            from ..kvstore import create as kv_create
+            kv = kv_create(kv)
+        if kv is not None and self._compression_params:
+            kv.set_gradient_compression(self._compression_params)
+        self._kvstore = kv
+        self._kv_initialized = True
+
     # ------------------------------------------------------------------ #
     @property
     def learning_rate(self) -> float:
@@ -155,11 +209,11 @@ class Trainer:
             None if self._amp_loss_scaler is None
             else float(self._amp_loss_scaler.loss_scale))
         snap["guard"] = self._fused is not None and self._fused.guard
-        snap["int8_allreduce"] = False
-        snap["int8_buckets"] = 0
-        snap["int8_bytes_saved"] = 0
-        snap["overlap_allreduce"] = False
-        snap["grad_issue_schedule"] = []
+        snap["int8_allreduce"] = self._int8_allreduce
+        snap["int8_buckets"] = self.int8_buckets
+        snap["int8_bytes_saved"] = self.int8_bytes_saved
+        snap["overlap_allreduce"] = self._overlap
+        snap["grad_issue_schedule"] = list(self.grad_issue_schedule)
         snap["accumulated_microbatches"] = self._accum_count
         return snap
 
@@ -198,27 +252,229 @@ class Trainer:
 
     # ------------------------------------------------------------------ #
     def step(self, batch_size, ignore_stale_grad=False):
-        """Reduce (nothing, on one device) and update (parity:
+        """Reduce the gradients through the kvstore, then update (parity:
         Trainer.step). After ``accumulate_grads`` the update applies the
         f32 accumulators: pass the batch size the summed gradients stand
         for."""
-        self.update(batch_size, ignore_stale_grad)
+        self._round(batch_size, ignore_stale_grad, reduce=True)
 
     def update(self, batch_size, ignore_stale_grad=False):
+        """The update alone, on gradients already reduced
+        (``allreduce_grads``); it closes the round, as ``step`` does."""
+        self._round(batch_size, ignore_stale_grad, reduce=False)
+
+    def _round(self, batch_size, ignore_stale_grad, reduce):
+        """One round of ``step`` / ``update``: the loss scale into
+        ``rescale_grad``, the reduction (``reduce``), the update, and the
+        round closed even when one of them raised."""
+        self._init_kvstore()
         if self._amp_loss_scaler is not None:
             self._scale = self._amp_original_scale / \
                 self._amp_loss_scaler.loss_scale
         self._optimizer.rescale_grad = self._scale / batch_size
         overrides = self._accum_overrides()
         try:
+            if reduce:
+                self._allreduce_grads(overrides)
             self._update(ignore_stale_grad, overrides)
         finally:
-            if overrides is not None:
-                self._accum_round = []
-                self._accum_count = 0
+            self._finish_round(overrides)
 
     def allreduce_grads(self):
-        """Nothing to reduce on one device."""
+        """The kvstore reduction of the fresh gradients alone."""
+        self._init_kvstore()
+        self._allreduce_grads()
+
+    def _finish_round(self, overrides):
+        """Close the step's overlap and accumulation round (runs even when
+        the update raised): bank the issue order, reset the schedule for
+        the next backward, end the accumulation round."""
+        sched = self._overlap_sched
+        if sched is not None and sched is not False:
+            if sched.issued:
+                self.grad_issue_schedule = list(sched.issued)
+            sched.reset_round()
+        if overrides is not None:
+            self._accum_round = []
+            self._accum_count = 0
+
+    # -- the reduction --------------------------------------------------- #
+    def _allreduce_grads(self, overrides=None):
+        if self._kvstore is None:
+            return
+        if self._overlap and self._overlap_sched is None:
+            # the plan is built at step time, never inside the autograd
+            # hook; this step's reduction runs the serial path
+            self._build_overlap_plan()
+        if not (self._kvstore.num_workers > 1 or
+                (self._int8_allreduce and self._fuse_step)):
+            return
+        from ..ndarray.sparse import RowSparseNDArray
+        work = []
+        for i, p in enumerate(self._params):
+            if p.grad_req == "null" or p._grad is None:
+                continue
+            if overrides is not None:
+                if i not in overrides:
+                    continue    # skipped at apply (_update_inner warns)
+                work.append((i, overrides[i]))
+            else:
+                work.append((i, p.grad()))
+        if not work:
+            return
+        bucketable = [(i, g) for i, g in work
+                      if not isinstance(g, RowSparseNDArray)]
+        rest = [(i, g) for i, g in work if isinstance(g, RowSparseNDArray)]
+        sched = self._overlap_sched
+        if overrides is None and sched not in (None, False) and \
+                sched.issued:
+            # overlap issued part of the plan during backward: flush the
+            # tail through the SAME plan (re-packing would reduce issued
+            # members a second time)
+            self._overlap_flush(dict(bucketable))
+        elif self._fuse_step and (len(bucketable) > 1 or
+                                  (self._int8_allreduce and bucketable)):
+            self._bucketed_pushpull(bucketable)
+        else:
+            rest = work
+        for i, g in rest:
+            self._kvstore.pushpull(i, g, out=g)
+
+    def _bucketed_pushpull(self, work):
+        """One pushpull a (dtype, byte limit) bucket of the forward-order
+        plan; keys name the member composition, so a compression residual
+        stays with its bucket."""
+        from ..parallel.collectives import bucket_limit, plan_grad_buckets
+        gmap = dict(work)
+        members = [(i, g._data.numel(), g._data.element_size(),
+                    str(g.dtype)) for i, g in gmap.items()]
+        for bucket in plan_grad_buckets(members, bucket_limit(),
+                                        reverse=False):
+            self._pushpull_chunk(bucket.key,
+                                 [(i, gmap[i]) for i in bucket.indices])
+
+    @torch.no_grad()
+    def _pushpull_chunk(self, key, chunk):
+        """Ship one bucket (its members flattened into one buffer, int8
+        when enabled) and copy the reduction back into the members'
+        buffers in place."""
+        from ..ndarray import NDArray
+        flat = torch.cat([g._data.reshape(-1) for _, g in chunk])
+        if self._int8_allreduce:
+            flat = self._int8_pushpull(key, flat)
+        else:
+            bucket = NDArray(flat)
+            self._kvstore.pushpull(key, bucket, out=bucket)
+        off = 0
+        for _, g in chunk:
+            n = g._data.numel()
+            g._data.copy_(flat[off:off + n].view(g._data.shape))
+            off += n
+
+    def _int8_pushpull(self, key, flat):
+        """One bucket as int8 codes under a single symmetric scale: the
+        workers' amaxes are summed first (a one-value pushpull; the sum
+        bounds every worker's max), the codes travel as int32 so a
+        W-way sum cannot wrap, and the sum is dequantized. A non-finite
+        gradient makes amax, and every dequantized element, non-finite:
+        the guard's verdict is the uncompressed one."""
+        from ..ndarray import NDArray
+        from ..ops.quantization import (dequantize_symmetric,
+                                        quantize_symmetric,
+                                        symmetric_scale)
+        amax = flat.float().abs().max()
+        if self._kvstore.num_workers > 1:
+            am = NDArray(amax.reshape(1))
+            self._kvstore.pushpull(key + "_int8amax", am, out=am)
+            amax = am._data.reshape(())
+        scale = symmetric_scale(amax)
+        codes = NDArray(quantize_symmetric(flat, scale).to(torch.int32))
+        self._kvstore.pushpull(key + "_int8q", codes, out=codes)
+        self.int8_buckets += 1
+        self.int8_bytes_saved += int(flat.numel()) * \
+            (flat.element_size() - 1)
+        return dequantize_symmetric(codes._data, scale).to(flat.dtype)
+
+    # -- overlapped bucket-ready allreduce ------------------------------- #
+    def _on_grad_ready(self, leaf, gbuf):
+        """Grad-ready hook: marks the owning bucket's member ready and
+        issues every bucket the plan-order gate clears. Foreign leaves and
+        accumulation rounds fall through."""
+        if self._accum_mode or self._accum_count:
+            return      # only the accumulated sums cross, at step time
+        sched = self._overlap_sched
+        if sched is None or sched is False:
+            return
+        member = self._ov_members.get(id(gbuf))
+        if member is None or member[0] is not gbuf:
+            return                       # another model's or trainer's
+        for bucket in sched.mark_ready(member[1]):
+            self._issue_bucket(bucket)
+
+    def _build_overlap_plan(self):
+        """The deterministic bucket plan over the trainable set (the same
+        on every worker), or False when overlap cannot engage: no
+        reduction, a single non-int8 member (the step's per-parameter path
+        would reduce it a second time) or a ``grad_req='add'`` parameter
+        (final only after an unknowable number of backwards)."""
+        from ..ndarray.sparse import RowSparseNDArray
+        from ..parallel.collectives import (BucketSchedule, bucket_limit,
+                                            plan_grad_buckets)
+        engages = self._kvstore.num_workers > 1 or self._int8_allreduce
+        members, tagged = [], []
+        for i, p in enumerate(self._params):
+            if p.grad_req == "null" or p._grad is None:
+                continue
+            g = p.grad()
+            if isinstance(g, RowSparseNDArray):
+                continue
+            if p.grad_req == "add":
+                warnings.warn(
+                    f"overlap_allreduce disabled: parameter `{p.name}` "
+                    f"has grad_req='add' — its gradient is not final "
+                    f"until the last of an unknowable number of "
+                    f"backwards, so a mid-backward collective would "
+                    f"ship a partial sum", UserWarning, stacklevel=3)
+                self._overlap_sched = False
+                return
+            members.append((i, g._data.numel(), g._data.element_size(),
+                            str(g.dtype)))
+            tagged.append((i, g))
+        if not engages or not (len(members) > 1 or
+                               (self._int8_allreduce and members)):
+            self._overlap_sched = False
+            return
+        self._ov_members = {id(g): (g, i) for i, g in tagged}
+        self._overlap_sched = BucketSchedule(
+            plan_grad_buckets(members, bucket_limit()))
+
+    def _issue_bucket(self, bucket):
+        self._pushpull_chunk(bucket.key, [(i, self._params[i].grad())
+                                          for i in bucket.indices])
+
+    def _overlap_flush(self, work_by_idx):
+        """End-of-backward flush of the plan's unissued tail. If the
+        trainable set changed since the plan was built, the never-issued
+        members go one by one (int8 ones still quantized) and the plan is
+        rebuilt at the next step."""
+        sched = self._overlap_sched
+        plan_idx = {i for b in sched.buckets for i in b.indices}
+        if plan_idx != set(work_by_idx):
+            issued_keys = set(sched.issued)
+            issued_idx = {i for b in sched.buckets if b.key in issued_keys
+                          for i in b.indices}
+            for i, g in sorted(work_by_idx.items()):
+                if i in issued_idx:
+                    continue
+                if self._int8_allreduce:
+                    self._pushpull_chunk(f"__grad_bucket_{g.dtype}_fb{i}",
+                                         [(i, g)])
+                else:
+                    self._kvstore.pushpull(i, g, out=g)
+            self._overlap_sched = None
+            return
+        for bucket in sched.drain():
+            self._issue_bucket(bucket)
 
     def zero_grad(self):
         for p in self._params:
@@ -232,16 +488,24 @@ class Trainer:
         return {i: NDArray(self._accum[i]) for i in self._accum_round}
 
     def set_grad_accumulation(self, active: bool):
-        """Declare that the next backwards belong to accumulation rounds
-        (parity: the JAX Trainer's flag, which makes an overlapped
-        allreduce wait for the apply from the first microbatch on).
-        Without ``overlap_allreduce``, which the port refuses, the flag is
-        recorded and changes nothing; ``accumulate_grads`` sets it."""
+        """Declare that the next backwards belong to accumulation rounds,
+        so an overlapped allreduce defers to ``step`` from the first
+        microbatch on; ``accumulate_grads`` latches it. False returns to
+        per-step overlapped reduction."""
         self._accum_mode = bool(active)
 
     def accumulate_grads(self):
         """Fold the fresh gradients into the f32 accumulators and mark
         them consumed; returns the microbatches folded this round."""
+        sched = self._overlap_sched
+        if sched not in (None, False) and sched.issued:
+            raise MXNetError(
+                "accumulate_grads() cannot compose with an overlapped "
+                "allreduce that already issued this round — the issued "
+                "bucket reduced a single microbatch's gradients. Call "
+                "set_grad_accumulation(True) before the first "
+                "microbatch's backward, or build the Trainer with "
+                "overlap_allreduce=False.")
         items = []
         for i, p in enumerate(self._params):
             if p.grad_req == "null" or p._grad is None:
@@ -297,7 +561,7 @@ class Trainer:
                             f"Parameter `{p.name}` received no gradient "
                             f"in any microbatch of the accumulated "
                             f"round; it is skipped this step.",
-                            UserWarning, stacklevel=4)
+                            UserWarning, stacklevel=5)
                     saw_stale_skip = True
                     continue
                 grad = overrides[i]
@@ -312,7 +576,7 @@ class Trainer:
                         f"updated by backward since last `step`; the stale "
                         f"gradient is applied anyway. Call step with "
                         f"ignore_stale_grad=True to skip such parameters.",
-                        UserWarning, stacklevel=4)
+                        UserWarning, stacklevel=5)
             touched.append(p)
             if p._grad_stype == "row_sparse":
                 # the active rows change from step to step, so the lazy

@@ -1,9 +1,9 @@
-"""The local key-value store: the port of the JAX package's
-``incubator_mxnet_tpu/kvstore/kvstore.py`` for one worker.
+"""The key-value store: the port of the JAX package's
+``incubator_mxnet_tpu/kvstore/kvstore.py``.
 
-``create("local")`` (``"device"`` and ``"nccl"`` are the same store here)
-keeps one value per key on the device of the value it was initialized
-with. ``push`` sums the arrays it is given (a list: one per device, as
+``create("local")`` (``"device"``, ``"nccl"``, ``"horovod"`` and
+``"byteps"`` are the same in-process store, as in the JAX registry) keeps
+one value per key on the device of the value it was initialized with. ``push`` sums the arrays it is given (a list: one per device, as
 MXNet's ``CommDevice`` reduces them) and, with an optimizer set on the
 store (``set_optimizer``), applies the optimizer's update to the stored
 weight with the sum as the gradient (MXNet's server-side update);
@@ -14,9 +14,19 @@ JAX package's pickle layout, so either package reads the other's file.
 
 ``row_sparse_pull`` gathers only the requested rows of a stored table.
 
-Not ported, and refused with ``MXNetError``: the ``dist_*`` types,
-``horovod`` / ``byteps`` and gradient compression (ROADMAP Queue 1 item
-11).
+The ``dist_*`` types (``dist_sync``, ``dist_async``, ``dist_sync_device``,
+``dist_async_device``) span the workers of a ``torch.distributed``
+process group (``parallel.initialize``): ``rank`` and ``num_workers`` are
+the group's, and a push or pushpull sums the workers' values through
+``parallel.collectives.host_allreduce`` after the in-process sum. There
+are no server processes: ``dist_async`` reduces synchronously, and the
+store's optimizer runs on every worker after the reduction (the
+reference's sync server update, the same numbers).
+``set_gradient_compression({"type": "2bit", "threshold": t})`` ships
+each worker's contribution as packed 2-bit codes with a per-key
+error-feedback residual (``host_allreduce_2bit``; in one process the push
+still quantizes), ``{"type": "bf16"}`` rounds each contribution to bf16
+and sends bf16 across workers.
 """
 
 from __future__ import annotations
@@ -32,9 +42,8 @@ from . import base as _base
 
 __all__ = ["KVStore", "create"]
 
-_LOCAL = ("local", "device", "nccl")
-_MULTI = ("dist_sync", "dist_async", "dist_sync_device", "dist_async_device",
-          "horovod", "byteps")
+_TYPES = ("local", "device", "nccl", "dist_sync", "dist_async",
+          "dist_sync_device", "dist_async_device", "horovod", "byteps")
 
 
 def _is_list(v) -> bool:
@@ -49,15 +58,16 @@ class KVStore(_base.KVStoreBase):
     """A key-value store of one worker (parity: ``mx.kv.create``)."""
 
     def __init__(self, kv_type: str = "local"):
-        if kv_type in _MULTI:
-            raise MXNetError(
-                f"kvstore {kv_type!r}: several workers are not ported "
-                f"(ROADMAP Queue 1 item 11); 'local' and 'device' run on "
-                f"one worker")
+        from ..parallel import mesh as _mesh
         self._type = kv_type
         self._data: Dict = {}
         self._updater = None
         self._optimizer = None
+        self._compression_params = None
+        self._residuals: Dict = {}   # per-key 2-bit error feedback
+        self._distributed = kv_type.startswith("dist")
+        self._rank = _mesh.rank() if self._distributed else 0
+        self._num_workers = _mesh.world_size() if self._distributed else 1
 
     @property
     def type(self) -> str:
@@ -65,11 +75,11 @@ class KVStore(_base.KVStoreBase):
 
     @property
     def rank(self) -> int:
-        return 0
+        return self._rank
 
     @property
     def num_workers(self) -> int:
-        return 1
+        return self._num_workers
 
     # -- init / push / pull -------------------------------------------- #
     def init(self, key, value):
@@ -77,26 +87,44 @@ class KVStore(_base.KVStoreBase):
         for k, v in zip(keys, values):
             v0 = v[0] if _is_list(v) else v
             self._data[k] = NDArray(_tensor(v0).detach().clone())
+            # a (re)initialized key starts a fresh compression stream
+            self._residuals.pop(k, None)
 
     def _normalize(self, key, value):
         if _is_list(key):
             return list(key), list(value)
         return [key], [value]
 
-    def _reduce(self, vals) -> NDArray:
-        """The sum of the arrays (on the first one's device)."""
+    def _reduce(self, vals, key=None) -> NDArray:
+        """The sum of the arrays (on the first one's device), then across
+        the workers. Compression sits where the reference puts it: the
+        in-process sum is exact, the worker hop compresses ('2bit': the
+        key's residual carried to its next push; 'bf16': each
+        contribution rounded to bf16)."""
+        from ..parallel import collectives as _coll
         if not _is_list(vals):
             vals = [vals]
-        first = _tensor(vals[0]).detach()
-        total = first.clone()
-        for v in vals[1:]:
-            total += _tensor(v).detach().to(first.device)
+        params = self._compression_params
+        ctype = (params or {}).get("type", "2bit")
+        tensors = [_tensor(v).detach() for v in vals]
+        if params is not None and ctype == "bf16":
+            tensors = [t.to(torch.bfloat16).to(t.dtype) for t in tensors]
+        total = tensors[0].clone()
+        for t in tensors[1:]:
+            total += t.to(total.device)
+        if params is not None and ctype == "2bit":
+            total, self._residuals[key] = _coll.host_allreduce_2bit(
+                total, self._residuals.get(key),
+                params.get("threshold", 0.5))
+        elif self._distributed:
+            total = _coll.host_allreduce(
+                total, compression="bf16" if params is not None else None)
         return NDArray(total)
 
     def push(self, key, value, priority=0):
         keys, values = self._normalize(key, value)
         for k, v in zip(keys, values):
-            reduced = self._reduce(v)
+            reduced = self._reduce(v, key=k)
             if k not in self._data:
                 self._data[k] = reduced
             elif self._updater is not None:
@@ -125,7 +153,7 @@ class KVStore(_base.KVStoreBase):
         keys, values = self._normalize(key, value)
         _, outs = self._normalize(key, out if out is not None else value)
         for k, v, o in zip(keys, values, outs):
-            self._copy_into(o, self._reduce(v)._data)
+            self._copy_into(o, self._reduce(v, key=k)._data)
 
     def broadcast(self, key, value, out, priority=0):
         self.init(key, value)
@@ -163,9 +191,18 @@ class KVStore(_base.KVStoreBase):
                     t._data[ids[keep]] = rows[keep]
 
     def set_gradient_compression(self, compression_params):
-        raise MXNetError("KVStore.set_gradient_compression: gradient "
-                         "compression is not ported (ROADMAP Queue 1 "
-                         "item 11)")
+        """'2bit' (packed codes with an error-feedback residual a key) or
+        'bf16' (bf16 contributions); a new setting starts every key's
+        stream afresh."""
+        params = dict(compression_params)
+        ctype = params.get("type", "2bit")
+        if ctype not in ("2bit", "bf16"):
+            raise MXNetError(
+                f"unsupported gradient compression type {ctype!r}; "
+                f"supported: '2bit' (packed 2-bit codes + error-feedback "
+                f"residual on the worker hop), 'bf16' (bf16 contributions)")
+        self._compression_params = params
+        self._residuals.clear()
 
     # -- optimizer ------------------------------------------------------ #
     def set_optimizer(self, optimizer):
@@ -185,11 +222,16 @@ class KVStore(_base.KVStoreBase):
             return k
 
     def barrier(self):
-        """Every queued device write to the stored values done."""
+        """Every queued device write to the stored values done, then (a
+        ``dist_*`` store) every worker here (reference: ps-lite
+        ``Barrier``)."""
         for v in self._data.values():
             if v._data.is_cuda:
                 torch.cuda.synchronize(v._data.device)
-                return
+                break
+        if self._distributed:
+            from ..parallel.collectives import host_barrier
+            host_barrier()
 
     def save_optimizer_states(self, fname, dump_optimizer=False):
         if self._updater is None:
@@ -211,13 +253,13 @@ class KVStore(_base.KVStoreBase):
         self._updater.set_states(payload, device=device)
 
 
-for _t in _LOCAL + _MULTI:
+for _t in _TYPES:
     _base.register(_t)(KVStore)
 
 
 def create(name: str = "local") -> KVStore:
-    """A KVStore (parity: ``mx.kv.create``): ``local``, ``device`` or
-    ``nccl``; the multi-worker types raise ``MXNetError``."""
+    """A KVStore (parity: ``mx.kv.create``); every reference type string
+    is accepted (see the module's docstring)."""
     if not isinstance(name, str):
         raise MXNetError("kvstore name must be a string")
     return _base.get(name)(name)

@@ -35,9 +35,10 @@ structural names, through which ``models.convert.bert_params_from_jax``
 carries the JAX model's weights. ``remat=True | "dots"``
 rematerializes each encoder layer in the backward
 (``models/_remat.py``: the dropout masks are saved, not redrawn). Not
-ported: ``seq_parallel`` (raises ``MXNetError``: ring attention is
-ROADMAP Queue 1 item 11) and ``pretraining_pipeline`` (the pipelined
-step, the same item).
+ported yet: ``seq_parallel`` (raises ``MXNetError``: sequence-parallel
+ring attention is the next slice of ROADMAP Queue 1 item 11) and
+``pretraining_pipeline`` (the pipelined step, the same slice); dp and
+fsdp run through ``parallel.SPMDTrainer``.
 """
 
 from __future__ import annotations
@@ -140,8 +141,10 @@ class BERTModel(HybridBlock):
         resolve_policy(remat)
         if seq_parallel:
             raise MXNetError("BERTModel(seq_parallel=True): sequence-"
-                             "parallel ring attention is not ported "
-                             "(ROADMAP Queue 1 item 11)")
+                             "parallel ring attention (the sp axis) is "
+                             "not ported yet (the next slice of ROADMAP "
+                             "Queue 1 item 11); dp and fsdp run through "
+                             "parallel.SPMDTrainer")
         if dtype not in ("float32", "bfloat16"):
             raise MXNetError(f"unsupported dtype {dtype!r} (one of "
                              f"['bfloat16', 'float32'])")

@@ -35,9 +35,10 @@ life, which the engine's CUDA graphs hold by address), with no dropout
 and no autograd recording. The decode paths' head casts to f32 BEFORE
 ``ln_f``.
 
-Not ported, and refused with ``MXNetError``: ``seq_parallel=True`` (ring
-attention) and ``lm_pipeline`` (the pipelined SPMD step), both ROADMAP
-Queue 1 item 11.
+Not ported yet, and refused with ``MXNetError``: ``seq_parallel=True``
+(sequence-parallel ring attention over the sp axis) and ``lm_pipeline``
+(the pipelined SPMD step), both the next slice of ROADMAP Queue 1 item
+11. Data parallelism (dp x fsdp) runs through ``parallel.SPMDTrainer``.
 """
 
 from __future__ import annotations
@@ -61,8 +62,10 @@ __all__ = ["GPTModel", "gpt_mini", "gpt_small", "lm_loss", "lm_pipeline",
            "decode_forward"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_QUEUE_ITEM_11 = ("ring attention and the pipelined step are ROADMAP "
-                  "Queue 1 item 11")
+_QUEUE_ITEM_11 = ("sequence-parallel ring attention (the sp axis, with "
+                  "block_attn_lse) and the pipelined SPMD step are the "
+                  "next slice of ROADMAP Queue 1 item 11; dp and fsdp "
+                  "run through parallel.SPMDTrainer")
 
 
 def _torch_dtype(dtype) -> torch.dtype:

@@ -166,8 +166,10 @@ class Module(BaseModule):
         if isinstance(context, (list, tuple)):
             if len(context) != 1:
                 raise MXNetError(
-                    "Module: one context (data parallelism over several "
-                    "is ROADMAP Queue 1 item 11)")
+                    "Module: one context; the port runs one device a "
+                    "process (data parallelism over processes: "
+                    "parallel.SPMDTrainer or gluon.Trainer with a "
+                    "dist_* kvstore)")
             context = context[0]
         self._context = context if isinstance(context, Context) else \
             Context(context) if context is not None else current_context()

@@ -75,8 +75,10 @@ def host_array(t: torch.Tensor) -> _np.ndarray:
     t = t.detach()
     if t.dtype == torch.bfloat16:
         bits = t.view(torch.int16).cpu().numpy()
+        if not t.is_cuda:        # numpy() of a host tensor shares it
+            bits = bits.copy()
         return bits.view(np_dtype(torch.bfloat16))
-    return t.cpu().numpy()
+    return t.cpu().numpy() if t.is_cuda else t.numpy().copy()
 
 
 def from_host(a) -> torch.Tensor:

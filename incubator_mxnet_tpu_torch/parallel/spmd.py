@@ -1,6 +1,5 @@
-"""One-device fused training step: the port of the JAX package's
-``incubator_mxnet_tpu/parallel/spmd.py`` ``SPMDTrainer`` for a mesh of one
-device.
+"""The fused training step over a dp x fsdp mesh: the port of the JAX
+package's ``incubator_mxnet_tpu/parallel/spmd.py`` ``SPMDTrainer``.
 
 A step is the JAX program's sequence:
 
@@ -73,18 +72,61 @@ go through ``checkpoint.CheckpointManager`` and the capsule
 optimizer state and the random state into the tensors and generators the
 step graphs hold, so no capture follows it (``step_trace_count`` stays).
 
-Not ported, and refused with ``MXNetError``: a mesh of more than one
-device, ``sharding="fsdp"``, ``pipeline=``, ``int8_allreduce``,
-``remat_plan`` and ``grad_collective="ring"``.
+Data parallelism across processes (``mesh=build_mesh(...)`` over a
+process group, one device a rank). Every rank is handed the same global
+batch, as in the JAX contract, and runs its own tile of it: the tile at
+the rank's index over (fsdp, dp), fsdp-major as the JAX batch sharding
+``("fsdp", "dp")`` lays it out; a batch dimension the dp x fsdp size does
+not divide raises. The step's collectives sit in its body, so on the
+card they are captured into the step graph with the rest (NCCL
+collectives capture into CUDA graphs; they are hand-issued on flat
+buffers, not DDP's or FSDP2's hooks, whose bucketing and lazy
+all-gathers run on the host around each backward):
+
+- the loss is the mean over ranks of each rank's loss (for a loss that
+  is a mean over rows, the global batch's loss);
+- ``sharding="replicated"``: the gradients are averaged over dp x fsdp
+  in ``plan_grad_buckets`` buckets (forward order, one flat all-reduce a
+  bucket; ``MXTPU_GRAD_BUCKET_BYTES`` / ``MXTPU_GRAD_BUCKET_MB``);
+- ``sharding="fsdp"``: the JAX rule ``_fsdp_spec`` picks each
+  parameter's sharded dimension (rank >= 2 and at least
+  ``MXTPU_FSDP_MIN_SIZE`` elements, the first dimension the fsdp size
+  divides; the rest stay replicated). Its gradient is reduce-scattered
+  over fsdp (and averaged over dp), the optimizer state and the f32
+  master live on the shard, the update runs on the shard, and the
+  updated shards are all-gathered into the full parameter, which the
+  next forward and backward read (the step graph holds it by address).
+  At an fsdp size of 1 nothing is sharded, as in JAX, and the step is
+  the replicated one;
+- the guard's verdict is global: one ``all_reduce(MIN)`` of the flag;
+- floating module buffers a forward wrote (BatchNorm statistics) are
+  averaged over the ranks so every rank keeps the same ones
+  (``gluon.contrib.nn.SyncBatchNorm`` reduces its batch statistics
+  inside the forward instead);
+- ``step_microbatches`` reduces each microbatch's gradients before they
+  are accumulated.
+
+A process with no process group runs the step with no collective, as
+the JAX trainer on a one-device mesh does.
+
+Not ported, and refused with ``MXNetError`` (ROADMAP Queue 1 item 11's
+next slice: pipeline parallelism): ``pipeline=``, ``int8_allreduce``,
+``remat_plan`` and ``grad_collective="ring"``; and ``sharding="fsdp"``
+with a norm-based optimizer (LAMB, LARS), whose trust ratio would read a
+shard's norm.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import os
 import time
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import autograd
 from .. import random as _random
@@ -92,11 +134,15 @@ from ..base import MXNetError, getenv_bool
 from ..gluon.block import Block
 from ..ndarray import NDArray
 from ..optimizer import create as opt_create
-from ..optimizer.fused import all_finite, apply_updates, tree_leaves
+from ..optimizer.fused import (all_finite, apply_updates, norm_based,
+                               tree_leaves)
 from ..serve.program import GraphCapture, Packed, add_launches
 from ..train.outcomes import StepOutcome, StepRecorder
+from . import collectives as _coll
+from . import mesh as _mesh
 
-__all__ = ["SPMDTrainer"]
+__all__ = ["SPMDTrainer", "batch_group", "gather_full_params",
+           "shard_params", "replicate"]
 
 
 _INPUTS = (("t", (), torch.float32), ("lr", (), torch.float32),
@@ -168,9 +214,9 @@ class _AccumState:
     parameter, the round's verdict and loss sum, and the round-start copy
     of the module buffers the guard may put back (``snap``)."""
 
-    def __init__(self, params, buffers, device):
-        self.grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                  device=device) for p in params]
+    def __init__(self, targets, buffers, device):
+        self.grads = [torch.zeros(t.shape, dtype=torch.float32,
+                                  device=device) for t in targets]
         self.ok = torch.ones((), dtype=torch.float32, device=device)
         self.loss = torch.zeros((), dtype=torch.float32, device=device)
         self.snap = [b.detach().clone() for b in buffers]
@@ -191,24 +237,77 @@ def _tensors(batch):
             for b in batch]
 
 
+_BATCH_GROUP = contextvars.ContextVar("mxtpu_batch_group", default=None)
+
+
+@contextlib.contextmanager
+def _sync_scope(group):
+    tok = _BATCH_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _BATCH_GROUP.reset(tok)
+
+
+def batch_group():
+    """The process group the running ``SPMDTrainer`` step splits its batch
+    over (``gluon.contrib.nn.SyncBatchNorm`` reduces its statistics over
+    it); None outside a step and without a process group."""
+    return _BATCH_GROUP.get()
+
+
 def _not_ported(what):
-    return MXNetError(f"SPMDTrainer: {what} is not ported (the port's "
-                      f"trainer is single-device)")
+    return MXNetError(f"SPMDTrainer: {what} is not ported yet (pipeline "
+                      f"parallelism, ROADMAP Queue 1 item 11's next "
+                      f"slice)")
+
+
+def _fsdp_dim(shape, size: int) -> Optional[int]:
+    """The dimension a parameter of ``shape`` is sharded on over an fsdp
+    axis of ``size`` (the JAX ``_fsdp_spec`` rule without tensor-parallel
+    hints): None at an fsdp size of 1 and for rank-1 and small tensors,
+    else the first dimension ``size`` divides."""
+    min_elems = int(os.environ.get("MXTPU_FSDP_MIN_SIZE", "16384"))
+    if size == 1 or len(shape) < 2 or int(np.prod(shape)) < min_elems:
+        return None
+    for d, n in enumerate(shape):
+        if n % size == 0 and n >= size:
+            return d
+    return None
+
+
+def _mesh_of(mesh):
+    """The trainer's mesh: ``build_mesh``'s, or the process default for
+    None and for a list naming one device."""
+    if mesh is None:
+        return _mesh.default_mesh()
+    if isinstance(mesh, (list, tuple, str, torch.device)):
+        devices = list(mesh) if isinstance(mesh, (list, tuple)) else [mesh]
+        if len(devices) > 1:
+            raise MXNetError(
+                f"SPMDTrainer: a mesh of {len(devices)} devices in one "
+                f"process; the port runs one device a process (start one "
+                f"process a device with tools/launch.py and pass "
+                f"mesh=parallel.build_mesh(...))")
+        return _mesh.default_mesh()
+    return mesh
 
 
 class SPMDTrainer:
-    """Fused train step over one device.
+    """Fused train step over a dp x fsdp mesh (see the module's
+    docstring).
 
     Parameters follow the JAX package's: ``block`` (an ``nn.Module``; a
     gluon ``Block``, initialized, is one),
     ``loss`` (``loss(out, *labels)``) or ``forward_loss``
     (``fn(block, *batch) -> scalar``), ``optimizer`` with
-    ``optimizer_params``, ``loss_scaler`` (``amp.LossScaler``), ``guard``
-    (the in-step non-finite guard; None reads ``MXTPU_STEP_GUARD``,
-    default on) and
-    ``max_consecutive_nonfinite``. ``mesh`` may name one device (or be
-    None); ``donate`` has no effect (the step updates the parameters and
-    the optimizer state in place)."""
+    ``optimizer_params``, ``mesh`` (``parallel.build_mesh``'s; None is the
+    process default, every rank on dp; a list naming one device is
+    accepted), ``sharding`` ('replicated' or 'fsdp'), ``loss_scaler``
+    (``amp.LossScaler``), ``guard`` (the in-step non-finite guard; None
+    reads ``MXTPU_STEP_GUARD``, default on) and
+    ``max_consecutive_nonfinite``. ``donate`` has no effect (the step
+    updates the parameters and the optimizer state in place)."""
 
     def __init__(self, block, loss=None, optimizer="sgd",
                  optimizer_params=None, mesh=None,
@@ -222,23 +321,34 @@ class SPMDTrainer:
                  remat_plan: Optional[Sequence] = None):
         if loss is None and forward_loss is None and pipeline is None:
             raise MXNetError("provide loss, forward_loss or pipeline")
-        if mesh is not None:
-            devices = list(mesh) if isinstance(mesh, (list, tuple)) \
-                else [mesh]
-            if len(devices) > 1:
-                raise _not_ported(f"a mesh of {len(devices)} devices")
-        if sharding == "fsdp":
-            raise _not_ported("sharding='fsdp'")
-        if sharding != "replicated":
+        if sharding not in ("replicated", "fsdp"):
             raise MXNetError(f"unknown sharding {sharding!r}")
         if pipeline is not None:
             raise _not_ported("pipeline=")
         if int8_allreduce:
-            raise _not_ported("int8_allreduce")
+            raise _not_ported("int8_allreduce (the in-program int8 "
+                              "all-reduce of the pipelined step)")
         if remat_plan is not None:
             raise _not_ported("remat_plan")
         if grad_collective not in (None, "psum"):
             raise _not_ported(f"grad_collective={grad_collective!r}")
+        self.mesh = _mesh_of(mesh)
+        sizes = _mesh.axis_sizes(self.mesh)
+        self._fsdp_size = sizes["fsdp"]
+        self._dp_size = sizes["dp"]
+        self._replicas = sizes["dp"] * sizes["fsdp"]
+        # collectives run over a process group's mesh (world 1 too)
+        self._collective = not isinstance(self.mesh, _mesh.LocalMesh)
+        coord = dict(zip(self.mesh.mesh_dim_names,
+                         self.mesh.get_coordinate()))
+        # the rank's batch tile: fsdp-major, as JAX's ("fsdp", "dp")
+        self._batch_index = coord["fsdp"] * sizes["dp"] + coord["dp"]
+        self._fsdp_index = coord["fsdp"]
+        self._dp_index = coord["dp"]
+        self._fsdp_group = self.mesh.get_group("fsdp") \
+            if self._collective else None
+        self._dp_group = self.mesh.get_group("dp") \
+            if self._collective else None
         self.block = block
         self.loss = loss
         self.forward_loss = forward_loss
@@ -279,6 +389,19 @@ class SPMDTrainer:
                 **(optimizer_params or {}))
         else:
             self._optimizer = optimizer
+        if sharding == "fsdp" and norm_based(self._optimizer):
+            raise MXNetError(
+                f"SPMDTrainer: sharding='fsdp' with "
+                f"{type(self._optimizer).__name__} is not ported: its "
+                f"trust ratio reads the whole parameter's norm and the "
+                f"fsdp update runs on a shard")
+        # fsdp: the sharded dimension of each trainable parameter (None:
+        # replicated), aligned with _train_idx; its shard tensors
+        self._shard_dims = [
+            _fsdp_dim(tuple(self._params[i].shape), self._fsdp_size)
+            if sharding == "fsdp" else None for i in self._train_idx]
+        self._shards = None
+        self._buckets = None        # plan of the replicated gradients
         self._opt_state = None      # list aligned with self._train_idx
         self.step_count = 0
         self.step_trace_count = 0   # step programs built (jit-once)
@@ -313,17 +436,57 @@ class SPMDTrainer:
         snap["step_trace_count"] = self.step_trace_count
         snap["accum_step_trace_count"] = self.accum_step_trace_count
         snap["last_accum_count"] = self.last_accum_count
+        snap["sharding"] = self.sharding_mode
+        snap["replicas"] = self._replicas
         return snap
 
     # ------------------------------------------------------------------ #
+    def _shard_slice(self, slot: int):
+        """``(dim, start, length)`` of trainable ``slot``'s fsdp shard, or
+        None for a replicated parameter."""
+        d = self._shard_dims[slot]
+        if d is None:
+            return None
+        n = self._params[self._train_idx[slot]].shape[d] // self._fsdp_size
+        return d, self._fsdp_index * n, n
+
     def _materialize(self):
+        """The optimizer state (and under fsdp each sharded parameter's
+        shard tensor, which the update writes), made at the first step."""
+        self._shards = []
+        for slot, i in enumerate(self._train_idx):
+            sl = self._shard_slice(slot)
+            self._shards.append(
+                None if sl is None else
+                self._params[i].detach().narrow(*sl).clone())
         self._opt_state = [
-            self._optimizer.create_state_multi_precision(
-                i, self._params[i].detach())
-            for i in self._train_idx]
+            self._optimizer.create_state_multi_precision(i, t)
+            for i, t in zip(self._train_idx, self._targets())]
+
+    def _targets(self):
+        """What the update writes, aligned with ``_train_idx``: the
+        parameter, or its fsdp shard."""
+        return [self._params[i].detach() if sh is None else sh
+                for i, sh in zip(self._train_idx, self._shards)]
+
+    def local_batch(self, batch):
+        """This rank's tile of a global batch (each tensor's rows; 0-d
+        tensors whole); the batch itself without a process group."""
+        n = self._replicas
+        for b in batch:
+            if b.dim() and b.shape[0] % n != 0:
+                raise MXNetError(
+                    f"batch dim {b.shape[0]} not divisible by the mesh's "
+                    f"dp×fsdp size {n}; pad the batch or shrink the mesh")
+        if n == 1:
+            return batch
+        return [b.narrow(0, self._batch_index * (b.shape[0] // n),
+                         b.shape[0] // n) if b.dim() else b
+                for b in batch]
 
     def _forward_backward(self, batch, scale):
-        """(loss, gradients) of the block in training mode; the loss is
+        """(loss, gradients) of the block in training mode on this rank's
+        tile, then reduced over the mesh (``_reduce``): the loss is
         scaled for the backward and divided back, as the JAX step does."""
         params = [self._params[i] for i in self._train_idx]
         was_training = self.block.training
@@ -331,7 +494,9 @@ class SPMDTrainer:
         if self._gluon:
             batch = [NDArray(b) for b in batch]
         try:
-            with torch.enable_grad(), autograd.record(train_mode=True):
+            with torch.enable_grad(), autograd.record(train_mode=True), \
+                    _sync_scope(None if not self._collective else
+                                dist.group.WORLD):
                 if self.forward_loss is not None:
                     L = self.forward_loss(self.block, *batch)
                 else:
@@ -347,15 +512,68 @@ class SPMDTrainer:
             self.block.train(was_training)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
-        return scaled.detach() / scale, grads
+        return self._reduce(scaled.detach() / scale, grads)
+
+    @torch.no_grad()
+    def _reduce(self, loss, grads):
+        """The loss and the gradients averaged over dp x fsdp: replicated
+        gradients by buckets of one flat all-reduce each, sharded ones
+        reduce-scattered over fsdp (then averaged over dp), so each
+        sharded gradient comes back as this rank's shard. The floating
+        buffers the forward wrote are averaged too. Without a process
+        group, the inputs as they are."""
+        if not self._collective:
+            return loss, grads
+        _coll.all_reduce_mean_(loss)
+        out = list(grads)
+        dense = [k for k, d in enumerate(self._shard_dims) if d is None]
+        if self._buckets is None:
+            members = [(k, grads[k].numel(), grads[k].element_size(),
+                        str(grads[k].dtype)) for k in dense]
+            self._buckets = [b.indices for b in _coll.plan_grad_buckets(
+                members, _coll.bucket_limit(), reverse=False)]
+        for members in self._buckets:
+            flat = torch.cat([grads[k].reshape(-1) for k in members])
+            _coll.all_reduce_mean_(flat)
+            for k, part in zip(members, flat.split(
+                    [grads[k].numel() for k in members])):
+                out[k] = part.view(grads[k].shape)
+        for k, d in enumerate(self._shard_dims):
+            if d is not None:
+                out[k] = _coll.reduce_scatter(grads[k], self._fsdp_group, d,
+                                              op="mean")
+                if self._dp_size > 1:
+                    _coll.all_reduce_mean_(out[k], self._dp_group)
+        if _mesh.world_size() > 1:
+            for b in self._buffers:
+                if b.is_floating_point():
+                    _coll.all_reduce_mean_(b.data)
+        return loss, out
+
+    @torch.no_grad()
+    def _gather_params(self):
+        """Every sharded parameter rebuilt from the ranks' updated shards,
+        written in place."""
+        for slot, i in enumerate(self._train_idx):
+            d = self._shard_dims[slot]
+            if d is not None:
+                _coll.all_gather(self._shards[slot], self._fsdp_group, d,
+                                 out=self._params[i].detach())
+
+    def _global_ok(self, ok):
+        """The guard's flag, the minimum over the ranks."""
+        if self._collective:
+            dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+        return ok
 
     @torch.no_grad()
     def _apply(self, grads, t, lr, scale):
-        """The (guarded) update of every trainable parameter, written in
-        place into the parameters and into the optimizer state tensors
-        ``_materialize`` made. Returns the guard flag (an f32 0-d tensor
-        on the device). Reads nothing back from the device."""
-        weights = [self._params[i].detach() for i in self._train_idx]
+        """The (guarded) update of every trainable parameter (or its
+        shard), written in place into the targets and into the optimizer
+        state tensors ``_materialize`` made, then the shards gathered.
+        Returns the guard flag (an f32 0-d tensor on the device). Reads
+        nothing back from the device."""
+        weights = self._targets()
         # rescale_grad is baked, as the JAX trace bakes it: a fill kernel,
         # not a copy from the host
         base = torch.full((), float(self._optimizer.rescale_grad),
@@ -366,7 +584,7 @@ class SPMDTrainer:
         old_leaves = tree_leaves(self._opt_state)
         new_leaves = tree_leaves(new_states)
         if self.guard:
-            ok = all_finite(grads)
+            ok = self._global_ok(all_finite(grads))
             keep_new = ok > 0
             new_w = [torch.where(keep_new, nw, w)
                      for nw, w in zip(new_w, weights)]
@@ -377,6 +595,7 @@ class SPMDTrainer:
         torch._foreach_copy_(weights, new_w)
         if old_leaves:
             torch._foreach_copy_(old_leaves, new_leaves)
+        self._gather_params()
         return ok
 
     def _run_body(self, prog: _StepProgram, moves_counters: bool):
@@ -448,15 +667,17 @@ class SPMDTrainer:
         program (see the module's docstring); later ones stage and replay
         it."""
         batch = _tensors(batch)
+        local = self.local_batch(batch)
         if self._opt_state is None:
             self._materialize()
         sig = tuple((tuple(b.shape), b.dtype) for b in batch)
         prog = self._programs.get(sig)
         build = prog is None
         if build:
-            prog = _StepProgram(sig, self.device)
+            prog = _StepProgram(
+                tuple((tuple(b.shape), b.dtype) for b in local), self.device)
         self._optimizer.num_update = self.step_count  # drive lr schedules
-        prog.stage(batch, self.step_count + 1,
+        prog.stage(local, self.step_count + 1,
                    self._optimizer.learning_rate,
                    1.0 if self.loss_scaler is None
                    else self.loss_scaler.loss_scale)
@@ -516,8 +737,8 @@ class SPMDTrainer:
     def _accum_state(self) -> "_AccumState":
         if self._accum is None:
             self._accum = _AccumState(
-                [self._params[i] for i in self._train_idx],
-                self._buffers if self.guard else [], self.device)
+                self._targets(), self._buffers if self.guard else [],
+                self.device)
         return self._accum
 
     @torch.no_grad()
@@ -525,7 +746,7 @@ class SPMDTrainer:
         """The update from the accumulators' mean, computed whatever
         ``apply`` (a 0-d bool device tensor) holds and written into the
         parameters and the optimizer state only where it is true."""
-        weights = [self._params[i].detach() for i in self._train_idx]
+        weights = self._targets()
         base = torch.full((), float(self._optimizer.rescale_grad),
                           dtype=torch.float32, device=self.device)
         new_w, new_states = apply_updates(
@@ -539,6 +760,7 @@ class SPMDTrainer:
             torch._foreach_copy_(old_leaves, [
                 torch.where(apply, n, o)
                 for n, o in zip(tree_leaves(new_states), old_leaves)])
+        self._gather_params()
 
     def _run_accum_body(self, prog: _StepProgram, moves_counters: bool):
         """One microbatch over ``prog``'s static buffers and the trainer's
@@ -556,7 +778,8 @@ class SPMDTrainer:
         loss, grads = self._forward_backward(prog.batch, inp["scale"])
         with torch.no_grad():
             torch._foreach_add_(acc.grads, [g.float() for g in grads])
-            ok = acc.ok * all_finite(grads) if self.guard else acc.ok
+            ok = acc.ok * self._global_ok(all_finite(grads)) \
+                if self.guard else acc.ok
             loss_round = acc.loss + loss
             self._accum_apply(inp, last & (ok > 0))
             if acc.snap:
@@ -589,6 +812,12 @@ class SPMDTrainer:
                   for b in microbatches]
         if not rounds:
             raise MXNetError("step_microbatches needs >= 1 microbatch")
+        for b in rounds:
+            for t in b:
+                if t.dim() and t.shape[0] % self._replicas:
+                    raise MXNetError(
+                        f"microbatch dim {t.shape[0]} not divisible by "
+                        f"the mesh's dp×fsdp size {self._replicas}")
         k = len(rounds)
         if self._opt_state is None:
             self._materialize()
@@ -602,10 +831,13 @@ class SPMDTrainer:
         try:
             for m, batch in enumerate(rounds):
                 sig = tuple((tuple(b.shape), b.dtype) for b in batch)
+                local = self.local_batch(batch)
                 prog = self._accum_programs.get(sig)
                 if prog is None:
-                    prog = _StepProgram(sig, self.device, _ACCUM_INPUTS)
-                prog.stage(batch, first=float(m == 0),
+                    prog = _StepProgram(
+                        tuple((tuple(b.shape), b.dtype) for b in local),
+                        self.device, _ACCUM_INPUTS)
+                prog.stage(local, first=float(m == 0),
                            last=float(m == k - 1), **scalars)
                 if sig not in self._accum_programs:
                     self._first_run(prog, self._run_accum_body)
@@ -672,3 +904,49 @@ class SPMDTrainer:
 
         return manager.install_preemption_hook(_state,
                                                exit_after=exit_after)
+
+
+@torch.no_grad()
+def gather_full_params(trainer) -> dict:
+    """``{name: numpy array}`` of every parameter of ``trainer``, each
+    whole: a sharded parameter is all-gathered from the ranks' shards
+    (the update's own tensors, not the resident full copy), a replicated
+    one read as it is. Every rank of the group must call it."""
+    out = {}
+    slots = {i: k for k, i in enumerate(trainer._train_idx)}
+    for i, (name, p) in enumerate(zip(trainer._names, trainer._params)):
+        k = slots.get(i)
+        if trainer._shards is not None and k is not None and \
+                trainer._shards[k] is not None:
+            full = _coll.all_gather(trainer._shards[k],
+                                    trainer._fsdp_group,
+                                    trainer._shard_dims[k])
+        else:
+            full = p.detach()
+        out[name] = full.float().cpu().numpy() \
+            if full.dtype == torch.bfloat16 else full.cpu().numpy()
+    return out
+
+
+def replicate(mesh):
+    """The placements of a replicated array over ``mesh`` (the JAX
+    ``replicate``'s ``NamedSharding(mesh, PartitionSpec())``)."""
+    return _mesh.named_sharding(mesh)
+
+
+def shard_params(block, mesh, mode: str = "replicated") -> dict:
+    """``{name: placements}`` of every parameter of ``block`` over
+    ``mesh`` under ``mode`` ('replicated' or 'fsdp', the ``_fsdp_spec``
+    rule). Unlike the JAX function it moves nothing: a rank holds its
+    parameters whole on its own device and ``SPMDTrainer`` shards them
+    inside its step."""
+    size = _mesh.axis_sizes(mesh)["fsdp"]
+    out = {}
+    for name, p in block.named_parameters():
+        d = _fsdp_dim(tuple(p.shape), size) if mode == "fsdp" else None
+        spec = [None] * p.dim()
+        if d is not None:
+            spec[d] = "fsdp"
+        out[name] = _mesh.named_sharding(mesh, *spec)
+    return out
+

@@ -359,8 +359,9 @@ class InferenceEngine:
                  recorder=None, component="engine",
                  kv_quant=None, kv_tiers=None, mesh=None, brownout=None):
         if mesh is not None:
-            raise MXNetError(f"mesh={mesh!r}: not ported to the PyTorch "
-                             f"engine yet")
+            raise MXNetError(f"mesh={mesh!r}: the engine's tensor-"
+                             f"parallel mesh (the tp axis) is not ported "
+                             f"yet (ROADMAP Queue 1 item 11)")
         self.model = model
         self.device = model.device
         self.num_slots = int(num_slots)

@@ -3,8 +3,7 @@
 ``environment()`` context manager for scoped environment-variable
 overrides, ``getenv`` / ``setenv``, and the numpy-semantics flags
 (``set_np``, ``reset_np``, ``np_array``, ``np_shape``, ``use_np``,
-``is_np_array``, ``is_np_shape``). These are the flags alone: the
-``mx.np`` / ``mx.npx`` namespaces that read them are not ported yet."""
+``is_np_array``, ``is_np_shape``), which ``mx.npx`` re-exports."""
 
 from __future__ import annotations
 

@@ -447,17 +447,29 @@ def test_backward_folds_the_loss_scale_into_the_head_gradient():
 def test_refused_options(tmp_path):
     net = _net(PORT)
     params = net.collect_params()
-    for kw, match in ((dict(kvstore="dist_sync"), "dist_sync"),
-                      (dict(compression_params={"type": "2bit"}),
-                       "compression"),
-                      (dict(int8_allreduce=True), "int8"),
-                      (dict(overlap_allreduce=True), "overlap")):
-        with pytest.raises(MXNetError, match="not ported"):
-            tgluon.Trainer(params, "sgd", **kw)
-        assert match
-    for t in ("dist_sync", "dist_async"):         # no such store object
-        with pytest.raises(MXNetError, match="item 11"):
-            mx.kv.create(t)
+    # ported: the multi-worker options, a step each on one worker
+    # (over two workers: tests/test_torch_multiprocess.py)
+    with mx.cpu():
+        x = tnd.ones((2, 8))
+        for kw in (dict(kvstore="dist_sync"),
+                   dict(compression_params={"type": "2bit"}),
+                   dict(int8_allreduce=True),
+                   dict(overlap_allreduce=True)):
+            tr = tgluon.Trainer(params, "sgd", **kw)
+            with tag.record():
+                loss = (net(x) ** 2).mean()
+            loss.backward()
+            tr.step(2)
+            assert tr.last_outcome is StepOutcome.APPLIED, kw
+            snap = tr.health_snapshot()
+            assert snap["int8_allreduce"] is bool(kw.get("int8_allreduce"))
+            assert snap["overlap_allreduce"] is \
+                bool(kw.get("overlap_allreduce"))
+        assert tr._kvstore.type == "device"
+    for t in ("dist_sync", "dist_async"):
+        kv = mx.kv.create(t)
+        assert (kv.type, kv.rank, kv.num_workers) == (t, 0, 1)
+        assert tgluon.Trainer(params, "sgd", kvstore=kv)._fused is not None
     for kv in (mx.kv.create("local"), mx.kv.create("device")):
         assert tgluon.Trainer(params, "sgd", kvstore=kv)._fused is not None
     tr = tgluon.Trainer(params, "sgd", kvstore="local")

@@ -18,7 +18,9 @@
     ``gpu(0)`` by default (``cuda``-marked);
   - ``rtc.CudaModule`` refuses; ``cpu_pinned``, ``gpu_memory_info``,
     ``num_devices`` and the lazy modules exist at the top level;
-    ``num_tpus()`` is 0 and ``tpu()`` raises naming ``gpu()``.
+    ``num_tpus()`` is 0 and ``tpu()`` raises naming ``gpu()``;
+  - ``tools/phase_times.py`` runs a checkout's ``chip_smoke.py`` with
+    each ``phase_*`` call timed in order, and passes its exit code on.
 """
 
 import json
@@ -364,3 +366,28 @@ def test_rtc_and_top_level_names():
             mx.gpu_memory_info()
     assert {"quantize_net", "onnx", "text", "SVRGModule"} <= \
         set(mx.contrib.__all__) == set(jmx.contrib.__all__)
+
+
+def test_phase_times_times_each_phase(tmp_path):
+    import subprocess
+    import sys
+    (tmp_path / "chip_smoke.py").write_text(
+        "import sys, time\n"
+        "def phase_wait():\n    time.sleep(0.05)\n"
+        "def phase_echo(x):\n    return x\n"
+        "def main():\n"
+        "    phase_wait(); phase_echo(1); phase_wait()\n"
+        "    return 0 if sys.argv[1:] == [] else 3\n")
+    out = tmp_path / "times.json"
+    tool = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "incubator_mxnet_tpu_torch", "tools",
+        "phase_times.py")
+    proc = subprocess.run([sys.executable, tool, str(tmp_path), "--out",
+                           str(out)], capture_output=True, text=True,
+                          timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    res = json.loads(out.read_text())
+    assert [name for name, _ in res["phases"]] == ["wait", "echo", "wait"]
+    assert res["phases"][0][1] >= 0.05 and res["rc"] == 0
+    assert res["total_s"] >= res["phases"][0][1] + res["phases"][2][1]
+    assert "[phase_times] " in proc.stdout

@@ -255,14 +255,25 @@ def test_consecutive_nonfinite_steps_halt():
 def test_refused_options(tmp_path):
     tp = _port_model()
     kw = dict(forward_loss=tb.pretraining_loss, optimizer="lamb")
-    for bad, match in ((dict(mesh=["cuda:0", "cuda:1"]), "mesh of 2"),
-                       (dict(sharding="fsdp"), "fsdp"),
-                       (dict(pipeline=object()), "pipeline"),
+    # pipeline parallelism is the next slice of ROADMAP Queue 1 item 11
+    for bad, match in ((dict(pipeline=object()), "pipeline"),
                        (dict(int8_allreduce=True), "int8_allreduce"),
                        (dict(remat_plan=[True]), "remat_plan"),
                        (dict(grad_collective="ring"), "ring")):
-        with pytest.raises(MXNetError, match=match):
+        with pytest.raises(MXNetError, match=match + ".*item 11"):
             SPMDTrainer(tp, **kw, **bad)
+    # a mesh over a process group and sharding="fsdp" are ported
+    # (tests/test_torch_multiprocess.py); one process holds one device,
+    # and fsdp refuses only a norm-based optimizer such as LAMB
+    with pytest.raises(MXNetError, match="one device a process"):
+        SPMDTrainer(tp, **kw, mesh=["cuda:0", "cuda:1"])
+    with pytest.raises(MXNetError, match="mesh axes product 2"):
+        mx.parallel.build_mesh(axis_sizes={"dp": 2})
+    with pytest.raises(MXNetError, match="fsdp.*LAMB"):
+        SPMDTrainer(tp, **kw, sharding="fsdp")
+    fs = SPMDTrainer(tp, forward_loss=tb.pretraining_loss, optimizer="adam",
+                     mesh=mx.parallel.build_mesh(), sharding="fsdp")
+    assert fs.sharding_mode == "fsdp" and fs._replicas == 1
     with pytest.raises(MXNetError, match="loss"):
         SPMDTrainer(tp, optimizer="lamb")
     tr = SPMDTrainer(tp, **kw, mesh=["cpu"])
