@@ -466,6 +466,23 @@ failure exits non-zero before the result line:
                 dozen mx.np / mx.npx calls against numpy. Everything
                 timed runs after the CPU process has exited. One
                 `[parallel]` JSON line;
+  7j. sequence — the sp ring's kernel path on the card: block_attn_lse
+                (gpt_small's heads, H=12 D=64 bf16, B=4 T=1024, lengths
+                full, 0 and ragged) against its plain version (out, lse,
+                the autograd dq / dk / dv, and block_attn_bwd's from an
+                outside (out, lse)); then four virtual ranks of the flash
+                ring (parallel/ring_attention.py's flash_ring_fwd /
+                flash_ring_bwd, the loops ring_flash_attention runs, with
+                the four ranks in this process and the blocks rotated
+                between steps: T=4096 B=4, 1024-token blocks), causal and
+                not, forward and backward, held against flash attention
+                over the whole sequence (the same kernels at T=4096) and
+                against the plain ring (plain_ring, autograd), at phase
+                4's bf16 tolerances; the ring's launches counted
+                (SEQ["launches"] per ring, both rings, into the kernels
+                line) and its
+                forward and backward timed beside the whole sequence's.
+                One `[sequence]` JSON line;
   8. times    — the flash kernels held against their plain versions
                 once more on the training batch's own shapes and lengths
                 (B=32, T=512, bf16), and causal at gpt_small's (B=16,
@@ -4604,7 +4621,7 @@ def flash_times(torch, B, T, lens, causal, err):
     rows share the one plain backward), and the library call on the same
     mask (forward; for both backward rows the library's whole backward:
     a boolean key mask, or ``is_causal=True`` at full length). Beside
-    them: the port's whole backward as ``_FlashAttention.backward`` runs
+    them: the port's whole backward as ``_BlockAttnLse.backward`` runs
     it (autograd, dq with Δ then dk/dv) against the library's, and the
     eager ``attn_delta``. Returns each kernel's times and bound."""
     import torch.nn.functional as F
@@ -7581,13 +7598,210 @@ def par_resnet_finish(np, mx, tmp, cpu):
                          kv_card["pull0"])))
 
 
+SEQ = dict(B=4, H=12, D=64, T=4096, ranks=4, block_lens=(1024, 0, 517, 1))
+
+
+def seq_compare(torch, what, got, want, tol, err, name):
+    """``got`` against ``want`` within ``tol`` (a tensor or float of
+    ``want``'s shape); folds the largest |difference| into err[name]."""
+    check(bool(torch.isfinite(got).all()), f"sequence {what}: non-finite")
+    d = (got.float() - want.float()).abs()
+    worst = float((d / tol).max())
+    e = float(d.max())
+    err[name] = max(err.get(name, 0.0), e)
+    print(f"[sequence] {what}: max|err| {e:.3e}, worst |err| / tolerance "
+          f"{worst:.3f}", flush=True)
+    check(worst <= 1.0, f"sequence {what}: max |err| {e:.3e} is "
+                        f"{worst:.2f} x its tolerance")
+    return e
+
+
+def seq_grad_tol(torch, ref, gfrac, gfloor):
+    """phase 4's gradient tolerance: a fraction of the largest |gradient|
+    of each (batch, head) slice of a (B, H, T, D) reference."""
+    return gfrac * ref.float().abs().amax(dim=(2, 3),
+                                          keepdim=True).clamp(min=gfloor)
+
+
+def seq_block(torch, fa, err):
+    """block_attn_lse on the card against its plain version: out and lse,
+    the autograd gradients, and block_attn_bwd from an outside (out,
+    lse) (the plain version's)."""
+    B, H, D = SEQ["B"], SEQ["H"], SEQ["D"]
+    T = SEQ["T"] // SEQ["ranks"]
+    atol, rtol, gfrac, gfloor = FLASH_TOL["bfloat16"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    for causal in (False, True):
+        lens = [T] * B if causal else list(SEQ["block_lens"])
+        q, k, v, do, vl = flash_inputs(torch, gen, B, H, T, T, D, lens,
+                                       torch.bfloat16)
+        qa, ka, va = (x.clone().requires_grad_() for x in (q, k, v))
+        out, lse = fa.block_attn_lse(qa, ka, va, vl, causal)
+        check(not lse.requires_grad, "block_attn_lse: lse is "
+                                     "differentiable")
+        out.backward(do)
+        ro, rl = fa.dense_attn_lse(q, k, v, vl, causal)
+        rg = fa.dense_attn_bwd(q, k, v, vl, ro, rl, do, causal)
+        outside = fa.block_attn_bwd(q, k, v, vl, ro, rl, do, causal)
+        torch.cuda.synchronize()
+        tag = f"block_attn_lse bf16 B={B} H={H} T={T} lengths={lens} " \
+              f"causal={causal}"
+        live = rl > -1e29
+        check(bool((lse[~live] == -1e30).all()) and
+              bool((out.float()[~live] == 0).all()),
+              f"{tag}: a fully masked row is not zero with lse -1e30")
+        seq_compare(torch, f"{tag} out", out, ro,
+                    atol + rtol * ro.float().abs(), err, "flash_fwd")
+        seq_compare(torch, f"{tag} lse", lse[live], rl[live],
+                    atol + rtol * rl[live].abs(), err, "flash_fwd")
+        for part, name, g, o, r in (
+                ("dq", "flash_bwd_dq", qa.grad, outside[0], rg[0]),
+                ("dk", "flash_bwd_dkv", ka.grad, outside[1], rg[1]),
+                ("dv", "flash_bwd_dkv", va.grad, outside[2], rg[2])):
+            tol = seq_grad_tol(torch, r, gfrac, gfloor)
+            seq_compare(torch, f"{tag} {part} (autograd)", g, r, tol, err,
+                        name)
+            seq_compare(torch, f"{tag} {part} (outside out, lse)", o, r,
+                        tol, err, name)
+        if not causal:
+            dead = [b for b, n in enumerate(lens) if n == 0]
+            for x in (qa.grad, ka.grad, va.grad):
+                check(bool((x[dead] == 0).all()),
+                      f"{tag}: a gated-off batch row has a nonzero "
+                      f"gradient")
+        del q, k, v, do, qa, ka, va, out, lse, ro, rl, rg, outside
+    torch.cuda.empty_cache()
+
+
+def seq_blocks(torch, x, n):
+    """Rank r's (B, H, T/n, D) block of a (B, H, T, D) tensor."""
+    return [b.contiguous() for b in x.split(x.shape[2] // n, dim=2)]
+
+
+def seq_ring(torch, fa, ra, causal, err, launches):
+    """Four virtual ranks of the flash ring at SEQ's shape against the
+    whole sequence's flash kernels and against the plain ring; the
+    launches of the ring's forward and backward (counts zeroed just
+    before, read just after) added into ``launches``; times."""
+    B, H, D, T, n = SEQ["B"], SEQ["H"], SEQ["D"], SEQ["T"], SEQ["ranks"]
+    atol, rtol, gfrac, gfloor = FLASH_TOL["bfloat16"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26 + int(causal))
+    q, k, v, do, vl = flash_inputs(torch, gen, B, H, T, T, D, [T] * B,
+                                   torch.bfloat16)
+    qs, ks, vs, dos = (seq_blocks(torch, x, n) for x in (q, k, v, do))
+    tag = f"ring of {n} bf16 B={B} H={H} T={T} causal={causal}"
+    # the path: the ring's forward and backward, counted
+    fa.reset_launch_counts()
+    res = ra.flash_ring_fwd(qs, ks, vs, causal)
+    outs, lses = [o for o, _ in res], [lse for _, lse in res]
+    grads = ra.flash_ring_bwd(qs, ks, vs, outs, lses, dos, causal)
+    torch.cuda.synchronize()
+    counts = dict(fa.LAUNCHES)
+    counts.update(fa.CAUSAL_LAUNCHES)
+    for name, c in counts.items():
+        launches[name] = launches.get(name, 0) + c
+    want_each = n * n
+    check(all(counts[name] == want_each for name in FLASH),
+          f"{tag}: launches {counts}, want {want_each} of each kernel")
+    check(all(counts[f"{name}_causal"] == (n if causal else 0)
+              for name in FLASH),
+          f"{tag}: causal launches {counts}, want {n if causal else 0}")
+    ring_out = torch.cat(outs, dim=2)
+    ring_lse = torch.cat(lses, dim=2)
+    ring_g = [torch.cat([g[j] for g in grads], dim=2) for j in range(3)]
+    # the whole sequence through the same kernels
+    whole = flash_run(torch, fa, q, k, v, do, vl, causal)
+    wo, wl, wdq, _, wdk, wdv = whole
+    seq_compare(torch, f"{tag} out vs whole-sequence flash", ring_out, wo,
+                atol + rtol * wo.float().abs(), err, "flash_fwd")
+    seq_compare(torch, f"{tag} lse vs whole-sequence flash", ring_lse, wl,
+                atol + rtol * wl.abs(), err, "flash_fwd")
+    for part, name, g, r in (("dq", "flash_bwd_dq", ring_g[0], wdq),
+                             ("dk", "flash_bwd_dkv", ring_g[1], wdk),
+                             ("dv", "flash_bwd_dkv", ring_g[2], wdv)):
+        seq_compare(torch, f"{tag} {part} vs whole-sequence flash", g, r,
+                    seq_grad_tol(torch, r, gfrac, gfloor), err, name)
+    del whole, wo, wl, wdq, wdk, wdv
+    # the plain ring: the same per-step functions on the plain versions
+    # (autograd through the plain streaming ring), (B, T, H, D)
+    pq, pk, pv = (list(x.transpose(1, 2).split(T // n, dim=1))
+                  for x in (q, k, v))
+    pq = [x.detach().requires_grad_() for x in pq]
+    pk = [x.detach().requires_grad_() for x in pk]
+    pv = [x.detach().requires_grad_() for x in pv]
+    pouts = ra.plain_ring(pq, pk, pv, None, causal)
+    torch.autograd.backward(pouts, [x.transpose(1, 2) for x in dos])
+    plain_out = torch.cat(pouts, dim=1).transpose(1, 2)
+    seq_compare(torch, f"{tag} out vs the plain ring", ring_out, plain_out,
+                atol + rtol * plain_out.float().abs(), err, "flash_fwd")
+    for part, name, g, xs in (("dq", "flash_bwd_dq", ring_g[0], pq),
+                              ("dk", "flash_bwd_dkv", ring_g[1], pk),
+                              ("dv", "flash_bwd_dkv", ring_g[2], pv)):
+        r = torch.cat([x.grad for x in xs], dim=1).transpose(1, 2)
+        seq_compare(torch, f"{tag} {part} vs the plain ring", g, r,
+                    seq_grad_tol(torch, r, gfrac, gfloor), err, name)
+    del pq, pk, pv, pouts, plain_out
+    torch.cuda.empty_cache()
+    # times: the ring's forward and backward (every rank's steps on the
+    # one card, merges and rotations included) beside the whole
+    # sequence's three kernels
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    wo, wl = fa._flash_fwd_cuda(q, k, v, vl, causal, None)
+    _, wdelta = fa._flash_bwd_dq_cuda(q, k, v, vl, do, wo, wl, causal,
+                                      None)
+    times = dict(
+        ring_fwd_ms=_time_ms(torch, lambda: ra.flash_ring_fwd(
+            qs, ks, vs, causal), flush, iters=10),
+        ring_bwd_ms=_time_ms(torch, lambda: ra.flash_ring_bwd(
+            qs, ks, vs, outs, lses, dos, causal), flush, iters=10),
+        whole_fwd_ms=_time_ms(torch, lambda: fa._flash_fwd_cuda(
+            q, k, v, vl, causal, None), flush, iters=10),
+        whole_bwd_ms=_time_ms(torch, lambda: (
+            fa._flash_bwd_dq_cuda(q, k, v, vl, do, wo, wl, causal, None),
+            fa._flash_bwd_dkv_cuda(q, k, v, vl, do, wl, wdelta, causal,
+                                   None)), flush, iters=10))
+    del flush, q, k, v, do, qs, ks, vs, dos, res, outs, lses, grads
+    del ring_out, ring_lse, ring_g, wo, wl, wdelta
+    torch.cuda.empty_cache()
+    return dict(launches=counts, **times)
+
+
+def phase_sequence(torch, smi):
+    """The sp ring's kernel path on the card (module docstring, 7j).
+    Returns the ring's launches (the ``sequence`` path of the kernels
+    line) and the phase's numbers."""
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    from incubator_mxnet_tpu_torch.parallel import ring_attention as ra
+    t0 = time.perf_counter()
+    err = {}
+    seq_block(torch, fa, err)
+    launches = {}
+    rings = {("causal" if c else "full"): seq_ring(torch, fa, ra, c, err,
+                                                   launches)
+             for c in (False, True)}
+    out = dict(card=smi, shape=dict(SEQ), tolerance_bf16=dict(zip(
+        ("atol", "rtol", "grad_frac", "grad_floor"), FLASH_TOL["bfloat16"])),
+        max_abs_err=err, rings=rings, launches=launches,
+        phase_s=time.perf_counter() - t0)
+    for name, r in rings.items():
+        print(f"[sequence] {smi}: ring of {SEQ['ranks']} ({name}) bf16 "
+              f"B={SEQ['B']} H={SEQ['H']} T={SEQ['T']}: forward "
+              f"{r['ring_fwd_ms']:.3f} ms vs whole-sequence flash "
+              f"{r['whole_fwd_ms']:.3f} ms; backward {r['ring_bwd_ms']:.3f} "
+              f"ms vs {r['whole_bwd_ms']:.3f} ms", flush=True)
+    print(f"[sequence] {json.dumps(out)}", flush=True)
+    return dict(launches=launches)
+
+
 def kernel_record(err, runs, times):
     """The kernels' JSON record; each kernel's launches come from the run
     of its own path (decode / prefill: plain; verify: spec_k=4 on raw
     pools; the _q variants: spec_k=4 on int8 pools; both replaying the
     plain run's streams as drafts; the flash kernels: the bert_base
     training run; their causal rows: the gpt_small training run's timed
-    replays)."""
+    replays), the flash kernels' plus the sp ring's (7j)."""
     path_of = {"ragged_decode": "plain", "ragged_prefill": "plain",
                "ragged_verify": "spec", "ragged_decode_q": "spec_int8",
                "ragged_prefill_q": "spec_int8",
@@ -7595,6 +7809,8 @@ def kernel_record(err, runs, times):
                "flash_fwd": "training", "flash_bwd_dq": "training",
                "flash_bwd_dkv": "training"}
     path_of.update({f"{k}_causal": "gpt_training" for k in FLASH})
+    # the sp ring's launches (7j) join the flash kernels' paths'
+    seq = runs.get("sequence", {}).get("launches", {})
     source = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd",
               "flash_bwd_dkv": "flash_bwd"}
     kernels = []
@@ -7602,6 +7818,7 @@ def kernel_record(err, runs, times):
         t = times[name]
         launches = runs[path_of[name]]["launches"].get(name, 0)
         check(launches > 0, f"{name} never launched on its path")
+        launches += seq.get(name, 0)
         base = name.removesuffix("_causal")
         src = source.get(base, base.removesuffix("_q"))
         kernels.append({
@@ -7662,6 +7879,7 @@ def main():
         phase_contrib(torch, smi, mf)
         del mf
         phase_parallel(torch, smi)
+        runs["sequence"] = phase_sequence(torch, smi)
         times = phase_times(torch)
         times.update(phase_flash_times(torch, lens, err))
         for mod in ("jax", "incubator_mxnet_tpu"):

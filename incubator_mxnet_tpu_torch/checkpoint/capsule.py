@@ -522,22 +522,32 @@ def restore_updater(updater, params: List, arrays: Dict[str, np.ndarray],
 # parallel.SPMDTrainer capsule
 # ---------------------------------------------------------------------- #
 
-def _shard_spec(ndim: int, dim: int) -> str:
-    """The manifest's sharding string, in the JAX package's spelling."""
-    return "PartitionSpec(" + ", ".join(
-        "'fsdp'" if k == dim else "None" for k in range(ndim)) + ")"
+def _shard_spec(ndim: int, plan) -> str:
+    """The manifest's sharding string, in the JAX package's spelling, of
+    a shard plan ``((dim, axis), ...)``."""
+    axes = {}
+    for d, a in plan:
+        axes.setdefault(d, []).append(a)
+
+    def entry(k):
+        if k not in axes:
+            return "None"
+        if len(axes[k]) == 1:
+            return repr(axes[k][0])
+        return "(" + ", ".join(repr(a) for a in axes[k]) + ")"
+    return "PartitionSpec(" + ", ".join(entry(k) for k in range(ndim)) + ")"
 
 
-def _shard_index(shape, sl):
-    d, start, n = sl
-    return [(start, start + n) if k == d else (0, int(s))
-            for k, s in enumerate(shape)]
+def _shard_index(shape, box):
+    starts = {d: (start, start + n) for d, start, n in box}
+    return [starts.get(k, (0, int(s))) for k, s in enumerate(shape)]
 
 
 def _spmd_tree(trainer) -> Dict[str, object]:
-    """The capsule's arrays of this rank: each fsdp shard (parameter and
+    """The capsule's arrays of this rank: each shard (parameter and
     shard-shaped optimizer state) as a ``ShardLeaf`` written by the ranks
-    of dp index 0, every replicated entry by rank 0 alone."""
+    at coordinate 0 on the axes it is not split over, every replicated
+    entry by rank 0 alone."""
     from ..parallel import mesh as _mesh
     from .manager import ShardLeaf
     lead = _mesh.rank() == 0
@@ -545,25 +555,25 @@ def _spmd_tree(trainer) -> Dict[str, object]:
     tree: Dict[str, object] = {}
     for i, p in enumerate(trainer._params):
         slot = slots.get(i)
-        sl = None if slot is None else trainer._shard_slice(slot)
-        if sl is None:
+        box = None if slot is None else trainer._shard_box(slot)
+        if box is None:
             if lead:
                 tree[f"param/{i}"] = p
-        elif trainer._dp_index == 0:
+        elif trainer._writes_shard(slot):
             tree[f"param/{i}"] = ShardLeaf(
-                trainer._shards[slot], _shard_index(p.shape, sl), p.shape,
-                _shard_spec(p.dim(), sl[0]))
+                trainer._shards[slot], _shard_index(p.shape, box), p.shape,
+                _shard_spec(p.dim(), trainer._shard_plans[slot]))
     for slot, st in enumerate(trainer._opt_state):
         leaves, _ = flatten_state(st)
-        sl = trainer._shard_slice(slot)
-        shard = None if sl is None else trainer._shards[slot]
+        box = trainer._shard_box(slot)
+        shard = None if box is None else trainer._shards[slot]
         full = trainer._params[trainer._train_idx[slot]].shape
         for j, leaf in enumerate(leaves):
             if shard is not None and tuple(leaf.shape) == tuple(shard.shape):
-                if trainer._dp_index == 0:
+                if trainer._writes_shard(slot):
                     tree[f"opt/{slot}/{j}"] = ShardLeaf(
-                        leaf, _shard_index(full, sl), full,
-                        _shard_spec(len(full), sl[0]))
+                        leaf, _shard_index(full, box), full,
+                        _shard_spec(len(full), trainer._shard_plans[slot]))
             elif lead:
                 tree[f"opt/{slot}/{j}"] = leaf
     if lead:
@@ -612,8 +622,10 @@ def _shard_arrays(trainer, arrays):
         if shard is None:
             continue
         i = trainer._train_idx[slot]
-        d, start, n = trainer._shard_slice(slot)
-        cut = (slice(None),) * d + (slice(start, start + n),)
+        cut = [slice(None)] * trainer._params[i].dim()
+        for d, start, n in trainer._shard_box(slot):
+            cut[d] = slice(start, start + n)
+        cut = tuple(cut)
         src = f"param/{i}"
         if src in arrays:
             out[f"shard/{i}"] = np.ascontiguousarray(arrays[src][cut])

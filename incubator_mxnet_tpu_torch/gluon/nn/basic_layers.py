@@ -6,8 +6,8 @@ statistics are ``grad_req='null'`` parameters, updated in place (under
 ``torch.no_grad``) when the forward runs in training mode, so a CUDA
 graph holding them sees each update. ``Embedding(sparse_grad=True)``
 gives its table ``grad_stype='row_sparse'``: gluon's Trainer updates only
-the rows a batch looked up (the lazy update); ``sharded=`` is the JAX
-package's mesh hint and has no effect on one device.
+the rows a batch looked up (the lazy update). ``sharded=True`` gives the
+table the JAX package's vocabulary hint, tp x fsdp.
 """
 
 from __future__ import annotations
@@ -143,6 +143,11 @@ class Embedding(HybridBlock):
                 "weight", shape=(input_dim, output_dim), dtype=dtype,
                 init=weight_initializer,
                 grad_stype="row_sparse" if sparse_grad else "default")
+        if sharded:
+            # the vocabulary split over tp x fsdp, the JAX hint: the
+            # lookup reads the whole table a rank holds, and SPMDTrainer
+            # updates the tile (V / (tp x fsdp) rows) on each rank
+            self.weight._sharding = (("tp", "fsdp"), None)
 
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, input_dim=self._input_dim,

@@ -34,21 +34,35 @@ JAX model's (``collect_params()``), and ``state_dict()`` keys are gluon's
 structural names, through which ``models.convert.bert_params_from_jax``
 carries the JAX model's weights. ``remat=True | "dots"``
 rematerializes each encoder layer in the backward
-(``models/_remat.py``: the dropout masks are saved, not redrawn). Not
-ported yet: ``seq_parallel`` (raises ``MXNetError``: sequence-parallel
-ring attention is the next slice of ROADMAP Queue 1 item 11) and
-``pretraining_pipeline`` (the pipelined step, the same slice); dp and
-fsdp run through ``parallel.SPMDTrainer``.
+(``models/_remat.py``: the dropout masks are saved, not redrawn).
+
+``seq_parallel=True`` splits the sequence over the sp axis inside an SPMD
+step whose mesh has one (``parallel.SPMDTrainer``): the embeddings run on
+the whole sequence, the stream enters the axis before the first layer
+(``parallel.constrain``), attention is the plain sp ring with the GLOBAL
+valid lengths (``ring_self_attention``), and the sequence output leaves
+the axis after the last layer (an all-gather), so the pooler and the
+pretraining heads read whole sequences. On a tp axis the Dense layers
+read the JAX sharding hints (``parallel.spmd.tp_linear``) and attention
+runs on the rank's heads; ``word_embed`` carries the vocabulary hint
+(``nn.Embedding(sharded=True)``). Not ported yet: ``pretraining_pipeline``
+(the pipelined step, ROADMAP Queue 1 item 11's next slice).
 """
 
 from __future__ import annotations
 
+import torch
+
+from .. import autograd
 from ..base import MXNetError
 from ..gluon import nn
 from ..gluon.block import HybridBlock
 from ..gluon.parameter import Parameter
+from ..ndarray import NDArray
 from .. import initializer as init
-from ._attention import packed_flash_self_attention, use_packed_fast_path
+from ._attention import (local_heads, packed_flash_self_attention,
+                         ring_attention, seq_mesh, tp_axis, tp_dense,
+                         tp_hints, use_packed_fast_path)
 from ._remat import remat_call, resolve_policy
 
 __all__ = ["BERTModel", "BERTForPretraining", "BERTClassifier",
@@ -60,10 +74,12 @@ def _trunc():
 
 
 class BERTSelfAttention(HybridBlock):
-    """Multi-head self-attention with a fused QKV projection."""
+    """Multi-head self-attention with a fused QKV projection;
+    ``seq_parallel=True``: the sp ring with global valid lengths inside an
+    SPMD step whose mesh has an sp axis."""
 
     def __init__(self, units, num_heads, dropout=0.1, dtype="float32",
-                 flash=False, **kwargs):
+                 flash=False, seq_parallel=False, **kwargs):
         super().__init__(**kwargs)
         if units % num_heads:
             raise MXNetError(f"units {units} not divisible by heads "
@@ -71,42 +87,54 @@ class BERTSelfAttention(HybridBlock):
         self._units = units
         self._heads = num_heads
         self._flash = flash
+        self._seq_parallel = seq_parallel
         with self.name_scope():
             self.qkv = nn.Dense(3 * units, in_units=units, flatten=False,
                                 dtype=dtype, weight_initializer=_trunc())
             self.proj = nn.Dense(units, in_units=units, flatten=False,
                                  dtype=dtype, weight_initializer=_trunc())
             self.dropout = nn.Dropout(dropout)
+        tp_hints(self.qkv, self.proj, parts=3)
 
     def hybrid_forward(self, F, x, mask=None, valid_length=None):
         B, T = x.shape[0], x.shape[1]
-        H, D = self._heads, self._units // self._heads
-        qkv = self.qkv(x).reshape((B, T, 3, H, D))
+        D = self._units // self._heads
+        H, tp = local_heads(self._heads, "BERTSelfAttention")
+        units = H * D
+        qkv = tp_dense(self.qkv, x, tp).reshape((B, T, 3, H, D))
         vl = valid_length.astype("int32") \
             if valid_length is not None else None
-        if self._flash and (mask is None or
-                            (len(mask.shape) == 2 and vl is not None)) \
+        mesh = seq_mesh(self._seq_parallel, T, "BERTSelfAttention")
+        if mesh is not None and mask is not None and vl is None:
+            raise MXNetError("BERTSelfAttention(seq_parallel=True): the sp "
+                             "ring takes the key mask as valid lengths")
+        if mesh is None and self._flash and (
+                mask is None or (len(mask.shape) == 2 and vl is not None)) \
                 and use_packed_fast_path(D):
             out = packed_flash_self_attention(
-                F, qkv, B, T, H, D, self._units, mask=mask, valid_length=vl)
+                F, qkv, B, T, H, D, units, mask=mask, valid_length=vl)
         else:
             q = qkv.slice_axis(axis=2, begin=0, end=1).reshape((B, T, H, D))
             k = qkv.slice_axis(axis=2, begin=1, end=2).reshape((B, T, H, D))
             v = qkv.slice_axis(axis=2, begin=2, end=3).reshape((B, T, H, D))
-            out = F.scaled_dot_product_attention(
-                q, k, v, mask=mask, flash=self._flash, valid_length=vl)
-            out = out.reshape((B, T, self._units))
-        return self.dropout(self.proj(out))
+            if mesh is not None:
+                out = ring_attention(q, k, v, mesh, valid_length=vl)
+            else:
+                out = F.scaled_dot_product_attention(
+                    q, k, v, mask=mask, flash=self._flash, valid_length=vl)
+            out = out.reshape((B, T, units))
+        return self.dropout(tp_dense(self.proj, out, tp))
 
 
 class BERTEncoderLayer(HybridBlock):
     def __init__(self, units, hidden_size, num_heads, dropout=0.1,
                  layer_norm_eps=1e-12, dtype="float32", flash=False,
-                 **kwargs):
+                 seq_parallel=False, **kwargs):
         super().__init__(**kwargs)
         with self.name_scope():
             self.attention = BERTSelfAttention(units, num_heads, dropout,
-                                               dtype=dtype, flash=flash)
+                                               dtype=dtype, flash=flash,
+                                               seq_parallel=seq_parallel)
             self.ln1 = nn.LayerNorm(epsilon=layer_norm_eps,
                                     in_channels=units)
             self.ffn_in = nn.Dense(hidden_size, in_units=units,
@@ -118,11 +146,13 @@ class BERTEncoderLayer(HybridBlock):
             self.ln2 = nn.LayerNorm(epsilon=layer_norm_eps,
                                     in_channels=units)
             self.dropout = nn.Dropout(dropout)
+        tp_hints(self.ffn_in, self.ffn_out)
 
     def hybrid_forward(self, F, x, mask=None, valid_length=None):
+        tp = tp_axis()
         x = self.ln1(x + self.attention(x, mask, valid_length))
-        h = F.gelu(self.ffn_in(x))
-        h = self.dropout(self.ffn_out(h))
+        h = F.gelu(tp_dense(self.ffn_in, x, tp))
+        h = self.dropout(tp_dense(self.ffn_out, h, tp))
         return self.ln2(x + h)
 
 
@@ -139,12 +169,6 @@ class BERTModel(HybridBlock):
                  dtype="float32", flash=False, remat=False,
                  seq_parallel=False, **kwargs):
         resolve_policy(remat)
-        if seq_parallel:
-            raise MXNetError("BERTModel(seq_parallel=True): sequence-"
-                             "parallel ring attention (the sp axis) is "
-                             "not ported yet (the next slice of ROADMAP "
-                             "Queue 1 item 11); dp and fsdp run through "
-                             "parallel.SPMDTrainer")
         if dtype not in ("float32", "bfloat16"):
             raise MXNetError(f"unsupported dtype {dtype!r} (one of "
                              f"['bfloat16', 'float32'])")
@@ -152,6 +176,7 @@ class BERTModel(HybridBlock):
         self._units = units
         self._dtype = dtype
         self._remat = remat
+        self._seq_parallel = seq_parallel
         self.units = units
         self.num_layers = num_layers
         self.num_heads = num_heads
@@ -160,7 +185,7 @@ class BERTModel(HybridBlock):
         self.max_length = max_length
         self.flash = flash
         with self.name_scope():
-            self.word_embed = nn.Embedding(vocab_size, units,
+            self.word_embed = nn.Embedding(vocab_size, units, sharded=True,
                                            weight_initializer=_trunc())
             self.token_type_embed = nn.Embedding(
                 type_vocab_size, units, weight_initializer=_trunc())
@@ -172,7 +197,8 @@ class BERTModel(HybridBlock):
             for i in range(num_layers):
                 layer = BERTEncoderLayer(units, hidden_size, num_heads,
                                          dropout, layer_norm_eps,
-                                         dtype=dtype, flash=flash)
+                                         dtype=dtype, flash=flash,
+                                         seq_parallel=seq_parallel)
                 self.register_child(layer, f"layer{i}")
             self.pooler = nn.Dense(units, in_units=units, flatten=False,
                                    activation="tanh",
@@ -195,6 +221,11 @@ class BERTModel(HybridBlock):
         if valid_length is not None:
             ar = F.arange(0, T, dtype="float32", ctx=ctx).reshape((1, T))
             mask = ar < valid_length.astype("float32").reshape((-1, 1))
+        seq = seq_mesh(self._seq_parallel, T, "BERTModel")
+        if seq is not None:
+            # the layers run on this rank's block of the sequence
+            from ..parallel.spmd import constrain
+            x = constrain(x, ("dp", "fsdp"), "sp", None)
         policy = resolve_policy(self._remat)
         for i in range(self.num_layers):
             layer = getattr(self, f"layer{i}")
@@ -202,6 +233,10 @@ class BERTModel(HybridBlock):
                 x = remat_call(layer, x, mask, valid_length, policy=policy)
             else:
                 x = layer(x, mask, valid_length)
+        if seq is not None:
+            # the pooler and the heads read whole sequences
+            x = constrain(x, ("dp", "fsdp"), None, None,
+                          src=(("dp", "fsdp"), "sp", None))
         # the sequence output stays in the compute dtype; only the pooled
         # [CLS] path is promoted
         cls = x.slice_axis(axis=1, begin=0, end=1).reshape(
@@ -239,6 +274,12 @@ class BERTForPretraining(HybridBlock):
         h = self.mlm_transform(gathered.astype("float32"))
         h = self.mlm_ln(F.gelu(h))
         embed_w = self.bert.word_embed.weight.data()
+        from ..parallel.spmd import TPAxis, vocab_split
+        tp = vocab_split(TPAxis.of(None), self.bert.vocab_size)
+        if tp is not None:
+            # this rank's tile of the vocabulary (vocab-split scores)
+            embed_w = NDArray(tp.rows(embed_w._data))
+            mlm_bias = NDArray(tp.rows(mlm_bias._data))
         dt = self.bert._dtype
         scores = F.dot(h.astype(dt), embed_w.astype(dt), transpose_b=True) \
             + mlm_bias.astype(dt)
@@ -252,11 +293,25 @@ def pretraining_loss(model: BERTForPretraining, input_ids, token_types,
     for ``parallel.SPMDTrainer``'s ``forward_loss`` hook."""
     mlm_scores, nsp_scores = model(input_ids, token_types, valid_length,
                                    masked_positions)
-    label_scores = mlm_scores.pick(masked_labels, axis=-1)     # (B, M)
-    lse = mlm_scores._op("logsumexp", axis=-1)
-    mlm_ll = label_scores.astype("float32") - lse
+    from ..parallel.spmd import TPAxis, split_sum, vocab_ce
+    if mlm_scores.shape[-1] != model.bert.vocab_size:
+        # vocab-split scores: the pick and the logsumexp over tp
+        with torch.set_grad_enabled(autograd.is_recording()):
+            score, lse = vocab_ce(mlm_scores._data, masked_labels._data,
+                                  TPAxis.of(None))
+            mlm_ll = NDArray(score - lse)
+    else:
+        label_scores = mlm_scores.pick(masked_labels, axis=-1)  # (B, M)
+        lse = mlm_scores._op("logsumexp", axis=-1)
+        mlm_ll = label_scores.astype("float32") - lse
     weights = masked_weights.astype("float32")
-    mlm_loss = -(mlm_ll * weights).sum() / (weights.sum() + 1e-6)
+    # inside an SPMD step the MLM ratio is the global batch's: the
+    # weight sum over the ranks that split the batch (spmd.split_sum)
+    n, total = split_sum(weights.sum()._data)
+    if n == 1:
+        mlm_loss = -(mlm_ll * weights).sum() / (weights.sum() + 1e-6)
+    else:
+        mlm_loss = -(mlm_ll * weights).sum() * n / (NDArray(total) + 1e-6)
     nsp_loss = -nsp_scores.log_softmax(axis=-1).pick(nsp_labels,
                                                      axis=-1).mean()
     return mlm_loss + nsp_loss

@@ -35,10 +35,22 @@ life, which the engine's CUDA graphs hold by address), with no dropout
 and no autograd recording. The decode paths' head casts to f32 BEFORE
 ``ln_f``.
 
-Not ported yet, and refused with ``MXNetError``: ``seq_parallel=True``
-(sequence-parallel ring attention over the sp axis) and ``lm_pipeline``
-(the pipelined SPMD step), both the next slice of ROADMAP Queue 1 item
-11. Data parallelism (dp x fsdp) runs through ``parallel.SPMDTrainer``.
+``seq_parallel=True`` splits the sequence over the sp axis inside an
+SPMD step whose mesh has one (``parallel.SPMDTrainer``): the embeddings
+run on the whole sequence (so positions are global), the stream enters
+the axis before the first block (``parallel.constrain``), attention is
+the ring (``models/_attention.ring_attention``: the flash kernels' ring
+with ``flash=True`` on the card, the plain ring otherwise) and the head
+gives this rank's block of the logits, which ``lm_loss`` pairs with its
+block of the labels. On a tp axis the Dense layers read the JAX sharding
+hints (qkv and ffn_in column-parallel, proj and ffn_out row-parallel;
+``parallel.spmd.tp_linear``), attention runs on the rank's heads, and the
+tied head gives the rank's tile of the vocabulary (when tp divides it),
+as the JAX logits are vocab-split over tp.
+
+Not ported yet, and refused with ``MXNetError``: ``lm_pipeline`` (the
+pipelined SPMD step, ROADMAP Queue 1 item 11's next slice). Data,
+sequence and tensor parallelism run through ``parallel.SPMDTrainer``.
 """
 
 from __future__ import annotations
@@ -54,7 +66,9 @@ from ..gluon import nn
 from ..gluon.block import HybridBlock
 from ..ndarray import NDArray
 from ..ops.attention import scaled_dot_product_attention as _sdpa
-from ._attention import packed_flash_self_attention, use_packed_fast_path
+from ._attention import (local_heads, packed_flash_self_attention,
+                         ring_attention, seq_mesh, tp_axis, tp_dense,
+                         tp_hints, use_packed_fast_path)
 from ._remat import remat_call, resolve_policy
 
 __all__ = ["GPTModel", "gpt_mini", "gpt_small", "lm_loss", "lm_pipeline",
@@ -62,10 +76,9 @@ __all__ = ["GPTModel", "gpt_mini", "gpt_small", "lm_loss", "lm_pipeline",
            "decode_forward"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_QUEUE_ITEM_11 = ("sequence-parallel ring attention (the sp axis, with "
-                  "block_attn_lse) and the pipelined SPMD step are the "
-                  "next slice of ROADMAP Queue 1 item 11; dp and fsdp "
-                  "run through parallel.SPMDTrainer")
+_QUEUE_ITEM_11 = ("the pipelined SPMD step is the next slice of ROADMAP "
+                  "Queue 1 item 11; dp, fsdp, tp and sp run through "
+                  "parallel.SPMDTrainer")
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -82,39 +95,49 @@ def _trunc():
 
 
 class CausalSelfAttention(HybridBlock):
-    """Fused-qkv causal self-attention; dropout on the projected output."""
+    """Fused-qkv causal self-attention; dropout on the projected output.
+    ``seq_parallel=True``: the sp ring inside an SPMD step whose mesh has
+    an sp axis (see the module's docstring)."""
 
     def __init__(self, units, num_heads, dropout=0.0, dtype="float32",
                  flash=False, seq_parallel=False, **kwargs):
-        if seq_parallel:
-            raise MXNetError(f"CausalSelfAttention(seq_parallel=True) is "
-                             f"not ported: {_QUEUE_ITEM_11}")
         if units % num_heads:
             raise MXNetError(f"units {units} % heads {num_heads} != 0")
         super().__init__(**kwargs)
         self._units, self._heads, self._flash = units, num_heads, flash
+        self._seq_parallel = seq_parallel
         with self.name_scope():
             self.qkv = nn.Dense(3 * units, in_units=units, flatten=False,
                                 dtype=dtype, weight_initializer=_trunc())
             self.proj = nn.Dense(units, in_units=units, flatten=False,
                                  dtype=dtype, weight_initializer=_trunc())
             self.dropout = nn.Dropout(dropout)
+        tp_hints(self.qkv, self.proj, parts=3)
 
     def hybrid_forward(self, F, x):
         B, T = x.shape[0], x.shape[1]
-        H, D = self._heads, self._units // self._heads
-        qkv = self.qkv(x).reshape((B, T, 3, H, D))
-        if self._flash and use_packed_fast_path(D):
-            out = packed_flash_self_attention(F, qkv, B, T, H, D,
-                                              self._units, causal=True)
+        D = self._units // self._heads
+        H, tp = local_heads(self._heads, "CausalSelfAttention")
+        units = H * D
+        qkv = tp_dense(self.qkv, x, tp).reshape((B, T, 3, H, D))
+        # the stream is this rank's block of the sequence (the model
+        # checked the whole one divides)
+        mesh = seq_mesh(self._seq_parallel, T, "CausalSelfAttention")
+        if mesh is None and self._flash and use_packed_fast_path(D):
+            out = packed_flash_self_attention(F, qkv, B, T, H, D, units,
+                                              causal=True)
         else:
             q = qkv.slice_axis(axis=2, begin=0, end=1).reshape((B, T, H, D))
             k = qkv.slice_axis(axis=2, begin=1, end=2).reshape((B, T, H, D))
             v = qkv.slice_axis(axis=2, begin=2, end=3).reshape((B, T, H, D))
-            out = F.scaled_dot_product_attention(q, k, v, causal=True,
-                                                 flash=self._flash)
-            out = out.reshape((B, T, self._units))
-        return self.dropout(self.proj(out))
+            if mesh is not None:
+                out = ring_attention(q, k, v, mesh, causal=True,
+                                     flash=self._flash)
+            else:
+                out = F.scaled_dot_product_attention(q, k, v, causal=True,
+                                                     flash=self._flash)
+            out = out.reshape((B, T, units))
+        return self.dropout(tp_dense(self.proj, out, tp))
 
 
 class GPTBlock(HybridBlock):
@@ -140,11 +163,13 @@ class GPTBlock(HybridBlock):
                                     flatten=False, dtype=dtype,
                                     weight_initializer=_trunc())
             self.dropout = nn.Dropout(dropout)
+        tp_hints(self.ffn_in, self.ffn_out)
 
     def hybrid_forward(self, F, x):
+        tp = tp_axis()
         x = x + self.attn(self.ln1(x))
-        h = self.ffn_in(self.ln2(x))
-        return x + self.dropout(self.ffn_out(F.gelu(h)))
+        h = tp_dense(self.ffn_in, self.ln2(x), tp)
+        return x + self.dropout(tp_dense(self.ffn_out, F.gelu(h), tp))
 
 
 class GPTModel(HybridBlock):
@@ -157,9 +182,6 @@ class GPTModel(HybridBlock):
                  num_layers=12, num_heads=12, max_length=1024,
                  dropout=0.0, layer_norm_eps=1e-5, dtype="float32",
                  flash=False, remat=False, seq_parallel=False, **kwargs):
-        if seq_parallel:
-            raise MXNetError(f"GPTModel(seq_parallel=True) is not ported: "
-                             f"{_QUEUE_ITEM_11}")
         _torch_dtype(dtype)
         resolve_policy(remat)
         super().__init__(**kwargs)
@@ -170,6 +192,7 @@ class GPTModel(HybridBlock):
         self.hidden_size = hidden_size
         self._dtype = dtype
         self._remat = remat
+        self._seq_parallel = seq_parallel
         self.max_length = max_length
         with self.name_scope():
             self.word_embed = nn.Embedding(vocab_size, units, sharded=True,
@@ -179,7 +202,8 @@ class GPTModel(HybridBlock):
             self.embed_dropout = nn.Dropout(dropout)
             for i in range(num_layers):
                 blk = GPTBlock(units, hidden_size, num_heads, dropout,
-                               layer_norm_eps, dtype=dtype, flash=flash)
+                               layer_norm_eps, dtype=dtype, flash=flash,
+                               seq_parallel=seq_parallel)
                 self.register_child(blk, f"block{i}")
                 setattr(self, f"block{i}", blk)
             self.ln_f = nn.LayerNorm(epsilon=layer_norm_eps,
@@ -209,6 +233,11 @@ class GPTModel(HybridBlock):
         x = self.embed_dropout(x)
         if self._dtype != "float32":
             x = x.astype(self._dtype)
+        if seq_mesh(self._seq_parallel, T, "GPTModel") is not None:
+            # the blocks and the head run on this rank's block of the
+            # sequence
+            from ..parallel.spmd import constrain
+            x = constrain(x, ("dp", "fsdp"), "sp", None)
         policy = resolve_policy(self._remat)
         for blk in self.blocks:
             x = remat_call(blk, x, policy=policy) if policy else blk(x)
@@ -216,21 +245,55 @@ class GPTModel(HybridBlock):
         # compute dtype's rate, and the loss reduces with f32 accumulation
         x = self.ln_f(x)
         embed_w = self.word_embed.weight.data()
+        from ..parallel.spmd import TPAxis, vocab_split
+        tp = vocab_split(TPAxis.of(None), self.vocab_size)
+        if tp is not None:
+            # this rank's tile of the vocabulary (vocab-split logits)
+            embed_w = NDArray(tp.rows(embed_w._data))
         return F.dot(x, embed_w.astype(x.dtype), transpose_b=True)
 
 
 def lm_loss(model: GPTModel, input_ids, labels, weights=None):
     """Next-token cross entropy, shaped for ``SPMDTrainer.forward_loss``:
     pick - logsumexp with f32 accumulation (the (B, T, vocab) log-
-    probabilities are never written)."""
+    probabilities are never written).
+
+    With the sequence split over sp (``seq_parallel``), the model gives
+    this rank's block of the logits and the loss takes its block of the
+    labels; with the vocabulary split over tp, its tile of the
+    vocabulary, and the pick and the logsumexp run over tp
+    (``spmd.vocab_ce``). Inside an SPMD step each rank's loss is its share of the
+    global batch's scaled to the whole, as ``SPMDTrainer`` averages the
+    ranks' losses: the mean of its block, or its weighted sum over the
+    global weight sum (``spmd.split_sum``) times the ranks that split the
+    batch, so the weighted form is the global batch's ratio as in
+    JAX."""
     logits = model(input_ids)
-    label_scores = logits.pick(labels, axis=-1)       # (B, T)
-    lse = logits._op("logsumexp", axis=-1)
-    ll = label_scores.astype("float32") - lse
+    mesh = seq_mesh(getattr(model, "_seq_parallel", False),
+                    input_ids.shape[1], "lm_loss")
+    if mesh is not None:
+        from ..parallel.spmd import constrain
+        labels = constrain(labels, ("dp", "fsdp"), "sp")
+        if weights is not None:
+            weights = constrain(weights, ("dp", "fsdp"), "sp")
+    from ..parallel.spmd import TPAxis, split_sum, vocab_ce
+    if logits.shape[-1] != model.vocab_size:
+        # vocab-split logits: the pick and the logsumexp over tp
+        with torch.set_grad_enabled(autograd.is_recording()):
+            score, lse = vocab_ce(logits._data, labels._data,
+                                  TPAxis.of(None))
+            ll = NDArray(score - lse)
+    else:
+        label_scores = logits.pick(labels, axis=-1)       # (B, T)
+        lse = logits._op("logsumexp", axis=-1)
+        ll = label_scores.astype("float32") - lse
     if weights is None:
         return -ll.mean()
-    denom = weights.sum() + 1e-6
-    return -(ll * weights).sum() / denom
+    n, total = split_sum(weights.sum()._data, seq=mesh is not None)
+    if n == 1:
+        denom = weights.sum() + 1e-6
+        return -(ll * weights).sum() / denom
+    return -(ll * weights).sum() * n / (NDArray(total) + 1e-6)
 
 
 def lm_pipeline(model: GPTModel, weighted: bool = False):
@@ -300,9 +363,18 @@ def gpt_small(**kwargs) -> GPTModel:
 # projection, MLP and head numerics cannot drift between the two caches
 # --------------------------------------------------------------------- #
 
-def _linear(dense, x):
-    """A gluon ``Dense`` (flatten=False) on a tensor."""
+def _linear(dense, x, tp=None):
+    """A gluon ``Dense`` (flatten=False) on a tensor; on a tp axis
+    (``parallel.spmd.TPAxis``) this rank's tile when its weight's hint
+    names tp (``tp_linear``)."""
     bias = None if dense.bias is None else dense.bias._var
+    if tp is not None:
+        from ..parallel.spmd import tp_linear
+        y = tp_linear(x, dense.weight._var, bias,
+                      getattr(dense.weight, "_sharding", None), tp,
+                      getattr(dense.weight, "_tp_groups", 1))
+        if y is not None:
+            return y
     return F.linear(x, dense.weight._var, bias)
 
 
@@ -321,18 +393,23 @@ def _embed(model: GPTModel, ids, pos):
     return x.to(model.dtype)
 
 
-def _qkv_heads(attn: CausalSelfAttention, x):
-    """x (B, T, units) -> q, k, v each (B, T, H, D) (views)."""
+def _qkv_heads(attn: CausalSelfAttention, x, tp=None):
+    """x (B, T, units) -> q, k, v each (B, T, H, D) (views); on a tp axis
+    this rank's H / tp heads."""
     B, T = x.shape[0], x.shape[1]
     H, D = attn._heads, attn._units // attn._heads
-    qkv = _linear(attn.qkv, x).reshape(B, T, 3, H, D)
+    if tp is not None:
+        H //= tp.size
+    qkv = _linear(attn.qkv, x, tp).reshape(B, T, 3, H, D)
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
-def _mlp(blk: GPTBlock, x):
-    """ln2 -> ffn_in -> exact GELU -> ffn_out (inference: no dropout)."""
+def _mlp(blk: GPTBlock, x, tp=None):
+    """ln2 -> ffn_in -> exact GELU -> ffn_out (inference: no dropout); on
+    a tp axis the hidden units are split and the output summed over
+    it."""
     return _linear(blk.ffn_out, F.gelu(_linear(blk.ffn_in,
-                                               _norm(blk.ln2, x))))
+                                               _norm(blk.ln2, x), tp)), tp)
 
 
 def _lm_head(model: GPTModel, x):

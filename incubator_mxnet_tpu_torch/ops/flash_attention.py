@@ -18,7 +18,9 @@ Tq == Tk only), in three forms:
     fused ``_dense_bwd_kernel``;
   - ``flash_attention_bhtd``, a ``torch.autograd.Function`` over them: a
     CUDA tensor runs the kernels (or the wrapper raises), a CPU tensor the
-    plain versions. On a CUDA tensor Δ is computed inside the dq launch,
+    plain versions; ``block_attn_lse`` the same returning ``(out, lse)``,
+    and ``block_attn_bwd`` one block's backward from an outside
+    ``(out, lse)`` (the ring's two passes, ``parallel/ring_attention.py``). On a CUDA tensor Δ is computed inside the dq launch,
     which writes it for the dk/dv launch; ``attn_delta`` (what the JAX
     package computes in XLA) is the CPU path's and the kernels' oracle.
 
@@ -46,6 +48,7 @@ from ..base import MXNetError
 from . import _build
 
 __all__ = ["dense_attn_lse", "dense_attn_bwd", "flash_attention_bhtd",
+           "block_attn_lse", "block_attn_bwd", "block_fwd",
            "use_flash_attention", "cuda_kernel_eligible", "attn_delta",
            "valid_length_mask", "LAUNCHES", "CAUSAL_LAUNCHES",
            "reset_launch_counts"]
@@ -339,45 +342,84 @@ def _flash_bwd_dkv_cuda(q, k, v, valid_len, dout, lse, delta, causal,
 # autograd entry
 # --------------------------------------------------------------------- #
 
-class _FlashAttention(torch.autograd.Function):
-    """Forward saves (q, k, v, valid_len, out, lse); backward runs the dq
-    kernel (which computes Δ) and then the dk/dv kernel (CUDA), or the
-    plain analytic backward (CPU)."""
+def block_fwd(q, k, v, valid_len, causal=False, scale=None):
+    """One block's ``(out, lse)`` with no autograd: the forward kernel on
+    CUDA tensors, ``dense_attn_lse`` on the CPU."""
+    if q.is_cuda:
+        return _flash_fwd_cuda(q, k, v, valid_len, causal, scale)
+    return dense_attn_lse(q, k, v, valid_len, causal, scale)
+
+
+def block_attn_bwd(q, k, v, valid_len, out, lse, dout, causal=False,
+                   scale=None):
+    """The backward of one block against an outside ``(out, lse)``: the
+    port of the JAX ring's ``_block_bwd_any``. With the GLOBAL lse and
+    the MERGED output of a ring, p = exp(s - lse) is exact for every
+    block. CUDA tensors run the dq launch (which computes Δ from ``out``)
+    and then the dk/dv launch; CPU tensors ``dense_attn_bwd``. ``dout``
+    is cast to q's dtype (the kernels take it so). Returns
+    ``(dq, dk, dv)`` in the inputs' dtypes."""
+    dout = dout.to(q.dtype).contiguous()
+    if q.is_cuda:
+        dq, delta = _flash_bwd_dq_cuda(q, k, v, valid_len, dout, out, lse,
+                                       causal, scale)
+        dk, dv = _flash_bwd_dkv_cuda(q, k, v, valid_len, dout, lse, delta,
+                                     causal, scale)
+        return dq, dk, dv
+    return dense_attn_bwd(q, k, v, valid_len, out, lse, dout, causal,
+                          scale)
+
+
+class _BlockAttnLse(torch.autograd.Function):
+    """``(out, lse)`` of one block; the lse is not differentiable (its
+    cotangent is dropped), as in the JAX ``block_attn_lse``. The forward
+    saves (q, k, v, valid_len, out, lse); the backward runs the dq kernel
+    (which computes Δ) and then the dk/dv kernel (CUDA), or the plain
+    analytic backward (CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, valid_len, causal, scale):
-        if q.is_cuda:
-            out, lse = _flash_fwd_cuda(q, k, v, valid_len, causal, scale)
-        else:
-            out, lse = dense_attn_lse(q, k, v, valid_len, causal, scale)
+        out, lse = block_fwd(q, k, v, valid_len, causal, scale)
         ctx.save_for_backward(q, k, v, valid_len, out, lse)
         ctx.causal, ctx.scale = causal, scale
-        return out
+        ctx.mark_non_differentiable(lse)
+        return out, lse
 
     @staticmethod
-    def backward(ctx, dout):
+    def backward(ctx, dout, dlse):
         q, k, v, valid_len, out, lse = ctx.saved_tensors
-        dout = dout.to(q.dtype).contiguous()
-        if q.is_cuda:
-            dq, delta = _flash_bwd_dq_cuda(q, k, v, valid_len, dout, out,
-                                           lse, ctx.causal, ctx.scale)
-            dk, dv = _flash_bwd_dkv_cuda(q, k, v, valid_len, dout, lse,
-                                         delta, ctx.causal, ctx.scale)
-        else:
-            dq, dk, dv = dense_attn_bwd(q, k, v, valid_len, out, lse, dout,
-                                        ctx.causal, ctx.scale)
+        if dout is None:
+            dout = torch.zeros_like(out)
+        dq, dk, dv = block_attn_bwd(q, k, v, valid_len, out, lse, dout,
+                                    ctx.causal, ctx.scale)
         return dq, dk, dv, None, None, None
+
+
+def _kernel_args(q, k, v, valid_len):
+    if q.is_cuda:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        valid_len = valid_len.to(device=q.device,
+                                 dtype=torch.int32).contiguous()
+    return q, k, v, valid_len
+
+
+def block_attn_lse(q, k, v, valid_len, causal=False, scale=None):
+    """One attention block returning ``(out, lse)``: the port of the JAX
+    ``ops/pallas_attention.py`` ``block_attn_lse``. q/k/v (B, H, T, D),
+    ``valid_len`` (B,) key lengths; out in q's dtype, lse (B, H, Tq) f32.
+    The lse is what makes partial results mergeable across ring steps
+    (``parallel/ring_attention.py``); it is not differentiable. CUDA
+    tensors run the forward kernel and, in the backward, the dq and dk/dv
+    kernels from the saved lse; CPU tensors the plain versions."""
+    q, k, v, valid_len = _kernel_args(q, k, v, valid_len)
+    return _BlockAttnLse.apply(q, k, v, valid_len, bool(causal), scale)
 
 
 def flash_attention_bhtd(q, k, v, valid_len, causal=False, scale=None):
     """Flash attention in (B, H, T, D) layout with its backward.
     ``valid_len`` (B,) int key lengths (capped at Tk). CUDA tensors run
     the kernels, CPU tensors the plain versions. Returns (B, H, Tq, D)."""
-    if q.is_cuda:
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        valid_len = valid_len.to(device=q.device,
-                                 dtype=torch.int32).contiguous()
-    return _FlashAttention.apply(q, k, v, valid_len, bool(causal), scale)
+    return block_attn_lse(q, k, v, valid_len, causal, scale)[0]
 
 
 def cuda_kernel_eligible(D, causal=False, Tq=None, Tk=None):

@@ -16,7 +16,10 @@ which leaves the values as they are.
   gradient reductions (mean by ``ReduceOp.AVG`` on NCCL; gloo has no AVG,
   so a sum and one division there);
 - ``ring_allreduce_flat``: a ring of ``send`` / ``recv`` (reduce-scatter
-  pass, then all-gather pass);
+  pass, then all-gather pass) through ``ring_hop``;
+- ``ppermute``, ``psum``, ``gather_tiles``: the collectives of the
+  sequence and tensor-parallel forward, with autograd (each backward the
+  forward's adjoint: a hop back, a sum, a reduce-scatter);
 - ``int8_bucket_allreduce``: one global amax (``all_reduce(MAX)``), int32
   code sum, dequantize; a non-finite member poisons every output;
 - ``host_allreduce`` (``compression="bf16"`` too) and the 2-bit codec
@@ -33,7 +36,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["group_size", "all_reduce_mean_", "reduce_scatter",
-           "all_gather", "ring_allreduce_flat", "int8_bucket_allreduce",
+           "all_gather", "ring_allreduce_flat", "ring_hop", "ppermute",
+           "psum", "gather_tiles", "int8_bucket_allreduce",
            "host_allreduce", "quantize_2bit", "host_allreduce_2bit",
            "GradBucket", "plan_grad_buckets", "BucketSchedule",
            "bucket_limit", "host_broadcast", "host_barrier"]
@@ -137,19 +141,9 @@ def ring_allreduce_flat(flat: torch.Tensor, group=None,
     buf[:n] = flat
     buf = buf.reshape(s, chunk)
     r = dist.get_rank(group)
-    nxt = dist.get_global_rank(group, (r + 1) % s) if group is not None \
-        else (r + 1) % s
-    prv = dist.get_global_rank(group, (r - 1) % s) if group is not None \
-        else (r - 1) % s
 
     def hop(t):
-        got = torch.empty_like(t)
-        reqs = dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, t.contiguous(), nxt, group),
-            dist.P2POp(dist.irecv, got, prv, group)])
-        for q in reqs:
-            q.wait()
-        return got
+        return ring_hop(t, group)
 
     partial = buf[r].clone()
     for t in range(s - 1):
@@ -161,6 +155,92 @@ def ring_allreduce_flat(flat: torch.Tensor, group=None,
         partial = hop(partial)
         out[(owned - t - 1) % s] = partial
     return out.reshape(-1)[:n]
+
+
+def _peer(group, i: int) -> int:
+    """The global rank of ``group``'s rank ``i``."""
+    return i if group is None else dist.get_global_rank(group, i)
+
+
+def ring_hop(t: torch.Tensor, group=None, shift: int = 1) -> torch.Tensor:
+    """``t`` sent to the rank ``shift`` places ahead on ``group``'s ring
+    while the one ``shift`` places behind is received (a ``lax.ppermute``
+    by ``shift``): one send and one receive in one
+    ``dist.batch_isend_irecv``. ``t`` itself on a ring of one."""
+    s = group_size(group)
+    if s == 1:
+        return t
+    r = dist.get_rank(group)
+    t = t.contiguous()
+    got = torch.empty_like(t)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, t, _peer(group, (r + shift) % s), group),
+        dist.P2POp(dist.irecv, got, _peer(group, (r - shift) % s), group)])
+    for q in reqs:
+        q.wait()
+    return got
+
+
+# ----------------------------------------------------------------------- #
+# differentiable collectives (the traced ``lax`` ones of the JAX module):
+# each backward is its forward's adjoint over the ranks, so a rank's
+# gradients are those of the SUM of every rank's loss (see parallel/spmd.py)
+# ----------------------------------------------------------------------- #
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return ring_hop(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ring_hop(g, ctx.group, -ctx.shift), None, None
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        if _grouped():
+            dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        if _grouped():
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+class _GatherTiles(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
+        return all_gather(x, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.axis, op="sum"), None, None
+
+
+def ppermute(x: torch.Tensor, group=None, shift: int = 1) -> torch.Tensor:
+    """``ring_hop`` with autograd: the gradient hops back."""
+    return _PPermute.apply(x, group, shift)
+
+
+def psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over ``group`` of every rank's ``x``, with autograd (the
+    backward sums the gradients over ``group``)."""
+    return _PSum.apply(x, group)
+
+
+def gather_tiles(x: torch.Tensor, group=None, axis: int = 0) -> torch.Tensor:
+    """The ranks' tiles of ``x`` concatenated on ``axis`` in rank order,
+    with autograd (the backward reduce-scatters the gradient: each rank
+    gets the sum over the ranks of its tile's)."""
+    return _GatherTiles.apply(x, group, axis)
 
 
 def int8_bucket_allreduce(vals, group=None):

@@ -17,13 +17,17 @@ coordinator) gets a ``LocalMesh`` of one rank, with the same ``shape``,
 ``mesh_dim_names`` and ``size()``: every collective over it is the
 identity.
 
+``axis_index`` and ``axis_group`` give a rank's coordinate and the
+process group along one axis (the ``DeviceMesh``'s sub-group).
+
 Axis names (as in the JAX package):
     dp    data parallelism (the batch is split; gradients averaged)
     fsdp  parameter sharding fused with dp (optimizer state on the shard)
-    tp    tensor parallelism      \\
-    sp    sequence parallelism     | not ported yet: a mesh with one of
-    pp    pipeline stages          | them > 1 raises (ROADMAP Queue 1
-    ep    expert parallelism      /  item 11)
+    tp    tensor parallelism (attention heads, MLP hidden units, the
+          optimizer state of vocab-split embeddings)
+    sp    sequence parallelism (ring attention over the sequence's blocks)
+    pp    pipeline stages     \\ not ported yet: a mesh with one of them
+    ep    expert parallelism  /  > 1 raises (ROADMAP Queue 1 item 11)
 """
 
 from __future__ import annotations
@@ -39,11 +43,12 @@ from ..base import MXNetError
 
 __all__ = ["AXES", "MeshConfig", "LocalMesh", "build_mesh",
            "set_default_mesh", "default_mesh", "current_mesh",
-           "initialize", "named_sharding", "axis_sizes", "world_size",
+           "initialize", "named_sharding", "axis_sizes", "axis_index",
+           "axis_group", "world_size",
            "rank", "is_distributed"]
 
 AXES = ("dp", "fsdp", "tp", "sp", "pp", "ep")
-_NOT_PORTED_AXES = ("tp", "sp", "pp", "ep")
+_NOT_PORTED_AXES = ("pp", "ep")
 
 _DEFAULT_MESH = None
 
@@ -121,6 +126,19 @@ def axis_sizes(mesh) -> Dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
+def axis_index(mesh, axis: str) -> int:
+    """This rank's coordinate on ``axis`` of ``mesh``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))[axis]
+
+
+def axis_group(mesh, axis: str):
+    """The process group of the ranks that differ from this one on
+    ``axis`` only (None on a ``LocalMesh``, whose axes are all 1)."""
+    if isinstance(mesh, LocalMesh):
+        return None
+    return mesh.get_group(axis)
+
+
 def _device_type() -> str:
     from ..context import current_context
     return "cuda" if current_context().device_type == "gpu" else "cpu"
@@ -148,8 +166,8 @@ def build_mesh(config: Optional[MeshConfig] = None,
     if wide:
         raise MXNetError(
             f"build_mesh: the {'/'.join(wide)} axis is not ported yet "
-            f"(tensor, sequence, pipeline and expert parallelism are "
-            f"ROADMAP Queue 1 item 11); dp and fsdp run")
+            f"(pipeline and expert parallelism are ROADMAP Queue 1 item "
+            f"11); dp, fsdp, tp and sp run")
     dtype = _device_type()
     if not is_distributed():
         return LocalMesh(dtype)

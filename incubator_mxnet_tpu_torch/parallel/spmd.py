@@ -1,5 +1,6 @@
-"""The fused training step over a dp x fsdp mesh: the port of the JAX
-package's ``incubator_mxnet_tpu/parallel/spmd.py`` ``SPMDTrainer``.
+"""The fused training step over a dp x fsdp x tp x sp mesh: the port of
+the JAX package's ``incubator_mxnet_tpu/parallel/spmd.py`` ``SPMDTrainer``,
+``constrain`` and ``activation_sharding_scope``.
 
 A step is the JAX program's sequence:
 
@@ -109,6 +110,30 @@ all-gathers run on the host around each backward):
 A process with no process group runs the step with no collective, as
 the JAX trainer on a one-device mesh does.
 
+Tensor and sequence parallelism (the tp and sp axes). The ranks of one
+batch tile differ in tp and sp only, and get the same tile. The step
+runs its forward and backward inside ``activation_sharding_scope(mesh)``:
+
+- on a tp axis a gluon ``Dense`` whose weight hint names tp computes
+  this rank's tile (``tp_linear``: column-parallel, or row-parallel with
+  the partial products summed over tp), and the models run attention on
+  the rank's heads; every rank holds its parameters whole (as under
+  fsdp), and the update of a tp-hinted parameter runs on its tile;
+- a ``seq_parallel`` model splits its sequence over sp (``constrain``)
+  and runs attention by the ring (``parallel/ring_attention.py``);
+- each cross-rank step of the forward (``constrain``, the tp sums, the
+  ring's hops) has its adjoint over the ranks as its backward, so a
+  rank's gradients are those of the SUM of every rank's loss. The ranks'
+  losses sum to the world size times the global loss (a rank's loss is
+  its share of its tile's, scaled to the whole, where the sequence is
+  split; the tile's whole loss where it is not). So every gradient is
+  averaged over every rank, whatever the parameter's placement: a
+  replicated one by the world's all-reduce, a sharded one (the
+  ``_shard_plan``: the JAX ``_param_sharding`` rule, tp hints kept and
+  fsdp on a free dimension) reduce-scattered over each axis of its plan
+  and averaged over the others. A weighted mean loss normalizes by the
+  global weight sum (``split_sum``).
+
 Not ported, and refused with ``MXNetError`` (ROADMAP Queue 1 item 11's
 next slice: pipeline parallelism): ``pipeline=``, ``int8_allreduce``,
 ``remat_plan`` and ``grad_collective="ring"``; and ``sharding="fsdp"``
@@ -142,7 +167,9 @@ from . import collectives as _coll
 from . import mesh as _mesh
 
 __all__ = ["SPMDTrainer", "batch_group", "gather_full_params",
-           "shard_params", "replicate"]
+           "shard_params", "replicate", "constrain",
+           "activation_sharding_scope", "active_mesh", "TPAxis",
+           "tp_linear", "vocab_split", "vocab_ce", "split_sum"]
 
 
 _INPUTS = (("t", (), torch.float32), ("lr", (), torch.float32),
@@ -256,6 +283,202 @@ def batch_group():
     return _BATCH_GROUP.get()
 
 
+# The mesh of the running SPMDTrainer step: ``constrain``, the
+# tensor-parallel layers and the sequence-parallel models read it (outside
+# a step, or on a mesh whose tp and sp axes are 1, they do what one device
+# does).
+_ACTIVE_MESH = contextvars.ContextVar("mxtpu_active_mesh", default=None)
+
+
+@contextlib.contextmanager
+def activation_sharding_scope(mesh):
+    """Make ``mesh`` the active mesh inside the block (the trainer's step
+    runs its forward and backward in one)."""
+    tok = _ACTIVE_MESH.set(mesh)
+    try:
+        yield
+    finally:
+        _ACTIVE_MESH.reset(tok)
+
+
+def active_mesh():
+    """The mesh of the innermost ``activation_sharding_scope``, or None."""
+    return _ACTIVE_MESH.get()
+
+
+# the axes a layout change moves data over on a rank: the batch axes (dp,
+# fsdp) name the tile the trainer already cut from the global batch
+_MOVING = ("tp", "sp")
+
+
+def _canonical(entry, sizes):
+    axes = tuple(entry) if isinstance(entry, (tuple, list)) else \
+        ((entry,) if entry is not None else ())
+    kept = tuple(a for a in axes if sizes.get(a, 1) > 1)
+    if set(kept) == {"dp", "fsdp"}:
+        kept = ("fsdp", "dp")
+    return kept
+
+
+def constrain(x, *spec, mesh=None, src=None):
+    """Put an activation into the layout ``spec`` names on this rank: the
+    port of the JAX ``constrain`` (``lax.with_sharding_constraint``),
+    where GSPMD moves the data; here the move is explicit and
+    differentiable. Each ``spec`` entry is an axis name, a tuple of them
+    or None; axes absent from the mesh or of size 1 are dropped, and
+    ``("dp", "fsdp")`` in either order is canonicalized to
+    ``("fsdp", "dp")``, as in JAX. ``src`` is the layout ``x`` is in
+    (default: the trainer's, the batch tile with nothing on tp or sp).
+
+    Only the tp and sp axes move data (the batch axes name the tile the
+    trainer already cut): a dimension ENTERING an axis is sliced to this
+    rank's tile (its gradient is the tile's, zero elsewhere); one LEAVING
+    an axis is all-gathered over it (its gradient is reduce-scattered, the
+    sum over the ranks of each tile's). These are the adjoints over the
+    ranks, under which a rank's gradients are those of the sum of every
+    rank's loss, and ``SPMDTrainer`` averages the gradients over every
+    rank (see ``SPMDTrainer``). The identity with no mesh (active or
+    given) and when nothing moves."""
+    if mesh is None:
+        mesh = _ACTIVE_MESH.get()
+    if mesh is None:
+        return x
+    sizes = _mesh.axis_sizes(mesh)
+    dst = [_canonical(e, sizes) for e in spec]
+    cur = [_canonical(e, sizes) for e in (src or ())]
+    if not any(a in _MOVING for e in dst + cur for a in e):
+        return x
+    is_nd = isinstance(x, NDArray)
+    t = x._data if is_nd else x
+    dst += [()] * (t.dim() - len(dst))
+    cur += [()] * (t.dim() - len(cur))
+    for d in range(t.dim()):
+        have = [a for a in cur[d] if a in _MOVING]
+        want = [a for a in dst[d] if a in _MOVING]
+        for a in reversed(have):
+            if a not in want:
+                t = _coll.gather_tiles(t, _mesh.axis_group(mesh, a), d)
+        for a in want:
+            if a not in have:
+                n = t.shape[d] // sizes[a]
+                if n * sizes[a] != t.shape[d]:
+                    raise MXNetError(
+                        f"constrain: dimension {d} of size {t.shape[d]} "
+                        f"does not divide over the {a} axis of "
+                        f"{sizes[a]}")
+                t = t.narrow(d, _mesh.axis_index(mesh, a) * n, n)
+    return NDArray(t) if is_nd else t
+
+
+def split_sum(x, seq: bool = False):
+    """``(n, total)``: the number of ranks that split the global batch
+    in the active step (dp x fsdp, times sp when ``seq``: the sequence is
+    split too) and ``x`` (a tensor) summed over them; ``(1, x)`` outside
+    a step. A loss normalized by a global sum (a weighted mean) is
+    ``n x (its rank's numerator) / total`` on each rank: the trainer's
+    mean over the ranks is then the global batch's."""
+    mesh = _ACTIVE_MESH.get()
+    if mesh is None:
+        return 1, x
+    sizes = _mesh.axis_sizes(mesh)
+    n = 1
+    for a in ("dp", "fsdp") + (("sp",) if seq else ()):
+        if sizes[a] > 1:
+            x = _coll.psum(x, _mesh.axis_group(mesh, a))
+            n *= sizes[a]
+    return n, x
+
+
+class TPAxis:
+    """A rank's place on the tp axis: ``size``, ``index`` and ``group``."""
+
+    def __init__(self, size: int, index: int = 0, group=None):
+        self.size, self.index, self.group = int(size), int(index), group
+
+    @classmethod
+    def of(cls, mesh) -> Optional["TPAxis"]:
+        """The tp axis of ``mesh`` (default: the active one) when it has
+        more than one rank, else None."""
+        mesh = _ACTIVE_MESH.get() if mesh is None else mesh
+        if mesh is None or _mesh.axis_sizes(mesh)["tp"] <= 1:
+            return None
+        return cls(_mesh.axis_sizes(mesh)["tp"],
+                   _mesh.axis_index(mesh, "tp"),
+                   _mesh.axis_group(mesh, "tp"))
+
+    def rows(self, t, groups: int = 1):
+        """This rank's tile of ``t``'s first dimension, read as ``groups``
+        equal parts each split over tp (q, k and v of a fused projection:
+        ``groups=3``, so a rank keeps whole heads of each)."""
+        n = t.shape[0] // (groups * self.size)
+        if groups == 1:
+            return t.narrow(0, self.index * n, n)
+        return t.reshape((groups, t.shape[0] // groups) + t.shape[1:]) \
+            .narrow(1, self.index * n, n).reshape((groups * n,) + t.shape[1:])
+
+    def cols(self, t):
+        """This rank's tile of ``t``'s last dimension."""
+        n = t.shape[-1] // self.size
+        return t.narrow(-1, self.index * n, n)
+
+
+def vocab_split(tp: Optional[TPAxis], vocab: int) -> Optional[TPAxis]:
+    """``tp`` when logits over ``vocab`` are split over it (the JAX
+    models' vocab-split logits), None when there is no tp axis or it
+    does not divide the vocabulary (the head then computes it whole)."""
+    return tp if tp is not None and vocab % tp.size == 0 else None
+
+
+def vocab_ce(logits, labels, tp: TPAxis):
+    """``(label score, logsumexp)`` over a vocabulary split over tp, in
+    f32: ``logits`` (..., V / tp) this rank's tile, ``labels`` (...) ids
+    in the whole vocabulary. The maximum is a ``MAX`` all-reduce (no
+    gradient: the logsumexp does not depend on it), the sum of the
+    exponentials and the label's score (one rank's tile holds it) are
+    ``psum``-s over tp; every tp rank gets the same values."""
+    lf = logits.float()
+    m = lf.detach().amax(dim=-1)
+    if tp.group is not None:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=tp.group)
+    total = _coll.psum(torch.exp(lf - m[..., None]).sum(dim=-1), tp.group)
+    lse = torch.log(total) + m
+    n = logits.shape[-1]
+    local = labels.long() - tp.index * n
+    inside = (local >= 0) & (local < n)
+    pick = torch.gather(lf, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    score = _coll.psum(torch.where(inside, pick, torch.zeros_like(pick)),
+                       tp.group)
+    return score, lse
+
+
+def _tp_entry(hint, dim):
+    if hint is None or dim >= len(hint):
+        return False
+    e = hint[dim]
+    return e == "tp" or (isinstance(e, (tuple, list)) and "tp" in e)
+
+
+def tp_linear(x, weight, bias, hint, tp: Optional[TPAxis], groups: int = 1):
+    """A Dense layer's ``x @ weight.T + bias`` on this rank's tile when
+    the weight's sharding hint names tp (None when it does not, or when
+    ``tp`` is None): ``("tp", None)`` is column-parallel (the rank
+    computes its tile of the output features from the whole input; with
+    ``groups`` parts, whole heads of each), ``(None, "tp")`` row-parallel
+    (the input is this rank's tile of the features; the partial products
+    are summed over tp with ``psum``, whose backward sums the input's
+    gradient over tp too). Tensors in, a tensor out."""
+    import torch.nn.functional as F
+    if tp is None:
+        return None
+    if _tp_entry(hint, 0):
+        return F.linear(x, tp.rows(weight, groups),
+                        None if bias is None else tp.rows(bias, groups))
+    if _tp_entry(hint, 1):
+        y = _coll.psum(F.linear(x, tp.cols(weight)), tp.group)
+        return y if bias is None else y + bias
+    return None
+
+
 def _not_ported(what):
     return MXNetError(f"SPMDTrainer: {what} is not ported yet (pipeline "
                       f"parallelism, ROADMAP Queue 1 item 11's next "
@@ -276,6 +499,48 @@ def _fsdp_dim(shape, size: int) -> Optional[int]:
     return None
 
 
+def _hint_of(param):
+    """A parameter's sharding hint (the JAX ``Parameter._sharding``
+    ``PartitionSpec``, here a tuple), or None."""
+    hint = getattr(param, "_sharding", None)
+    return None if hint is None else tuple(hint)
+
+
+def _shard_plan(shape, sizes, mode: str, hint=None):
+    """How a parameter of ``shape`` is sharded on a mesh of axis
+    ``sizes``: ``((dim, axis), ...)`` in the order the tiles nest (an
+    entry naming two axes on one dimension is major-first), empty for a
+    replicated parameter. The JAX ``_param_sharding`` rule: the hint (tp
+    on a dimension) kept, and under ``sharding="fsdp"`` the ``_fsdp_spec``
+    rule extending it (the first free dimension the fsdp size divides; a
+    parameter with no hint only when rank >= 2 and at least
+    ``MXTPU_FSDP_MIN_SIZE`` elements); axes of size 1 dropped."""
+    entries = list(hint or ()) + [None] * (len(shape) - len(hint or ()))
+    fsdp = sizes["fsdp"]
+    if mode == "fsdp" and fsdp > 1:
+        used = {a for e in entries if e is not None
+                for a in (e if isinstance(e, (tuple, list)) else (e,))}
+        if hint is None:
+            d = _fsdp_dim(shape, fsdp)
+            if d is not None:
+                entries[d] = "fsdp"
+        elif "fsdp" not in used:
+            for d, n in enumerate(shape):
+                if entries[d] is None and n % fsdp == 0 and n >= fsdp:
+                    entries[d] = "fsdp"
+                    break
+    plan = []
+    for d, e in enumerate(entries):
+        n = shape[d]
+        for a in (e if isinstance(e, (tuple, list)) else (e,)):
+            # a dimension an axis does not divide stays whole on it (the
+            # JAX placement pads such a shard)
+            if a is not None and sizes.get(a, 1) > 1 and n % sizes[a] == 0:
+                plan.append((d, a))
+                n //= sizes[a]
+    return tuple(plan)
+
+
 def _mesh_of(mesh):
     """The trainer's mesh: ``build_mesh``'s, or the process default for
     None and for a list naming one device."""
@@ -294,7 +559,7 @@ def _mesh_of(mesh):
 
 
 class SPMDTrainer:
-    """Fused train step over a dp x fsdp mesh (see the module's
+    """Fused train step over a dp x fsdp x tp x sp mesh (see the module's
     docstring).
 
     Parameters follow the JAX package's: ``block`` (an ``nn.Module``; a
@@ -333,22 +598,22 @@ class SPMDTrainer:
         if grad_collective not in (None, "psum"):
             raise _not_ported(f"grad_collective={grad_collective!r}")
         self.mesh = _mesh_of(mesh)
-        sizes = _mesh.axis_sizes(self.mesh)
+        sizes = self._sizes = _mesh.axis_sizes(self.mesh)
         self._fsdp_size = sizes["fsdp"]
         self._dp_size = sizes["dp"]
         self._replicas = sizes["dp"] * sizes["fsdp"]
         # collectives run over a process group's mesh (world 1 too)
         self._collective = not isinstance(self.mesh, _mesh.LocalMesh)
-        coord = dict(zip(self.mesh.mesh_dim_names,
-                         self.mesh.get_coordinate()))
-        # the rank's batch tile: fsdp-major, as JAX's ("fsdp", "dp")
+        coord = self._coord = dict(zip(self.mesh.mesh_dim_names,
+                                       self.mesh.get_coordinate()))
+        # the rank's batch tile: fsdp-major, as JAX's ("fsdp", "dp"); the
+        # ranks of one tile differ in tp and sp only
         self._batch_index = coord["fsdp"] * sizes["dp"] + coord["dp"]
         self._fsdp_index = coord["fsdp"]
         self._dp_index = coord["dp"]
-        self._fsdp_group = self.mesh.get_group("fsdp") \
-            if self._collective else None
-        self._dp_group = self.mesh.get_group("dp") \
-            if self._collective else None
+        self._groups = {a: _mesh.axis_group(self.mesh, a)
+                        for a in ("dp", "fsdp", "tp", "sp")
+                        if self._collective and sizes[a] > 1}
         self.block = block
         self.loss = loss
         self.forward_loss = forward_loss
@@ -389,17 +654,26 @@ class SPMDTrainer:
                 **(optimizer_params or {}))
         else:
             self._optimizer = optimizer
-        if sharding == "fsdp" and norm_based(self._optimizer):
+        # each trainable parameter's shard plan (_shard_plan; empty:
+        # replicated) aligned with _train_idx, the dimension it starts
+        # on (None: replicated), and its shard tensors
+        hints = {}
+        if self._gluon:
+            for p in block.collect_params().values():
+                hints[id(p._var)] = _hint_of(p)
+        self._shard_plans = [
+            _shard_plan(tuple(self._params[i].shape), sizes, sharding,
+                        hints.get(id(self._params[i])))
+            for i in self._train_idx]
+        self._shard_dims = [plan[0][0] if plan else None
+                            for plan in self._shard_plans]
+        if norm_based(self._optimizer) and (
+                sharding == "fsdp" or any(self._shard_plans)):
             raise MXNetError(
-                f"SPMDTrainer: sharding='fsdp' with "
+                f"SPMDTrainer: sharding='fsdp' or a tp axis with "
                 f"{type(self._optimizer).__name__} is not ported: its "
-                f"trust ratio reads the whole parameter's norm and the "
-                f"fsdp update runs on a shard")
-        # fsdp: the sharded dimension of each trainable parameter (None:
-        # replicated), aligned with _train_idx; its shard tensors
-        self._shard_dims = [
-            _fsdp_dim(tuple(self._params[i].shape), self._fsdp_size)
-            if sharding == "fsdp" else None for i in self._train_idx]
+                f"trust ratio reads the whole parameter's norm and a "
+                f"sharded update runs on a shard")
         self._shards = None
         self._buckets = None        # plan of the replicated gradients
         self._opt_state = None      # list aligned with self._train_idx
@@ -441,24 +715,38 @@ class SPMDTrainer:
         return snap
 
     # ------------------------------------------------------------------ #
-    def _shard_slice(self, slot: int):
-        """``(dim, start, length)`` of trainable ``slot``'s fsdp shard, or
-        None for a replicated parameter."""
-        d = self._shard_dims[slot]
-        if d is None:
+    def _shard_box(self, slot: int):
+        """``[(dim, start, length), ...]`` of trainable ``slot``'s shard
+        (one entry a sharded dimension), or None for a replicated
+        parameter."""
+        plan = self._shard_plans[slot]
+        if not plan:
             return None
-        n = self._params[self._train_idx[slot]].shape[d] // self._fsdp_size
-        return d, self._fsdp_index * n, n
+        shape = self._params[self._train_idx[slot]].shape
+        box = {}
+        for d, a in plan:
+            start, n = box.get(d, (0, shape[d]))
+            n //= self._sizes[a]
+            box[d] = (start + self._coord[a] * n, n)
+        return [(d, start, n) for d, (start, n) in sorted(box.items())]
+
+    def _writes_shard(self, slot: int) -> bool:
+        """Whether this rank writes slot's shard into a checkpoint: the
+        rank of coordinate 0 on every axis the shard is not split over."""
+        split = {a for _, a in self._shard_plans[slot]}
+        return all(self._coord[a] == 0 for a in ("dp", "fsdp", "tp", "sp")
+                   if a not in split)
 
     def _materialize(self):
         """The optimizer state (and under fsdp each sharded parameter's
         shard tensor, which the update writes), made at the first step."""
         self._shards = []
         for slot, i in enumerate(self._train_idx):
-            sl = self._shard_slice(slot)
-            self._shards.append(
-                None if sl is None else
-                self._params[i].detach().narrow(*sl).clone())
+            box = self._shard_box(slot)
+            t = self._params[i].detach()
+            for d, start, n in box or ():
+                t = t.narrow(d, start, n)
+            self._shards.append(None if box is None else t.clone())
         self._opt_state = [
             self._optimizer.create_state_multi_precision(i, t)
             for i, t in zip(self._train_idx, self._targets())]
@@ -496,7 +784,8 @@ class SPMDTrainer:
         try:
             with torch.enable_grad(), autograd.record(train_mode=True), \
                     _sync_scope(None if not self._collective else
-                                dist.group.WORLD):
+                                dist.group.WORLD), \
+                    activation_sharding_scope(self.mesh):
                 if self.forward_loss is not None:
                     L = self.forward_loss(self.block, *batch)
                 else:
@@ -516,17 +805,27 @@ class SPMDTrainer:
 
     @torch.no_grad()
     def _reduce(self, loss, grads):
-        """The loss and the gradients averaged over dp x fsdp: replicated
-        gradients by buckets of one flat all-reduce each, sharded ones
-        reduce-scattered over fsdp (then averaged over dp), so each
-        sharded gradient comes back as this rank's shard. The floating
-        buffers the forward wrote are averaged too. Without a process
-        group, the inputs as they are."""
+        """The loss and the gradients averaged over every rank:
+        replicated gradients by buckets of one flat all-reduce each over
+        the world, sharded ones reduce-scattered over each axis of their
+        plan (the mean; each comes back as this rank's shard) and then
+        averaged over the other axes. The floating buffers the forward
+        wrote are averaged too. Without a process group, the inputs as
+        they are.
+
+        Every rank's gradients are those of the SUM of every rank's loss
+        (the collectives' backwards are their adjoints over the ranks),
+        and the losses sum to the world size times the global loss: the
+        ranks of a batch tile split its sequence (sp: each rank's loss is
+        its block's share scaled to the tile's) or compute it whole (tp,
+        and sp outside the sequence-parallel stretch). So the mean over
+        every rank is the global loss's gradient for every parameter,
+        wherever the model reads it."""
         if not self._collective:
             return loss, grads
         _coll.all_reduce_mean_(loss)
         out = list(grads)
-        dense = [k for k, d in enumerate(self._shard_dims) if d is None]
+        dense = [k for k, plan in enumerate(self._shard_plans) if not plan]
         if self._buckets is None:
             members = [(k, grads[k].numel(), grads[k].element_size(),
                         str(grads[k].dtype)) for k in dense]
@@ -538,27 +837,41 @@ class SPMDTrainer:
             for k, part in zip(members, flat.split(
                     [grads[k].numel() for k in members])):
                 out[k] = part.view(grads[k].shape)
-        for k, d in enumerate(self._shard_dims):
-            if d is not None:
-                out[k] = _coll.reduce_scatter(grads[k], self._fsdp_group, d,
-                                              op="mean")
-                if self._dp_size > 1:
-                    _coll.all_reduce_mean_(out[k], self._dp_group)
+        for k, plan in enumerate(self._shard_plans):
+            if not plan:
+                continue
+            g = grads[k]
+            for d, a in plan:
+                g = _coll.reduce_scatter(g, self._groups[a], d, op="mean")
+            split = {a for _, a in plan}
+            for a, group in self._groups.items():
+                if a not in split:
+                    _coll.all_reduce_mean_(g, group)
+            out[k] = g
         if _mesh.world_size() > 1:
             for b in self._buffers:
                 if b.is_floating_point():
                     _coll.all_reduce_mean_(b.data)
         return loss, out
 
+    def _gather(self, slot: int, out=None):
+        """Trainable ``slot``'s whole parameter from the ranks' shards
+        (into ``out`` when given): all-gathers over its plan's axes,
+        innermost first."""
+        t = self._shards[slot]
+        steps = list(reversed(self._shard_plans[slot]))
+        for j, (d, a) in enumerate(steps):
+            t = _coll.all_gather(t, self._groups[a], d,
+                                 out=out if j == len(steps) - 1 else None)
+        return t
+
     @torch.no_grad()
     def _gather_params(self):
         """Every sharded parameter rebuilt from the ranks' updated shards,
         written in place."""
         for slot, i in enumerate(self._train_idx):
-            d = self._shard_dims[slot]
-            if d is not None:
-                _coll.all_gather(self._shards[slot], self._fsdp_group, d,
-                                 out=self._params[i].detach())
+            if self._shard_plans[slot]:
+                self._gather(slot, out=self._params[i].detach())
 
     def _global_ok(self, ok):
         """The guard's flag, the minimum over the ranks."""
@@ -911,20 +1224,19 @@ def gather_full_params(trainer) -> dict:
     """``{name: numpy array}`` of every parameter of ``trainer``, each
     whole: a sharded parameter is all-gathered from the ranks' shards
     (the update's own tensors, not the resident full copy), a replicated
-    one read as it is. Every rank of the group must call it."""
+    one copied as it is (never a view of the live parameter, which later
+    steps update in place). Every rank of the group must call it."""
     out = {}
     slots = {i: k for k, i in enumerate(trainer._train_idx)}
     for i, (name, p) in enumerate(zip(trainer._names, trainer._params)):
         k = slots.get(i)
         if trainer._shards is not None and k is not None and \
                 trainer._shards[k] is not None:
-            full = _coll.all_gather(trainer._shards[k],
-                                    trainer._fsdp_group,
-                                    trainer._shard_dims[k])
+            full = trainer._gather(k)
         else:
             full = p.detach()
-        out[name] = full.float().cpu().numpy() \
-            if full.dtype == torch.bfloat16 else full.cpu().numpy()
+        out[name] = np.array(full.float().cpu() if full.dtype ==
+                             torch.bfloat16 else full.cpu())
     return out
 
 
@@ -936,17 +1248,22 @@ def replicate(mesh):
 
 def shard_params(block, mesh, mode: str = "replicated") -> dict:
     """``{name: placements}`` of every parameter of ``block`` over
-    ``mesh`` under ``mode`` ('replicated' or 'fsdp', the ``_fsdp_spec``
-    rule). Unlike the JAX function it moves nothing: a rank holds its
-    parameters whole on its own device and ``SPMDTrainer`` shards them
-    inside its step."""
-    size = _mesh.axis_sizes(mesh)["fsdp"]
+    ``mesh`` under ``mode`` ('replicated' or 'fsdp'; the ``_shard_plan``
+    rule, tp hints included). Unlike the JAX function it moves nothing: a
+    rank holds its parameters whole on its own device and ``SPMDTrainer``
+    shards their update inside its step."""
+    sizes = _mesh.axis_sizes(mesh)
+    hints = {}
+    if isinstance(block, Block):
+        hints = {id(p._var): _hint_of(p)
+                 for p in block.collect_params().values()}
     out = {}
     for name, p in block.named_parameters():
-        d = _fsdp_dim(tuple(p.shape), size) if mode == "fsdp" else None
         spec = [None] * p.dim()
-        if d is not None:
-            spec[d] = "fsdp"
+        for d, a in _shard_plan(tuple(p.shape), sizes, mode,
+                                hints.get(id(p))):
+            spec[d] = a if spec[d] is None else (
+                (spec[d] if isinstance(spec[d], tuple) else (spec[d],))
+                + (a,))
         out[name] = _mesh.named_sharding(mesh, *spec)
     return out
-

@@ -92,8 +92,16 @@ graphs hold them by address. ``warm_start(manager=)`` reads the
 ``param/<i>`` entries of a committed step of a ``checkpoint.
 CheckpointManager`` (a training capsule's or ``save_checkpoint``'s) and
 ``copy_``-s them in; ``install_preemption`` arms the manager's SIGTERM
-save. The tp ``mesh`` is not ported yet; asking for it raises
-``MXNetError``.
+save.
+
+``mesh=`` with a tp axis (``parallel.build_mesh`` over a process group,
+one engine a rank, every rank given the same requests): each rank's
+pools hold its H / tp heads, the step programs compute its heads with
+the ragged kernels (the qkv projection column-parallel by whole heads,
+the output projection and the MLP's second layer summed over tp:
+``parallel.spmd.tp_linear``), and the logits, identical on every rank,
+drive the same scheduling and sampling everywhere. The tiers
+(``kv_tiers``) are refused on a tp mesh.
 """
 
 from __future__ import annotations
@@ -358,10 +366,20 @@ class InferenceEngine:
                  tier_policies=None, max_preemptions=4,
                  recorder=None, component="engine",
                  kv_quant=None, kv_tiers=None, mesh=None, brownout=None):
-        if mesh is not None:
-            raise MXNetError(f"mesh={mesh!r}: the engine's tensor-"
-                             f"parallel mesh (the tp axis) is not ported "
-                             f"yet (ROADMAP Queue 1 item 11)")
+        # the tp axis: this rank's heads of the pools and its tiles of
+        # the weights (every rank makes the same decisions)
+        from ..parallel.spmd import TPAxis
+        if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
+            raise MXNetError(f"mesh={mesh!r}: pass a mesh of "
+                             f"parallel.build_mesh")
+        self._tp = None if mesh is None else TPAxis.of(mesh)
+        if self._tp is not None:
+            if model.num_heads % self._tp.size:
+                raise MXNetError(f"{model.num_heads} heads do not divide "
+                                 f"over the tp axis of {self._tp.size}")
+            if kv_tiers is not None:
+                raise MXNetError("kv_tiers on a tp mesh is not ported: a "
+                                 "tier's payload holds every head")
         self.model = model
         self.device = model.device
         self.num_slots = int(num_slots)
@@ -394,6 +412,8 @@ class InferenceEngine:
 
         H = model.num_heads
         D = model.units // H
+        if self._tp is not None:
+            H //= self._tp.size
         self._H, self._D = H, D
         # quantized pools: the per-page amax is HOST-owned metadata (one
         # (P,) f32 array per layer per pool), shipped to each program
@@ -775,9 +795,10 @@ class InferenceEngine:
         amax = i.get("amax")
         new_amax = [None] * (2 * len(self._kamax))
 
+        tp = self._tp
         x = _embed(model, i["tokens"], emb_pos)               # (S, W, U)
         for li, blk in enumerate(model.blocks):
-            q, k, v = _qkv_heads(blk.attn, _norm(blk.ln1, x))  # (S,W,H,D)
+            q, k, v = _qkv_heads(blk.attn, _norm(blk.ln1, x), tp)
             kp, vp, ks, vs = self._write_kv(li, k, v, wpage, woff, amax,
                                             new_amax)
             q = q.to(self._attn_dtype(kp))
@@ -789,9 +810,9 @@ class InferenceEngine:
                 out = ragged_verify_attention(
                     q.contiguous(), kp, vp, i["table"], eff_len, dl,
                     k_scale=ks, v_scale=vs)
-            x = x + _linear(blk.attn.proj,
-                            out.to(x.dtype).reshape(S, W, model.units))
-            x = x + _mlp(blk, x)
+            x = x + _linear(blk.attn.proj, out.to(x.dtype).reshape(
+                S, W, self._H * self._D), tp)
+            x = x + _mlp(blk, x, tp)
         if amax is not None:
             o["amax"].copy_(torch.stack(new_amax))
         logits = _lm_head(model, x)                           # (S, W, V)
@@ -906,13 +927,15 @@ class InferenceEngine:
         new_amax = [None] * (2 * len(self._kamax))
         x = _embed(model, ids[None],
                    torch.clamp(ar, max=model.max_length - 1)[None])
+        tp = self._tp
         for li, blk in enumerate(model.blocks):
-            q, k, v = _qkv_heads(blk.attn, _norm(blk.ln1, x))  # (1,T,H,D)
+            q, k, v = _qkv_heads(blk.attn, _norm(blk.ln1, x), tp)
             self._write_kv(li, k[0], v[0], i["pages"], None, amax,
                            new_amax)
             out = _sdpa(q, k, v, mask=mask)
-            x = x + _linear(blk.attn.proj, out.reshape(1, T, model.units))
-            x = x + _mlp(blk, x)
+            x = x + _linear(blk.attn.proj, out.reshape(
+                1, T, self._H * self._D), tp)
+            x = x + _mlp(blk, x, tp)
         if amax is not None:
             o["amax"].copy_(torch.stack(new_amax))
         last = x[0].index_select(0, torch.clamp(t0 - 1, min=0))
@@ -943,16 +966,17 @@ class InferenceEngine:
         new_amax = [None] * (2 * len(self._kamax))
         x = _embed(model, ids[None],
                    torch.clamp(pos, max=model.max_length - 1)[None])
+        tp = self._tp
         for li, blk in enumerate(model.blocks):
-            q, k, v = _qkv_heads(blk.attn, _norm(blk.ln1, x))  # (1,C,H,D)
+            q, k, v = _qkv_heads(blk.attn, _norm(blk.ln1, x), tp)
             kp, vp, ks, vs = self._write_kv(li, k[0], v[0], tpage, toff,
                                             amax, new_amax)
             out = ragged_prefill_attention(
                 q[0].to(self._attn_dtype(kp)).contiguous(), kp, vp, row,
                 span, k_scale=ks, v_scale=vs)
-            x = x + _linear(blk.attn.proj,
-                            out.to(x.dtype).reshape(1, C, model.units))
-            x = x + _mlp(blk, x)
+            x = x + _linear(blk.attn.proj, out.to(x.dtype).reshape(
+                1, C, self._H * self._D), tp)
+            x = x + _mlp(blk, x, tp)
         if amax is not None:
             o["amax"].copy_(torch.stack(new_amax))
         last = x[0].index_select(0, torch.clamp(n_real - 1, min=0)[None])

@@ -12,8 +12,9 @@ wall-clock timer, and its ``main()`` runs with that checkout first on
 ``sys.path``, so the checkout's own package is the one driven. The
 script prints as it always does; then one line ``[phase_times] {...}``
 with the seconds of each phase call in order (a phase called twice is
-listed twice) and the total, also written to ``FILE`` as JSON. The exit
-code is ``main()``'s.
+listed twice) and the total, also written to ``FILE`` as JSON. The
+seconds are kept unrounded, so the phases of a run never sum past its
+total. The exit code is ``main()``'s.
 
 This file imports nothing of the package, so it can time any checkout.
 """
@@ -36,7 +37,7 @@ def _timed(name, fn, record):
         try:
             return fn(*args, **kwargs)
         finally:
-            record.append([name, round(time.perf_counter() - t0, 3)])
+            record.append([name, time.perf_counter() - t0])
     return wrapper
 
 
@@ -60,7 +61,7 @@ def run(checkout: str, record: list):
     sys.argv = [path]
     t0 = time.perf_counter()
     rc = mod.main()
-    return rc, round(time.perf_counter() - t0, 3)
+    return rc, time.perf_counter() - t0
 
 
 def main(argv=None):

@@ -200,8 +200,21 @@ def test_refused_options_and_default_device():
         assert tb.bert_tiny(remat=remat)._remat == remat
     with pytest.raises(ValueError, match="remat"):
         tb.bert_tiny(remat="bogus")
-    with pytest.raises(MXNetError, match="seq_parallel"):
-        tb.bert_tiny(seq_parallel=True)
+    # seq_parallel is ported (tests/test_torch_sp_tp.py runs it over sp
+    # ranks): accepted, and outside an SPMD step the plain encoder
+    with mx.cpu():
+        outs = []
+        for sp in (False, True):
+            mx.random.seed(2)
+            m = tb.bert_tiny(vocab_size=V, max_length=T, seq_parallel=sp,
+                             dropout=0.0)
+            m.initialize()
+            ids = mx.nd.array(np.random.RandomState(0).randint(
+                0, V, (2, T)), dtype="int32")
+            outs.append(m(ids, None, mx.nd.array([T, 5], dtype="int32"))[0]
+                        .asnumpy())
+        assert m._seq_parallel
+        np.testing.assert_array_equal(outs[0], outs[1])
     if not torch.cuda.is_available():
         with pytest.raises(MXNetError, match="no CUDA device"):
             tb.bert_tiny().initialize()

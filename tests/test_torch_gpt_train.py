@@ -21,8 +21,8 @@ seed and the JAX model's weights are carried across by structural name
     ``test_gpt_train_and_generate`` (single device; the JAX case's
     dp/fsdp/tp mesh is not ported), the KV-cache decode against the full
     recompute, and ``decode_forward``'s logits against the forward;
-  - the refusals (``seq_parallel``, ``lm_pipeline``) name ROADMAP's
-    Queue 1 item 11.
+  - ``seq_parallel=True`` outside an SPMD step is the plain model, and
+    the refusal of ``lm_pipeline`` names ROADMAP's Queue 1 item 11.
 """
 
 import numpy as np
@@ -231,9 +231,14 @@ def test_gpt_decode_forward_logits_match_full_forward(pair):
 
 
 def test_refusals_name_what_they_wait_for(pair):
-    _, tm = pair
-    with pytest.raises(MXNetError, match="item 11"):
-        tg.gpt_mini(seq_parallel=True)
+    jm, tm = pair
+    # seq_parallel is ported (tests/test_torch_sp_tp.py runs it over sp
+    # ranks); outside an SPMD step it is the plain model, as in JAX
+    sp = port_gpt(jm, vocab_size=V, max_length=32, seq_parallel=True)
+    ids = np.random.RandomState(1).randint(0, V, (2, 16))
+    with autograd.predict_mode():
+        np.testing.assert_array_equal(sp(_ids(ids)).asnumpy(),
+                                      tm(_ids(ids)).asnumpy())
     with pytest.raises(MXNetError, match="item 11"):
         tg.lm_pipeline(tm)
     with pytest.raises(ValueError, match="remat"):

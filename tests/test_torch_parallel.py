@@ -193,9 +193,17 @@ def test_build_mesh_and_initialize_in_one_process(monkeypatch):
         assert m.mesh_dim_names == jmesh.AXES == parallel.mesh.AXES
         assert parallel.mesh.axis_sizes(m) == {a: 1 for a in jmesh.AXES}
         assert m.size() == 1 and m.get_coordinate() == [0] * 6
-        for axes in ({"tp": 2}, {"sp": 2}, {"pp": 2}, {"ep": 2}):
+        for axes in ({"pp": 2}, {"ep": 2}):
             with pytest.raises(MXNetError, match="item 11"):
                 parallel.build_mesh(axis_sizes=axes)
+        # tp and sp are ported: one process holds one device, and the
+        # refusal is the JAX package's on one device
+        for axes in ({"tp": 2}, {"sp": 2}):
+            with pytest.raises(MXNetError) as port_err:
+                parallel.build_mesh(axis_sizes=axes)
+            with pytest.raises(Exception) as jax_err:
+                jmesh.build_mesh(devices=jax.devices()[:1], axis_sizes=axes)
+            assert str(port_err.value) == str(jax_err.value)
         with pytest.raises(MXNetError, match="mesh axes product"):
             parallel.build_mesh(axis_sizes={"dp": 2})      # one device
         with pytest.raises(MXNetError, match="one device per process"):
@@ -207,10 +215,18 @@ def test_build_mesh_and_initialize_in_one_process(monkeypatch):
     from torch.distributed.tensor import Replicate, Shard
     pl = parallel.mesh.named_sharding(m, "fsdp", None)
     assert pl[1] == Shard(0) and pl[0] == Replicate()
-    for name in ("pipeline_apply", "ring_self_attention", "switch_moe",
-                 "moe", "constrain"):
+    for name in ("pipeline_apply", "switch_moe", "moe", "pipeline",
+                 "stack_expert_params"):
         with pytest.raises(MXNetError, match="item 11"):
             getattr(parallel, name)
+    # ported: importable, and with no mesh active constrain is the
+    # identity, as the JAX one is
+    x = torch.arange(6.0).reshape(2, 3)
+    assert parallel.constrain(x, "dp", "tp") is x
+    with parallel.activation_sharding_scope(m):
+        assert parallel.constrain(x, ("dp", "fsdp"), "sp") is x
+    assert callable(parallel.ring_self_attention) and \
+        callable(parallel.ring_flash_attention)
 
 
 # ------------------------------------------------------------------ #

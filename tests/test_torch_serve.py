@@ -25,6 +25,7 @@ from incubator_mxnet_tpu.serve import InferenceEngine as JaxEngine
 from incubator_mxnet_tpu.serve import Request as JaxRequest
 from incubator_mxnet_tpu.serve import SamplingParams as JaxSampling
 
+import incubator_mxnet_tpu_torch as mx
 from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.checkpoint import CheckpointManager
 from incubator_mxnet_tpu_torch.models import gpt as tg
@@ -241,12 +242,18 @@ def test_latency_tier_preempts_batch_and_resume_is_exact(models):
 
 
 def test_out_of_scope_options_raise(models, tmp_path):
-    """What stays refused: the tp mesh. The checkpoint manager's entry
-    points run: a save, a warm start from it, the SIGTERM hook."""
+    """The tp mesh is ported (tests/test_torch_sp_tp.py runs it over two
+    tp ranks): a mesh whose tp axis is 1 is the unsharded engine, and
+    what is not a mesh raises. The checkpoint manager's entry points run:
+    a save, a warm start from it, the SIGTERM hook."""
     _, tm = models
-    with pytest.raises(MXNetError, match="not ported"):
+    with pytest.raises(MXNetError, match="build_mesh"):
         InferenceEngine(tm, num_slots=1, page_size=8, max_len=64,
                         mesh=object())
+    with mx.cpu():
+        one = InferenceEngine(tm, num_slots=1, page_size=8, max_len=64,
+                              mesh=mx.parallel.build_mesh())
+    assert one._tp is None and one._H == tm.num_heads
     eng = InferenceEngine(tm, num_slots=1, page_size=8, max_len=64)
     mgr = CheckpointManager(str(tmp_path))
     assert eng.save_checkpoint(mgr, step=5, block=True) == 5

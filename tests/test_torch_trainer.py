@@ -277,6 +277,11 @@ def test_refused_options(tmp_path):
     with pytest.raises(MXNetError, match="loss"):
         SPMDTrainer(tp, optimizer="lamb")
     tr = SPMDTrainer(tp, **kw, mesh=["cpu"])
+    # tensor and sequence parallelism are ported (tests/test_torch_sp_tp.py):
+    # the model's tp hints shard nothing on a mesh whose tp axis is 1, so
+    # LAMB runs, as the JAX trainer replicates a "tp" entry of size 1
+    assert tp.bert.layer0.attention.qkv.weight._sharding == ("tp", None)
+    assert not any(tr._shard_plans)
     with pytest.raises(MXNetError, match=">= 1 microbatch"):
         tr.step_microbatches([])      # ported: tests/test_torch_microbatch
     # checkpointing runs: refused only before the first step (no state)
