@@ -483,6 +483,45 @@ failure exits non-zero before the result line:
                 line) and its
                 forward and backward timed beside the whole sequence's.
                 One `[sequence]` JSON line;
+  7k. pipelined — over an NCCL group of one (as 7i): (a) gpt_small bf16
+                B=16 T=512 (flash, dropout 0.1, AdamW, f32 masters)
+                through SPMDTrainer(pipeline=lm_pipeline(model)) as
+                par_gpt builds it, at 64 KiB and at the default 32 MiB
+                buckets: the first step eager, the capture, 10 timed
+                replays and one profiled; every loss bitwise par_gpt's
+                replicated run, one capture, the causal flash launches
+                (12 a replay), and on the profiled replay's kernel
+                timeline the buckets' NCCL kernels in plan order after
+                the step's marks of the backward segments they wait for
+                (pipelined.structure_report), interleaved with those
+                segments at 64 KiB; ms a step and the busy share beside
+                par_gpt's replicated ms; then step_microbatches (k = 4)
+                and remat_plan=["dots"] * 12, each bitwise the plain
+                step of the same build, one capture each; (b) bert_base
+                bf16 B=32 T=512 ragged lengths, LAMB with f32 masters,
+                through pretraining_pipeline: 10 replays, every loss
+                bitwise the plain step of the same build, which is held
+                bitwise to a second run of itself, 12 launches of each
+                flash kernel a replay; two runs with a fault planted in
+                the step (the deepest block's gradients zeroed, the
+                plan's first bucket zeroed) must fail that gate; (c) GPipe over 4 virtual stages
+                (pipeline.gpipe_ticks with the list rotation, the loop
+                pipeline_apply runs), each a gpt_small block (causal
+                flash, bf16), M = 8 microbatches of B = 2, T = 512:
+                output and every gradient against the blocks applied in
+                sequence at phase 4's bf16 tolerances, the worst |err| /
+                tolerance printed, 44 launches of each kernel (4 stages x
+                11 ticks); (d) switch_moe at Switch-Base-8's widths (D =
+                768, d_ff = 3072, E = 8, capacity factor 1.25, 16 x 512
+                tokens, bf16 expert FFNs) against direct per-token
+                routing in f32 and the same call on the CPU (max |err|
+                within 2e-2 of the largest |output|), the dropped tokens,
+                ms forward and backward; (e) kernel_policy.training_plan
+                for bert_base and bert_large at T=512 and one captured
+                pipelined step of each at the plan's batch and remat
+                mode: peak memory against HBM_USABLE. The pipelined
+                launches join the kernels line. One `[pipelined]` JSON
+                line;
   8. times    — the flash kernels held against their plain versions
                 once more on the training batch's own shapes and lengths
                 (B=32, T=512, bf16), and causal at gpt_small's (B=16,
@@ -503,6 +542,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -7795,13 +7835,634 @@ def phase_sequence(torch, smi):
     return dict(launches=launches)
 
 
+# --------------------------------------------------------------------- #
+# 7k. pipelined: the pipelined-backward step, GPipe, Switch MoE, policy
+# --------------------------------------------------------------------- #
+# bucket_bytes: MXTPU_GRAD_BUCKET_BYTES of the two pipelined GPT runs:
+# 64 KiB (the JAX package's drive) and the default (None: 32 MiB). At
+# the default the plan's first bucket (deepest-first, by dtype) holds the
+# f32 LayerNorm parameters of every block and the position table, so
+# strict plan order holds every bucket to the stem's pullback and none
+# runs beside the backward; 64 KiB buckets split them.
+PIPE = dict(replays=10, accum_k=4, bert_replays=10, stages=4, micro=8,
+            micro_B=2, moe_E=8, moe_D=768, moe_ff=3072, moe_N=16 * 512,
+            moe_cf=1.25, bucket_bytes=("65536", None))
+
+
+def pipe_timeline(torch, fn):
+    """One profiled call of ``fn``: the device kernels' names in start
+    order, and the busy share (``busy_share``'s fields) with the count
+    and device time of the pipelined step's segment marks."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from incubator_mxnet_tpu_torch.parallel.pipelined import _SEGMENT_MARK
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    kern = sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    marks = [e.time_range.elapsed_us() for e in kern
+             if _SEGMENT_MARK.search(e.name)]
+    return [e.name for e in kern], dict(
+        profiled_wall_ms=wall_ms, device_busy_ms=busy,
+        device_busy_share=busy / wall_ms if kern else
+        "not measured (no kernel traced)", segment_marks=len(marks),
+        segment_marks_device_us=sum(marks))
+
+
+def loss_diff(a, b):
+    """(step, |a - b|) of the first of ``a``'s steps whose loss differs
+    from ``b``'s, or None."""
+    b = b[:len(a)]
+    i = first_diff(a, b)
+    return None if i is None else (i, abs(a[i] - b[i]))
+
+
+def pipe_gpt_trainer(torch, mx, parallel, gpt_mod, pipelined, remat=False,
+                     plan=None):
+    """par_gpt's build (gpt_small bf16, flash, dropout 0.1, AdamW, f32
+    masters) over the NCCL group of one; ``pipelined``: through
+    ``lm_pipeline`` (with ``remat_plan=plan``)."""
+    model = bench_gpt(0, flash=True, dropout=0.1, remat=remat)
+    kw = dict(pipeline=gpt_mod.lm_pipeline(model), remat_plan=plan) \
+        if pipelined else dict(forward_loss=gpt_mod.lm_loss)
+    tr = parallel.SPMDTrainer(
+        model, optimizer="adamw",
+        optimizer_params={"learning_rate": 1e-4, "multi_precision": True},
+        mesh=parallel.build_mesh(), sharding="replicated", **kw)
+    return model, tr
+
+
+def pipe_gpt_run(torch, np, ref, bucket_bytes):
+    """One pipelined gpt_small run at ``bucket_bytes`` (None: the
+    default): the first step eager, the capture, PIPE["replays"] timed
+    replays and one profiled. Its 13 losses are held bitwise to
+    par_gpt's replicated run (``ref``), and the profiled replay's
+    timeline to the plan's order (and, at 64 KiB, to the interleave).
+    par_gpt repeats one batch with its dropout masks at every step, so
+    the first 13 of its losses are the steps this run takes."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import nd, parallel
+    from incubator_mxnet_tpu_torch.models import gpt as gpt_mod
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    from incubator_mxnet_tpu_torch.parallel import collectives
+    B, T = GPT["B"], GPT["T"]
+    label = f"pipelined gpt ({bucket_bytes or 'default'} bucket bytes)"
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, tr = pipe_gpt_trainer(torch, mx, parallel, gpt_mod, True)
+    rng = np.random.RandomState(0)
+    batch = [nd.array(rng.randint(0, model.vocab_size, (B, T)),
+                      ctx=mx.gpu(0), dtype="int32") for _ in range(2)]
+
+    def step():
+        mx.random.seed(1)         # par_gpt's repeating batch and masks
+        return tr.step(*batch)
+
+    # the bucket plan is made at the first step
+    saved = os.environ.pop("MXTPU_GRAD_BUCKET_BYTES", None)
+    if bucket_bytes is not None:
+        os.environ["MXTPU_GRAD_BUCKET_BYTES"] = bucket_bytes
+    try:
+        limit = collectives.bucket_limit()
+        losses = [float(step().asnumpy())]
+    finally:
+        os.environ.pop("MXTPU_GRAD_BUCKET_BYTES", None)
+        if saved is not None:
+            os.environ["MXTPU_GRAD_BUCKET_BYTES"] = saved
+    losses.append(float(step().asnumpy()))
+    prog = next(iter(tr._programs.values()))
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    timed = [step() for _ in range(PIPE["replays"])]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / PIPE["replays"]
+    launches = dict(fa.LAUNCHES, **fa.CAUSAL_LAUNCHES)
+    losses += [float(x.asnumpy()) for x in timed]
+    holder = []
+    names, prof = pipe_timeline(torch, lambda: holder.append(step()))
+    losses.append(float(holder[0].asnumpy()))
+    rep = tr.pipelined_structure(timeline=names)
+    diff = loss_diff(losses, ref["losses"])
+    out = dict(bucket_bytes=limit, buckets=len(tr.pipelined_bucket_order),
+               losses=losses, ms_per_step=ms,
+               replicated_ms_per_step=ref["ms_per_step"],
+               pipelined_step_trace_count=tr.pipelined_step_trace_count,
+               replays=prog.replays, first_step_ms=prog.first_ms,
+               capture_ms=prog.build_ms, structure=rep,
+               losses_bitwise_replicated=diff is None,
+               first_difference=diff, launches=launches, **prof)
+    print(f"[pipelined] gpt at {limit} bucket bytes: {json.dumps(out)}",
+          flush=True)
+    check(all(np.isfinite(losses)), f"{label}: loss {losses}")
+    check(diff is None, f"{label}: losses {losses} not bitwise the first "
+                        f"{len(losses)} of par_gpt's replicated "
+                        f"{ref['losses']} (first difference {diff})")
+    check(tr.pipelined_step_trace_count == 1 and tr.step_trace_count == 1
+          and prog.replays == PIPE["replays"] + 2,
+          f"{label}: {tr.pipelined_step_trace_count} captures, "
+          f"{prog.replays} replays")
+    for name in FLASH:
+        want = model.num_layers * PIPE["replays"]
+        check(launches[name + "_causal"] == want,
+              f"{label}: {name} causal launches "
+              f"{launches[name + '_causal']} over {PIPE['replays']} replays "
+              f"!= {model.num_layers} layers a replay")
+    check(rep["order_matches_plan"] and rep["n_segment_marks"] ==
+          model.num_layers + 2, f"{label}: the profiled replay's timeline "
+                                f"{rep}: buckets out of plan order")
+    check(bucket_bytes is None or rep["interleaved"],
+          f"{label}: the profiled replay's timeline {rep}: no bucket ran "
+          f"between two backward segments")
+    del tr, model, prog, timed, holder
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipe_gpt(torch, np, ref):
+    """(a) gpt_small through the pipelined step against par_gpt's
+    replicated run (``ref``) at 64 KiB and at the default bucket size
+    (pipe_gpt_run); then step_microbatches (k = 4) and
+    remat_plan=["dots"] * 12, each bitwise the plain step of the same
+    build."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import nd, parallel
+    from incubator_mxnet_tpu_torch.models import gpt as gpt_mod
+    B, T = GPT["B"], GPT["T"]
+    out, launches = {}, {}
+    for bb in PIPE["bucket_bytes"]:
+        rec = pipe_gpt_run(torch, np, ref, bb)
+        out[f"bucket_bytes_{bb or 'default'}"] = rec
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+
+    # accumulation (k = 4 microbatches of B / 4) and the remat plan,
+    # each against the plain step of the same build
+    rng = np.random.RandomState(0)
+    batch = [nd.array(rng.randint(0, 50257, (B, T)), ctx=mx.gpu(0),
+                      dtype="int32") for _ in range(2)]
+    k = PIPE["accum_k"]
+    micros = [[b[m * B // k:(m + 1) * B // k] for b in batch]
+              for m in range(k)]
+    runs = {}
+    for name, kw in (("accum", {}),
+                     ("remat", dict(remat="dots",
+                                    plan=["dots"] * 12))):
+        for pipelined in (False, True):
+            remat = kw.get("remat", False)
+            model, t2 = pipe_gpt_trainer(
+                torch, mx, parallel, gpt_mod, pipelined,
+                remat=False if pipelined else remat,
+                plan=kw.get("plan") if pipelined else None)
+            ls = []
+            for _ in range(2):
+                mx.random.seed(1)
+                ls.append(float((t2.step_microbatches(micros)
+                                 if name == "accum" else
+                                 t2.step(*batch)).asnumpy()))
+            runs[(name, pipelined)] = dict(
+                losses=ls, step_trace_count=t2.step_trace_count,
+                accum_step_trace_count=t2.accum_step_trace_count,
+                pipelined_step_trace_count=t2.pipelined_step_trace_count,
+                pipelined_accum_step_trace_count=(
+                    t2.pipelined_accum_step_trace_count))
+            del model, t2
+            gc.collect()
+            torch.cuda.empty_cache()
+        p, q = runs[(name, False)], runs[(name, True)]
+        d = loss_diff(q["losses"], p["losses"])
+        out[name] = dict(plain=p, pipelined=q, bitwise=d is None,
+                         first_difference=d)
+        check(all(np.isfinite(q["losses"])), f"pipelined gpt {name}: "
+                                             f"loss {q['losses']}")
+        counts = (q["pipelined_accum_step_trace_count"],
+                  p["accum_step_trace_count"]) if name == "accum" else \
+            (q["pipelined_step_trace_count"], p["step_trace_count"])
+        check(counts == (1, 1), f"pipelined gpt {name}: captures {counts}")
+        check(d is None, f"pipelined gpt {name}: losses {q['losses']} not "
+                         f"bitwise the plain step's {p['losses']}")
+    return out
+
+
+@contextlib.contextmanager
+def planted_fault(torch, kind):
+    """A fault planted in the pipelined step for the runs inside, to show
+    that pipe_bert's gate can fail: each bucket's reduction
+    (PipelinedBackward._reduce_bucket) is wrapped so that ``"block"``
+    zeroes the deepest block's gradients and ``"bucket"`` those of the
+    plan's first bucket. The method is restored on exit."""
+    from incubator_mxnet_tpu_torch.parallel import pipelined as pl
+    orig = pl.PipelinedBackward._reduce_bucket
+
+    def faulty(self, bucket, grads):
+        res = orig(self, bucket, grads)
+        drop = set(self.block_own[-1] if kind == "block"
+                   else self.plan[0].indices)
+        for i in bucket.indices:
+            if i in drop:
+                grads[self.slot[i]] = torch.zeros_like(grads[self.slot[i]])
+        return res
+
+    pl.PipelinedBackward._reduce_bucket = faulty
+    try:
+        yield
+    finally:
+        pl.PipelinedBackward._reduce_bucket = orig
+
+
+def pipe_bert(torch, np):
+    """(b) bert_base bf16 B=32 T=512 through pretraining_pipeline (LAMB,
+    f32 masters) over the NCCL group of one, ragged lengths, 10 replays.
+    The plain step of the same build runs twice, the control that it
+    repeats itself; every step of the pipelined run is held bitwise to
+    the plain step's. Two pipelined runs with a planted fault
+    (planted_fault) must differ from the plain step: the gate can
+    fail."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import models, parallel
+    from incubator_mxnet_tpu_torch.models import bert as bert_mod
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    B, T, M = BERT["B"], BERT["T"], BERT["M"]
+    res = {}
+    for run, fault in (("plain", None), ("plain_again", None),
+                       ("pipelined", None), ("fault_block", "block"),
+                       ("fault_bucket", "bucket")):
+        pipelined = run not in ("plain", "plain_again")
+        gc.collect()
+        torch.cuda.empty_cache()
+        pre = bench_bert(0, T)
+        kw = dict(pipeline=bert_mod.pretraining_pipeline(pre)) \
+            if pipelined else dict(forward_loss=models.pretraining_loss)
+        tr = parallel.SPMDTrainer(
+            pre, optimizer="lamb",
+            optimizer_params={"learning_rate": 1e-4,
+                              "multi_precision": True},
+            mesh=parallel.build_mesh(), sharding="replicated", **kw)
+        batch = bert_batch(torch, np, np.random.RandomState(0), B, T, M,
+                           pre.bert.vocab_size, M)
+
+        def step():
+            mx.random.seed(1)
+            return tr.step(*batch)
+
+        with planted_fault(torch, fault) if fault else \
+                contextlib.nullcontext():
+            losses = [float(step().asnumpy()) for _ in range(2)]
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            timed = [step() for _ in range(PIPE["bert_replays"])]
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / PIPE["bert_replays"]
+        res[run] = dict(
+            losses=losses + [float(x.asnumpy()) for x in timed],
+            ms_per_step=ms, step_trace_count=tr.step_trace_count,
+            launches=dict(fa.LAUNCHES, **fa.CAUSAL_LAUNCHES))
+        del tr, pre, batch, timed
+    p, q = res["plain"], res["pipelined"]
+    d = loss_diff(q["losses"], p["losses"])
+    c = loss_diff(res["plain_again"]["losses"], p["losses"])
+    faults = {run: dict(
+        losses=res[run]["losses"],
+        first_difference=loss_diff(res[run]["losses"], p["losses"]),
+        max_gap=max(abs(x - y) for x, y in zip(res[run]["losses"],
+                                               p["losses"])))
+        for run in ("fault_block", "fault_bucket")}
+    out = dict(plain=p, pipelined=q, bitwise=d is None,
+               first_difference=d, plain_repeats_bitwise=c is None,
+               plain_first_difference=c,
+               plain_again_ms_per_step=res["plain_again"]["ms_per_step"],
+               planted_faults=faults)
+    check(all(np.isfinite(q["losses"])) and q["losses"][-1] <
+          q["losses"][0], f"pipelined bert: losses {q['losses']}")
+    check(q["step_trace_count"] == 1, f"pipelined bert: "
+                                      f"{q['step_trace_count']} captures")
+    check(c is None, f"pipelined bert: the plain step does not repeat "
+                     f"itself: {res['plain_again']['losses']} vs "
+                     f"{p['losses']} (first difference {c})")
+    check(d is None, f"pipelined bert: losses {q['losses']} not bitwise "
+                     f"the plain step's {p['losses']} (first difference "
+                     f"{d})")
+    for run, f in faults.items():
+        check(f["first_difference"] is not None,
+              f"pipelined bert: a planted fault ({run}) leaves every loss "
+              f"bitwise the plain step's: the gate cannot fail")
+    for name in FLASH:
+        check(q["launches"][name] == 12 * PIPE["bert_replays"],
+              f"pipelined bert: {name} launches {q['launches'][name]}")
+    return out
+
+
+def pipe_gpipe(torch, np, err):
+    """(c) GPipe over 4 virtual stages (parallel/pipeline.py's
+    gpipe_ticks with the list rotation, the loop pipeline_apply runs),
+    each one gpt_small block (768 wide, 12 heads, causal flash, bf16):
+    M = 8 microbatches of B = 2, T = 512, forward and backward against
+    the four blocks applied in sequence, at phase 4's bf16 tolerances."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd
+    from incubator_mxnet_tpu_torch.models.gpt import GPTBlock
+    from incubator_mxnet_tpu_torch.ndarray import NDArray
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    from incubator_mxnet_tpu_torch.parallel import pipeline as pl
+    S, M, Bm, T = PIPE["stages"], PIPE["micro"], PIPE["micro_B"], GPT["T"]
+    atol, rtol, gfrac, gfloor = FLASH_TOL["bfloat16"]
+    mx.random.seed(0)
+    blocks = []
+    for _ in range(S):
+        blk = GPTBlock(768, 3072, 12, dropout=0.0, dtype="bfloat16",
+                       flash=True)
+        blk.initialize(ctx=mx.gpu(0))
+        blocks.append(blk)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(27)
+    x = torch.randn(M, Bm, T, 768, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    dout = torch.randn(M, Bm, T, 768, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    params = [[p for p in b.parameters()] for b in blocks]
+
+    def stage_fn(blk, h):
+        return blk(NDArray(h))._data
+
+    def grads(run):
+        xa = x.clone().requires_grad_()
+        with torch.enable_grad(), autograd.record(train_mode=True):
+            y = run(xa)
+            g = torch.autograd.grad(y, [xa] + sum(params, []), dout)
+        torch.cuda.synchronize()
+        return y.detach(), g
+
+    def sequence(xa):
+        outs = []
+        for m in range(M):
+            h = xa[m]
+            for blk in blocks:
+                h = stage_fn(blk, h)
+            outs.append(h)
+        return torch.stack(outs)
+
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    # the stages' masked outputs summed, as pipeline_apply's psum over
+    # the pp ranks sums them: every stage's every tick is in the graph
+    y, g = grads(lambda xa: torch.stack(pl.gpipe_ticks(
+        stage_fn, blocks, xa, list(range(S)), S)).sum(0))
+    pipe_s = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES, **fa.CAUSAL_LAUNCHES)
+    t0 = time.perf_counter()
+    ry, rg = grads(sequence)
+    seq_s = time.perf_counter() - t0
+    worst = {}
+
+    def hold(what, got, want, tol, name):
+        d = (got.float() - want.float()).abs()
+        check(bool(torch.isfinite(got).all()), f"gpipe {what}: non-finite")
+        worst[what] = float((d / tol).max())
+        err[name] = max(err.get(name, 0.0), float(d.max()))
+        check(worst[what] <= 1.0, f"gpipe {what}: worst |err| / tolerance "
+                                  f"{worst[what]:.2f}")
+
+    hold("out", y, ry, atol + rtol * ry.float().abs(), "flash_fwd_causal")
+    for j, (a, b) in enumerate(zip(g, rg)):
+        hold(f"grad{j}", a, b, gfrac * max(float(b.float().abs().max()),
+                                           gfloor), "flash_bwd_dkv_causal")
+    ticks = M + S - 1
+    for name in FLASH:
+        check(launches[name + "_causal"] == S * ticks,
+              f"gpipe: {name} causal launches {launches[name + '_causal']}"
+              f" != {S} stages x {ticks} ticks")
+    out = dict(stages=S, microbatches=M, micro_B=Bm, T=T,
+               worst_err_over_tol=max(worst.values()),
+               worst_by_part={k: v for k, v in sorted(
+                   worst.items(), key=lambda kv: -kv[1])[:4]},
+               pipe_s=pipe_s, sequence_s=seq_s, launches=launches)
+    del blocks, params, x, dout, y, g, ry, rg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipe_moe(torch, np):
+    """(d) switch_moe at Switch-Base-8's widths (D = 768, d_ff = 3072,
+    E = 8, capacity factor 1.25, N = 16 x 512 tokens, bf16 expert FFNs)
+    against direct per-token routing in f32 and the same call on the
+    CPU; the dropped tokens, ms forward and backward."""
+    import torch.nn.functional as F
+    from incubator_mxnet_tpu_torch import parallel
+    E, D, H, N = PIPE["moe_E"], PIPE["moe_D"], PIPE["moe_ff"], PIPE["moe_N"]
+    cf = PIPE["moe_cf"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(28)
+    x = torch.randn(N, D, generator=gen, device="cuda").to(torch.bfloat16)
+    logits = torch.randn(N, E, generator=gen, device="cuda")
+    experts = parallel.stack_expert_params([
+        {"w1": (torch.randn(D, H, generator=gen, device="cuda")
+                * D ** -0.5).to(torch.bfloat16),
+         "w2": (torch.randn(H, D, generator=gen, device="cuda")
+                * H ** -0.5).to(torch.bfloat16)} for _ in range(E)])
+
+    def ffn(p, h):
+        return F.gelu(h @ p["w1"]) @ p["w2"]
+
+    def run():
+        xa = x.clone().requires_grad_()
+        la = logits.clone().requires_grad_()
+        wa = {k: v.clone().requires_grad_() for k, v in experts.items()}
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        out, aux = parallel.switch_moe(xa, la, ffn, wa, capacity_factor=cf)
+        ev[1].record()
+        (out.float().sum() + 0.01 * aux).backward()
+        ev[2].record()
+        torch.cuda.synchronize()
+        return (xa, la, wa, out.detach(), aux.detach(),
+                ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]))
+
+    first = run()[5:]          # the first call: cuBLAS / allocator warm-up
+    xa, la, wa, out, aux, fwd_ms, bwd_ms = run()
+    # direct routing in f32: each token to its argmax expert while the
+    # expert's queue has room, gate x FFN(token), else zero
+    probs = torch.softmax(logits, -1)
+    idx = probs.argmax(-1)
+    C = int(max(1, np.ceil(N / E * cf)))
+    ref = torch.zeros(N, D, device="cuda")
+    dropped = 0
+    for e in range(E):
+        rows = (idx == e).nonzero()[:, 0]
+        kept, dropped = rows[:C], dropped + max(0, rows.numel() - C)
+        p = {k: v[e].float() for k, v in experts.items()}
+        ref[kept] = probs[kept, e, None] * ffn(p, x[kept].float())
+    got = out.float()
+    scale = float(ref.abs().max())
+    card_vs_direct = float((got - ref).abs().max()) / scale
+    cpu = {k: v.cpu() for k, v in experts.items()}
+    cpu_out, cpu_aux = parallel.switch_moe(x.cpu(), logits.cpu(), ffn, cpu,
+                                           capacity_factor=cf)
+    card_vs_cpu = float((got.cpu() - cpu_out.float()).abs().max()) / scale
+    zero_rows = int((got.abs().sum(-1) == 0).sum())
+    res = dict(N=N, D=D, d_ff=H, E=E, capacity_factor=cf, capacity=C,
+               dropped_tokens=dropped, zero_rows=zero_rows,
+               max_err_over_max_ref_direct=card_vs_direct,
+               max_err_over_max_ref_cpu=card_vs_cpu,
+               aux=float(aux), aux_cpu=float(cpu_aux),
+               fwd_ms=fwd_ms, bwd_ms=bwd_ms, first_call_fwd_bwd_ms=first)
+    check(zero_rows == dropped, f"switch_moe: {zero_rows} zero rows for "
+                                f"{dropped} dropped tokens")
+    check(card_vs_direct <= 2e-2 and card_vs_cpu <= 2e-2,
+          f"switch_moe: max |err| / max |ref| {card_vs_direct:.3e} vs "
+          f"direct routing, {card_vs_cpu:.3e} vs the CPU (bound 2e-2)")
+    check(abs(float(aux) - float(cpu_aux)) <= 1e-5 * abs(float(cpu_aux)),
+          f"switch_moe: aux {float(aux)} vs the CPU's {float(cpu_aux)}")
+    check(all(bool(torch.isfinite(t.grad).all()) and
+              float(t.grad.abs().sum()) > 0 for t in (xa, la, *wa.values())),
+          "switch_moe: a gradient is zero or not finite")
+    return res
+
+
+def pipe_policy(torch, np, free_bytes):
+    """(e) kernel_policy.training_plan for bert_base and bert_large (24 x
+    1024) at T=512, and one captured step of each at the plan's batch
+    and remat mode through pretraining_pipeline (LAMB, f32 masters): the
+    peak memory against HBM_USABLE."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import parallel
+    from incubator_mxnet_tpu_torch.models import bert as bert_mod
+    from incubator_mxnet_tpu_torch.ops import kernel_policy as kp
+    T = BERT["T"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = dict(HBM_BYTES=kp.HBM_BYTES, HBM_USABLE=kp.HBM_USABLE,
+               total_memory=total, free_at_start=free_bytes)
+    check(kp.HBM_USABLE <= free_bytes and kp.HBM_BYTES <= total,
+          f"policy: HBM_USABLE {kp.HBM_USABLE} / HBM_BYTES {kp.HBM_BYTES} "
+          f"above the {free_bytes} bytes free / {total} on the card")
+    for name, ctor, (L, u, h) in (("bert_base", bert_mod.bert_base,
+                                   (12, 768, 3072)),
+                                  ("bert_large", bert_mod.bert_large,
+                                   (24, 1024, 4096))):
+        plan = kp.training_plan(L, u, h, 30522, T)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mx.random.seed(0)
+        model = ctor(dtype="bfloat16", max_length=T, flash=True,
+                     dropout=0.1)
+        model.initialize(ctx=mx.gpu(0))
+        pre = bert_mod.BERTForPretraining(model)
+        pre.initialize(ctx=mx.gpu(0))
+        tr = parallel.SPMDTrainer(
+            pre, pipeline=bert_mod.pretraining_pipeline(pre),
+            remat_plan=[plan["remat"]] * L, optimizer="lamb",
+            optimizer_params={"learning_rate": 1e-4,
+                              "multi_precision": True},
+            mesh=parallel.build_mesh(), sharding="replicated")
+        batch = bert_batch(torch, np, np.random.RandomState(0),
+                           plan["batch"], T, BERT["M"], 30522, BERT["M"])
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(3):          # eager, captured, one replay
+            mx.random.seed(1)
+            losses.append(float(tr.step(*batch).asnumpy()))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        out[name] = dict(plan=plan, losses=losses, peak_bytes=peak,
+                         peak_reserved_bytes=torch.cuda.max_memory_reserved(),
+                         peak_over_usable=peak / kp.HBM_USABLE,
+                         steps_s=time.perf_counter() - t0,
+                         captures=tr.pipelined_step_trace_count)
+        check(all(np.isfinite(losses)) and tr.pipelined_step_trace_count
+              == 1, f"policy {name}: losses {losses}, "
+                    f"{tr.pipelined_step_trace_count} captures")
+        check(peak <= kp.HBM_USABLE, f"policy {name}: peak {peak} bytes "
+                                     f"over HBM_USABLE {kp.HBM_USABLE}")
+        check(out[name]["peak_reserved_bytes"] <= free_bytes,
+              f"policy {name}: {out[name]['peak_reserved_bytes']} bytes "
+              f"reserved, {free_bytes} were free")
+        del tr, pre, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pipelined(torch, smi, par):
+    """The pipelined-backward step, GPipe and Switch MoE on the card
+    (module docstring, 7k). ``par`` is phase_parallel's record (par_gpt's
+    replicated losses and ms). Returns the path's launches for the
+    kernels line and the phase's numbers."""
+    import numpy as np
+    import torch.distributed as dist
+    from incubator_mxnet_tpu_torch import parallel
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_bytes = torch.cuda.mem_get_info()[0]
+    err = {}
+    env = par_launch_env()
+    out = dict(card=smi)
+    try:
+        os.environ.update(env)
+        parallel.initialize()
+        check(dist.is_initialized() and dist.get_world_size() == 1,
+              "pipelined: the NCCL group of one did not form")
+        out["gpt"] = pipe_gpt(torch, np, par["gpt"]["replicated"])
+        out["bert"] = pipe_bert(torch, np)
+        out["gpipe"] = pipe_gpipe(torch, np, err)
+        out["moe"] = pipe_moe(torch, np)
+        out["policy"] = pipe_policy(torch, np, free_bytes)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        parallel.set_default_mesh(None)
+        for k in env:
+            os.environ.pop(k, None)
+    out["max_abs_err"] = err
+    out["phase_s"] = time.perf_counter() - t0
+    launches = {}
+    for part in ("gpt", "bert", "gpipe"):
+        for k, v in out[part].get("launches", out[part].get(
+                "pipelined", {}).get("launches", {})).items():
+            launches[k] = launches.get(k, 0) + v
+    g, b = out["gpt"], out["bert"]
+    g64, gdef = g["bucket_bytes_65536"], g["bucket_bytes_default"]
+    print(f"[pipelined] {smi}: gpt_small bf16 B=16 T=512 pipelined "
+          f"{g64['ms_per_step']:.2f} ms a step at {g64['buckets']} buckets "
+          f"of 64 KiB, {gdef['ms_per_step']:.2f} ms at the default "
+          f"{gdef['buckets']}, vs replicated "
+          f"{g64['replicated_ms_per_step']:.2f}; busy "
+          f"{g64['device_busy_share']} / {gdef['device_busy_share']}; "
+          f"losses bitwise replicated at both; timeline {g64['structure']}"
+          f" / {gdef['structure']}; bert_base bf16 B=32 "
+          f"{b['pipelined']['ms_per_step']:.2f} ms vs plain "
+          f"{b['plain']['ms_per_step']:.2f}, losses bitwise the plain "
+          f"step's {b['bitwise']} (planted faults first differ at "
+          f"{[f['first_difference'] for f in b['planted_faults'].values()]}"
+          f"); gpipe "
+          f"worst |err| / tolerance {out['gpipe']['worst_err_over_tol']:.3f}"
+          f"; switch_moe dropped {out['moe']['dropped_tokens']} of "
+          f"{out['moe']['N']}, fwd {out['moe']['fwd_ms']:.2f} ms bwd "
+          f"{out['moe']['bwd_ms']:.2f} ms", flush=True)
+    print(f"[pipelined] {json.dumps(out)}", flush=True)
+    return dict(launches=launches, err=err)
+
+
 def kernel_record(err, runs, times):
     """The kernels' JSON record; each kernel's launches come from the run
     of its own path (decode / prefill: plain; verify: spec_k=4 on raw
     pools; the _q variants: spec_k=4 on int8 pools; both replaying the
     plain run's streams as drafts; the flash kernels: the bert_base
     training run; their causal rows: the gpt_small training run's timed
-    replays), the flash kernels' plus the sp ring's (7j)."""
+    replays), the flash kernels' plus the sp ring's (7j) and the
+    pipelined path's (7k: the pipelined GPT and BERT steps' timed
+    replays, the virtual GPipe stages)."""
     path_of = {"ragged_decode": "plain", "ragged_prefill": "plain",
                "ragged_verify": "spec", "ragged_decode_q": "spec_int8",
                "ragged_prefill_q": "spec_int8",
@@ -7809,8 +8470,11 @@ def kernel_record(err, runs, times):
                "flash_fwd": "training", "flash_bwd_dq": "training",
                "flash_bwd_dkv": "training"}
     path_of.update({f"{k}_causal": "gpt_training" for k in FLASH})
-    # the sp ring's launches (7j) join the flash kernels' paths'
-    seq = runs.get("sequence", {}).get("launches", {})
+    # the sp ring's launches (7j) and the pipelined path's (7k) join the
+    # flash kernels' paths'
+    seq = dict(runs.get("sequence", {}).get("launches", {}))
+    for k, v in runs.get("pipelined", {}).get("launches", {}).items():
+        seq[k] = seq.get(k, 0) + v
     source = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd",
               "flash_bwd_dkv": "flash_bwd"}
     kernels = []
@@ -7878,8 +8542,10 @@ def main():
         mf = phase_sparse(torch, smi)
         phase_contrib(torch, smi, mf)
         del mf
-        phase_parallel(torch, smi)
+        par = phase_parallel(torch, smi)
         runs["sequence"] = phase_sequence(torch, smi)
+        runs["pipelined"] = phase_pipelined(torch, smi, par)
+        del par
         times = phase_times(torch)
         times.update(phase_flash_times(torch, lens, err))
         for mod in ("jax", "incubator_mxnet_tpu"):

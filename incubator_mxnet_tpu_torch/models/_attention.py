@@ -13,7 +13,13 @@ The sequence- and tensor-parallel helpers the models share: ``seq_mesh``
 SPMD step), ``local_heads`` (the heads a rank computes on a tp axis),
 ``ring_attention`` (a rank's attention over its sequence block),
 ``tp_hints`` (the JAX models' sharding hints on their Dense layers) and
-``tp_dense`` (such a Dense on a rank's tile of the tp axis).
+``tp_dense`` (such a Dense on a rank's tile of the tp axis). And the
+embeddings whose lookup repeats rows many times in a batch,
+``position_rows`` and ``few_rows_lookup``: the lookup's values with a
+backward that sums the repeats by a reduction. On the card
+``torch.nn.functional.embedding``'s backward adds a row's repeats in
+partial sums of ten with atomics, so past twenty repeats their order, and
+the bits of the gradient, change from run to run.
 """
 
 from __future__ import annotations
@@ -25,11 +31,43 @@ from ..ops.flash_attention import cuda_kernel_eligible
 
 __all__ = ["packed_flash_self_attention", "use_packed_fast_path",
            "seq_mesh", "local_heads", "ring_attention", "tp_hints",
-           "tp_axis", "tp_dense"]
+           "tp_axis", "tp_dense", "position_rows", "few_rows_lookup"]
 
 
 def _tensor(x):
     return None if x is None else getattr(x, "_data", x)
+
+
+def position_rows(table, B, T):
+    """``table`` (a gluon ``Embedding``) looked up at positions 0..T-1 for
+    each of B rows, as its first T rows broadcast over the batch: the
+    lookup's values, its gradient summed over the batch by a reduction
+    (see the module's docstring). Past the table's length the lookup, which
+    clamps, runs as it is."""
+    from .. import ndarray as nd
+    from ..ndarray import NDArray
+    w = table.weight.data()
+    if T > w.shape[0]:
+        pos = nd.arange(0, T, dtype="int32", ctx=w.context) \
+            .reshape((1, T)).broadcast_to((B, T))
+        return table(pos)
+    return NDArray(w._data[:T].expand(B, T, w.shape[1]))
+
+
+def few_rows_lookup(table, ids):
+    """``table(ids)`` for a table of a few rows (BERT's token types) as the
+    sum over its rows of the row masked to the ids that pick it: the
+    lookup's values exactly (a 0 / 1 mask times a row, added to zeros), its
+    gradient a masked sum over the batch by a reduction (see the module's
+    docstring)."""
+    from ..ndarray import NDArray
+    w = table.weight.data()._data
+    idx = _tensor(ids).long().clamp(0, w.shape[0] - 1).unsqueeze(-1)
+    out = None
+    for row in range(w.shape[0]):
+        term = (idx == row).to(w.dtype) * w[row]
+        out = term if out is None else out + term
+    return NDArray(out)
 
 
 def packed_flash_self_attention(F, qkv, B, T, H, D, units, causal=False,

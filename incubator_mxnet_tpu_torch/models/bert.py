@@ -45,8 +45,8 @@ the axis after the last layer (an all-gather), so the pooler and the
 pretraining heads read whole sequences. On a tp axis the Dense layers
 read the JAX sharding hints (``parallel.spmd.tp_linear``) and attention
 runs on the rank's heads; ``word_embed`` carries the vocabulary hint
-(``nn.Embedding(sharded=True)``). Not ported yet: ``pretraining_pipeline``
-(the pipelined step, ROADMAP Queue 1 item 11's next slice).
+(``nn.Embedding(sharded=True)``). ``pretraining_pipeline`` is
+``BERTForPretraining``'s ``PipelineSpec`` for the pipelined SPMD step.
 """
 
 from __future__ import annotations
@@ -58,15 +58,18 @@ from ..base import MXNetError
 from ..gluon import nn
 from ..gluon.block import HybridBlock
 from ..gluon.parameter import Parameter
+from .. import ndarray as _nd
 from ..ndarray import NDArray
 from .. import initializer as init
-from ._attention import (local_heads, packed_flash_self_attention,
+from ._attention import (few_rows_lookup, local_heads,
+                         packed_flash_self_attention, position_rows,
                          ring_attention, seq_mesh, tp_axis, tp_dense,
                          tp_hints, use_packed_fast_path)
 from ._remat import remat_call, resolve_policy
 
 __all__ = ["BERTModel", "BERTForPretraining", "BERTClassifier",
-           "pretraining_loss", "bert_tiny", "bert_base", "bert_large"]
+           "pretraining_loss", "pretraining_pipeline", "bert_tiny",
+           "bert_base", "bert_large"]
 
 
 def _trunc():
@@ -204,23 +207,42 @@ class BERTModel(HybridBlock):
                                    activation="tanh",
                                    weight_initializer=_trunc())
 
-    def hybrid_forward(self, F, input_ids, token_types=None,
-                       valid_length=None):
+    def embed(self, input_ids, token_types=None):
+        """The stem: the word, position and token-type embeddings, then
+        the compute dtype, the embedding LayerNorm and dropout."""
         B, T = input_ids.shape
-        ctx = input_ids.context
-        pos = F.arange(0, T, dtype="int32", ctx=ctx).reshape((1, T)) \
-            .broadcast_to((B, T))
-        emb = self.word_embed(input_ids) + self.position_embed(pos)
+        emb = self.word_embed(input_ids) + \
+            position_rows(self.position_embed, B, T)
         if token_types is not None:
-            emb = emb + self.token_type_embed(token_types)
+            emb = emb + few_rows_lookup(self.token_type_embed, token_types)
         # enter the compute dtype BEFORE the embedding LN and dropout
         if self._dtype != "float32":
             emb = emb.astype(self._dtype)
-        x = self.embed_dropout(self.embed_ln(emb))
-        mask = None
-        if valid_length is not None:
-            ar = F.arange(0, T, dtype="float32", ctx=ctx).reshape((1, T))
-            mask = ar < valid_length.astype("float32").reshape((-1, 1))
+        return self.embed_dropout(self.embed_ln(emb))
+
+    @staticmethod
+    def attention_mask(input_ids, valid_length):
+        """(B, T) bool, True at the positions before ``valid_length``
+        (None without lengths)."""
+        if valid_length is None:
+            return None
+        T = input_ids.shape[1]
+        ar = _nd.arange(0, T, dtype="float32", ctx=input_ids.context) \
+            .reshape((1, T))
+        return ar < valid_length.astype("float32").reshape((-1, 1))
+
+    def pool(self, x):
+        """The pooled [CLS] output, f32 (the sequence output stays in the
+        compute dtype; only this path is promoted)."""
+        cls = x.slice_axis(axis=1, begin=0, end=1).reshape(
+            (x.shape[0], self._units)).astype("float32")
+        return self.pooler(cls)
+
+    def hybrid_forward(self, F, input_ids, token_types=None,
+                       valid_length=None):
+        T = input_ids.shape[1]
+        x = self.embed(input_ids, token_types)
+        mask = self.attention_mask(input_ids, valid_length)
         seq = seq_mesh(self._seq_parallel, T, "BERTModel")
         if seq is not None:
             # the layers run on this rank's block of the sequence
@@ -237,11 +259,7 @@ class BERTModel(HybridBlock):
             # the pooler and the heads read whole sequences
             x = constrain(x, ("dp", "fsdp"), None, None,
                           src=(("dp", "fsdp"), "sp", None))
-        # the sequence output stays in the compute dtype; only the pooled
-        # [CLS] path is promoted
-        cls = x.slice_axis(axis=1, begin=0, end=1).reshape(
-            (B, self._units)).astype("float32")
-        return x, self.pooler(cls)
+        return x, self.pool(x)
 
 
 class BERTForPretraining(HybridBlock):
@@ -270,9 +288,18 @@ class BERTForPretraining(HybridBlock):
     def hybrid_forward(self, F, input_ids, token_types, valid_length,
                        masked_positions, mlm_bias=None):
         seq, pooled = self.bert(input_ids, token_types, valid_length)
-        gathered = F.batch_take(seq, masked_positions)
+        return self.heads(seq, pooled, masked_positions, mlm_bias)
+
+    def heads(self, seq, pooled, masked_positions, mlm_bias=None):
+        """(mlm_scores, nsp_scores) from the encoder's outputs: the MLM
+        transform of the masked positions and the decoder tied to the
+        word embedding (this rank's tile of the vocabulary when tp splits
+        it), and the NSP head."""
+        if mlm_bias is None:
+            mlm_bias = self.mlm_bias.data()
+        gathered = _nd.batch_take(seq, masked_positions)
         h = self.mlm_transform(gathered.astype("float32"))
-        h = self.mlm_ln(F.gelu(h))
+        h = self.mlm_ln(_nd.gelu(h))
         embed_w = self.bert.word_embed.weight.data()
         from ..parallel.spmd import TPAxis, vocab_split
         tp = vocab_split(TPAxis.of(None), self.bert.vocab_size)
@@ -281,8 +308,8 @@ class BERTForPretraining(HybridBlock):
             embed_w = NDArray(tp.rows(embed_w._data))
             mlm_bias = NDArray(tp.rows(mlm_bias._data))
         dt = self.bert._dtype
-        scores = F.dot(h.astype(dt), embed_w.astype(dt), transpose_b=True) \
-            + mlm_bias.astype(dt)
+        scores = _nd.dot(h.astype(dt), embed_w.astype(dt),
+                         transpose_b=True) + mlm_bias.astype(dt)
         return scores, self.nsp(pooled)
 
 
@@ -293,7 +320,23 @@ def pretraining_loss(model: BERTForPretraining, input_ids, token_types,
     for ``parallel.SPMDTrainer``'s ``forward_loss`` hook."""
     mlm_scores, nsp_scores = model(input_ids, token_types, valid_length,
                                    masked_positions)
-    from ..parallel.spmd import TPAxis, split_sum, vocab_ce
+    mlm_ll, weights, nsp_ll = _log_likelihoods(
+        model, mlm_scores, nsp_scores, masked_labels, masked_weights,
+        nsp_labels)
+    # inside an SPMD step the MLM ratio is the global batch's: the
+    # weight sum over the ranks that split the batch (spmd.split_sum)
+    from ..parallel.spmd import neg_global_ratio
+    mlm_loss = neg_global_ratio((mlm_ll * weights).sum(), weights.sum())
+    return mlm_loss + -nsp_ll.mean()
+
+
+def _log_likelihoods(model, mlm_scores, nsp_scores, masked_labels,
+                     masked_weights, nsp_labels):
+    """The pretraining loss's terms: each masked position's f32 log-
+    probability of its label (over tp when the scores are the rank's
+    vocabulary tile), the f32 weights, and each sentence pair's NSP
+    log-probability."""
+    from ..parallel.spmd import TPAxis, vocab_ce
     if mlm_scores.shape[-1] != model.bert.vocab_size:
         # vocab-split scores: the pick and the logsumexp over tp
         with torch.set_grad_enabled(autograd.is_recording()):
@@ -304,17 +347,57 @@ def pretraining_loss(model: BERTForPretraining, input_ids, token_types,
         label_scores = mlm_scores.pick(masked_labels, axis=-1)  # (B, M)
         lse = mlm_scores._op("logsumexp", axis=-1)
         mlm_ll = label_scores.astype("float32") - lse
-    weights = masked_weights.astype("float32")
-    # inside an SPMD step the MLM ratio is the global batch's: the
-    # weight sum over the ranks that split the batch (spmd.split_sum)
-    n, total = split_sum(weights.sum()._data)
-    if n == 1:
-        mlm_loss = -(mlm_ll * weights).sum() / (weights.sum() + 1e-6)
-    else:
-        mlm_loss = -(mlm_ll * weights).sum() * n / (NDArray(total) + 1e-6)
-    nsp_loss = -nsp_scores.log_softmax(axis=-1).pick(nsp_labels,
-                                                     axis=-1).mean()
-    return mlm_loss + nsp_loss
+    nsp_ll = nsp_scores.log_softmax(axis=-1).pick(nsp_labels, axis=-1)
+    return mlm_ll, masked_weights.astype("float32"), nsp_ll
+
+
+def pretraining_pipeline(model: BERTForPretraining):
+    """``PipelineSpec`` for ``pretraining_loss`` under the pipelined SPMD
+    step (``parallel/pipelined.py``): stem = the embeddings with their
+    LayerNorm and dropout, one pipeline block an encoder layer (the
+    attention mask and ``valid_length`` ride the parameter-free
+    context), head = the pooler, the MLM transform and tied decoder and
+    the NSP head, with the MLM and NSP losses as the rank's LOCAL partial
+    sums; ``finalize`` is ``pretraining_loss`` from them (the MLM ratio
+    over the global weight sum, ``spmd.split_sum``). The batch is
+    ``pretraining_loss``'s: (input_ids, token_types, valid_length,
+    masked_positions, masked_labels, masked_weights, nsp_labels). The
+    stem, the context and the head are the methods the model's forward
+    composes (``BERTModel.embed`` / ``attention_mask`` / ``pool``,
+    ``BERTForPretraining.heads``) and the loss shares
+    ``pretraining_loss``'s code; only the split into partial sums and
+    ``finalize`` is the pipeline's own, so the pipelined step's losses
+    and gradients are the plain step's bitwise. A dp / fsdp mesh only
+    (no tp or sp)."""
+    from ..parallel.pipelined import PipelineSpec, count_of, mean_of
+    from ..parallel.spmd import neg_global_ratio
+    bert = model.bert
+
+    def head(x, input_ids, token_types, valid_length, masked_positions,
+             masked_labels, masked_weights, nsp_labels):
+        mlm_scores, nsp_scores = model.heads(x, bert.pool(x),
+                                             masked_positions)
+        mlm_ll, weights, nsp_ll = _log_likelihoods(
+            model, mlm_scores, nsp_scores, masked_labels, masked_weights,
+            nsp_labels)
+        return ((mlm_ll * weights).sum(), weights.sum(), nsp_ll.sum(),
+                count_of(nsp_ll))
+
+    def finalize(n_mlm, d_mlm, n_nsp, d_nsp):
+        return neg_global_ratio(n_mlm, d_mlm) + -mean_of(n_nsp, d_nsp)
+
+    return PipelineSpec(
+        blocks=[getattr(bert, f"layer{i}") for i in range(bert.num_layers)],
+        head=head, finalize=finalize,
+        stem=lambda input_ids, token_types, *rest: bert.embed(input_ids,
+                                                              token_types),
+        context=lambda input_ids, token_types, valid_length, *rest: (
+            bert.attention_mask(input_ids, valid_length), valid_length),
+        stem_modules=[bert.word_embed, bert.token_type_embed,
+                      bert.position_embed, bert.embed_ln],
+        head_modules=[bert.pooler, model.mlm_transform, model.mlm_ln,
+                      model.nsp, model.mlm_bias, bert.word_embed],
+        name="bert_pretrain")
 
 
 class BERTClassifier(HybridBlock):

@@ -48,9 +48,10 @@ hints (qkv and ffn_in column-parallel, proj and ffn_out row-parallel;
 tied head gives the rank's tile of the vocabulary (when tp divides it),
 as the JAX logits are vocab-split over tp.
 
-Not ported yet, and refused with ``MXNetError``: ``lm_pipeline`` (the
-pipelined SPMD step, ROADMAP Queue 1 item 11's next slice). Data,
-sequence and tensor parallelism run through ``parallel.SPMDTrainer``.
+``lm_pipeline`` is the model's ``PipelineSpec`` for the pipelined SPMD
+step (``SPMDTrainer(pipeline=lm_pipeline(model))``, over dp / fsdp).
+Data, sequence and tensor parallelism run through
+``parallel.SPMDTrainer``.
 """
 
 from __future__ import annotations
@@ -64,11 +65,12 @@ from .. import random as _random
 from ..base import MXNetError
 from ..gluon import nn
 from ..gluon.block import HybridBlock
+from .. import ndarray as _nd
 from ..ndarray import NDArray
 from ..ops.attention import scaled_dot_product_attention as _sdpa
 from ._attention import (local_heads, packed_flash_self_attention,
-                         ring_attention, seq_mesh, tp_axis, tp_dense,
-                         tp_hints, use_packed_fast_path)
+                         position_rows, ring_attention, seq_mesh, tp_axis,
+                         tp_dense, tp_hints, use_packed_fast_path)
 from ._remat import remat_call, resolve_policy
 
 __all__ = ["GPTModel", "gpt_mini", "gpt_small", "lm_loss", "lm_pipeline",
@@ -76,9 +78,6 @@ __all__ = ["GPTModel", "gpt_mini", "gpt_small", "lm_loss", "lm_pipeline",
            "decode_forward"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_QUEUE_ITEM_11 = ("the pipelined SPMD step is the next slice of ROADMAP "
-                  "Queue 1 item 11; dp, fsdp, tp and sp run through "
-                  "parallel.SPMDTrainer")
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -225,22 +224,21 @@ class GPTModel(HybridBlock):
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.num_layers)]
 
-    def hybrid_forward(self, F, input_ids):
+    def embed(self, input_ids):
+        """The stem: the word and position embeddings, the embedding
+        dropout, then the compute dtype."""
         B, T = input_ids.shape
-        pos = F.arange(0, T, dtype="int32", ctx=input_ids.context) \
-            .reshape((1, T)).broadcast_to((B, T))
-        x = self.word_embed(input_ids) + self.position_embed(pos)
+        x = self.word_embed(input_ids) + \
+            position_rows(self.position_embed, B, T)
         x = self.embed_dropout(x)
         if self._dtype != "float32":
             x = x.astype(self._dtype)
-        if seq_mesh(self._seq_parallel, T, "GPTModel") is not None:
-            # the blocks and the head run on this rank's block of the
-            # sequence
-            from ..parallel.spmd import constrain
-            x = constrain(x, ("dp", "fsdp"), "sp", None)
-        policy = resolve_policy(self._remat)
-        for blk in self.blocks:
-            x = remat_call(blk, x, policy=policy) if policy else blk(x)
+        return x
+
+    def logits(self, x):
+        """The head: the final norm and the vocabulary projection tied to
+        the word embedding (this rank's tile of the vocabulary when tp
+        splits it)."""
         # ln_f returns the input dtype: the (B, T, vocab) head runs at the
         # compute dtype's rate, and the loss reduces with f32 accumulation
         x = self.ln_f(x)
@@ -250,7 +248,20 @@ class GPTModel(HybridBlock):
         if tp is not None:
             # this rank's tile of the vocabulary (vocab-split logits)
             embed_w = NDArray(tp.rows(embed_w._data))
-        return F.dot(x, embed_w.astype(x.dtype), transpose_b=True)
+        return _nd.dot(x, embed_w.astype(x.dtype), transpose_b=True)
+
+    def hybrid_forward(self, F, input_ids):
+        x = self.embed(input_ids)
+        if seq_mesh(self._seq_parallel, input_ids.shape[1],
+                    "GPTModel") is not None:
+            # the blocks and the head run on this rank's block of the
+            # sequence
+            from ..parallel.spmd import constrain
+            x = constrain(x, ("dp", "fsdp"), "sp", None)
+        policy = resolve_policy(self._remat)
+        for blk in self.blocks:
+            x = remat_call(blk, x, policy=policy) if policy else blk(x)
+        return self.logits(x)
 
 
 def lm_loss(model: GPTModel, input_ids, labels, weights=None):
@@ -276,29 +287,67 @@ def lm_loss(model: GPTModel, input_ids, labels, weights=None):
         labels = constrain(labels, ("dp", "fsdp"), "sp")
         if weights is not None:
             weights = constrain(weights, ("dp", "fsdp"), "sp")
-    from ..parallel.spmd import TPAxis, split_sum, vocab_ce
+    ll = _token_log_likelihood(model, logits, labels)
+    if weights is None:
+        return -ll.mean()
+    from ..parallel.spmd import neg_global_ratio
+    return neg_global_ratio((ll * weights).sum(), weights.sum(),
+                            seq=mesh is not None)
+
+
+def _token_log_likelihood(model, logits, labels):
+    """Each position's log-probability of its label, f32 (B, T): pick -
+    logsumexp, over tp when the logits are the rank's vocabulary tile."""
+    from ..parallel.spmd import TPAxis, vocab_ce
     if logits.shape[-1] != model.vocab_size:
         # vocab-split logits: the pick and the logsumexp over tp
         with torch.set_grad_enabled(autograd.is_recording()):
             score, lse = vocab_ce(logits._data, labels._data,
                                   TPAxis.of(None))
-            ll = NDArray(score - lse)
-    else:
-        label_scores = logits.pick(labels, axis=-1)       # (B, T)
-        lse = logits._op("logsumexp", axis=-1)
-        ll = label_scores.astype("float32") - lse
-    if weights is None:
-        return -ll.mean()
-    n, total = split_sum(weights.sum()._data, seq=mesh is not None)
-    if n == 1:
-        denom = weights.sum() + 1e-6
-        return -(ll * weights).sum() / denom
-    return -(ll * weights).sum() * n / (NDArray(total) + 1e-6)
+            return NDArray(score - lse)
+    label_scores = logits.pick(labels, axis=-1)       # (B, T)
+    lse = logits._op("logsumexp", axis=-1)
+    return label_scores.astype("float32") - lse
 
 
 def lm_pipeline(model: GPTModel, weighted: bool = False):
-    """Not ported: the pipelined SPMD step's spec."""
-    raise MXNetError(f"lm_pipeline is not ported: {_QUEUE_ITEM_11}")
+    """``PipelineSpec`` for ``lm_loss`` training under the pipelined SPMD
+    step (``parallel/pipelined.py``): stem = the embeddings, one pipeline
+    block a transformer layer, head = the final norm and the tied vocab
+    projection with the next-token cross entropy as the rank's LOCAL
+    partial sums, and ``finalize`` the rank's ``lm_loss`` from them.
+
+    ``weighted`` selects ``lm_loss(..., weights)`` (batch = (input_ids,
+    labels, weights)); the default the mean (batch = (input_ids,
+    labels)). The stem and the head are ``GPTModel.embed`` and
+    ``GPTModel.logits``, which ``hybrid_forward`` composes, and the loss
+    shares ``lm_loss``'s code; only the split into partial sums and
+    ``finalize`` is the pipeline's own, so the pipelined step's losses
+    and gradients are the plain step's bitwise.
+    A dp / fsdp mesh only (the pipelined step's rule): no tp or sp."""
+    from ..parallel.pipelined import PipelineSpec, count_of, mean_of
+    from ..parallel.spmd import neg_global_ratio
+
+    def head(x, input_ids, labels, *rest):
+        ll = _token_log_likelihood(model, model.logits(x), labels)
+        if weighted:
+            if not rest:
+                raise MXNetError(
+                    "lm_pipeline(weighted=True) expects batch = "
+                    "(input_ids, labels, weights)")
+            w = rest[0]
+            return ((ll * w).sum(), w.sum())
+        return (ll.sum(), count_of(ll))
+
+    def finalize(num, den):
+        return neg_global_ratio(num, den) if weighted \
+            else -mean_of(num, den)
+
+    return PipelineSpec(
+        blocks=model.blocks, head=head, finalize=finalize,
+        stem=lambda input_ids, *rest: model.embed(input_ids),
+        stem_modules=[model.word_embed, model.position_embed],
+        head_modules=[model.ln_f, model.word_embed], name="gpt_lm")
 
 
 def _ids(ids, device) -> torch.Tensor:

@@ -114,25 +114,94 @@ def _as32(t):
 
 
 def _tensor_like(v, ref):
-    """A Python scalar operand as a 0-d tensor beside ``ref`` (NumPy's
-    scalar promotion: the array's dtype wins)."""
+    """A Python scalar operand as a 0-d tensor beside ``ref``, weakly
+    typed as jax.numpy's scalars are: it takes ``ref``'s dtype where its
+    kind fits it (an int beside an int array, a float beside a float
+    array) and the 32-bit default of its own kind where it does not (an
+    int beside a bool array is int32, a float beside an int array is
+    float32)."""
     if torch.is_tensor(v):
         return v
-    if isinstance(v, bool):
-        return torch.tensor(v, device=ref.device)
-    if isinstance(v, int) and not ref.is_floating_point():
-        return torch.tensor(v, dtype=ref.dtype, device=ref.device)
-    return torch.tensor(v, dtype=ref.dtype if ref.is_floating_point()
-                        else torch.float32, device=ref.device)
+    dtype = _int32(torch.result_type(ref, v))
+    return torch.tensor(v, dtype=dtype, device=ref.device)
 
 
-def _binary(fn):
+def _int32(dtype):
+    """torch's default integer (int64) as the JAX package's (int32)."""
+    return torch.int32 if dtype == torch.int64 else dtype
+
+
+def _narrow(out, *inputs):
+    """An int64 result as int32 unless an input was int64 (torch widens
+    integer reductions and indices to int64, jax.numpy keeps 32 bits)."""
+    if torch.is_tensor(out) and out.dtype == torch.int64 and not any(
+            torch.is_tensor(t) and t.dtype == torch.int64 for t in inputs):
+        return out.to(torch.int32)
+    return out
+
+
+def _bool_as(x, dtype=torch.int32):
+    """A bool array as ``dtype`` (jax.numpy's arithmetic on bools runs
+    on their integer values); any other array as it is."""
+    return x.to(dtype) if x.dtype == torch.bool else x
+
+
+def _binary(fn, ints=False):
+    """A binary function of two arrays or an array and a Python scalar;
+    ``ints``: bool operands enter as int32 (arithmetic, not logic)."""
     def op(a, b, **kw):
         if not torch.is_tensor(a):
             a = _tensor_like(a, b)
         if not torch.is_tensor(b):
             b = _tensor_like(b, a)
+        if ints and a.dtype == torch.bool and b.dtype == torch.bool:
+            a, b = _bool_as(a), _bool_as(b)
         return fn(a, b, **kw)
+    return op
+
+
+def _float_binary(fn):
+    """A binary function jax.numpy computes in floating point: integer
+    and bool operands promote to float32."""
+    def op(a, b):
+        if not torch.is_tensor(a):
+            a = _tensor_like(a, b)
+        if not torch.is_tensor(b):
+            b = _tensor_like(b, a)
+        if not (a.is_floating_point() or b.is_floating_point()):
+            a = a.to(torch.float32)
+        return fn(a, b)
+    return op
+
+
+def _sum_dtype(x):
+    """jax.numpy's accumulator for ``sum`` / ``prod`` / ``trace``: bool
+    and signed ints as int32, uint8 as uint32, floats as they are."""
+    if x.dtype == torch.uint8:
+        return torch.uint32
+    if x.dtype in (torch.bool, torch.int8, torch.int16):
+        return torch.int32
+    return None
+
+
+def _sum_like(fn):
+    """``sum`` / ``prod`` with NumPy's axis / keepdims / dtype and
+    jax.numpy's accumulator widths."""
+    def op(x, axis=None, keepdims=False, dtype=None):
+        want = _tdtype(dtype) or _sum_dtype(x)
+        # torch accumulates uint8 in int64; the narrowing cast wraps as
+        # jax.numpy's uint32 sum does
+        out = _reduce(fn)(x, axis, keepdims, dtype=torch.int64
+                          if want == torch.uint32 else want)
+        return out.to(want) if want is not None else _narrow(out, x)
+    return op
+
+
+def _index_result(fn):
+    """An index-valued function (argmax, argsort, nonzero, ...) with
+    int32 indices; bool input as uint8 (torch's argmax takes no bool)."""
+    def op(x, *args, **kw):
+        return _narrow(fn(_bool_as(x, torch.uint8), *args, **kw))
     return op
 
 
@@ -163,8 +232,8 @@ def _floating(x):
     return x if x.is_floating_point() else x.to(torch.float32)
 
 
-def _mean(x, **kw):
-    return torch.mean(_floating(x), **kw)
+def _mean(x, dtype=None, **kw):
+    return torch.mean(_floating(x), dtype=_tdtype(dtype), **kw)
 
 
 def _moment(fn):
@@ -175,10 +244,15 @@ def _moment(fn):
 
 
 def _cumulative(fn):
+    """``cumsum`` / ``cumprod``: jax.numpy keeps an unsigned or int32
+    input's dtype and counts bools as int32."""
     def op(x, axis=None, dtype=None):
         if axis is None:
             x, axis = x.reshape(-1), 0
-        return fn(x, dim=axis, dtype=_tdtype(dtype))
+        want = _tdtype(dtype) or (torch.int32 if x.dtype == torch.bool
+                                  else None if x.is_floating_point()
+                                  else x.dtype)
+        return fn(x, dim=axis, dtype=want)
     return op
 
 
@@ -188,7 +262,7 @@ def _ptp(x, axis=None, keepdims=False):
 
 
 def _count_nonzero(x, axis=None, keepdims=False):
-    out = torch.count_nonzero(x, dim=axis)
+    out = _narrow(torch.count_nonzero(x, dim=axis))
     if keepdims:
         axes = range(x.dim()) if axis is None else \
             ([axis] if isinstance(axis, int) else axis)
@@ -199,6 +273,7 @@ def _count_nonzero(x, axis=None, keepdims=False):
 
 def _all_any(fn):
     def op(x, axis=None, keepdims=False):
+        x = x if x.dtype == torch.bool else x != 0
         if axis is None:
             out = fn(x)
             return out.reshape((1,) * x.dim()) if keepdims else out
@@ -257,7 +332,7 @@ def _where(cond, x=None, y=None):
     if cond.dtype != torch.bool:     # MXNet's comparisons give 0 / 1
         cond = cond != 0
     if x is None and y is None:
-        return list(torch.where(cond))
+        return [_narrow(t) for t in torch.where(cond)]
     ref = x if torch.is_tensor(x) else y
     return torch.where(cond, _tensor_like(x, ref), _tensor_like(y, ref))
 
@@ -283,7 +358,12 @@ def _diagonal(x, offset=0, axis1=0, axis2=1):
 
 
 def _trace(x, offset=0, axis1=0, axis2=1):
-    return torch.diagonal(x, offset, axis1, axis2).sum(-1)
+    return _sum_like(torch.sum)(torch.diagonal(x, offset, axis1, axis2),
+                                axis=-1)
+
+
+def _diag(v, k=0):
+    return torch.diag(v, diagonal=k)
 
 
 def _take(x, indices, axis=None):
@@ -293,6 +373,18 @@ def _take(x, indices, axis=None):
     return torch.index_select(x, axis, idx.reshape(-1)).reshape(
         x.shape[:axis % x.dim()] + idx.shape
         + x.shape[axis % x.dim() + 1:])
+
+
+def _bool_product(fn):
+    """A product of arrays; of two bool arrays, the logical one (any of
+    the pairwise ands), as jax.numpy computes it."""
+    def op(*args, **kw):
+        arrays = [a for a in args if torch.is_tensor(a)]
+        if arrays and all(a.dtype == torch.bool for a in arrays):
+            args = [_bool_as(a) if torch.is_tensor(a) else a for a in args]
+            return fn(*args, **kw) != 0
+        return fn(*args, **kw)
+    return op
 
 
 def _dot(a, b):
@@ -322,7 +414,21 @@ def _isclose(a, b, rtol=1e-05, atol=1e-08, equal_nan=False):
 
 
 def _round(x, decimals=0):
+    if not x.is_floating_point() and decimals >= 0:
+        return x.clone()        # integers round to themselves
     return torch.round(x, decimals=decimals)
+
+
+def _rint(x):
+    return torch.round(_floating(x))
+
+
+def _bool_identity(fn):
+    """``fn``, which torch leaves unimplemented on bool; a bool array is
+    its own result (jax.numpy's abs, floor, ceil, trunc of a bool)."""
+    def op(x):
+        return x.clone() if x.dtype == torch.bool else fn(x)
+    return op
 
 
 def _float_power(a, b):
@@ -332,45 +438,53 @@ def _float_power(a, b):
 
 _PLAIN = {
     # name: torch function of the same semantics
-    "abs": torch.abs, "absolute": torch.abs, "negative": torch.neg,
-    "positive": torch.positive, "exp": torch.exp, "expm1": torch.expm1,
+    "abs": _bool_identity(torch.abs),
+    "absolute": _bool_identity(torch.abs), "negative": torch.neg,
+    "positive": _bool_identity(torch.positive), "exp": torch.exp, "expm1": torch.expm1,
     "exp2": torch.exp2, "log": torch.log, "log1p": torch.log1p,
     "log2": torch.log2, "log10": torch.log10, "sqrt": torch.sqrt,
-    "cbrt": lambda x: torch.sign(x) * torch.abs(x).pow(1.0 / 3.0),
-    "square": torch.square, "reciprocal": torch.reciprocal,
+    "cbrt": lambda x: torch.sign(_floating(x)) * torch.abs(
+        _floating(x)).pow(1.0 / 3.0),
+    "square": lambda x: torch.square(_bool_as(x)), "reciprocal": torch.reciprocal,
     "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
     "arcsin": torch.arcsin, "arccos": torch.arccos, "arctan": torch.arctan,
     "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
     "arcsinh": torch.arcsinh, "arccosh": torch.arccosh,
-    "arctanh": torch.arctanh, "sign": torch.sign, "floor": torch.floor,
-    "ceil": torch.ceil, "trunc": torch.trunc, "rint": torch.round,
-    "fix": torch.trunc, "round": _round, "around": _round,
+    "arctanh": torch.arctanh, "sign": torch.sign, "floor": _bool_identity(torch.floor),
+    "ceil": _bool_identity(torch.ceil),
+    "trunc": _bool_identity(torch.trunc), "rint": _rint,
+    "fix": _bool_identity(torch.trunc), "round": _round, "around": _round,
     "isnan": torch.isnan, "isinf": torch.isinf, "isfinite": torch.isfinite,
     "logical_not": torch.logical_not, "signbit": torch.signbit,
     "deg2rad": torch.deg2rad, "rad2deg": torch.rad2deg,
     "degrees": torch.rad2deg, "radians": torch.deg2rad,
-    "add": _binary(torch.add), "subtract": _binary(torch.sub),
+    "add": _binary(torch.add), "subtract": _binary(
+        lambda a, b: torch.sub(_bool_as(a), _bool_as(b))),
     "multiply": _binary(torch.mul), "divide": _binary(torch.true_divide),
     "true_divide": _binary(torch.true_divide),
-    "floor_divide": _binary(torch.floor_divide),
-    "power": _binary(torch.pow), "float_power": _binary(_float_power),
-    "remainder": _binary(torch.remainder), "mod": _binary(torch.remainder),
-    "fmod": _binary(torch.fmod), "maximum": _binary(torch.maximum),
+    "floor_divide": _binary(torch.floor_divide, ints=True),
+    "power": _binary(torch.pow, ints=True),
+    "float_power": _binary(_float_power),
+    "remainder": _binary(torch.remainder, ints=True),
+    "mod": _binary(torch.remainder, ints=True),
+    "fmod": _binary(torch.fmod, ints=True),
+    "maximum": _binary(torch.maximum),
     "minimum": _binary(torch.minimum), "fmax": _binary(torch.fmax),
     "fmin": _binary(torch.fmin), "arctan2": _binary(torch.arctan2),
-    "hypot": _binary(torch.hypot), "copysign": _binary(torch.copysign),
-    "logaddexp": _binary(torch.logaddexp), "equal": _binary(torch.eq),
+    "hypot": _float_binary(torch.hypot),
+    "copysign": _binary(torch.copysign),
+    "logaddexp": _float_binary(torch.logaddexp), "equal": _binary(torch.eq),
     "not_equal": _binary(torch.ne), "greater": _binary(torch.gt),
     "greater_equal": _binary(torch.ge), "less": _binary(torch.lt),
     "less_equal": _binary(torch.le),
     "logical_and": _binary(torch.logical_and),
     "logical_or": _binary(torch.logical_or),
     "logical_xor": _binary(torch.logical_xor),
-    "sum": _reduce(torch.sum), "prod": _reduce(torch.prod),
+    "sum": _sum_like(torch.sum), "prod": _sum_like(torch.prod),
     "mean": _reduce(_mean), "max": _minmax(torch.amax),
     "min": _minmax(torch.amin), "amax": _minmax(torch.amax),
-    "amin": _minmax(torch.amin), "argmax": _reduce(torch.argmax, True),
-    "argmin": _reduce(torch.argmin, True), "std": _moment(torch.std),
+    "amin": _minmax(torch.amin), "argmax": _index_result(_reduce(torch.argmax, True)),
+    "argmin": _index_result(_reduce(torch.argmin, True)), "std": _moment(torch.std),
     "var": _moment(torch.var), "all": _all_any(torch.all),
     "any": _all_any(torch.any), "cumsum": _cumulative(torch.cumsum),
     "cumprod": _cumulative(torch.cumprod),
@@ -393,11 +507,15 @@ _PLAIN = {
     "vstack": lambda arrays: torch.vstack(list(arrays)),
     "hstack": lambda arrays: torch.hstack(list(arrays)),
     "split": _split, "array_split": _array_split, "where": _where,
-    "clip": _clip, "sort": _sort, "argsort": _argsort, "diag": torch.diag,
+    "clip": _clip, "sort": _sort, "argsort": _index_result(_argsort),
+    "diag": _diag,
     "diagonal": _diagonal, "tril": torch.tril, "triu": torch.triu,
     "trace": _trace,
-    "take": _take, "dot": _dot, "matmul": torch.matmul, "inner": torch.inner,
-    "outer": _outer, "tensordot": _tensordot, "einsum": _einsum,
+    "take": _take, "dot": _bool_product(_dot),
+    "matmul": _bool_product(torch.matmul),
+    "inner": _bool_product(torch.inner),
+    "outer": _outer, "tensordot": _bool_product(_tensordot),
+    "einsum": _bool_product(_einsum),
     "kron": torch.kron, "isclose": _isclose,
     "zeros_like": lambda x, dtype=None: torch.zeros_like(
         x, dtype=_tdtype(dtype)),
@@ -465,8 +583,9 @@ _CREATION = {
     "full": _creation(
         lambda shape, fill_value, dtype=None, device=None: torch.full(
             _shape_arg(shape), fill_value, dtype=dtype or (
+                torch.bool if isinstance(fill_value, bool) else
                 torch.int32 if isinstance(fill_value, int)
-                and not isinstance(fill_value, bool) else torch.float32),
+                else torch.float32),
             device=device)),
     "eye": _creation(_eye),
     "identity": _creation(lambda n, dtype=None, device=None: _eye(

@@ -26,8 +26,8 @@ Axis names (as in the JAX package):
     tp    tensor parallelism (attention heads, MLP hidden units, the
           optimizer state of vocab-split embeddings)
     sp    sequence parallelism (ring attention over the sequence's blocks)
-    pp    pipeline stages     \\ not ported yet: a mesh with one of them
-    ep    expert parallelism  /  > 1 raises (ROADMAP Queue 1 item 11)
+    pp    pipeline stages (``parallel.pipeline.pipeline_apply``)
+    ep    expert parallelism (``parallel.moe.switch_moe``)
 """
 
 from __future__ import annotations
@@ -48,7 +48,6 @@ __all__ = ["AXES", "MeshConfig", "LocalMesh", "build_mesh",
            "rank", "is_distributed"]
 
 AXES = ("dp", "fsdp", "tp", "sp", "pp", "ep")
-_NOT_PORTED_AXES = ("pp", "ep")
 
 _DEFAULT_MESH = None
 
@@ -160,14 +159,7 @@ def build_mesh(config: Optional[MeshConfig] = None,
             f"processes; the port runs one device per process")
     if config is None:
         config = MeshConfig(**(axis_sizes or {}))
-    wide = [a for a in _NOT_PORTED_AXES if getattr(config, a) > 1]
-    sizes = config.resolve(n) if not wide else {}
-    wide = wide or [a for a in _NOT_PORTED_AXES if sizes[a] > 1]
-    if wide:
-        raise MXNetError(
-            f"build_mesh: the {'/'.join(wide)} axis is not ported yet "
-            f"(pipeline and expert parallelism are ROADMAP Queue 1 item "
-            f"11); dp, fsdp, tp and sp run")
+    sizes = config.resolve(n)
     dtype = _device_type()
     if not is_distributed():
         return LocalMesh(dtype)

@@ -134,11 +134,23 @@ runs its forward and backward inside ``activation_sharding_scope(mesh)``:
   and averaged over the others. A weighted mean loss normalizes by the
   global weight sum (``split_sum``).
 
-Not ported, and refused with ``MXNetError`` (ROADMAP Queue 1 item 11's
-next slice: pipeline parallelism): ``pipeline=``, ``int8_allreduce``,
-``remat_plan`` and ``grad_collective="ring"``; and ``sharding="fsdp"``
-with a norm-based optimizer (LAMB, LARS), whose trust ratio would read a
-shard's norm.
+The pipelined-backward step (``pipeline=``, a
+``parallel.pipelined.PipelineSpec``): the same programs with the
+backward run block by block and each gradient bucket reduced between the
+block pullbacks (``parallel/pipelined.py``). With it, as in JAX:
+``int8_allreduce`` (the in-step int8 bucket all-reduce; default
+``MXTPU_INT8_ALLREDUCE``), ``grad_collective`` ('psum' or 'ring', the
+send / recv ring; default ``MXTPU_GRAD_COLLECTIVE``; int8 composes with
+'psum' only) and ``remat_plan`` (a policy a pipeline block); the last
+two and int8 need ``pipeline=``. ``pipelined_step_trace_count`` /
+``pipelined_accum_step_trace_count`` count the pipelined builds,
+``pipelined_issue_ledger`` / ``pipelined_bucket_order`` record the last
+build's bucket issue. ``pipelined_hlo`` has no counterpart (there is no
+lowered program text; ``pipelined_structure`` reads the ledger).
+
+Refused with ``MXNetError``: ``sharding="fsdp"`` with a norm-based
+optimizer (LAMB, LARS), whose trust ratio would read a shard's norm (on
+the pipelined step at its first step, with the JAX message).
 """
 
 from __future__ import annotations
@@ -308,7 +320,7 @@ def active_mesh():
 
 # the axes a layout change moves data over on a rank: the batch axes (dp,
 # fsdp) name the tile the trainer already cut from the global batch
-_MOVING = ("tp", "sp")
+_MOVING = ("tp", "sp", "ep")
 
 
 def _canonical(entry, sizes):
@@ -330,8 +342,8 @@ def constrain(x, *spec, mesh=None, src=None):
     ``("fsdp", "dp")``, as in JAX. ``src`` is the layout ``x`` is in
     (default: the trainer's, the batch tile with nothing on tp or sp).
 
-    Only the tp and sp axes move data (the batch axes name the tile the
-    trainer already cut): a dimension ENTERING an axis is sliced to this
+    Only the tp, sp and ep axes move data (the batch axes name the tile
+    the trainer already cut): a dimension ENTERING an axis is sliced to this
     rank's tile (its gradient is the tile's, zero elsewhere); one LEAVING
     an axis is all-gathered over it (its gradient is reduce-scattered, the
     sum over the ranks of each tile's). These are the adjoints over the
@@ -387,6 +399,17 @@ def split_sum(x, seq: bool = False):
             x = _coll.psum(x, _mesh.axis_group(mesh, a))
             n *= sizes[a]
     return n, x
+
+
+def neg_global_ratio(num, den, seq: bool = False):
+    """``-num / den`` for a loss normalized by a global sum: ``den`` (an
+    ``NDArray``, the rank's share) summed over the ranks that split the
+    batch (``split_sum``) and the rank's numerator scaled by their
+    number; the 1e-6 keeps an all-zero denominator finite."""
+    n, total = split_sum(den._data, seq=seq)
+    if n == 1:
+        return -num / (den + 1e-6)
+    return -num * n / (NDArray(total) + 1e-6)
 
 
 class TPAxis:
@@ -479,12 +502,6 @@ def tp_linear(x, weight, bias, hint, tp: Optional[TPAxis], groups: int = 1):
     return None
 
 
-def _not_ported(what):
-    return MXNetError(f"SPMDTrainer: {what} is not ported yet (pipeline "
-                      f"parallelism, ROADMAP Queue 1 item 11's next "
-                      f"slice)")
-
-
 def _fsdp_dim(shape, size: int) -> Optional[int]:
     """The dimension a parameter of ``shape`` is sharded on over an fsdp
     axis of ``size`` (the JAX ``_fsdp_spec`` rule without tensor-parallel
@@ -571,8 +588,11 @@ class SPMDTrainer:
     accepted), ``sharding`` ('replicated' or 'fsdp'), ``loss_scaler``
     (``amp.LossScaler``), ``guard`` (the in-step non-finite guard; None
     reads ``MXTPU_STEP_GUARD``, default on) and
-    ``max_consecutive_nonfinite``. ``donate`` has no effect (the step
-    updates the parameters and the optimizer state in place)."""
+    ``max_consecutive_nonfinite``, ``pipeline`` (a ``PipelineSpec``: the
+    pipelined-backward step, whose head and finalize are the loss) with
+    ``int8_allreduce``, ``grad_collective`` and ``remat_plan`` (see the
+    module's docstring). ``donate`` has no effect (the step updates the
+    parameters and the optimizer state in place)."""
 
     def __init__(self, block, loss=None, optimizer="sgd",
                  optimizer_params=None, mesh=None,
@@ -588,15 +608,32 @@ class SPMDTrainer:
             raise MXNetError("provide loss, forward_loss or pipeline")
         if sharding not in ("replicated", "fsdp"):
             raise MXNetError(f"unknown sharding {sharding!r}")
-        if pipeline is not None:
-            raise _not_ported("pipeline=")
-        if int8_allreduce:
-            raise _not_ported("int8_allreduce (the in-program int8 "
-                              "all-reduce of the pipelined step)")
-        if remat_plan is not None:
-            raise _not_ported("remat_plan")
-        if grad_collective not in (None, "psum"):
-            raise _not_ported(f"grad_collective={grad_collective!r}")
+        self._pipeline = pipeline
+        if int8_allreduce is None:
+            int8_allreduce = getenv_bool("MXTPU_INT8_ALLREDUCE", False)
+        self._int8_allreduce = bool(int8_allreduce)
+        if grad_collective is None:
+            grad_collective = os.environ.get("MXTPU_GRAD_COLLECTIVE",
+                                             "psum")
+        if grad_collective not in ("psum", "ring"):
+            raise MXNetError(
+                f"grad_collective must be 'psum' or 'ring', got "
+                f"{grad_collective!r}")
+        if grad_collective == "ring" and self._int8_allreduce:
+            raise MXNetError(
+                "int8_allreduce composes with grad_collective='psum' "
+                "only (the ring carries f32 chunks)")
+        self._grad_collective = grad_collective
+        self._remat_plan = list(remat_plan) if remat_plan is not None \
+            else None
+        if pipeline is None and (self._int8_allreduce
+                                 or remat_plan is not None):
+            raise MXNetError(
+                "int8_allreduce / remat_plan require pipeline= (the "
+                "GSPMD step has no in-program collective seam)")
+        self.pipelined_issue_ledger = None   # set by each pipelined run
+        self.pipelined_bucket_order = None
+        self._pipe_fb = None                 # pipelined.PipelinedBackward
         self.mesh = _mesh_of(mesh)
         sizes = self._sizes = _mesh.axis_sizes(self.mesh)
         self._fsdp_size = sizes["fsdp"]
@@ -667,7 +704,8 @@ class SPMDTrainer:
             for i in self._train_idx]
         self._shard_dims = [plan[0][0] if plan else None
                             for plan in self._shard_plans]
-        if norm_based(self._optimizer) and (
+        # (the pipelined step refuses at its first step, as in JAX)
+        if pipeline is None and norm_based(self._optimizer) and (
                 sharding == "fsdp" or any(self._shard_plans)):
             raise MXNetError(
                 f"SPMDTrainer: sharding='fsdp' or a tp axis with "
@@ -712,7 +750,53 @@ class SPMDTrainer:
         snap["last_accum_count"] = self.last_accum_count
         snap["sharding"] = self.sharding_mode
         snap["replicas"] = self._replicas
+        if self._pipeline is not None:
+            snap["pipelined"] = True
+            snap["pipelined_step_trace_count"] = \
+                self.pipelined_step_trace_count
+            snap["pipelined_accum_step_trace_count"] = \
+                self.pipelined_accum_step_trace_count
+            snap["pipelined_bucket_order"] = self.pipelined_bucket_order
+            snap["grad_collective"] = self._grad_collective
+            snap["int8_allreduce"] = self._int8_allreduce
         return snap
+
+    @property
+    def pipelined_step_trace_count(self) -> int:
+        """The step programs captured through ``pipeline=`` (0 without
+        one): a pipelined trainer's every step program is pipelined."""
+        return self.step_trace_count if self._pipeline is not None else 0
+
+    @property
+    def pipelined_accum_step_trace_count(self) -> int:
+        """The accumulation programs captured through ``pipeline=``."""
+        return self.accum_step_trace_count if self._pipeline is not None \
+            else 0
+
+    def pipelined_hlo(self, accum: bool = False) -> str:
+        """No counterpart: the port's step has no lowered program text.
+        Raises ``MXNetError`` naming ``pipelined_structure`` /
+        ``parallel.pipelined.structure_report``, which read the step's
+        issue ledger (or a profiled replay's timeline on the card)."""
+        raise MXNetError(
+            "pipelined_hlo: the port's step is not lowered to program "
+            "text; pipelined_structure() / parallel.pipelined."
+            "structure_report read its issue ledger (and a profiled "
+            "replay's kernel timeline on the card)")
+
+    def pipelined_structure(self, accum: bool = False,
+                            timeline=None) -> dict:
+        """``pipelined.structure_report`` over the last pipelined run's
+        issue ledger (``accum`` is the JAX argument: the ledger is the
+        last run's, a step's or a microbatch's), or over ``timeline``,
+        the kernel names of a profiled replay on the card."""
+        from .pipelined import structure_report
+        if self._pipeline is None:
+            raise MXNetError("pipelined_structure: trainer has no "
+                             "pipeline=")
+        if self.pipelined_issue_ledger is None:
+            raise MXNetError("pipelined_structure: run one step first")
+        return structure_report(self.pipelined_issue_ledger, timeline)
 
     # ------------------------------------------------------------------ #
     def _shard_box(self, slot: int):
@@ -775,7 +859,11 @@ class SPMDTrainer:
     def _forward_backward(self, batch, scale):
         """(loss, gradients) of the block in training mode on this rank's
         tile, then reduced over the mesh (``_reduce``): the loss is
-        scaled for the backward and divided back, as the JAX step does."""
+        scaled for the backward and divided back, as the JAX step does.
+        The pipelined step's forward / backward in its place under
+        ``pipeline=``."""
+        if self._pipe_fb is not None:
+            return self._pipe_fb(batch, scale)
         params = [self._params[i] for i in self._train_idx]
         was_training = self.block.training
         self.block.train()
@@ -838,21 +926,42 @@ class SPMDTrainer:
                     [grads[k].numel() for k in members])):
                 out[k] = part.view(grads[k].shape)
         for k, plan in enumerate(self._shard_plans):
-            if not plan:
-                continue
-            g = grads[k]
-            for d, a in plan:
-                g = _coll.reduce_scatter(g, self._groups[a], d, op="mean")
-            split = {a for _, a in plan}
-            for a, group in self._groups.items():
-                if a not in split:
-                    _coll.all_reduce_mean_(g, group)
-            out[k] = g
+            if plan:
+                out[k], _ = self._reduce_sharded(k, grads[k])
         if _mesh.world_size() > 1:
             for b in self._buffers:
                 if b.is_floating_point():
                     _coll.all_reduce_mean_(b.data)
         return loss, out
+
+    def _reduce_sharded(self, slot: int, g):
+        """Sharded ``slot``'s gradient ``g`` averaged over every rank:
+        reduce-scattered over each axis of its plan (this rank's shard
+        comes back), averaged over the other axes. Returns ``(shard,
+        collective calls)``."""
+        plan = self._shard_plans[slot]
+        for d, a in plan:
+            g = _coll.reduce_scatter(g, self._groups[a], d, op="mean")
+        split = {a for _, a in plan}
+        calls = len(plan)
+        for a, group in self._groups.items():
+            if a not in split:
+                _coll.all_reduce_mean_(g, group)
+                calls += 1
+        return g, calls
+
+    def _shard_of(self, slot: int, full):
+        """This rank's shard of trainable ``slot``'s whole tensor ``full``
+        (``full`` itself for a replicated parameter)."""
+        for d, start, n in self._shard_box(slot) or ():
+            full = full.narrow(d, start, n)
+        return full
+
+    def _buffer_names(self):
+        """Names of ``_buffers``, in its order (error messages)."""
+        names = [n for n, _ in self.block.named_buffers()]
+        return names + [n for n, p in zip(self._names, self._params)
+                        if not p.requires_grad]
 
     def _gather(self, slot: int, out=None):
         """Trainable ``slot``'s whole parameter from the ranks' shards
@@ -981,6 +1090,9 @@ class SPMDTrainer:
         it."""
         batch = _tensors(batch)
         local = self.local_batch(batch)
+        if self._pipeline is not None and self._pipe_fb is None:
+            from .pipelined import build_pipelined_step
+            self._pipe_fb = build_pipelined_step(self, len(batch))
         if self._opt_state is None:
             self._materialize()
         sig = tuple((tuple(b.shape), b.dtype) for b in batch)
@@ -1132,6 +1244,9 @@ class SPMDTrainer:
                         f"microbatch dim {t.shape[0]} not divisible by "
                         f"the mesh's dp×fsdp size {self._replicas}")
         k = len(rounds)
+        if self._pipeline is not None and self._pipe_fb is None:
+            from .pipelined import build_pipelined_accum_step
+            self._pipe_fb = build_pipelined_accum_step(self, len(rounds[0]))
         if self._opt_state is None:
             self._materialize()
         acc = self._accum_state()

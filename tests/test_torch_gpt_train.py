@@ -22,7 +22,8 @@ seed and the JAX model's weights are carried across by structural name
     dp/fsdp/tp mesh is not ported), the KV-cache decode against the full
     recompute, and ``decode_forward``'s logits against the forward;
   - ``seq_parallel=True`` outside an SPMD step is the plain model, and
-    the refusal of ``lm_pipeline`` names ROADMAP's Queue 1 item 11.
+    ``lm_pipeline``'s step in one process is bitwise the plain step's
+    (the two-rank cases are ``tests/test_torch_pipelined.py``).
 """
 
 import numpy as np
@@ -239,8 +240,18 @@ def test_refusals_name_what_they_wait_for(pair):
     with autograd.predict_mode():
         np.testing.assert_array_equal(sp(_ids(ids)).asnumpy(),
                                       tm(_ids(ids)).asnumpy())
-    with pytest.raises(MXNetError, match="item 11"):
-        tg.lm_pipeline(tm)
+    # lm_pipeline is ported: its pipelined step is the plain one, bitwise
+    ids, labels = (_ids(np.random.RandomState(s).randint(0, V, (2, 16)))
+                   for s in (2, 3))
+    runs = []
+    for pipelined in (False, True):
+        m = port_gpt(jm, vocab_size=V, max_length=32)
+        kw = dict(pipeline=tg.lm_pipeline(m)) if pipelined \
+            else dict(forward_loss=tg.lm_loss)
+        tr = mx.parallel.SPMDTrainer(m, optimizer="adam", **kw)
+        runs.append([float(tr.step(ids, labels).asnumpy())
+                     for _ in range(2)])
+    assert runs[0] == runs[1] and tr.pipelined_step_trace_count == 1
     with pytest.raises(ValueError, match="remat"):
         tg.gpt_mini(remat="all")
     with pytest.raises(MXNetError, match="max_length"):

@@ -5,7 +5,9 @@ Every name of ``mx.np``'s docstring list runs on the same numpy inputs
 (``RandomState(0)``) in both packages: float results within rtol 1e-5 /
 atol 1e-6 (float32 transcendental functions differ in the last ulps
 between XLA and torch), integer and boolean results equal, the same
-shape and dtype kind. ``mx.np.random``'s draws have the JAX draws' shapes
+shape and the same dtype (bool, uint8 and int32 inputs too: jax.numpy's
+weakly typed Python scalars, 32-bit integer results, uint32 sums of
+uint8). ``mx.np.random``'s draws have the JAX draws' shapes
 and dtypes (the streams differ by design: two packages, two generators).
 A name off the list raises ``MXNetError`` naming it; ``autograd.record``
 sees ``mx.np`` calls; ``mx.npx`` forwards to ``mx.nd`` as the JAX one
@@ -155,6 +157,52 @@ CASES["empty_like"] = _unary(A)        # zeros in both packages
 CASES["array"] = _call([[1.0, 2.0], [3.0, 4.0]])
 CASES["asarray"] = _call([[1.0, 2.0]])
 
+# bool, uint8 and int32 inputs, held to jax.numpy's exact result dtypes:
+# weakly typed Python scalars beside bool arrays, 32-bit integer
+# reductions and indices, uint32 sums of uint8, bool arithmetic
+U8 = _R.randint(0, 9, (3, 4)).astype(np.uint8)
+LS = _R.rand(4, 4) > 0.5                                     # square bools
+ONES_L = np.ones((3, 4), bool)                               # no 0 divisor
+for _n in "abs absolute positive floor ceil trunc fix cbrt rint square".split():
+    CASES[_n + "_bool"] = (_n, _unary(L))
+for _n in "rint round around".split():
+    CASES[_n + "_int32"] = (_n, _unary(I))
+    CASES[_n + "_uint8"] = (_n, _unary(U8))
+for _n in ("add multiply divide equal not_equal greater_equal less "
+           "arctan2 maximum minimum fmax fmin subtract").split():
+    CASES[_n + "_bool_int"] = (_n, _call(Arr(L), 2))
+for _n in "hypot logaddexp".split():
+    CASES[_n + "_int32"] = (_n, _binary(I, J))
+    CASES[_n + "_bool_int"] = (_n, _call(Arr(L), 2))
+    CASES[_n + "_uint8"] = (_n, _binary(U8, U8))
+for _n in "power floor_divide remainder mod fmod".split():
+    CASES[_n + "_bool"] = (_n, _binary(L, ONES_L))
+for _n in "dot matmul inner".split():
+    CASES[_n + "_bool"] = (_n, _binary(LS, LS))
+CASES["tensordot_bool"] = ("tensordot", _call(Arr(LS), Arr(LS), 1))
+CASES["einsum_bool"] = ("einsum", _call("ij,jk->ik", Arr(LS), Arr(LS)))
+CASES["where_bool_int"] = ("where", _call(Arr(L), Arr(L), 0))
+CASES["where_one_arg_int32"] = ("where", _unary(I))
+for _n, _x in (("bool", L), ("uint8", U8), ("int32", I)):
+    for _r in "sum prod cumsum cumprod argmax argmin".split():
+        CASES[f"{_r}_{_n}"] = (_r, _call(Arr(_x), axis=1))
+        CASES[f"{_r}_{_n}_all"] = (_r, _unary(_x))
+    CASES[f"argsort_{_n}"] = ("argsort", _call(Arr(_x), axis=1))
+    CASES[f"count_nonzero_{_n}"] = ("count_nonzero", _unary(_x))
+    CASES[f"all_{_n}"] = ("all", _call(Arr(_x), axis=0))
+    CASES[f"any_{_n}"] = ("any", _unary(_x))
+    CASES[f"sum_{_n}_dtype"] = ("sum", _call(Arr(_x), dtype="float32"))
+    CASES[f"mean_{_n}_dtype"] = ("mean", _call(Arr(_x), axis=0,
+                                               dtype="float32"))
+    CASES[f"prod_{_n}_dtype"] = ("prod", _call(Arr(_x), axis=1,
+                                               dtype="int32"))
+CASES["trace_int32"] = ("trace", _unary(I[:, :3]))
+CASES["trace_bool"] = ("trace", _unary(LS))
+CASES["trace_uint8"] = ("trace", _unary(U8[:, :3]))
+CASES["diag_k"] = ("diag", _call(Arr(V), k=1))
+CASES["diag_k_matrix"] = ("diag", _call(Arr(S), k=-1))
+CASES["full_bool"] = ("full", _call((2, 3), True))
+
 HOST_CASES = {
     "shape": _unary(A), "ndim": _unary(T3), "size": _unary(T3),
     "result_type": _call(Arr(I), 1.0),
@@ -198,7 +246,7 @@ def _compare(name, got, want):
             _compare(name, g, w)
         return
     assert got.shape == want.shape, (name, got.shape, want.shape)
-    assert got.dtype.kind == want.dtype.kind, (name, got.dtype, want.dtype)
+    assert got.dtype == want.dtype, (name, got.dtype, want.dtype)
     if got.dtype.kind == "f":
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6,
                                    err_msg=name)

@@ -10,8 +10,9 @@ single-process cases of the multi-worker paths.
     ``int8_bucket_allreduce`` of one rank equals the JAX function over an
     axis of one (rtol 1e-6);
   - ``MeshConfig`` resolves and refuses as the JAX one; ``build_mesh``
-    without a process group is a ``LocalMesh``; tp / sp / pp / ep > 1 and
-    the next slice's names raise naming ROADMAP Queue 1 item 11;
+    without a process group is a ``LocalMesh``; tp / sp / pp / ep > 1
+    refuse one device as the JAX one does; ``pipeline_apply`` and
+    ``switch_moe`` (and their modules) are exported and run;
   - ``SPMDTrainer(sharding="fsdp")`` on one device against the JAX
     trainer (losses rtol 1e-5) and bitwise the replicated port trainer;
   - ports of the JAX single-process overlap / int8 tests
@@ -193,12 +194,9 @@ def test_build_mesh_and_initialize_in_one_process(monkeypatch):
         assert m.mesh_dim_names == jmesh.AXES == parallel.mesh.AXES
         assert parallel.mesh.axis_sizes(m) == {a: 1 for a in jmesh.AXES}
         assert m.size() == 1 and m.get_coordinate() == [0] * 6
-        for axes in ({"pp": 2}, {"ep": 2}):
-            with pytest.raises(MXNetError, match="item 11"):
-                parallel.build_mesh(axis_sizes=axes)
-        # tp and sp are ported: one process holds one device, and the
+        # every axis is ported: one process holds one device, and the
         # refusal is the JAX package's on one device
-        for axes in ({"tp": 2}, {"sp": 2}):
+        for axes in ({"tp": 2}, {"sp": 2}, {"pp": 2}, {"ep": 2}):
             with pytest.raises(MXNetError) as port_err:
                 parallel.build_mesh(axis_sizes=axes)
             with pytest.raises(Exception) as jax_err:
@@ -215,10 +213,20 @@ def test_build_mesh_and_initialize_in_one_process(monkeypatch):
     from torch.distributed.tensor import Replicate, Shard
     pl = parallel.mesh.named_sharding(m, "fsdp", None)
     assert pl[1] == Shard(0) and pl[0] == Replicate()
-    for name in ("pipeline_apply", "switch_moe", "moe", "pipeline",
-                 "stack_expert_params"):
-        with pytest.raises(MXNetError, match="item 11"):
-            getattr(parallel, name)
+    # the pipeline and expert names run: on a mesh of one rank the GPipe
+    # schedule is the stage applied to each microbatch, and switch_moe
+    # with one expert keeps every token at capacity factor 1
+    assert parallel.pipeline.pipeline_apply is parallel.pipeline_apply
+    assert parallel.moe.switch_moe is parallel.switch_moe
+    x = torch.arange(12.0).reshape(3, 2, 2)
+    stacked = parallel.stack_stage_params([{"w": torch.eye(2) * 2}])
+    out = parallel.pipeline_apply(lambda p, h: h @ p["w"], stacked, x, m)
+    assert torch.equal(out, x * 2)
+    experts = parallel.stack_expert_params([{"w": torch.eye(2)}])
+    y, aux = parallel.switch_moe(x[0], torch.zeros(2, 1),
+                                 lambda p, h: h @ p["w"], experts,
+                                 capacity_factor=1.0)
+    assert torch.equal(y, x[0]) and float(aux) == 1.0
     # ported: importable, and with no mesh active constrain is the
     # identity, as the JAX one is
     x = torch.arange(6.0).reshape(2, 3)

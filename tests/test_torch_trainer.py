@@ -14,8 +14,9 @@ package's, on the same numpy inputs.
   - the in-step guard: a NaN batch leaves parameters and optimizer state
     bit-identical, records SKIPPED_NONFINITE, halves the loss scale and
     does not move ``step_count``; consecutive NaN steps escalate to
-    HALTED_POISONED; the options this slice does not port are refused,
-    and checkpointing refuses only a trainer that has taken no step.
+    HALTED_POISONED; the pipelined step's options are refused without
+    ``pipeline=`` and int8 with the ring (the JAX rules), and
+    checkpointing refuses only a trainer that has taken no step.
 """
 
 import numpy as np
@@ -255,13 +256,17 @@ def test_consecutive_nonfinite_steps_halt():
 def test_refused_options(tmp_path):
     tp = _port_model()
     kw = dict(forward_loss=tb.pretraining_loss, optimizer="lamb")
-    # pipeline parallelism is the next slice of ROADMAP Queue 1 item 11
-    for bad, match in ((dict(pipeline=object()), "pipeline"),
-                       (dict(int8_allreduce=True), "int8_allreduce"),
-                       (dict(remat_plan=[True]), "remat_plan"),
-                       (dict(grad_collective="ring"), "ring")):
-        with pytest.raises(MXNetError, match=match + ".*item 11"):
+    # the pipelined step's options keep the JAX rules: int8 and
+    # remat_plan need pipeline=, int8 composes with "psum" only
+    for bad, match in ((dict(int8_allreduce=True), "require pipeline="),
+                       (dict(remat_plan=[True]), "require pipeline="),
+                       (dict(pipeline=object(), int8_allreduce=True,
+                             grad_collective="ring"), "psum' only"),
+                       (dict(grad_collective="tree"), "'psum' or 'ring'")):
+        with pytest.raises(MXNetError, match=match):
             SPMDTrainer(tp, **kw, **bad)
+    ring = SPMDTrainer(tp, **kw, grad_collective="ring")
+    assert ring._grad_collective == "ring"
     # a mesh over a process group and sharding="fsdp" are ported
     # (tests/test_torch_multiprocess.py); one process holds one device,
     # and fsdp refuses only a norm-based optimizer such as LAMB
