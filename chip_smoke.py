@@ -12,13 +12,14 @@ failure exits non-zero before the result line:
   2. build    — nvcc builds every kernel in incubator_mxnet_tpu_torch/
                 csrc/ (in parallel), timed; each ragged and flash
                 kernel's ptxas registers, shared memory and spills, and
-                its SASS counts of HMMA / LDSM / LDGSTS / UTMALDG /
-                STS.U16 (cuobjdump): the ragged tensor-core bodies
-                (prefill_mma, verify_mma, decode_mma) must issue HMMA,
-                LDSM and LDGSTS; the flash TMA bodies (forward, dq,
-                dk/dv) HMMA, LDSM and TMA loads (UTMALDG), and no STS.U16
-                (no transposed copy, stored 2 bytes at a time); the
-                forward's no spills;
+                its SASS counts of HMMA / HGMMA / LDSM / LDGSTS /
+                UTMALDG / STS.U16 (cuobjdump): the ragged tensor-core
+                bodies (prefill_mma, verify_mma, decode_mma) must issue
+                HMMA, LDSM and LDGSTS; the flash TMA bodies (forward, dq,
+                dk/dv) TMA loads (UTMALDG) and no STS.U16 (no transposed
+                copy, stored 2 bytes at a time), the forward and dk/dv
+                HMMA and LDSM, dq wgmma (HGMMA); the forward and dq no
+                spills; ptxas's lines on dq's wgmma pipeline printed;
   3. kernels  — each of the six ragged kernels (decode, prefill, verify,
                 and their int8 / fp8_e4m3 code-pool variants) against its
                 plain PyTorch version on the card at the serving path's
@@ -46,7 +47,8 @@ failure exits non-zero before the result line:
                 writes within f32 summation error of attn_delta; bf16
                 causal at tile counts and B x H awkward for the
                 heaviest-first work order (T = 576 with B x H = 15, 65,
-                511, 2048); two launches bitwise equal (causal and not);
+                511, 2048, and 2048 at lengths 2048 / 1 / 1000 / 64);
+                two launches bitwise equal (causal and not);
                 NaN in the K/V rows past valid_len changes no output
                 (bf16, T = 37 / 200 / 512, causal and not);
   5. serving  — gpt_small (GPT-2 small widths, bf16, seeded random
@@ -154,7 +156,10 @@ failure exits non-zero before the result line:
                 bf16 within 2e-2; gesvd / syevd / gelqf by reconstruction
                 and orthogonality), the samplers by their moments on the
                 card (that file's `cuda` test, pytest without the
-                conftest: no JAX);
+                conftest: no JAX); mx.np's floor_divide / remainder /
+                mod / fmod with integer and bool divisors holding zeros
+                on the card equal to the CPU, values and dtype
+                (tests/test_torch_numpy_division.py's `cuda` test);
   7. training — bert_base bf16 (flash, dropout 0.1) + BERTForPretraining
                 through SPMDTrainer with LAMB (lr 1e-4, f32 masters), the
                 bench's batch (B=32, T=512, M=76; lengths in [256, 512]):
@@ -176,7 +181,7 @@ failure exits non-zero before the result line:
                 steps on the card (kernels; steps 2-5 replays) against
                 the port on the CPU (plain versions), the losses within
                 rtol 1e-4 in f32 (CUDA-core bodies) and 2e-3 in bf16
-                (the mma.sync bodies bert_base runs), and in bf16 every
+                (the tensor-core bodies bert_base runs), and in bf16 every
                 parameter's first-step gradient within 5e-2 of its
                 largest |gradient|;
   7b. gluon   — the verify drive on the card, bert_base bf16 through
@@ -603,12 +608,15 @@ FLASH_CASES = [          # (B, H, Tq, Tk, D, lengths, causal)
 # bf16 D=64 causal cases (the tensor-core bodies) whose tile count and
 # B x H are awkward for the heaviest-first work order (flash_common.cuh
 # `flash_unit`) and the forward's diagonal by warp: 9 tiles with an odd
-# B x H, one tile and a row, a row short of 8 tiles, and 32 tiles
+# B x H, one tile and a row, a row short of 8 tiles, 32 tiles, and 32
+# tiles with mixed lengths (units of one rank cross batch rows whose
+# key ends differ)
 FLASH_CAUSAL_BF16 = [
     (3, 5, 576, 576, 64, [576, 300, 1], True),
     (1, 12, 65, 65, 64, [65], True),
     (2, 12, 511, 511, 64, [511, 64], True),
     (4, 12, 2048, 2048, 64, [2048] * 4, True),
+    (4, 12, 2048, 2048, 64, [2048, 1, 1000, 64], True),
 ]
 # out and lse: |err| <= atol + rtol |plain|; gradients: |err| <= frac x
 # the largest |plain gradient| of the same (batch, head) slice, that
@@ -1031,10 +1039,15 @@ def phase_build():
                 spills[fn] = spill
         sass_counts(_build.build_dir() / f"lib{name}.so")
     for fn, spill in spills.items():
-        if "flash_fwd_tma" in fn:
+        if "flash_fwd_tma" in fn or "flash_bwd_dq_tma" in fn:
             check(re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
                             spill) is not None,
                   f"{fn} spills registers ({spill})")
+    log = _build.build_dir() / "flash_bwd.log"
+    if log.is_file():         # ptxas's word on the dq body's wgmma pipeline
+        for ln in log.read_text().splitlines():
+            if "wgmma" in ln.lower():
+                print(f"[build] flash_bwd ptxas: {ln.strip()}", flush=True)
 
 
 def _demangle(names):
@@ -1066,22 +1079,24 @@ def ptxas_entries(log):
     return [(n, r[1], r[2]) for n, r in zip(names, rows)]
 
 
-# the tensor-core bodies each kernel library must hold (SASS checks)
+# the tensor-core bodies each kernel library must hold (SASS checks); of
+# them, those on wgmma (HGMMA) rather than mma.sync (HMMA + LDSM)
 TC_BODIES = {"ragged_decode": ("decode_mma",),
              "ragged_prefill": ("prefill_mma",),
              "ragged_verify": ("verify_mma",),
              "flash_fwd": ("flash_fwd_tma",),
              "flash_bwd": ("flash_bwd_dq_tma", "flash_bwd_dkv_tma")}
+WGMMA_BODIES = ("flash_bwd_dq_tma",)
 
 
 def sass_counts(lib):
-    """Tensor-core (HMMA), ldmatrix (LDSM), cp.async (LDGSTS), TMA load
-    (UTMALDG) and 2-byte shared-store (STS.U16) instructions in each
-    ragged and flash kernel's SASS, from cuobjdump. The ragged
-    tensor-core bodies (decode_mma, prefill_mma, verify_mma) must issue
-    HMMA, LDSM and LDGSTS; each flash TMA body (forward, dq, dk/dv) HMMA,
-    LDSM and UTMALDG, and no STS.U16 (no transposed copy, stored 2 bytes
-    at a time)."""
+    """Tensor-core (HMMA, and wgmma's HGMMA), ldmatrix (LDSM), cp.async
+    (LDGSTS), TMA load (UTMALDG) and 2-byte shared-store (STS.U16)
+    instructions in each ragged and flash kernel's SASS, from cuobjdump.
+    The ragged tensor-core bodies (decode_mma, prefill_mma, verify_mma)
+    must issue HMMA, LDSM and LDGSTS; each flash TMA body UTMALDG and no
+    STS.U16 (no transposed copy, stored 2 bytes at a time), the forward
+    and dk/dv HMMA and LDSM, dq (WGMMA_BODIES) HGMMA."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.isfile(tool):
         print("[build] cuobjdump not found: SASS not inspected", flush=True)
@@ -1093,8 +1108,8 @@ def sass_counts(lib):
         m = re.search(r"Function : (\S+)", ln)
         if m:
             cur = m.group(1)
-            funcs[cur] = {"HMMA": 0, "LDSM": 0, "LDGSTS": 0, "UTMALDG": 0,
-                          "STS.U16": 0}
+            funcs[cur] = {"HMMA": 0, "HGMMA": 0, "LDSM": 0, "LDGSTS": 0,
+                          "UTMALDG": 0, "STS.U16": 0}
         elif cur:
             for op in funcs[cur]:
                 if re.search(rf"\b{re.escape(op)}\b", ln):
@@ -1108,9 +1123,13 @@ def sass_counts(lib):
             if body not in name:
                 continue
             seen.add(body)
-            check(c["HMMA"] > 0 and c["LDSM"] > 0,
-                  f"{name}: a tensor-core body must issue HMMA and LDSM "
-                  f"({c})")
+            if body in WGMMA_BODIES:
+                check(c["HGMMA"] > 0, f"{name}: a wgmma body must issue "
+                                      f"HGMMA ({c})")
+            else:
+                check(c["HMMA"] > 0 and c["LDSM"] > 0,
+                      f"{name}: a tensor-core body must issue HMMA and "
+                      f"LDSM ({c})")
             if body.startswith("flash"):
                 check(c["UTMALDG"] > 0, f"{name}: no TMA load ({c})")
                 check(c["STS.U16"] == 0, f"{name} stores 2-byte elements "
@@ -3284,7 +3303,7 @@ def phase_bert_parity(torch):
     """bert_tiny, 5 LAMB steps: the card (the flash kernels) against the
     port on the CPU (their plain versions), the same weights and batch,
     dropout 0. In f32 the kernels run their CUDA-core bodies; in bf16
-    (D=64) the mma.sync bodies that bert_base trains on, so bf16 also
+    (D=64) the tensor-core bodies that bert_base trains on, so bf16 also
     holds every parameter's gradient of the first step."""
     import numpy as np
     import incubator_mxnet_tpu_torch as mx
@@ -4759,7 +4778,9 @@ def phase_ops():
     """Every registered op on the card against the port on the CPU
     (tests/test_torch_op_cases.py's ``cuda`` test in a pytest subprocess
     without the conftest: no JAX; the subprocess fails if JAX or the JAX
-    package was imported), the samplers by their moments on the card."""
+    package was imported), the samplers by their moments on the card, and
+    mx.np's integer division by zero on the card against the CPU
+    (tests/test_torch_numpy_division.py's ``cuda`` test)."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTEST_DISABLE_PLUGIN_AUTOLOAD="1")
     run = ("import sys, pytest\n"
@@ -4772,7 +4793,8 @@ def phase_ops():
         [sys.executable, "-c", run, "-q", "--noconftest", "-m", "cuda",
          "-p", "no:cacheprovider", "-W",
          "ignore::pytest.PytestUnknownMarkWarning",
-         "tests/test_torch_op_cases.py"],
+         "tests/test_torch_op_cases.py",
+         "tests/test_torch_numpy_division.py"],
         cwd=root, env=env, capture_output=True, text=True, timeout=600)
     tail = proc.stdout.strip().splitlines()[-1:] or [""]
     sys.path.insert(0, os.path.join(root, "tests"))
@@ -4784,7 +4806,7 @@ def phase_ops():
     print(f"[ops] {n_ops} registered ops, {n_cases} cases on the card "
           f"against the CPU: {tail[0]} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    check(proc.returncode == 0 and "1 passed" in tail[0],
+    check(proc.returncode == 0 and re.search(r"\b2 passed", tail[0]),
           f"op cuda test failed:\n{proc.stdout[-6000:]}"
           f"{proc.stderr[-3000:]}")
 

@@ -44,28 +44,41 @@
 //      in flight while tile i's products run, one block barrier a step.
 //      Measured on the card, issuing the same tiles as per-thread 16-byte
 //      cp.async took a third of a step. The resident operand is copied
-//      once and held in registers as A fragments (q / dO in dq, K / V in
-//      dk/dv);
+//      once: dq reads q / dO from their tiles through wgmma descriptors,
+//      dk/dv holds K / V in registers as A fragments;
 //   2. no transposed copies: every tile is staged once, row-major, in the
-//      128-byte swizzle (conflict-free ldmatrix). The A fragments and the
-//      B operands with the head dim along their rows (K, V in S = Q K^T,
-//      dP = dO V^T; q, dO in S^T, dP^T) come from ldmatrix.x4; those with
-//      the reduction axis along the stored rows (K in dS K, dO in P^T dO,
+//      128-byte swizzle. dq's wgmma reads the tiles in place: q, dO and
+//      the K / V stage K-major (the head dim is the reduction axis of S =
+//      Q K^T and dP = dO V^T), the K stage MN-major for dS K (its key
+//      rows are the reduction axis: wgmma's transpose bit for 16-bit
+//      types). In dk/dv the A fragments and the B operands with the head
+//      dim along their rows (q, dO in S^T, dP^T) come from ldmatrix.x4,
+//      those with the reduction axis along the stored rows (dO in P^T dO,
 //      q in dS^T Q) from ldmatrix.x4.trans on the same tile;
-//   3. 16-wide chunks: a warp streams each 64-wide tile in chunks of 16
-//      keys (dq) or queries (dk/dv): the chunk's two score products, its
-//      exponentials, then its k step of the second product(s). A chunk's
-//      scores take 16 registers, and ptxas overlaps one chunk's mma.sync
-//      with the previous chunk's exponentials; chunks that no row can see
-//      (causal, ragged edge) are skipped, interior ones take a path
-//      without mask predicates;
-//   4. tile shapes: dq 4 warps x 16 query rows (<= 128 registers: four
-//      blocks an SM); dk/dv 4 warps x 16 keys, 64 queries a step (three
-//      blocks an SM). A dk/dv block of 128 keys (8 warps) halves the
-//      re-reads of q and dO but fits one block an SM; it, 32 queries a
-//      dk/dv step and 8-warp dq blocks all measured slower (PERF.md);
-//   5. tensor cores: mma.sync m16n8k16, bf16 operands, f32 accumulation;
-//      p and ds pass from the C fragments of S / dP (S^T / dP^T) to the A
+//   3. chunks: dq takes a 64-key tile in two 32-key halves: S and dP for
+//      the half (m64n32, 16 registers each), the exponentials, then the
+//      half's two k steps of dq += dS K (m64n64, dS from registers), which
+//      run while the next half's S and dP are issued. A dk/dv warp streams
+//      each 64-query tile in chunks of 16 queries: the chunk's two score
+//      products, its exponentials, then its k step of the second
+//      products; ptxas overlaps one chunk's mma.sync with the previous
+//      chunk's exponentials. Chunks (halves) that no row can see (causal,
+//      ragged edge) are skipped, interior ones take a path without mask
+//      predicates (decided per warp: 16 rows);
+//   4. tile shapes: dq one warpgroup (4 warps, each owning 16 rows of the
+//      wgmma accumulators) on a 64-row tile, <= 128 registers: four
+//      blocks an SM. The diagonal tile is computed whole under the mask
+//      (a warpgroup's product covers all 64 rows, so a warp cannot skip
+//      the keys past its rows as an mma.sync warp could: at T = 512
+//      ~8% more products than the mask keeps). dk/dv 4 warps x 16 keys,
+//      64 queries a step (three blocks an SM). A dk/dv block of 128 keys
+//      (8 warps) halves the re-reads of q and dO but fits one block an
+//      SM; it, 32 queries a dk/dv step and 8-warp dq blocks all measured
+//      slower (PERF.md);
+//   5. tensor cores: dq wgmma (m64nNk16, bf16 operands, f32 accumulation;
+//      the only way to Hopper's full tensor-core rate), dk/dv mma.sync
+//      m16n8k16. The accumulators of S / dP (S^T / dP^T) hold, per warp,
+//      the C fragment layout of mma.sync, so p and ds pass to the A
 //      fragments of the next product in registers. p is formed as
 //      ex2(s * (scale log2e) - lse log2e), one FMA and one MUFU.EX2; its
 //      f32 value differs from exp(s * scale - lse) far below the bf16
@@ -78,21 +91,23 @@
 // bodies (256 threads, 4 x 4 scores each, operands staged as f32), whose
 // dq computes delta the same way (16 lanes a row, then a half-warp tree).
 //
-// Grids:
-//   - dq: (ceil(Tq / BM), H, B). A block stages its q and dO rows, reads
-//     its O rows, computes delta, and walks the K/V tiles up to the tile's
-//     key end (tiles past valid_len or past the diagonal are skipped),
-//     keeping dq (BM x D) in registers;
-//   - dk/dv: one block a (key tile, batch, head), ceil(Tk / BN) H B
-//     blocks. A block stages its K and V rows and walks the q tiles that
-//     can see them (all of them, or from the diagonal on when causal),
-//     keeping dk and dv (BN x D) in registers. A block whose keys all lie
-//     past valid_len writes zeros. The tensor-core body takes its unit
-//     from `flash_unit` (flash_common.cuh): causal, key block j walks
-//     ceil(Tq / 64) - j query tiles, so the units are numbered heaviest
-//     first (key block 0 of every (batch, head), then block 1, ...) and
-//     the in-order dispatch schedules longest first; not causal, in the
-//     (tile, head, batch) order of the other grids.
+// Grids: the tensor-core bodies take their unit from `flash_unit`
+// (flash_common.cuh) on a 1-D grid: causal, the units are numbered
+// heaviest first and the in-order dispatch schedules longest first; not
+// causal, in the (tile, head, batch) order of the other grids.
+//   - dq: a unit is a (query tile, batch, head); causal, query tile i
+//     walks i + 1 key tiles (`grows`). A block stages its q and dO rows,
+//     reads its O rows, computes delta, and walks the K/V tiles up to the
+//     tile's key end (tiles past valid_len or past the diagonal are
+//     skipped), keeping dq (64 x D) in the wgmma accumulators. The
+//     CUDA-core body: a (ceil(Tq / BM), H, B) grid;
+//   - dk/dv: a unit is a (key tile, batch, head), ceil(Tk / BN) H B
+//     blocks; causal, key block j walks ceil(Tq / 64) - j query tiles.
+//     A block stages its K and V rows and walks the q tiles that can see
+//     them (all of them, or from the diagonal on when causal), keeping
+//     dk and dv (BN x D) in registers. A block whose keys all lie past
+//     valid_len writes zeros. The CUDA-core body: a (ceil(Tk / BN), H, B)
+//     grid.
 
 #include "flash_common.cuh"
 
@@ -346,8 +361,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------
 
 // Tile shapes (the source note, point 4)
-constexpr int kDqWarps = 4;                    // 16 query rows each
+constexpr int kDqWarps = 4;                    // one warpgroup
 constexpr int kDqRows = 16 * kDqWarps;         // query rows a dq block
+static_assert(kDqWarps == 4, "the dq body is one warpgroup of 4 warps");
 constexpr int kDkvWarps = 4;                   // 16 keys each
 constexpr int kDkvKeys = 16 * kDkvWarps;       // keys a dk/dv block
 constexpr int kDkvQ = 64;                      // queries a dk/dv step
@@ -386,18 +402,24 @@ __device__ __forceinline__ void ds_t_chunk(float (&s)[4], float (&dp)[4],
   }
 }
 
-// dq: kDqRows query rows a block, 16 a warp. q and dO arrive as two TMA boxes
-// (O's rows are read into registers meanwhile): delta = rowsum(dO * O) is
-// formed from them and written for the dk/dv launch; q's and dO's A
-// fragments stay in registers. Each 64-key tile of K and V arrives as two
-// more boxes in a kStages-deep ring (thread 0 issues after the step's
-// barrier, an mbarrier per stage counts the bytes). Key rows of the last
-// tile at or past key_end are zeroed in shared memory once it lands (TMA
-// zero-fills only past Tk), so no value past the bound reaches a product.
-// A warp streams each tile in 16-key chunks: S and dP for the chunk, p
-// and ds on their C fragments, then the chunk's k step of dq += ds K (K
-// read through ldmatrix.trans): a chunk's scores live in 16 registers,
-// and one chunk's products overlap the previous chunk's exponentials.
+// dq: one warpgroup (kDqWarps = 4 warps) a 64-row query tile, the unit
+// from `flash_unit` (heaviest first when causal). q and dO arrive as two
+// TMA boxes (O's rows are read into registers meanwhile): delta =
+// rowsum(dO * O) is formed from them and written for the dk/dv launch.
+// Each 64-key tile of K and V arrives as two more boxes in a
+// kStages-deep ring (thread 0 issues after the step's barrier, an
+// mbarrier per stage counts the bytes). Key rows of the last tile at or
+// past key_end are zeroed in shared memory once it lands (TMA zero-fills
+// only past Tk), so no value past the bound reaches a product. A tile is
+// taken in two 32-key halves: S = Q K^T and dP = dO V^T by wgmma m64n32
+// with A the swizzled q / dO tile and B the K / V stage (K-major: the
+// head dim is the reduction axis), p and ds on the accumulator fragments
+// (each warp owns 16 rows, as the mma.sync C fragments did: full halves
+// take the path without mask predicates), then dq += dS K by wgmma
+// m64n64 with A = dS from registers and B the same K stage read MN-major
+// (its key rows are the reduction axis: the transpose bit). A half's dq
+// product runs while the next half's S and dP are issued. On the
+// diagonal tile the whole 64 x 64 tile is computed under the mask.
 __global__ void __launch_bounds__(32 * kDqWarps, 16 / kDqWarps)
 flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_do,
@@ -411,10 +433,11 @@ flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
                         float scale, int causal) {
   constexpr int BM = kDqRows, NTHR = 32 * kDqWarps, ND = kMmaD / 8;
   constexpr int kTile = kMmaTile * 128;      // one 64-row tile, bytes
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  constexpr int kHalf = kMmaTile / 2;        // keys of one S / dP product
+  const FlashUnit u = flash_unit((Tq + BM - 1) / BM, causal, true);
+  const int q0 = u.tile * BM, bhi = u.bh, b = bhi / H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int bhi = b * H + h;
   const int64_t bh = bhi;
   const int key_end = tile_key_end(valid_len[b], Tk, q0, BM, causal);
   const int nkt = (key_end + kMmaTile - 1) / kMmaTile;
@@ -485,9 +508,6 @@ flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
     __syncwarp();
   }
 
-  uint32_t qa[kMmaD / 16][4], oa[kMmaD / 16][4];
-  ldsm_a_frags_sw(q_s, 16 * warp, qa);
-  ldsm_a_frags_sw(do_s, 16 * warp, oa);
   const int row0 = q0 + 16 * warp + g;
   const float sl2 = scale * kLog2e;
   float lse2[2], dls[2];                     // lse log2e, delta scale
@@ -497,11 +517,13 @@ flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
     lse2[r] = row < Tq ? lse[bh * Tq + row] * kLog2e : 0.f;
     dls[r] = delta_s[16 * warp + g + 8 * r] * scale;
   }
+  const uint64_t q_desc = wgmma_desc(q_s, false);
+  const uint64_t do_desc = wgmma_desc(do_s, false);
   float acc[ND][4];
 #pragma unroll
   for (int nd = 0; nd < ND; ++nd)
     acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-  const int w0 = q0 + 16 * warp, w_last = min(w0 + 15, Tq - 1);
+  const int w0 = q0 + 16 * warp;
   const bool rows_full = w0 + 16 <= Tq;
 
   for (int kt = 0; kt < nkt; ++kt) {
@@ -518,44 +540,68 @@ flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
         *reinterpret_cast<uint4*>(k_t + off) = make_uint4(0, 0, 0, 0);
         *reinterpret_cast<uint4*>(v_t + off) = make_uint4(0, 0, 0, 0);
       }
+      fence_proxy_async_smem();              // seen by wgmma's reads
       __syncthreads();
     }
-    if (w0 >= Tq) continue;
 #pragma unroll
-    for (int j2 = 0; j2 < kMmaTile / 16; ++j2) {
-      const int c0 = kt * kMmaTile + 16 * j2;          // the chunk's keys
-      if (c0 >= key_end || (causal && c0 > w_last)) continue;
-      float s[2][4] = {}, dp[2][4] = {};
-      mma_rows2_chunk(qa, k_t, s, oa, v_t, dp, j2);
-      // no mask inside the chunk: every key live and seen by every row
-      const bool full = c0 + 16 <= key_end && rows_full &&
-                        (!causal || c0 + 15 <= w0);
+    for (int h = 0; h < 2; ++h) {
+      const int c0 = kt * kMmaTile + kHalf * h;        // the half's keys
+      if (c0 >= key_end) break;              // the same in every warp
+      const uint64_t k_desc = wgmma_desc(k_t + kHalf * h * 128, false);
+      const uint64_t v_desc = wgmma_desc(v_t + kHalf * h * 128, false);
+      float s[kHalf / 8][4], dp[kHalf / 8][4];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kMmaD / 16; ++kk)          // 32 bytes a k step
+        wgmma_m64n32_ss(s, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+#pragma unroll
+      for (int kk = 0; kk < kMmaD / 16; ++kk)
+        wgmma_m64n32_ss(dp, do_desc + 2 * kk, v_desc + 2 * kk, kk);
+      wgmma_commit();
+      wgmma_wait<0>();                       // (and the last half's dq)
+      wgmma_fence_operand(s);
+      wgmma_fence_operand(dp);
+      // no mask inside the half for this warp: every key live and seen by
+      // every row
+      const bool full = c0 + kHalf <= key_end && rows_full &&
+                        (!causal || c0 + kHalf - 1 <= w0);
       // ds = p (dp - delta) scale = p (dp scale - delta scale)
       if (full) {
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj)
+        for (int j = 0; j < kHalf / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            s[jj][e] = ex2(fmaf(s[jj][e], sl2, -lse2[e >> 1])) *
-                       fmaf(dp[jj][e], scale, -dls[e >> 1]);
+            s[j][e] = ex2(fmaf(s[j][e], sl2, -lse2[e >> 1])) *
+                      fmaf(dp[j][e], scale, -dls[e >> 1]);
       } else {
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj)
+        for (int j = 0; j < kHalf / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int key = c0 + 8 * jj + 2 * t + (e & 1), r = e >> 1;
+            const int key = c0 + 8 * j + 2 * t + (e & 1), r = e >> 1;
             const int row = row0 + 8 * r;
             const bool live = key < key_end && row < Tq &&
                               (!causal || key <= row);
-            s[jj][e] = live ? ex2(fmaf(s[jj][e], sl2, -lse2[r])) *
-                                  fmaf(dp[jj][e], scale, -dls[r])
-                            : 0.f;
+            s[j][e] = live ? ex2(fmaf(s[j][e], sl2, -lse2[r])) *
+                                 fmaf(dp[j][e], scale, -dls[r])
+                           : 0.f;
           }
       }
-      uint32_t a[4];
-      pack_a(s, a);
-      mma_p_step(a, k_t, j2, acc);
+      uint32_t a[kHalf / 16][4];
+#pragma unroll
+      for (int k2 = 0; k2 < kHalf / 16; ++k2)
+        pack_a(s[2 * k2], s[2 * k2 + 1], a[k2]);
+      wgmma_fence();
+      wgmma_fence_operand(acc);
+#pragma unroll
+      for (int k2 = 0; k2 < kHalf / 16; ++k2)         // 16 key rows a k step
+        wgmma_m64n64_rs_t(acc, a[k2],
+                          wgmma_desc(k_t + (kHalf * h + 16 * k2) * 128,
+                                     true));
+      wgmma_commit();
     }
+    wgmma_wait<0>();                         // the stage is read
+    wgmma_fence_operand(acc);
   }
 
 #pragma unroll
@@ -743,7 +789,8 @@ cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
   const auto kernel = flash_bwd_dq_tma_kernel;
   e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((Tq + BM - 1) / BM, H, B);
+  const unsigned grid = flash_grid((Tq + BM - 1) / BM, B, H);
+  if (grid == 0) return cudaErrorInvalidValue;
   kernel<<<grid, 32 * kDqWarps, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const bf16*>(out), lse,
       delta, valid_len, static_cast<bf16*>(dq), H, Tq, Tk, scale, causal);

@@ -18,7 +18,8 @@
 //
 // The tensor-core bodies (bf16, D = 64) use the sections below: mma.sync
 // fragments, cp.async and ldmatrix, and the TMA / mbarrier / 128-byte
-// swizzle / ex2 helpers of the flash bodies with their tensor-map encoder.
+// swizzle / wgmma / ex2 helpers of the flash bodies with their
+// tensor-map encoder.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap (the encoder comes through the runtime)
@@ -89,7 +90,7 @@ __device__ __forceinline__ int tile_key_end(int vl, int Tk, int q0, int BM,
   return end;
 }
 
-// The work order of a tensor-core flash launch (forward, dk/dv): a 1-D
+// The work order of a tensor-core flash launch (forward, dq, dk/dv): a 1-D
 // grid of ntiles x BH units, a unit one 64-row tile of one (batch, head)
 // row bh = b H + h. The hardware hands out blocks in linear-index order as
 // slots free.
@@ -423,6 +424,99 @@ __device__ __forceinline__ void mma_p_step(const uint32_t (&a)[4],
   mma_p_step_at(a, [tile](int r, int ch) {
     return reinterpret_cast<const bf16*>(tile + sw128(r, ch));
   }, k2, c);
+}
+
+// ---------------------------------------------------------------------
+// wgmma (the dq body): one warpgroup of 4 warps issues an asynchronous
+// product of a 64-row tile, B (and A, or A from registers) read from the
+// 128-byte-swizzled TMA tiles through shared-memory matrix descriptors.
+// The f32 accumulator of m64nN is, per warp w, the C fragments of rows
+// [16 w, 16 w + 16) of N / 8 mma.sync n tiles: d[j][e] is row 16 w + g
+// (+ 8 for e >= 2), column 8 j + 2 t + (e & 1). A from registers is the
+// mma.sync A fragment of the warp's 16 rows. Operands and accumulators
+// are fenced (wgmma.fence) after ordinary instructions touched them.
+// ---------------------------------------------------------------------
+
+// descriptor of a 1024-byte-aligned (rows, 64) bf16 tile in the 128-byte
+// swizzle (TMA's CU_TENSOR_MAP_SWIZZLE_128B), from `p` on: 8-row groups
+// 1024 bytes apart. K-major (the head dim, along the rows, is the
+// reduction axis): the leading offset is unused (1); a k step of 16
+// moves the start 32 bytes within the swizzled row. MN-major (the rows
+// are the reduction axis, read through the transpose bit): 64 elements
+// are one swizzle atom, so only the 8-row stride counts, given as both
+// offsets.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, bool mn_major) {
+  const uint64_t lead = mn_major ? 1024 >> 4 : 1;
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (lead << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// ties an accumulator's registers to this point of the program, so that
+// no ordinary instruction moves across an issue or a wait
+template <int J>
+__device__ __forceinline__ void wgmma_fence_operand(float (&d)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B K-major in shared
+// memory; `accumulate` 0 overwrites D
+__device__ __forceinline__ void wgmma_m64n32_ss(float (&d)[4][4], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the mma.sync A
+// fragment of each warp's 16 rows), B MN-major in shared memory (its
+// rows are the k axis: the transpose bit)
+__device__ __forceinline__ void wgmma_m64n64_rs_t(float (&d)[8][4],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// generic-proxy writes to shared memory made visible to the async proxy
+// (wgmma's and TMA's reads) after the next barrier
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 constexpr float kLog2e = 1.4426950408889634f;

@@ -160,6 +160,39 @@ def _binary(fn, ints=False):
     return op
 
 
+def _int_division(fn, name):
+    """``floor_divide`` / ``remainder`` / ``fmod`` with jax.numpy's values
+    where an integer or bool divisor is 0 (torch raises there on the CPU
+    and returns its kernel's value on CUDA): the division runs on a
+    divisor whose zeros are 1, and the JAX value is selected into those
+    places. jax.numpy divides as XLA does (x / 0 is -1 signed, all ones
+    unsigned; rem(x, 0) is x): ``floor_divide`` gives all ones for an
+    unsigned result and -2 (x != 0) or -1 (x == 0) for a signed one,
+    ``remainder`` 0, ``fmod`` 0 of integers and x of two bools (JAX
+    replaces a 0 divisor by 1 only when the result type is an integer,
+    and two bools' is bool). Floating operands divide as IEEE does."""
+    def op(a, b):
+        both_bool = a.dtype == torch.bool and b.dtype == torch.bool
+        if both_bool:
+            a, b = _bool_as(a), _bool_as(b)
+        if a.is_floating_point() or b.is_floating_point():
+            return fn(a, b)
+        zero = b == 0
+        out = fn(a, torch.where(zero, torch.ones_like(b), b))
+        if name == "floor_divide":
+            if not out.dtype.is_signed:
+                value = torch.full((), torch.iinfo(out.dtype).max,
+                                   dtype=out.dtype, device=out.device)
+            else:
+                value = torch.where(a != 0, -2, -1).to(out.dtype)
+        elif name == "fmod" and both_bool:
+            value = a.to(out.dtype)
+        else:
+            value = torch.zeros((), dtype=out.dtype, device=out.device)
+        return torch.where(zero, value, out)
+    return _binary(op)
+
+
 def _float_binary(fn):
     """A binary function jax.numpy computes in floating point: integer
     and bool operands promote to float32."""
@@ -462,12 +495,12 @@ _PLAIN = {
         lambda a, b: torch.sub(_bool_as(a), _bool_as(b))),
     "multiply": _binary(torch.mul), "divide": _binary(torch.true_divide),
     "true_divide": _binary(torch.true_divide),
-    "floor_divide": _binary(torch.floor_divide, ints=True),
+    "floor_divide": _int_division(torch.floor_divide, "floor_divide"),
     "power": _binary(torch.pow, ints=True),
     "float_power": _binary(_float_power),
-    "remainder": _binary(torch.remainder, ints=True),
-    "mod": _binary(torch.remainder, ints=True),
-    "fmod": _binary(torch.fmod, ints=True),
+    "remainder": _int_division(torch.remainder, "remainder"),
+    "mod": _int_division(torch.remainder, "remainder"),
+    "fmod": _int_division(torch.fmod, "fmod"),
     "maximum": _binary(torch.maximum),
     "minimum": _binary(torch.minimum), "fmax": _binary(torch.fmax),
     "fmin": _binary(torch.fmin), "arctan2": _binary(torch.arctan2),

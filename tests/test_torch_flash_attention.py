@@ -9,12 +9,13 @@ both arms: the single-tile (dense) kernels and the streaming FA-2 ones
 ``torch.autograd.gradcheck`` in f64, and the dispatch (boolean mask ->
 blockwise; CPU tensors -> plain versions, no launch). The CUDA kernels
 against the plain versions run only on a card (``cuda`` marker): every
-body, and for the backward's tensor-core bodies (bf16, D = 64) lengths
-0, 1, 63, 64, 65, 127, 128, 129 and T for T in {1, 16, 37, 64, 200, 512}
-causal and not, Tq != Tk on both sides of one tile, causal shapes
-awkward for the heaviest-first work order (T = 576 with B x H = 15, 65,
-511, 2048), a fully masked batch, two launches bitwise equal (causal and
-not), one launch per entry point, and NaN in the K
+body, and for the backward's tensor-core bodies (bf16, D = 64: dq on
+wgmma, dk/dv on mma.sync) lengths 0, 1, 63, 64, 65, 127, 128, 129 and T
+for T in {1, 16, 37, 64, 200, 512} causal and not, Tq != Tk on both
+sides of one tile, causal shapes awkward for the heaviest-first work
+order (T = 576 with B x H = 15, 65, 511, 2048, and 2048 at lengths
+2048 / 1 / 1000 / 64), a fully masked batch, two launches bitwise equal
+(causal and not), one launch per entry point, and NaN in the K
 and V rows past valid_len reaching no output (T in {37, 200, 512}). On
 the CPU, the same NaN leaves the plain versions unchanged, where the
 Pallas kernels multiply it into the output (a departure by design).
@@ -376,7 +377,8 @@ CAUSAL_ORDER_CASES = [
     (3, 5, 576, 576, 64, (576, 300, 1), True),
     (1, 12, 65, 65, 64, (65,), True),
     (2, 12, 511, 511, 64, (511, 64), True),
-    (4, 12, 2048, 2048, 64, (2048,) * 4, True)]
+    (4, 12, 2048, 2048, 64, (2048,) * 4, True),
+    (4, 12, 2048, 2048, 64, (2048, 1, 1000, 64), True)]
 
 
 @pytest.mark.cuda

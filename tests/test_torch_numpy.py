@@ -7,8 +7,10 @@ atol 1e-6 (float32 transcendental functions differ in the last ulps
 between XLA and torch), integer and boolean results equal, the same
 shape and the same dtype (bool, uint8 and int32 inputs too: jax.numpy's
 weakly typed Python scalars, 32-bit integer results, uint32 sums of
-uint8). ``mx.np.random``'s draws have the JAX draws' shapes
-and dtypes (the streams differ by design: two packages, two generators).
+uint8; the values of an integer division by zero, from
+``tests/test_torch_numpy_division.py``). ``mx.np.random``'s draws have
+the JAX draws' shapes and dtypes (the streams differ by design: two
+packages, two generators).
 A name off the list raises ``MXNetError`` naming it; ``autograd.record``
 sees ``mx.np`` calls; ``mx.npx`` forwards to ``mx.nd`` as the JAX one
 does.
@@ -25,6 +27,8 @@ import incubator_mxnet_tpu_torch as mx
 from incubator_mxnet_tpu_torch import autograd, nd
 from incubator_mxnet_tpu_torch import numpy_shim
 from incubator_mxnet_tpu_torch.base import MXNetError
+
+from test_torch_numpy_division import DIVISION_CASES
 
 _R = np.random.RandomState(0)
 A = _R.randn(3, 4).astype(np.float32)
@@ -177,6 +181,10 @@ for _n in "hypot logaddexp".split():
     CASES[_n + "_uint8"] = (_n, _binary(U8, U8))
 for _n in "power floor_divide remainder mod fmod".split():
     CASES[_n + "_bool"] = (_n, _binary(L, ONES_L))
+# integer and bool divisors holding zeros (jax.numpy's values there):
+# int8, int32, int64 (int32 in both packages), uint8, bool, int32 by bool
+for _c, (_n, _x, _y) in DIVISION_CASES.items():
+    CASES[_c] = (_n, _binary(_x, _y))
 for _n in "dot matmul inner".split():
     CASES[_n + "_bool"] = (_n, _binary(LS, LS))
 CASES["tensordot_bool"] = ("tensordot", _call(Arr(LS), Arr(LS), 1))

@@ -26,8 +26,11 @@ turns on one card. In each process the tree's own ``chip_smoke.py``:
     through the step graph: ms a step, one capture, 12 causal launches
     of each flash kernel a replay).
 
-Prints a table of the runs side by side and writes every run's numbers
-as JSON to ``--out`` (default ``build/flash_pair.json``). Exits
+Prints a table of the runs side by side, with each tree's flash TMA
+bodies as built (ptxas registers and spills, the nonzero SASS counts:
+HMMA / HGMMA / LDSM / UTMALDG, and any wgmma pipeline ptxas serialized),
+and writes every run's numbers and build lines as JSON to ``--out``
+(default ``build/flash_pair.json``). Exits
 non-zero if a run fails. Needs a CUDA card; it does not fall back.
 """
 
@@ -36,6 +39,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -89,12 +93,35 @@ def run_tree(tree, gpt, timeout):
     if proc.returncode != 0 or not got:
         sys.stdout.write("\n".join(lines[-40:]) + "\n" + proc.stderr[-4000:])
         raise SystemExit(f"{tree}: exit {proc.returncode}")
-    for ln in lines:
-        if "_tma_kernel" in ln or ln.startswith("[pair] build check"):
-            print(f"  {os.path.basename(tree)} {ln}")
+    build = [ln for ln in lines
+             if "_tma_kernel" in ln or ln.startswith("[pair] build check")]
+    for ln in build:
+        print(f"  {os.path.basename(tree)} {ln}")
     res = json.loads(got[-1][len("PAIR_RESULT "):])
-    res["tree"], res["seconds"] = tree, secs
+    res["tree"], res["seconds"], res["build"] = tree, secs, build
     return res
+
+
+def tma_builds(run):
+    """{kernel: 'registers, spills; SASS counts'} of each flash TMA body
+    from a run's build lines (ptxas -v and cuobjdump, as phase_build
+    prints them), and ptxas's notes on a wgmma pipeline it serialized."""
+    out = {}
+    for ln in run.get("build", []):
+        m = re.search(r"\[build\] flash_\w+ mxt::(\w+_tma_kernel): Used "
+                      r"(\d+) registers.*?(\d+) bytes spill stores", ln)
+        if m:
+            out.setdefault(m.group(1), []).append(
+                f"{m.group(2)} registers, {m.group(3)} B spilled")
+        m = re.search(r"\[build\] sass mxt::(\w+_tma_kernel): (.*)", ln)
+        if m:
+            out.setdefault(m.group(1), []).append(", ".join(
+                c for c in m.group(2).split(", ") if not c.endswith(" x0")))
+        m = re.search(r"\((C75\d\d)\) Potential Performance Loss", ln)
+        if m and "ptxas:" in ln:
+            out.setdefault("ptxas", []).append(f"{m.group(1)} (wgmma "
+                                               f"serialized)")
+    return {k: "; ".join(v) for k, v in out.items()}
 
 
 def table(runs):
@@ -117,6 +144,9 @@ def table(runs):
               + "  library backward " + " / ".join(f"{x:.4f}" for x in lib))
         print("[pair]   library fwd   ms " +
               " / ".join(f"{x:.4f}" for x in fwd_lib))
+    for name, run in zip(names, runs):
+        for kernel, what in tma_builds(run).items():
+            print(f"[pair] build {name} {kernel}: {what}")
     if all("gpt_training" in r for r in runs):
         print("[pair] gpt_training ms a step " + " / ".join(
             f"{r['gpt_training']['ms_per_step']:.2f}" for r in runs))
